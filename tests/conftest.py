@@ -25,6 +25,14 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel of vistaocr_tpu_torch); "
+        "skips without one. Run on the card: python -m pytest tests/ -m cuda",
+    )
+
+
 @pytest.fixture(scope="session")
 def eight_devices():
     devs = jax.devices()
