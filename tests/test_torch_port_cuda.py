@@ -1,6 +1,9 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA LSTM kernel
-(csrc/lstm_fwd.cu) against its plain PyTorch version, its launch counter,
-and the model and service paths that launch it. Every test is marked
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels
+(csrc/lstm_fwd.cu in both forms, csrc/lstm_bwd.cu's BPTT and dwh,
+csrc/ctc.cu's alpha/beta) against their plain PyTorch versions, including
+ragged B/H edges, T = 1, empty labels and an infeasible CTC sample; their
+launch counters; the autograd Functions' backward on the card; and the
+model and service paths that launch them. Every test is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it runs
 on a machine that has only PyTorch:
 
@@ -155,3 +158,173 @@ def test_service_launches_the_kernel(dev):
             assert all(0 < r.confidence <= 1 for r in results)
         finally:
             svc.close()
+
+
+# --- training kernels: save_cell forward, BPTT, dwh, CTC alpha/beta --------
+
+_BF16_REL = 2e-2  # bf16 streams: one stream ulp is 2^-8 relative
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-6)).item()
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
+                                   (70, 1, 100), (3, 9, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_save_cell_matches_plain_and_inference(dev, shape, dtype):
+    B, T, H = shape
+    xw, mask, wh = _operands(dev, B, T, H, dtype, seed=B + T + H)
+    xw2, _, wh2 = _operands(dev, B, T, H, dtype, seed=B + T + H + 1)
+    before = (lstm_cuda.LAUNCHES, lstm_cuda.SAVE_CELL_LAUNCHES)
+    with torch.no_grad():
+        (ys_f, cs_f), (ys_b, cs_b) = lstm_cuda.lstm_forward_cells(
+            [(xw, wh, False), (xw2, wh2, True)], mask, dtype)
+        inf_f, inf_b = lstm_cuda.blstm_recurrence(xw, xw2, mask, wh, wh2)
+        ref = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                             save_cell=True)
+               for x, w, r in ((xw, wh, False), (xw2, wh2, True))]
+    torch.cuda.synchronize()
+    assert lstm_cuda.SAVE_CELL_LAUNCHES == before[1] + 1
+    assert lstm_cuda.LAUNCHES == before[0] + 2
+    assert torch.equal(ys_f, inf_f) and torch.equal(ys_b, inf_b)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for (ys, cs), (rys, rcs) in zip(((ys_f, cs_f), (ys_b, cs_b)), ref):
+        assert cs.dtype == dtype and cs.shape == (T, B, H)
+        assert (ys.float() - rys.float()).abs().max().item() <= tol
+        assert (cs.float() - rcs.float()).abs().max().item() <= tol
+
+
+def _bptt_operands(dev, B, T, H, dtype, seed):
+    xw, mask, wh = _operands(dev, B, T, H, dtype, seed)
+    with torch.no_grad():
+        ys, cs = lstm_cuda.lstm_recurrence_ref(xw, mask, wh, save_cell=True)
+        ysr, csr = lstm_cuda.lstm_recurrence_ref(xw, mask, wh, reverse=True,
+                                                 save_cell=True)
+    rng = np.random.default_rng(seed + 7)
+    dys = torch.from_numpy(rng.normal(0, 1, (2, T, B, H)).astype(np.float32))
+    dys = dys.to(dev, dtype)
+    return [(xw, wh, ys, cs, dys[0], False), (xw, wh, ysr, csr, dys[1], True)], mask
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
+                                   (70, 1, 100), (3, 9, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bptt_matches_plain(dev, shape, dtype):
+    B, T, H = shape
+    dirs, mask = _bptt_operands(dev, B, T, H, dtype, seed=B * T + H)
+    before = (lstm_cuda.BWD_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
+    with torch.no_grad():
+        got = lstm_cuda.lstm_bptt(dirs, mask, dtype)
+        ref = lstm_cuda.lstm_bptt(dirs, mask, dtype, plain=True)
+    torch.cuda.synchronize()
+    assert lstm_cuda.BWD_LAUNCHES == before[0] + 1
+    assert lstm_cuda.DWH_LAUNCHES == before[1] + 1
+    for (dxw, dwh), (rdxw, rdwh) in zip(got, ref):
+        assert dxw.dtype == dtype and dwh.dtype == torch.float32
+        if dtype == torch.float32:
+            # summation order only (tiled products vs torch.matmul, dwh as
+            # one sum over (T-1)*B rows vs frame by frame)
+            torch.testing.assert_close(dxw, rdxw, atol=2e-4, rtol=1e-3)
+            torch.testing.assert_close(dwh, rdwh, atol=2e-4, rtol=1e-3)
+        else:
+            assert _rel_err(dxw, rdxw) <= _BF16_REL
+            assert _rel_err(dwh, rdwh) <= _BF16_REL
+
+
+def test_autograd_backward_on_cuda_matches_plain_bptt(dev):
+    B, T, H = 6, 11, 24
+    dirs, mask = _bptt_operands(dev, B, T, H, torch.float32, seed=4)
+    xw, wh = dirs[0][0], dirs[0][1]
+    xf = xw.clone().requires_grad_(True)
+    xb = (xw * 0.5).requires_grad_(True)
+    wf = wh.clone().requires_grad_(True)
+    wb = (wh * 0.7).requires_grad_(True)
+    before = lstm_cuda.BWD_LAUNCHES
+    ys_f, ys_b = lstm_cuda.blstm_recurrence(xf, xb, mask, wf, wb)
+    (ys_f * dirs[0][4] + ys_b * dirs[1][4]).sum().backward()
+    assert lstm_cuda.BWD_LAUNCHES == before + 1
+    with torch.no_grad():
+        ref = []
+        for x, w, dy, r in ((xf, wf, dirs[0][4], False),
+                            (xb, wb, dirs[1][4], True)):
+            ys, cs = lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                                   save_cell=True)
+            ref.append(lstm_cuda.lstm_bptt_ref(x, mask, w, ys, cs, dy,
+                                               reverse=r))
+    for (x, w), (rdx, rdw) in zip(((xf, wf), (xb, wb)), ref):
+        torch.testing.assert_close(x.grad, rdx, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(w.grad, rdw, atol=2e-4, rtol=1e-3)
+
+
+def _ctc_case(dev, B, T, K, L, seed, infeasible=False):
+    rng = np.random.default_rng(seed)
+    lp = torch.log_softmax(
+        torch.from_numpy(rng.normal(0, 2, (B, T, K)).astype(np.float32)), -1)
+    labels = rng.integers(1, K, (B, L)).astype(np.int32)
+    if L > 1:
+        labels[0, 1] = labels[0, 0]  # a repeat
+    ll = rng.integers(0, L + 1, B).astype(np.int32)
+    ll[0] = L
+    il = rng.integers(1, T + 1, B).astype(np.int32)
+    il[0] = T
+    if B > 1:
+        ll[1] = 0  # an empty label
+    if infeasible and B > 2:
+        ll[2], il[2] = L, min(T, max(1, L // 2))
+    return (lp.to(dev), torch.from_numpy(il).to(dev),
+            torch.from_numpy(labels).to(dev), torch.from_numpy(ll).to(dev))
+
+
+@pytest.mark.parametrize("shape", [(5, 20, 9, 6), (1, 1, 4, 1), (7, 33, 12, 15),
+                                   (3, 64, 96, 255)])
+def test_ctc_kernels_match_plain(dev, shape):
+    from vistaocr_tpu_torch.ops import ctc_cuda
+
+    B, T, K, L = shape
+    lp, il, labels, ll = _ctc_case(dev, B, T, K, L, seed=T + L,
+                                   infeasible=True)
+    lp_ext, skip, active, islast = ctc_cuda._prepare(lp, il, labels, 0)
+    svalid, terminal = ctc_cuda._state_masks(ll, lp_ext.shape[2])
+    before = (ctc_cuda.ALPHA_LAUNCHES, ctc_cuda.BETA_LAUNCHES)
+    alphas = ctc_cuda.ctc_alpha(lp_ext, active, skip, svalid)
+    ref_a = ctc_cuda.ctc_alpha_ref(lp_ext, active, skip, svalid)
+    logp = ctc_cuda._loss_from_alphas(ref_a, il, ll)
+    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], 1)
+    dlp = ctc_cuda.ctc_beta(lp_ext, active, islast, skip2.contiguous(),
+                            svalid, terminal, ref_a, logp)
+    ref_d = ctc_cuda.ctc_beta_ref(lp_ext, active, islast, skip2, svalid,
+                                  terminal, ref_a, logp)
+    torch.cuda.synchronize()
+    assert ctc_cuda.ALPHA_LAUNCHES == before[0] + 1
+    assert ctc_cuda.BETA_LAUNCHES == before[1] + 1
+    valid = svalid[None].expand_as(alphas) > 0
+    reach = ref_a > -1e29
+    assert torch.equal(alphas > -1e29, reach)
+    torch.testing.assert_close(alphas[reach & valid], ref_a[reach & valid],
+                               atol=2e-5, rtol=1e-5)
+    torch.testing.assert_close(dlp, ref_d, atol=2e-5, rtol=1e-5)
+
+
+def test_ctc_loss_kernel_grads_match_plain(dev):
+    from vistaocr_tpu_torch.ops import ctc_cuda
+    from vistaocr_tpu_torch.ops.ctc import mean_ctc_loss
+
+    lp, il, labels, ll = _ctc_case(dev, 6, 40, 11, 12, seed=3,
+                                   infeasible=True)
+    out = {}
+    before = ctc_cuda.BETA_LAUNCHES
+    for impl in ("pallas", "pallas_interpret", "scan"):
+        x = lp.clone().requires_grad_(True)
+        loss = mean_ctc_loss(x, il, labels, ll, impl=impl,
+                             sample_weights=torch.ones(6, device=dev))
+        loss.backward()
+        out[impl] = (loss.item(), x.grad.clone())
+    assert ctc_cuda.BETA_LAUNCHES == before + 1
+    assert np.isfinite(out["pallas"][0]) and out["pallas"][0] > 1e28
+    assert torch.isfinite(out["pallas"][1]).all()
+    for other in ("pallas_interpret", "scan"):
+        assert out["pallas"][0] == pytest.approx(out[other][0], rel=1e-5)
+        torch.testing.assert_close(out["pallas"][1], out[other][1],
+                                   atol=2e-5, rtol=1e-4)

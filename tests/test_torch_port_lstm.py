@@ -143,12 +143,21 @@ class TestWrapper:
             lstm_cuda.lstm_recurrence(xw, mask, wh, **kw)
 
     def test_raises_when_a_gradient_would_be_needed(self):
+        """Once the wrapper raised where autograd needed a gradient; now
+        the gradient flows (the BPTT behind ``BLstmRecurrence``) and
+        matches autograd through the plain loop, and no_grad keeps the
+        inference form."""
         xw, mask, wh = self._operands()
+        xw.requires_grad_(True)
         wh.requires_grad_(True)
-        with pytest.raises(NotImplementedError):
-            lstm_cuda.lstm_recurrence(xw, mask, wh)
+        lstm_cuda.lstm_recurrence(xw, mask, wh).sum().backward()
+        got = (xw.grad.clone(), wh.grad.clone())
+        xw.grad = wh.grad = None
+        lstm_cuda.lstm_recurrence_ref(xw, mask, wh).sum().backward()
+        torch.testing.assert_close(got[0], xw.grad, atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(got[1], wh.grad, atol=1e-6, rtol=1e-5)
         with torch.no_grad():
-            lstm_cuda.lstm_recurrence(xw, mask, wh)
+            assert not lstm_cuda.lstm_recurrence(xw, mask, wh).requires_grad
 
 
 class TestImplSwitch:

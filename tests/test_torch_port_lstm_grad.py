@@ -1,0 +1,146 @@
+"""The port's LSTM training path (ops/lstm_cuda.py) against the JAX
+package: the ``save_cell`` forward against ``_lstm_fwd_local(save_cell=
+True, interpret=True)`` (ys and cs within 1e-5), the plain BPTT
+``lstm_bptt_ref`` against ``_lstm_bwd_local(interpret=True)`` (dxw and
+dwh within atol 2e-4, rtol 1e-3, tests/test_lstm_pallas.py:77), both
+directions with ragged masks; the autograd Function against torch
+autograd through the plain loop; bf16 streams against the f32 oracle
+within 3e-2. The CUDA kernels' own tests are in
+tests/test_torch_port_cuda.py."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from vistaocr_tpu.ops.lstm_pallas import _lstm_bwd_local, _lstm_fwd_local
+from vistaocr_tpu.ops.lstm_pallas import lstm_layer_pallas
+from vistaocr_tpu_torch.models.blstm import BLSTMStack
+from vistaocr_tpu_torch.ops import lstm_cuda
+
+torch.set_num_threads(2)
+
+
+def _case(seed, T=9, B=5, H=8):
+    rng = np.random.default_rng(seed)
+    xw = rng.normal(0, 1, (T, B, 4 * H)).astype(np.float32)
+    wh = rng.normal(0, 0.3, (H, 4 * H)).astype(np.float32)
+    lengths = rng.integers(1, T + 1, B)
+    lengths[0] = T
+    mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    dys = rng.normal(0, 1, (T, B, H)).astype(np.float32)
+    return xw, mask[:, None, :], wh, dys
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_save_cell_forward_matches_pallas_interpret(seed, reverse):
+    xw, mask, wh, _ = _case(seed)
+    ys_j, cs_j = _lstm_fwd_local(jnp.asarray(xw), jnp.asarray(mask),
+                                 jnp.asarray(wh), dtype=jnp.float32,
+                                 interpret=True, save_cell=True,
+                                 reverse=reverse)
+    ys, cs = lstm_cuda.lstm_recurrence_ref(
+        torch.from_numpy(xw), torch.from_numpy(mask), torch.from_numpy(wh),
+        reverse=reverse, save_cell=True)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), atol=1e-5)
+    np.testing.assert_allclose(cs.numpy(), np.asarray(cs_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bptt_matches_pallas_interpret(seed, reverse):
+    xw, mask, wh, dys = _case(seed)
+    args_j = [jnp.asarray(a) for a in (xw, mask, wh)]
+    ys_j, cs_j = _lstm_fwd_local(*args_j, dtype=jnp.float32, interpret=True,
+                                 save_cell=True, reverse=reverse)
+    dxw_j, dwh_j = _lstm_bwd_local(*args_j, ys_j, cs_j, jnp.asarray(dys),
+                                   dtype=jnp.float32, interpret=True,
+                                   reverse=reverse)
+    t = [torch.from_numpy(a) for a in (xw, mask, wh)]
+    ys, cs = lstm_cuda.lstm_recurrence_ref(*t, reverse=reverse,
+                                           save_cell=True)
+    dxw, dwh = lstm_cuda.lstm_bptt_ref(*t, ys, cs, torch.from_numpy(dys),
+                                       reverse=reverse)
+    assert dxw.dtype == torch.float32 and dwh.shape == wh.shape
+    np.testing.assert_allclose(dxw.numpy(), np.asarray(dxw_j), atol=2e-4,
+                               rtol=1e-3)
+    np.testing.assert_allclose(dwh.numpy(), np.asarray(dwh_j), atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_function_matches_autograd_through_plain_loop(reverse):
+    xw, mask, wh, dys = _case(4, T=7, B=4, H=6)
+    grads = []
+    for fn in (lstm_cuda.lstm_recurrence, lstm_cuda.lstm_recurrence_ref):
+        x = torch.tensor(xw, requires_grad=True)
+        w = torch.tensor(wh, requires_grad=True)
+        ys = fn(x, torch.from_numpy(mask), w, reverse=reverse)
+        (ys * torch.from_numpy(dys)).sum().backward()
+        grads.append((x.grad, w.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=1e-6, rtol=1e-5)
+
+
+def test_bf16_streams_close_to_f32_oracle():
+    xw, mask, wh, dys = _case(5)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.tensor(xw).to(dt).requires_grad_(True)
+        w = torch.tensor(wh, requires_grad=True)
+        ys_f, ys_b = lstm_cuda.blstm_recurrence(x, x, torch.from_numpy(mask),
+                                                w, w, dtype=dt)
+        d = torch.from_numpy(dys).to(dt)
+        ((ys_f * d).float().sum() + (ys_b * d).float().sum()).backward()
+        assert x.grad.dtype == dt and w.grad.dtype == torch.float32
+        out[dt] = (ys_f.float(), x.grad.float(), w.grad)
+    for a, b in zip(out[torch.bfloat16], out[torch.float32]):
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= 3e-2 * scale
+
+
+def test_stack_gradient_matches_pallas_interpret_layer():
+    """dL/d(x, wx, wh, b) of one BLSTM layer in the port's stack (kernel
+    path semantics, plain versions on the CPU) against jax.grad through
+    ``lstm_layer_pallas(interpret=True)``."""
+    import jax
+
+    rng = np.random.default_rng(6)
+    B, T, D, H = 3, 8, 6, 5
+    x = rng.normal(0, 1, (B, T, D)).astype(np.float32)
+    lengths = np.array([8, 5, 2])
+    fm = np.arange(T)[None, :] < lengths[:, None]
+    wx = rng.normal(0, 0.3, (D, 4 * H)).astype(np.float32)
+    wh = rng.normal(0, 0.3, (H, 4 * H)).astype(np.float32)
+    b = rng.normal(0, 0.1, (4 * H,)).astype(np.float32)
+    cot = rng.normal(0, 1, (B, T, 2 * H)).astype(np.float32)
+
+    def jax_loss(x_, wx_, wh_, b_):
+        f = lstm_layer_pallas(x_, jnp.asarray(fm), wx_, wh_, b_,
+                              interpret=True)
+        r = lstm_layer_pallas(x_, jnp.asarray(fm), wx_ * 0.5, wh_ * 0.5,
+                              b_, reverse=True, interpret=True)
+        return jnp.sum(jnp.concatenate([f, r], -1) * cot)
+
+    ref = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, wx, wh, b)))
+
+    stack = BLSTMStack(D, hidden=H, layers=1, impl="pallas_interpret")
+    with torch.no_grad():
+        stack.l0_fwd_wx.copy_(torch.from_numpy(wx))
+        stack.l0_fwd_wh.copy_(torch.from_numpy(wh))
+        stack.l0_fwd_b.copy_(torch.from_numpy(b))
+        stack.l0_bwd_wx.copy_(torch.from_numpy(wx) * 0.5)
+        stack.l0_bwd_wh.copy_(torch.from_numpy(wh) * 0.5)
+        stack.l0_bwd_b.copy_(torch.from_numpy(b))
+    xt = torch.tensor(x, requires_grad=True)
+    out = stack(xt, torch.from_numpy(fm), torch.float32)
+    (out * torch.from_numpy(cot)).sum().backward()
+    got = (xt.grad, stack.l0_fwd_wx.grad + 0.5 * stack.l0_bwd_wx.grad,
+           stack.l0_fwd_wh.grad + 0.5 * stack.l0_bwd_wh.grad,
+           stack.l0_fwd_b.grad + stack.l0_bwd_b.grad)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=1e-3)

@@ -4,15 +4,20 @@ The JAX package stays the reference; this package mirrors its module
 names and public layouts (images ``[B,H,W]`` uint8, widths ``[B]`` int32,
 log-probs ``[B,T,K]``, LSTM weights ``wx [D,4H]``, ``wh [H,4H]``,
 ``b [4H]`` in i, f, g, o order) and runs on an NVIDIA H100. Ported so
-far: the greedy serving path (``serve.OcrService``), with the LSTM
-recurrence in a hand-written CUDA kernel (``csrc/lstm_fwd.cu``).
+far: the greedy serving path (``serve.OcrService``) and the training
+path (``train.fit``), with the LSTM recurrence, its BPTT and the CTC
+alpha/beta recursions in hand-written CUDA kernels (``csrc/*.cu``).
 
-- ``text``     : uxxxx codec and alphabet (copies of the JAX package's)
-- ``data``     : ``ShapeContract``/``BucketSpec``, numpy host transforms
-- ``ops``      : preprocess, on-device resize, the LSTM kernel wrapper
-- ``models``   : ConvStack, BLSTMStack, CnnLstmOcr
+- ``text``     : uxxxx codec, alphabet, CER/WER (copies of the JAX
+  package's)
+- ``data``     : ``ShapeContract``/``BucketSpec``/``make_ladder``, the
+  shard store, ``BatchPipeline``, numpy host transforms
+- ``ops``      : preprocess/augment, on-device resize, the LSTM and CTC
+  kernel wrappers, the plain CTC
+- ``models``   : ConvStack, BLSTMStack, CnnLstmOcr (eval and train mode)
 - ``decode``   : greedy CTC collapse
 - ``serve``    : width-routed batched service
+- ``train``    : ``TrainConfig``, ``fit`` and the trainer's CLI
 """
 
 __version__ = "0.1.0"

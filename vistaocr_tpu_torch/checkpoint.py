@@ -14,7 +14,14 @@ step; the JAX schema) and the weights, either
 ``variables_to_state_dict`` maps the flax tree onto the port's
 parameters (conv HWIO -> OIHW, Dense ``[in,out]`` -> Linear
 ``[out,in]``, BatchNorm scale/bias/mean/var -> BatchNorm2d, LSTM weights
-kept in the JAX layout); ``state_dict_to_variables`` is its inverse.
+kept in the JAX layout); ``state_dict_to_variables`` is its inverse, so a
+snapshot the port trained loads into the JAX model.
+
+A trainer's snapshot also carries ``opt_state.npz`` (the port's optimizer
+state as named numpy arrays, ``has_opt_state`` / ``load_opt_state``) and
+``meta.json`` records ``step`` and ``extra`` (epoch, train config, val
+CER); ``promote`` copies ``last/`` over ``best/`` (``checkpoint.py:122``
+of the JAX package). The JAX package's ``opt_state.msgpack`` is not read.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -34,6 +42,7 @@ from .text import Alphabet
 
 _MSGPACK = "weights.msgpack"
 _NPZ = "weights.npz"
+_OPT = "opt_state.npz"
 _META = "meta.json"
 
 
@@ -162,13 +171,18 @@ def save_snapshot(
     alphabet: Alphabet,
     contract: ShapeContract,
     step: int = 0,
+    opt_state: Optional[Dict[str, np.ndarray]] = None,
     extra: Optional[dict] = None,
 ) -> str:
-    """Write ``weights.npz`` (flattened flax paths, JAX layouts) and then
-    ``meta.json``; a snapshot is valid iff ``meta.json`` exists."""
+    """Write ``weights.npz`` (flattened flax paths, JAX layouts), the
+    optimizer state ``opt_state.npz`` when given, and then ``meta.json``;
+    a snapshot is valid iff ``meta.json`` exists."""
     os.makedirs(path, exist_ok=True)
     flat = flatten(state_dict_to_variables(state_dict))
     _atomic_write(os.path.join(path, _NPZ), lambda f: np.savez(f, **flat))
+    if opt_state is not None:
+        _atomic_write(os.path.join(path, _OPT),
+                      lambda f: np.savez(f, **opt_state))
     meta = {
         "version": 1,
         "step": int(step),
@@ -207,6 +221,27 @@ def load_snapshot(
     else:
         variables = read_flax_msgpack(os.path.join(path, _MSGPACK))
     return variables, model_config, alphabet, contract, meta
+
+
+def has_opt_state(path: str) -> bool:
+    return os.path.exists(os.path.join(path, _OPT))
+
+
+def load_opt_state(path: str) -> Dict[str, np.ndarray]:
+    """The optimizer state ``save_snapshot`` wrote, as named arrays."""
+    with np.load(os.path.join(path, _OPT)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def promote(src: str, dst: str) -> None:
+    """Copy snapshot ``src`` over ``dst`` (used for ``best/``)."""
+    tmp = dst + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    shutil.copytree(src, tmp)
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    os.replace(tmp, dst)
 
 
 def load_model(

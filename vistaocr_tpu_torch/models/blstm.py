@@ -15,12 +15,17 @@ snapshot loads without reshaping.
 
 ``impl`` takes the JAX values, so JAX snapshots load unchanged:
 
-- ``"auto"``: the kernel for CUDA tensors, the plain version for CPU
+- ``"auto"``: the kernels for CUDA tensors, the plain versions for CPU
   tensors (on CUDA a kernel failure raises; there is no fallback);
-- ``"scan"``: the plain version on any device;
-- ``"pallas"``: the kernel; raises off CUDA;
-- ``"pallas_interpret"``: the plain version (the JAX value meant "the
-  kernel's semantics, run without the accelerator").
+- ``"scan"``: the plain forward loop on any device, differentiated by
+  autograd (the oracle);
+- ``"pallas"``: the kernels; raises off CUDA;
+- ``"pallas_interpret"``: the plain versions behind the kernels'
+  autograd Function (``lstm_cuda.BLstmRecurrence``); the JAX value meant
+  "the kernels' semantics, run without the accelerator".
+
+In train mode, dropout (``rate``, drawn from an explicit generator) runs
+between layers, never after the last (``blstm.py:188-189``).
 """
 
 from __future__ import annotations
@@ -48,9 +53,20 @@ def uses_kernel(impl: str, device: torch.device) -> bool:
     return False
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
+    values by 1 / (1 - rate), in x's dtype. The mask comes from
+    ``generator`` (on x's device), so a resumed run draws the same masks;
+    it cannot match JAX's."""
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
 class BLSTMStack(nn.Module):
     """[B, T, D] -> [B, T, 2H] (forward ++ backward states) in the
-    compute dtype. Eval only: dropout between layers is a training knob."""
+    compute dtype."""
 
     def __init__(self, d_in: int, hidden: int = 512, layers: int = 2,
                  *, impl: str = "auto"):
@@ -72,7 +88,9 @@ class BLSTMStack(nn.Module):
             d_in = 2 * hidden
 
     def forward(self, x: torch.Tensor, frame_mask: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, *, rate: float = 0.0,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """``rate > 0`` applies dropout between layers (train mode)."""
         use_kernel = uses_kernel(self.impl, x.device)
         x = x.transpose(0, 1)  # [T, B, D]
         mask = frame_mask.transpose(0, 1).to(torch.float32)[:, None, :]
@@ -85,13 +103,16 @@ class BLSTMStack(nn.Module):
                                               dtype)
             xw_b = lstm_cuda.input_projection(x, p["bwd"][0], p["bwd"][2],
                                               dtype)
-            if use_kernel:
-                ys_f, ys_b = lstm_cuda.blstm_recurrence(
-                    xw_f, xw_b, mask, p["fwd"][1], p["bwd"][1], dtype=dtype)
-            else:
+            if self.impl == "scan":
                 ys_f = lstm_cuda.lstm_recurrence_ref(
                     xw_f, mask, p["fwd"][1], reverse=False, dtype=dtype)
                 ys_b = lstm_cuda.lstm_recurrence_ref(
                     xw_b, mask, p["bwd"][1], reverse=True, dtype=dtype)
+            else:
+                ys_f, ys_b = lstm_cuda.blstm_recurrence(
+                    xw_f, xw_b, mask, p["fwd"][1], p["bwd"][1], dtype=dtype,
+                    plain=not use_kernel)
             x = torch.cat([ys_f, ys_b], dim=-1)  # [T, B, 2H]
+            if rate > 0 and layer < self.layers - 1:
+                x = dropout(x, rate, generator)
         return x.transpose(0, 1)  # [B, T, 2H]

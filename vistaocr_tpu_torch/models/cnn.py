@@ -1,14 +1,22 @@
 """CNN feature extractor.
 
 Counterpart of ``vistaocr_tpu/models/cnn.py:28-112``: stages of
-conv3x3 (bias-free, SAME) -> BatchNorm (eval, eps 1e-5) -> ReLU, each
-stage closed by a max-pool. NCHW inside; the pooling uses
+conv3x3 (bias-free, SAME) -> BatchNorm (eps 1e-5) -> ReLU, each stage
+closed by a max-pool. NCHW inside; the pooling uses
 ``ceil_mode=True`` because flax's SAME max-pool gives ``ceil(W/2)``
 (``cnn.py:100-103``), which is what keeps the frame arithmetic
 ``ceil(width / width_stride)`` for widths that are not multiples of 4.
 
 Parameters stay float32 (the JAX ``param_dtype``); ``forward`` casts them
 to the compute dtype, as flax does inside each layer.
+
+BatchNorm follows flax ``nn.BatchNorm`` (``momentum=0.9``): eval mode
+normalises with the running statistics; train mode (``batch_norm_train``)
+normalises with the batch statistics, taken in float32 over every
+position of the batch (padding included) with the biased variance
+``E[x^2] - E[x]^2`` clamped at 0, and updates the running statistics as
+``0.9 * running + 0.1 * batch`` with that biased variance (torch's own
+``BatchNorm2d`` update would use the unbiased one).
 """
 
 from __future__ import annotations
@@ -51,6 +59,26 @@ def height_stride_of(stages: Sequence[ConvStageSpec]) -> int:
     return s
 
 
+BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False)`` on NCHW ``x``:
+    statistics in f32 over (N, H, W), ``y = (x - mean) * (scale *
+    rsqrt(var + eps)) + bias`` in f32, cast back to x's dtype; the running
+    statistics of ``bn`` are updated in place (outside autograd)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    with torch.no_grad():
+        m = BN_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    return y.to(x.dtype)
+
+
 class ConvStack(nn.Module):
     """``skip_first=True`` omits conv0_0 (the model's separate stem conv
     computes it) but still applies bn0_0 + ReLU, so the parameters line
@@ -80,9 +108,10 @@ class ConvStack(nn.Module):
                     stage.channels, eps=1e-5)
                 c_in = stage.channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, C_in, H, W] -> [B, C_out, H', W'] in x's dtype (eval mode);
-        W' = ceil(W / width_stride)."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """[B, C_in, H, W] -> [B, C_out, H', W'] in x's dtype;
+        W' = ceil(W / width_stride). ``train`` normalises with the batch
+        statistics and updates the running ones in place."""
         dt = x.dtype
         for si, stage in enumerate(self.stages):
             for ci in range(stage.num_convs):
@@ -90,11 +119,14 @@ class ConvStack(nn.Module):
                 if name in self.convs:
                     x = F.conv2d(x, self.convs[name].weight.to(dt), padding=1)
                 bn = self.bns[f"bn{si}_{ci}"]
-                x = F.batch_norm(
-                    x, bn.running_mean.to(dt), bn.running_var.to(dt),
-                    bn.weight.to(dt), bn.bias.to(dt), training=False,
-                    eps=bn.eps,
-                )
+                if train:
+                    x = batch_norm_train(x, bn)
+                else:
+                    x = F.batch_norm(
+                        x, bn.running_mean.to(dt), bn.running_var.to(dt),
+                        bn.weight.to(dt), bn.bias.to(dt), training=False,
+                        eps=bn.eps,
+                    )
                 x = F.relu(x)
             if stage.pool != (1, 1):
                 x = F.max_pool2d(x, stage.pool, stage.pool, ceil_mode=True)

@@ -10,8 +10,11 @@ Counterpart of ``vistaocr_tpu/models/cnnlstm.py:36-171``:
       --head Linear (f32) + log-softmax--> [B, T, K]
 
 ``forward`` returns ``(log_probs, frame_mask)`` with
-``frame_mask[b, t] = t < ceil(width_b / width_stride)``. Eval only:
-dropout and augmentation are training knobs and are not applied.
+``frame_mask[b, t] = t < ceil(width_b / width_stride)``. With
+``train=True`` it runs as the JAX model's ``train=True`` apply: BatchNorm
+on batch statistics (running statistics updated in place), on-device
+augmentation when ``augment > 0``, and dropout after the bridge ReLU and
+between BLSTM layers, every random draw from the ``generator`` passed in.
 """
 
 from __future__ import annotations
@@ -19,14 +22,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.preprocess import preprocess_images
-from .blstm import BLSTMStack
+from ..ops.preprocess import augment_images, preprocess_images
+from .blstm import BLSTMStack, dropout
 from .cnn import DEFAULT_STAGES, ConvStack, ConvStageSpec, width_stride_of
 
 
@@ -109,14 +112,20 @@ class CnnLstmOcr(nn.Module):
         self,
         images: torch.Tensor,  # [B, H, W] uint8
         widths: torch.Tensor,  # [B] int32
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``train=True`` needs ``generator`` (on the images' device) when
+        ``dropout`` or ``augment`` is non-zero."""
         cfg = self.config
         dt = cfg.dtype
         x = preprocess_images(images, widths, standardize=cfg.standardize_input,
                               dtype=dt)
+        if train and cfg.augment > 0:
+            x = augment_images(x, widths, generator, strength=cfg.augment)
         x = x.permute(0, 3, 1, 2)  # [B, 1, H, W]
         x = F.conv2d(x, self.stem_kernel.to(dt), padding=1)
-        x = self.cnn(x)  # [B, C, H', T]
+        x = self.cnn(x, train=train)  # [B, C, H', T]
 
         b, c, hp, t = x.shape
         x = x.permute(0, 3, 2, 1).reshape(b, t, hp * c)  # C fastest
@@ -127,7 +136,10 @@ class CnnLstmOcr(nn.Module):
 
         x = F.relu(F.linear(x, self.bridge.weight.to(dt),
                             self.bridge.bias.to(dt)))
-        x = self.blstm(x, frame_mask, dt)
+        rate = cfg.dropout if train else 0.0
+        if rate > 0:
+            x = dropout(x, rate, generator)
+        x = self.blstm(x, frame_mask, dt, rate=rate, generator=generator)
         logits = self.head(x.to(torch.float32))
         return torch.log_softmax(logits, dim=-1), frame_mask
 
@@ -138,28 +150,37 @@ def _xavier_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
     w.copy_((torch.rand(w.shape, generator=g) * 2.0 - 1.0) * bound)
 
 
+def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    """flax ``lecun_normal()`` = ``variance_scaling(1, "fan_in",
+    "truncated_normal")``: a normal cut at +-2 sigma0, sigma0 =
+    sqrt(1/fan_in) / 0.87962566 (the cut normal's std is sqrt(1/fan_in))."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=g)
+
+
 def init_parameters(model: CnnLstmOcr, generator: torch.Generator) -> None:
     """Seeded initialisation with the JAX initialisers' distributions:
-    xavier-uniform convs, stem and ``wx``; orthogonal ``wh``; zero LSTM
-    bias with the forget-gate slice at +1; lecun-normal Dense kernels
-    with zero bias; BatchNorm scale 1, bias 0, mean 0, var 1. Runs on the
-    CPU generator; move the model to its device afterwards."""
+    xavier-uniform stem and ``wx``; lecun-normal (truncated, as flax's
+    default ``nn.Conv``/``nn.Dense`` kernel init) ConvStack convs,
+    ``bridge`` and ``head`` with zero bias; orthogonal ``wh``; zero LSTM
+    bias with the forget-gate slice at +1; BatchNorm scale 1, bias 0,
+    mean 0, var 1. Runs on the CPU generator; move the model to its device
+    afterwards."""
     g = generator
     with torch.no_grad():
         k = model.stem_kernel
         _xavier_uniform_(k, 9 * k.shape[1], 9 * k.shape[0], g)
         for conv in model.cnn.convs.values():
             o, i, kh, kw = conv.weight.shape
-            _xavier_uniform_(conv.weight, i * kh * kw, o * kh * kw, g)
+            _lecun_normal_(conv.weight, i * kh * kw, g)
         for bn in model.cnn.bns.values():
             bn.weight.fill_(1.0)
             bn.bias.zero_()
             bn.running_mean.zero_()
             bn.running_var.fill_(1.0)
         for lin in (model.bridge, model.head):
-            fan_in = lin.weight.shape[1]
-            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g)
-                             / math.sqrt(fan_in))
+            _lecun_normal_(lin.weight, lin.weight.shape[1], g)
             lin.bias.zero_()
         H = model.blstm.hidden
         for name, p in model.blstm.named_parameters():

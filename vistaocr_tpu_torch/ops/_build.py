@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``*.cu`` under ``vistaocr_tpu_torch/csrc/`` is compiled into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes), at first use, into
+Every ``*.cu`` under ``vistaocr_tpu_torch/csrc/`` is compiled to an
+object file, all of them by parallel nvcc processes, and the objects are
+linked into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds, not minutes), at first use, into
 ``vistaocr_tpu_torch/_build/`` under a name keyed by a hash of the
-sources and flags. A failed build raises with nvcc's stderr; there is no
-soft path that carries on without the kernels.
+sources, the headers (``*.cuh``) and the flags. A failed build raises
+with nvcc's stderr; there is no soft path that carries on without the
+kernels.
 
 Pointers and the stream cross the C boundary as ``ctypes.c_void_p``
 (``tensor.data_ptr()``, ``torch.cuda.current_stream().cuda_stream``);
@@ -28,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -58,24 +60,40 @@ def sources():
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources() + glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libvo_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    stderr after all of them have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 def _compile(out: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    stem = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{stem}.{os.path.basename(src)}.o" for src in sources()]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+              for src, obj in zip(sources(), objs)])
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{stem}.tmp", *objs]])
+    for obj in objs:
+        os.remove(obj)
+    os.replace(f"{stem}.tmp", out)
 
 
 def _bind(lib) -> None:
@@ -84,8 +102,37 @@ def _bind(lib) -> None:
     lib.vo_lstm_fwd.argtypes = [
         i, i, i, i, i,  # type_code, T, B, H, ndir
         p,  # mask
-        p, p, p, p, i,  # direction 0: xw, wh, ys, scratch, reverse
-        p, p, p, p, i,  # direction 1
+        p, p, p, p, p, i,  # direction 0: xw, wh, ys, cs, scratch, reverse
+        p, p, p, p, p, i,  # direction 1
+        p,  # stream
+    ]
+    lib.vo_lstm_bwd.restype = i
+    lib.vo_lstm_bwd.argtypes = [
+        i, i, i, i, i,  # type_code, T, B, H, ndir
+        p,  # mask
+        # direction 0: xw, wh, ys, cs, dys, dxw, scratch, reverse
+        p, p, p, p, p, p, p, i,
+        p, p, p, p, p, p, p, i,  # direction 1
+        p,  # stream
+    ]
+    lib.vo_lstm_dwh.restype = i
+    lib.vo_lstm_dwh.argtypes = [
+        i, i, i, i, i,  # type_code, T, B, H, ndir
+        p, p, p, i,  # direction 0: ys, dxw, dwh, reverse
+        p, p, p, i,  # direction 1
+        p,  # stream
+    ]
+    lib.vo_ctc_alpha.restype = i
+    lib.vo_ctc_alpha.argtypes = [
+        i, i, i,  # T, B, S
+        p, p, p, p, p,  # lp, active, skip, svalid, alphas
+        p,  # stream
+    ]
+    lib.vo_ctc_beta.restype = i
+    lib.vo_ctc_beta.argtypes = [
+        i, i, i,  # T, B, S
+        # lp, active, islast, skip2, svalid, terminal, alphas, logp, dlp
+        p, p, p, p, p, p, p, p, p,
         p,  # stream
     ]
 

@@ -1,33 +1,46 @@
-"""Masked LSTM recurrence: wrapper of the CUDA kernel and its plain version.
+"""Masked LSTM recurrence and its BPTT: wrappers of the CUDA kernels and
+their plain versions.
 
-Counterpart of ``vistaocr_tpu/ops/lstm_pallas.py:115-163, 455-552``
-(inference form). The kernel is ``csrc/lstm_fwd.cu``; its source note
-says what it replaces, what bounds it and what its design does about it.
+Counterpart of ``vistaocr_tpu/ops/lstm_pallas.py:51-163, 230-552``. The
+kernels are ``csrc/lstm_fwd.cu`` (``_fwd_kernel``, inference and
+``save_cell`` forms) and ``csrc/lstm_bwd.cu`` (``_bwd_kernel`` and
+``_bwd_kernel_rev`` with ``_bptt_frame``, plus the dwh reduction); their
+source notes say what they replace, what bounds them and what their
+design does about it.
 
-- ``lstm_recurrence`` / ``blstm_recurrence``: on a CUDA tensor they
-  launch the kernel or raise; on a CPU tensor they run
-  ``lstm_recurrence_ref``. There is no fallback from the kernel to the
-  plain version.
-- ``lstm_recurrence_ref``: the plain PyTorch version, a Python loop over
-  T with the kernel's exact arithmetic contract (h rounded to the compute
-  dtype before the product, f32 accumulation, f32 carry and gate math).
-- ``lstm_layer``: the hoisted input projection + recurrence, time-major.
-- ``LAUNCHES``: one per kernel launch (one call of the C entry point,
-  which runs the whole recurrence of one or two directions).
-
-Only the inference form exists: the backward kernels (and the
-``save_cell`` form that feeds them) come with training, so the wrappers
-raise when autograd would need a gradient through them.
+- ``lstm_recurrence`` / ``blstm_recurrence``: under ``no_grad`` /
+  ``inference_mode`` they run the inference form; when autograd needs a
+  gradient they go through ``BLstmRecurrence`` (the ``save_cell`` form
+  forward, the BPTT backward), as ``_fwd_rule`` / ``_bwd_rule``
+  (``lstm_pallas.py:476-490``) do. On a CUDA tensor they launch the
+  kernels or raise; on a CPU tensor (or with ``plain=True``, the
+  ``"pallas_interpret"`` path) they run the plain versions. There is no
+  fallback from a kernel to its plain version.
+- ``lstm_recurrence_ref`` / ``lstm_bptt_ref`` / ``lstm_dwh_ref``: the
+  plain PyTorch versions, Python loops over T with the kernels' exact rounding
+  contract (h rounded to the compute dtype before each product, f32
+  accumulation, f32 carries and gate math, streams in the stream dtype).
+  ``lstm_recurrence_ref`` is differentiable by autograd: it is the
+  ``"scan"`` oracle.
+- ``input_projection`` / ``lstm_layer``: the hoisted input projection
+  (+ recurrence), time-major.
+- Launch counters, one per call of a C entry point (which runs the whole
+  recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
+  both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
+  ``BWD_LAUNCHES`` (BPTT frames) and ``DWH_LAUNCHES`` (dwh reduction).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 LAUNCHES = 0
+SAVE_CELL_LAUNCHES = 0
+BWD_LAUNCHES = 0
+DWH_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _TYPE_CODES = {
@@ -36,6 +49,11 @@ _TYPE_CODES = {
     (torch.float32, torch.bfloat16): 2,
     (torch.bfloat16, torch.float32): 3,
 }
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        globals()[name] += 1
 
 
 def _check(xw, mask, wh, dtype) -> torch.dtype:
@@ -59,12 +77,16 @@ def _check(xw, mask, wh, dtype) -> torch.dtype:
         )
     if not (xw.device == mask.device == wh.device):
         raise ValueError("xw, mask and wh must be on one device")
-    if torch.is_grad_enabled() and (xw.requires_grad or wh.requires_grad):
-        raise NotImplementedError(
-            "the LSTM recurrence has no backward yet (ROADMAP Queue 1, "
-            "training); call it under torch.no_grad()/inference_mode()"
-        )
     return dtype
+
+
+def _gates(xw_t, h, w, dtype):
+    """i, f, g, o of one frame: f32(xw_t) + round(h) @ w."""
+    H = w.shape[0]
+    gates = xw_t.to(torch.float32) + torch.matmul(
+        h.to(dtype).to(torch.float32), w)
+    return (torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H]),
+            torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:]))
 
 
 def lstm_recurrence_ref(
@@ -74,47 +96,126 @@ def lstm_recurrence_ref(
     *,
     reverse: bool = False,
     dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
-    """Plain PyTorch recurrence; ys [T, B, H] in xw's dtype."""
+    save_cell: bool = False,
+):
+    """Plain PyTorch recurrence: ys [T, B, H] in xw's dtype, and with
+    ``save_cell`` also cs [T, B, H] (c after the mask freeze, in xw's
+    dtype, as ``_fwd_kernel:91-92`` stores it)."""
     dtype = _check(xw, mask, wh, dtype)
     T, B, G = xw.shape
     H = G // 4
     w = wh.to(dtype).to(torch.float32)
     h = torch.zeros((B, H), dtype=torch.float32, device=xw.device)
     c = torch.zeros_like(h)
-    ys = torch.empty((T, B, H), dtype=xw.dtype, device=xw.device)
+    ys: List[torch.Tensor] = [h] * T
+    cs: List[torch.Tensor] = [c] * T
     for t in (reversed(range(T)) if reverse else range(T)):
-        gates = xw[t].to(torch.float32) + torch.matmul(
-            h.to(dtype).to(torch.float32), w)
-        i = torch.sigmoid(gates[:, :H])
-        f = torch.sigmoid(gates[:, H:2 * H])
-        g = torch.tanh(gates[:, 2 * H:3 * H])
-        o = torch.sigmoid(gates[:, 3 * H:])
+        i, f, g, o = _gates(xw[t], h, w, dtype)
         c_new = f * c + i * g
         h_new = o * torch.tanh(c_new)
         m = mask[t, 0][:, None]
         h = m * h_new + (1.0 - m) * h
         c = m * c_new + (1.0 - m) * c
         ys[t] = h.to(xw.dtype)
-    return ys
+        cs[t] = c.to(xw.dtype)
+    if save_cell:
+        return torch.stack(ys), torch.stack(cs)
+    return torch.stack(ys)
 
 
-def _launch(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
-            mask: torch.Tensor, dtype: torch.dtype):
-    """Run the kernel over one or two directions that share T, B, H, the
-    dtypes and the mask. ``dirs``: (xw, wh already in ``dtype``, reverse)."""
-    global LAUNCHES
+def lstm_bptt_ref(
+    xw: torch.Tensor,  # [T, B, 4H] stream dtype
+    mask: torch.Tensor,  # [T, 1, B] float32
+    wh: torch.Tensor,  # [H, 4H]
+    ys: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
+    cs: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
+    dys: torch.Tensor,  # [T, B, H] stream dtype
+    *,
+    reverse: bool = False,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain BPTT, ``_bptt_frame`` (``lstm_pallas.py:230-278``) frame by
+    frame in the forward scan's order walked backwards: (dxw [T, B, 4H] in
+    xw's dtype, dwh [H, 4H] float32)."""
+    dtype = _check(xw, mask, wh, dtype)
+    T, B, G = xw.shape
+    H = G // 4
+    sdt = xw.dtype
+    w = wh.to(dtype).to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=xw.device)
+    dh = torch.zeros((B, H), **f32)
+    dc = torch.zeros((B, H), **f32)
+    dxw = torch.empty_like(xw)
+    for t in (range(T) if reverse else reversed(range(T))):
+        tp = t + 1 if reverse else t - 1
+        if 0 <= tp < T:
+            h_prev, c_prev = ys[tp], cs[tp].to(torch.float32)
+        else:
+            h_prev = torch.zeros((B, H), dtype=sdt, device=xw.device)
+            c_prev = torch.zeros((B, H), **f32)
+        i, f, g, o = _gates(xw[t], h_prev, w, dtype)
+        tc = torch.tanh(cs[t].to(torch.float32))
+        m = mask[t, 0][:, None]
+        dh_t = dh + dys[t].to(torch.float32)
+        dc_t = dc + dh_t * o * (1.0 - tc * tc)
+        dxw[t] = torch.cat([
+            (dc_t * g) * i * (1.0 - i) * m,
+            (dc_t * c_prev) * f * (1.0 - f) * m,
+            (dc_t * i) * (1.0 - g * g) * m,
+            (dh_t * tc) * o * (1.0 - o) * m,
+        ], dim=1).to(sdt)
+        dg = dxw[t].to(dtype).to(torch.float32)
+        dh = torch.matmul(dg, w.T) + (1.0 - m) * dh_t
+        dc = m * (dc_t * f) + (1.0 - m) * dc
+    return dxw, lstm_dwh_ref(ys, dxw, reverse=reverse, dtype=dtype)
+
+
+def lstm_dwh_ref(ys: torch.Tensor, dxw: torch.Tensor, *, reverse: bool = False,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain dwh [H, 4H] f32 = sum over frames, in the BPTT's order, of
+    round(h_prev)^T @ round(dxw[t]) (h_prev: the scan predecessor's ys row,
+    zero at the edge)."""
+    T = ys.shape[0]
+    dwh = torch.zeros((ys.shape[2], dxw.shape[2]), dtype=torch.float32,
+                      device=ys.device)
+    for t in (range(T) if reverse else reversed(range(T))):
+        tp = t + 1 if reverse else t - 1
+        if 0 <= tp < T:
+            dwh += torch.matmul(ys[tp].to(dtype).to(torch.float32).T,
+                                dxw[t].to(dtype).to(torch.float32))
+    return dwh
+
+
+def _check_launch(tensors: Sequence[torch.Tensor]) -> None:
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError("the LSTM kernels take CUDA tensors only")
+        if not t.is_contiguous():
+            raise ValueError("the LSTM kernels take contiguous tensors only")
+
+
+def _dir_args(per_dir: List[list], n_fields: int) -> list:
+    """Flatten per-direction C arguments; with one direction the second
+    direction's slots repeat the first (the kernel does not read them)."""
+    args = [a for d in per_dir for a in d]
+    if len(per_dir) == 1:
+        args *= 2
+    assert len(args) == 2 * n_fields
+    return args
+
+
+def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
+                mask: torch.Tensor, dtype: torch.dtype, save_cell: bool):
+    """The forward kernel over one or two directions that share T, B, H,
+    the dtypes and the mask. ``dirs``: (xw, wh already in ``dtype``,
+    reverse). Returns (ys list, cs list or None)."""
     from . import _build
 
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
     for xw, wh, _ in dirs:
-        if not xw.is_cuda:
-            raise ValueError("the LSTM kernel takes CUDA tensors only")
-        if not (xw.is_contiguous() and wh.is_contiguous()
-                and mask.is_contiguous()):
-            raise ValueError("the LSTM kernel takes contiguous tensors only")
+        _check_launch((xw, wh, mask))
         if xw.shape != xw0.shape or xw.dtype != xw0.dtype:
             raise ValueError("both directions must share shape and dtype")
         if wh.dtype != dtype:
@@ -123,25 +224,164 @@ def _launch(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     # Outputs and the zeroed (h ping, h pong, c) scratch are allocated on
     # the launch stream; the caching allocator reuses a freed block only
     # for work queued after the kernel on that stream.
-    outs = [torch.empty((T, B, H), dtype=xw0.dtype, device=xw0.device)
-            for _ in dirs]
+    new = dict(dtype=xw0.dtype, device=xw0.device)
+    ys = [torch.empty((T, B, H), **new) for _ in dirs]
+    cs = [torch.empty((T, B, H), **new) for _ in dirs] if save_cell else None
     scratch = [torch.zeros((3, B, H), dtype=torch.float32, device=xw0.device)
                for _ in dirs]
-    args = []
-    for (xw, wh, rev), ys, sc in zip(dirs, outs, scratch):
-        args += [xw.data_ptr(), wh.data_ptr(), ys.data_ptr(), sc.data_ptr(),
-                 int(rev)]
-    if len(dirs) == 1:
-        args *= 2  # the second direction's slots are not read
+    args = _dir_args([
+        [xw.data_ptr(), wh.data_ptr(), ys[k].data_ptr(),
+         cs[k].data_ptr() if save_cell else None, scratch[k].data_ptr(),
+         int(rev)]
+        for k, (xw, wh, rev) in enumerate(dirs)], 6)
     stream = torch.cuda.current_stream(xw0.device).cuda_stream
-    err = lib.vo_lstm_fwd(
-        _TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
-        mask.data_ptr(), *args, stream,
-    )
+    err = lib.vo_lstm_fwd(_TYPE_CODES[(xw0.dtype, dtype)], T, B, H,
+                          len(dirs), mask.data_ptr(), *args, stream)
     _build.check(err, "vo_lstm_fwd")
-    with _count_lock:
-        LAUNCHES += 1
-    return outs
+    _count("LAUNCHES")
+    if save_cell:
+        _count("SAVE_CELL_LAUNCHES")
+    return ys, cs
+
+
+def lstm_bptt_frames(dirs, mask: torch.Tensor,
+                     dtype: torch.dtype) -> List[torch.Tensor]:
+    """The BPTT frame kernels over one or two directions (CUDA only).
+    ``dirs``: (xw, wh already in ``dtype``, ys, cs, dys in the stream
+    dtype, reverse). Returns dxw per direction."""
+    from . import _build
+
+    xw0 = dirs[0][0]
+    T, B, G = xw0.shape
+    H = G // 4
+    for xw, wh, ys, cs, dys, _ in dirs:
+        _check_launch((xw, wh, ys, cs, dys, mask))
+        if xw.shape != xw0.shape or not (
+                xw.dtype == ys.dtype == cs.dtype == dys.dtype == xw0.dtype):
+            raise ValueError("both directions must share shape and dtype")
+        if not ys.shape == cs.shape == dys.shape == (T, B, H):
+            raise ValueError("ys, cs and dys must be [T, B, H]")
+        if wh.dtype != dtype:
+            raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
+    lib = _build.load()
+    dxw = [torch.empty_like(d[0]) for d in dirs]
+    scratch = [torch.zeros((2, B, H), dtype=torch.float32, device=xw0.device)
+               for _ in dirs]
+    args = _dir_args([
+        [xw.data_ptr(), wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+         dys.data_ptr(), dxw[k].data_ptr(), scratch[k].data_ptr(), int(rev)]
+        for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 8)
+    err = lib.vo_lstm_bwd(_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
+                          mask.data_ptr(), *args,
+                          torch.cuda.current_stream(xw0.device).cuda_stream)
+    _build.check(err, "vo_lstm_bwd")
+    _count("BWD_LAUNCHES")
+    return dxw
+
+
+def lstm_dwh(dirs, dtype: torch.dtype) -> List[torch.Tensor]:
+    """The dwh reduction kernel over one or two directions (CUDA only).
+    ``dirs``: (ys, dxw, reverse) in the stream dtype. Returns dwh [H, 4H]
+    float32 per direction."""
+    from . import _build
+
+    ys0 = dirs[0][0]
+    T, B, H = ys0.shape
+    for ys, dxw, _ in dirs:
+        _check_launch((ys, dxw))
+        if ys.shape != ys0.shape or dxw.shape != (T, B, 4 * H) or not (
+                ys.dtype == dxw.dtype == ys0.dtype):
+            raise ValueError("ys [T, B, H] and dxw [T, B, 4H] must share "
+                             "T, B and the stream dtype")
+    lib = _build.load()
+    dwh = [torch.empty((H, 4 * H), dtype=torch.float32, device=ys0.device)
+           for _ in dirs]
+    args = _dir_args([
+        [ys.data_ptr(), dxw.data_ptr(), dwh[k].data_ptr(), int(rev)]
+        for k, (ys, dxw, rev) in enumerate(dirs)], 4)
+    err = lib.vo_lstm_dwh(_TYPE_CODES[(ys0.dtype, dtype)], T, B, H, len(dirs),
+                          *args, torch.cuda.current_stream(ys0.device).cuda_stream)
+    _build.check(err, "vo_lstm_dwh")
+    _count("DWH_LAUNCHES")
+    return dwh
+
+
+def lstm_forward_cells(dirs, mask: torch.Tensor, dtype: torch.dtype,
+                       *, plain: bool = False):
+    """The ``save_cell`` forward of one or two directions: ``dirs`` is a
+    sequence of (xw, wh, reverse); returns [(ys, cs), ...]. One kernel
+    launch on CUDA (unless ``plain``); the plain version on the CPU."""
+    if dirs[0][0].is_cuda and not plain:
+        ys, cs = _launch_fwd([(xw, wh.to(dtype).contiguous(), r)
+                              for xw, wh, r in dirs], mask, dtype, True)
+        return list(zip(ys, cs))
+    return [lstm_recurrence_ref(xw, mask, wh, reverse=r, dtype=dtype,
+                                save_cell=True) for xw, wh, r in dirs]
+
+
+def lstm_bptt(dirs, mask: torch.Tensor, dtype: torch.dtype,
+              *, plain: bool = False):
+    """BPTT of one or two directions: ``dirs`` is a sequence of (xw, wh,
+    ys, cs, dys, reverse); returns [(dxw, dwh float32), ...]. The kernels
+    on CUDA (unless ``plain``); the plain version on the CPU."""
+    if dirs[0][0].is_cuda and not plain:
+        dxw = lstm_bptt_frames([(xw, wh.to(dtype).contiguous(), ys, cs, dys, r)
+                                for xw, wh, ys, cs, dys, r in dirs],
+                               mask, dtype)
+        dwh = lstm_dwh([(d[2], g, d[5]) for d, g in zip(dirs, dxw)], dtype)
+        return list(zip(dxw, dwh))
+    return [lstm_bptt_ref(xw, mask, wh, ys, cs, dys, reverse=r, dtype=dtype)
+            for xw, wh, ys, cs, dys, r in dirs]
+
+
+class BLstmRecurrence(torch.autograd.Function):
+    """The recurrence of one or two directions with a hand-written
+    backward (``jax.custom_vjp`` of ``lstm_recurrence_pallas``):
+    ``apply(mask, dtype, reverses, plain, xw0, wh0[, xw1, wh1])`` returns
+    ys per direction. The forward saves the cell states (``save_cell``
+    form); the backward runs the BPTT, with dys cast to the stream dtype
+    first and dwh cast back to wh's dtype (``_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, mask, dtype, reverses, plain, *xw_wh):
+        xws, whs = xw_wh[0::2], xw_wh[1::2]
+        out = lstm_forward_cells(list(zip(xws, whs, reverses)), mask, dtype,
+                                 plain=plain)
+        ys = [y for y, _ in out]
+        ctx.save_for_backward(mask, *xws, *whs, *ys, *(c for _, c in out))
+        ctx.meta = (dtype, reverses, plain, len(xws))
+        return tuple(ys)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        dtype, reverses, plain, n = ctx.meta
+        mask, *saved = ctx.saved_tensors
+        xws, whs, ys, cs = (saved[k * n:(k + 1) * n] for k in range(4))
+        dys = [torch.zeros_like(y) if d is None
+               else d.to(y.dtype).contiguous() for d, y in zip(dys, ys)]
+        res = lstm_bptt(list(zip(xws, whs, ys, cs, dys, reverses)), mask,
+                        dtype, plain=plain)
+        grads = []
+        for (dxw, dwh), wh in zip(res, whs):
+            grads += [dxw, dwh.to(wh.dtype)]
+        return (None, None, None, None, *grads)
+
+
+def _recurrence(dirs, mask, dtype, plain: bool):
+    """ys per direction of ``dirs`` = (xw, wh, reverse): through
+    ``BLstmRecurrence`` when autograd needs a gradient, else the inference
+    form (one kernel launch on CUDA, the plain loop on the CPU)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for xw, wh, _ in dirs for t in (xw, wh)):
+        flat = [t for xw, wh, _ in dirs for t in (xw, wh)]
+        return BLstmRecurrence.apply(mask, dtype,
+                                     tuple(r for *_, r in dirs), plain, *flat)
+    if dirs[0][0].is_cuda and not plain:
+        ys, _ = _launch_fwd([(xw, wh.to(dtype).contiguous(), r)
+                             for xw, wh, r in dirs], mask, dtype, False)
+        return ys
+    return [lstm_recurrence_ref(xw, mask, wh, reverse=r, dtype=dtype)
+            for xw, wh, r in dirs]
 
 
 def lstm_recurrence(
@@ -157,9 +397,7 @@ def lstm_recurrence(
     (default: wh's dtype). ``reverse`` walks time back to front inside the
     kernel; inputs and outputs stay in natural time order."""
     dtype = _check(xw, mask, wh, dtype)
-    if xw.device.type == "cpu":
-        return lstm_recurrence_ref(xw, mask, wh, reverse=reverse, dtype=dtype)
-    return _launch([(xw, wh.to(dtype).contiguous(), reverse)], mask, dtype)[0]
+    return _recurrence([(xw, wh, reverse)], mask, dtype, False)[0]
 
 
 def blstm_recurrence(
@@ -170,33 +408,38 @@ def blstm_recurrence(
     wh_bwd: torch.Tensor,
     *,
     dtype: Optional[torch.dtype] = None,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both directions of one BLSTM layer: forward over ``xw_fwd``,
-    reverse over ``xw_bwd``, in ONE kernel launch on CUDA."""
+    reverse over ``xw_bwd``, in ONE kernel launch on CUDA (one per pass:
+    forward, BPTT frames, dwh). ``plain`` runs the plain versions on any
+    device (``lstm_impl="pallas_interpret"``)."""
     dtype = _check(xw_fwd, mask, wh_fwd, dtype)
     _check(xw_bwd, mask, wh_bwd, dtype)
-    if xw_fwd.device.type == "cpu":
-        return (
-            lstm_recurrence_ref(xw_fwd, mask, wh_fwd, reverse=False,
-                                dtype=dtype),
-            lstm_recurrence_ref(xw_bwd, mask, wh_bwd, reverse=True,
-                                dtype=dtype),
-        )
-    ys_f, ys_b = _launch(
-        [(xw_fwd, wh_fwd.to(dtype).contiguous(), False),
-         (xw_bwd, wh_bwd.to(dtype).contiguous(), True)],
-        mask, dtype,
-    )
+    ys_f, ys_b = _recurrence([(xw_fwd, wh_fwd, False), (xw_bwd, wh_bwd, True)],
+                             mask, dtype, plain)
     return ys_f, ys_b
 
 
 def input_projection(x: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
     """Hoisted gate inputs ``(x @ wx + b)`` for every frame at once, cast
-    to the stream dtype: x [T, B, D] -> xw [T, B, 4H] (as
-    ``lstm_pallas.py:546-550``: product in the compute dtype, bias added
-    in f32, then one rounding to the stream dtype)."""
-    xw = torch.matmul(x.to(dtype), wx.to(dtype)).to(torch.float32)
+    to the stream dtype: x [T, B, D] -> xw [T, B, 4H]. As
+    ``lstm_pallas.py:546-550`` (``preferred_element_type=f32``): the
+    operands are rounded to ``dtype``, their product is accumulated and
+    kept in f32, the f32 bias is added, and the sum is rounded once.
+
+    On CUDA without autograd, a bf16 product runs as one cuBLAS bf16 GEMM
+    with f32 output (``torch.mm(..., out_dtype=torch.float32)``, which has
+    no derivative); otherwise the operands are rounded and multiplied in
+    f32, which is the same product."""
+    xq, wq = x.to(dtype), wx.to(dtype)
+    grad = torch.is_grad_enabled() and (xq.requires_grad or wq.requires_grad)
+    if xq.is_cuda and dtype == torch.bfloat16 and not grad:
+        xw = torch.mm(xq.reshape(-1, xq.shape[-1]), wq,
+                      out_dtype=torch.float32).reshape(*xq.shape[:-1], -1)
+    else:
+        xw = torch.matmul(xq.to(torch.float32), wq.to(torch.float32))
     return (xw + b.to(torch.float32)).to(dtype).contiguous()
 
 

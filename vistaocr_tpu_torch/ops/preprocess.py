@@ -4,8 +4,8 @@ Counterpart of ``vistaocr_tpu/ops/preprocess.py:29-51``: polarity flip
 (ink = 1, paper = 0), width mask, and per-image standardisation over the
 VALID region only (``n = max(w*h, 1)``, ``rsqrt(var + eps)``), with the
 padding forced back to exactly 0. Plain elementwise work and two small
-reductions: no kernel of its own. ``augment_images`` is train-only and
-not ported yet.
+reductions: no kernel of its own. ``augment_images`` is the train-time
+degradation of ``vistaocr_tpu/ops/preprocess.py:54-83``.
 """
 
 from __future__ import annotations
@@ -37,3 +37,27 @@ def preprocess_images(
         x = (x - mean) * torch.rsqrt(var + eps)
         x = x * mask
     return x.to(dtype)[..., None]
+
+
+def augment_images(
+    x: torch.Tensor,  # [B, H, W, 1] preprocessed (ink-positive) images
+    widths: torch.Tensor,  # [B]
+    generator: torch.Generator,
+    *,
+    strength: float = 1.0,
+) -> torch.Tensor:
+    """Train-time degradation: per-image contrast jitter
+    ``x * U[1-0.2s, 1+0.2s]``, per-image shift ``+ U[-0.1s, 0.1s]`` and
+    pixel noise ``N(0, 0.05s)``, with the width mask re-applied so padding
+    stays exactly 0. Every draw comes from ``generator`` (on x's device);
+    the draws cannot match JAX's."""
+    b, h, w, _ = x.shape
+    kw = dict(generator=generator, device=x.device)
+    contrast = 1.0 + (torch.rand((b, 1, 1, 1), **kw) * 0.4 - 0.2) * strength
+    shift = (torch.rand((b, 1, 1, 1), **kw) * 0.2 - 0.1) * strength
+    noise = torch.randn(x.shape, **kw) * (0.05 * strength)
+    col = torch.arange(w, device=x.device)
+    mask = (col[None, None, :] < widths.to(x.device)[:, None, None]).to(
+        x.dtype)[..., None]
+    out = (x * contrast.to(x.dtype) + shift.to(x.dtype) + noise.to(x.dtype))
+    return out * mask

@@ -1,0 +1,646 @@
+"""Training entry point on one CUDA device.
+
+Counterpart of ``vistaocr_tpu/train.py:66-967``: the same ``TrainConfig``
+fields and ``PRESETS``, the same CLI flags (``--device`` in place of
+``--platform``), and the per-step loop of ``fit`` (``train.py:837-861``):
+batches from ``BatchPipeline.device_epoch``; ``train_step`` runs the
+forward in train mode (BatchNorm batch statistics, dropout, augment), the
+CTC loss (``ctc_impl``), the backward, the global-norm clip, Adam or SGD,
+and the BatchNorm running-statistics update; every ``val_interval_steps``
+a greedy validation with CER/WER and a snapshot (``last/``, promoted to
+``best/`` on a new best CER, plateau LR decay); metrics as JSONL;
+divergence checks; resume from ``last/`` with the optimizer state.
+
+Not ported on purpose: the mesh, multi-host launch and data parallelism
+(ROADMAP Queue 1, item 9), the device-resident dataset cache and the
+epoch-fused trainer (``train.py:303-377``; ROADMAP Queue 1, item 3b):
+``device_cache`` and ``fused_epochs`` stay in ``TrainConfig`` with
+``"auto"`` meaning off here, and ``"on"`` raises.
+
+Usage:
+    python -m vistaocr_tpu_torch.train --preset full --data-dir D \\
+        --snapshot-dir S --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .checkpoint import (
+    has_opt_state,
+    load_opt_state,
+    load_snapshot,
+    promote,
+    save_snapshot,
+    variables_to_state_dict,
+)
+from .data.buckets import ShapeContract, make_ladder
+from .data.pipeline import BatchPipeline
+from .data.shards import open_dataset
+from .decode.greedy import collapse_frames, greedy_frames
+from .models import CnnLstmOcr, ConvStageSpec, ModelConfig, init_parameters
+from .ops.ctc import mean_ctc_loss
+from .runtime import disable_tf32, resolve_device
+from .text import Alphabet, cer_wer
+
+
+# --------------------------------------------------------------------------
+# Config (field for field the JAX TrainConfig and PRESETS)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class TrainConfig:
+    data_dir: str = ""
+    snapshot_dir: str = ""
+    # model
+    line_height: int = 32
+    lstm_hidden: int = 512
+    lstm_layers: int = 2
+    bridge_dim: int = 512
+    dropout: float = 0.1
+    augment: float = 0.0  # train-time on-device degradation strength
+    compute_dtype: str = "bfloat16"
+    tiny_model: bool = False  # config #1 scale
+    # data
+    bucket_widths: Tuple[int, ...] = (128, 256, 384, 512, 768, 1024, 1536, 2048)
+    auto_ladder: bool = False  # corpus-tuned align=32 ladder (make_ladder)
+    max_label_len: int = 256
+    batch_pixels: int = 2**21
+    # optimization
+    optimizer: str = "adam"  # adam | sgd
+    lr: float = 1e-3
+    momentum: float = 0.9
+    grad_clip: float = 5.0
+    label_average: bool = False
+    ctc_impl: str = "auto"  # auto | scan | pallas | pallas_interpret
+    epochs: int = 50
+    max_steps: int = 0  # 0 = unlimited
+    # validation / snapshots
+    val_interval_steps: int = 500
+    plateau_patience: int = 3
+    plateau_decay: float = 0.5
+    min_lr: float = 1e-6
+    # misc
+    seed: int = 0
+    mesh_model: int = 1
+    resume: bool = False
+    log_interval: int = 50
+    # JAX-path knobs kept so configs load unchanged; "auto" is off here
+    device_cache: str = "auto"  # auto | on | off
+    device_cache_bytes: int = 4 * 2**30
+    fused_epochs: str = "auto"  # auto | on | off
+    epoch_stack: int = 4
+    # torch.profiler trace of steps [profile_start, profile_stop) into
+    # <snapshot_dir>/profile (trace.json, and ops.txt: time by op)
+    profile_start: int = 0
+    profile_stop: int = 0
+
+    def model_config(self, num_classes: int) -> ModelConfig:
+        stages = (
+            (
+                ConvStageSpec(16, 1, (2, 2)),
+                ConvStageSpec(32, 1, (2, 2)),
+                ConvStageSpec(32, 1, (2, 1)),
+            )
+            if self.tiny_model
+            else (
+                ConvStageSpec(64, 2, (2, 2)),
+                ConvStageSpec(128, 2, (2, 2)),
+                ConvStageSpec(256, 2, (2, 1)),
+            )
+        )
+        return ModelConfig(
+            num_classes=num_classes,
+            line_height=self.line_height,
+            stages=stages,
+            bridge_dim=self.bridge_dim if not self.tiny_model else 64,
+            lstm_hidden=self.lstm_hidden if not self.tiny_model else 64,
+            lstm_layers=self.lstm_layers if not self.tiny_model else 1,
+            dropout=self.dropout,
+            augment=self.augment,
+            compute_dtype=self.compute_dtype,
+        )
+
+    def contract(self) -> ShapeContract:
+        return ShapeContract(
+            height=self.line_height,
+            bucket_widths=tuple(self.bucket_widths),
+            width_stride=4,
+            max_label_len=self.max_label_len,
+        )
+
+
+PRESETS = {
+    "synth-tiny": dict(
+        tiny_model=True,
+        compute_dtype="float32",
+        bucket_widths=(128, 256, 384, 512),
+        batch_pixels=2**18,
+        lr=3e-3,
+        dropout=0.0,
+        val_interval_steps=100,
+        epochs=30,
+    ),
+    "full": dict(auto_ladder=True),
+    "handwriting": dict(
+        bucket_widths=(256, 384, 512, 768, 1024, 1536, 2048),
+        auto_ladder=True,
+        max_label_len=256,
+        dropout=0.2,
+        epochs=120,
+        plateau_patience=4,
+    ),
+    "printed": dict(
+        bucket_widths=(128, 256, 384, 512, 768, 1024),
+        auto_ladder=True,
+        dropout=0.1,
+        lr=2e-3,
+        epochs=60,
+    ),
+}
+
+
+# --------------------------------------------------------------------------
+# Optimizer, clip, train state and steps
+# --------------------------------------------------------------------------
+class Optimizer:
+    """``optax.scale_by_adam()`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0)
+    or ``optax.trace(decay=momentum)`` over named parameters. The state is
+    a flat dict of tensors (``count``, ``mu/<name>``, ``nu/<name>`` or
+    ``trace/<name>``), updated in place by ``update``, which returns the
+    updates (the step is ``p - lr * update``, as ``train.py:246-250``)."""
+
+    def __init__(self, kind: str, momentum: float = 0.9, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        if kind not in ("adam", "sgd"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.kind = kind
+        self.momentum = momentum
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        first = next(iter(params.values()))
+        state = {"count": torch.zeros((), dtype=torch.int32,
+                                      device=first.device)}
+        slots = ("mu", "nu") if self.kind == "adam" else ("trace",)
+        for name, p in params.items():
+            for slot in slots:
+                state[f"{slot}/{name}"] = torch.zeros_like(
+                    p, dtype=torch.float32)
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor],
+               state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.kind == "sgd":
+            out = {}
+            for name, g in grads.items():
+                t = state[f"trace/{name}"]
+                t.copy_(g + self.momentum * t)
+                out[name] = t.clone()
+            return out
+        b1, b2 = self.b1, self.b2
+        state["count"] += 1
+        count = state["count"].to(torch.float32)
+        bc1 = 1.0 - b1 ** count
+        bc2 = 1.0 - b2 ** count
+        out = {}
+        for name, g in grads.items():
+            mu, nu = state[f"mu/{name}"], state[f"nu/{name}"]
+            mu.copy_((1.0 - b1) * g + b1 * mu)
+            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+            out[name] = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+        return out
+
+    @staticmethod
+    def state_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+    @staticmethod
+    def load_numpy(state: Dict[str, torch.Tensor],
+                   arrays: Dict[str, np.ndarray]) -> None:
+        if set(arrays) != set(state):
+            raise KeyError("optimizer state does not match the model: "
+                           f"{sorted(set(arrays) ^ set(state))[:5]}")
+        for k, v in state.items():
+            v.copy_(torch.from_numpy(np.asarray(arrays[k])))
+
+
+def make_optimizer(cfg: TrainConfig) -> Optimizer:
+    """Adam (``optax.scale_by_adam``) or SGD with momentum
+    (``optax.trace``); the clip runs in the step (``_clip_by_known_norm``),
+    as the JAX trainer's ``include_clip=False``."""
+    return Optimizer(cfg.optimizer, momentum=cfg.momentum)
+
+
+def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
+    return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
+                          for g in grads.values()))
+
+
+def _clip_by_known_norm(grads, gnorm, max_norm):
+    """``optax.clip_by_global_norm`` with the norm precomputed:
+    ``g * (max_norm / gnorm)`` iff ``gnorm >= max_norm``
+    (``train.py:233-243``)."""
+    keep = gnorm < max_norm
+    return {k: torch.where(keep, g, (g / gnorm.to(g.dtype)) * max_norm)
+            for k, g in grads.items()}
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CnnLstmOcr
+    opt_state: Dict[str, torch.Tensor]
+    step: int = 0
+
+
+def step_generator(seed: int, step: int,
+                   device: torch.device) -> torch.Generator:
+    """The dropout/augment generator of one step, seeded from (seed, step)
+    so a resumed run draws the same masks."""
+    s = int(np.random.SeedSequence([seed + 1, step]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def loss_and_grads(model: CnnLstmOcr, images, widths, labels, label_lengths,
+                   weights, *, label_average: bool = False,
+                   ctc_impl: str = "auto",
+                   generator: Optional[torch.Generator] = None):
+    """The ``loss_fn`` of ``train.py:262-282`` and its gradients: the
+    forward in train mode (which updates the BatchNorm running statistics
+    in place), the mean CTC loss, and d loss / d parameter by name."""
+    log_probs, frame_mask = model(images, widths, train=True,
+                                  generator=generator)
+    frames = frame_mask.sum(dim=1).to(torch.int32)
+    loss = mean_ctc_loss(log_probs, frames, labels, label_lengths,
+                         sample_weights=weights, label_average=label_average,
+                         impl=ctc_impl)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def make_train_step(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
+                    ctc_impl: str = "auto", grad_clip: Optional[float] = None,
+                    seed: int = 0):
+    """``train_step(state, images, widths, labels, label_lengths, weights,
+    lr) -> {"loss", "gnorm"}`` (device tensors; nothing synchronises):
+    ``loss_and_grads``, the clip, the optimizer update and
+    ``p -= lr * update``. ``state`` is updated in place."""
+    cfg = model.config
+    needs_rng = cfg.dropout > 0 or cfg.augment > 0
+
+    def train_step(state: TrainState, images, widths, labels, label_lengths,
+                   weights, lr: float):
+        gen = (step_generator(seed, state.step, images.device)
+               if needs_rng else None)
+        loss, grads = loss_and_grads(
+            model, images, widths, labels, label_lengths, weights,
+            label_average=label_average, ctc_impl=ctc_impl, generator=gen)
+        gnorm = global_norm(grads)
+        if grad_clip is not None:
+            grads = _clip_by_known_norm(grads, gnorm, grad_clip)
+        updates = tx.update(grads, state.opt_state)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.sub_((lr * updates[name]).to(p.dtype))
+        state.step += 1
+        return {"loss": loss, "gnorm": gnorm.detach()}
+
+    return train_step
+
+
+def make_eval_step(model: CnnLstmOcr):
+    def eval_step(images, widths):
+        with torch.inference_mode():
+            return model(images, widths, train=False)
+
+    return eval_step
+
+
+# --------------------------------------------------------------------------
+# Validation
+# --------------------------------------------------------------------------
+def evaluate(eval_step, pipe: BatchPipeline, alphabet: Alphabet,
+             device) -> Tuple[float, float, float]:
+    """Greedy-decode the whole split; returns (CER, WER, lines/sec)."""
+    hyps: List[str] = []
+    refs: List[str] = []
+    t0 = time.time()
+    n = 0
+    for batch in pipe.device_epoch(0, device=device):
+        log_probs, frame_mask = eval_step(batch.images, batch.widths)
+        frames = greedy_frames(log_probs, frame_mask).cpu().numpy()
+        hyps.extend(collapse_frames(frames[i], alphabet)
+                    for i in range(batch.size) if batch.valid[i])
+        refs.extend(pipe.dataset.transcript(int(i))
+                    for i, v in zip(batch.indices, batch.valid) if v)
+        n += int(batch.valid.sum())
+    dt = max(time.time() - t0, 1e-9)
+    c, w = cer_wer(hyps, refs)
+    return c, w, n / dt
+
+
+class PlateauController:
+    """LR decay on dev-CER plateau (``train.py:438-459``)."""
+
+    def __init__(self, lr: float, patience: int, decay: float, min_lr: float):
+        self.lr = lr
+        self.patience = patience
+        self.decay = decay
+        self.min_lr = min_lr
+        self.best = float("inf")
+        self.bad = 0
+
+    def update(self, cer: float) -> bool:
+        """Returns True if this is a new best CER."""
+        if cer < self.best - 1e-6:
+            self.best = cer
+            self.bad = 0
+            return True
+        self.bad += 1
+        if self.bad > self.patience:
+            self.lr = max(self.min_lr, self.lr * self.decay)
+            self.bad = 0
+        return False
+
+
+# --------------------------------------------------------------------------
+# Fit
+# --------------------------------------------------------------------------
+def _check_unported(cfg: TrainConfig) -> None:
+    if cfg.device_cache == "on" or cfg.fused_epochs == "on":
+        raise NotImplementedError(
+            "device_cache='on' / fused_epochs='on': the device-resident "
+            "dataset cache and the epoch-fused trainer are not ported yet "
+            "(ROADMAP Queue 1, item 3b)")
+    if cfg.mesh_model != 1:
+        raise NotImplementedError(
+            "mesh_model != 1: multi-GPU training is not ported yet "
+            "(ROADMAP Queue 1, item 9)")
+
+
+def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
+    """Run training on one device; returns a summary dict."""
+    _check_unported(cfg)
+    dev = resolve_device(device)
+    disable_tf32()
+    t_setup = time.time()
+
+    contract = cfg.contract()
+    train_ds = open_dataset(cfg.data_dir, "train")
+    val_ds = None
+    try:
+        val_ds = open_dataset(cfg.data_dir, "val")
+    except KeyError:
+        pass
+    if cfg.auto_ladder:
+        ladder = make_ladder(train_ds.widths, stride=contract.width_stride,
+                             align=32, max_waste=0.03,
+                             max_width=max(cfg.bucket_widths))
+        contract = dataclasses.replace(contract, bucket_widths=ladder)
+        log(f"auto ladder: {ladder}")
+
+    resume_dir = os.path.join(cfg.snapshot_dir, "last")
+    resuming = cfg.resume and os.path.exists(os.path.join(resume_dir,
+                                                          "meta.json"))
+    if resuming:
+        variables, model_config, alphabet, contract, meta = load_snapshot(
+            resume_dir)
+        start_step = meta["step"]
+        start_epoch = meta.get("extra", {}).get("epoch", 0)
+        log(f"resuming from {resume_dir} at step {start_step}")
+    else:
+        alphabet = Alphabet.build(train_ds.transcripts())
+        model_config = cfg.model_config(alphabet.num_classes)
+        start_step, start_epoch = 0, 0
+
+    model = CnnLstmOcr(model_config)
+    if resuming:
+        model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    else:
+        init_parameters(model, torch.Generator().manual_seed(cfg.seed))
+    model.to(dev)
+
+    tx = make_optimizer(cfg)
+    state = TrainState(model=model,
+                       opt_state=tx.init(dict(model.named_parameters())),
+                       step=start_step)
+    if resuming and has_opt_state(resume_dir):
+        tx.load_numpy(state.opt_state, load_opt_state(resume_dir))
+    train_step = make_train_step(model, tx, cfg.label_average, cfg.ctc_impl,
+                                 grad_clip=cfg.grad_clip, seed=cfg.seed)
+    eval_step = make_eval_step(model)
+
+    train_pipe = BatchPipeline(train_ds, alphabet, contract,
+                               batch_pixels=cfg.batch_pixels,
+                               drop_remainder=True, shuffle=True,
+                               seed=cfg.seed)
+    if train_pipe.dropped:
+        log(f"warning: {train_pipe.dropped} train lines fit no bucket; dropped")
+    val_pipe = (
+        BatchPipeline(val_ds, alphabet, contract,
+                      batch_pixels=cfg.batch_pixels, drop_remainder=False,
+                      shuffle=False)
+        if val_ds is not None and len(val_ds) else None
+    )
+    plateau = PlateauController(cfg.lr, cfg.plateau_patience,
+                                cfg.plateau_decay, cfg.min_lr)
+
+    os.makedirs(cfg.snapshot_dir or ".", exist_ok=True)
+    metrics_f = (open(os.path.join(cfg.snapshot_dir, "metrics.jsonl"), "a")
+                 if cfg.snapshot_dir else None)
+
+    def emit(rec: dict):
+        if metrics_f:
+            metrics_f.write(json.dumps(rec) + "\n")
+            metrics_f.flush()
+
+    def snapshot(tag: str, step: int, epoch: int, extra: dict):
+        path = os.path.join(cfg.snapshot_dir, tag)
+        save_snapshot(
+            path, state_dict=model.state_dict(), model_config=model_config,
+            alphabet=alphabet, contract=contract, step=step,
+            opt_state=Optimizer.state_numpy(state.opt_state),
+            extra={"epoch": epoch, "train_config": dataclasses.asdict(cfg),
+                   **extra},
+        )
+        return path
+
+    log(f"training: {len(train_ds)} lines, alphabet={alphabet.num_classes}, "
+        f"device={dev}, setup {time.time() - t_setup:.1f}s")
+
+    step = start_step
+    best_cer = plateau.best
+    window_lines, window_t0 = 0, time.time()
+    last_val = (float("nan"), float("nan"))
+    summary_lines_per_sec = 0.0
+    profiler = None
+
+    def profile_tick():
+        nonlocal profiler
+        if cfg.profile_stop <= 0:
+            return
+        if cfg.profile_start <= step < cfg.profile_stop and profiler is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=acts)
+            profiler.start()
+        elif step >= cfg.profile_stop and profiler is not None:
+            stop_profile()
+
+    def stop_profile():
+        nonlocal profiler
+        profiler.stop()
+        out = os.path.join(cfg.snapshot_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+        key = ("self_device_time_total" if dev.type == "cuda"
+               else "self_cpu_time_total")
+        with open(os.path.join(out, "ops.txt"), "w") as f:
+            f.write(profiler.key_averages().table(sort_by=key, row_limit=40))
+        profiler = None
+        log(f"profile trace written to {out}")
+
+    def check_divergence(m, epoch: int):
+        # NaN'd parameters surface as a ~1e30 loss (the CTC's NEG_INF
+        # clamps), so guard on magnitude as well as finiteness.
+        loss_now = float(m["loss"])
+        gnorm_now = float(m["gnorm"])
+        if (not np.isfinite(loss_now) or abs(loss_now) > 1e20
+                or not np.isfinite(gnorm_now)):
+            snapshot("diverged", step, epoch, {"loss": loss_now})
+            raise FloatingPointError(
+                f"divergence at step {step}: loss={loss_now}, "
+                f"gnorm={gnorm_now}; state saved to "
+                f"{cfg.snapshot_dir}/diverged (resume from an earlier "
+                f"snapshot with a lower lr)")
+        return loss_now, gnorm_now
+
+    def log_window(epoch: int, loss_now: float, gnorm_now: float):
+        nonlocal window_lines, window_t0, summary_lines_per_sec
+        dt = max(time.time() - window_t0, 1e-9)
+        lps = window_lines / dt
+        summary_lines_per_sec = lps
+        rec = {"step": step, "epoch": epoch, "loss": round(loss_now, 4),
+               "gnorm": round(gnorm_now, 3), "lr": plateau.lr,
+               "lines": window_lines, "seconds": round(dt, 6),
+               "lines_per_sec": round(lps, 1)}
+        log(f"step {step}: {rec}")
+        emit(rec)
+        window_lines, window_t0 = 0, time.time()
+
+    def run_validation(epoch: int):
+        nonlocal best_cer, last_val
+        c, w, v_lps = evaluate(eval_step, val_pipe, alphabet, dev)
+        last_val = (c, w)
+        is_best = plateau.update(c)
+        rec = {"step": step, "val_cer": round(c, 5), "val_wer": round(w, 5),
+               "val_lines_per_sec": round(v_lps, 1), "lr": plateau.lr,
+               "best": is_best}
+        log(f"val @ {step}: {rec}")
+        emit(rec)
+        snapshot("last", step, epoch, {"val_cer": c, "val_wer": w})
+        if is_best:
+            best_cer = c
+            promote(os.path.join(cfg.snapshot_dir, "last"),
+                    os.path.join(cfg.snapshot_dir, "best"))
+
+    end_epoch = cfg.epochs if not cfg.max_steps else 10**9
+    cur_epoch = start_epoch
+    epoch = start_epoch
+    stop = False
+    while epoch < end_epoch and not stop:
+        cur_epoch = epoch
+        for batch in train_pipe.device_epoch(epoch, device=dev):
+            profile_tick()
+            weights = torch.from_numpy(batch.valid.astype(np.float32)).to(dev)
+            m = train_step(state, batch.images, batch.widths, batch.labels,
+                           batch.label_lengths, weights, plateau.lr)
+            step += 1
+            window_lines += batch.size
+            if step % cfg.log_interval == 0:
+                loss_now, gnorm_now = check_divergence(m, epoch)
+                log_window(epoch, loss_now, gnorm_now)
+            if step % cfg.val_interval_steps == 0 and val_pipe is not None:
+                run_validation(epoch)
+            if cfg.max_steps and step >= start_step + cfg.max_steps:
+                stop = True
+                break
+        epoch += 1
+        if not stop:
+            cur_epoch = epoch
+            snapshot("last", step, cur_epoch, {})
+
+    if profiler is not None:
+        stop_profile()
+    # the final snapshot records the real epoch, so a resume re-enters the
+    # loop where training stopped
+    snapshot("last", step, cur_epoch, {"final": True})
+    if metrics_f:
+        metrics_f.close()
+    return {
+        "steps": step,
+        "best_cer": best_cer if best_cer != float("inf") else None,
+        "last_val_cer": last_val[0],
+        "last_val_wer": last_val[1],
+        "lines_per_sec": summary_lines_per_sec,
+        "snapshot_dir": cfg.snapshot_dir,
+    }
+
+
+# --------------------------------------------------------------------------
+# CLI
+# --------------------------------------------------------------------------
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--preset", choices=sorted(PRESETS), default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a card)")
+    for f in dataclasses.fields(TrainConfig):
+        name = "--" + f.name.replace("_", "-")
+        if f.type == "bool" or isinstance(f.default, bool):
+            p.add_argument(name, action=argparse.BooleanOptionalAction,
+                           default=None)
+        elif f.name == "bucket_widths":
+            p.add_argument(name, type=str, default=None,
+                           help="comma-separated widths")
+        else:
+            typ = type(f.default) if f.default is not None else str
+            p.add_argument(name, type=typ, default=None)
+    return p
+
+
+def config_from_args(args) -> TrainConfig:
+    base = dict(PRESETS.get(args.preset or "", {}))
+    for f in dataclasses.fields(TrainConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            if f.name == "bucket_widths" and isinstance(v, str):
+                v = tuple(int(x) for x in v.split(","))
+            base[f.name] = v
+    return TrainConfig(**base)
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    cfg = config_from_args(args)
+    if not cfg.data_dir:
+        raise SystemExit("--data-dir is required")
+    if not cfg.snapshot_dir:
+        raise SystemExit("--snapshot-dir is required")
+    summary = fit(cfg, device=args.device)
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()
