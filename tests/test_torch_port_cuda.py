@@ -170,6 +170,19 @@ def _rel_err(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-6)).item()
 
 
+def _bf16_flips(a, b, slack=2e-6):
+    """(largest (|a - b| - slack) in bf16 ulps of the larger magnitude,
+    share of the elements that differ at all): roundings to bf16 of two
+    f32 values at most ``slack`` apart differ by at most ``slack`` plus one
+    ulp (near a cancelling sum's zero that is many ulps), and rarely."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    d = (a - b).abs()
+    return (((d - slack).clamp(min=0) / ulp).max().item(),
+            (d > 0).float().mean().item())
+
+
 @pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
                                    (70, 1, 100), (3, 9, 17)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -328,3 +341,203 @@ def test_ctc_loss_kernel_grads_match_plain(dev):
         assert out["pallas"][0] == pytest.approx(out[other][0], rel=1e-5)
         torch.testing.assert_close(out["pallas"][1], out[other][1],
                                    atol=2e-5, rtol=1e-4)
+
+
+# --- experiments: fused stem (K7a/K7b), direction-stacked BLSTM (K6a/K6b) ----
+
+# (B, H, W, CO): an odd shape with one width < W, and the two flagship
+# train shapes (2**21-pixel batches)
+STEM_SHAPES = [(3, 32, 45, 64), (32, 32, 2048, 64), (128, 32, 512, 64)]
+# (B, T, H): an odd shape with a ragged mask, and the flagship train shapes
+BI_SHAPES = [(5, 7, 40), (32, 512, 512), (128, 128, 512)]
+# bf16 bounds of kernel against plain, both reading the same bf16 operands
+# (the card's readings are in PERF.md): stored bf16 values one ulp (plus
+# the f32 difference, 2e-6) apart in at most this share of the elements; f32 ys/cs within one bf16 ulp of a
+# value in [0.5, 1); dxw, dwh and dK relative to their tensor's scale
+BF16_FLIP_SHARE = 2e-3
+BF16_YS_ABS = 2.0 ** -8
+BF16_BPTT_REL = 5e-3
+
+
+def _stem_operands(dev, B, H, W, CO, seed):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (B, H, W), np.uint8)
+    widths = rng.integers(W // 3, W + 1, B).astype(np.int32)
+    widths[0], widths[-1] = W, W - 7
+    # kernel scale 0.1 keeps |out| < 2, where one bf16 ulp is <= 2**-7
+    kernel = rng.normal(0, 0.1, (CO, 1, 3, 3)).astype(np.float32)
+    return (torch.from_numpy(images).to(dev), torch.from_numpy(widths).to(dev),
+            torch.from_numpy(kernel).to(dev))
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("standardize", [True, False])
+def test_stem_kernel_matches_plain(dev, shape, dtype, standardize):
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    images, widths, kernel = _stem_operands(dev, *shape, seed=sum(shape))
+    before = stem_cuda.STEM_LAUNCHES
+    out, xn = stem_cuda.stem_fwd_cuda(images, widths, kernel, standardize,
+                                      dtype)
+    ref_out, ref_xn = stem_cuda.fused_stem_ref(images, widths, kernel,
+                                               standardize, dtype)
+    torch.cuda.synchronize()
+    assert stem_cuda.STEM_LAUNCHES == before + 1
+    assert out.dtype == xn.dtype == dtype
+    assert out.shape == ref_out.shape and xn.shape == ref_xn.shape
+    for a, b in ((out, ref_out), (xn, ref_xn)):
+        if dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 1e-4
+        else:  # the same f32 values, rounded once on each side
+            ulps, share = _bf16_flips(a, b)
+            assert ulps <= 1 and share <= BF16_FLIP_SHARE
+    assert torch.equal(out[-1, :, :, shape[2] - 6:],
+                       torch.zeros_like(out[-1, :, :, shape[2] - 6:]))
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_dk_kernel_matches_plain(dev, shape, dtype):
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    B, H, W, CO = shape
+    images, widths, kernel = _stem_operands(dev, *shape, seed=sum(shape) + 1)
+    _, xn = stem_cuda.fused_stem_ref(images, widths, kernel, True, dtype)
+    rng = np.random.default_rng(B + W)
+    dout = torch.from_numpy(rng.normal(0, 1, (B, CO, H, W)).astype(
+        np.float32)).to(dev, dtype)
+    before = stem_cuda.STEM_DK_LAUNCHES
+    dk = stem_cuda.stem_dk_cuda(xn, dout)
+    again = stem_cuda.stem_dk_cuda(xn, dout)
+    ref = stem_cuda.stem_dk_ref(xn, dout)
+    torch.cuda.synchronize()
+    assert stem_cuda.STEM_DK_LAUNCHES == before + 2
+    assert dk.dtype == torch.float32 and dk.shape == (CO, 1, 3, 3)
+    assert torch.equal(dk, again)  # deterministic: no float atomics
+    # a sum over B*H*W products: f32 order alone, relative to its scale
+    assert _rel_err(dk, ref) <= 1e-4
+
+
+def _bi_operands(dev, B, T, H, seed):
+    rng = np.random.default_rng(seed)
+    xw = rng.normal(0, 1, (T, 2, B, 4 * H)).astype(np.float32)
+    wh = rng.normal(0, 1 / np.sqrt(H), (2, H, 4 * H)).astype(np.float32)
+    lengths = rng.integers(1, T + 1, B)
+    lengths[0] = T
+    m = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    mask = np.ascontiguousarray(np.stack([m, m[::-1]], axis=1))  # [T, 2, B]
+    dys = rng.normal(0, 1, (T, 2, B, H)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (xw, mask, wh, dys)]
+
+
+@pytest.mark.parametrize("shape", BI_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bi_lstm_fwd_kernel_matches_plain(dev, shape, dtype):
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
+
+    B, T, H = shape
+    xw, mask, wh, _ = _bi_operands(dev, B, T, H, seed=B + T + H)
+    before = bi.BI_FWD_LAUNCHES
+    ys, cs = bi.bi_lstm_fwd_cuda(xw, mask, wh.to(dtype), dtype)
+    ref_ys, ref_cs = bi.bi_recurrence_ref(xw, mask, wh, dtype, save_cell=True)
+    torch.cuda.synchronize()
+    assert bi.BI_FWD_LAUNCHES == before + 1
+    assert ys.dtype == cs.dtype == torch.float32 and ys.shape == (T, 2, B, H)
+    if dtype == torch.float32:
+        assert (ys - ref_ys).abs().max().item() <= 1e-4
+        assert _rel_err(cs, ref_cs) <= 1e-4
+    else:  # rare one-ulp flips of the rounded h, carried through T frames
+        assert (ys - ref_ys).abs().max().item() <= BF16_YS_ABS
+        assert (cs - ref_cs).abs().max().item() <= BF16_YS_ABS
+
+
+@pytest.mark.parametrize("shape", BI_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, BF16_BPTT_REL)])
+def test_bi_lstm_bwd_kernel_matches_plain(dev, shape, dtype, tol):
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
+
+    B, T, H = shape
+    xw, mask, wh, dys = _bi_operands(dev, B, T, H, seed=B * T + H)
+    ys, cs = bi.bi_recurrence_ref(xw, mask, wh, dtype, save_cell=True)
+    before = bi.BI_BWD_LAUNCHES
+    dxw, dwh = bi.bi_lstm_bwd_cuda(xw, mask, wh.to(dtype), ys, cs, dys, dtype)
+    ref_dxw, ref_dwh = bi.bi_bptt_ref(xw, mask, wh, ys, cs, dys, dtype)
+    torch.cuda.synchronize()
+    assert bi.BI_BWD_LAUNCHES == before + 1
+    assert dxw.shape == xw.shape and dwh.shape == wh.shape
+    # relative to each tensor's scale: dwh sums (T-1)*B products per entry,
+    # in one product after the loop instead of frame by frame
+    assert _rel_err(dxw, ref_dxw) <= tol
+    assert _rel_err(dwh, ref_dwh) <= tol
+
+
+def test_experiment_kernels_refuse_cpu_tensors(dev):
+    """plain=False never runs a plain version in a kernel's place: the
+    wrappers raise on CPU tensors, and so does a call that mixes devices."""
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    images, widths, kernel = _stem_operands(torch.device("cpu"), 2, 8, 16, 4,
+                                            seed=1)
+    xw, mask, wh, dys = _bi_operands(torch.device("cpu"), 2, 3, 4, seed=1)
+    calls = [
+        lambda: stem_cuda.stem_fwd_cuda(images, widths, kernel, True,
+                                        torch.float32),
+        lambda: stem_cuda.stem_dk_cuda(images.float(),
+                                       torch.zeros((2, 4, 8, 16))),
+        lambda: bi.bi_lstm_fwd_cuda(xw, mask, wh, torch.float32),
+        lambda: bi.bi_lstm_bwd_cuda(xw, mask, wh, dys, dys, dys,
+                                    torch.float32),
+        lambda: stem_cuda.fused_stem(images, widths, kernel.to(dev),
+                                     plain=False),
+        lambda: bi.bi_recurrence(xw, mask, wh.to(dev), plain=False),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_experiment_functions_backward_on_cuda(dev, dtype):
+    """The autograd Functions run both kernels of each pair on the card
+    and agree with their plain runs (``plain=True``) there; in bf16 they
+    also cast the incoming gradients and ``wh`` as the plain runs do."""
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    images, widths, kernel = _stem_operands(dev, 4, 32, 96, 16, seed=2)
+    rng = np.random.default_rng(3)
+    B, T, D, H = 6, 9, 12, 20
+    x = torch.from_numpy(rng.normal(0, 1, (B, T, D)).astype(np.float32)).to(dev)
+    w = [torch.from_numpy(rng.normal(0, s, shp).astype(np.float32)).to(dev)
+         for _ in range(2) for s, shp in ((0.3, (D, 4 * H)), (0.3, (H, 4 * H)),
+                                           (0.1, (4 * H,)))]
+    lengths = torch.tensor([9, 7, 1, 5, 9, 3], device=dev)
+    fmask = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+    before = (stem_cuda.STEM_LAUNCHES, stem_cuda.STEM_DK_LAUNCHES,
+              bi.BI_FWD_LAUNCHES, bi.BI_BWD_LAUNCHES)
+    grads = []
+    for plain in (False, True):
+        k = kernel.clone().requires_grad_(True)
+        out = stem_cuda.fused_stem(images, widths, k, True, dtype,
+                                   plain=plain)
+        assert out.dtype == dtype
+        (out * out).sum().backward()
+        ws = [t.clone().requires_grad_(True) for t in w]
+        ys = bi.bilstm_layer_stacked(x, fmask, *ws, dtype=dtype, plain=plain)
+        (ys * ys).sum().backward()
+        grads.append([out, k.grad, ys] + [t.grad for t in ws])
+    assert (stem_cuda.STEM_LAUNCHES, stem_cuda.STEM_DK_LAUNCHES,
+            bi.BI_FWD_LAUNCHES, bi.BI_BWD_LAUNCHES) == tuple(
+                n + 1 for n in before)
+    (out_k, *rest_k), (out_p, *rest_p) = grads
+    if dtype == torch.float32:
+        assert _rel_err(out_k, out_p) <= 1e-4
+    else:
+        ulps, share = _bf16_flips(out_k, out_p)
+        assert ulps <= 1 and share <= BF16_FLIP_SHARE
+    tol = 1e-4 if dtype == torch.float32 else BF16_BPTT_REL
+    for a, b in zip(rest_k, rest_p):
+        assert _rel_err(a, b) <= tol

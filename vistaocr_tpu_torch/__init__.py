@@ -18,6 +18,9 @@ alpha/beta recursions in hand-written CUDA kernels (``csrc/*.cu``).
 - ``decode``   : greedy CTC collapse
 - ``serve``    : width-routed batched service
 - ``train``    : ``TrainConfig``, ``fit`` and the trainer's CLI
+- ``experiments``: the fused stem and the direction-stacked BLSTM with
+  their own kernels, measured against the production path (the model
+  does not import them)
 """
 
 __version__ = "0.1.0"

@@ -48,8 +48,9 @@ class ModelConfig:
     standardize_input: bool = True
     compute_dtype: str = "float32"  # "bfloat16" on the card
     lstm_impl: str = "auto"  # auto | scan | pallas | pallas_interpret
-    # Legacy field ("auto"/"plain" only): the fused stem lives in
-    # experiments/ of the JAX package; kept so old snapshots load.
+    # Legacy field ("auto"/"plain" only): the fused stem is an experiment
+    # (vistaocr_tpu_torch/experiments/stem_cuda.py); kept so old snapshots
+    # load.
     stem_impl: str = "auto"
     augment: float = 0.0  # train-time only
     conv_norm: str = "batch"
@@ -91,8 +92,9 @@ class CnnLstmOcr(nn.Module):
         cfg = config
         if cfg.stem_impl not in ("auto", "plain"):
             raise ValueError(
-                f"stem_impl={cfg.stem_impl!r}: the fused stem was rejected "
-                "on measurement and lives in experiments/stem_pallas.py"
+                f"stem_impl={cfg.stem_impl!r}: the fused stem is not a model "
+                "option; it is the experiment "
+                "vistaocr_tpu_torch/experiments/stem_cuda.py (fused_stem)"
             )
         self.config = cfg
         c0 = cfg.stages[0].channels

@@ -135,6 +135,34 @@ def _bind(lib) -> None:
         p, p, p, p, p, p, p, p, p,
         p,  # stream
     ]
+    lib.vo_bi_lstm_fwd.restype = i
+    lib.vo_bi_lstm_fwd.argtypes = [
+        i, i, i, i,  # w_type, T, B, H
+        p, p, p, p, p,  # xw, mask, wh, ys, cs
+        p,  # stream
+    ]
+    lib.vo_bi_lstm_bwd.restype = i
+    lib.vo_bi_lstm_bwd.argtypes = [
+        i, i, i, i,  # w_type, T, B, H
+        p, p, p, p, p, p,  # xw, mask, wh, ys, cs, dys
+        p, p, p,  # dxw, dwh, scratch
+        p,  # stream
+    ]
+    lib.vo_stem_partials.restype = ctypes.c_longlong
+    lib.vo_stem_partials.argtypes = [i, i, i]  # B, H, W
+    lib.vo_stem_fwd.restype = i
+    lib.vo_stem_fwd.argtypes = [
+        i, i, i, i, i,  # type_code, B, H, W, CO
+        i, i,  # standardize, vec
+        p, p, p, p, p, p,  # images, widths, kernel, stats, out, xn
+        p,  # stream
+    ]
+    lib.vo_stem_dk.restype = i
+    lib.vo_stem_dk.argtypes = [
+        i, i, i, i, i, i,  # type_code, B, H, W, CO, vec
+        p, p, p, p,  # xn, dout, partial, dk
+        p,  # stream
+    ]
 
 
 def load():
