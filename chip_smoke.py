@@ -27,9 +27,16 @@ the exit code is non-zero and no ``ok`` line is printed):
              off, f32 and bf16: the ``save_cell`` forward and the BPTT
              (frames + dwh) of both directions at an odd shape (B=5, T=7,
              H=40) and the flagship training shapes (B=32, T=512 and
-             B=128, T=128, H=512); the CTC alpha/beta recursions at an odd
-             shape (empty label, infeasible sample) and B=32, T=512,
-             L=255, K=96. Times from CUDA events after warm-up.
+             B=128, T=128, H=512), the BPTT frames and dwh run twice on
+             the same inputs (bit-equal); the CTC alpha/beta recursions at
+             an odd shape (empty label, infeasible sample) and B=32,
+             T=512, L=255, K=96. Times from CUDA events after warm-up,
+             ``bptt_gates`` and ``bptt_dh`` per launch from
+             ``torch.profiler`` over one ``lstm_bptt_frames`` call, beside
+             each kernel's bound and the library call that computes the
+             same function where there is one (``torch.mm`` for dwh and,
+             the product alone, for one frame's dh; ``F.ctc_loss``
+             forward+backward for alpha+beta).
 7. train   - ``train.fit`` with the flagship ``TrainConfig`` (bf16,
              dropout 0.1, Adam 1e-3, clip 5, ``--preset full``: auto
              ladder over a 2**21-pixel budget) on a seeded glyph data set
@@ -74,7 +81,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              side by side: finite log-probs, each loss within 1e-3 of
              the f32 production loss.
 
-The last three lines are a JSON object with one row per kernel, the
+The last three lines are a JSON object with one row per kernel (its
+launches on the main path, error against its plain version, time, plain
+time, library time or null, and bound: the bytes moved at 3.35 TB/s or
+the operations at the operand type's peak, whichever is larger), the
 ``nvidia-smi`` name/power-limit line, and the ``ok`` JSON object.
 """
 
@@ -187,7 +197,11 @@ def kernel_phase(dev, card: str, shapes=(ODD_SHAPE, FLAGSHIP_SHAPE)) -> dict:
                 plain_ms = _cuda_ms(plain, 3)
             print(f"time {tag}, both directions: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms ({card})", flush=True)
-            row[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # xw, wh and the mask read once, ys written once
+            nbytes = _nbytes(mask, fwd[0], bwd[0], fwd[1], bwd[1], ys_f, ys_b)
+            row[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None,
+                          **_bound(nbytes, 2 * T * 2 * B * H * 4 * H, dtype)}
     return row
 
 
@@ -313,9 +327,69 @@ def _abs(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and FLOP/s of
+# the bf16 tensor cores and of the f32 units outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time the card could take: the bytes moved (each input
+    read once, each output written once) over the memory rate, or the
+    operations over the peak rate of the operand type, the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtname(dtype)] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _kernel_us(fn, names) -> dict:
+    """{name: (device time per launch in us, launches)} of the kernels
+    whose names contain each of ``names``, from ``torch.profiler`` over
+    one call of ``fn`` after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        evs = [e for e in prof.key_averages() if name in e.key]
+        n = sum(e.count for e in evs)
+        total = sum(e.self_device_time_total for e in evs)
+        _require(n > 0 and total > 0, f"the profiler timed {name}")
+        out[name] = (total / n, n)
+    return out
+
+
+def dwh_one_product(ys, dxw, reverse: bool, dtype):
+    """The library yardstick of the ``lstm_dwh`` kernel: the same function
+    as one ``torch.mm`` over the (T-1)*B rows at a one-frame offset
+    (forward: ys[0..T-2] with dxw[1..T-1]; reverse: ys[1..T-1] with
+    dxw[0..T-2]), operands rounded to ``dtype``, f32 accumulation. On the
+    card a bf16 product is one cuBLAS bf16 GEMM with f32 output; otherwise
+    the rounded operands are multiplied in f32 (TF32 off)."""
+    import torch
+
+    H = ys.shape[2]
+    a = (ys[1:] if reverse else ys[:-1]).reshape(-1, H).to(dtype)
+    c = (dxw[:-1] if reverse else dxw[1:]).reshape(-1, 4 * H).to(dtype)
+    if a.is_cuda and dtype == torch.bfloat16:
+        return torch.mm(a.T, c, out_dtype=torch.float32)
+    return torch.mm(a.float().T, c.float())
+
+
 def lstm_train_kernels(dev, card: str) -> dict:
     """save_cell forward, BPTT frames + dwh (both directions) against the
-    plain versions; times at each flagship shape, rows at the last."""
+    plain versions, the BPTT kernels twice on the same inputs (bit-equal);
+    times at each flagship shape beside the bounds and library calls."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -358,8 +432,20 @@ def lstm_train_kernels(dev, card: str) -> dict:
                   f"max|d|={e_dwh:.3e} (rel {r_dwh:.2e}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"LSTM training kernels agree with plain: {tag}")
+            ddirs = [(d[2], g, d[5]) for d, (g, _) in zip(bdirs, ref_b)]
+            with torch.no_grad():  # the redesigned kernels, run twice
+                same = (all(torch.equal(a, b) for a, b in zip(
+                    dxw_k, L.lstm_bptt_frames(kdirs, mask, dtype))) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        dwh_k, L.lstm_dwh(ddirs, dtype))))
+            print(f"BPTT frames and dwh twice on the same inputs {tag}: "
+                  f"bit-equal {same}", flush=True)
+            _require(same, f"BPTT kernels deterministic: {tag}")
             if (B, T, H) == LSTM_TRAIN_SHAPES[0]:
                 continue
+            lib_mm = ((lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
+                      if dtype == torch.bfloat16 else torch.mm)
+            dg = [g[T // 2].to(dtype) for g, _ in ref_b]  # one frame's dgates
             with torch.no_grad():
                 t = {
                     "fwd": _cuda_ms(lambda: L.lstm_forward_cells(
@@ -369,29 +455,81 @@ def lstm_train_kernels(dev, card: str) -> dict:
                     "bwd": _cuda_ms(lambda: L.lstm_bptt(bdirs, mask, dtype), 5),
                     "bwd_plain": _cuda_ms(lambda: L.lstm_bptt(
                         bdirs, mask, dtype, plain=True), 1),
-                    "dwh": _cuda_ms(lambda: L.lstm_dwh(
-                        [(d[2], g, d[5]) for d, (g, _) in zip(bdirs, ref_b)],
-                        dtype), 5),
+                    "frames": _cuda_ms(lambda: L.lstm_bptt_frames(
+                        kdirs, mask, dtype), 5),
+                    "dwh": _cuda_ms(lambda: L.lstm_dwh(ddirs, dtype), 20),
                     "dwh_plain": _cuda_ms(lambda: [L.lstm_dwh_ref(
-                        d[2], g, reverse=d[5], dtype=dtype)
-                        for d, (g, _) in zip(bdirs, ref_b)], 1),
+                        y, g, reverse=r, dtype=dtype) for y, g, r in ddirs], 1),
+                    "dwh_lib": _cuda_ms(lambda: [dwh_one_product(
+                        y, g, r, dtype) for y, g, r in ddirs], 20),
+                    # the per-frame dh product alone, both directions
+                    "dh_lib": _cuda_ms(lambda: [lib_mm(x, w.T) for x, w
+                                                in zip(dg, whq)], 50),
                 }
+                per = _kernel_us(lambda: L.lstm_bptt_frames(kdirs, mask,
+                                                            dtype),
+                                 ("bptt_gates", "bptt_dh"))
+            # bounds: each input read once, each output written once
+            R = (T - 1) * B
+            prod = 2 * B * H * 4 * H  # one frame's product, one direction
+            fwd_bytes = _nbytes(mask, *(x for x, _, _ in dirs), *whq,
+                                *(a for yc in ref for a in yc))
+            frame_in = _nbytes(mask, *(x for x, *_ in kdirs), *whq,
+                               *(a for d in kdirs for a in d[2:5]))
+            dxw_bytes = _nbytes(*(g for g, _ in ref_b))
+            dwh_bytes = _nbytes(*(w for _, w in ref_b))
+            dwh_in = _nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
+            # per launch: dh reads wh, a frame's dgates, dys, mask, the dh
+            # carry and writes it; gates read xw[t], wh, ys[tp], cs[t],
+            # cs[tp], dys[t], both carries, and write dc and dxw[t]
+            f32b, sb = 4 * B * H, dg[0].element_size() * B * H
+            dh_bytes = 2 * (_nbytes(whq[0]) + 4 * sb + sb + 2 * f32b) + 4 * B
+            gates_bytes = 2 * (_nbytes(whq[0]) + 8 * sb + 3 * f32b + 4 * sb
+                               ) + 4 * B
+            row_dh = _bound(dh_bytes, 2 * prod, dtype)
+            row_gates = _bound(gates_bytes, 2 * prod, dtype)
             print(f"time {tag}, both directions: save_cell fwd {t['fwd']:.3f}"
                   f" ms (plain {t['fwd_plain']:.3f}); BPTT frames+dwh "
-                  f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}); dwh "
-                  f"{t['dwh']:.3f} ms (plain {t['dwh_plain']:.3f}) ({card})",
-                  flush=True)
+                  f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}; frames "
+                  f"alone {t['frames']:.3f}); per launch (torch.profiler, "
+                  f"{per['bptt_gates'][1]}/{per['bptt_dh'][1]} launches): "
+                  f"bptt_gates {per['bptt_gates'][0]:.2f} us (bound "
+                  f"{row_gates['bound_ms'] * 1e3:.2f}), bptt_dh "
+                  f"{per['bptt_dh'][0]:.2f} us (bound "
+                  f"{row_dh['bound_ms'] * 1e3:.2f}; torch.mm per frame, the "
+                  f"product alone, {t['dh_lib'] * 1e3:.2f}); dwh "
+                  f"{t['dwh']:.4f} ms (plain {t['dwh_plain']:.3f}, torch.mm "
+                  f"{t['dwh_lib']:.4f}) ({card})", flush=True)
             rows[(B, T, dtype)] = {
-                "lstm_fwd_save_cell": (e_fwd, t["fwd"], t["fwd_plain"]),
-                "lstm_bwd": (e_dxw, t["bwd"], t["bwd_plain"]),
-                "lstm_dwh": (e_dwh, t["dwh"], t["dwh_plain"]),
+                "lstm_fwd_save_cell": {
+                    "max_abs_err": e_fwd, "ms": t["fwd"],
+                    "plain_ms": t["fwd_plain"], "library_ms": None,
+                    **_bound(fwd_bytes, 2 * T * prod, dtype)},
+                "lstm_bwd": {
+                    "max_abs_err": e_dxw, "ms": t["bwd"],
+                    "plain_ms": t["bwd_plain"], "library_ms": None,
+                    **_bound(frame_in + dxw_bytes + dwh_bytes,
+                             2 * (2 * T * prod + 2 * R * H * 4 * H), dtype),
+                    "frames_ms": t["frames"],
+                    "bptt_gates_us": per["bptt_gates"][0],
+                    "bptt_gates_bound_us": row_gates["bound_ms"] * 1e3,
+                    "bptt_dh_us": per["bptt_dh"][0],
+                    "bptt_dh_bound_us": row_dh["bound_ms"] * 1e3,
+                    "bptt_dh_library_us": t["dh_lib"] * 1e3},
+                "lstm_dwh": {
+                    "max_abs_err": e_dwh, "ms": t["dwh"],
+                    "plain_ms": t["dwh_plain"], "library_ms": t["dwh_lib"],
+                    **_bound(dwh_in + dwh_bytes, 2 * 2 * R * H * 4 * H,
+                             dtype)},
             }
     return rows
 
 
 def ctc_train_kernels(dev, card: str) -> dict:
-    """CTC alpha/beta kernels against the plain versions (f32)."""
+    """CTC alpha/beta kernels against the plain versions (f32); at the
+    flagship shape timed beside ``F.ctc_loss`` forward+backward."""
     import torch
+    import torch.nn.functional as F
     from vistaocr_tpu_torch.ops import ctc_cuda as C
 
     rows = {}
@@ -447,11 +585,34 @@ def ctc_train_kernels(dev, card: str) -> dict:
                 lp_ext, active, islast, skip2, svalid, terminal, ref_a,
                 logp), 2),
         }
-        print(f"time {tag}: alpha {t['a']:.3f} ms (plain {t['a_plain']:.3f}),"
-              f" beta {t['b']:.3f} ms (plain {t['b_plain']:.3f}) ({card})",
-              flush=True)
-        rows["ctc_alpha"] = (e_a, t["a"], t["a_plain"])
-        rows["ctc_beta"] = (e_b, t["b"], t["b_plain"])
+        # the library call computing both recursions' function: the CTC
+        # loss and its gradient (infeasible samples zeroed)
+        lp_tbk = lp.transpose(0, 1).detach().contiguous()
+        labels_t = torch.from_numpy(labels).to(dev).long()
+
+        def library():
+            x = lp_tbk.clone().requires_grad_(True)
+            F.ctc_loss(x, labels_t, il_t.long(), ll_t.long(), blank=0,
+                       reduction="sum", zero_infinity=True).backward()
+
+        t["lib"] = _cuda_ms(library, 10)
+        S = lp_ext.shape[2]
+        ops = 10 * T * B * S  # per state and frame: 3 exp, 1 log, 6 add/max
+        rows["ctc_alpha"] = {
+            "max_abs_err": e_a, "ms": t["a"], "plain_ms": t["a_plain"],
+            "library_ms": t["lib"],
+            **_bound(_nbytes(lp_ext, active, skip, svalid, alphas), ops,
+                     torch.float32)}
+        rows["ctc_beta"] = {
+            "max_abs_err": e_b, "ms": t["b"], "plain_ms": t["b_plain"],
+            "library_ms": t["lib"],
+            **_bound(_nbytes(lp_ext, active, islast, skip2, svalid, terminal,
+                             ref_a, logp, dlp), ops, torch.float32)}
+        print(f"time {tag}: alpha {t['a']:.3f} ms (plain {t['a_plain']:.3f},"
+              f" bound {rows['ctc_alpha']['bound_ms']:.4f}), beta "
+              f"{t['b']:.3f} ms (plain {t['b_plain']:.3f}, bound "
+              f"{rows['ctc_beta']['bound_ms']:.4f}); F.ctc_loss forward+"
+              f"backward {t['lib']:.3f} ms ({card})", flush=True)
     return rows
 
 
@@ -711,9 +872,20 @@ def stem_experiment_kernels(dev, card: str) -> dict:
                   f"{t['fwd_plain']:.4f}, production {t['fwd_prod']:.4f}); "
                   f"dK {t['dk']:.4f} ms (plain {t['dk_plain']:.4f}, "
                   f"production {t['dk_prod']:.4f}) ({card})", flush=True)
+            conv_ops = 2 * 9 * CO * B * H * W
             rows[(B, W, _dtname(dtype))] = {
-                "stem_fwd": (e_fwd, t["fwd"], t["fwd_plain"], t["fwd_prod"]),
-                "stem_dk": (e_dk, t["dk"], t["dk_plain"], t["dk_prod"]),
+                "stem_fwd": {
+                    "max_abs_err": e_fwd, "ms": t["fwd"],
+                    "plain_ms": t["fwd_plain"], "library_ms": None,
+                    **_bound(_nbytes(images, widths, kernel, out, xn),
+                             conv_ops, dtype),
+                    "production_ms": t["fwd_prod"]},
+                # the production weight gradient is one library call
+                "stem_dk": {
+                    "max_abs_err": e_dk, "ms": t["dk"],
+                    "plain_ms": t["dk_plain"], "library_ms": t["dk_prod"],
+                    **_bound(_nbytes(xn, dout, dk), conv_ops, dtype),
+                    "production_ms": t["dk_prod"]},
             }
     return rows
 
@@ -807,11 +979,20 @@ def bi_experiment_kernels(dev, card: str) -> dict:
                   f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}, "
                   f"production K2/K3 {t['bwd_prod']:.3f}) ({card})",
                   flush=True)
+            prod = 2 * 2 * T * 2 * B * H * 4 * H  # both planes, all frames
+            R = (T - 1) * B
             rows[(B, T, _dtname(dtype))] = {
-                "bi_lstm_fwd": (e_fwd, t["fwd"], t["fwd_plain"],
-                                t["fwd_prod"]),
-                "bi_lstm_bwd": (e_dxw, t["bwd"], t["bwd_plain"],
-                                t["bwd_prod"]),
+                "bi_lstm_fwd": {
+                    "max_abs_err": e_fwd, "ms": t["fwd"],
+                    "plain_ms": t["fwd_plain"], "library_ms": None,
+                    **_bound(_nbytes(xw, mask, whq, ys, cs), prod, dtype),
+                    "production_ms": t["fwd_prod"]},
+                "bi_lstm_bwd": {
+                    "max_abs_err": e_dxw, "ms": t["bwd"],
+                    "plain_ms": t["bwd_plain"], "library_ms": None,
+                    **_bound(_nbytes(xw, mask, whq, rys, rcs, dys, dxw, dwh),
+                             2 * prod + 2 * 2 * R * H * 4 * H, dtype),
+                    "production_ms": t["bwd_prod"]},
             }
     return rows
 
@@ -996,19 +1177,18 @@ def main() -> int:
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
     exp_counts = experiments_path_phase(dev, font, smi)
 
-    bf16, f32 = rows[torch.bfloat16], rows[torch.float32]
+    def with_f32(row: dict, f32_row: dict) -> dict:
+        """A kernel's bf16 numbers, and its f32 ones under f32_ names."""
+        return {**row, **{f"f32_{k}": v for k, v in f32_row.items()
+                          if k != "bound_by"}}
+
     kernels = [{
         "name": "lstm_fwd",
         "route": "cuda",
         "source": "vistaocr_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "vistaocr_tpu/ops/lstm_pallas.py:51",
         "launches": launches,
-        "max_abs_err": bf16["max_abs_err"],
-        "ms": bf16["ms"],
-        "plain_ms": bf16["plain_ms"],
-        "f32_max_abs_err": f32["max_abs_err"],
-        "f32_ms": f32["ms"],
-        "f32_plain_ms": f32["plain_ms"],
+        **with_f32(rows[torch.bfloat16], rows[torch.float32]),
     }]
     main_shape = LSTM_TRAIN_SHAPES[-1][:2]  # B=32, T=512: the W=2048 bucket
     lstm_meta = {
@@ -1018,14 +1198,12 @@ def main() -> int:
         "lstm_dwh": ("lstm_bwd.cu", "lstm_pallas.py:264", "DWH_LAUNCHES"),
     }
     for name, (src, rep, counter) in lstm_meta.items():
-        e, ms, plain = lstm_rows[(*main_shape, torch.bfloat16)][name]
-        e32, ms32, plain32 = lstm_rows[(*main_shape, torch.float32)][name]
         row = {"name": name, "route": "cuda",
                "source": f"vistaocr_tpu_torch/csrc/{src}",
                "replaces": f"vistaocr_tpu/ops/{rep}",
-               "launches": counts[counter], "max_abs_err": e, "ms": ms,
-               "plain_ms": plain, "f32_max_abs_err": e32, "f32_ms": ms32,
-               "f32_plain_ms": plain32}
+               "launches": counts[counter],
+               **with_f32(lstm_rows[(*main_shape, torch.bfloat16)][name],
+                          lstm_rows[(*main_shape, torch.float32)][name])}
         if name == "lstm_bwd":
             row["also_replaces"] = "vistaocr_tpu/ops/lstm_pallas.py:334"
         kernels.append(row)
@@ -1033,12 +1211,12 @@ def main() -> int:
                                 "ALPHA_LAUNCHES"),
                                ("ctc_beta", "ctc_pallas.py:157",
                                 "BETA_LAUNCHES")):
-        e, ms, plain = ctc_rows[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": "vistaocr_tpu_torch/csrc/ctc.cu",
                         "replaces": f"vistaocr_tpu/ops/{rep}",
-                        "launches": counts[counter], "max_abs_err": e,
-                        "ms": ms, "plain_ms": plain})
+                        "launches": counts[counter], **ctc_rows[name],
+                        "library_call": "F.ctc_loss forward+backward "
+                                        "(ctc_alpha and ctc_beta together)"})
     # the experiments: rows at the W=2048 bucket's shapes, bf16 (f32 beside)
     exp_meta = {
         "bi_lstm_fwd": ("lstm_bi_stacked.cu", "lstm_bi_stacked.py:31",
@@ -1051,15 +1229,12 @@ def main() -> int:
                     stem_rows, (32, 2048)),
     }
     for name, (src, rep, counter, table, shape) in exp_meta.items():
-        e, ms, plain, prod = table[(*shape, "bfloat16")][name]
-        e32, ms32, plain32, prod32 = table[(*shape, "float32")][name]
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vistaocr_tpu_torch/csrc/{src}",
                         "replaces": f"experiments/{rep}",
-                        "launches": exp_counts[counter], "max_abs_err": e,
-                        "ms": ms, "plain_ms": plain, "production_ms": prod,
-                        "f32_max_abs_err": e32, "f32_ms": ms32,
-                        "f32_plain_ms": plain32, "f32_production_ms": prod32})
+                        "launches": exp_counts[counter],
+                        **with_f32(table[(*shape, "bfloat16")][name],
+                                   table[(*shape, "float32")][name])})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

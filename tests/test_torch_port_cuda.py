@@ -1,7 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
-(csrc/lstm_fwd.cu in both forms, csrc/lstm_bwd.cu's BPTT and dwh,
-csrc/ctc.cu's alpha/beta) against their plain PyTorch versions, including
-ragged B/H edges, T = 1, empty labels and an infeasible CTC sample; their
+(csrc/lstm_fwd.cu in both forms, csrc/lstm_bwd.cu's BPTT and dwh in all
+four stream/weight type pairs, csrc/ctc.cu's alpha/beta) against their
+plain PyTorch versions, including ragged B/H edges and the tile edges,
+T = 1, empty labels and an infeasible CTC sample; the BPTT kernels'
+determinism and dwh against one cuBLAS GEMM; their
 launch counters; the autograd Functions' backward on the card; and the
 model and service paths that launch them. Every test is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it runs
@@ -244,6 +246,103 @@ def test_bptt_matches_plain(dev, shape, dtype):
         else:
             assert _rel_err(dxw, rdxw) <= _BF16_REL
             assert _rel_err(dwh, rdwh) <= _BF16_REL
+
+
+_TYPE_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+
+
+def _typed_bptt_operands(dev, B, T, H, stream, compute, seed):
+    """Both directions' BPTT operands with the streams in ``stream`` and
+    the saved states from the plain forward at ``compute``."""
+    xw, mask, wh = _operands(dev, B, T, H, torch.float32, seed)
+    xw = xw.to(stream)
+    rng = np.random.default_rng(seed + 7)
+    dirs = []
+    for rev in (False, True):
+        with torch.no_grad():
+            ys, cs = lstm_cuda.lstm_recurrence_ref(
+                xw, mask, wh, reverse=rev, dtype=compute, save_cell=True)
+        dys = torch.from_numpy(rng.normal(0, 1, (T, B, H)).astype(np.float32))
+        dirs.append((xw, wh, ys, cs, dys.to(dev, stream), rev))
+    return dirs, mask
+
+
+def _check_bptt(dev, B, T, H, stream, compute):
+    dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute,
+                                      seed=B * T + H)
+    before = (lstm_cuda.BWD_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
+    with torch.no_grad():
+        got = lstm_cuda.lstm_bptt(dirs, mask, compute)
+        ref = lstm_cuda.lstm_bptt(dirs, mask, compute, plain=True)
+    torch.cuda.synchronize()
+    assert lstm_cuda.BWD_LAUNCHES == before[0] + 1
+    assert lstm_cuda.DWH_LAUNCHES == before[1] + 1
+    for (dxw, dwh), (rdxw, rdwh) in zip(got, ref):
+        assert dxw.dtype == stream and dxw.shape == (T, B, 4 * H)
+        assert dwh.dtype == torch.float32 and dwh.shape == (H, 4 * H)
+        if stream == compute == torch.float32:  # summation order only
+            torch.testing.assert_close(dxw, rdxw, atol=2e-4, rtol=1e-3)
+            torch.testing.assert_close(dwh, rdwh, atol=2e-4, rtol=1e-3)
+        else:
+            assert _rel_err(dxw, rdxw) <= _BF16_REL
+            assert _rel_err(dwh, rdwh) <= _BF16_REL
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
+                                   (3, 9, 17)])
+@pytest.mark.parametrize("stream,compute", _TYPE_PAIRS[2:])
+def test_bptt_mixed_types_match_plain(dev, shape, stream, compute):
+    """Type codes 2 (f32 streams, bf16 W) and 3 (bf16 streams, f32 W)."""
+    _check_bptt(dev, *shape, stream, compute)
+
+
+# the edges of the tiles: bptt_dh's 64 units x 32/64/128 batch rows and
+# 4H/8-column slices, lstm_dwh's 128 x 128 tiles, 64-row stages and TMA's
+# 16-byte rows (H % 8), and T = 1 (no dwh rows) and 2 (one frame's rows)
+@pytest.mark.parametrize("shape", [(8, 2, 64), (9, 2, 65), (128, 3, 64),
+                                   (129, 2, 65), (8, 1, 520), (9, 3, 520)])
+@pytest.mark.parametrize("stream,compute", _TYPE_PAIRS)
+def test_bptt_tile_edges_match_plain(dev, shape, stream, compute):
+    _check_bptt(dev, *shape, stream, compute)
+
+
+@pytest.mark.parametrize("stream,compute", _TYPE_PAIRS)
+def test_bptt_and_dwh_are_deterministic(dev, stream, compute):
+    """Fixed summation orders, no float atomics: two runs, the same bits."""
+    dirs, mask = _typed_bptt_operands(dev, 33, 9, 72, stream, compute, seed=2)
+    kdirs = [(x, w.to(compute).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    with torch.no_grad():
+        runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, compute)
+                for _ in range(2)]
+        dwhs = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g
+                                    in zip(dirs, runs[0])], compute)
+                for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for a, b in zip(*dwhs):
+        assert torch.equal(a, b)
+
+
+def test_dwh_matches_torch_mm_at_flagship(dev):
+    """bf16 at B=32, T=512, H=512: the wgmma kernel against one cuBLAS
+    bf16 GEMM with f32 output over the same (T-1)*B rows (the same
+    products; f32 sums in another order)."""
+    B, T, H = 32, 512, 512
+    rng = np.random.default_rng(11)
+    dirs = []
+    for rev in (False, True):
+        ys, dxw = (torch.from_numpy(rng.normal(0, 1, shp).astype(np.float32))
+                   .to(dev, torch.bfloat16)
+                   for shp in ((T, B, H), (T, B, 4 * H)))
+        dirs.append((ys, dxw, rev))
+    got = lstm_cuda.lstm_dwh(dirs, torch.bfloat16)
+    for dwh, (ys, dxw, rev) in zip(got, dirs):
+        a = (ys[1:] if rev else ys[:-1]).reshape(-1, H)
+        c = (dxw[:-1] if rev else dxw[1:]).reshape(-1, 4 * H)
+        ref = torch.mm(a.T, c, out_dtype=torch.float32)
+        assert _rel_err(dwh, ref) <= 1e-5
 
 
 def test_autograd_backward_on_cuda_matches_plain_bptt(dev):

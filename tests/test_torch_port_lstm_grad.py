@@ -144,3 +144,37 @@ def test_stack_gradient_matches_pallas_interpret_layer():
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4,
                                    rtol=1e-3)
+
+
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.mark.parametrize("stream,compute", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_dwh_yardstick_is_the_kernels_function(stream, compute, reverse):
+    """The one-product form ``chip_smoke.dwh_one_product`` times beside
+    the ``lstm_dwh`` kernel (one ``torch.mm`` over the (T-1)*B rows at a
+    one-frame offset, operands rounded to the compute dtype, f32 sums)
+    equals the plain ``lstm_dwh_ref`` and the dwh of ``_bwd_kernel`` /
+    ``_bwd_kernel_rev`` in interpret mode, for each stream/compute pair."""
+    import chip_smoke
+
+    xw, mask, wh, dys = _case(7)
+    args_j = [jnp.asarray(xw).astype(_JDT[stream]), jnp.asarray(mask),
+              jnp.asarray(wh).astype(_JDT[compute])]
+    ys_j, cs_j = _lstm_fwd_local(*args_j, dtype=_JDT[compute], interpret=True,
+                                 save_cell=True, reverse=reverse)
+    dxw_j, dwh_j = _lstm_bwd_local(
+        *args_j, ys_j, cs_j, jnp.asarray(dys).astype(_JDT[stream]),
+        dtype=_JDT[compute], interpret=True, reverse=reverse)
+    ys, dxw = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(stream)
+               for a in (ys_j, dxw_j))
+    got = chip_smoke.dwh_one_product(ys, dxw, reverse, compute)
+    assert got.dtype == torch.float32 and got.shape == wh.shape
+    ref = lstm_cuda.lstm_dwh_ref(ys, dxw, reverse=reverse, dtype=compute)
+    # the same products, summed in another order
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(dwh_j), atol=2e-4,
+                               rtol=1e-3)

@@ -314,3 +314,30 @@ def test_fit_learns_snapshots_resumes_and_loads_into_jax(synth_dir, tmp_path):
     np.testing.assert_array_equal(fm, np.asarray(fm_j))
     np.testing.assert_allclose(lp.numpy()[fm], np.asarray(lp_j)[fm],
                                atol=1e-4, rtol=1e-4)
+
+
+def test_device_time_summary_counts_busy_union_and_kernels():
+    """The profiler window's summary: overlapping device intervals count
+    once toward busy time, kernels are totalled by name, host events
+    only widen the window."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Interval
+
+    from vistaocr_tpu_torch.train import device_time_summary
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=Interval(start, end))
+
+    events = [ev("host", 0, 1000, DeviceType.CPU), ev("k_a", 100, 300),
+              ev("k_a", 200, 400), ev("k_b", 600, 700)]
+    lines = device_time_summary(events).splitlines()
+    assert lines[0] == ("window 1.0 ms, device busy 0.4 ms (40.0%), device "
+                        "time 0.5 ms in 3 events")
+    assert lines[1].split() == ["0.400", "ms", "80.0%", "2", "x", "200.00",
+                                "us", "k_a"]
+    assert lines[2].split() == ["0.100", "ms", "20.0%", "1", "x", "100.00",
+                                "us", "k_b"]
+    assert device_time_summary([]) == "no events\n"

@@ -98,7 +98,8 @@ class TrainConfig:
     fused_epochs: str = "auto"  # auto | on | off
     epoch_stack: int = 4
     # torch.profiler trace of steps [profile_start, profile_stop) into
-    # <snapshot_dir>/profile (trace.json, and ops.txt: time by op)
+    # <snapshot_dir>/profile (trace.json, ops.txt: time by op, device.txt:
+    # device busy share and time by kernel)
     profile_start: int = 0
     profile_stop: int = 0
 
@@ -388,6 +389,39 @@ def _check_unported(cfg: TrainConfig) -> None:
             "(ROADMAP Queue 1, item 9)")
 
 
+def device_time_summary(events, top: int = 25) -> str:
+    """Device time of a profiler window (``torch.profiler``'s events): the
+    window's span, the time the device was busy (the union of its
+    intervals) and its share of the span, then the ``top`` kernel names by
+    total time, each with its share of the device time, its launches and
+    its time per launch."""
+    if not events:
+        return "no events\n"
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events))
+    busy, lo, hi = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if hi is None or s > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    busy += 0.0 if hi is None else hi - lo
+    by_name: Dict[str, List[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    total = sum(sum(v) for v in by_name.values())
+    lines = [f"window {span / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+             f"({100 * busy / max(span, 1e-9):.1f}%), device time "
+             f"{total / 1e3:.1f} ms in {len(dev)} events"]
+    for name, v in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]:
+        lines.append(f"{sum(v) / 1e3:10.3f} ms {100 * sum(v) / total:5.1f}% "
+                     f"{len(v):7d} x {sum(v) / len(v):9.2f} us  {name[:90]}")
+    return "\n".join(lines) + "\n"
+
+
 def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
     """Run training on one device; returns a summary dict."""
     _check_unported(cfg)
@@ -508,6 +542,8 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
                else "self_cpu_time_total")
         with open(os.path.join(out, "ops.txt"), "w") as f:
             f.write(profiler.key_averages().table(sort_by=key, row_limit=40))
+        with open(os.path.join(out, "device.txt"), "w") as f:
+            f.write(device_time_summary(profiler.events()))
         profiler = None
         log(f"profile trace written to {out}")
 
