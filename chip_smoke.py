@@ -11,9 +11,13 @@ the exit code is non-zero and no ``ok`` line is printed):
 2. build   - build the kernels from ``vistaocr_tpu_torch/csrc`` (nvcc).
 3. kernel  - the LSTM recurrence kernel against its plain PyTorch version
              on the card: the flagship shape (B=128, T=512, H=512, both
-             directions, ragged mask) and an odd shape (B=5, T=7, H=40),
-             f32 streams (TF32 off) within 1e-4, bf16 streams within
-             3e-2; both timed with CUDA events after warm-up.
+             directions, ragged mask), the W=128 train bucket's (B=512,
+             T=32) and an odd shape (B=5, T=7, H=40), f32 streams (TF32
+             off) within 1e-4, bf16 streams within 3e-2; the first two
+             timed with CUDA events after warm-up, with the time per
+             frame, the forward kernel's launches in one call
+             (``torch.profiler``: one persistent launch with bf16 weights,
+             T with f32) and two runs bit-equal.
 4. service - the flagship model (bf16, seeded random weights) behind
              ``OcrService`` (max_batch=128, max_wait_ms=2.0): ~256 lines
              at height 32, 8 at heights 48/64 (device resize) through
@@ -26,9 +30,11 @@ the exit code is non-zero and no ``ok`` line is printed):
 6. train-kernels - each training kernel against its plain version, TF32
              off, f32 and bf16: the ``save_cell`` forward and the BPTT
              (frames + dwh) of both directions at an odd shape (B=5, T=7,
-             H=40) and the flagship training shapes (B=32, T=512 and
-             B=128, T=128, H=512), the BPTT frames and dwh run twice on
-             the same inputs (bit-equal); the CTC alpha/beta recursions at
+             H=40) and the training shapes (B=32, T=512, B=128, T=128
+             and B=512, T=32, H=512), the BPTT frames and dwh run twice on
+             the same inputs (bit-equal), the save_cell forward's time per
+             frame, launches per call and two runs bit-equal as in phase
+             3; the CTC alpha/beta recursions at
              an odd shape (empty label, infeasible sample) and B=32,
              T=512, L=255, K=96. Times from CUDA events after warm-up,
              ``bptt_gates`` and ``bptt_dh`` per launch from
@@ -80,6 +86,14 @@ the exit code is non-zero and no ``ok`` line is printed):
              must grow in that run. The same two paths in bf16 are timed
              side by side: finite log-probs, each loss within 1e-3 of
              the f32 production loss.
+10. profiles - cuDNN's ``nn.LSTM(H, H, bidirectional=True)`` at each
+             shape and dtype where phases 3 and 6 timed K1 (with autograd
+             recording where K1 ran its save_cell form): a scale reference
+             that is NOT the same function (it fuses the input projection
+             and has no mask freeze); then the service of phase 4 anew,
+             one warm ``ocr_lines`` call over the same lines under
+             ``torch.profiler``: device-busy share and the largest
+             kernels.
 
 The last three lines are a JSON object with one row per kernel (its
 launches on the main path, error against its plain version, time, plain
@@ -147,15 +161,73 @@ def _recurrence_case(B, T, H, dtype, dev, seed):
 
 FLAGSHIP_SHAPE = (128, 512, 512)  # (B, T, H): max_batch, 2048 px / 4, hidden
 ODD_SHAPE = (5, 7, 40)
+SMALL_BUCKET_SHAPE = (512, 32, 512)  # the W=128 train bucket: 2**21 / (32 W)
+FWD_KERNEL = {"bfloat16": "lstm_fwd_persistent", "float32": "lstm_step"}
 
 
-def kernel_phase(dev, card: str, shapes=(ODD_SHAPE, FLAGSHIP_SHAPE)) -> dict:
-    """Kernel vs plain on every shape; times at the last (flagship) one."""
+def cudnn_lstm_ms(B, T, H, dtype, dev, train: bool) -> float:
+    """The scale reference for K1, NOT the same function: one
+    ``torch.nn.LSTM(H, H, bidirectional=True)`` call (cuDNN) at the same B,
+    T, H and dtype. cuDNN fuses the input projection, which the kernel
+    leaves to cuBLAS, and has no per-frame mask freeze. ``train``: with
+    autograd recording (cuDNN keeps its reserve space), as the save_cell
+    form runs."""
+    import torch
+
+    lstm = torch.nn.LSTM(H, H, bidirectional=True).to(dev, dtype)
+    x = torch.randn((T, B, H), device=dev, dtype=dtype, requires_grad=train)
+    with torch.set_grad_enabled(train):
+        return _cuda_ms(lambda: lstm(x), 10)
+
+
+def fwd_kernel_extras(call, B, T, dtype, ms: float, bound_ms: float) -> dict:
+    """Beside a timed K1 call (both directions): the forward kernel's
+    launches in one call (torch.profiler), the time per frame, and whether
+    two runs give the same bits."""
+    import torch
+
+    dt = _dtname(dtype)
+    name = FWD_KERNEL[dt]
+    launches = _kernel_us(call, (name,))[name][1]
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    _require(same, f"K1 deterministic at B={B} T={T} {dt}")
+    return {"launches_per_call": launches, "kernel_name": name,
+            "per_frame_us": ms / T * 1e3, "bound_per_frame_us":
+            bound_ms / T * 1e3, "bit_equal_twice": same}
+
+
+def cudnn_phase(dev, card: str, rows: dict, lstm_rows: dict) -> None:
+    """cuDNN's nn.LSTM at each shape where K1 was timed, added to its rows
+    as ``cudnn_lstm_ms`` (the scale reference, not the same function)."""
+    import torch
+
+    note = ("torch.nn.LSTM(H, H, bidirectional=True), not the same "
+            "function: fuses the input projection, no mask freeze")
+    targets = [((B, T), dt, False, rows[(B, T)][dt])
+               for (B, T) in rows for dt in rows[(B, T)]]
+    targets += [((B, T), dt, True, r["lstm_fwd_save_cell"])
+                for (B, T, dt), r in lstm_rows.items()]
+    for (B, T), dtype, train, row in targets:
+        row["cudnn_lstm_ms"] = cudnn_lstm_ms(B, T, 512, dtype, dev, train)
+        row["cudnn_lstm_is"] = note
+        print(f"cuDNN nn.LSTM B={B} T={T} H=512 {_dtname(dtype)}"
+              f"{' with autograd' if train else ''}: "
+              f"{row['cudnn_lstm_ms']:.3f} ms (kernel {row['ms']:.3f} ms; "
+              f"not the same function) ({card})", flush=True)
+
+
+def kernel_phase(dev, card: str,
+                 shapes=(ODD_SHAPE, FLAGSHIP_SHAPE, SMALL_BUCKET_SHAPE)
+                 ) -> dict:
+    """Kernel vs plain on every shape; times at the others than the first
+    (the flagship and the W=128 bucket's shape), keyed (B, T)."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-    row = {}
+    rows = {}
     for (B, T, H) in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             (fwd, bwd), mask = _recurrence_case(B, T, H, dtype, dev, seed=B + T)
@@ -179,12 +251,12 @@ def kernel_phase(dev, card: str, shapes=(ODD_SHAPE, FLAGSHIP_SHAPE)) -> dict:
             print(f"kernel vs plain {tag}: max|d|={err:.3e} "
                   f"(tol {tol[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"LSTM kernel agrees with plain: {tag}")
-            if (B, T, H) != shapes[-1]:
+            if (B, T, H) == shapes[0]:
                 continue
 
             def kern():
-                lstm_cuda.blstm_recurrence(fwd[0], bwd[0], mask, fwd[1],
-                                           bwd[1], dtype=dtype)
+                return lstm_cuda.blstm_recurrence(fwd[0], bwd[0], mask, fwd[1],
+                                                  bwd[1], dtype=dtype)
 
             def plain():
                 lstm_cuda.lstm_recurrence_ref(fwd[0], mask, fwd[1],
@@ -195,14 +267,21 @@ def kernel_phase(dev, card: str, shapes=(ODD_SHAPE, FLAGSHIP_SHAPE)) -> dict:
             with torch.inference_mode():
                 ms = _cuda_ms(kern, 10)
                 plain_ms = _cuda_ms(plain, 3)
-            print(f"time {tag}, both directions: kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms ({card})", flush=True)
-            # xw, wh and the mask read once, ys written once
-            nbytes = _nbytes(mask, fwd[0], bwd[0], fwd[1], bwd[1], ys_f, ys_b)
-            row[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": None,
-                          **_bound(nbytes, 2 * T * 2 * B * H * 4 * H, dtype)}
-    return row
+                # xw, wh and the mask read once, ys written once
+                nbytes = _nbytes(mask, fwd[0], bwd[0], fwd[1], bwd[1], ys_f,
+                                 ys_b)
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None,
+                       **_bound(nbytes, 2 * T * 2 * B * H * 4 * H, dtype)}
+                row.update(fwd_kernel_extras(kern, B, T, dtype, ms,
+                                             row["bound_ms"]))
+            print(f"time {tag}, both directions: kernel {ms:.3f} ms = "
+                  f"{row['per_frame_us']:.2f} us a frame (bound "
+                  f"{row['bound_per_frame_us']:.3f}; {row['launches_per_call']}"
+                  f" launch(es) of {row['kernel_name']} a call; two runs "
+                  f"bit-equal), plain {plain_ms:.3f} ms ({card})", flush=True)
+            rows.setdefault((B, T), {})[dtype] = row
+    return rows
 
 
 def _lines(rng, n, height, wmin, wmax):
@@ -278,6 +357,31 @@ def service_phase(snap: str, card: str, smi: str) -> int:
     return launches
 
 
+def service_profile(snap: str, smi: str, top: int = 12) -> None:
+    """Device time of one warm ``ocr_lines`` call over phase 4's 264 lines
+    under ``torch.profiler``: the window, the device-busy share and the
+    largest kernels by name (``train.device_time_summary``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+    from vistaocr_tpu_torch.train import device_time_summary
+
+    rng = np.random.default_rng(7)
+    bulk = _lines(rng, 256, 32, 40, 2048)
+    bulk += _lines(rng, 4, 48, 40, 3000) + _lines(rng, 4, 64, 40, 4000)
+    svc = OcrService(snap, ServiceConfig(max_batch=128, max_wait_ms=2.0),
+                     device="cuda")
+    try:
+        svc.ocr_lines(bulk)  # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            svc.ocr_lines(bulk)
+    finally:
+        svc.close()
+    print(f"service profile, one warm ocr_lines call over {len(bulk)} lines "
+          f"({smi}):\n" + "".join(device_time_summary(
+              prof.events()).splitlines(True)[:top]), flush=True)
+
+
 def parity_phase(snap: str, dev) -> None:
     import torch
     from vistaocr_tpu_torch.checkpoint import load_model
@@ -314,7 +418,9 @@ def parity_phase(snap: str, dev) -> None:
 
 
 # --- training path -----------------------------------------------------------
-LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512))  # (B, T, H)
+# (B, T, H): odd, the W=512 and W=2048 buckets, and the W=128 one
+LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512),
+                     (512, 32, 512))
 CTC_SHAPES = ((5, 20, 9, 6), (32, 512, 96, 255))  # (B, T, K, L)
 
 
@@ -349,24 +455,34 @@ def _bound(nbytes: float, flops: float, dtype) -> dict:
 
 def _kernel_us(fn, names) -> dict:
     """{name: (device time per launch in us, launches)} of the kernels
-    whose names contain each of ``names``, from ``torch.profiler`` over
-    one call of ``fn`` after a warm-up call."""
+    whose names contain each of ``names``, from the device events of
+    ``torch.profiler`` over one call of ``fn`` after a warm-up call. The
+    profiler misses kernels launched just after its window opens (it has
+    counted 448 of 512 per-frame launches, and none of a lone persistent
+    launch), so each window starts with 64 small launches and a
+    synchronise, and a window that holds none of a kernel is taken again,
+    up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for name in names:
-        evs = [e for e in prof.key_averages() if name in e.key]
-        n = sum(e.count for e in evs)
-        total = sum(e.self_device_time_total for e in evs)
-        _require(n > 0 and total > 0, f"the profiler timed {name}")
-        out[name] = (total / n, n)
-    return out
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.add_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = {n: [e.time_range.elapsed_us() for e in dev if n in e.name]
+                 for n in names}
+        if all(times.values()):
+            return {n: (sum(v) / len(v), len(v)) for n, v in times.items()}
+    _require(False, f"the profiler timed {names}: device events "
+                    f"{sorted({e.name[:60] for e in dev})[:20]}")
 
 
 def dwh_one_product(ys, dxw, reverse: bool, dtype):
@@ -500,11 +616,21 @@ def lstm_train_kernels(dev, card: str) -> dict:
                   f"product alone, {t['dh_lib'] * 1e3:.2f}); dwh "
                   f"{t['dwh']:.4f} ms (plain {t['dwh_plain']:.3f}, torch.mm "
                   f"{t['dwh_lib']:.4f}) ({card})", flush=True)
+            fwd_row = {"max_abs_err": e_fwd, "ms": t["fwd"],
+                       "plain_ms": t["fwd_plain"], "library_ms": None,
+                       **_bound(fwd_bytes, 2 * T * prod, dtype)}
+            with torch.no_grad():
+                fwd_row.update(fwd_kernel_extras(
+                    lambda: [a for yc in L.lstm_forward_cells(dirs, mask, dtype)
+                             for a in yc], B, T, dtype, t["fwd"],
+                    fwd_row["bound_ms"]))
+            print(f"save_cell {tag}: {fwd_row['per_frame_us']:.2f} us a frame "
+                  f"(bound {fwd_row['bound_per_frame_us']:.3f}; "
+                  f"{fwd_row['launches_per_call']} launch(es) of "
+                  f"{fwd_row['kernel_name']} a call; two runs bit-equal) "
+                  f"({card})", flush=True)
             rows[(B, T, dtype)] = {
-                "lstm_fwd_save_cell": {
-                    "max_abs_err": e_fwd, "ms": t["fwd"],
-                    "plain_ms": t["fwd_plain"], "library_ms": None,
-                    **_bound(fwd_bytes, 2 * T * prod, dtype)},
+                "lstm_fwd_save_cell": fwd_row,
                 "lstm_bwd": {
                     "max_abs_err": e_dxw, "ms": t["bwd"],
                     "plain_ms": t["bwd_plain"], "library_ms": None,
@@ -1176,6 +1302,11 @@ def main() -> int:
     stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
     exp_counts = experiments_path_phase(dev, font, smi)
+    _phase("profiles")
+    cudnn_phase(dev, f"{card}, {smi}", rows, lstm_rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        flagship_snapshot(tmp)
+        service_profile(tmp, smi)
 
     def with_f32(row: dict, f32_row: dict) -> dict:
         """A kernel's bf16 numbers, and its f32 ones under f32_ names."""
@@ -1188,9 +1319,12 @@ def main() -> int:
         "source": "vistaocr_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "vistaocr_tpu/ops/lstm_pallas.py:51",
         "launches": launches,
-        **with_f32(rows[torch.bfloat16], rows[torch.float32]),
+        **with_f32(rows[FLAGSHIP_SHAPE[:2]][torch.bfloat16],
+                   rows[FLAGSHIP_SHAPE[:2]][torch.float32]),
+        "at_B512_T32": with_f32(rows[SMALL_BUCKET_SHAPE[:2]][torch.bfloat16],
+                                rows[SMALL_BUCKET_SHAPE[:2]][torch.float32]),
     }]
-    main_shape = LSTM_TRAIN_SHAPES[-1][:2]  # B=32, T=512: the W=2048 bucket
+    main_shape = (32, 512)  # the W=2048 bucket
     lstm_meta = {
         "lstm_fwd_save_cell": ("lstm_fwd.cu", "lstm_pallas.py:51",
                                "SAVE_CELL_LAUNCHES"),
@@ -1204,6 +1338,10 @@ def main() -> int:
                "launches": counts[counter],
                **with_f32(lstm_rows[(*main_shape, torch.bfloat16)][name],
                           lstm_rows[(*main_shape, torch.float32)][name])}
+        if name == "lstm_fwd_save_cell":
+            row["at_B512_T32"] = with_f32(
+                lstm_rows[(*SMALL_BUCKET_SHAPE[:2], torch.bfloat16)][name],
+                lstm_rows[(*SMALL_BUCKET_SHAPE[:2], torch.float32)][name])
         if name == "lstm_bwd":
             row["also_replaces"] = "vistaocr_tpu/ops/lstm_pallas.py:334"
         kernels.append(row)

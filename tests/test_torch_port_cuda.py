@@ -1,10 +1,12 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
-(csrc/lstm_fwd.cu in both forms, csrc/lstm_bwd.cu's BPTT and dwh in all
-four stream/weight type pairs, csrc/ctc.cu's alpha/beta) against their
-plain PyTorch versions, including ragged B/H edges and the tile edges,
-T = 1, empty labels and an infeasible CTC sample; the BPTT kernels'
-determinism and dwh against one cuBLAS GEMM; their
-launch counters; the autograd Functions' backward on the card; and the
+(csrc/lstm_fwd.cu in both forms: the persistent bf16-weight kernel at the
+main path's B, T and H, its determinism, its one launch per layer call
+and its H limit, and the per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
+and dwh in all four stream/weight type pairs, csrc/ctc.cu's alpha/beta)
+against their plain PyTorch versions, including ragged B/H edges and the
+tile edges, T = 1, empty labels and an infeasible CTC sample; the BPTT
+kernels' determinism and dwh against one cuBLAS GEMM; their launch
+counters; the autograd Functions' backward on the card; and the
 model and service paths that launch them. Every test is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it runs
 on a machine that has only PyTorch:
@@ -44,21 +46,57 @@ def _operands(dev, B, T, H, dtype, seed):
             wh.to(dev, dtype))
 
 
-@pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
-                                   (70, 9, 100)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
+# The persistent kernel (bf16 weights: type codes 1 and 2) at every B the
+# main path makes around its 32-row cluster tiles (serving's max_batch of
+# 128; training's 2**21 / (32 W) rows, 512 at W=128 and 1024 at W=64), T
+# from 1 to a 2048-px line, the odd H=40 and the flagship H=512. B * T
+# stays within what one bucket holds (B * T <= 2**21 / 128 in training,
+# 128 * 512 in serving), so B=512 and 1024 come with T <= 2.
+PERSISTENT_SHAPES = [(B, T, H) for B in (1, 33, 64, 65, 129, 512, 1024)
+                     for T in (1, 2, 512) for H in (40, 512)
+                     if B * T <= 129 * 512]
+BF16_WEIGHT_TYPES = [(torch.bfloat16, torch.bfloat16, 3e-2),
+                     (torch.float32, torch.bfloat16, 3e-2)]
+PERSISTENT_CASES = [(shape, *types) for shape in PERSISTENT_SHAPES
+                    for types in BF16_WEIGHT_TYPES]
+
+
+def _typed(shapes):
+    """(shape, stream, compute, tol): f32 and bf16 at ``shapes``."""
+    return [(shape, dt, dt, tol) for shape in shapes
+            for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2))]
+
+
+def _device_operands(dev, B, T, H, stream, compute, seed, ndir=1):
+    """xw per direction, a ragged mask [T, 1, B] (row 0 full) and wh per
+    direction, drawn on the card (the large shapes are 10**8 values)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device=dev)
+    lengths[0] = T
+    mask = (torch.arange(T, device=dev)[:, None] < lengths[None, :]).float()
+    xw = [torch.randn((T, B, 4 * H), generator=g, device=dev).to(stream)
+          for _ in range(ndir)]
+    wh = [(torch.randn((H, 4 * H), generator=g, device=dev) / H ** 0.5
+           ).to(compute) for _ in range(ndir)]
+    return xw, mask[:, None, :].contiguous(), wh
+
+
+@pytest.mark.parametrize(
+    "shape,stream,compute,tol",
+    _typed([(5, 7, 40), (33, 20, 64), (1, 1, 1), (70, 9, 100)])
+    + PERSISTENT_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
-def test_kernel_matches_plain(dev, shape, dtype, tol, reverse):
+def test_kernel_matches_plain(dev, shape, stream, compute, tol, reverse):
     B, T, H = shape
-    xw, mask, wh = _operands(dev, B, T, H, dtype, seed=B * T + H)
+    (xw,), mask, (wh,) = _device_operands(dev, B, T, H, stream, compute,
+                                          seed=B * T + H)
     before = lstm_cuda.LAUNCHES
     with torch.no_grad():
         ys = lstm_cuda.lstm_recurrence(xw, mask, wh, reverse=reverse)
         ref = lstm_cuda.lstm_recurrence_ref(xw, mask, wh, reverse=reverse)
     torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES == before + 1
-    assert ys.dtype == dtype and ys.shape == (T, B, H)
+    assert ys.dtype == stream and ys.shape == (T, B, H)
     err = (ys.float() - ref.float()).abs().max().item()
     assert err <= tol, err
 
@@ -75,17 +113,79 @@ def test_mixed_stream_and_compute_dtypes(dev, stream, compute):
     assert (ys.float() - ref.float()).abs().max().item() <= 3e-2
 
 
-def test_both_directions_in_one_launch(dev):
-    xw, mask, wh = _operands(dev, 17, 13, 48, torch.float32, seed=5)
+@pytest.mark.parametrize(
+    "shape,stream,compute,tol",
+    [((17, 13, 48), torch.float32, torch.float32, 1e-4)] + PERSISTENT_CASES)
+def test_both_directions_in_one_launch(dev, shape, stream, compute, tol):
+    B, T, H = shape
+    xw, mask, wh = _device_operands(dev, B, T, H, stream, compute, seed=5,
+                                    ndir=2)
     before = lstm_cuda.LAUNCHES
     with torch.no_grad():
-        f, r = lstm_cuda.blstm_recurrence(xw, xw * 0.5, mask, wh, wh * 2)
-        rf = lstm_cuda.lstm_recurrence_ref(xw, mask, wh)
-        rr = lstm_cuda.lstm_recurrence_ref(xw * 0.5, mask, wh * 2,
-                                           reverse=True)
+        f, r = lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0], wh[1])
+        rf = lstm_cuda.lstm_recurrence_ref(xw[0], mask, wh[0])
+        rr = lstm_cuda.lstm_recurrence_ref(xw[1], mask, wh[1], reverse=True)
+    torch.cuda.synchronize()
     assert lstm_cuda.LAUNCHES == before + 1
-    assert (f - rf).abs().max().item() <= 1e-4
-    assert (r - rr).abs().max().item() <= 1e-4
+    assert (f.float() - rf.float()).abs().max().item() <= tol
+    assert (r.float() - rr.float()).abs().max().item() <= tol
+
+
+def test_persistent_kernel_is_deterministic(dev):
+    """One owner per h/c element, no atomics: two runs, the same bits."""
+    for stream, compute, _ in BF16_WEIGHT_TYPES:
+        xw, mask, wh = _device_operands(dev, 129, 64, 512, stream, compute,
+                                        seed=8, ndir=2)
+        dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+        with torch.no_grad():
+            runs = [lstm_cuda.lstm_forward_cells(dirs, mask, compute)
+                    for _ in range(2)]
+            inf = [lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
+                                              wh[1]) for _ in range(2)]
+        for (ys_a, cs_a), (ys_b, cs_b) in zip(*runs):
+            assert torch.equal(ys_a, ys_b) and torch.equal(cs_a, cs_b)
+        for a, b in zip(*inf):
+            assert torch.equal(a, b)
+
+
+def test_one_forward_launch_per_layer_call(dev):
+    """bf16 at B=32, T=512 (the W=2048 bucket): a torch.profiler window
+    over one blstm_recurrence call, and over one save_cell call, holds one
+    launch of the persistent forward kernel and none of the per-frame one.
+    The window opens with small launches and a synchronise: the profiler
+    misses kernels launched just after it starts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xw, mask, wh = _device_operands(dev, 32, 512, 512, torch.bfloat16,
+                                    torch.bfloat16, seed=9, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    calls = [lambda: lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
+                                                wh[1]),
+             lambda: lstm_cuda.lstm_forward_cells(dirs, mask, torch.bfloat16)]
+    for call in calls:
+        with torch.no_grad():
+            call()  # built and warm
+            torch.cuda.synchronize()
+            pad = torch.zeros(1, device=dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(64):
+                    pad.add_(1.0)
+                torch.cuda.synchronize()
+                call()
+                torch.cuda.synchronize()
+        counts = {}
+        for e in prof.events():
+            for name in ("lstm_fwd_persistent", "lstm_step"):
+                if name in e.name:
+                    counts[name] = counts.get(name, 0) + 1
+        assert counts == {"lstm_fwd_persistent": 1}, counts
+
+
+def test_persistent_kernel_refuses_h_above_512(dev):
+    xw, mask, wh = _device_operands(dev, 4, 3, 520, torch.bfloat16,
+                                    torch.bfloat16, seed=1)
+    with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
+        lstm_cuda.lstm_recurrence(xw[0], mask, wh[0])
 
 
 def test_non_contiguous_input_raises(dev):
@@ -185,17 +285,19 @@ def _bf16_flips(a, b, slack=2e-6):
             (d > 0).float().mean().item())
 
 
-@pytest.mark.parametrize("shape", [(5, 7, 40), (33, 20, 64), (1, 1, 1),
-                                   (70, 1, 100), (3, 9, 17)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_save_cell_matches_plain_and_inference(dev, shape, dtype):
+@pytest.mark.parametrize(
+    "shape,stream,compute,tol",
+    _typed([(5, 7, 40), (33, 20, 64), (1, 1, 1), (70, 1, 100), (3, 9, 17)])
+    + PERSISTENT_CASES)
+def test_save_cell_matches_plain_and_inference(dev, shape, stream, compute,
+                                               tol):
     B, T, H = shape
-    xw, mask, wh = _operands(dev, B, T, H, dtype, seed=B + T + H)
-    xw2, _, wh2 = _operands(dev, B, T, H, dtype, seed=B + T + H + 1)
+    (xw, xw2), mask, (wh, wh2) = _device_operands(
+        dev, B, T, H, stream, compute, seed=B + T + H, ndir=2)
     before = (lstm_cuda.LAUNCHES, lstm_cuda.SAVE_CELL_LAUNCHES)
     with torch.no_grad():
         (ys_f, cs_f), (ys_b, cs_b) = lstm_cuda.lstm_forward_cells(
-            [(xw, wh, False), (xw2, wh2, True)], mask, dtype)
+            [(xw, wh, False), (xw2, wh2, True)], mask, compute)
         inf_f, inf_b = lstm_cuda.blstm_recurrence(xw, xw2, mask, wh, wh2)
         ref = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
                                              save_cell=True)
@@ -204,9 +306,8 @@ def test_save_cell_matches_plain_and_inference(dev, shape, dtype):
     assert lstm_cuda.SAVE_CELL_LAUNCHES == before[1] + 1
     assert lstm_cuda.LAUNCHES == before[0] + 2
     assert torch.equal(ys_f, inf_f) and torch.equal(ys_b, inf_b)
-    tol = 1e-4 if dtype == torch.float32 else 3e-2
     for (ys, cs), (rys, rcs) in zip(((ys_f, cs_f), (ys_b, cs_b)), ref):
-        assert cs.dtype == dtype and cs.shape == (T, B, H)
+        assert cs.dtype == stream and cs.shape == (T, B, H)
         assert (ys.float() - rys.float()).abs().max().item() <= tol
         assert (cs.float() - rcs.float()).abs().max().item() <= tol
 

@@ -245,8 +245,14 @@ class TestConfigAndSnapshots:
             str(tmp_path), state_dict=model.state_dict(), model_config=cfg,
             alphabet=Alphabet.from_charset("abcdefghij"),
             contract=ShapeContract(), step=5)
-        assert not os.path.exists(os.path.join(str(tmp_path),
-                                               "weights.msgpack"))
+        # the npz and the flax msgpack beside it hold the same variables
+        with np.load(os.path.join(str(tmp_path), "weights.npz")) as z:
+            npz = {k: z[k] for k in z.files}
+        msg = checkpoint.flatten(checkpoint.read_flax_msgpack(
+            os.path.join(str(tmp_path), "weights.msgpack")))
+        assert set(npz) == set(msg)
+        for k in npz:
+            np.testing.assert_array_equal(npz[k], msg[k])
         loaded, _, _ = checkpoint.load_model(str(tmp_path), "cpu")
         sd_a, sd_b = model.state_dict(), loaded.state_dict()
         assert set(sd_a) == set(sd_b)

@@ -2,14 +2,20 @@
 
 Counterpart of ``vistaocr_tpu/checkpoint.py:83-119``. A snapshot is a
 directory with ``meta.json`` (ModelConfig, Alphabet, ShapeContract,
-step; the JAX schema) and the weights, either
+step; the JAX schema) and the weights as
 
 - ``weights.msgpack``: the JAX package's flax serialisation of
   ``{params, batch_stats}`` (arrays as msgpack ext type 1 =
-  ``(shape, dtype_name, bytes)``), decoded here without flax; or
-- ``weights.npz``: the port's own format, written by ``save_snapshot``:
-  the same variables as flattened flax paths (``params/cnn/conv0_1/
-  kernel``) in the JAX layouts, readable with numpy alone.
+  ``(shape, dtype_name, bytes)``), read and written here without flax
+  (``read_flax_msgpack`` / ``flax_msgpack_bytes``), so the JAX package's
+  ``load_model``, service and ``train --resume`` open a port snapshot; and
+- ``weights.npz``: the same variables as flattened flax paths
+  (``params/cnn/conv0_1/kernel``) in the JAX layouts, readable with numpy
+  alone.
+
+``save_snapshot`` writes both; ``load_snapshot`` reads ``weights.msgpack``
+(the file every writer of either package replaces) and takes
+``weights.npz`` only where it is alone.
 
 ``variables_to_state_dict`` maps the flax tree onto the port's
 parameters (conv HWIO -> OIHW, Dense ``[in,out]`` -> Linear
@@ -18,10 +24,13 @@ kept in the JAX layout); ``state_dict_to_variables`` is its inverse, so a
 snapshot the port trained loads into the JAX model.
 
 A trainer's snapshot also carries ``opt_state.npz`` (the port's optimizer
-state as named numpy arrays, ``has_opt_state`` / ``load_opt_state``) and
-``meta.json`` records ``step`` and ``extra`` (epoch, train config, val
-CER); ``promote`` copies ``last/`` over ``best/`` (``checkpoint.py:122``
-of the JAX package). The JAX package's ``opt_state.msgpack`` is not read.
+state as named numpy arrays, ``has_opt_state`` / ``load_opt_state``),
+named in ``meta.json`` (``"opt_state"``) so that a later JAX save of the
+same directory, whose ``meta.json`` lacks it, retires it. ``meta.json``
+records ``step`` and ``extra`` (epoch, train config, val CER); ``promote``
+copies ``last/`` over ``best/`` (``checkpoint.py:122`` of the JAX
+package). The JAX package's ``opt_state.msgpack`` is not read, and a port
+save removes it: it would describe other weights.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from .text import Alphabet
 _MSGPACK = "weights.msgpack"
 _NPZ = "weights.npz"
 _OPT = "opt_state.npz"
+_JAX_OPT = "opt_state.msgpack"
 _META = "meta.json"
 
 
@@ -156,6 +166,28 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
     return tree
 
 
+def flax_msgpack_bytes(tree: Dict[str, Any]) -> bytes:
+    """flax ``serialization.to_bytes`` of a nested dict of numpy arrays,
+    without flax, byte for byte: msgpack maps with their keys in sorted
+    order (as flax's tree copy leaves them), arrays as ext type 1 holding
+    ``packb((shape, dtype_name, bytes))``. The inverse of
+    ``read_flax_msgpack``."""
+    import msgpack
+
+    def ordered(node):
+        if isinstance(node, dict):
+            return {str(k): ordered(node[k]) for k in sorted(node, key=str)}
+        return node
+
+    def ext(x):
+        if not isinstance(x, np.ndarray):
+            raise TypeError(f"unsupported leaf {type(x).__name__}")
+        return msgpack.ExtType(1, msgpack.packb(
+            (x.shape, x.dtype.name, x.tobytes("C")), use_bin_type=True))
+
+    return msgpack.packb(ordered(tree), default=ext, strict_types=True)
+
+
 def _atomic_write(dst: str, write) -> None:
     tmp = dst + ".tmp"
     with open(tmp, "wb") as f:
@@ -174,11 +206,19 @@ def save_snapshot(
     opt_state: Optional[Dict[str, np.ndarray]] = None,
     extra: Optional[dict] = None,
 ) -> str:
-    """Write ``weights.npz`` (flattened flax paths, JAX layouts), the
-    optimizer state ``opt_state.npz`` when given, and then ``meta.json``;
-    a snapshot is valid iff ``meta.json`` exists."""
+    """Write ``weights.msgpack`` (flax's format) and ``weights.npz``
+    (flattened flax paths, JAX layouts), the optimizer state
+    ``opt_state.npz`` when given, and then ``meta.json``; a snapshot is
+    valid iff ``meta.json`` exists. A JAX ``opt_state.msgpack`` left in
+    ``path`` is removed first."""
     os.makedirs(path, exist_ok=True)
-    flat = flatten(state_dict_to_variables(state_dict))
+    jax_opt = os.path.join(path, _JAX_OPT)
+    if os.path.exists(jax_opt):
+        os.remove(jax_opt)
+    variables = state_dict_to_variables(state_dict)
+    payload = flax_msgpack_bytes(variables)
+    _atomic_write(os.path.join(path, _MSGPACK), lambda f: f.write(payload))
+    flat = flatten(variables)
     _atomic_write(os.path.join(path, _NPZ), lambda f: np.savez(f, **flat))
     if opt_state is not None:
         _atomic_write(os.path.join(path, _OPT),
@@ -190,6 +230,8 @@ def save_snapshot(
         "alphabet": json.loads(alphabet.to_json()),
         "contract": json.loads(contract.to_json()),
     }
+    if opt_state is not None:
+        meta["opt_state"] = _OPT
     if extra:
         meta["extra"] = extra
     tmp = os.path.join(path, _META + ".tmp")
@@ -209,22 +251,25 @@ def load_snapshot(
 ) -> Tuple[Dict[str, Any], ModelConfig, Alphabet, ShapeContract, dict]:
     """Returns (variables, model_config, alphabet, contract, meta);
     ``variables`` is the flax tree with numpy leaves. Reads
-    ``weights.npz`` when present, else the JAX ``weights.msgpack``."""
+    ``weights.msgpack``, or ``weights.npz`` where there is no msgpack."""
     meta = load_meta(path)
     model_config = ModelConfig.from_json(json.dumps(meta["model_config"]))
     alphabet = Alphabet.from_json(json.dumps(meta["alphabet"]))
     contract = ShapeContract.from_json(json.dumps(meta["contract"]))
-    npz = os.path.join(path, _NPZ)
-    if os.path.exists(npz):
-        with np.load(npz) as z:
-            variables = unflatten({k: z[k] for k in z.files})
+    msg = os.path.join(path, _MSGPACK)
+    if os.path.exists(msg):
+        variables = read_flax_msgpack(msg)
     else:
-        variables = read_flax_msgpack(os.path.join(path, _MSGPACK))
+        with np.load(os.path.join(path, _NPZ)) as z:
+            variables = unflatten({k: z[k] for k in z.files})
     return variables, model_config, alphabet, contract, meta
 
 
 def has_opt_state(path: str) -> bool:
-    return os.path.exists(os.path.join(path, _OPT))
+    """Whether the port's optimizer state belongs to this snapshot: the
+    last ``meta.json`` written names it (a JAX save does not)."""
+    return (os.path.exists(os.path.join(path, _OPT))
+            and load_meta(path).get("opt_state") == _OPT)
 
 
 def load_opt_state(path: str) -> Dict[str, np.ndarray]:

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the hand-written tensor-core
 // kernels: shared-memory addresses, mbarriers, TMA and cp.async copies,
-// 128-byte-swizzled wgmma operand layouts and their descriptors, and the
-// bf16 x bf16 -> f32 wgmma.m64nNk16 instructions (N = 32, 64, 128). Used by
-// lstm_bwd.cu; plain PTX, no CUTLASS.
+// bulk copies between the CTAs of a cluster, the cluster barrier,
+// 128- and 64-byte-swizzled wgmma operand layouts and their descriptors,
+// and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions (N = 32, 64, 128;
+// N = 32 also with A from registers). Used by lstm_bwd.cu and lstm_fwd.cu;
+// plain PTX, no CUTLASS.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +16,16 @@ namespace vo_sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte-aligned shared-memory address at or after p (the
+// 128B-swizzle atoms need it)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // --- mbarriers ---------------------------------------------------------------
@@ -70,6 +82,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
+// 16 (or 4) bytes, or zeros where !ok (nothing is read then)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -78,6 +103,50 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // async proxy (wgmma operand reads)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- distributed shared memory -------------------------------------------------
+// the shared::cluster address of `addr` (a shared::cta address) in CTA
+// `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// this CTA's shared memory to a peer's (shared::cluster addresses from
+// cluster_addr); the bytes complete the transaction count of the peer's
+// mbarrier `bar`
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "r"(smem_u32(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until the committed bulk copies have read their sources
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// --- cluster barrier ---------------------------------------------------------
+// arrive releases this thread's earlier writes (local and distributed shared
+// memory) at cluster scope; wait returns once every thread of every CTA of
+// the cluster has arrived, and acquires their writes
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // --- 128-byte-swizzled operand tiles -----------------------------------------
@@ -91,14 +160,21 @@ __device__ __forceinline__ uint32_t swz128(int row, int chunk) {
   return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
 }
 
-// wgmma matrix descriptor, 128B swizzle: start address, leading and
-// stride byte offsets (all in 16-byte units)
+// The 64-byte swizzle: rows of 32 bf16 in atoms of 8 rows (512 bytes,
+// 512-aligned): the 16-byte chunk c of row r lies at chunk c ^ ((r/2) % 4).
+__device__ __forceinline__ uint32_t swz64(int row, int chunk) {
+  return static_cast<uint32_t>(row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4));
+}
+
+// wgmma matrix descriptor, 128B swizzle (or 64B with `layout` 2): start
+// address, leading and stride byte offsets (all in 16-byte units)
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+                                               uint32_t sbo,
+                                               uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);
+         (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -133,6 +209,27 @@ __device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// the same with A from registers: thread t of the warpgroup holds a[j] =
+// A[16*(t/32) + (t%32)/4 + 8*(j%2)][2*(t%4) + 8*(j/2) + {0, 1}] (two bf16,
+// the lower column in the low half)
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
 }
 
 template <int TA, int TB>

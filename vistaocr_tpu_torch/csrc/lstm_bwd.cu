@@ -157,10 +157,6 @@ bptt_gates(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
   }
 }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
 // Eight consecutive elements of a row, as loaded (no conversion yet).
 template <typename T>
 struct Chunk8;
@@ -731,10 +727,6 @@ cudaError_t encode_rows(CUtensorMap* map, const void* base, long long cols,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename S, typename W>

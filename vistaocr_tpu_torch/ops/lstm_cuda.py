@@ -28,6 +28,9 @@ design does about it.
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
   ``BWD_LAUNCHES`` (BPTT frames) and ``DWH_LAUNCHES`` (dwh reduction).
+  With bf16 weights a forward call is one kernel launch for all frames
+  (``lstm_fwd_persistent``, H <= ``PERSISTENT_MAX_H``; larger H raises);
+  with f32 weights it is one ``lstm_step`` launch per frame.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ SAVE_CELL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 DWH_LAUNCHES = 0
 _count_lock = threading.Lock()
+
+# the largest H the bf16-weight forward kernel takes (MAX_H of
+# csrc/lstm_fwd.cu: a 16-CTA cluster holds all of wh)
+PERSISTENT_MAX_H = 512
 
 _TYPE_CODES = {
     (torch.float32, torch.float32): 0,
@@ -220,19 +227,25 @@ def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
             raise ValueError("both directions must share shape and dtype")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
+    # bf16 weights: one persistent launch, a cluster of ceil(H/32) CTAs
+    # (at most 16) holding wh in shared memory
+    persistent = dtype == torch.bfloat16
+    if persistent and H > PERSISTENT_MAX_H:
+        raise ValueError(f"the bf16 LSTM kernel takes H <= {PERSISTENT_MAX_H}"
+                         f" (wh held by one 16-CTA cluster), got H={H}")
     lib = _build.load()
-    # Outputs and the zeroed (h ping, h pong, c) scratch are allocated on
-    # the launch stream; the caching allocator reuses a freed block only
-    # for work queued after the kernel on that stream.
+    # Outputs (and the per-frame kernel's zeroed h ping, h pong, c scratch)
+    # are allocated on the launch stream; the caching allocator reuses a
+    # freed block only for work queued after the kernel on that stream.
     new = dict(dtype=xw0.dtype, device=xw0.device)
     ys = [torch.empty((T, B, H), **new) for _ in dirs]
     cs = [torch.empty((T, B, H), **new) for _ in dirs] if save_cell else None
-    scratch = [torch.zeros((3, B, H), dtype=torch.float32, device=xw0.device)
-               for _ in dirs]
+    scratch = [None if persistent else torch.zeros(
+        (3, B, H), dtype=torch.float32, device=xw0.device) for _ in dirs]
     args = _dir_args([
         [xw.data_ptr(), wh.data_ptr(), ys[k].data_ptr(),
-         cs[k].data_ptr() if save_cell else None, scratch[k].data_ptr(),
-         int(rev)]
+         cs[k].data_ptr() if save_cell else None,
+         None if persistent else scratch[k].data_ptr(), int(rev)]
         for k, (xw, wh, rev) in enumerate(dirs)], 6)
     stream = torch.cuda.current_stream(xw0.device).cuda_stream
     err = lib.vo_lstm_fwd(_TYPE_CODES[(xw0.dtype, dtype)], T, B, H,
