@@ -36,13 +36,20 @@ the exit code is non-zero and no ``ok`` line is printed):
              frame, launches per call and two runs bit-equal as in phase
              3; the CTC alpha/beta recursions at
              an odd shape (empty label, infeasible sample) and B=32,
-             T=512, L=255, K=96. Times from CUDA events after warm-up,
-             ``bptt_gates`` and ``bptt_dh`` per launch from
+             T=512, L=255, K=96. With bf16 weights the BPTT frames are
+             ``bptt_gates_gemm`` (every frame's gate recompute as one
+             GEMM) and ``lstm_bwd_persistent`` (the frame loop), each also
+             held to its own plain version (``bptt_gates_ref`` within
+             1e-5 relative, ``bptt_frames_ref`` on the kernel's gates
+             within 2e-2); with f32 weights ``bptt_gates`` and ``bptt_dh``
+             per frame. Times from CUDA events after warm-up, the BPTT
+             kernels per launch (and launches per call) from
              ``torch.profiler`` over one ``lstm_bptt_frames`` call, beside
              each kernel's bound and the library call that computes the
-             same function where there is one (``torch.mm`` for dwh and,
-             the product alone, for one frame's dh; ``F.ctc_loss``
-             forward+backward for alpha+beta).
+             same function where there is one (``torch.mm`` for dwh, for
+             the gate recompute (+ xw) and, the product alone, for one
+             f32 frame's dh; ``F.ctc_loss`` forward+backward for
+             alpha+beta).
 7. train   - ``train.fit`` with the flagship ``TrainConfig`` (bf16,
              dropout 0.1, Adam 1e-3, clip 5, ``--preset full``: auto
              ladder over a 2**21-pixel budget) on a seeded glyph data set
@@ -502,10 +509,37 @@ def dwh_one_product(ys, dxw, reverse: bool, dtype):
     return torch.mm(a.float().T, c.float())
 
 
+def gates_one_product(xw, ys, wh, reverse: bool, dtype):
+    """The library yardstick of the ``bptt_gates_gemm`` kernel: the same
+    function, f32 pre [T, B, 4H] = f32(xw) + round(ys[tp]) @ round(wh),
+    as one ``torch.mm`` over the (T-1)*B rows that have a predecessor
+    (forward: ys[0..T-2] for frames 1..T-1; reverse: ys[1..T-1] for frames
+    0..T-2) added to f32(xw); the edge frame keeps f32(xw). On the card a
+    bf16 product is one cuBLAS bf16 GEMM with f32 output; otherwise the
+    rounded operands are multiplied in f32 (TF32 off)."""
+    import torch
+
+    T, B, H = ys.shape
+    a = (ys[1:] if reverse else ys[:-1]).reshape(-1, H).to(dtype)
+    w = wh.to(dtype)
+    if a.is_cuda and dtype == torch.bfloat16:
+        prod = torch.mm(a, w, out_dtype=torch.float32)
+    else:
+        prod = torch.mm(a.float(), w.float())
+    pre = xw.to(torch.float32, copy=True)
+    (pre[:-1] if reverse else pre[1:]).add_(prod.view(T - 1, B, 4 * H))
+    return pre
+
+
 def lstm_train_kernels(dev, card: str) -> dict:
     """save_cell forward, BPTT frames + dwh (both directions) against the
     plain versions, the BPTT kernels twice on the same inputs (bit-equal);
-    times at each flagship shape beside the bounds and library calls."""
+    times at each flagship shape beside the bounds and library calls. With
+    bf16 weights each of the two BPTT kernels is also held to its own plain
+    version: ``bptt_gates_gemm``'s gates against ``bptt_gates_ref`` within
+    1e-5 of their largest magnitude (the same bf16 products, f32 sums in
+    another order), ``lstm_bwd_persistent``'s dxw, from the kernel's own
+    gates, against ``bptt_frames_ref`` within 2e-2."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -518,6 +552,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
             rng = np.random.default_rng(B * T)
             dys = [torch.from_numpy(rng.normal(0, 1, (T, B, H)).astype(
                 np.float32)).to(dev, dtype) for _ in range(2)]
+            f32 = dtype == torch.float32
             with torch.no_grad():
                 got = L.lstm_forward_cells(dirs, mask, dtype)
                 ref = L.lstm_forward_cells(dirs, mask, dtype, plain=True)
@@ -526,13 +561,22 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 whq = [w.to(dtype).contiguous() for _, w, _ in dirs]
                 kdirs = [(x, w, ys, cs, dy, r) for (x, _, ys, cs, dy, r), w
                          in zip(bdirs, whq)]
-                dxw_k = L.lstm_bptt_frames(kdirs, mask, dtype)
+                if f32:
+                    dxw_k = L.lstm_bptt_frames(kdirs, mask, dtype)
+                else:
+                    dxw_k, pre_k = L.lstm_bptt_frames(kdirs, mask, dtype,
+                                                      return_gates=True)
+                    pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r,
+                                              dtype=dtype)
+                             for x, w, ys, _, _, r in bdirs]
+                    loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy,
+                                                reverse=r, dtype=dtype)
+                              for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
                 ref_b = L.lstm_bptt(bdirs, mask, dtype, plain=True)
                 # dwh from the plain dxw, so its check sees the reduction only
                 dwh_k = L.lstm_dwh([(d[2], g, d[5]) for d, (g, _)
                                     in zip(bdirs, ref_b)], dtype)
                 torch.cuda.synchronize()
-            f32 = dtype == torch.float32
             e_fwd = max(max(_abs(y, ry), _abs(c, rc))
                         for (y, c), (ry, rc) in zip(got, ref))
             e_dxw = max(_abs(g, r) for g, (r, _) in zip(dxw_k, ref_b))
@@ -543,13 +587,23 @@ def lstm_train_kernels(dev, card: str) -> dict:
             ok = (e_fwd <= (1e-4 if f32 else 3e-2)
                   and r_dxw <= (1e-4 if f32 else 2e-2)
                   and r_dwh <= (1e-4 if f32 else 2e-2))
+            parts = ""
+            if not f32:
+                e_pre = max(_abs(a, b) for a, b in zip(pre_k, pre_r))
+                r_pre = max(_rel(a, b) for a, b in zip(pre_k, pre_r))
+                e_loop = max(_abs(a, b) for a, b in zip(dxw_k, loop_r))
+                r_loop = max(_rel(a, b) for a, b in zip(dxw_k, loop_r))
+                ok = ok and r_pre <= 1e-5 and r_loop <= 2e-2
+                parts = (f"; bptt_gates_gemm max|d|={e_pre:.3e} (rel "
+                         f"{r_pre:.2e}, tol 1e-5), lstm_bwd_persistent on its"
+                         f" gates max|d|={e_loop:.3e} (rel {r_loop:.2e})")
             print(f"train kernels vs plain {tag}: save_cell max|d|={e_fwd:.3e}"
                   f"; dxw max|d|={e_dxw:.3e} (rel {r_dxw:.2e}); dwh "
-                  f"max|d|={e_dwh:.3e} (rel {r_dwh:.2e}) "
+                  f"max|d|={e_dwh:.3e} (rel {r_dwh:.2e}){parts} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"LSTM training kernels agree with plain: {tag}")
             ddirs = [(d[2], g, d[5]) for d, (g, _) in zip(bdirs, ref_b)]
-            with torch.no_grad():  # the redesigned kernels, run twice
+            with torch.no_grad():  # the BPTT kernels, run twice
                 same = (all(torch.equal(a, b) for a, b in zip(
                     dxw_k, L.lstm_bptt_frames(kdirs, mask, dtype))) and all(
                     torch.equal(a, b) for a, b in zip(
@@ -559,9 +613,6 @@ def lstm_train_kernels(dev, card: str) -> dict:
             _require(same, f"BPTT kernels deterministic: {tag}")
             if (B, T, H) == LSTM_TRAIN_SHAPES[0]:
                 continue
-            lib_mm = ((lambda a, b: torch.mm(a, b, out_dtype=torch.float32))
-                      if dtype == torch.bfloat16 else torch.mm)
-            dg = [g[T // 2].to(dtype) for g, _ in ref_b]  # one frame's dgates
             with torch.no_grad():
                 t = {
                     "fwd": _cuda_ms(lambda: L.lstm_forward_cells(
@@ -578,14 +629,29 @@ def lstm_train_kernels(dev, card: str) -> dict:
                         y, g, reverse=r, dtype=dtype) for y, g, r in ddirs], 1),
                     "dwh_lib": _cuda_ms(lambda: [dwh_one_product(
                         y, g, r, dtype) for y, g, r in ddirs], 20),
-                    # the per-frame dh product alone, both directions
-                    "dh_lib": _cuda_ms(lambda: [lib_mm(x, w.T) for x, w
-                                                in zip(dg, whq)], 50),
                 }
+                if f32:
+                    # the per-frame dh product alone, both directions
+                    dg = [g[T // 2] for g, _ in ref_b]  # one frame's dgates
+                    t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w
+                                                    in zip(dg, whq)], 50)
+                    names = ("bptt_gates<", "bptt_dh<")
+                else:
+                    t["gates_plain"] = _cuda_ms(lambda: [L.bptt_gates_ref(
+                        x, ys, w, reverse=r, dtype=dtype)
+                        for x, w, ys, _, _, r in bdirs], 2)
+                    t["gates_lib"] = _cuda_ms(lambda: [gates_one_product(
+                        x, ys, w, r, dtype) for x, w, ys, _, _, r in kdirs],
+                        20)
+                    t["loop_plain"] = _cuda_ms(lambda: [L.bptt_frames_ref(
+                        p, mask, w, cs, dy, reverse=r, dtype=dtype)
+                        for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1)
+                    names = ("bptt_gates_gemm<", "lstm_bwd_persistent<")
                 per = _kernel_us(lambda: L.lstm_bptt_frames(kdirs, mask,
-                                                            dtype),
-                                 ("bptt_gates", "bptt_dh"))
-            # bounds: each input read once, each output written once
+                                                            dtype), names)
+            # bounds: each input read once, each output written once; the
+            # products this run needs (no h_prev at the edge frame, no dh
+            # after the last one): (T-1)*B rows each
             R = (T - 1) * B
             prod = 2 * B * H * 4 * H  # one frame's product, one direction
             fwd_bytes = _nbytes(mask, *(x for x, _, _ in dirs), *whq,
@@ -595,25 +661,87 @@ def lstm_train_kernels(dev, card: str) -> dict:
             dxw_bytes = _nbytes(*(g for g, _ in ref_b))
             dwh_bytes = _nbytes(*(w for _, w in ref_b))
             dwh_in = _nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
-            # per launch: dh reads wh, a frame's dgates, dys, mask, the dh
-            # carry and writes it; gates read xw[t], wh, ys[tp], cs[t],
-            # cs[tp], dys[t], both carries, and write dc and dxw[t]
-            f32b, sb = 4 * B * H, dg[0].element_size() * B * H
-            dh_bytes = 2 * (_nbytes(whq[0]) + 4 * sb + sb + 2 * f32b) + 4 * B
-            gates_bytes = 2 * (_nbytes(whq[0]) + 8 * sb + 3 * f32b + 4 * sb
-                               ) + 4 * B
-            row_dh = _bound(dh_bytes, 2 * prod, dtype)
-            row_gates = _bound(gates_bytes, 2 * prod, dtype)
+            gemm_flops = 2 * 2 * R * H * 4 * H  # both directions
+            bwd = {"max_abs_err": e_dxw, "ms": t["bwd"],
+                   "plain_ms": t["bwd_plain"], "library_ms": None,
+                   **_bound(frame_in + dxw_bytes + dwh_bytes, 3 * gemm_flops,
+                            dtype),
+                   "frames_ms": t["frames"]}
+            rows[(B, T, dtype)] = {"lstm_bwd": bwd}
+            if f32:
+                # per launch: dh reads wh, a frame's dgates, dys, mask, the
+                # dh carry and writes it; gates read xw[t], wh, ys[tp],
+                # cs[t], cs[tp], dys[t], both carries, and write dc and
+                # dxw[t]
+                f32b, sb = 4 * B * H, 4 * B * H
+                dh_bytes = (2 * (_nbytes(whq[0]) + 4 * sb + sb + 2 * f32b)
+                            + 4 * B)
+                gates_bytes = 2 * (_nbytes(whq[0]) + 8 * sb + 3 * f32b
+                                   + 4 * sb) + 4 * B
+                row_dh = _bound(dh_bytes, 2 * prod, dtype)
+                row_gates = _bound(gates_bytes, 2 * prod, dtype)
+                bwd.update({
+                    "bptt_gates_us": per["bptt_gates<"][0],
+                    "bptt_gates_bound_us": row_gates["bound_ms"] * 1e3,
+                    "bptt_dh_us": per["bptt_dh<"][0],
+                    "bptt_dh_bound_us": row_dh["bound_ms"] * 1e3,
+                    "bptt_dh_library_us": t["dh_lib"] * 1e3})
+                detail = (
+                    f"per launch (torch.profiler, {per['bptt_gates<'][1]}/"
+                    f"{per['bptt_dh<'][1]} launches): bptt_gates "
+                    f"{per['bptt_gates<'][0]:.2f} us (bound "
+                    f"{row_gates['bound_ms'] * 1e3:.2f}), bptt_dh "
+                    f"{per['bptt_dh<'][0]:.2f} us (bound "
+                    f"{row_dh['bound_ms'] * 1e3:.2f}; torch.mm per frame, "
+                    f"the product alone, {t['dh_lib'] * 1e3:.2f})")
+            else:
+                pre_bytes = _nbytes(*pre_k)
+                gemm_in = _nbytes(*(x for x, *_ in kdirs),
+                                  *(d[2] for d in kdirs), *whq)
+                loop_in = _nbytes(mask, *whq,
+                                  *(a for d in kdirs for a in d[3:5]))
+                gemm = {"max_abs_err": e_pre,
+                        "ms": per["bptt_gates_gemm<"][0] / 1e3,
+                        "plain_ms": t["gates_plain"],
+                        "library_ms": t["gates_lib"],
+                        **_bound(gemm_in + pre_bytes, gemm_flops, dtype),
+                        "launches_per_call": per["bptt_gates_gemm<"][1]}
+                loop = {"max_abs_err": e_loop,
+                        "ms": per["lstm_bwd_persistent<"][0] / 1e3,
+                        "plain_ms": t["loop_plain"], "library_ms": None,
+                        **_bound(pre_bytes + loop_in + dxw_bytes, gemm_flops,
+                                 dtype),
+                        "launches_per_call": per["lstm_bwd_persistent<"][1]}
+                loop["per_frame_us"] = loop["ms"] / T * 1e3
+                loop["bound_per_frame_us"] = loop["bound_ms"] / T * 1e3
+                _require(gemm["launches_per_call"] == 1
+                         and loop["launches_per_call"] == 1,
+                         f"one launch of each BPTT kernel a call: {tag}")
+                rows[(B, T, dtype)].update(
+                    {"bptt_gates_gemm": gemm, "lstm_bwd_persistent": loop})
+                bwd.update({
+                    "launches_per_call": {"bptt_gates_gemm": 1,
+                                          "lstm_bwd_persistent": 1},
+                    "per_frame_us": loop["per_frame_us"],
+                    "per_frame_bound_us": loop["bound_per_frame_us"],
+                    "bptt_gates_gemm_us": gemm["ms"] * 1e3,
+                    "bptt_gates_gemm_bound_us": gemm["bound_ms"] * 1e3,
+                    "bptt_gates_gemm_library_us": t["gates_lib"] * 1e3,
+                    "lstm_bwd_persistent_us": loop["ms"] * 1e3,
+                    "lstm_bwd_persistent_bound_us": loop["bound_ms"] * 1e3})
+                detail = (
+                    f"per launch (torch.profiler, one launch each a call): "
+                    f"bptt_gates_gemm {gemm['ms'] * 1e3:.2f} us (bound "
+                    f"{gemm['bound_ms'] * 1e3:.2f}; plain "
+                    f"{t['gates_plain']:.3f} ms; torch.mm + xw "
+                    f"{t['gates_lib'] * 1e3:.2f} us), lstm_bwd_persistent "
+                    f"{loop['ms'] * 1e3:.2f} us = {loop['per_frame_us']:.3f} "
+                    f"us a frame (bound {loop['bound_per_frame_us']:.3f}; "
+                    f"plain {t['loop_plain']:.3f} ms)")
             print(f"time {tag}, both directions: save_cell fwd {t['fwd']:.3f}"
                   f" ms (plain {t['fwd_plain']:.3f}); BPTT frames+dwh "
                   f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}; frames "
-                  f"alone {t['frames']:.3f}); per launch (torch.profiler, "
-                  f"{per['bptt_gates'][1]}/{per['bptt_dh'][1]} launches): "
-                  f"bptt_gates {per['bptt_gates'][0]:.2f} us (bound "
-                  f"{row_gates['bound_ms'] * 1e3:.2f}), bptt_dh "
-                  f"{per['bptt_dh'][0]:.2f} us (bound "
-                  f"{row_dh['bound_ms'] * 1e3:.2f}; torch.mm per frame, the "
-                  f"product alone, {t['dh_lib'] * 1e3:.2f}); dwh "
+                  f"alone {t['frames']:.3f}); {detail}; dwh "
                   f"{t['dwh']:.4f} ms (plain {t['dwh_plain']:.3f}, torch.mm "
                   f"{t['dwh_lib']:.4f}) ({card})", flush=True)
             fwd_row = {"max_abs_err": e_fwd, "ms": t["fwd"],
@@ -629,25 +757,14 @@ def lstm_train_kernels(dev, card: str) -> dict:
                   f"{fwd_row['launches_per_call']} launch(es) of "
                   f"{fwd_row['kernel_name']} a call; two runs bit-equal) "
                   f"({card})", flush=True)
-            rows[(B, T, dtype)] = {
+            rows[(B, T, dtype)].update({
                 "lstm_fwd_save_cell": fwd_row,
-                "lstm_bwd": {
-                    "max_abs_err": e_dxw, "ms": t["bwd"],
-                    "plain_ms": t["bwd_plain"], "library_ms": None,
-                    **_bound(frame_in + dxw_bytes + dwh_bytes,
-                             2 * (2 * T * prod + 2 * R * H * 4 * H), dtype),
-                    "frames_ms": t["frames"],
-                    "bptt_gates_us": per["bptt_gates"][0],
-                    "bptt_gates_bound_us": row_gates["bound_ms"] * 1e3,
-                    "bptt_dh_us": per["bptt_dh"][0],
-                    "bptt_dh_bound_us": row_dh["bound_ms"] * 1e3,
-                    "bptt_dh_library_us": t["dh_lib"] * 1e3},
                 "lstm_dwh": {
                     "max_abs_err": e_dwh, "ms": t["dwh"],
                     "plain_ms": t["dwh_plain"], "library_ms": t["dwh_lib"],
                     **_bound(dwh_in + dwh_bytes, 2 * 2 * R * H * 4 * H,
                              dtype)},
-            }
+            })
     return rows
 
 
@@ -796,6 +913,8 @@ def write_glyph_dataset(path: str, font: dict, seed: int, n_train: int,
 
 TRAIN_COUNTERS = (("lstm_cuda", "SAVE_CELL_LAUNCHES"),
                   ("lstm_cuda", "BWD_LAUNCHES"),
+                  ("lstm_cuda", "GATES_GEMM_LAUNCHES"),
+                  ("lstm_cuda", "BWD_PERSISTENT_LAUNCHES"),
                   ("lstm_cuda", "DWH_LAUNCHES"),
                   ("ctc_cuda", "ALPHA_LAUNCHES"),
                   ("ctc_cuda", "BETA_LAUNCHES"))
@@ -1344,6 +1463,25 @@ def main() -> int:
                 lstm_rows[(*SMALL_BUCKET_SHAPE[:2], torch.float32)][name])
         if name == "lstm_bwd":
             row["also_replaces"] = "vistaocr_tpu/ops/lstm_pallas.py:334"
+            for B, T, _ in LSTM_TRAIN_SHAPES[1:]:
+                if (B, T) != main_shape:
+                    row[f"at_B{B}_T{T}"] = with_f32(
+                        lstm_rows[(B, T, torch.bfloat16)][name],
+                        lstm_rows[(B, T, torch.float32)][name])
+        kernels.append(row)
+    # the bf16-weight BPTT's two kernels (f32 weights run bptt_gates and
+    # bptt_dh per frame, timed in the lstm_bwd row's f32_ fields)
+    for name, counter in (("bptt_gates_gemm", "GATES_GEMM_LAUNCHES"),
+                          ("lstm_bwd_persistent", "BWD_PERSISTENT_LAUNCHES")):
+        row = {"name": name, "route": "cuda",
+               "source": "vistaocr_tpu_torch/csrc/lstm_bwd.cu",
+               "replaces": "vistaocr_tpu/ops/lstm_pallas.py:281",
+               "also_replaces": "vistaocr_tpu/ops/lstm_pallas.py:334",
+               "launches": counts[counter],
+               **lstm_rows[(*main_shape, torch.bfloat16)][name]}
+        for B, T, _ in LSTM_TRAIN_SHAPES[1:]:
+            if (B, T) != main_shape:
+                row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, torch.bfloat16)][name]
         kernels.append(row)
     for name, rep, counter in (("ctc_alpha", "ctc_pallas.py:74",
                                 "ALPHA_LAUNCHES"),

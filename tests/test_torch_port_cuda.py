@@ -2,7 +2,10 @@
 (csrc/lstm_fwd.cu in both forms: the persistent bf16-weight kernel at the
 main path's B, T and H, its determinism, its one launch per layer call
 and its H limit, and the per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
-and dwh in all four stream/weight type pairs, csrc/ctc.cu's alpha/beta)
+and dwh in all four stream/weight type pairs: with bf16 weights the gate
+GEMM and the persistent frame loop at ragged B, T and H, their
+determinism, their two launches per layer call and their H limit, with
+f32 weights the per-frame kernels; csrc/ctc.cu's alpha/beta)
 against their plain PyTorch versions, including ragged B/H edges and the
 tile edges, T = 1, empty labels and an infeasible CTC sample; the BPTT
 kernels' determinism and dwh against one cuBLAS GEMM; their launch
@@ -372,6 +375,11 @@ def _typed_bptt_operands(dev, B, T, H, stream, compute, seed):
 def _check_bptt(dev, B, T, H, stream, compute):
     dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute,
                                       seed=B * T + H)
+    if compute == torch.bfloat16 and H > lstm_cuda.PERSISTENT_MAX_H:
+        # bf16 weights: a 16-CTA cluster holds all of wh, so H <= 512
+        with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
+            lstm_cuda.lstm_bptt(dirs, mask, compute)
+        return
     before = (lstm_cuda.BWD_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
     with torch.no_grad():
         got = lstm_cuda.lstm_bptt(dirs, mask, compute)
@@ -398,9 +406,11 @@ def test_bptt_mixed_types_match_plain(dev, shape, stream, compute):
     _check_bptt(dev, *shape, stream, compute)
 
 
-# the edges of the tiles: bptt_dh's 64 units x 32/64/128 batch rows and
-# 4H/8-column slices, lstm_dwh's 128 x 128 tiles, 64-row stages and TMA's
-# 16-byte rows (H % 8), and T = 1 (no dwh rows) and 2 (one frame's rows)
+# the edges of the tiles: bptt_dh's 64 units x 32 batch rows and
+# 4H/8-column slices (f32 W), bptt_gates_gemm's and lstm_dwh's 128 x 128
+# tiles, 64-row stages and TMA's 16-byte rows (H % 8), lstm_bwd_persistent's
+# 32-unit CTAs and 32-row clusters (bf16 W; H = 520 raises there), and
+# T = 1 (no dwh rows) and 2 (one frame's rows)
 @pytest.mark.parametrize("shape", [(8, 2, 64), (9, 2, 65), (128, 3, 64),
                                    (129, 2, 65), (8, 1, 520), (9, 3, 520)])
 @pytest.mark.parametrize("stream,compute", _TYPE_PAIRS)
@@ -426,6 +436,122 @@ def test_bptt_and_dwh_are_deterministic(dev, stream, compute):
         assert torch.equal(a, b)
 
 
+# The bf16-weight BPTT (type codes 1 and 2: bptt_gates_gemm, then one
+# lstm_bwd_persistent launch) at ragged shapes: H not a multiple of 32 or 8
+# and H < 64 (one or two CTAs a cluster), B > 32 (several clusters), B=512
+# (16 clusters a direction, in waves), T = 1 (no product), and a row that
+# is invalid throughout (row 3; row 0 is full).
+BF16_BPTT_SHAPES = [(5, 7, 17), (6, 9, 40), (33, 5, 100), (70, 4, 72),
+                    (129, 3, 512), (512, 3, 40), (512, 2, 512), (4, 1, 512),
+                    (40, 1, 36), (32, 64, 512)]
+
+
+def _bf16_bptt_operands(dev, B, T, H, stream, seed):
+    dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, torch.bfloat16,
+                                      seed)
+    if B > 3:
+        mask = mask.clone()
+        mask[:, 0, 3] = 0.0
+        dirs = [(x, w, *lstm_cuda.lstm_recurrence_ref(
+                    x, mask, w, reverse=r, dtype=torch.bfloat16,
+                    save_cell=True), dy, r) for x, w, _, _, dy, r in dirs]
+    return dirs, mask
+
+
+@pytest.mark.parametrize("shape", BF16_BPTT_SHAPES)
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+def test_bf16_weight_bptt_matches_plain(dev, shape, stream):
+    B, T, H = shape
+    dirs, mask = _bf16_bptt_operands(dev, B, T, H, stream, seed=B + T * H)
+    before = (lstm_cuda.BWD_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
+              lstm_cuda.BWD_PERSISTENT_LAUNCHES)
+    with torch.no_grad():
+        got = lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16)
+        ref = lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16, plain=True)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.BWD_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
+            lstm_cuda.BWD_PERSISTENT_LAUNCHES) == tuple(b + 1 for b in before)
+    for (dxw, dwh), (rdxw, rdwh) in zip(got, ref):
+        assert dxw.dtype == stream and dxw.shape == (T, B, 4 * H)
+        assert _rel_err(dxw, rdxw) <= _BF16_REL
+        assert _rel_err(dwh, rdwh) <= _BF16_REL
+        if B > 3:  # the invalid row's gradients are zeros
+            assert not dxw[:, 3].float().abs().max().item()
+
+
+def test_bf16_weight_bptt_is_deterministic(dev):
+    """One owner per dh element, partials summed in rank order: two runs,
+    the same bits, in both type codes and with several clusters."""
+    for stream in (torch.bfloat16, torch.float32):
+        dirs, mask = _bf16_bptt_operands(dev, 129, 20, 512, stream, seed=3)
+        kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+                 for x, w, y, c, dy, r in dirs]
+        with torch.no_grad():
+            runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
+                    for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+def _profiled_counts(call, names):
+    """Launches of each kernel name in a torch.profiler window over one
+    call; the window opens with small launches and a synchronise (the
+    profiler misses kernels launched just after it starts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # built and warm
+    torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    return {n: sum(n in e.name for e in prof.events()) for n in names}
+
+
+_BPTT_KERNELS = ("bptt_gates_gemm<", "lstm_bwd_persistent<", "bptt_gates<",
+                 "bptt_dh<", "lstm_dwh")
+
+
+def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
+    """B=32, T=512, H=512 (the W=2048 bucket), both directions: one
+    lstm_bptt call makes one bptt_gates_gemm, one lstm_bwd_persistent and
+    one dwh launch, and no per-frame bptt_gates or bptt_dh."""
+    dirs, mask = _bf16_bptt_operands(dev, 32, 512, 512, torch.bfloat16,
+                                     seed=9)
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
+            _BPTT_KERNELS)
+    assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 1,
+                      "bptt_gates<": 0, "bptt_dh<": 0, "lstm_dwh": 1}, counts
+
+
+def test_f32_weight_bptt_still_launches_per_frame(dev):
+    T = 24
+    dirs, mask = _typed_bptt_operands(dev, 32, T, 64, torch.float32,
+                                      torch.float32, seed=10)
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.float32),
+            _BPTT_KERNELS)
+    assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 0,
+                      "bptt_gates<": T, "bptt_dh<": T, "lstm_dwh": 1}, counts
+
+
+def test_bf16_weight_bptt_refuses_h_above_512(dev):
+    dirs, mask = _typed_bptt_operands(dev, 4, 3, 520, torch.bfloat16,
+                                      torch.bfloat16, seed=1)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    before = lstm_cuda.BWD_LAUNCHES
+    with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
+        lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
+    assert lstm_cuda.BWD_LAUNCHES == before
+
+
 def test_dwh_matches_torch_mm_at_flagship(dev):
     """bf16 at B=32, T=512, H=512: the wgmma kernel against one cuBLAS
     bf16 GEMM with f32 output over the same (T-1)*B rows (the same
@@ -446,9 +572,12 @@ def test_dwh_matches_torch_mm_at_flagship(dev):
         assert _rel_err(dwh, ref) <= 1e-5
 
 
-def test_autograd_backward_on_cuda_matches_plain_bptt(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_backward_on_cuda_matches_plain_bptt(dev, dtype):
+    """f32: the per-frame kernels; bf16: bptt_gates_gemm +
+    lstm_bwd_persistent (bf16 streams and weights)."""
     B, T, H = 6, 11, 24
-    dirs, mask = _bptt_operands(dev, B, T, H, torch.float32, seed=4)
+    dirs, mask = _bptt_operands(dev, B, T, H, dtype, seed=4)
     xw, wh = dirs[0][0], dirs[0][1]
     xf = xw.clone().requires_grad_(True)
     xb = (xw * 0.5).requires_grad_(True)
@@ -467,8 +596,13 @@ def test_autograd_backward_on_cuda_matches_plain_bptt(dev):
             ref.append(lstm_cuda.lstm_bptt_ref(x, mask, w, ys, cs, dy,
                                                reverse=r))
     for (x, w), (rdx, rdw) in zip(((xf, wf), (xb, wb)), ref):
-        torch.testing.assert_close(x.grad, rdx, atol=2e-4, rtol=1e-3)
-        torch.testing.assert_close(w.grad, rdw, atol=2e-4, rtol=1e-3)
+        if dtype == torch.float32:
+            torch.testing.assert_close(x.grad, rdx, atol=2e-4, rtol=1e-3)
+            torch.testing.assert_close(w.grad, rdw, atol=2e-4, rtol=1e-3)
+        else:  # the kernels' forward and BPTT against the plain ones
+            assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+            assert _rel_err(x.grad, rdx) <= _BF16_REL
+            assert _rel_err(w.grad, rdw) <= _BF16_REL
 
 
 def _ctc_case(dev, B, T, K, L, seed, infeasible=False):

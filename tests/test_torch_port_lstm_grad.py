@@ -1,11 +1,14 @@
 """The port's LSTM training path (ops/lstm_cuda.py) against the JAX
 package: the ``save_cell`` forward against ``_lstm_fwd_local(save_cell=
 True, interpret=True)`` (ys and cs within 1e-5), the plain BPTT
-``lstm_bptt_ref`` against ``_lstm_bwd_local(interpret=True)`` (dxw and
-dwh within atol 2e-4, rtol 1e-3, tests/test_lstm_pallas.py:77), both
-directions with ragged masks; the autograd Function against torch
-autograd through the plain loop; bf16 streams against the f32 oracle
-within 3e-2. The CUDA kernels' own tests are in
+``lstm_bptt_ref`` (two stages: ``bptt_gates_ref``, ``bptt_frames_ref``)
+against ``_lstm_bwd_local(interpret=True)`` (dxw and dwh within atol
+2e-4, rtol 1e-3, tests/test_lstm_pallas.py:77; with a bf16 stream or
+compute dtype within 2**-8 of the tensor's largest magnitude), both
+directions with ragged masks; the gate recompute against the frame
+loop's gates and its ``torch.mm`` yardstick; the autograd Function
+against torch autograd through the plain loop; bf16 streams against the
+f32 oracle within 3e-2. The CUDA kernels' own tests are in
 tests/test_torch_port_cuda.py."""
 
 import numpy as np
@@ -178,3 +181,89 @@ def test_dwh_yardstick_is_the_kernels_function(stream, compute, reverse):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(dwh_j), atol=2e-4,
                                rtol=1e-3)
+
+
+# bf16 stream or compute dtype: the two frameworks round at the same points
+# (lstm_bptt_ref follows _bptt_frame), but a stored bf16 dxw element may
+# land one ulp apart where the f32 sums before the rounding differ in
+# their last bits; one ulp of the largest element is 2**-8 of the
+# tensor's largest magnitude (read: dxw 2.7e-5, dwh 1.3e-5 over seeds
+# 8-11, both directions, all four pairs)
+_BF16_JAX_REL = 2.0 ** -8
+
+
+def _jax_bptt(seed, stream, compute, reverse):
+    """The JAX kernels' forward and BPTT in interpret mode, and the same
+    inputs (the JAX saved states included) as torch tensors."""
+    xw, mask, wh, dys = _case(seed)
+    args_j = [jnp.asarray(xw).astype(_JDT[stream]), jnp.asarray(mask),
+              jnp.asarray(wh).astype(_JDT[compute])]
+    ys_j, cs_j = _lstm_fwd_local(*args_j, dtype=_JDT[compute], interpret=True,
+                                 save_cell=True, reverse=reverse)
+    dys_j = jnp.asarray(dys).astype(_JDT[stream])
+    dxw_j, dwh_j = _lstm_bwd_local(*args_j, ys_j, cs_j, dys_j,
+                                   dtype=_JDT[compute], interpret=True,
+                                   reverse=reverse)
+
+    def t(a, dt):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(dt)
+
+    inputs = (t(args_j[0], stream), torch.from_numpy(mask),
+              t(args_j[2], compute), t(ys_j, stream), t(cs_j, stream),
+              t(dys_j, stream))
+    return inputs, t(dxw_j, torch.float32), t(dwh_j, torch.float32)
+
+
+@pytest.mark.parametrize("stream,compute", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_two_stage_bptt_matches_pallas_interpret(stream, compute, reverse):
+    """The two-stage ``lstm_bptt_ref`` (every frame's gates at once, then
+    the frame loop) against ``_bwd_kernel`` / ``_bwd_kernel_rev`` in
+    interpret mode, for each stream/compute pair, ragged masks."""
+    for seed in (8, 9):
+        (xw, mask, wh, ys, cs, dys), dxw_j, dwh_j = _jax_bptt(
+            seed, stream, compute, reverse)
+        dxw, dwh = lstm_cuda.lstm_bptt_ref(xw, mask, wh, ys, cs, dys,
+                                           reverse=reverse, dtype=compute)
+        assert dxw.dtype == stream and dwh.dtype == torch.float32
+        if stream == compute == torch.float32:
+            np.testing.assert_allclose(dxw.numpy(), dxw_j.numpy(), atol=2e-4,
+                                       rtol=1e-3)
+            np.testing.assert_allclose(dwh.numpy(), dwh_j.numpy(), atol=2e-4,
+                                       rtol=1e-3)
+        else:
+            for got, ref in ((dxw.float(), dxw_j), (dwh, dwh_j)):
+                err = (got - ref).abs().max() / ref.abs().max()
+                assert err.item() <= _BF16_JAX_REL, err.item()
+
+
+@pytest.mark.parametrize("stream,compute", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gates_yardstick_is_the_kernels_function(stream, compute, reverse):
+    """``bptt_gates_ref`` (the function of the ``bptt_gates_gemm``
+    kernel) equals the gates that the frame-by-frame loop recomputes,
+    f32(xw[t]) + round(ys[tp]) @ round(wh) with zeros at the edge, and
+    the one-product form ``chip_smoke.gates_one_product`` times beside
+    the kernel."""
+    import chip_smoke
+
+    (xw, mask, wh, ys, _, _), _, _ = _jax_bptt(7, stream, compute, reverse)
+    pre = lstm_cuda.bptt_gates_ref(xw, ys, wh, reverse=reverse, dtype=compute)
+    T = xw.shape[0]
+    w = wh.to(compute).float()
+    for t in range(T):
+        tp = t + 1 if reverse else t - 1
+        h = (ys[tp].to(compute).float() if 0 <= tp < T
+             else torch.zeros_like(ys[0], dtype=torch.float32))
+        torch.testing.assert_close(pre[t], xw[t].float() + h @ w, atol=1e-6,
+                                   rtol=1e-6)
+    edge = T - 1 if reverse else 0
+    assert torch.equal(pre[edge], xw[edge].float())
+    got = chip_smoke.gates_one_product(xw, ys, wh, reverse, compute)
+    assert got.dtype == torch.float32 and got.shape == pre.shape
+    # the same products, summed in another order
+    torch.testing.assert_close(got, pre, atol=1e-5, rtol=1e-5)

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written tensor-core
 // kernels: shared-memory addresses, mbarriers, TMA and cp.async copies,
-// bulk copies between the CTAs of a cluster, the cluster barrier,
-// 128- and 64-byte-swizzled wgmma operand layouts and their descriptors,
-// and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions (N = 32, 64, 128;
-// N = 32 also with A from registers). Used by lstm_bwd.cu and lstm_fwd.cu;
+// bulk copies and st.async between the CTAs of a cluster, the cluster
+// barrier, 128- and 64-byte-swizzled wgmma operand layouts and their
+// descriptors, and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions
+// (N = 128 with A from shared memory, N = 32 with A from registers). Used by lstm_bwd.cu and lstm_fwd.cu;
 // plain PTX, no CUTLASS.
 #pragma once
 
@@ -137,6 +137,17 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// 16 bytes from registers to a peer's shared memory (shared::cluster
+// addresses from cluster_addr, `dst` 16-byte aligned); the bytes complete
+// the transaction count of the peer's mbarrier `bar`
+__device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
+      " [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
+}
+
 // --- cluster barrier ---------------------------------------------------------
 // arrive releases this thread's earlier writes (local and distributed shared
 // memory) at cluster scope; wait returns once every thread of every CTA of
@@ -196,65 +207,6 @@ __device__ __forceinline__ void wgmma_wait() {
 // d[4*j + q] = D[16*(t/32) + (t%32)/4 + 8*(q/2)][8*j + 2*(t%4) + q%2].
 
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-// the same with A from registers: thread t of the warpgroup holds a[j] =
-// A[16*(t/32) + (t%32)/4 + 8*(j%2)][2*(t%4) + 8*(j/2) + {0, 1}] (two bf16,
-// the lower column in the low half)
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
                                               uint64_t db) {
   asm volatile(
@@ -286,6 +238,27 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// wgmma.m64n32k16 with A from registers: thread t of the warpgroup holds
+// a[j] = A[16*(t/32) + (t%32)/4 + 8*(j%2)][2*(t%4) + 8*(j/2) + {0, 1}]
+// (two bf16, the lower column in the low half), d as above
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
 }
 
 }  // namespace vo_sm90

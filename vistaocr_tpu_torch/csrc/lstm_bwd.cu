@@ -26,31 +26,51 @@
 // What bounds it on an H100: T strictly sequential frames of too little
 // work each ([B,H] x [H,4H] for the gate recompute, [B,4H] x [4H,H] for
 // dh: 134 MFLOP and 4 MB of bf16 wh for both directions at B=32, H=512,
-// about 1.3 us of the card), so each frame is latency-bound: the launches,
-// and how many SMs share a frame's product and how long each one's
-// dependent chain is. The dwh sum is the one large product of the
-// backward: H x 4H x (T-1)*B multiply-adds, 69 GFLOP for both directions
-// at T=512, B=32, H=512: 69 us on the bf16 tensor cores, 1 ms on the f32
-// FMA units.
+// about 1.3 us of the card), so a frame launched on its own is
+// latency-bound: the launches, a pass over all of wh from L2, and the
+// dependent chain of its product. The dwh sum is the one large product of
+// the backward: H x 4H x (T-1)*B multiply-adds, 69 GFLOP for both
+// directions at T=512, B=32, H=512: 69 us on the bf16 tensor cores, 1 ms
+// on the f32 FMA units.
 //
 // What this design does about it:
-// - Frame t's dh product needs all 4H gate columns of a row, which other
-//   blocks compute, so each frame is two launches on one stream (stream
-//   order is the barrier): bptt_gates recomputes the gates with the
-//   forward's tiled product (lstm_common.cuh) and writes dxw[t] and the
-//   dc carry in its epilogue; bptt_dh multiplies the stream-rounded dxw[t]
-//   by wh^T and writes the dh carry in its epilogue.
-// - bptt_dh splits the 4H contraction 8 ways over a thread-block cluster
-//   (8 CTAs x 64 hidden units x 32 or 64 batch rows, per direction: 128
-//   CTAs at H=512, B=32). Each CTA multiplies its 64 x 4H/8 slice of wh by the
-//   same columns of the dgates: with bf16 W on the tensor cores
-//   (wgmma.m64nNk16, both operands K-major in 128B-swizzled shared memory,
-//   dgates rounded to bf16 as they are stored there, never right after
-//   their global load), with f32 W on the FMA units (64 x 32 tile, 4 x 4
-//   per thread, a 256-long chain). The 8 partial tiles are summed through
-//   distributed shared memory: CTA r of the cluster adds rows 8r..8r+7 of
-//   all 8 partials in rank order and runs the epilogue for them, so each
-//   dh element has one owner and the sum a fixed order (no atomics).
+// - The gate recompute is not on the recurrence's chain: its h_prev is
+//   the SAVED ys row of the forward, all known before the backward
+//   starts. Only dgates(t) -> dh -> dgates(t-1) is sequential.
+// - bf16 W (type codes 1 and 2): two launches per call.
+//   bptt_gates_gemm recomputes the gates of every frame as one GEMM, pre
+//   [T*B, 4H] f32 = f32(xw) + round_W(ys shifted one frame) @ wh (the
+//   edge frame's rows read zeros): 128 x 128 tiles, a producer warp
+//   keeping a 4-stage ring full by TMA (bf16 streams; a tile that starts
+//   before the first ys row, and f32 streams, are loaded by the producer
+//   warpgroup and rounded to bf16 at the store), two consumer warpgroups
+//   of wgmma.m64n128k16 (A = ys rows K-major, B = wh rows MN-major), the
+//   epilogue adding f32(xw). Then lstm_bwd_persistent walks all T frames
+//   in one launch: a thread-block cluster of ceil(H/32) CTAs (16 at
+//   H=512, a non-portable size checked with cudaOccupancyMaxActiveClusters)
+//   per direction and 32 batch rows; CTA r owns units 32r..32r+31 and
+//   their 128 gate columns, so a unit's dgates are its own CTA's
+//   epilogue (pre, cs, dys and the mask arrive by cp.async during the
+//   previous frame's product; the f32 dh and dc carries stay in
+//   registers). Its dh product is split over the cluster by those
+//   columns: P_r[k][b] = sum over own columns g of wh[k][g] * dg[b][g],
+//   M = every unit, K = 128, N = 32, with A (wh[:, own columns]) held in
+//   registers for all T frames, as lstm_fwd_persistent holds its slice of
+//   wh, and B the round_W(dgates) tile in shared memory. Rows 32p..32p+31
+//   of P_r go to CTA p as 16-byte st.async stores that complete on p's
+//   mbarrier (double-buffered receive slots: arrival alone orders the
+//   frames, as in lstm_fwd.cu); CTA p sums the C partials of its units in
+//   rank order, so each dh element has one owner and a fixed order, no
+//   atomics, and two runs give the same bits. H <= 512.
+// - f32 W (type codes 0 and 3, the parity route): wgmma has no exact f32
+//   product, so each frame stays two launches on one stream (stream order
+//   is the barrier): bptt_gates recomputes the gates with the forward's
+//   tiled FMA product (lstm_common.cuh) and writes dxw[t] and the dc
+//   carry in its epilogue; bptt_dh multiplies dxw[t] by wh^T, splitting
+//   the 4H contraction 8 ways over a thread-block cluster (8 CTAs x 64
+//   hidden units x 32 batch rows, per direction; 64 x 32 tile, 4 x 4 per
+//   thread), the 8 partial tiles summed through distributed shared memory
+//   in rank order by the row's owner, which writes the dh carry.
 // - dwh is not summed frame by frame as on the TPU (where the kernel keeps
 //   it in VMEM across the grid): it is one product over K = (T-1)*B rows
 //   after the loop, taking ys and dxw at a one-frame offset (the rows of
@@ -64,8 +84,9 @@
 //   the shared-memory store (f32 streams, or rows TMA cannot describe).
 //   f32/f32 stays on the f32 FMA units, so that no TF32 rounding changes
 //   its numbers: 128 x 128 tiles, 8 x 8 per thread, double-buffered.
-// Ragged B, H and 4H edges read as zeros, so any B, T, H >= 1; every
-// output element is written, and two runs give the same bits.
+// Ragged B, H and 4H edges read as zeros, so any B, T >= 1 and H >= 1
+// (H <= 512 with bf16 W); every output element is written, and two runs
+// give the same bits. Times on an H100 are in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
@@ -226,10 +247,10 @@ __device__ __forceinline__ uint4 to_bf16x8(const Chunk8<float>& c) {
 
 // Fill `nblk` blocks of `rows` x 64 bf16 (128B-swizzled, block j at
 // dst + j*rows*128) with src[(row0 + r)*ld + col0 + 64j + c], rows
-// row0 + r >= nrows and columns >= end as zeros. bf16 sources with `vec`
-// go by cp.async (the caller waits); others are loaded a batch of chunks
-// at a time and rounded to bf16 only as they are stored, so the loads of
-// a batch are in flight together.
+// row0 + r outside [0, nrows) and columns >= end as zeros. bf16 sources
+// with `vec` go by cp.async (the caller waits); others are loaded a batch
+// of chunks at a time and rounded to bf16 only as they are stored, so the
+// loads of a batch are in flight together.
 template <typename T>
 __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
                                           long long ld, long long row0,
@@ -250,7 +271,7 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
       const int r = rem / 8, c = rem % 8;
       off[i] = j * rows * 128 + swz128(r, c);
       const long long gr = row0 + r, col = col0 + 64 * j + 8 * c;
-      const bool ok = gr < nrows;
+      const bool ok = gr >= 0 && gr < nrows;
       const T* row = src + (ok ? gr : 0) * ld;
       if constexpr (std::is_same<T, bf16>::value) {
         if (vec) {
@@ -273,39 +294,25 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
   }
 }
 
-// Phase 2 of a frame: dh = round_W(dxw[t]) @ wh^T + (1-m)*(dh + dys[t]),
+// Phase 2 of a frame (f32 W): dh = dxw[t] @ wh^T + (1-m)*(dh + dys[t]),
 // split-K over a cluster of DH_SPLIT CTAs. Grid (DH_SPLIT, ceil(H/DH_M),
 // ndir * nbt): cluster rank = contraction slice [rank*ks, rank*ks + ks)
 // of the 4H columns, y = 64 hidden units, z = direction and NT batch rows.
 constexpr int DH_M = 64;
 constexpr int DH_SPLIT = 8;
-constexpr int DH_KC = 256;  // contraction columns per pass (bf16 route)
 constexpr int DH_THREADS = 128;
-constexpr int SIMT_K = 32;  // contraction chunk (f32 route)
-
-template <typename W, int NT>
-constexpr int dh_smem_bytes() {
-  return 1024 + (std::is_same<W, bf16>::value
-                     ? std::max(DH_M * DH_KC * 2 + NT * DH_KC * 2,
-                                DH_M * (NT + 4) * 4)
-                     : std::max(SIMT_K * (DH_M + 4) * 4 + SIMT_K * (NT + 4) * 4,
-                                DH_M * (NT + 4) * 4));
-}
+constexpr int SIMT_K = 32;  // contraction chunk
 
 template <int NT>
-__device__ __forceinline__ void wgmma_kk(float (&d)[NT / 2], uint64_t da,
-                                         uint64_t db) {
-  if constexpr (NT == 32) {
-    wgmma_m64n32<0, 0>(d, da, db);
-  } else {
-    wgmma_m64n64<0, 0>(d, da, db);
-  }
+constexpr int dh_smem_bytes() {
+  return 1024 + std::max(SIMT_K * (DH_M + 4) * 4 + SIMT_K * (NT + 4) * 4,
+                         DH_M * (NT + 4) * 4);
 }
 
 template <typename S, typename W, int NT>
 __global__ void __launch_bounds__(DH_THREADS)
 bptt_dh(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
-        int B, int H, int nbt, int ks, int vec) {
+        int B, int H, int nbt, int ks) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const BwdDir<S, W> d = blockIdx.z / nbt == 0 ? d0 : d1;
@@ -321,111 +328,69 @@ bptt_dh(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
   float* red = reinterpret_cast<float*>(sm);  // [DH_M][LD] partial tile
   const int tid = threadIdx.x;
 
-  if constexpr (std::is_same<W, bf16>::value) {
-    // D[k][b] = sum_g wh[k][g] * dg[b][g]: A = wh rows, B = dgate rows,
-    // both K-major, in 64-column blocks of the slice
-    float acc[NT / 2];
+  // 64 units x 32 rows per CTA, 4 x 4 per thread
+  static_assert(std::is_same<W, float>::value && NT == 32,
+                "f32 weights, 32 batch rows per CTA");
+  float* ws = reinterpret_cast<float*>(sm);  // ws[g][k] = wh[k][g]
+  float* ds = ws + SIMT_K * (DH_M + 4);      // ds[g][b] = dg[b][g]
+  const int tu = tid % 8;                    // rows 4*tu .. 4*tu+3
+  const int tr = tid / 8;                    // units 4*tr .. 4*tr+3
+  const int lg = tid % SIMT_K, lr = tid / SIMT_K;
+  constexpr int WL = DH_M * SIMT_K / DH_THREADS;  // 16
+  constexpr int SL = NT * SIMT_K / DH_THREADS;    // 8
+  W wreg[WL];
+  S sreg[SL];
+  auto load = [&](int g0) {
+    const int g = g0 + lg;
 #pragma unroll
-    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
-    uint8_t* as = sm;
-    uint8_t* bs = sm + DH_M * DH_KC * 2;
-    constexpr int NBLK = DH_KC / 64;
-    for (int g0 = k_lo; g0 < k_hi; g0 += DH_KC) {
-      // columns past the slice are zeros: every pass runs the same wgmma
-      // sequence (no data-dependent branch between them)
-      fill_tile<W>(as, DH_M, d.wh, G, m0, H, g0, k_hi, NBLK, vec, tid,
-                   DH_THREADS);
-      fill_tile<S>(bs, NT, dg, G, n0, B, g0, k_hi, NBLK, vec, tid,
-                   DH_THREADS);
-      cp_async_wait_all();
-      fence_proxy_async();
-      __syncthreads();
-      wgmma_fence();
-      const uint32_t a0 = smem_u32(as), b0 = smem_u32(bs);
-#pragma unroll
-      for (int j = 0; j < NBLK; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // 16 columns = 32 bytes each
-          wgmma_kk<NT>(acc, wgmma_desc(a0 + j * DH_M * 128 + kk * 32, 16, 1024),
-                       wgmma_desc(b0 + j * NT * 128 + kk * 32, 16, 1024));
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      __syncthreads();  // the operand tiles are free again
+    for (int i = 0; i < WL; ++i) {
+      const int k = m0 + lr + 4 * i;
+      wreg[i] = (k < H && g < k_hi) ? d.wh[(long long)k * G + g]
+                                    : from_f32<W>(0.0f);
     }
-    const int warp = tid / 32, lane = tid % 32;
 #pragma unroll
-    for (int j = 0; j < NT / 8; ++j)
+    for (int i = 0; i < SL; ++i) {
+      const int b = n0 + lr + 4 * i;
+      sreg[i] = (b < B && g < k_hi) ? dg[(long long)b * G + g]
+                                    : from_f32<S>(0.0f);
+    }
+  };
+  float acc[4][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int r = 16 * warp + lane / 4 + 8 * (q / 2);
-        red[r * LD + 8 * j + 2 * (lane % 4) + q % 2] = acc[4 * j + q];
-      }
-  } else {
-    // f32 W: 64 units x 32 rows per CTA, 4 x 4 per thread
-    static_assert(NT == 32, "the f32 route takes 32 batch rows per CTA");
-    float* ws = reinterpret_cast<float*>(sm);  // ws[g][k] = wh[k][g]
-    float* ds = ws + SIMT_K * (DH_M + 4);      // ds[g][b] = dg[b][g]
-    const int tu = tid % 8;                    // rows 4*tu .. 4*tu+3
-    const int tr = tid / 8;                    // units 4*tr .. 4*tr+3
-    const int lg = tid % SIMT_K, lr = tid / SIMT_K;
-    constexpr int WL = DH_M * SIMT_K / DH_THREADS;  // 16
-    constexpr int SL = NT * SIMT_K / DH_THREADS;    // 8
-    W wreg[WL];
-    S sreg[SL];
-    auto load = [&](int g0) {
-      const int g = g0 + lg;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < WL; ++i) {
-        const int k = m0 + lr + 4 * i;
-        wreg[i] = (k < H && g < k_hi) ? d.wh[(long long)k * G + g]
-                                      : from_f32<W>(0.0f);
-      }
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  if (k_lo < k_hi) load(k_lo);
+  for (int g0 = k_lo; g0 < k_hi; g0 += SIMT_K) {
+    // converted at the store, so the next chunk's loads overlap the FMAs
 #pragma unroll
-      for (int i = 0; i < SL; ++i) {
-        const int b = n0 + lr + 4 * i;
-        sreg[i] = (b < B && g < k_hi) ? dg[(long long)b * G + g]
-                                      : from_f32<S>(0.0f);
-      }
-    };
-    float acc[4][4];
+    for (int i = 0; i < WL; ++i) ws[lg * (DH_M + 4) + lr + 4 * i] = wreg[i];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    if (k_lo < k_hi) load(k_lo);
-    for (int g0 = k_lo; g0 < k_hi; g0 += SIMT_K) {
-      // converted at the store, so the next chunk's loads overlap the FMAs
-#pragma unroll
-      for (int i = 0; i < WL; ++i) ws[lg * (DH_M + 4) + lr + 4 * i] = wreg[i];
-#pragma unroll
-      for (int i = 0; i < SL; ++i)
-        ds[lg * (NT + 4) + lr + 4 * i] = round_to<W>(to_f32(sreg[i]));
-      __syncthreads();
-      if (g0 + SIMT_K < k_hi) load(g0 + SIMT_K);
+    for (int i = 0; i < SL; ++i)
+      ds[lg * (NT + 4) + lr + 4 * i] = round_to<W>(to_f32(sreg[i]));
+    __syncthreads();
+    if (g0 + SIMT_K < k_hi) load(g0 + SIMT_K);
 #pragma unroll 8
-      for (int kk = 0; kk < SIMT_K; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            &ws[kk * (DH_M + 4) + 4 * tr]);
-        const float4 b = *reinterpret_cast<const float4*>(
-            &ds[kk * (NT + 4) + 4 * tu]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < SIMT_K; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          &ws[kk * (DH_M + 4) + 4 * tr]);
+      const float4 b = *reinterpret_cast<const float4*>(
+          &ds[kk * (NT + 4) + 4 * tu]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        red[(4 * tr + i) * LD + 4 * tu + j] = acc[i][j];
-      }
+    __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[(4 * tr + i) * LD + 4 * tu + j] = acc[i][j];
+    }
 
   // rank r sums rows 8r..8r+7 of the cluster's partials in rank order and
   // owns their epilogue (the unit index fastest, for coalesced stores)
@@ -452,8 +417,8 @@ bptt_dh(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
 template <typename S, typename W, int NT>
 cudaError_t launch_dh(const BwdDir<S, W>& d0, const BwdDir<S, W>& d1,
                       const float* mask, int B, int H, int ndir, int ks,
-                      int vec, cudaStream_t stream) {
-  constexpr int smem = dh_smem_bytes<W, NT>();
+                      cudaStream_t stream) {
+  constexpr int smem = dh_smem_bytes<NT>();
   static bool configured = false;  // per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -475,7 +440,7 @@ cudaError_t launch_dh(const BwdDir<S, W>& d0, const BwdDir<S, W>& d1,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, bptt_dh<S, W, NT>, d0, d1, mask, B, H, nbt,
-                            ks, vec);
+                            ks);
 }
 
 // dwh[k][g] = sum_r round_W(a[r][k]) * round_W(c[r][g]) over R rows:
@@ -729,6 +694,8 @@ cudaError_t encode_rows(CUtensorMap* map, const void* base, long long cols,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// f32 W (type codes 0 and 3): bptt_gates and bptt_dh, one launch each a
+// frame
 template <typename S, typename W>
 int run_bptt(int T, int B, int H, int ndir, const float* mask,
              const void* const* xw, const void* const* wh,
@@ -737,8 +704,6 @@ int run_bptt(int T, int B, int H, int ndir, const float* mask,
              float* const* scratch, const int* reverse, cudaStream_t stream) {
   BwdDir<S, W> d[2];
   const long long BH = (long long)B * H;
-  // the 16-byte chunks of wh and dgate rows: whole and aligned
-  int vec = H % 8 == 0;
   for (int i = 0; i < ndir; ++i) {
     d[i].xw = static_cast<const S*>(xw[i]);
     d[i].wh = static_cast<const W*>(wh[i]);
@@ -748,7 +713,6 @@ int run_bptt(int T, int B, int H, int ndir, const float* mask,
     d[i].dxw = static_cast<S*>(dxw[i]);
     d[i].dh = scratch[i];
     d[i].dc = scratch[i] + BH;
-    vec = vec && aligned16(wh[i]) && aligned16(dxw[i]);
   }
   const int G = 4 * H;
   const int ks = ((G + DH_SPLIT - 1) / DH_SPLIT + 63) / 64 * 64;
@@ -768,17 +732,7 @@ int run_bptt(int T, int B, int H, int ndir, const float* mask,
     bptt_gates<S, W><<<grid_g, THREADS, 0, stream>>>(d[0], d[1], mask, B, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    // bf16 W: 32 batch rows a CTA up to B = 64, then 64 (more CTAs beat
-    // wider products at B = 128); f32 W: 32
-    if constexpr (std::is_same<W, bf16>::value) {
-      err = B > 64 ? launch_dh<S, W, 64>(d[0], d[1], mask, B, H, ndir, ks,
-                                         vec, stream)
-                   : launch_dh<S, W, 32>(d[0], d[1], mask, B, H, ndir, ks,
-                                         vec, stream);
-    } else {
-      err = launch_dh<S, W, 32>(d[0], d[1], mask, B, H, ndir, ks, vec,
-                                stream);
-    }
+    err = launch_dh<S, W, 32>(d[0], d[1], mask, B, H, ndir, ks, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -857,12 +811,531 @@ int run_dwh(int T, int B, int H, int ndir, const void* const* ys,
   }
 }
 
+// --- bf16 weights: the gate recompute as one GEMM, the frames as one
+// persistent launch -----------------------------------------------------------
+
+// pre[r][n] = f32(xw[r][n]) + sum_k round_W(ys[r + off][k]) * wh[k][n] over
+// the R = T*B rows of one direction; ys rows outside [0, R) read as zeros
+// (the edge frame, whose h_prev is zero, gets f32(xw) alone).
+struct GatesDir {
+  const void* xw;  // [R, 4H] in S
+  const void* ys;  // [R, H] in S
+  const bf16* wh;  // [H, 4H]
+  float* pre;      // [R, 4H]
+  long long off;   // -B (forward: h_prev = ys[t-1]) or +B (reverse: ys[t+1])
+};
+
+struct GatesMaps {
+  CUtensorMap a[2];  // per direction: ys rows [R, H], 64 x 64 boxes
+  CUtensorMap b[2];  // wh rows [H, 4H]
+};
+
+// 128 x 128 tiles of pre, the same ring as lstm_dwh_tc: a stage holds 64
+// contraction columns as four 64 x 64 boxes, A (ys rows, K-major: a row of
+// the box is 64 K values) for rows m0..m0+63 and m0+64..m0+127, B (wh
+// rows, MN-major) for columns n0..n0+63 and n0+64..n0+127.
+template <typename S, bool kTma>
+__global__ void __launch_bounds__(GTHREADS, 1)
+bptt_gates_gemm(const __grid_constant__ GatesMaps maps, GatesDir d0,
+                GatesDir d1, int R, int H, int vec) {
+  const int dir = blockIdx.z;
+  const GatesDir d = dir == 0 ? d0 : d1;
+  extern __shared__ uint8_t gg_raw[];
+  uint8_t* sm = align1024(gg_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + GSTAGES * GSTAGE);
+  uint64_t* empty = full + GSTAGES;
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+  const int G = 4 * H;
+  const int nk = (H + GK - 1) / GK;
+  const long long a0 = m0 + d.off;  // ys row of the tile's first row
+  // TMA zero-fills rows past the tensor's end; a tile that starts before
+  // its first row (the forward direction's edge frame) is filled by hand
+  const bool tma = kTma && a0 >= 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(&full[s], tma ? 1 : 128);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {  // producer
+    const int tid = threadIdx.x - 256;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % GSTAGES, n = kt / GSTAGES;
+      uint8_t* st = sm + s * GSTAGE;
+      const int k0 = kt * GK;
+      if (tma) {
+        if (tid != 0) break;
+        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], GSTAGE);
+        tma_load_2d(st, &maps.a[dir], &full[s], k0, static_cast<int>(a0));
+        tma_load_2d(st + GBOX, &maps.a[dir], &full[s], k0,
+                    static_cast<int>(a0) + 64);
+        tma_load_2d(st + 2 * GBOX, &maps.b[dir], &full[s], n0, k0);
+        tma_load_2d(st + 3 * GBOX, &maps.b[dir], &full[s], n0 + 64, k0);
+      } else {
+        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+        for (int h = 0; h < 2; ++h) {
+          fill_tile<S>(st + h * GBOX, 64, static_cast<const S*>(d.ys), H,
+                       a0 + 64 * h, R, k0, H, 1, vec, tid, 128);
+          fill_tile<bf16>(st + (2 + h) * GBOX, 64, d.wh, G, k0, H,
+                          n0 + 64 * h, G, 1, vec, tid, 128);
+        }
+        cp_async_wait_all();
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // consumers: rows m0 + 64*wg .. +63 of the tile
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % GSTAGES;
+      mbar_wait(&full[s], (kt / GSTAGES) & 1);
+      const uint32_t a = smem_u32(sm + s * GSTAGE + wg * GBOX);
+      const uint32_t b = smem_u32(sm + s * GSTAGE + 2 * GBOX);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < GK / 16; ++j) {
+        // A K-major: 16 columns = 32 bytes of each swizzled row; B
+        // MN-major: 16 contraction rows, LBO between the 64-wide N boxes
+        wgmma_m64n128<0, 1>(acc, wgmma_desc(a + j * 32, 16, 1024),
+                            wgmma_desc(b + j * 2048, GBOX, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (kt > 0 && threadIdx.x % 128 == 0) {
+        mbar_arrive(&empty[(kt - 1) % GSTAGES]);
+      }
+    }
+    wgmma_wait<0>();
+    const S* xw = static_cast<const S*>(d.xw);
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; q += 2) {
+        const long long r = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * (q / 2);
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        if (r < R && n < G) {  // G and n are even
+          const S* x = xw + r * G + n;
+          *reinterpret_cast<float2*>(&d.pre[r * G + n]) =
+              make_float2(acc[4 * j + q] + to_f32(x[0]),
+                          acc[4 * j + q + 1] + to_f32(x[1]));
+        }
+      }
+  }
+}
+
+template <typename S, bool kTma>
+cudaError_t launch_gates_gemm(const GatesMaps& maps, const GatesDir* d, int R,
+                              int H, int vec, dim3 grid, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      bptt_gates_gemm<S, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GSMEM);
+  if (err != cudaSuccess) return err;
+  bptt_gates_gemm<S, kTma><<<grid, GTHREADS, GSMEM, stream>>>(maps, d[0], d[1],
+                                                             R, H, vec);
+  return cudaGetLastError();
+}
+
+template <typename S>
+cudaError_t run_gates_gemm(int T, int B, int H, int ndir,
+                           const void* const* xw, const void* const* wh,
+                           const void* const* ys, float* const* pre,
+                           const int* reverse, cudaStream_t stream) {
+  const long long R = (long long)T * B;
+  if (R > 0x7fffff00LL || (R + 127) / 128 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  GatesDir d[2];
+  bool aligned = true;
+  for (int i = 0; i < ndir; ++i) {
+    d[i].xw = xw[i];
+    d[i].ys = ys[i];
+    d[i].wh = static_cast<const bf16*>(wh[i]);
+    d[i].pre = pre[i];
+    d[i].off = reverse[i] ? B : -B;
+    aligned = aligned && aligned16(ys[i]) && aligned16(wh[i]);
+  }
+  if (ndir == 1) d[1] = d[0];
+  const int G = 4 * H;
+  const int vec = aligned && H % 8 == 0;  // rows of whole 16-byte chunks
+  const dim3 grid((G + 127) / 128, static_cast<unsigned>((R + 127) / 128),
+                  ndir);
+  GatesMaps maps = {};
+  if constexpr (std::is_same<S, bf16>::value) {
+    if (vec) {
+      for (int i = 0; i < ndir; ++i) {
+        cudaError_t err = encode_rows(&maps.a[i], d[i].ys, H, R);
+        if (err == cudaSuccess) err = encode_rows(&maps.b[i], d[i].wh, G, H);
+        if (err != cudaSuccess) return err;
+      }
+      if (ndir == 1) {
+        maps.a[1] = maps.a[0];
+        maps.b[1] = maps.b[0];
+      }
+      return launch_gates_gemm<S, true>(maps, d, static_cast<int>(R), H, vec,
+                                        grid, stream);
+    }
+  }
+  return launch_gates_gemm<S, false>(maps, d, static_cast<int>(R), H, vec,
+                                     grid, stream);
+}
+
+// The frame loop. Grid (C = ceil(H/32), ceil(B/32), ndir), cluster (C, 1,
+// 1): CTA r owns hidden units 32r..32r+31 and their 128 gate columns
+// {g*H + 32r + u}, ordered kc = 32g + u, for 32 batch rows.
+constexpr int BU = 32;           // hidden units per CTA
+constexpr int BN = 32;           // batch rows per cluster (the wgmma N)
+constexpr int BTHREADS = 256;    // two warpgroups
+constexpr int BMAX_CLUSTER = 16;
+constexpr int BMAX_H = BU * BMAX_CLUSTER;
+constexpr int BSLOT = BU * BN * 4;  // one sender's partial for one CTA: 4 KB
+
+// dg tile (two 64-column blocks of 32 rows, 128B-swizzled: 8 KB), two
+// receive buffers of 16 slots (128 KB), the frame's pre tile [4][BN][BU]
+// f32 (16 KB), cs[t], cs[tp] and dys[t] tiles [BN][BU] in S, the mask,
+// two mbarriers
+template <typename S>
+constexpr int bwd_persistent_smem() {
+  return 1024 + 2 * BN * 128 + 2 * BMAX_CLUSTER * BSLOT + 4 * BN * BU * 4 +
+         3 * BN * BU * static_cast<int>(sizeof(S)) + BN * 4 + 16;
+}
+
+template <typename S>
+struct BwdSeqDir {
+  const float* pre;  // [T, B, 4H] from bptt_gates_gemm
+  const bf16* wh;    // [H, 4H]
+  const S* cs;       // [T, B, H]
+  const S* dys;      // [T, B, H]
+  S* dxw;            // [T, B, 4H]
+  int reverse;
+};
+
+// MT: m64 tiles of the product per warpgroup (2*MT*64 >= 32*C rows). A
+// thread (warp w of 8, lane l) runs the epilogue of unit 32r + l and batch
+// rows 32*blockIdx.y + 4w .. +3, keeping their f32 dh and dc carries in
+// registers. `vec`: rows of pre, cs, dys are whole, aligned 16-byte chunks.
+template <typename S, int MT>
+__global__ void __launch_bounds__(BTHREADS, 1)
+lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
+                    const float* __restrict__ mask, int T, int B, int H,
+                    int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nrank = static_cast<int>(cluster.num_blocks());
+  const BwdSeqDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const int b0 = blockIdx.y * BN;
+  const int j0 = rank * BU;
+  const long long G = 4LL * H;
+  const int tid = threadIdx.x;
+  constexpr int ES = static_cast<int>(sizeof(S));
+  extern __shared__ uint8_t bwd_raw[];
+  uint8_t* dg_s = align1024(bwd_raw);  // [2][BN][64] bf16, 128B swizzle
+  uint8_t* rx_s = dg_s + 2 * BN * 128;  // [2][16][BU][BN] f32, swizzled
+  float* pre_s = reinterpret_cast<float*>(rx_s + 2 * BMAX_CLUSTER * BSLOT);
+  S* cs_s = reinterpret_cast<S*>(pre_s + 4 * BN * BU);  // cs[t], cs[tp], dys
+  S* dy_s = cs_s + 2 * BN * BU;
+  float* m_s = reinterpret_cast<float*>(dy_s + BN * BU);
+  uint64_t* full = reinterpret_cast<uint64_t*>(m_s + BN);
+
+  // this thread's fragments of A = wh[:, own columns] for all T frames:
+  // tile mt covers units 64*(MT*wg + mt) .., register j of k-step kk holds
+  // unit 16w + l/4 + 8(j%2) of the tile and own columns kc, kc + 1 with
+  // kc = 16kk + 2(l%4) + 8(j/2) (gate kc/32, unit 32r + kc%32)
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(d.wh);
+  uint32_t af[MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = 64 * (MT * wg + mt) + 16 * warp + lane / 4 + 8 * (j % 2);
+        const int kc = 16 * kk + 2 * (lane % 4) + 8 * (j / 2);
+        const int u = j0 + kc % 32;
+        uint32_t v = 0;
+        if (m < H) {
+          const unsigned short* w =
+              w16 + (long long)m * G + (long long)(kc / 32) * H + u;
+          v = (u < H ? w[0] : 0u) | ((u + 1 < H ? w[1] : 0u) << 16);
+        }
+        af[mt][kk][j] = v;
+      }
+
+  // frame t's pre, cs[t], cs[tp] (zeros at the edge, tp < 0), dys[t] and
+  // mask into shared memory: asynchronous copies, zeros past B and H
+  auto load_inputs = [&](int t, int tp) {
+    if (vec) {
+      for (int q = tid; q < 4 * BN * 8; q += BTHREADS) {
+        const int g = q / (BN * 8), r = (q / 8) % BN, c = q % 8;
+        const bool ok = b0 + r < B && j0 + 4 * c < H;
+        const float* src =
+            d.pre + (ok ? ((long long)t * B + b0 + r) * G + (long long)g * H +
+                              j0 + 4 * c
+                        : 0);
+        cp_async16_zfill(pre_s + (g * BN + r) * BU + 4 * c, src, ok);
+      }
+      constexpr int CH = 16 / ES;  // elements per 16-byte chunk
+      constexpr int NCH = BU / CH;
+      for (int q = tid; q < 3 * BN * NCH; q += BTHREADS) {
+        const int which = q / (BN * NCH), r = (q / NCH) % BN, c = q % NCH;
+        const int tt = which == 1 ? tp : t;
+        const bool ok = tt >= 0 && b0 + r < B && j0 + c * CH < H;
+        const S* src = (which == 2 ? d.dys : d.cs) +
+                       (ok ? ((long long)tt * B + b0 + r) * H + j0 + c * CH
+                           : 0);
+        cp_async16_zfill(cs_s + (which * BN + r) * BU + c * CH, src, ok);
+      }
+    } else {  // synchronous: shapes outside the main path
+      for (int q = tid; q < 4 * BN * BU; q += BTHREADS) {
+        const int g = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
+        const bool ok = b0 + r < B && j0 + uu < H;
+        pre_s[q] = ok ? d.pre[((long long)t * B + b0 + r) * G +
+                              (long long)g * H + j0 + uu]
+                      : 0.0f;
+      }
+      for (int q = tid; q < 3 * BN * BU; q += BTHREADS) {
+        const int which = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
+        const int tt = which == 1 ? tp : t;
+        const bool ok = tt >= 0 && b0 + r < B && j0 + uu < H;
+        cs_s[q] = ok ? (which == 2 ? d.dys : d.cs)[((long long)tt * B + b0 +
+                                                     r) * H + j0 + uu]
+                     : from_f32<S>(0.0f);
+      }
+    }
+    if (tid < BN) {
+      const bool ok = b0 + tid < B;
+      cp_async4_zfill(m_s + tid, mask + (ok ? (long long)t * B + b0 + tid : 0),
+                      ok);
+    }
+  };
+
+  if (tid == 0) {  // full[b]: the C partial blocks in receive buffer b
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
+  // every CTA's barriers are in place before any peer stores into it
+  cluster_arrive_release();
+  cluster_wait_acquire();
+
+  const int u = lane;        // this thread's unit in the CTA
+  const int w8 = tid / 32;   // and its batch rows 4*w8 .. 4*w8 + 3
+  const bool u_ok = j0 + u < H;
+  float dh[4], dc[4], keep[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dh[i] = dc[i] = keep[i] = 0.0f;
+  auto frame = [&](int step, int& t, int& tp) {  // the scan order, backwards
+    t = d.reverse ? step : T - 1 - step;
+    tp = d.reverse ? (t + 1 < T ? t + 1 : -1) : t - 1;
+  };
+  int t, tp;
+  frame(0, t, tp);
+  load_inputs(t, tp);
+  const uint32_t dg_a = smem_u32(dg_s);
+  for (int step = 0; step < T; ++step) {
+    frame(step, t, tp);
+    cp_async_wait_all();
+    __syncthreads();  // the inputs arrived; the last product read dg_s
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = 4 * w8 + i;
+      const float m = m_s[b];
+      const float* p = pre_s + b * BU + u;
+      const float gi = sigmoid_fast(p[0]);
+      const float gf = sigmoid_fast(p[BN * BU]);
+      const float gg = tanh_fast(p[2 * BN * BU]);
+      const float go = sigmoid_fast(p[3 * BN * BU]);
+      const float tc = tanh_fast(to_f32(cs_s[b * BU + u]));
+      const float c_prev = to_f32(cs_s[(BN + b) * BU + u]);
+      const float dh_t = dh[i] + to_f32(dy_s[b * BU + u]);
+      const float dc_t = dc[i] + dh_t * go * (1.0f - tc * tc);
+      const S v[4] = {from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m),
+                      from_f32<S>((dc_t * c_prev) * gf * (1.0f - gf) * m),
+                      from_f32<S>((dc_t * gi) * (1.0f - gg * gg) * m),
+                      from_f32<S>((dh_t * tc) * go * (1.0f - go) * m)};
+      dc[i] = m * (dc_t * gf) + (1.0f - m) * dc[i];
+      keep[i] = (1.0f - m) * dh_t;
+      if (u_ok && b0 + b < B) {  // a warp stores 32 consecutive units
+        S* dx = d.dxw + ((long long)t * B + b0 + b) * G + j0 + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) dx[(long long)g * H] = v[g];
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {  // round_W(dgates): the product's B
+        const int kc = 32 * g + u;
+        *reinterpret_cast<bf16*>(dg_s + (kc / 64) * BN * 128 +
+                                 swz128(b, (kc % 64) / 8) + (kc % 8) * 2) =
+            __float2bfloat16(to_f32(v[g]));
+      }
+    }
+    fence_proxy_async();  // dg_s is read by the tensor cores
+    __syncthreads();      // ... and the input tiles are free again
+    if (step + 1 == T) break;  // nobody reads the last frame's dh
+    {
+      int tn, tpn;
+      frame(step + 1, tn, tpn);
+      load_inputs(tn, tpn);  // lands during the product and the exchange
+    }
+    const int buf = step & 1;
+    if (tid == 0) mbar_arrive_expect_tx(&full[buf], nrank * BSLOT);
+    const uint32_t slot = smem_u32(rx_s + buf * BMAX_CLUSTER * BSLOT +
+                                   rank * BSLOT);
+    const uint32_t bar = smem_u32(&full[buf]);
+    const bool odd = lane & 1;
+    // P[k][b] = sum over own columns kc of wh[k][kc] * dg[b][kc]: M = all
+    // units (MT tiles a warpgroup, one at a time: with the accumulators of
+    // two tiles live beside the held A, ptxas spilled and serialised the
+    // wgmma), N = 32 rows, K = 128
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n32_rs<0>(acc, af[mt][kk],
+                           wgmma_desc(dg_a + (kk / 4) * BN * 128 +
+                                          (kk % 4) * 32, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      // rows 32p..32p+31 of P to CTA p, into slot `rank` of its buffer
+      // buf: lanes l, l^1 swap halves so that each holds 4 consecutive rows
+      // b of one unit, stored as one 16-byte st.async (chunk c of a slot
+      // row at c ^ (row % 8), so the reduce below reads without bank
+      // conflicts)
+      const int m0 = 64 * (MT * wg + mt) + 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float a[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                            acc[4 * j + 3]};
+        const float y0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+        const float y1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+        const int m = m0 + 8 * odd;
+        const int p = m / BU, uu = m % BU;
+        const int c = 2 * j + (lane % 4) / 2;  // batch rows 4c .. 4c+3
+        if (p < nrank) {
+          st_async_v4(cluster_addr(slot + uu * 128 + ((c ^ (uu % 8)) << 4), p),
+                      odd ? y0 : a[0], odd ? y1 : a[1], odd ? a[2] : y0,
+                      odd ? a[3] : y1, cluster_addr(bar, p));
+        }
+      }
+    }
+    mbar_wait(&full[buf], (step >> 1) & 1);
+    // dh of the next frame: the C partials of this thread's elements
+    // summed in rank order 0..C-1, plus (1-m)*dh_t
+    const uint8_t* rx = rx_s + buf * BMAX_CLUSTER * BSLOT + u * 128 +
+                        ((w8 ^ (u % 8)) << 4);
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int q = 0; q < nrank; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(rx + q * BSLOT);
+      sum[0] += v.x;
+      sum[1] += v.y;
+      sum[2] += v.z;
+      sum[3] += v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dh[i] = sum[i] + keep[i];
+  }
+  // no CTA leaves while a peer may still store into its shared memory
+  cluster_arrive_release();
+  cluster_wait_acquire();
+}
+
+template <typename S, int MT>
+cudaError_t launch_bwd_persistent(const BwdSeqDir<S>* d, const float* mask,
+                                  int T, int B, int H, int ndir, int vec,
+                                  cudaStream_t stream) {
+  constexpr int smem = bwd_persistent_smem<S>();
+  auto kernel = lstm_bwd_persistent<S, MT>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int csize = (H + BU - 1) / BU;
+  const int nbt = (B + BN - 1) / BN;
+  if (nbt > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize, nbt, ndir);
+  cfg.blockDim = dim3(BTHREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, d[0], d[1], mask, T, B, H, vec);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// bf16 W (type codes 1 and 2): bptt_gates_gemm into `pre`, then one
+// lstm_bwd_persistent launch for all T frames
+template <typename S>
+int run_bptt_persistent(int T, int B, int H, int ndir, const float* mask,
+                        const void* const* xw, const void* const* wh,
+                        const void* const* ys, const void* const* cs,
+                        const void* const* dys, void* const* dxw,
+                        float* const* pre, const int* reverse,
+                        cudaStream_t stream) {
+  if (H > BMAX_H) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      run_gates_gemm<S>(T, B, H, ndir, xw, wh, ys, pre, reverse, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BwdSeqDir<S> d[2];
+  int vec = H % 8 == 0;  // rows of pre, cs, dys in whole 16-byte chunks
+  for (int i = 0; i < ndir; ++i) {
+    d[i].pre = pre[i];
+    d[i].wh = static_cast<const bf16*>(wh[i]);
+    d[i].cs = static_cast<const S*>(cs[i]);
+    d[i].dys = static_cast<const S*>(dys[i]);
+    d[i].dxw = static_cast<S*>(dxw[i]);
+    d[i].reverse = reverse[i];
+    vec = vec && aligned16(pre[i]) && aligned16(cs[i]) && aligned16(dys[i]);
+  }
+  if (ndir == 1) d[1] = d[0];
+  const int csize = (H + BU - 1) / BU;
+  if (csize <= 4) {
+    err = launch_bwd_persistent<S, 1>(d, mask, T, B, H, ndir, vec, stream);
+  } else if (csize <= 8) {
+    err = launch_bwd_persistent<S, 2>(d, mask, T, B, H, ndir, vec, stream);
+  } else {
+    err = launch_bwd_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // The BPTT frames of one or two directions that share T, B, H, the types
-// and the mask. type_code as vo_lstm_fwd. scratch{0,1}: [2, B, H] f32,
-// zeroed by the caller (dh, dc carries). Writes dxw{0,1} [T, B, 4H] in S.
-// Returns the first non-zero CUDA error of a launch, or 0.
+// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 (bf16 W, H <= 512)
+// make two launches, bptt_gates_gemm and lstm_bwd_persistent, and take
+// scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any contents);
+// codes 0 and 3 make two launches per frame and take scratch{0,1}:
+// [2, B, H] f32, zeroed by the caller (dh, dc carries). Writes dxw{0,1}
+// [T, B, 4H] in S. Returns the first non-zero CUDA error of a launch, or 0.
 extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
                            const void* mask,
                            const void* xw0, const void* wh0, const void* ys0,
@@ -890,11 +1363,11 @@ extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
       return run_bptt<float, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
                                     dxw, scratch, reverse, s);
     case 1:
-      return run_bptt<bf16, bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
-                                  scratch, reverse, s);
+      return run_bptt_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                       dxw, scratch, reverse, s);
     case 2:
-      return run_bptt<float, bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
-                                   scratch, reverse, s);
+      return run_bptt_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                        dxw, scratch, reverse, s);
     case 3:
       return run_bptt<bf16, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
                                    scratch, reverse, s);

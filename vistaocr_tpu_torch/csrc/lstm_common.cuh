@@ -1,5 +1,5 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu):
-// type conversions and the per-step gate product
+// type conversions, the gate nonlinearities, and the per-step gate product
 //   acc = round_to_W(h) @ wh          [TB rows x TJ units x 4 gates] per block
 // with f32 accumulation, over shared-memory tiles of h and wh. The forward
 // step and the BPTT's gate recompute run the same product; only the source
@@ -42,6 +42,17 @@ __device__ __forceinline__ float round_to(float x) {
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// the gate nonlinearities on the hardware exp2 and reciprocal units (the
+// bf16-weight kernels): absolute error about 1e-6 against sigmoid and tanh
+// in f32, far inside one bf16 ulp of the values the next product takes
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
 }
 
 struct Tiles {

@@ -244,17 +244,6 @@ struct SeqDir {
   int reverse;
 };
 
-// the gate nonlinearities on the hardware exp2 and reciprocal units:
-// absolute error about 1e-6 against sigmoid and tanh in f32, far inside one
-// bf16 ulp of the h that the next product takes
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.0f, 1.0f + __expf(-x));
-}
-
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
-}
-
 // Grid (cluster size C = ceil(H/32), ceil(B/32), ndir), cluster (C, 1, 1).
 // Warpgroup v (warps 4v..4v+3) multiplies tile v of A (gates 2v, 2v+1);
 // its thread (warp w, lane l) owns unit 32*rank + 8w + l/4 and batch rows

@@ -16,10 +16,11 @@ design does about it.
   kernels or raise; on a CPU tensor (or with ``plain=True``, the
   ``"pallas_interpret"`` path) they run the plain versions. There is no
   fallback from a kernel to its plain version.
-- ``lstm_recurrence_ref`` / ``lstm_bptt_ref`` / ``lstm_dwh_ref``: the
-  plain PyTorch versions, Python loops over T with the kernels' exact rounding
-  contract (h rounded to the compute dtype before each product, f32
-  accumulation, f32 carries and gate math, streams in the stream dtype).
+- ``lstm_recurrence_ref`` / ``lstm_bptt_ref`` (= ``bptt_gates_ref`` then
+  ``bptt_frames_ref``) / ``lstm_dwh_ref``: the plain PyTorch versions,
+  Python loops over T with the kernels' exact rounding contract (h
+  rounded to the compute dtype before each product, f32 accumulation,
+  f32 carries and gate math, streams in the stream dtype).
   ``lstm_recurrence_ref`` is differentiable by autograd: it is the
   ``"scan"`` oracle.
 - ``input_projection`` / ``lstm_layer``: the hoisted input projection
@@ -27,10 +28,15 @@ design does about it.
 - Launch counters, one per call of a C entry point (which runs the whole
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
-  ``BWD_LAUNCHES`` (BPTT frames) and ``DWH_LAUNCHES`` (dwh reduction).
-  With bf16 weights a forward call is one kernel launch for all frames
-  (``lstm_fwd_persistent``, H <= ``PERSISTENT_MAX_H``; larger H raises);
-  with f32 weights it is one ``lstm_step`` launch per frame.
+  ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` and
+  ``BWD_PERSISTENT_LAUNCHES`` (of which bf16 weights: one launch each)
+  and ``DWH_LAUNCHES`` (dwh reduction). With bf16 weights a forward call
+  is one kernel launch for all frames (``lstm_fwd_persistent``) and a
+  BPTT call two (``bptt_gates_gemm``: every frame's gate recompute as
+  one GEMM; ``lstm_bwd_persistent``: the frame loop), H <=
+  ``PERSISTENT_MAX_H`` (larger H raises); with f32 weights the forward is
+  one ``lstm_step`` launch per frame and the BPTT two per frame
+  (``bptt_gates``, ``bptt_dh``).
 """
 
 from __future__ import annotations
@@ -43,11 +49,13 @@ import torch
 LAUNCHES = 0
 SAVE_CELL_LAUNCHES = 0
 BWD_LAUNCHES = 0
+GATES_GEMM_LAUNCHES = 0
+BWD_PERSISTENT_LAUNCHES = 0
 DWH_LAUNCHES = 0
 _count_lock = threading.Lock()
 
-# the largest H the bf16-weight forward kernel takes (MAX_H of
-# csrc/lstm_fwd.cu: a 16-CTA cluster holds all of wh)
+# the largest H the bf16-weight kernels take (MAX_H of csrc/lstm_fwd.cu,
+# BMAX_H of csrc/lstm_bwd.cu: a 16-CTA cluster holds all of wh)
 PERSISTENT_MAX_H = 512
 
 _TYPE_CODES = {
@@ -130,37 +138,58 @@ def lstm_recurrence_ref(
     return torch.stack(ys)
 
 
-def lstm_bptt_ref(
+def bptt_gates_ref(
     xw: torch.Tensor,  # [T, B, 4H] stream dtype
+    ys: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
+    wh: torch.Tensor,  # [H, 4H]
+    *,
+    reverse: bool = False,
+    dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The BPTT's gate recompute for every frame at once (the first stage
+    of ``lstm_bptt_ref``): f32 pre [T, B, 4H] = f32(xw[t]) +
+    round(ys[tp]) @ round(wh), with ys[tp] the scan predecessor's saved
+    row, zero at the edge frame (whose pre is f32(xw) alone)."""
+    dtype = wh.dtype if dtype is None else dtype
+    h_prev = torch.zeros_like(ys)
+    if reverse:
+        h_prev[:-1] = ys[1:]
+    else:
+        h_prev[1:] = ys[:-1]
+    return xw.to(torch.float32) + torch.matmul(
+        h_prev.to(dtype).to(torch.float32), wh.to(dtype).to(torch.float32))
+
+
+def bptt_frames_ref(
+    pre: torch.Tensor,  # [T, B, 4H] float32, from bptt_gates_ref
     mask: torch.Tensor,  # [T, 1, B] float32
     wh: torch.Tensor,  # [H, 4H]
-    ys: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
     cs: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
     dys: torch.Tensor,  # [T, B, H] stream dtype
     *,
     reverse: bool = False,
     dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain BPTT, ``_bptt_frame`` (``lstm_pallas.py:230-278``) frame by
-    frame in the forward scan's order walked backwards: (dxw [T, B, 4H] in
-    xw's dtype, dwh [H, 4H] float32)."""
-    dtype = _check(xw, mask, wh, dtype)
-    T, B, G = xw.shape
+) -> torch.Tensor:
+    """The BPTT's frame loop over recomputed gates (the second stage of
+    ``lstm_bptt_ref``), in the forward scan's order walked backwards:
+    dxw [T, B, 4H] in the stream dtype (``dys``'s). Only the chain dxw[t]
+    -> dh -> dxw[t-1] is sequential."""
+    dtype = wh.dtype if dtype is None else dtype
+    T, B, G = pre.shape
     H = G // 4
-    sdt = xw.dtype
+    sdt = dys.dtype
     w = wh.to(dtype).to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=xw.device)
+    f32 = dict(dtype=torch.float32, device=pre.device)
     dh = torch.zeros((B, H), **f32)
     dc = torch.zeros((B, H), **f32)
-    dxw = torch.empty_like(xw)
+    dxw = torch.empty((T, B, G), dtype=sdt, device=pre.device)
     for t in (range(T) if reverse else reversed(range(T))):
         tp = t + 1 if reverse else t - 1
-        if 0 <= tp < T:
-            h_prev, c_prev = ys[tp], cs[tp].to(torch.float32)
-        else:
-            h_prev = torch.zeros((B, H), dtype=sdt, device=xw.device)
-            c_prev = torch.zeros((B, H), **f32)
-        i, f, g, o = _gates(xw[t], h_prev, w, dtype)
+        c_prev = (cs[tp].to(torch.float32) if 0 <= tp < T
+                  else torch.zeros((B, H), **f32))
+        gates = pre[t]
+        i, f = torch.sigmoid(gates[:, :H]), torch.sigmoid(gates[:, H:2 * H])
+        g, o = torch.tanh(gates[:, 2 * H:3 * H]), torch.sigmoid(gates[:, 3 * H:])
         tc = torch.tanh(cs[t].to(torch.float32))
         m = mask[t, 0][:, None]
         dh_t = dh + dys[t].to(torch.float32)
@@ -174,6 +203,31 @@ def lstm_bptt_ref(
         dg = dxw[t].to(dtype).to(torch.float32)
         dh = torch.matmul(dg, w.T) + (1.0 - m) * dh_t
         dc = m * (dc_t * f) + (1.0 - m) * dc
+    return dxw
+
+
+def lstm_bptt_ref(
+    xw: torch.Tensor,  # [T, B, 4H] stream dtype
+    mask: torch.Tensor,  # [T, 1, B] float32
+    wh: torch.Tensor,  # [H, 4H]
+    ys: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
+    cs: torch.Tensor,  # [T, B, H] stream dtype (saved by the forward)
+    dys: torch.Tensor,  # [T, B, H] stream dtype
+    *,
+    reverse: bool = False,
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain BPTT, ``_bptt_frame`` (``lstm_pallas.py:230-278``) in two
+    stages, as the bf16-weight kernels run it: the gates of every frame
+    recomputed at once (``bptt_gates_ref``; the recompute reads the saved
+    ys, so nothing in it waits on the recurrence), then the frame loop
+    (``bptt_frames_ref``), with the same rounding points as the TPU
+    kernel's frame. Returns (dxw [T, B, 4H] in xw's dtype, dwh [H, 4H]
+    float32)."""
+    dtype = _check(xw, mask, wh, dtype)
+    pre = bptt_gates_ref(xw, ys, wh, reverse=reverse, dtype=dtype)
+    dxw = bptt_frames_ref(pre, mask, wh, cs, dys.to(xw.dtype),
+                          reverse=reverse, dtype=dtype)
     return dxw, lstm_dwh_ref(ys, dxw, reverse=reverse, dtype=dtype)
 
 
@@ -257,11 +311,16 @@ def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     return ys, cs
 
 
-def lstm_bptt_frames(dirs, mask: torch.Tensor,
-                     dtype: torch.dtype) -> List[torch.Tensor]:
-    """The BPTT frame kernels over one or two directions (CUDA only).
-    ``dirs``: (xw, wh already in ``dtype``, ys, cs, dys in the stream
-    dtype, reverse). Returns dxw per direction."""
+def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
+                     *, return_gates: bool = False):
+    """The BPTT frame kernels over one or two directions (CUDA only):
+    with bf16 weights ``bptt_gates_gemm`` + ``lstm_bwd_persistent`` (two
+    launches, H <= ``PERSISTENT_MAX_H``), with f32 weights ``bptt_gates``
+    + ``bptt_dh`` per frame. ``dirs``: (xw, wh already in ``dtype``, ys,
+    cs, dys in the stream dtype, reverse). Returns dxw per direction, and
+    with ``return_gates`` (bf16 weights only) also the recomputed gates
+    ``pre`` [T, B, 4H] f32 per direction (what ``bptt_gates_ref``
+    computes), so that each kernel can be held to its plain version."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -276,10 +335,22 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor,
             raise ValueError("ys, cs and dys must be [T, B, H]")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
+    # bf16 weights: the gate GEMM into scratch, then one persistent launch,
+    # a cluster of ceil(H/32) CTAs holding wh in registers
+    persistent = dtype == torch.bfloat16
+    if return_gates and not persistent:
+        raise ValueError("return_gates needs bf16 weights")
+    if persistent and H > PERSISTENT_MAX_H:
+        raise ValueError(f"the bf16 LSTM BPTT kernel takes H <= "
+                         f"{PERSISTENT_MAX_H} (wh held by one 16-CTA "
+                         f"cluster), got H={H}")
     lib = _build.load()
     dxw = [torch.empty_like(d[0]) for d in dirs]
-    scratch = [torch.zeros((2, B, H), dtype=torch.float32, device=xw0.device)
-               for _ in dirs]
+    # the recomputed gates [T, B, 4H] f32 (bf16 W), or the zeroed dh, dc
+    # carries (f32 W); freed after the call, on the launch stream
+    f32 = dict(dtype=torch.float32, device=xw0.device)
+    scratch = [torch.empty((T, B, G), **f32) if persistent
+               else torch.zeros((2, B, H), **f32) for _ in dirs]
     args = _dir_args([
         [xw.data_ptr(), wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
          dys.data_ptr(), dxw[k].data_ptr(), scratch[k].data_ptr(), int(rev)]
@@ -289,7 +360,10 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor,
                           torch.cuda.current_stream(xw0.device).cuda_stream)
     _build.check(err, "vo_lstm_bwd")
     _count("BWD_LAUNCHES")
-    return dxw
+    if persistent:
+        _count("GATES_GEMM_LAUNCHES")
+        _count("BWD_PERSISTENT_LAUNCHES")
+    return (dxw, scratch) if return_gates else dxw
 
 
 def lstm_dwh(dirs, dtype: torch.dtype) -> List[torch.Tensor]:
