@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, as below
+    python3 chip_smoke.py --ctc    # phases 1, 2 and the CTC part of 6
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -34,11 +35,17 @@ the exit code is non-zero and no ``ok`` line is printed):
              and B=512, T=32, H=512), the BPTT frames and dwh run twice on
              the same inputs (bit-equal), the save_cell forward's time per
              frame, launches per call and two runs bit-equal as in phase
-             3; the CTC alpha/beta recursions at
-             an odd shape (empty label, infeasible sample) and B=32,
-             T=512, L=255, K=96. With bf16 weights the BPTT frames are
-             ``bptt_gates_gemm`` (every frame's gate recompute as one
-             GEMM) and ``lstm_bwd_persistent`` (the frame loop), each also
+             3; the CTC alpha/beta recursions at an odd shape (empty
+             label, infeasible sample) and the three train buckets at
+             K=96 (B=32, T=512, L=256; B=128, T=128, L=128; B=512, T=32,
+             L=32): alpha within 2e-4 on reachable states, d lp_ext
+             within 2e-5, and at the buckets two runs bit-equal, one
+             launch of each kernel a call, each timed, and the whole
+             ``ctc_loss_kernel`` forward+backward (with its torch
+             assembly) timed beside ``F.ctc_loss``. With bf16 weights
+             the BPTT frames are ``bptt_gates_gemm`` (every frame's gate
+             recompute as one GEMM) and ``lstm_bwd_persistent`` (the
+             frame loop), each also
              held to its own plain version (``bptt_gates_ref`` within
              1e-5 relative, ``bptt_frames_ref`` on the kernel's gates
              within 2e-2); with f32 weights ``bptt_gates`` and ``bptt_dh``
@@ -428,7 +435,12 @@ def parity_phase(snap: str, dev) -> None:
 # (B, T, H): odd, the W=512 and W=2048 buckets, and the W=128 one
 LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512),
                      (512, 32, 512))
-CTC_SHAPES = ((5, 20, 9, 6), (32, 512, 96, 255))  # (B, T, K, L)
+# (B, T, K, L): an odd shape (empty label, infeasible sample), then the
+# three train buckets at K=96 with the ladder's label cap min(256, T):
+# W=2048 (S=513), W=512 and W=128; the first bucket is the kernels' row
+CTC_SHAPES = ((5, 20, 9, 6), (32, 512, 96, 256), (128, 128, 96, 128),
+              (512, 32, 96, 32))
+CTC_MAIN = (32, 512)
 
 
 def _rel(a, b) -> float:
@@ -768,94 +780,133 @@ def lstm_train_kernels(dev, card: str) -> dict:
     return rows
 
 
+def _ctc_inputs(B, T, K, L, dev):
+    """Seeded log-probs [B, T, K] with lengths (a repeat; where B > 2 an
+    empty label and an infeasible sample), and the kernels' inputs."""
+    import torch
+    from vistaocr_tpu_torch.ops import ctc_cuda as C
+
+    rng = np.random.default_rng(T + L)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.normal(0, 2, (B, T, K)).astype(np.float32)), -1).to(dev)
+    labels = rng.integers(1, K, (B, L)).astype(np.int32)
+    labels[0, 1] = labels[0, 0]
+    ll = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    ll[0] = L
+    il = np.array([int(rng.integers(min(2 * n + 1, T), T + 1))
+                   for n in ll], np.int32)
+    il[0] = T
+    if B > 2:
+        ll[1] = 0  # an empty label
+        ll[2], il[2] = L, max(1, L // 2)  # an infeasible sample
+    il_t, ll_t = torch.from_numpy(il).to(dev), torch.from_numpy(ll).to(dev)
+    labels_t = torch.from_numpy(labels).to(dev)
+    lp_ext, skip, active, islast = C._prepare(lp, il_t, labels_t, 0)
+    svalid, terminal = C._state_masks(ll_t, lp_ext.shape[2])
+    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])],
+                      1).contiguous()
+    return (lp, il_t, labels_t, ll_t), (lp_ext, skip, active, islast, svalid,
+                                        terminal, skip2)
+
+
 def ctc_train_kernels(dev, card: str) -> dict:
-    """CTC alpha/beta kernels against the plain versions (f32); at the
-    flagship shape timed beside ``F.ctc_loss`` forward+backward."""
+    """CTC alpha/beta kernels against the plain versions (f32) at every
+    shape of ``CTC_SHAPES``: alpha within 2e-4 on reachable states with
+    the same reachable set, d lp_ext within 2e-5. At the three train
+    buckets: both kernels run twice (bit-equal), one launch of each a call
+    (``torch.profiler``), each timed beside its plain version, and the
+    whole ``ctc_loss_kernel`` forward and backward (the assembly: gather,
+    transposes, terminal reduction, class fold) beside ``F.ctc_loss``
+    forward+backward. {(B, T): {"ctc_alpha": row, "ctc_beta": row,
+    "ctc_loss": row}}."""
     import torch
     import torch.nn.functional as F
     from vistaocr_tpu_torch.ops import ctc_cuda as C
 
     rows = {}
     for (B, T, K, L) in CTC_SHAPES:
-        rng = np.random.default_rng(T + L)
-        lp = torch.log_softmax(torch.from_numpy(
-            rng.normal(0, 2, (B, T, K)).astype(np.float32)), -1).to(dev)
-        labels = rng.integers(1, K, (B, L)).astype(np.int32)
-        labels[0, 1] = labels[0, 0]
-        ll = rng.integers(L // 2, L + 1, B).astype(np.int32)
-        ll[0] = L
-        il = np.array([int(rng.integers(min(2 * n + 1, T), T + 1))
-                       for n in ll], np.int32)
-        il[0] = T
-        if B > 2:
-            ll[1] = 0  # an empty label
-            ll[2], il[2] = L, max(1, L // 2)  # an infeasible sample
-        il_t, ll_t = torch.from_numpy(il).to(dev), torch.from_numpy(ll).to(dev)
-        lp_ext, skip, active, islast = C._prepare(
-            lp, il_t, torch.from_numpy(labels).to(dev), 0)
-        svalid, terminal = C._state_masks(ll_t, lp_ext.shape[2])
-        skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])],
-                          1).contiguous()
+        (lp, il_t, labels_t, ll_t), (lp_ext, skip, active, islast, svalid,
+                                     terminal, skip2) = _ctc_inputs(
+            B, T, K, L, dev)
         alphas = C.ctc_alpha(lp_ext, active, skip, svalid)
         ref_a = C.ctc_alpha_ref(lp_ext, active, skip, svalid)
         logp = C._loss_from_alphas(ref_a, il_t, ll_t).contiguous()
-        dlp = C.ctc_beta(lp_ext, active, islast, skip2, svalid, terminal,
-                         ref_a, logp)
-        ref_d = C.ctc_beta_ref(lp_ext, active, islast, skip2, svalid,
-                               terminal, ref_a, logp)
+        beta_in = (lp_ext, active, islast, skip2, svalid, terminal, ref_a,
+                   logp)
+        dlp = C.ctc_beta(*beta_in)
+        ref_d = C.ctc_beta_ref(*beta_in)
         torch.cuda.synchronize()
         reach = (ref_a > -1e29) & (svalid[None] > 0)
         same_reach = bool(torch.equal(alphas > -1e29, ref_a > -1e29))
         e_a = _abs(alphas[reach], ref_a[reach])
         e_b = _abs(dlp, ref_d)
-        tag = f"B={B} T={T} K={K} L={L}"
+        S = lp_ext.shape[2]
+        tag = f"B={B} T={T} K={K} L={L} S={S}"
         ok = same_reach and e_a <= 2e-4 and e_b <= 2e-5
         print(f"CTC kernels vs plain {tag}: alpha max|d|={e_a:.3e} on "
               f"{int(reach.sum())} reachable states, beta d lp_ext "
               f"max|d|={e_b:.3e} {'ok' if ok else 'FAIL'}", flush=True)
         _require(ok, f"CTC kernels agree with plain: {tag}")
-        if (B, T, K, L) != CTC_SHAPES[-1]:
+        if (B, T, K, L) == CTC_SHAPES[0]:
             continue
+        same = (torch.equal(C.ctc_alpha(lp_ext, active, skip, svalid),
+                            alphas)
+                and torch.equal(C.ctc_beta(*beta_in), dlp))
+        _require(same, f"CTC kernels bit-equal across reruns: {tag}")
+        prof = _kernel_us(lambda: (C.ctc_alpha(lp_ext, active, skip, svalid),
+                                   C.ctc_beta(*beta_in)),
+                          ("ctc_alpha_kernel", "ctc_beta_kernel"))
+        launches = {n: c for n, (_, c) in prof.items()}
+        _require(launches == {"ctc_alpha_kernel": 1, "ctc_beta_kernel": 1},
+                 f"one launch of each CTC kernel a call: {launches}")
         t = {
             "a": _cuda_ms(lambda: C.ctc_alpha(lp_ext, active, skip, svalid),
-                          10),
+                          20),
             "a_plain": _cuda_ms(lambda: C.ctc_alpha_ref(lp_ext, active, skip,
                                                         svalid), 2),
-            "b": _cuda_ms(lambda: C.ctc_beta(lp_ext, active, islast, skip2,
-                                             svalid, terminal, ref_a, logp),
-                          10),
-            "b_plain": _cuda_ms(lambda: C.ctc_beta_ref(
-                lp_ext, active, islast, skip2, svalid, terminal, ref_a,
-                logp), 2),
+            "b": _cuda_ms(lambda: C.ctc_beta(*beta_in), 20),
+            "b_plain": _cuda_ms(lambda: C.ctc_beta_ref(*beta_in), 2),
         }
-        # the library call computing both recursions' function: the CTC
-        # loss and its gradient (infeasible samples zeroed)
+        # the whole loss with its assembly, and the library call computing
+        # the same function: the CTC loss and its gradient (infeasible
+        # samples zeroed), on the same log-probs
         lp_tbk = lp.transpose(0, 1).detach().contiguous()
-        labels_t = torch.from_numpy(labels).to(dev).long()
+
+        def ours():
+            x = lp.clone().requires_grad_(True)
+            C.ctc_loss_kernel(x, il_t, labels_t, ll_t).sum().backward()
 
         def library():
             x = lp_tbk.clone().requires_grad_(True)
-            F.ctc_loss(x, labels_t, il_t.long(), ll_t.long(), blank=0,
+            F.ctc_loss(x, labels_t.long(), il_t.long(), ll_t.long(), blank=0,
                        reduction="sum", zero_infinity=True).backward()
 
+        t["loss"] = _cuda_ms(ours, 10)
         t["lib"] = _cuda_ms(library, 10)
-        S = lp_ext.shape[2]
         ops = 10 * T * B * S  # per state and frame: 3 exp, 1 log, 6 add/max
-        rows["ctc_alpha"] = {
-            "max_abs_err": e_a, "ms": t["a"], "plain_ms": t["a_plain"],
-            "library_ms": t["lib"],
-            **_bound(_nbytes(lp_ext, active, skip, svalid, alphas), ops,
-                     torch.float32)}
-        rows["ctc_beta"] = {
-            "max_abs_err": e_b, "ms": t["b"], "plain_ms": t["b_plain"],
-            "library_ms": t["lib"],
-            **_bound(_nbytes(lp_ext, active, islast, skip2, svalid, terminal,
-                             ref_a, logp, dlp), ops, torch.float32)}
-        print(f"time {tag}: alpha {t['a']:.3f} ms (plain {t['a_plain']:.3f},"
-              f" bound {rows['ctc_alpha']['bound_ms']:.4f}), beta "
-              f"{t['b']:.3f} ms (plain {t['b_plain']:.3f}, bound "
-              f"{rows['ctc_beta']['bound_ms']:.4f}); F.ctc_loss forward+"
-              f"backward {t['lib']:.3f} ms ({card})", flush=True)
+        row_a = {"max_abs_err": e_a, "ms": t["a"], "plain_ms": t["a_plain"],
+                 "library_ms": t["lib"],
+                 "us_a_frame": t["a"] * 1e3 / T,
+                 "profiler_us": prof["ctc_alpha_kernel"][0],
+                 **_bound(_nbytes(lp_ext, active, skip, svalid, alphas), ops,
+                          torch.float32)}
+        row_b = {"max_abs_err": e_b, "ms": t["b"], "plain_ms": t["b_plain"],
+                 "library_ms": t["lib"],
+                 "us_a_frame": t["b"] * 1e3 / T,
+                 "profiler_us": prof["ctc_beta_kernel"][0],
+                 **_bound(_nbytes(*beta_in, dlp), ops, torch.float32)}
+        rows[(B, T)] = {"ctc_alpha": row_a, "ctc_beta": row_b, "ctc_loss": {
+            "ms": t["loss"], "library_ms": t["lib"],
+            "assembly_ms": t["loss"] - t["a"] - t["b"]}}
+        print(f"time {tag}: alpha {t['a']:.4f} ms = "
+              f"{row_a['us_a_frame']:.3f} us a frame (plain "
+              f"{t['a_plain']:.3f}, bound {row_a['bound_ms']:.4f}), beta "
+              f"{t['b']:.4f} ms = {row_b['us_a_frame']:.3f} us a frame "
+              f"(plain {t['b_plain']:.3f}, bound {row_b['bound_ms']:.4f}); "
+              f"ctc_loss_kernel forward+backward {t['loss']:.4f} ms "
+              f"(assembly {t['loss'] - t['a'] - t['b']:.4f}), F.ctc_loss "
+              f"forward+backward {t['lib']:.4f} ms; bit-equal reruns, one "
+              f"launch each ({card})", flush=True)
     return rows
 
 
@@ -1372,7 +1423,11 @@ def experiments_path_phase(dev, font: dict, smi: str) -> dict:
     return counts
 
 
-def main() -> int:
+def main(argv) -> int:
+    ctc_only = argv == ["--ctc"]
+    if argv and not ctc_only:
+        print("usage: chip_smoke.py [--ctc]", file=sys.stderr)
+        return 2
     _phase("device")
     import torch
 
@@ -1397,6 +1452,12 @@ def main() -> int:
     _build.load()
     print(f"kernels built/loaded in {time.time() - t0:.2f} s "
           f"({_build.library_path()})", flush=True)
+    if ctc_only:
+        _phase("train-kernels (CTC only)")
+        ctc_rows = ctc_train_kernels(dev, f"{card}, {smi}")
+        print(json.dumps({f"B{B}_T{T}": r for (B, T), r in ctc_rows.items()}))
+        print(smi)
+        return 0
 
     _phase("kernel")
     rows = kernel_phase(dev, f"{card}, {smi}")
@@ -1487,12 +1548,17 @@ def main() -> int:
                                 "ALPHA_LAUNCHES"),
                                ("ctc_beta", "ctc_pallas.py:157",
                                 "BETA_LAUNCHES")):
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "vistaocr_tpu_torch/csrc/ctc.cu",
-                        "replaces": f"vistaocr_tpu/ops/{rep}",
-                        "launches": counts[counter], **ctc_rows[name],
-                        "library_call": "F.ctc_loss forward+backward "
-                                        "(ctc_alpha and ctc_beta together)"})
+        row = {"name": name, "route": "cuda",
+               "source": "vistaocr_tpu_torch/csrc/ctc.cu",
+               "replaces": f"vistaocr_tpu/ops/{rep}",
+               "launches": counts[counter], **ctc_rows[CTC_MAIN][name],
+               "library_call": "F.ctc_loss forward+backward "
+                               "(ctc_alpha and ctc_beta together)",
+               "ctc_loss_kernel": ctc_rows[CTC_MAIN]["ctc_loss"]}
+        for B, T, _, _ in CTC_SHAPES[1:]:
+            if (B, T) != CTC_MAIN:
+                row[f"at_B{B}_T{T}"] = ctc_rows[(B, T)][name]
+        kernels.append(row)
     # the experiments: rows at the W=2048 bucket's shapes, bf16 (f32 beside)
     exp_meta = {
         "bi_lstm_fwd": ("lstm_bi_stacked.cu", "lstm_bi_stacked.py:31",
@@ -1519,4 +1585,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -84,10 +84,9 @@ def test_function_matches_pallas_interpret(seed):
     np.testing.assert_allclose(ours_g, ref_g, rtol=TOL, atol=TOL)
 
 
-def test_alpha_beta_refs_match_pallas_interpret_kernels():
+def _refs_match_pallas_interpret_kernels(lp, il, labels, ll):
     """The plain recursions against the Pallas kernels run one by one, on
     the same prepared inputs, compared on valid states."""
-    lp, il, labels, ll = _case(4, B=4, T=12, K=6, L=3)
     lp_ext_j, skip_j, active_j, islast_j, _, S = jax_ctc_pallas._prepare(
         jnp.asarray(lp), jnp.asarray(il), jnp.asarray(labels), 0)
     svalid_j, terminal_j = jax_ctc_pallas._state_masks(jnp.asarray(ll), S)
@@ -112,6 +111,7 @@ def test_alpha_beta_refs_match_pallas_interpret_kernels():
     skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], 1)
     dlp = ctc_cuda.ctc_beta_ref(lp_ext, active, islast, skip2, svalid,
                                 terminal, alphas, logp)
+    assert alphas.shape == dlp.shape == lp_ext.shape
 
     np.testing.assert_allclose(np.asarray(lp_ext_j)[..., :S_port],
                                lp_ext.numpy(), rtol=0, atol=0)
@@ -123,6 +123,32 @@ def test_alpha_beta_refs_match_pallas_interpret_kernels():
                                atol=TOL, rtol=TOL)
     np.testing.assert_allclose(dlp.numpy(), np.asarray(dlp_j)[..., :S_port],
                                atol=TOL, rtol=TOL)
+
+
+def test_alpha_beta_refs_match_pallas_interpret_kernels():
+    _refs_match_pallas_interpret_kernels(*_case(4, B=4, T=12, K=6, L=3))
+
+
+def test_refs_keep_one_state_rows():
+    """S = 1 (a batch of empty labels): the plain recursions return
+    [T, B, 1], as the Pallas kernels and the CUDA kernels do (the
+    shifted neighbours s-2 and s+2 lie wholly outside the row), and match
+    the Pallas kernels in interpret mode (the JAX scan oracle cannot take
+    S = 1: its right shift by 2 widens the row and breaks its scan)."""
+    rng = np.random.default_rng(9)
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(
+        rng.normal(0, 2, (3, 7, 5)).astype(np.float32)), axis=-1))
+    il = np.array([7, 1, 4], np.int32)
+    labels = np.zeros((3, 0), np.int32)
+    ll = np.zeros(3, np.int32)
+    _refs_match_pallas_interpret_kernels(lp, il, labels, ll)
+    ref, ref_g = _jax_loss_and_grad(
+        lp, il, labels, ll,
+        lambda *a: jax_ctc_pallas.ctc_loss_pallas(*a, 0, True))
+    for fn in (port_ctc.ctc_loss, ctc_cuda.ctc_loss_kernel):
+        ours, ours_g = _port_loss_and_grad(lp, il, labels, ll, fn)
+        np.testing.assert_allclose(ours, ref, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(ours_g, ref_g, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("port_impl", ["scan", "function"])

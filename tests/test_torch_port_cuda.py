@@ -5,9 +5,11 @@ and its H limit, and the per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
 and dwh in all four stream/weight type pairs: with bf16 weights the gate
 GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
-f32 weights the per-frame kernels; csrc/ctc.cu's alpha/beta)
-against their plain PyTorch versions, including ragged B/H edges and the
-tile edges, T = 1, empty labels and an infeasible CTC sample; the BPTT
+f32 weights the per-frame kernels; csrc/ctc.cu's alpha/beta at the
+three train buckets, S > 1024 and T below its ring depth, their
+determinism and their one launch each a call) against their plain
+PyTorch versions, including ragged B/H edges and the tile edges, T = 1,
+S = 1, empty labels and an infeasible CTC sample; the BPTT
 kernels' determinism and dwh against one cuBLAS GEMM; their launch
 counters; the autograd Functions' backward on the card; and the
 model and service paths that launch them. Every test is marked
@@ -624,9 +626,22 @@ def _ctc_case(dev, B, T, K, L, seed, infeasible=False):
             torch.from_numpy(labels).to(dev), torch.from_numpy(ll).to(dev))
 
 
-@pytest.mark.parametrize("shape", [(5, 20, 9, 6), (1, 1, 4, 1), (7, 33, 12, 15),
-                                   (3, 64, 96, 255)])
-def test_ctc_kernels_match_plain(dev, shape):
+# (B, T, K, L), S = 2L+1: odd shapes; S = 1 (no labels); the three train
+# buckets at K=96 (W=2048: B=32, T=512, S=513; W=512: B=128, T=128; W=128:
+# B=512, T=32); S > 1024, where the kernels' ring has 4 stages and a
+# thread owns 2, 3 or 4 states (L=700, 1100 and 2047: S=4095 is the
+# largest S but one); T below the ring depth (16 stages, and 4 above)
+CTC_SHAPES = [(5, 20, 9, 6), (1, 1, 4, 1), (7, 33, 12, 15), (3, 64, 96, 255),
+              (2, 4, 5, 0), (32, 512, 96, 256), (128, 128, 96, 128),
+              (512, 32, 96, 32), (4, 1500, 96, 700), (2, 2300, 40, 1100),
+              (3, 700, 12, 2047), (6, 5, 12, 3), (3, 3, 40, 600)]
+CTC_FLAGSHIP = [(32, 512, 96, 256), (128, 128, 96, 128), (512, 32, 96, 32),
+                (4, 1500, 96, 700)]
+
+
+def _ctc_kernel_inputs(dev, shape):
+    """The alpha kernel's inputs, and the beta kernel's (log P from the
+    plain alphas), of ``_ctc_case`` at (B, T, K, L)."""
     from vistaocr_tpu_torch.ops import ctc_cuda
 
     B, T, K, L = shape
@@ -634,24 +649,56 @@ def test_ctc_kernels_match_plain(dev, shape):
                                    infeasible=True)
     lp_ext, skip, active, islast = ctc_cuda._prepare(lp, il, labels, 0)
     svalid, terminal = ctc_cuda._state_masks(ll, lp_ext.shape[2])
-    before = (ctc_cuda.ALPHA_LAUNCHES, ctc_cuda.BETA_LAUNCHES)
-    alphas = ctc_cuda.ctc_alpha(lp_ext, active, skip, svalid)
     ref_a = ctc_cuda.ctc_alpha_ref(lp_ext, active, skip, svalid)
-    logp = ctc_cuda._loss_from_alphas(ref_a, il, ll)
-    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])], 1)
-    dlp = ctc_cuda.ctc_beta(lp_ext, active, islast, skip2.contiguous(),
-                            svalid, terminal, ref_a, logp)
-    ref_d = ctc_cuda.ctc_beta_ref(lp_ext, active, islast, skip2, svalid,
-                                  terminal, ref_a, logp)
+    logp = ctc_cuda._loss_from_alphas(ref_a, il, ll).contiguous()
+    skip2 = torch.cat([skip[:, 2:], torch.zeros_like(skip[:, :2])],
+                      1).contiguous()
+    return ((lp_ext, active, skip, svalid),
+            (lp_ext, active, islast, skip2, svalid, terminal, ref_a, logp))
+
+
+@pytest.mark.parametrize("shape", CTC_SHAPES)
+def test_ctc_kernels_match_plain(dev, shape):
+    from vistaocr_tpu_torch.ops import ctc_cuda
+
+    a_in, b_in = _ctc_kernel_inputs(dev, shape)
+    assert a_in[0].shape[2] == 2 * shape[3] + 1
+    before = (ctc_cuda.ALPHA_LAUNCHES, ctc_cuda.BETA_LAUNCHES)
+    alphas = ctc_cuda.ctc_alpha(*a_in)
+    dlp = ctc_cuda.ctc_beta(*b_in)
+    ref_a = b_in[6]
+    ref_d = ctc_cuda.ctc_beta_ref(*b_in)
     torch.cuda.synchronize()
     assert ctc_cuda.ALPHA_LAUNCHES == before[0] + 1
     assert ctc_cuda.BETA_LAUNCHES == before[1] + 1
+    svalid = a_in[3]
     valid = svalid[None].expand_as(alphas) > 0
     reach = ref_a > -1e29
     assert torch.equal(alphas > -1e29, reach)
     torch.testing.assert_close(alphas[reach & valid], ref_a[reach & valid],
                                atol=2e-5, rtol=1e-5)
     torch.testing.assert_close(dlp, ref_d, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", CTC_FLAGSHIP)
+def test_ctc_kernels_are_deterministic_and_launch_once(dev, shape):
+    """Two runs on the same inputs are bit-equal, and one call of each
+    wrapper is one launch of its kernel (torch.profiler, which can miss a
+    launch just after its window opens, as chip_smoke._kernel_us says)."""
+    from vistaocr_tpu_torch.ops import ctc_cuda
+
+    a_in, b_in = _ctc_kernel_inputs(dev, shape)
+    runs = [(ctc_cuda.ctc_alpha(*a_in), ctc_cuda.ctc_beta(*b_in))
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    for _ in range(3):  # a window that missed a launch is taken again
+        counts = _profiled_counts(
+            lambda: (ctc_cuda.ctc_alpha(*a_in), ctc_cuda.ctc_beta(*b_in)),
+            ("ctc_alpha_kernel", "ctc_beta_kernel"))
+        if all(counts.values()):
+            break
+    assert counts == {"ctc_alpha_kernel": 1, "ctc_beta_kernel": 1}, counts
 
 
 def test_ctc_loss_kernel_grads_match_plain(dev):

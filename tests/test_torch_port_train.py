@@ -9,7 +9,10 @@ against the JAX package on the CPU:
   identical parameters against JAX ``make_train_step`` with
   ``lstm_impl``/``ctc_impl="pallas_interpret"``: loss within 1e-5
   relative, every (clipped) gradient within atol 2e-4 / rtol 1e-3,
-  ``batch_stats`` within 1e-5;
+  ``batch_stats`` within 1e-5; the same step in bf16 on both sides: loss
+  and global norm within 2**-8 relative, every gradient and statistic
+  within twice JAX's own bf16-vs-f32 difference and within 2**-4 of its
+  largest magnitude;
 - the bf16 input projection keeps the product in f32 until the bias; the
   initialisers are flax's lecun-normal where flax uses it;
 - a short ``fit`` on synthetic shards: the loss falls, snapshots are
@@ -144,11 +147,24 @@ def test_optimizer_and_clip_match_optax(kind):
 
 
 # --- one full train step ------------------------------------------------------
-def test_one_train_step_matches_jax(synth_dir):
+_STEPS = {}
+
+
+def _one_train_step(synth_dir, compute_dtype):
     """SGD (the update is the clipped gradient itself) at lr 1, so the
-    parameter change after one step IS each framework's clipped gradient."""
+    parameter change after one step IS each framework's clipped gradient.
+    Returns the port's and JAX's metrics, {name: (port, JAX)} of those
+    gradients and of the updated ``batch_stats``; each dtype's step runs
+    once per module."""
+    key = (str(synth_dir), compute_dtype)
+    if key not in _STEPS:
+        _STEPS[key] = _run_one_train_step(synth_dir, compute_dtype)
+    return _STEPS[key]
+
+
+def _run_one_train_step(synth_dir, compute_dtype):
     over = dict(optimizer="sgd", dropout=0.0, augment=0.0,
-                ctc_impl="pallas_interpret")
+                ctc_impl="pallas_interpret", compute_dtype=compute_dtype)
     jcfg = jax_train.TrainConfig(**{**jax_train.PRESETS["synth-tiny"], **over})
     jds = JaxDataset(synth_dir, "train")
     jalpha = JaxAlphabet.build(jds.transcripts())
@@ -182,6 +198,7 @@ def test_one_train_step_matches_jax(synth_dir):
     pcfg = port_train.TrainConfig(**{**port_train.PRESETS["synth-tiny"],
                                      **over})
     model = CnnLstmOcr(ModelConfig.from_json(mcfg.to_json()))
+    assert model.config.compute_dtype == compute_dtype
     model.load_state_dict(variables_to_state_dict(variables))
     ptx = port_train.make_optimizer(pcfg)
     pstate = port_train.TrainState(
@@ -193,24 +210,65 @@ def test_one_train_step_matches_jax(synth_dir):
         batch.images, batch.widths, batch.labels, batch.label_lengths,
         weights)), 1.0)
     assert pstate.step == 1
+    after = model.state_dict()
+    grads = {name: ((before[name] - after[name]).numpy(), g.numpy())
+             for name, g in jgrads.items()
+             if not name.endswith("num_batches_tracked")}
+    stats = {name: (after[name].numpy(), v.numpy())
+             for name, v in jstats.items()
+             if not name.endswith("num_batches_tracked")}
+    return pm, jm, grads, stats
 
+
+def test_one_train_step_matches_jax(synth_dir):
+    pm, jm, grads, stats = _one_train_step(synth_dir, "float32")
     np.testing.assert_allclose(pm["loss"].item(), float(jm["loss"]),
                                rtol=1e-5)
     np.testing.assert_allclose(pm["gnorm"].item(), float(jm["gnorm"]),
                                rtol=1e-4)
     assert float(jm["gnorm"]) > 5.0  # the clip is exercised
-    after = model.state_dict()
-    for name, g in jgrads.items():
-        if name.endswith("num_batches_tracked"):
-            continue
-        ours = (before[name] - after[name]).numpy()
-        np.testing.assert_allclose(ours, g.numpy(), atol=2e-4, rtol=1e-3,
+    for name, (ours, ref) in grads.items():
+        np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=1e-3,
                                    err_msg=name)
-    for name, v in jstats.items():
-        if name.endswith("num_batches_tracked"):
-            continue
-        np.testing.assert_allclose(after[name].numpy(), v.numpy(), atol=1e-5,
-                                   rtol=1e-5, err_msg=name)
+    for name, (ours, ref) in stats.items():
+        np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+
+
+# bf16 bounds of one train step against JAX. Both frameworks round the
+# same operands to bf16 at the same points (8 significant bits: one
+# rounding moves a value by up to 2**-9 of it), but their sums run in
+# another order, so now and then a value lands one bf16 ulp away, and the
+# backward compounds such flips layer by layer (BatchNorm's backward
+# subtracts means, which magnifies them). How much rounding explains is
+# read off JAX itself: its own bf16 step against its f32 step. So the
+# loss and the global norm within 2**-8 relative, and every clipped
+# gradient and updated BN statistic within twice JAX's own bf16-vs-f32
+# difference on that tensor (2**-8 at least), and within 2**-4 of its
+# largest f32 magnitude.
+BF16_STEP_LOSS_REL = 2.0 ** -8
+BF16_STEP_TENSOR_REL = 2.0 ** -4
+
+
+def test_one_bf16_train_step_matches_jax(synth_dir):
+    """The bf16 path (compute_dtype="bfloat16": bf16 convolutions, input
+    projections and recurrences; f32 BN statistics, head and CTC) against
+    JAX's own bf16 step, with JAX's kernels in interpret mode."""
+    pm, jm, grads, stats = _one_train_step(synth_dir, "bfloat16")
+    _, _, grads32, stats32 = _one_train_step(synth_dir, "float32")
+    assert np.isfinite(pm["loss"].item())
+    np.testing.assert_allclose(pm["loss"].item(), float(jm["loss"]),
+                               rtol=BF16_STEP_LOSS_REL)
+    np.testing.assert_allclose(pm["gnorm"].item(), float(jm["gnorm"]),
+                               rtol=BF16_STEP_LOSS_REL)
+    assert float(jm["gnorm"]) > 5.0  # the clip is exercised
+    f32 = {**grads32, **stats32}
+    for name, (ours, ref) in {**grads, **stats}.items():
+        scale = max(float(np.abs(f32[name][1]).max()), 1e-30)
+        gap = float(np.abs(ours - ref).max()) / scale
+        rounding = float(np.abs(ref - f32[name][1]).max()) / scale
+        assert gap <= BF16_STEP_TENSOR_REL, (name, gap)
+        assert gap <= max(2.0 * rounding, 2.0 ** -8), (name, gap, rounding)
 
 
 # --- the two repairs ------------------------------------------------------------

@@ -4,7 +4,7 @@
 // barrier, 128- and 64-byte-swizzled wgmma operand layouts and their
 // descriptors, and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions
 // (N = 128 with A from shared memory, N = 32 with A from registers). Used by lstm_bwd.cu and lstm_fwd.cu;
-// plain PTX, no CUTLASS.
+// ctc.cu takes its cp.async groups. Plain PTX, no CUTLASS.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,6 +97,17 @@ __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// close this thread's cp.async group (an empty group counts as well)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // make this thread's generic-proxy shared-memory writes visible to the

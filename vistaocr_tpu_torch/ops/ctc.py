@@ -54,7 +54,10 @@ def logsumexp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def shift(x: torch.Tensor, k: int) -> torch.Tensor:
     """``x[..., s - k]`` along the last axis (k > 0 shifts right, k < 0
-    left), NEG_INF where that index falls outside."""
+    left), NEG_INF where that index falls outside (everywhere when |k| is
+    not below the axis's length, as for S = 1)."""
+    if abs(k) >= x.shape[-1]:
+        return torch.full_like(x, NEG_INF)
     if k > 0:
         return F.pad(x[..., :-k], (k, 0), value=NEG_INF)
     return F.pad(x[..., -k:], (0, -k), value=NEG_INF)
