@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py          # every phase, as below
-    python3 chip_smoke.py --ctc    # phases 1, 2 and the CTC part of 6
+    python3 chip_smoke.py        # every phase, as below
+    python3 chip_smoke.py --ctc  # phases 1, 2 and the CTC part of 6
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -31,8 +31,9 @@ the exit code is non-zero and no ``ok`` line is printed):
 6. train-kernels - each training kernel against its plain version, TF32
              off, f32 and bf16: the ``save_cell`` forward and the BPTT
              (frames + dwh) of both directions at an odd shape (B=5, T=7,
-             H=40) and the training shapes (B=32, T=512, B=128, T=128
-             and B=512, T=32, H=512), the BPTT frames and dwh run twice on
+             H=40) and the training shapes (B=32, T=512, B=128, T=128,
+             B=512, T=32 and B=64, T=256, H=512), the BPTT frames and dwh
+             run twice on
              the same inputs (bit-equal), the save_cell forward's time per
              frame, launches per call and two runs bit-equal as in phase
              3; the CTC alpha/beta recursions at an odd shape (empty
@@ -42,14 +43,19 @@ the exit code is non-zero and no ``ok`` line is printed):
              within 2e-5, and at the buckets two runs bit-equal, one
              launch of each kernel a call, each timed, and the whole
              ``ctc_loss_kernel`` forward+backward (with its torch
-             assembly) timed beside ``F.ctc_loss``. With bf16 weights
-             the BPTT frames are ``bptt_gates_gemm`` (every frame's gate
-             recompute as one GEMM) and ``lstm_bwd_persistent`` (the
-             frame loop), each also
-             held to its own plain version (``bptt_gates_ref`` within
-             1e-5 relative, ``bptt_frames_ref`` on the kernel's gates
-             within 2e-2); with f32 weights ``bptt_gates`` and ``bptt_dh``
-             per frame. Times from CUDA events after warm-up, the BPTT
+             assembly) timed beside ``F.ctc_loss``. The BPTT frames
+             are ``bptt_gates_gemm`` (every frame's gate recompute as one
+             GEMM: bf16 weights on the tensor cores, f32 on the FMA
+             units), then the frame loop: ``lstm_bwd_persistent`` (bf16
+             weights, one launch) or, with f32 weights, both designs side
+             by side: folded, ``bptt_frame`` (one launch a frame: the cell
+             backward and the dh product), and split, ``bptt_cell`` and
+             ``bptt_dh`` a frame (the library runs the first up to B=32,
+             the second beyond), each also held to its own plain version
+             (``bptt_gates_ref`` within 1e-5 relative, ``bptt_frames_ref``
+             on the kernel's gates within 2e-2 with bf16 weights, 1e-4
+             with f32), with one GEMM and one (bf16) or T (f32, each
+             kernel) frame-loop launches a call. Times from CUDA events after warm-up, the BPTT
              kernels per launch (and launches per call) from
              ``torch.profiler`` over one ``lstm_bptt_frames`` call, beside
              each kernel's bound and the library call that computes the
@@ -72,7 +78,14 @@ the exit code is non-zero and no ``ok`` line is printed):
              largest magnitude (f32 sums in another order: tiled products in
              the recurrence and one dwh sum over (T-1)*B rows instead of one
              per frame, compounded over 256 frames; the class fold's
-             ``scatter_add`` uses atomics).
+             ``scatter_add`` uses atomics). Then the f32 path: one f32
+             forward/backward on the kernels at B=32, W=2048 and one at
+             B=128, W=512 (seeded glyph lines of W/2..W px), the BPTT
+             launch counters set to 0 just before the first and read
+             after the second (one f32 gate GEMM a BPTT call, then T
+             ``bptt_frame`` launches at B=32, T ``bptt_cell`` and T
+             ``bptt_dh`` at B=128), then each timed: CUDA-event ms a step
+             and its device time from ``torch.profiler``.
 9. experiments - the experiments' kernels (``vistaocr_tpu_torch/
              experiments``) against their plain versions, TF32 off, f32
              within 1e-4 (dK, dxw and dwh relative to their tensor's
@@ -432,9 +445,18 @@ def parity_phase(snap: str, dev) -> None:
 
 
 # --- training path -----------------------------------------------------------
-# (B, T, H): odd, the W=512 and W=2048 buckets, and the W=128 one
+# (B, T, H): odd, the W=512 and W=2048 buckets, the W=128 one, and the
+# W=1024 one (next to where the f32 frame loop's designs cross)
 LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512),
-                     (512, 32, 512))
+                     (512, 32, 512), (64, 256, 512))
+# the BPTT's frame loop after the gate GEMM: with bf16 weights one
+# persistent launch (None); with f32 weights two designs, timed and checked
+# side by side: folded, one launch a frame (True), and split, a cell
+# launch and a dh launch a frame (False); the library chooses by B
+F32_DESIGNS = (True, False)
+LOOP_KERNELS = {None: ("lstm_bwd_persistent",), True: ("bptt_frame",),
+                False: ("bptt_cell", "bptt_dh")}
+DESIGN_NAMES = {None: "persistent", True: "fold", False: "split"}
 # (B, T, K, L): an odd shape (empty label, infeasible sample), then the
 # three train buckets at K=96 with the ladder's label cap min(256, T):
 # W=2048 (S=513), W=512 and W=128; the first bucket is the kernels' row
@@ -553,8 +575,9 @@ def lstm_train_kernels(dev, card: str) -> dict:
     another order), ``lstm_bwd_persistent``'s dxw, from the kernel's own
     gates, against ``bptt_frames_ref`` within 2e-2."""
     import torch
-    from vistaocr_tpu_torch.ops import lstm_cuda as L
+    from vistaocr_tpu_torch.ops import _build, lstm_cuda as L
 
+    lib = _build.load()
     rows = {}
     for (B, T, H) in LSTM_TRAIN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -573,17 +596,18 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 whq = [w.to(dtype).contiguous() for _, w, _ in dirs]
                 kdirs = [(x, w, ys, cs, dy, r) for (x, _, ys, cs, dy, r), w
                          in zip(bdirs, whq)]
-                if f32:
-                    dxw_k = L.lstm_bptt_frames(kdirs, mask, dtype)
-                else:
-                    dxw_k, pre_k = L.lstm_bptt_frames(kdirs, mask, dtype,
-                                                      return_gates=True)
-                    pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r,
-                                              dtype=dtype)
-                             for x, w, ys, _, _, r in bdirs]
-                    loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy,
-                                                reverse=r, dtype=dtype)
-                              for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
+                # f32 weights: both frame-loop designs, each held to its
+                # plain version; lstm_bptt runs the library's choice by B
+                runs = {fd: L.lstm_bptt_frames(kdirs, mask, dtype,
+                                               return_gates=True, fold=fd)
+                        for fd in (F32_DESIGNS if f32 else (None,))}
+                chosen = bool(lib.vo_lstm_bwd_f32_folds(B)) if f32 else None
+                dxw_k, pre_k = runs[chosen]
+                pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r, dtype=dtype)
+                         for x, w, ys, _, _, r in bdirs]
+                loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
+                                            dtype=dtype)
+                          for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
                 ref_b = L.lstm_bptt(bdirs, mask, dtype, plain=True)
                 # dwh from the plain dxw, so its check sees the reduction only
                 dwh_k = L.lstm_dwh([(d[2], g, d[5]) for d, (g, _)
@@ -599,16 +623,21 @@ def lstm_train_kernels(dev, card: str) -> dict:
             ok = (e_fwd <= (1e-4 if f32 else 3e-2)
                   and r_dxw <= (1e-4 if f32 else 2e-2)
                   and r_dwh <= (1e-4 if f32 else 2e-2))
-            parts = ""
-            if not f32:
-                e_pre = max(_abs(a, b) for a, b in zip(pre_k, pre_r))
-                r_pre = max(_rel(a, b) for a, b in zip(pre_k, pre_r))
-                e_loop = max(_abs(a, b) for a, b in zip(dxw_k, loop_r))
-                r_loop = max(_rel(a, b) for a, b in zip(dxw_k, loop_r))
-                ok = ok and r_pre <= 1e-5 and r_loop <= 2e-2
-                parts = (f"; bptt_gates_gemm max|d|={e_pre:.3e} (rel "
-                         f"{r_pre:.2e}, tol 1e-5), lstm_bwd_persistent on its"
-                         f" gates max|d|={e_loop:.3e} (rel {r_loop:.2e})")
+            e_pre = max(_abs(a, b) for a, b in zip(pre_k, pre_r))
+            r_pre = max(_rel(a, b) for a, b in zip(pre_k, pre_r))
+            same_pre = all(torch.equal(a, b) for _, pre in runs.values()
+                           for a, b in zip(pre, pre_k))
+            loop_err = {fd: (max(_abs(a, b) for a, b in zip(g, loop_r)),
+                             max(_rel(a, b) for a, b in zip(g, loop_r)))
+                        for fd, (g, _) in runs.items()}
+            loop_tol = 1e-4 if f32 else 2e-2
+            ok = (ok and r_pre <= 1e-5 and same_pre
+                  and all(r <= loop_tol for _, r in loop_err.values()))
+            parts = f"; bptt_gates_gemm max|d|={e_pre:.3e} (rel {r_pre:.2e}"
+            parts += ", tol 1e-5)" + "".join(
+                f", {' + '.join(LOOP_KERNELS[fd])} on its gates max|d|="
+                f"{e:.3e} (rel {r:.2e}, tol {loop_tol:.0e})"
+                for fd, (e, r) in loop_err.items())
             print(f"train kernels vs plain {tag}: save_cell max|d|={e_fwd:.3e}"
                   f"; dxw max|d|={e_dxw:.3e} (rel {r_dxw:.2e}); dwh "
                   f"max|d|={e_dwh:.3e} (rel {r_dwh:.2e}){parts} "
@@ -616,10 +645,11 @@ def lstm_train_kernels(dev, card: str) -> dict:
             _require(ok, f"LSTM training kernels agree with plain: {tag}")
             ddirs = [(d[2], g, d[5]) for d, (g, _) in zip(bdirs, ref_b)]
             with torch.no_grad():  # the BPTT kernels, run twice
-                same = (all(torch.equal(a, b) for a, b in zip(
-                    dxw_k, L.lstm_bptt_frames(kdirs, mask, dtype))) and all(
+                same = all(torch.equal(a, b) for fd, (g, _) in runs.items()
+                           for a, b in zip(g, L.lstm_bptt_frames(
+                               kdirs, mask, dtype, fold=fd))) and all(
                     torch.equal(a, b) for a, b in zip(
-                        dwh_k, L.lstm_dwh(ddirs, dtype))))
+                        dwh_k, L.lstm_dwh(ddirs, dtype)))
             print(f"BPTT frames and dwh twice on the same inputs {tag}: "
                   f"bit-equal {same}", flush=True)
             _require(same, f"BPTT kernels deterministic: {tag}")
@@ -636,31 +666,34 @@ def lstm_train_kernels(dev, card: str) -> dict:
                         bdirs, mask, dtype, plain=True), 1),
                     "frames": _cuda_ms(lambda: L.lstm_bptt_frames(
                         kdirs, mask, dtype), 5),
+                    **{f"frames_{DESIGN_NAMES[fd]}": _cuda_ms(
+                        lambda fd=fd: L.lstm_bptt_frames(
+                            kdirs, mask, dtype, fold=fd), 5)
+                       for fd in runs if fd is not None},
                     "dwh": _cuda_ms(lambda: L.lstm_dwh(ddirs, dtype), 20),
                     "dwh_plain": _cuda_ms(lambda: [L.lstm_dwh_ref(
                         y, g, reverse=r, dtype=dtype) for y, g, r in ddirs], 1),
                     "dwh_lib": _cuda_ms(lambda: [dwh_one_product(
                         y, g, r, dtype) for y, g, r in ddirs], 20),
                 }
+                t["gates_plain"] = _cuda_ms(lambda: [L.bptt_gates_ref(
+                    x, ys, w, reverse=r, dtype=dtype)
+                    for x, w, ys, _, _, r in bdirs], 2)
+                t["gates_lib"] = _cuda_ms(lambda: [gates_one_product(
+                    x, ys, w, r, dtype) for x, w, ys, _, _, r in kdirs], 20)
+                t["loop_plain"] = _cuda_ms(lambda: [L.bptt_frames_ref(
+                    p, mask, w, cs, dy, reverse=r, dtype=dtype)
+                    for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1)
                 if f32:
                     # the per-frame dh product alone, both directions
                     dg = [g[T // 2] for g, _ in ref_b]  # one frame's dgates
                     t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w
                                                     in zip(dg, whq)], 50)
-                    names = ("bptt_gates<", "bptt_dh<")
-                else:
-                    t["gates_plain"] = _cuda_ms(lambda: [L.bptt_gates_ref(
-                        x, ys, w, reverse=r, dtype=dtype)
-                        for x, w, ys, _, _, r in bdirs], 2)
-                    t["gates_lib"] = _cuda_ms(lambda: [gates_one_product(
-                        x, ys, w, r, dtype) for x, w, ys, _, _, r in kdirs],
-                        20)
-                    t["loop_plain"] = _cuda_ms(lambda: [L.bptt_frames_ref(
-                        p, mask, w, cs, dy, reverse=r, dtype=dtype)
-                        for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1)
-                    names = ("bptt_gates_gemm<", "lstm_bwd_persistent<")
-                per = _kernel_us(lambda: L.lstm_bptt_frames(kdirs, mask,
-                                                            dtype), names)
+                per = {fd: _kernel_us(
+                    lambda fd=fd: L.lstm_bptt_frames(kdirs, mask, dtype,
+                                                     fold=fd),
+                    ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])))
+                    for fd in runs}
             # bounds: each input read once, each output written once; the
             # products this run needs (no h_prev at the edge frame, no dh
             # after the last one): (T-1)*B rows each
@@ -680,76 +713,86 @@ def lstm_train_kernels(dev, card: str) -> dict:
                             dtype),
                    "frames_ms": t["frames"]}
             rows[(B, T, dtype)] = {"lstm_bwd": bwd}
+            pre_bytes = _nbytes(*pre_k)
+            gemm_in = _nbytes(*(x for x, *_ in kdirs), *(d[2] for d in kdirs),
+                              *whq)
+            loop_in = _nbytes(mask, *whq, *(a for d in kdirs for a in d[3:5]))
+            cell_in = _nbytes(mask, *(a for d in kdirs for a in d[3:5]))
+            dh_in = _nbytes(mask, *whq, *(d[4] for d in kdirs))
+            gp = per[chosen]["bptt_gates_gemm<"]
+            gemm = {"max_abs_err": e_pre, "ms": gp[0] / 1e3,
+                    "plain_ms": t["gates_plain"],
+                    "library_ms": t["gates_lib"],
+                    **_bound(gemm_in + pre_bytes, gemm_flops, dtype),
+                    "launches_per_call": gp[1]}
+            rows[(B, T, dtype)]["bptt_gates_gemm"] = gemm
+            # each frame-loop kernel: its device time a call (per launch
+            # times launches), bound, launches; the split design's cell
+            # backward is elementwise (about 40 operations a unit and row)
+            bounds = {
+                "lstm_bwd_persistent": (pre_bytes + loop_in + dxw_bytes,
+                                        gemm_flops),
+                "bptt_frame": (pre_bytes + loop_in + dxw_bytes, gemm_flops),
+                "bptt_cell": (pre_bytes + cell_in + dxw_bytes,
+                              2 * 40 * T * B * H),
+                "bptt_dh": (dxw_bytes + dh_in, gemm_flops)}
+            n_want = T if f32 else 1
+            designs = {}
+            for fd in runs:
+                e_loop = loop_err[fd][0]
+                dsg = {"frames_ms": t.get(f"frames_{DESIGN_NAMES[fd]}",
+                                          t["frames"]),
+                       "chosen": fd == chosen, "per_frame_us": 0.0}
+                for k in LOOP_KERNELS[fd]:
+                    us, n = per[fd][k + "<"]
+                    _require(per[fd]["bptt_gates_gemm<"][1] == 1
+                             and n == n_want,
+                             f"one gate GEMM and {n_want} {k} launch(es) a "
+                             f"call: {tag}, {per[fd]}")
+                    row = {"max_abs_err": e_loop, "ms": us * n / 1e3,
+                           "plain_ms": t["loop_plain"], "library_ms": None,
+                           **_bound(*bounds[k], dtype),
+                           "launches_per_call": n}
+                    row["per_frame_us"] = row["ms"] / T * 1e3
+                    row["bound_per_frame_us"] = row["bound_ms"] / T * 1e3
+                    if k == "bptt_dh":  # the product alone, one frame
+                        row["library_ms"] = t["dh_lib"] * T
+                    rows[(B, T, dtype)][k] = row
+                    dsg["per_frame_us"] += row["per_frame_us"]
+                designs[DESIGN_NAMES[fd]] = dsg
+            loop_names = LOOP_KERNELS[chosen]
+            bwd.update({
+                "launches_per_call": {"bptt_gates_gemm": 1,
+                                      **{k: n_want for k in loop_names}},
+                "per_frame_us": designs[DESIGN_NAMES[chosen]]["per_frame_us"],
+                "per_frame_bound_us": _bound(*bounds["bptt_frame"], dtype)[
+                    "bound_ms"] / T * 1e3,
+                "bptt_gates_gemm_us": gemm["ms"] * 1e3,
+                "bptt_gates_gemm_bound_us": gemm["bound_ms"] * 1e3,
+                "bptt_gates_gemm_library_us": t["gates_lib"] * 1e3})
             if f32:
-                # per launch: dh reads wh, a frame's dgates, dys, mask, the
-                # dh carry and writes it; gates read xw[t], wh, ys[tp],
-                # cs[t], cs[tp], dys[t], both carries, and write dc and
-                # dxw[t]
-                f32b, sb = 4 * B * H, 4 * B * H
-                dh_bytes = (2 * (_nbytes(whq[0]) + 4 * sb + sb + 2 * f32b)
-                            + 4 * B)
-                gates_bytes = 2 * (_nbytes(whq[0]) + 8 * sb + 3 * f32b
-                                   + 4 * sb) + 4 * B
-                row_dh = _bound(dh_bytes, 2 * prod, dtype)
-                row_gates = _bound(gates_bytes, 2 * prod, dtype)
-                bwd.update({
-                    "bptt_gates_us": per["bptt_gates<"][0],
-                    "bptt_gates_bound_us": row_gates["bound_ms"] * 1e3,
-                    "bptt_dh_us": per["bptt_dh<"][0],
-                    "bptt_dh_bound_us": row_dh["bound_ms"] * 1e3,
-                    "bptt_dh_library_us": t["dh_lib"] * 1e3})
-                detail = (
-                    f"per launch (torch.profiler, {per['bptt_gates<'][1]}/"
-                    f"{per['bptt_dh<'][1]} launches): bptt_gates "
-                    f"{per['bptt_gates<'][0]:.2f} us (bound "
-                    f"{row_gates['bound_ms'] * 1e3:.2f}), bptt_dh "
-                    f"{per['bptt_dh<'][0]:.2f} us (bound "
-                    f"{row_dh['bound_ms'] * 1e3:.2f}; torch.mm per frame, "
-                    f"the product alone, {t['dh_lib'] * 1e3:.2f})")
-            else:
-                pre_bytes = _nbytes(*pre_k)
-                gemm_in = _nbytes(*(x for x, *_ in kdirs),
-                                  *(d[2] for d in kdirs), *whq)
-                loop_in = _nbytes(mask, *whq,
-                                  *(a for d in kdirs for a in d[3:5]))
-                gemm = {"max_abs_err": e_pre,
-                        "ms": per["bptt_gates_gemm<"][0] / 1e3,
-                        "plain_ms": t["gates_plain"],
-                        "library_ms": t["gates_lib"],
-                        **_bound(gemm_in + pre_bytes, gemm_flops, dtype),
-                        "launches_per_call": per["bptt_gates_gemm<"][1]}
-                loop = {"max_abs_err": e_loop,
-                        "ms": per["lstm_bwd_persistent<"][0] / 1e3,
-                        "plain_ms": t["loop_plain"], "library_ms": None,
-                        **_bound(pre_bytes + loop_in + dxw_bytes, gemm_flops,
-                                 dtype),
-                        "launches_per_call": per["lstm_bwd_persistent<"][1]}
-                loop["per_frame_us"] = loop["ms"] / T * 1e3
-                loop["bound_per_frame_us"] = loop["bound_ms"] / T * 1e3
-                _require(gemm["launches_per_call"] == 1
-                         and loop["launches_per_call"] == 1,
-                         f"one launch of each BPTT kernel a call: {tag}")
-                rows[(B, T, dtype)].update(
-                    {"bptt_gates_gemm": gemm, "lstm_bwd_persistent": loop})
-                bwd.update({
-                    "launches_per_call": {"bptt_gates_gemm": 1,
-                                          "lstm_bwd_persistent": 1},
-                    "per_frame_us": loop["per_frame_us"],
-                    "per_frame_bound_us": loop["bound_per_frame_us"],
-                    "bptt_gates_gemm_us": gemm["ms"] * 1e3,
-                    "bptt_gates_gemm_bound_us": gemm["bound_ms"] * 1e3,
-                    "bptt_gates_gemm_library_us": t["gates_lib"] * 1e3,
-                    "lstm_bwd_persistent_us": loop["ms"] * 1e3,
-                    "lstm_bwd_persistent_bound_us": loop["bound_ms"] * 1e3})
-                detail = (
-                    f"per launch (torch.profiler, one launch each a call): "
-                    f"bptt_gates_gemm {gemm['ms'] * 1e3:.2f} us (bound "
-                    f"{gemm['bound_ms'] * 1e3:.2f}; plain "
-                    f"{t['gates_plain']:.3f} ms; torch.mm + xw "
-                    f"{t['gates_lib'] * 1e3:.2f} us), lstm_bwd_persistent "
-                    f"{loop['ms'] * 1e3:.2f} us = {loop['per_frame_us']:.3f} "
-                    f"us a frame (bound {loop['bound_per_frame_us']:.3f}; "
-                    f"plain {t['loop_plain']:.3f} ms)")
+                bwd["frame_loop_designs"] = designs
+                bwd["dh_product_library_us"] = t["dh_lib"] * 1e3
+            detail = (
+                f"per launch (torch.profiler): bptt_gates_gemm "
+                f"{gemm['ms'] * 1e3:.2f} us (bound "
+                f"{gemm['bound_ms'] * 1e3:.2f}; plain "
+                f"{t['gates_plain']:.3f} ms; torch.mm + xw "
+                f"{t['gates_lib'] * 1e3:.2f} us)")
+            for fd in runs:
+                ks = LOOP_KERNELS[fd]
+                dsg = designs[DESIGN_NAMES[fd]]
+                detail += (
+                    f"; {DESIGN_NAMES[fd]}{' (chosen)' if dsg['chosen'] else ''}"
+                    f" {dsg['per_frame_us']:.3f} us a frame = " + " + ".join(
+                        f"{k} {per[fd][k + '<'][0]:.2f} us x "
+                        f"{per[fd][k + '<'][1]} (bound "
+                        f"{rows[(B, T, dtype)][k]['bound_per_frame_us']:.3f})"
+                        for k in ks) + f", frames {dsg['frames_ms']:.3f} ms")
+            detail += f"; plain frame loop {t['loop_plain']:.3f} ms"
+            if f32:
+                detail += (f"; torch.mm per frame, the dh product alone, "
+                           f"{t['dh_lib'] * 1e3:.2f} us")
             print(f"time {tag}, both directions: save_cell fwd {t['fwd']:.3f}"
                   f" ms (plain {t['fwd_plain']:.3f}); BPTT frames+dwh "
                   f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}; frames "
@@ -1015,19 +1058,17 @@ def train_phase(tmp: str, font: dict, smi: str) -> dict:
     return counts
 
 
-def train_parity_phase(dev, font: dict) -> None:
+def _glyph_batch(font: dict, seed: int, B: int, W: int, wmin: int,
+                 L: int, dev):
+    """B seeded glyph lines of wmin..W px in one [B, 32, W] batch: the
+    alphabet and (images, widths, labels [B, L], label lengths) on ``dev``."""
     import torch
-    from vistaocr_tpu_torch import train as T
-    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
     from vistaocr_tpu_torch.text import Alphabet, utf8_to_uxxxx
 
     alphabet = Alphabet.from_charset(GLYPH_CHARSET)
-    cfg = ModelConfig(num_classes=alphabet.num_classes,
-                      compute_dtype="float32", dropout=0.0)
-    lines = glyph_lines(font, np.random.default_rng(9), 16, 200, 1024)
-    B, W = len(lines), 1024
+    lines = glyph_lines(font, np.random.default_rng(seed), B, wmin, W)
     images = np.full((B, 32, W), 255, np.uint8)
-    labels = np.zeros((B, 127), np.int32)
+    labels = np.zeros((B, L), np.int32)
     widths, lls = np.zeros(B, np.int32), np.zeros(B, np.int32)
     for i, (img, text) in enumerate(lines):
         images[i, :, :img.shape[1]] = img
@@ -1035,7 +1076,71 @@ def train_parity_phase(dev, font: dict) -> None:
         ids = alphabet.encode(utf8_to_uxxxx(text))
         labels[i, :len(ids)] = ids
         lls[i] = len(ids)
-    batch = [torch.from_numpy(a).to(dev) for a in (images, widths, labels, lls)]
+    return alphabet, [torch.from_numpy(a).to(dev)
+                      for a in (images, widths, labels, lls)]
+
+
+# the f32 path of phase 8: one f32 forward+backward of the flagship at the
+# W=2048 bucket (the folded f32 frame loop) and one at the W=512 bucket
+# (the split one), on the kernels (the counts of its BPTT kernels)
+F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "BWD_LAUNCHES", "GATES_GEMM_LAUNCHES",
+                "FRAME_LAUNCHES", "CELL_LAUNCHES", "DH_LAUNCHES",
+                "DWH_LAUNCHES")
+F32_STEPS = ((32, 2048), (128, 512))  # (B, W): 2**21-pixel train batches
+
+
+def f32_step(dev, font: dict, B: int, W: int):
+    """One f32 train-mode forward+backward (``loss_and_grads``, dropout
+    off) of the flagship model on the kernels, from seeded parameters and
+    B glyph lines of W/2..W px, as a function of no arguments. Entry
+    points only, so it also runs in an earlier tree of the port."""
+    import torch
+    from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
+
+    alphabet, batch = _glyph_batch(font, 10, B, W, W // 2, min(256, W // 4),
+                                   dev)
+    model = CnnLstmOcr(ModelConfig(num_classes=alphabet.num_classes,
+                                   compute_dtype="float32", dropout=0.0))
+    init_parameters(model, torch.Generator().manual_seed(5))
+    model.to(dev)
+    weights = torch.ones(B, device=dev)
+    return lambda: T.loss_and_grads(model, *batch, weights)
+
+
+def f32_step_timing(step, card: str, B: int, W: int) -> dict:
+    """CUDA-event ms of ``step`` (an ``f32_step``) after a warm-up, and its
+    device time: the sum of the device operations' durations in a
+    ``torch.profiler`` window over one step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = _cuda_ms(step, 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"f32 forward+backward of the flagship on the kernels, B={B} "
+          f"W={W}: {ms:.3f} ms a step (CUDA events), device time "
+          f"{device_ms:.3f} ms ({card})", flush=True)
+    return {"B": B, "W": W, "ms": ms, "device_ms": device_ms}
+
+
+def train_parity_phase(dev, font: dict, card: str) -> dict:
+    """The f32 parity check (scan against the kernels), then the f32 path:
+    one f32 step on the kernels at each of ``F32_STEPS`` with the BPTT
+    counters set to 0 before the first and read after the last, and the
+    timing of each."""
+    import torch
+    from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
+
+    alphabet, batch = _glyph_batch(font, 9, 16, 1024, 200, 127, dev)
+    cfg = ModelConfig(num_classes=alphabet.num_classes,
+                      compute_dtype="float32", dropout=0.0)
+    B = batch[0].shape[0]
     weights = torch.ones(B, device=dev)
     base = CnnLstmOcr(cfg)
     init_parameters(base, torch.Generator().manual_seed(5))
@@ -1056,6 +1161,34 @@ def train_parity_phase(dev, font: dict) -> None:
           f"{len(g_p)} tensors", flush=True)
     _require(np.isfinite(l_k) and rel_loss <= 1e-5, "loss parity")
     _require(worst[0] <= 2e-3, f"gradient parity {worst}")
+
+    from vistaocr_tpu_torch.ops import lstm_cuda
+
+    steps = [f32_step(dev, font, B, W) for B, W in F32_STEPS]
+    for name in F32_COUNTERS:
+        setattr(lstm_cuda, name, 0)
+    calls = []  # BPTT calls of each step
+    for step in steps:
+        before = lstm_cuda.BWD_LAUNCHES
+        loss, _ = step()
+        torch.cuda.synchronize()
+        _require(np.isfinite(loss.item()), "finite f32 loss")
+        calls.append(lstm_cuda.BWD_LAUNCHES - before)
+    counts = {name: getattr(lstm_cuda, name) for name in F32_COUNTERS}
+    print(f"f32 path: launches in its steps {counts}", flush=True)
+    # LSTM frames: W / 4; B=32 folds (a bptt_frame launch a frame), B=128
+    # splits (a bptt_cell and a bptt_dh launch a frame)
+    (n_fold, n_split), (t_fold, t_split) = calls, [W // 4 for _, W in F32_STEPS]
+    _require(counts["GATES_GEMM_LAUNCHES"] == counts["BWD_LAUNCHES"]
+             and n_fold > 0 and n_split > 0
+             and counts["FRAME_LAUNCHES"] == t_fold * n_fold
+             and counts["CELL_LAUNCHES"] == counts["DH_LAUNCHES"]
+             == t_split * n_split and all(v > 0 for v in counts.values()),
+             f"one f32 gate GEMM a BPTT call, then T bptt_frame launches "
+             f"(B=32) or T bptt_cell and T bptt_dh (B=128): {counts}")
+    return {"counts": counts,
+            "steps": [f32_step_timing(step, card, B, W)
+                      for step, (B, W) in zip(steps, F32_STEPS)]}
 
 
 # --- experiments: fused stem (K7a/K7b), direction-stacked BLSTM (K6a/K6b) ----
@@ -1477,7 +1610,7 @@ def main(argv) -> int:
         _phase("train")
         counts = train_phase(tmp, font, smi)
     _phase("train-parity")
-    train_parity_phase(dev, font)
+    f32_path = train_parity_phase(dev, font, f"{card}, {smi}")
     _phase("experiments")
     stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
@@ -1530,19 +1663,32 @@ def main(argv) -> int:
                         lstm_rows[(B, T, torch.bfloat16)][name],
                         lstm_rows[(B, T, torch.float32)][name])
         kernels.append(row)
-    # the bf16-weight BPTT's two kernels (f32 weights run bptt_gates and
-    # bptt_dh per frame, timed in the lstm_bwd row's f32_ fields)
-    for name, counter in (("bptt_gates_gemm", "GATES_GEMM_LAUNCHES"),
-                          ("lstm_bwd_persistent", "BWD_PERSISTENT_LAUNCHES")):
+    # each weight type's two BPTT kernels: bf16 launches counted on the
+    # train path (phase 7), f32 on the f32 path (phase 8)
+    for name, key, dtype, launches in (
+            ("bptt_gates_gemm", "bptt_gates_gemm", torch.bfloat16,
+             counts["GATES_GEMM_LAUNCHES"]),
+            ("lstm_bwd_persistent", "lstm_bwd_persistent", torch.bfloat16,
+             counts["BWD_PERSISTENT_LAUNCHES"]),
+            ("bptt_gates_gemm_f32", "bptt_gates_gemm", torch.float32,
+             f32_path["counts"]["GATES_GEMM_LAUNCHES"]),
+            ("bptt_frame", "bptt_frame", torch.float32,
+             f32_path["counts"]["FRAME_LAUNCHES"]),
+            ("bptt_cell", "bptt_cell", torch.float32,
+             f32_path["counts"]["CELL_LAUNCHES"]),
+            ("bptt_dh", "bptt_dh", torch.float32,
+             f32_path["counts"]["DH_LAUNCHES"])):
         row = {"name": name, "route": "cuda",
                "source": "vistaocr_tpu_torch/csrc/lstm_bwd.cu",
                "replaces": "vistaocr_tpu/ops/lstm_pallas.py:281",
                "also_replaces": "vistaocr_tpu/ops/lstm_pallas.py:334",
-               "launches": counts[counter],
-               **lstm_rows[(*main_shape, torch.bfloat16)][name]}
+               "launches": launches,
+               **lstm_rows[(*main_shape, dtype)][key]}
         for B, T, _ in LSTM_TRAIN_SHAPES[1:]:
             if (B, T) != main_shape:
-                row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, torch.bfloat16)][name]
+                row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, dtype)][key]
+        if dtype == torch.float32:
+            row["f32_steps"] = f32_path["steps"]
         kernels.append(row)
     for name, rep, counter in (("ctc_alpha", "ctc_pallas.py:74",
                                 "ALPHA_LAUNCHES"),

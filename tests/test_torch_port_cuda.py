@@ -5,7 +5,9 @@ and its H limit, and the per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
 and dwh in all four stream/weight type pairs: with bf16 weights the gate
 GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
-f32 weights the per-frame kernels; csrc/ctc.cu's alpha/beta at the
+f32 weights the f32 gate GEMM and the per-frame kernel at the GEMM's
+tile edges, several clusters and H > 512, their determinism and their
+1 + T launches; csrc/ctc.cu's alpha/beta at the
 three train buckets, S > 1024 and T below its ring depth, their
 determinism and their one launch each a call) against their plain
 PyTorch versions, including ragged B/H edges and the tile edges, T = 1,
@@ -408,13 +410,28 @@ def test_bptt_mixed_types_match_plain(dev, shape, stream, compute):
     _check_bptt(dev, *shape, stream, compute)
 
 
-# the edges of the tiles: bptt_dh's 64 units x 32 batch rows and
-# 4H/8-column slices (f32 W), bptt_gates_gemm's and lstm_dwh's 128 x 128
-# tiles, 64-row stages and TMA's 16-byte rows (H % 8), lstm_bwd_persistent's
-# 32-unit CTAs and 32-row clusters (bf16 W; H = 520 raises there), and
-# T = 1 (no dwh rows) and 2 (one frame's rows)
+# The f32-weight gate GEMM's edges (bptt_gates_gemm's f32 form: 128 x 128
+# tiles, 16-column stages, 16-byte rows when H % 4 (f32 ys) or H % 8 (bf16
+# ys) is 0): (T-1)*B at and across 128, 4H across an N tile (H = 33, 65),
+# T = 1 and 2, and H = 520 and 1000, which only f32 weights take
+F32_GEMM_SHAPES = [(129, 2, 65), (8, 17, 64), (5, 7, 33), (6, 3, 65),
+                   (7, 1, 40), (9, 2, 24), (4, 3, 520), (3, 2, 1000)]
+# bptt_frame's clusters: 64 dh units and 32 rows each, CTA r contracting
+# over an eighth of the units in chunks of 64; several clusters a
+# direction, so that the carries' ping-pong crosses clusters (B=70, H=200:
+# 4 x 3 clusters), and a row invalid throughout (row 3); bptt_dh's
+# clusters of 64 units and 32 rows the same
+F32_FRAME_SHAPES = [(70, 5, 200), (33, 4, 1000)]
+
+# the edges of the tiles: the f32 frame loop's 64 units x 32 batch rows
+# (bptt_frame at B <= 32, its eighths of H and 64-unit chunks; bptt_cell
+# and bptt_dh beyond), bptt_gates_gemm's and
+# lstm_dwh's 128 x 128 tiles, stages and 16-byte rows (H % 8),
+# lstm_bwd_persistent's 32-unit CTAs and 32-row clusters (bf16 W; H > 512
+# raises there), and T = 1 (no dwh rows) and 2 (one frame's rows)
 @pytest.mark.parametrize("shape", [(8, 2, 64), (9, 2, 65), (128, 3, 64),
-                                   (129, 2, 65), (8, 1, 520), (9, 3, 520)])
+                                   (129, 2, 65), (8, 1, 520), (9, 3, 520),
+                                   *F32_GEMM_SHAPES, *F32_FRAME_SHAPES])
 @pytest.mark.parametrize("stream,compute", _TYPE_PAIRS)
 def test_bptt_tile_edges_match_plain(dev, shape, stream, compute):
     _check_bptt(dev, *shape, stream, compute)
@@ -422,20 +439,84 @@ def test_bptt_tile_edges_match_plain(dev, shape, stream, compute):
 
 @pytest.mark.parametrize("stream,compute", _TYPE_PAIRS)
 def test_bptt_and_dwh_are_deterministic(dev, stream, compute):
-    """Fixed summation orders, no float atomics: two runs, the same bits."""
-    dirs, mask = _typed_bptt_operands(dev, 33, 9, 72, stream, compute, seed=2)
-    kdirs = [(x, w.to(compute).contiguous(), y, c, dy, r)
-             for x, w, y, c, dy, r in dirs]
+    """Fixed summation orders, no float atomics: two runs, the same bits,
+    also with several frame-loop clusters a direction and H > 512 (f32
+    weights, both frame-loop designs)."""
+    f32 = compute == torch.float32
+    for B, T, H in [(33, 9, 72), (129, 2, 65), *F32_FRAME_SHAPES]:
+        if not f32 and H > lstm_cuda.PERSISTENT_MAX_H:
+            continue
+        dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute,
+                                          seed=2)
+        kdirs = [(x, w.to(compute).contiguous(), y, c, dy, r)
+                 for x, w, y, c, dy, r in dirs]
+        for fold in ((True, False) if f32 else (None,)):
+            with torch.no_grad():
+                runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, compute,
+                                                   fold=fold)
+                        for _ in range(2)]
+                dwhs = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g
+                                            in zip(dirs, runs[0])], compute)
+                        for _ in range(2)]
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
+            for a, b in zip(*dwhs):
+                assert torch.equal(a, b)
+
+
+def _masked_row_operands(dev, B, T, H, stream, compute, seed):
+    """As _typed_bptt_operands, with row 3 invalid throughout (B > 3)
+    and the saved states recomputed under that mask."""
+    dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute, seed)
+    if B > 3:
+        mask = mask.clone()
+        mask[:, 0, 3] = 0.0
+        dirs = [(x, w, *lstm_cuda.lstm_recurrence_ref(
+                    x, mask, w, reverse=r, dtype=compute, save_cell=True),
+                 dy, r) for x, w, _, _, dy, r in dirs]
+    return dirs, mask
+
+
+_F32_COUNTERS = ("GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
+                 "DH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+
+
+@pytest.mark.parametrize("shape", F32_GEMM_SHAPES + F32_FRAME_SHAPES)
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fold", [True, False])
+def test_f32_weight_gates_gemm_and_frames_match_plain(dev, shape, stream,
+                                                      fold):
+    """Type codes 0 and 3: the f32 gate GEMM against bptt_gates_ref
+    within 1e-5 of the largest magnitude (the same f32 products, summed in
+    another order), and the frame loop of either design (bptt_frame, or
+    bptt_cell + bptt_dh), on the kernel's own gates, against
+    bptt_frames_ref (f32 sums in another order; a bf16 dxw element may
+    round one ulp apart); an invalid row's gradients are zeros."""
+    B, T, H = shape
+    dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.float32,
+                                      seed=B + T * H)
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
     with torch.no_grad():
-        runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, compute)
-                for _ in range(2)]
-        dwhs = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g
-                                    in zip(dirs, runs[0])], compute)
-                for _ in range(2)]
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
-    for a, b in zip(*dwhs):
-        assert torch.equal(a, b)
+        dxw, pre = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32,
+                                              return_gates=True, fold=fold)
+        for (x, w, ys, cs, dy, r), g, p in zip(dirs, dxw, pre):
+            assert p.shape == (T, B, 4 * H) and p.dtype == torch.float32
+            ref = lstm_cuda.bptt_gates_ref(x, ys, w, reverse=r,
+                                           dtype=torch.float32)
+            assert _rel_err(p, ref) <= 1e-5
+            loop = lstm_cuda.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
+                                             dtype=torch.float32)
+            assert g.dtype == stream
+            if stream == torch.float32:
+                torch.testing.assert_close(g, loop, atol=2e-4, rtol=1e-3)
+            else:
+                assert _rel_err(g, loop) <= _BF16_REL
+            if B > 3:
+                assert not g[:, 3].float().abs().max().item()
+    torch.cuda.synchronize()
+    frames = (T, 0, 0) if fold else (0, T, T)
+    assert [getattr(lstm_cuda, n) - b for n, b in zip(
+        _F32_COUNTERS, before)] == [1, *frames, 0]
 
 
 # The bf16-weight BPTT (type codes 1 and 2: bptt_gates_gemm, then one
@@ -449,15 +530,7 @@ BF16_BPTT_SHAPES = [(5, 7, 17), (6, 9, 40), (33, 5, 100), (70, 4, 72),
 
 
 def _bf16_bptt_operands(dev, B, T, H, stream, seed):
-    dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, torch.bfloat16,
-                                      seed)
-    if B > 3:
-        mask = mask.clone()
-        mask[:, 0, 3] = 0.0
-        dirs = [(x, w, *lstm_cuda.lstm_recurrence_ref(
-                    x, mask, w, reverse=r, dtype=torch.bfloat16,
-                    save_cell=True), dy, r) for x, w, _, _, dy, r in dirs]
-    return dirs, mask
+    return _masked_row_operands(dev, B, T, H, stream, torch.bfloat16, seed)
 
 
 @pytest.mark.parametrize("shape", BF16_BPTT_SHAPES)
@@ -514,13 +587,13 @@ def _profiled_counts(call, names):
 
 
 _BPTT_KERNELS = ("bptt_gates_gemm<", "lstm_bwd_persistent<", "bptt_gates<",
-                 "bptt_dh<", "lstm_dwh")
+                 "bptt_frame<", "bptt_cell<", "bptt_dh<", "lstm_dwh")
 
 
 def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
     """B=32, T=512, H=512 (the W=2048 bucket), both directions: one
     lstm_bptt call makes one bptt_gates_gemm, one lstm_bwd_persistent and
-    one dwh launch, and no per-frame bptt_gates or bptt_dh."""
+    one dwh launch, and no per-frame kernel."""
     dirs, mask = _bf16_bptt_operands(dev, 32, 512, 512, torch.bfloat16,
                                      seed=9)
     with torch.no_grad():
@@ -528,19 +601,28 @@ def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
             _BPTT_KERNELS)
     assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 1,
-                      "bptt_gates<": 0, "bptt_dh<": 0, "lstm_dwh": 1}, counts
+                      "bptt_gates<": 0, "bptt_frame<": 0, "bptt_cell<": 0,
+                      "bptt_dh<": 0, "lstm_dwh": 1}, counts
 
 
-def test_f32_weight_bptt_still_launches_per_frame(dev):
+@pytest.mark.parametrize("B", [32, 33, 128])
+def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
+    """f32 weights, both directions, T=24: one lstm_bptt call makes one
+    bptt_gates_gemm (f32 form), then up to B=32 T bptt_frame launches (the
+    cell backward and the dh product of a frame), beyond T bptt_cell and T
+    bptt_dh launches, and one dwh launch; no per-frame bptt_gates."""
     T = 24
-    dirs, mask = _typed_bptt_operands(dev, 32, T, 64, torch.float32,
+    dirs, mask = _typed_bptt_operands(dev, B, T, 64, torch.float32,
                                       torch.float32, seed=10)
     with torch.no_grad():
         counts = _profiled_counts(
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.float32),
             _BPTT_KERNELS)
-    assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 0,
-                      "bptt_gates<": T, "bptt_dh<": T, "lstm_dwh": 1}, counts
+    frames = (T, 0, 0) if B <= 32 else (0, T, T)
+    assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 0,
+                      "bptt_gates<": 0, "bptt_frame<": frames[0],
+                      "bptt_cell<": frames[1], "bptt_dh<": frames[2],
+                      "lstm_dwh": 1}, counts
 
 
 def test_bf16_weight_bptt_refuses_h_above_512(dev):
@@ -576,8 +658,8 @@ def test_dwh_matches_torch_mm_at_flagship(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_backward_on_cuda_matches_plain_bptt(dev, dtype):
-    """f32: the per-frame kernels; bf16: bptt_gates_gemm +
-    lstm_bwd_persistent (bf16 streams and weights)."""
+    """f32: bptt_gates_gemm (f32 form) + bptt_frame (B <= 32); bf16:
+    bptt_gates_gemm + lstm_bwd_persistent (bf16 streams and weights)."""
     B, T, H = 6, 11, 24
     dirs, mask = _bptt_operands(dev, B, T, H, dtype, seed=4)
     xw, wh = dirs[0][0], dirs[0][1]

@@ -192,10 +192,11 @@ def test_dwh_yardstick_is_the_kernels_function(stream, compute, reverse):
 _BF16_JAX_REL = 2.0 ** -8
 
 
-def _jax_bptt(seed, stream, compute, reverse):
+def _jax_bptt(seed, stream, compute, reverse, shape=None):
     """The JAX kernels' forward and BPTT in interpret mode, and the same
-    inputs (the JAX saved states included) as torch tensors."""
-    xw, mask, wh, dys = _case(seed)
+    inputs (the JAX saved states included) as torch tensors; ``shape``
+    (T, B, H), else ``_case``'s."""
+    xw, mask, wh, dys = _case(seed, *(shape or ()))
     args_j = [jnp.asarray(xw).astype(_JDT[stream]), jnp.asarray(mask),
               jnp.asarray(wh).astype(_JDT[compute])]
     ys_j, cs_j = _lstm_fwd_local(*args_j, dtype=_JDT[compute], interpret=True,
@@ -214,17 +215,29 @@ def _jax_bptt(seed, stream, compute, reverse):
     return inputs, t(dxw_j, torch.float32), t(dwh_j, torch.float32)
 
 
-@pytest.mark.parametrize("stream,compute", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+# (stream, compute, shape): each pair at _case's shape, then the f32-weight
+# pairs at the shapes only their kernels serve, H above 512 (the bf16
+# kernels refuse it) and T = 1 (no frame has a predecessor)
+_BPTT_CASES = [pytest.param(s, c, None, id=f"stream{i}-compute{i}")
+               for i, (s, c) in enumerate(_PAIRS)] + [
+    pytest.param(s, c, shape, id=f"{name}-T{shape[0]}-B{shape[1]}-H{shape[2]}")
+    for s, c, name in ((torch.float32, torch.float32, "f32-f32"),
+                       (torch.bfloat16, torch.float32, "bf16-f32"))
+    for shape in ((4, 3, 520), (1, 5, 8))]
+
+
+@pytest.mark.parametrize("stream,compute,shape", _BPTT_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
-def test_two_stage_bptt_matches_pallas_interpret(stream, compute, reverse):
+def test_two_stage_bptt_matches_pallas_interpret(stream, compute, shape,
+                                                 reverse):
     """The two-stage ``lstm_bptt_ref`` (every frame's gates at once, then
     the frame loop) against ``_bwd_kernel`` / ``_bwd_kernel_rev`` in
     interpret mode, for each stream/compute pair, ragged masks."""
     for seed in (8, 9):
         (xw, mask, wh, ys, cs, dys), dxw_j, dwh_j = _jax_bptt(
-            seed, stream, compute, reverse)
+            seed, stream, compute, reverse, shape)
         dxw, dwh = lstm_cuda.lstm_bptt_ref(xw, mask, wh, ys, cs, dys,
                                            reverse=reverse, dtype=compute)
         assert dxw.dtype == stream and dwh.dtype == torch.float32
@@ -235,15 +248,17 @@ def test_two_stage_bptt_matches_pallas_interpret(stream, compute, reverse):
                                        rtol=1e-3)
         else:
             for got, ref in ((dxw.float(), dxw_j), (dwh, dwh_j)):
+                if not ref.abs().max().item():  # T = 1: no dwh terms at all
+                    assert not got.abs().max().item()
+                    continue
                 err = (got - ref).abs().max() / ref.abs().max()
                 assert err.item() <= _BF16_JAX_REL, err.item()
 
 
-@pytest.mark.parametrize("stream,compute", [
-    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("stream,compute,shape", _BPTT_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
-def test_gates_yardstick_is_the_kernels_function(stream, compute, reverse):
+def test_gates_yardstick_is_the_kernels_function(stream, compute, shape,
+                                                 reverse):
     """``bptt_gates_ref`` (the function of the ``bptt_gates_gemm``
     kernel) equals the gates that the frame-by-frame loop recomputes,
     f32(xw[t]) + round(ys[tp]) @ round(wh) with zeros at the edge, and
@@ -251,7 +266,8 @@ def test_gates_yardstick_is_the_kernels_function(stream, compute, reverse):
     the kernel."""
     import chip_smoke
 
-    (xw, mask, wh, ys, _, _), _, _ = _jax_bptt(7, stream, compute, reverse)
+    (xw, mask, wh, ys, _, _), _, _ = _jax_bptt(7, stream, compute, reverse,
+                                               shape)
     pre = lstm_cuda.bptt_gates_ref(xw, ys, wh, reverse=reverse, dtype=compute)
     T = xw.shape[0]
     w = wh.to(compute).float()

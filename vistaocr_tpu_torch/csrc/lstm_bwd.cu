@@ -63,14 +63,34 @@
 //   rank order, so each dh element has one owner and a fixed order, no
 //   atomics, and two runs give the same bits. H <= 512.
 // - f32 W (type codes 0 and 3, the parity route): wgmma has no exact f32
-//   product, so each frame stays two launches on one stream (stream order
-//   is the barrier): bptt_gates recomputes the gates with the forward's
-//   tiled FMA product (lstm_common.cuh) and writes dxw[t] and the dc
-//   carry in its epilogue; bptt_dh multiplies dxw[t] by wh^T, splitting
-//   the 4H contraction 8 ways over a thread-block cluster (8 CTAs x 64
-//   hidden units x 32 batch rows, per direction; 64 x 32 tile, 4 x 4 per
-//   thread), the 8 partial tiles summed through distributed shared memory
-//   in rank order by the row's owner, which writes the dh carry.
+//   product (TF32 would change the numbers), so both stages stay on the
+//   FMA units, 1 + T or 1 + 2T launches a call. bptt_gates_gemm (the f32 form)
+//   recomputes every frame's gates as one GEMM into the same pre as the
+//   bf16 form: 128 x 128 tiles, 256 threads of 8 x 8, two CTAs an SM, a
+//   4-stage ring of 16-column stages filled by 16-byte cp.async (bf16 ys
+//   converted to f32 as shared memory is read), the epilogue adding
+//   f32(xw). Then the frame loop, stream order the barrier between
+//   frames, in one of two designs chosen by B (f32_folds; timed side by
+//   side on an H100 in PERF.md):
+//   - folded, up to 32 rows: bptt_frame, one launch a frame, folds the
+//     cell backward into the dh product. The 4H contraction is split by
+//     unit into 8 slices, and a cluster holds the CTAs of one slice and up
+//     to 8 blocks of 64 dh units. Its CTAs split the slice's cell backward
+//     (dgates, dxw[t], the dc carry), gather the dgates from each other
+//     through distributed shared memory, and each multiplies them by its
+//     rows of wh (in shared memory by cp.async since the launch began).
+//     Each slice's partial dh goes to global memory and the next frame
+//     sums the 8 in slice order: a fixed order, no atomics. The carries
+//     ping-pong by frame parity.
+//   - split, beyond: bptt_cell (the cell backward alone, a thread a unit
+//     and row) then bptt_dh (the dh product, the 4H contraction split 8
+//     ways over a cluster, each rank summing its rows of the 8 partial
+//     tiles in rank order), two launches a frame. The fold's CTAs each
+//     reload their 64 KB wh tile and walk one dependent chain (cell,
+//     cluster barrier, gather, product) per 32-row batch tile, at two
+//     CTAs an SM; past one batch tile that costs more than a second
+//     launch a frame and bptt_dh's small CTAs.
+//   Any H.
 // - dwh is not summed frame by frame as on the TPU (where the kernel keeps
 //   it in VMEM across the grid): it is one product over K = (T-1)*B rows
 //   after the loop, taking ys and dxw at a one-frame offset (the rows of
@@ -103,80 +123,6 @@ using namespace vo_lstm;
 using namespace vo_sm90;
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-
-template <typename S, typename W>
-struct BwdDir {
-  const S* xw;    // [T, B, 4H]
-  const W* wh;    // [H, 4H]
-  const S* ys;    // [T, B, H]
-  const S* cs;    // [T, B, H]
-  const S* dys;   // [T, B, H]
-  S* dxw;         // [T, B, 4H]
-  float* dh;      // [B, H] carry, updated in place
-  float* dc;      // [B, H] carry, updated in place
-  int t;          // frame this step processes
-  int tp;         // its scan predecessor, or -1 at the edge
-};
-
-// Phase 1 of a frame: gate recompute, dgates, dc carry.
-template <typename S, typename W>
-__global__ void __launch_bounds__(THREADS)
-bptt_gates(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
-           int B, int H) {
-  const BwdDir<S, W> d = blockIdx.z == 0 ? d0 : d1;
-  __shared__ __align__(16) Tiles sm;
-
-  const int tid = threadIdx.x;
-  const int tu = tid % 8;
-  const int tr = tid / 8;
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * TB;
-  const long long G = 4LL * H;
-  const long long BH = (long long)B * H;
-
-  float acc[4][2][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][s][g] = 0.0f;
-  if (d.tp >= 0) {  // block-uniform: the edge frame's h_prev is zero
-    gate_product<S, W>(acc, d.ys + d.tp * BH, d.wh, B, H, b0, j0, sm);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int b = b0 + 4 * tr + r;
-    if (b >= B) continue;
-    const float m = mask[(long long)d.t * B + b];
-    const long long row = (long long)d.t * B + b;
-    const S* x = d.xw + row * G;
-    S* dx = d.dxw + row * G;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int j = j0 + 2 * tu + s;
-      if (j >= H) continue;
-      const float i = sigmoid_f32(to_f32(x[j]) + acc[r][s][0]);
-      const float f = sigmoid_f32(to_f32(x[H + j]) + acc[r][s][1]);
-      const float g = tanhf(to_f32(x[2 * H + j]) + acc[r][s][2]);
-      const float o = sigmoid_f32(to_f32(x[3 * H + j]) + acc[r][s][3]);
-      const long long idx = (long long)b * H + j;
-      const float tc = tanhf(to_f32(d.cs[row * H + j]));
-      const float c_prev =
-          d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * B + b) * H + j]) : 0.0f;
-      const float dh = d.dh[idx] + to_f32(d.dys[row * H + j]);
-      const float dc = d.dc[idx];
-      const float dout = dh * tc;
-      const float dc_t = dc + dh * o * (1.0f - tc * tc);
-      dx[j] = from_f32<S>((dc_t * g) * i * (1.0f - i) * m);
-      dx[H + j] = from_f32<S>((dc_t * c_prev) * f * (1.0f - f) * m);
-      dx[2 * H + j] = from_f32<S>((dc_t * i) * (1.0f - g * g) * m);
-      dx[3 * H + j] = from_f32<S>(dout * o * (1.0f - o) * m);
-      d.dc[idx] = m * (dc_t * f) + (1.0f - m) * dc;
-    }
-  }
-}
 
 // Eight consecutive elements of a row, as loaded (no conversion yet).
 template <typename T>
@@ -292,155 +238,6 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
       *reinterpret_cast<uint4*>(dst + off[i]) = to_bf16x8(ch[i]);
     }
   }
-}
-
-// Phase 2 of a frame (f32 W): dh = dxw[t] @ wh^T + (1-m)*(dh + dys[t]),
-// split-K over a cluster of DH_SPLIT CTAs. Grid (DH_SPLIT, ceil(H/DH_M),
-// ndir * nbt): cluster rank = contraction slice [rank*ks, rank*ks + ks)
-// of the 4H columns, y = 64 hidden units, z = direction and NT batch rows.
-constexpr int DH_M = 64;
-constexpr int DH_SPLIT = 8;
-constexpr int DH_THREADS = 128;
-constexpr int SIMT_K = 32;  // contraction chunk
-
-template <int NT>
-constexpr int dh_smem_bytes() {
-  return 1024 + std::max(SIMT_K * (DH_M + 4) * 4 + SIMT_K * (NT + 4) * 4,
-                         DH_M * (NT + 4) * 4);
-}
-
-template <typename S, typename W, int NT>
-__global__ void __launch_bounds__(DH_THREADS)
-bptt_dh(BwdDir<S, W> d0, BwdDir<S, W> d1, const float* __restrict__ mask,
-        int B, int H, int nbt, int ks) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const BwdDir<S, W> d = blockIdx.z / nbt == 0 ? d0 : d1;
-  const int n0 = (blockIdx.z % nbt) * NT;  // batch rows
-  const int m0 = blockIdx.y * DH_M;        // hidden units
-  const int G = 4 * H;
-  const int k_lo = rank * ks;
-  const int k_hi = min(G, k_lo + ks);
-  const S* dg = d.dxw + (long long)d.t * B * G;
-  extern __shared__ uint8_t dh_raw[];
-  uint8_t* sm = align1024(dh_raw);
-  constexpr int LD = NT + 4;
-  float* red = reinterpret_cast<float*>(sm);  // [DH_M][LD] partial tile
-  const int tid = threadIdx.x;
-
-  // 64 units x 32 rows per CTA, 4 x 4 per thread
-  static_assert(std::is_same<W, float>::value && NT == 32,
-                "f32 weights, 32 batch rows per CTA");
-  float* ws = reinterpret_cast<float*>(sm);  // ws[g][k] = wh[k][g]
-  float* ds = ws + SIMT_K * (DH_M + 4);      // ds[g][b] = dg[b][g]
-  const int tu = tid % 8;                    // rows 4*tu .. 4*tu+3
-  const int tr = tid / 8;                    // units 4*tr .. 4*tr+3
-  const int lg = tid % SIMT_K, lr = tid / SIMT_K;
-  constexpr int WL = DH_M * SIMT_K / DH_THREADS;  // 16
-  constexpr int SL = NT * SIMT_K / DH_THREADS;    // 8
-  W wreg[WL];
-  S sreg[SL];
-  auto load = [&](int g0) {
-    const int g = g0 + lg;
-#pragma unroll
-    for (int i = 0; i < WL; ++i) {
-      const int k = m0 + lr + 4 * i;
-      wreg[i] = (k < H && g < k_hi) ? d.wh[(long long)k * G + g]
-                                    : from_f32<W>(0.0f);
-    }
-#pragma unroll
-    for (int i = 0; i < SL; ++i) {
-      const int b = n0 + lr + 4 * i;
-      sreg[i] = (b < B && g < k_hi) ? dg[(long long)b * G + g]
-                                    : from_f32<S>(0.0f);
-    }
-  };
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  if (k_lo < k_hi) load(k_lo);
-  for (int g0 = k_lo; g0 < k_hi; g0 += SIMT_K) {
-    // converted at the store, so the next chunk's loads overlap the FMAs
-#pragma unroll
-    for (int i = 0; i < WL; ++i) ws[lg * (DH_M + 4) + lr + 4 * i] = wreg[i];
-#pragma unroll
-    for (int i = 0; i < SL; ++i)
-      ds[lg * (NT + 4) + lr + 4 * i] = round_to<W>(to_f32(sreg[i]));
-    __syncthreads();
-    if (g0 + SIMT_K < k_hi) load(g0 + SIMT_K);
-#pragma unroll 8
-    for (int kk = 0; kk < SIMT_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(
-          &ws[kk * (DH_M + 4) + 4 * tr]);
-      const float4 b = *reinterpret_cast<const float4*>(
-          &ds[kk * (NT + 4) + 4 * tu]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      red[(4 * tr + i) * LD + 4 * tu + j] = acc[i][j];
-    }
-
-  // rank r sums rows 8r..8r+7 of the cluster's partials in rank order and
-  // owns their epilogue (the unit index fastest, for coalesced stores)
-  cluster.sync();
-  constexpr int ROWS = DH_M / DH_SPLIT;
-  for (int e = tid; e < ROWS * NT; e += DH_THREADS) {
-    const int r = rank * ROWS + e % ROWS, c = e / ROWS;
-    float sum = 0.0f;
-#pragma unroll
-    for (int q = 0; q < DH_SPLIT; ++q) {
-      sum += cluster.map_shared_rank(red, q)[r * LD + c];
-    }
-    const int k = m0 + r, b = n0 + c;
-    if (k < H && b < B) {
-      const float m = mask[(long long)d.t * B + b];
-      const long long idx = (long long)b * H + k;
-      const float dh = d.dh[idx] + to_f32(d.dys[(long long)d.t * B * H + idx]);
-      d.dh[idx] = sum + (1.0f - m) * dh;
-    }
-  }
-  cluster.sync();  // the partials stay in place until every rank has read
-}
-
-template <typename S, typename W, int NT>
-cudaError_t launch_dh(const BwdDir<S, W>& d0, const BwdDir<S, W>& d1,
-                      const float* mask, int B, int H, int ndir, int ks,
-                      cudaStream_t stream) {
-  constexpr int smem = dh_smem_bytes<NT>();
-  static bool configured = false;  // per instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bptt_dh<S, W, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  const int nbt = (B + NT - 1) / NT;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(DH_SPLIT, (H + DH_M - 1) / DH_M, ndir * nbt);
-  cfg.blockDim = dim3(DH_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = DH_SPLIT;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, bptt_dh<S, W, NT>, d0, d1, mask, B, H, nbt,
-                            ks);
 }
 
 // dwh[k][g] = sum_r round_W(a[r][k]) * round_W(c[r][g]) over R rows:
@@ -692,50 +489,6 @@ cudaError_t encode_rows(CUtensorMap* map, const void* base, long long cols,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// f32 W (type codes 0 and 3): bptt_gates and bptt_dh, one launch each a
-// frame
-template <typename S, typename W>
-int run_bptt(int T, int B, int H, int ndir, const float* mask,
-             const void* const* xw, const void* const* wh,
-             const void* const* ys, const void* const* cs,
-             const void* const* dys, void* const* dxw,
-             float* const* scratch, const int* reverse, cudaStream_t stream) {
-  BwdDir<S, W> d[2];
-  const long long BH = (long long)B * H;
-  for (int i = 0; i < ndir; ++i) {
-    d[i].xw = static_cast<const S*>(xw[i]);
-    d[i].wh = static_cast<const W*>(wh[i]);
-    d[i].ys = static_cast<const S*>(ys[i]);
-    d[i].cs = static_cast<const S*>(cs[i]);
-    d[i].dys = static_cast<const S*>(dys[i]);
-    d[i].dxw = static_cast<S*>(dxw[i]);
-    d[i].dh = scratch[i];
-    d[i].dc = scratch[i] + BH;
-  }
-  const int G = 4 * H;
-  const int ks = ((G + DH_SPLIT - 1) / DH_SPLIT + 63) / 64 * 64;
-  const dim3 grid_g((H + TJ - 1) / TJ, (B + TB - 1) / TB, ndir);
-  for (int step = 0; step < T; ++step) {
-    for (int i = 0; i < ndir; ++i) {
-      // the forward scan's order, walked backwards
-      if (reverse[i]) {
-        d[i].t = step;
-        d[i].tp = step + 1 < T ? step + 1 : -1;
-      } else {
-        d[i].t = T - 1 - step;
-        d[i].tp = T - 2 - step;  // -1 at t = 0
-      }
-    }
-    if (ndir == 1) d[1] = d[0];
-    bptt_gates<S, W><<<grid_g, THREADS, 0, stream>>>(d[0], d[1], mask, B, H);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_dh<S, W, 32>(d[0], d[1], mask, B, H, ndir, ks, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
 }
 
 template <typename S, bool kTma>
@@ -1327,23 +1080,787 @@ int run_bptt_persistent(int T, int B, int H, int ndir, const float* mask,
   return static_cast<int>(err);
 }
 
+// --- f32 weights: the gate recompute as one GEMM on the FMA units, then one
+// launch a frame ---------------------------------------------------------------
+
+// pre[r][n] = f32(xw[r][n]) + sum_k f32(ys[r + off][k]) * wh[k][n] over the
+// R = T*B rows of one direction, ys rows outside [0, R) read as zeros. With
+// W = f32, round_W is the identity and bf16 -> f32 is exact, so the
+// function is GatesDir's with f32 wh.
+struct GatesF32Dir {
+  const void* xw;   // [R, 4H] in S
+  const void* ys;   // [R, H] in S
+  const float* wh;  // [H, 4H]
+  float* pre;       // [R, 4H]
+  long long off;    // -B (forward: h_prev = ys[t-1]) or +B (reverse: ys[t+1])
+};
+
+// 128 x 128 tiles of pre, 256 threads of 8 x 8 (rows 4*tm + {0..3, 64..67},
+// columns 4*tn + {0..3, 64..67}, as lstm_dwh_f32), two CTAs an SM. The
+// contraction runs in stages of QK columns, QSTAGES - 1 of them in flight
+// ahead of the FMAs: 16-byte cp.async into a ring in shared memory, one
+// barrier a stage. A stage holds A = ys rows [128][QK] in S (converted to
+// f32 as they are read) and B = wh rows [QK][128] f32.
+constexpr int QK = 16;
+constexpr int QSTAGES = 4;
+constexpr int QTHREADS = 256;
+
+template <typename S>
+constexpr int gemm_f32_smem() {
+  return QSTAGES * (128 * QK * static_cast<int>(sizeof(S)) + QK * 128 * 4);
+}
+
+// four consecutive values as f32 (p 16-byte aligned for float, 8 for bf16)
+__device__ __forceinline__ float4 ld4_f32(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4_f32(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// stage k0 .. k0 + QK - 1 of the tile (m0, n0) into as [128][QK] and
+// bs [QK][128], zeros past R, H and 4H. `vec`: 16-byte copies (rows of
+// whole, aligned chunks); else value by value (shapes off the main path).
+template <typename S>
+__device__ __forceinline__ void gemm_f32_stage(S* as, float* bs,
+                                               const GatesF32Dir& d,
+                                               long long R, int H, int m0,
+                                               int n0, int k0, int vec,
+                                               int tid) {
+  const S* ys = static_cast<const S*>(d.ys);
+  const long long G = 4LL * H;
+  constexpr int CH = 16 / static_cast<int>(sizeof(S));  // values a chunk
+  for (int q = tid; q < 128 * (QK / CH); q += QTHREADS) {
+    const int r = q / (QK / CH), c = (q % (QK / CH)) * CH;
+    const long long gr = m0 + r + d.off;
+    const int k = k0 + c;
+    const bool rok = gr >= 0 && gr < R;
+    S* dst = as + r * QK + c;
+    if (vec) {
+      const bool ok = rok && k < H;
+      cp_async16_zfill(dst, ys + (ok ? gr * H + k : 0), ok);
+    } else {
+      for (int e = 0; e < CH; ++e) {
+        dst[e] = rok && k + e < H ? ys[gr * H + k + e] : from_f32<S>(0.0f);
+      }
+    }
+  }
+  for (int q = tid; q < QK * 32; q += QTHREADS) {
+    const int kr = q / 32, c = (q % 32) * 4;
+    const long long k = k0 + kr, n = n0 + c;
+    const bool ok = k < H && n < G;  // G and n are multiples of 4
+    float* dst = bs + kr * 128 + c;
+    if (vec) {
+      cp_async16_zfill(dst, d.wh + (ok ? k * G + n : 0), ok);
+    } else {
+      for (int e = 0; e < 4; ++e) dst[e] = ok ? d.wh[k * G + n + e] : 0.0f;
+    }
+  }
+}
+
+// An overload of the bf16 form's name, so that one profiler filter,
+// "bptt_gates_gemm<", finds the gate GEMM of either weight type.
+template <typename S>
+__global__ void __launch_bounds__(QTHREADS, 2)
+bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
+  const GatesF32Dir d = blockIdx.z == 0 ? d0 : d1;
+  extern __shared__ __align__(16) uint8_t gf_raw[];
+  S* as = reinterpret_cast<S*>(gf_raw);  // [QSTAGES][128][QK]
+  float* bs = reinterpret_cast<float*>(as + QSTAGES * 128 * QK);
+  const int tid = threadIdx.x;
+  const int tm = tid / 16, tn = tid % 16;
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+  const int nk = (H + QK - 1) / QK;
+  auto stage = [&](int kt) {
+    const int s = kt % QSTAGES;
+    gemm_f32_stage<S>(as + s * 128 * QK, bs + s * QK * 128, d, R, H, m0, n0,
+                      kt * QK, vec, tid);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < QSTAGES - 1; ++kt) {
+    if (kt < nk) stage(kt);
+    cp_async_commit();  // one group a stage, empty past nk
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_group<QSTAGES - 2>();  // this thread's copies of stage kt
+    __syncthreads();  // ... and everyone's; stage kt-1's readers are done
+    if (kt + QSTAGES - 1 < nk) stage(kt + QSTAGES - 1);  // into kt-1's slot
+    cp_async_commit();
+    const S* a = as + (kt % QSTAGES) * 128 * QK;
+    const float* b = bs + (kt % QSTAGES) * QK * 128;
+#pragma unroll
+    for (int q = 0; q < QK / 4; ++q) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        av[i] = ld4_f32(a + (4 * tm + i % 4 + 64 * (i / 4)) * QK + 4 * q);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* br = b + (4 * q + kk) * 128 + 4 * tn;
+        const float4 b0 = *reinterpret_cast<const float4*>(br);
+        const float4 b1 = *reinterpret_cast<const float4*>(br + 64);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = kk == 0   ? av[i].x
+                          : kk == 1 ? av[i].y
+                          : kk == 2 ? av[i].z
+                                    : av[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  const S* xw = static_cast<const S*>(d.xw);
+  const long long G = 4LL * H;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const long long r = m0 + 4 * tm + i % 4 + 64 * (i / 4);
+    if (r >= R) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long n = n0 + 4 * tn + 64 * h;  // G and n are multiples of 4
+      if (n >= G) continue;
+      const S* x = xw + r * G + n;
+      const float4 xv =
+          vec ? ld4_f32(x)
+              : make_float4(to_f32(x[0]), to_f32(x[1]), to_f32(x[2]),
+                            to_f32(x[3]));
+      *reinterpret_cast<float4*>(&d.pre[r * G + n]) =
+          make_float4(acc[i][4 * h] + xv.x, acc[i][4 * h + 1] + xv.y,
+                      acc[i][4 * h + 2] + xv.z, acc[i][4 * h + 3] + xv.w);
+    }
+  }
+}
+
+template <typename S>
+cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
+                               const void* const* xw, const void* const* wh,
+                               const void* const* ys, float* const* pre,
+                               const int* reverse, cudaStream_t stream) {
+  const long long R = (long long)T * B;
+  if (R > 0x7fffff00LL || (R + 127) / 128 > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  GatesF32Dir d[2];
+  bool aligned = true;
+  for (int i = 0; i < ndir; ++i) {
+    d[i].xw = xw[i];
+    d[i].ys = ys[i];
+    d[i].wh = static_cast<const float*>(wh[i]);
+    d[i].pre = pre[i];
+    d[i].off = reverse[i] ? B : -B;
+    aligned = aligned && aligned16(xw[i]) && aligned16(ys[i]) &&
+              aligned16(wh[i]) && aligned16(pre[i]);
+  }
+  if (ndir == 1) d[1] = d[0];
+  // ys rows of whole 16-byte chunks (wh's rows, 16H bytes, always are)
+  const int vec = aligned && H % (16 / static_cast<int>(sizeof(S))) == 0;
+  constexpr int smem = gemm_f32_smem<S>();
+  void (*kernel)(GatesF32Dir, GatesF32Dir, int, int, int) = bptt_gates_gemm<S>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((4 * H + 127) / 128, static_cast<unsigned>((R + 127) / 128),
+                  ndir);
+  kernel<<<grid, QTHREADS, smem, stream>>>(d[0], d[1], static_cast<int>(R), H,
+                                          vec);
+  return cudaGetLastError();
+}
+
+// The frame loop with f32 W: one launch a frame, stream order the barrier
+// between frames. The 4H contraction of dh = dgates @ wh^T is split by
+// unit into FR_SLICES slices of `us` units (ceil(H/8) rounded up to 8;
+// each slice's four gate columns a unit), and the dh units into blocks of
+// FR_M. Grid (ceil(Y/CY)*CY, FR_SLICES, ndir * ceil(B/FR_B)), Y =
+// ceil(H/FR_M) blocks, cluster (CY = min(8, Y), 1, 1): a cluster holds the
+// CTAs of one slice and CY dh blocks, for FR_B batch rows.
+// - The slice runs in chunks of FR_U units. The cell backward of a chunk
+//   is split over the cluster: CTA q computes the dgates of pw =
+//   ceil(FR_U/CY) of its units (one unit and row a thread at CY = 8), from
+//   pre[t], cs[t], cs[tp], dys[t], the mask and the carries, into its
+//   shared memory; the cluster at x < CY writes dxw[t] and the carries for
+//   them (with Y > 8 the other clusters of a slice compute the same dgates
+//   and write nothing).
+// - After a cluster barrier every CTA gathers the chunk's dgates from its
+//   peers and multiplies them by its FR_M rows of wh, brought in by
+//   cp.async during the cell backward: P_r[m][b] = sum
+//   over the slice's columns of wh[m0 + m][col] * dg[b][col], 8 x 8 a
+//   thread, each warp over 32 columns of a chunk, the 8 warps' partials
+//   summed in order. The product's operand is
+//   round_W(S(dgate)) = f32(dxw[t]), as the reference reads dxw back.
+// - P_r goes to global memory; the next frame's cell backward sums the
+//   FR_SLICES partials of its units in slice order, then adds (1-m)*dh_t
+//   kept from this frame: one fixed order for each dh element, no
+//   atomics, no reduction inside the launch.
+// The carries ping-pong by frame parity in scratch [2][FR_PARTS + 1][B, H]
+// (a parity's partials, (1-m)*dh_t, dc), since one cluster writes what
+// another reads in the same launch; step 0 reads zeros instead. About
+// 103 KB of shared memory at H <= 512, so two CTAs share an SM.
+constexpr int FR_SLICES = 8;
+constexpr int FR_PARTS = FR_SLICES + 1;  // the slices' partials, (1-m)*dh_t
+constexpr int FR_CL = 8;                 // largest cluster
+constexpr int FR_U = 64;                 // units a product chunk
+constexpr int FR_M = 64;                 // dh units a CTA
+constexpr int FR_B = 32;                 // batch rows a cluster
+constexpr int FR_THREADS = 256;
+constexpr int FR_WLD = 4 * FR_U + 4;  // padded row of the wh tile
+constexpr int FR_RLD = FR_M + 2;      // padded row of the partial tiles
+static_assert(8 * FR_B * FR_RLD <= FR_M * FR_WLD + 4 * FR_U * FR_B,
+              "the warps' partial tiles fit over the wh and dgates tiles");
+static_assert(FR_THREADS == 8 * 32 && 4 * FR_U == 8 * 32,
+              "8 warps, 32 columns of a chunk each");
+
+template <typename S>
+struct FrameDir {
+  const float* pre;  // [T, B, 4H] from bptt_gates_gemm
+  const float* wh;   // [H, 4H]
+  const S* cs;       // [T, B, H]
+  const S* dys;      // [T, B, H]
+  S* dxw;            // [T, B, 4H]
+  float* carry;      // [2][FR_PARTS + 1][B, H]
+  int t;             // frame this launch processes
+  int tp;            // its scan predecessor, or -1 at the edge
+};
+
+// wh tile [FR_M][FR_WLD], a chunk's gathered dgates [4*FR_U][FR_B] (a
+// row's 16-byte chunk c at c ^ (row % 8); over both, the warps' partial
+// tiles [8][FR_B][FR_RLD] after the product), this CTA's dgates of the
+// chunk [4][pw][FR_B]
+inline int frame_smem(int pw) {
+  return (FR_M * FR_WLD + 4 * FR_U * FR_B + 4 * pw * FR_B) * 4;
+}
+
+template <typename S>
+__global__ void __launch_bounds__(FR_THREADS, 2)
+bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
+           int B, int H, int nbt, int us, int pw, int step, int last,
+           int vec) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ncl = static_cast<int>(cluster.num_blocks());
+  const bool writer = blockIdx.x < ncl;
+  if (last && !writer) return;  // the last frame's dh is not read
+  const int q = static_cast<int>(cluster.block_rank());
+  const FrameDir<S> d = blockIdx.z / nbt == 0 ? d0 : d1;
+  const int b0 = (blockIdx.z % nbt) * FR_B;
+  const int m0 = blockIdx.x * FR_M;  // this CTA's dh units
+  const bool rows = m0 < H;          // else it only runs a cell piece
+  const int u_lo = blockIdx.y * us, u_hi = min(H, u_lo + us);
+  const int nus = max(0, u_hi - u_lo);  // the slice's units
+  const long long G = 4LL * H, BH = (long long)B * H;
+  const long long row_t = (long long)d.t * B;  // frame t's first row
+  const int tid = threadIdx.x;
+  const bool first = step == 0;
+  const float* in = d.carry + (step & 1) * (FR_PARTS + 1) * BH;
+  float* out = d.carry + (1 - (step & 1)) * (FR_PARTS + 1) * BH;
+
+  extern __shared__ __align__(16) uint8_t fr_raw[];
+  float* ws = reinterpret_cast<float*>(fr_raw);
+  float* ds = ws + FR_M * FR_WLD;
+  float* piece = ds + 4 * FR_U * FR_B;  // [4][pw][FR_B]
+
+  // wh[m0 + m][g*H + ub + c] of a chunk, by cp.async (zeros past H)
+  auto load_wh = [&](int ub) {
+    const int nu = min(FR_U, u_hi - ub);
+    for (int e = tid; e < FR_M * 4 * (FR_U / 4); e += FR_THREADS) {
+      const int m = e / FR_U, g = (e / (FR_U / 4)) % 4;
+      const int c = (e % (FR_U / 4)) * 4;
+      const bool mok = m0 + m < H;
+      float* dst = ws + m * FR_WLD + g * FR_U + c;
+      const float* src = d.wh + (mok ? (long long)(m0 + m) * G : 0) +
+                         (long long)g * H + ub + c;
+      if (vec) {  // H, ub and nu are multiples of 4
+        const bool ok = mok && c < nu;
+        cp_async16_zfill(dst, ok ? src : d.wh, ok);
+      } else {
+        for (int k = 0; k < 4; ++k) dst[k] = mok && c + k < nu ? src[k] : 0.0f;
+      }
+    }
+  };
+  if (!last && rows && nus > 0) load_wh(u_lo);  // lands during the cell
+
+  // the product: warp kg takes columns 32kg .. 32kg + 31 of each chunk,
+  // lane (tm, tn) dh units tm + 8i and rows 4tn + {0..3}, 16 + 4tn + {0..3}
+  const int kg = tid / 32, tm = tid % 8, tn = (tid % 32) / 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int nch = (nus + FR_U - 1) / FR_U;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int cu_lo = u_lo + ch * FR_U, cu_hi = min(u_hi, cu_lo + FR_U);
+    if (ch > 0 && !last) cluster_wait_acquire();  // peers read the pieces
+    // the cell backward of this CTA's pw units of the chunk, unit fastest
+    const int p_lo = cu_lo + q * pw, p_hi = min(cu_hi, p_lo + pw);
+    for (int e = tid; e < pw * FR_B; e += FR_THREADS) {
+      const int uu = e % pw, b = e / pw;
+      const int u = p_lo + uu;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (u < p_hi && b0 + b < B) {
+        const long long row = row_t + b0 + b;
+        const long long idx = (long long)(b0 + b) * H + u;
+        const float* pr = d.pre + row * G + u;
+        const float gi = sigmoid_f32(pr[0]);
+        const float gf = sigmoid_f32(pr[H]);
+        const float gg = tanhf(pr[2LL * H]);
+        const float go = sigmoid_f32(pr[3LL * H]);
+        const float m = mask[row];
+        const float tc = tanhf(to_f32(d.cs[row * H + u]));
+        const float c_prev =
+            d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * B + b0 + b) * H + u])
+                      : 0.0f;
+        float dh = 0.0f, dc = 0.0f;
+        if (!first) {
+#pragma unroll
+          for (int k = 0; k < FR_PARTS; ++k) dh += in[k * BH + idx];
+          dc = in[FR_PARTS * BH + idx];
+        }
+        const float dh_t = dh + to_f32(d.dys[row * H + u]);
+        const float dc_t = dc + dh_t * go * (1.0f - tc * tc);
+        const S g4[4] = {from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m),
+                         from_f32<S>((dc_t * c_prev) * gf * (1.0f - gf) * m),
+                         from_f32<S>((dc_t * gi) * (1.0f - gg * gg) * m),
+                         from_f32<S>((dh_t * tc) * go * (1.0f - go) * m)};
+        if (writer) {
+          S* dx = d.dxw + row * G + u;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dx[(long long)g * H] = g4[g];
+          out[FR_SLICES * BH + idx] = (1.0f - m) * dh_t;
+          out[FR_PARTS * BH + idx] = m * (dc_t * gf) + (1.0f - m) * dc;
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) v[g] = to_f32(g4[g]);
+      }
+#pragma unroll
+      for (int g = 0; g < 4; ++g) piece[(g * pw + uu) * FR_B + b] = v[g];
+    }
+    if (last) continue;
+    cluster_arrive_release();  // every piece of the chunk is in place
+    cluster_wait_acquire();
+    // the chunk's dgates from their owners, float4 (4 rows) at a time
+    for (int e = tid; e < 4 * FR_U * (FR_B / 4); e += FR_THREADS) {
+      const int j = e % (FR_B / 4), uc = (e / (FR_B / 4)) % FR_U;
+      const int g = e / (FR_U * FR_B / 4);
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (cu_lo + uc < cu_hi) {
+        const float* src = cluster.map_shared_rank(piece, uc / pw);
+        x = *reinterpret_cast<const float4*>(
+            src + (g * pw + uc % pw) * FR_B + 4 * j);
+      }
+      *reinterpret_cast<float4*>(ds + (g * FR_U + uc) * FR_B +
+                                 4 * (j ^ (uc % 8))) = x;
+    }
+    cluster_arrive_release();  // done with the peers' pieces
+    cp_async_wait_all();
+    __syncthreads();  // the dgates and wh tiles are complete
+    if (rows) {
+      for (int k4 = 32 * kg; k4 < 32 * kg + 32; k4 += 4) {
+        float4 a[8];  // wh[m0 + tm + 8i][k4 .. k4 + 3]
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(ws + (tm + 8 * i) * FR_WLD +
+                                                  k4);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float* dr = ds + (k4 + k) * FR_B;
+          const int sw = (k4 + k) % 8;
+          const float4 b0 = *reinterpret_cast<const float4*>(dr + 4 * (tn ^ sw));
+          const float4 b1 =
+              *reinterpret_cast<const float4*>(dr + 4 * ((4 + tn) ^ sw));
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float x = k == 0   ? a[i].x
+                            : k == 1 ? a[i].y
+                            : k == 2 ? a[i].z
+                                     : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tiles are free for the next chunk
+    if (ch + 1 < nch && rows) load_wh(cu_lo + FR_U);
+  }
+  if (last) return;
+
+  if (rows) {  // P_r: the 8 warps' partials summed in order, to global
+    float* red = ws;  // [8][FR_B][FR_RLD], over the wh and dgates tiles
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int b = 4 * tn + (j % 4) + 16 * (j / 4);
+        red[(kg * FR_B + b) * FR_RLD + tm + 8 * i] = acc[i][j];
+      }
+    __syncthreads();
+    float* part = out + (long long)blockIdx.y * BH;
+    for (int e = tid; e < FR_M * FR_B; e += FR_THREADS) {
+      const int m = e % FR_M, b = e / FR_M;
+      float sum = red[b * FR_RLD + m];
+#pragma unroll
+      for (int k = 1; k < 8; ++k) sum += red[(k * FR_B + b) * FR_RLD + m];
+      if (m0 + m < H && b0 + b < B) {
+        part[(long long)(b0 + b) * H + m0 + m] = sum;
+      }
+    }
+  }
+  // no CTA leaves while a peer may read its piece
+  if (nch > 0) cluster_wait_acquire();
+}
+
+template <typename S>
+cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
+                         int H, int ndir, int us, int step, int last, int vec,
+                         cudaStream_t stream) {
+  const int Y = (H + FR_M - 1) / FR_M;
+  const int ncl = std::min(FR_CL, Y);
+  const int pw = (FR_U + ncl - 1) / ncl;  // a CTA's units of a chunk
+  const int smem = frame_smem(pw);
+  static int configured = 0;  // per instantiation: the largest opt-in yet
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bptt_frame<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  const int nbt = (B + FR_B - 1) / FR_B;
+  if ((long long)ndir * nbt > 65535) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Y + ncl - 1) / ncl * ncl, FR_SLICES, ndir * nbt);
+  cfg.blockDim = dim3(FR_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, bptt_frame<S>, d[0], d[1], mask, B, H, nbt, us,
+                         pw, step, last, vec);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The split f32 frame loop, two launches a frame: bptt_cell, the cell
+// backward alone (one thread a unit and row: the dgates into dxw[t] and
+// the dc carry, from pre[t], cs, dys, the mask and the dh carry), then
+// bptt_dh, the dh product dh = round_W(dxw[t]) @ wh^T + (1-m)*dh_t with
+// the 4H contraction split over a cluster of DH_SPLIT CTAs, each rank
+// summing its rows of the partial tiles in rank order. The carries dh and
+// dc [B, H] are updated in place: each element has one owner a launch.
+template <typename S>
+struct SplitDir {
+  const float* pre;  // [T, B, 4H] from bptt_gates_gemm
+  const float* wh;   // [H, 4H]
+  const S* cs;       // [T, B, H]
+  const S* dys;      // [T, B, H]
+  S* dxw;            // [T, B, 4H]
+  float* dh;         // [B, H] carry
+  float* dc;         // [B, H] carry
+  int t;             // frame this launch processes
+  int tp;            // its scan predecessor, or -1 at the edge
+};
+
+constexpr int CELL_THREADS = 256;
+
+// step 0 reads zero carries and zeroes dh for bptt_dh, which reads it
+template <typename S>
+__global__ void __launch_bounds__(CELL_THREADS)
+bptt_cell(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
+          int B, int H, int first) {
+  const SplitDir<S> d = blockIdx.y == 0 ? d0 : d1;
+  const long long idx = (long long)blockIdx.x * CELL_THREADS + threadIdx.x;
+  if (idx >= (long long)B * H) return;
+  const long long b = idx / H, u = idx % H, G = 4LL * H;
+  const long long row = (long long)d.t * B + b;
+  const float* pr = d.pre + row * G + u;
+  const float gi = sigmoid_f32(pr[0]);
+  const float gf = sigmoid_f32(pr[H]);
+  const float gg = tanhf(pr[2LL * H]);
+  const float go = sigmoid_f32(pr[3LL * H]);
+  const float m = mask[row];
+  const float tc = tanhf(to_f32(d.cs[row * H + u]));
+  const float c_prev =
+      d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * B + b) * H + u]) : 0.0f;
+  float dh = 0.0f, dc = 0.0f;
+  if (first) {
+    d.dh[idx] = 0.0f;
+  } else {
+    dh = d.dh[idx];
+    dc = d.dc[idx];
+  }
+  const float dh_t = dh + to_f32(d.dys[row * H + u]);
+  const float dc_t = dc + dh_t * go * (1.0f - tc * tc);
+  S* dx = d.dxw + row * G + u;
+  dx[0] = from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m);
+  dx[H] = from_f32<S>((dc_t * c_prev) * gf * (1.0f - gf) * m);
+  dx[2LL * H] = from_f32<S>((dc_t * gi) * (1.0f - gg * gg) * m);
+  dx[3LL * H] = from_f32<S>((dh_t * tc) * go * (1.0f - go) * m);
+  d.dc[idx] = m * (dc_t * gf) + (1.0f - m) * dc;
+}
+
+// bptt_dh: grid (DH_SPLIT, ceil(H/DH_M), ndir * ceil(B/DH_NT)), cluster
+// (DH_SPLIT, 1, 1). Rank r contracts 4H columns [r*ks, (r+1)*ks) for
+// DH_M units and DH_NT batch rows, 4 x 4 a thread, the next SIMT_K
+// columns loaded into registers during the FMAs.
+constexpr int DH_M = 64;
+constexpr int DH_NT = 32;
+constexpr int DH_SPLIT = 8;
+constexpr int DH_THREADS = 128;
+constexpr int SIMT_K = 32;  // contraction chunk
+constexpr int DH_LD = DH_NT + 4;
+constexpr int DH_SMEM =
+    1024 + std::max(SIMT_K * (DH_M + 4) * 4 + SIMT_K * DH_LD * 4,
+                    DH_M * DH_LD * 4);
+
+template <typename S>
+__global__ void __launch_bounds__(DH_THREADS)
+bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
+        int B, int H, int nbt, int ks) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const SplitDir<S> d = blockIdx.z / nbt == 0 ? d0 : d1;
+  const int n0 = (blockIdx.z % nbt) * DH_NT;  // batch rows
+  const int m0 = blockIdx.y * DH_M;           // hidden units
+  const int G = 4 * H;
+  const int k_lo = rank * ks;
+  const int k_hi = min(G, k_lo + ks);
+  const S* dg = d.dxw + (long long)d.t * B * G;
+  extern __shared__ uint8_t dh_raw[];
+  uint8_t* sm = align1024(dh_raw);
+  float* red = reinterpret_cast<float*>(sm);  // [DH_M][DH_LD] partial tile
+  const int tid = threadIdx.x;
+
+  float* ws = reinterpret_cast<float*>(sm);  // ws[g][k] = wh[k][g]
+  float* ds = ws + SIMT_K * (DH_M + 4);      // ds[g][b] = dg[b][g]
+  const int tu = tid % 8;                    // rows 4*tu .. 4*tu+3
+  const int tr = tid / 8;                    // units 4*tr .. 4*tr+3
+  const int lg = tid % SIMT_K, lr = tid / SIMT_K;
+  constexpr int WL = DH_M * SIMT_K / DH_THREADS;   // 16
+  constexpr int SL = DH_NT * SIMT_K / DH_THREADS;  // 8
+  float wreg[WL];
+  S sreg[SL];
+  auto load = [&](int g0) {
+    const int g = g0 + lg;
+#pragma unroll
+    for (int i = 0; i < WL; ++i) {
+      const int k = m0 + lr + 4 * i;
+      wreg[i] = (k < H && g < k_hi) ? d.wh[(long long)k * G + g] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < SL; ++i) {
+      const int b = n0 + lr + 4 * i;
+      sreg[i] = (b < B && g < k_hi) ? dg[(long long)b * G + g]
+                                    : from_f32<S>(0.0f);
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  if (k_lo < k_hi) load(k_lo);
+  for (int g0 = k_lo; g0 < k_hi; g0 += SIMT_K) {
+    // converted at the store, so the next chunk's loads overlap the FMAs
+#pragma unroll
+    for (int i = 0; i < WL; ++i) ws[lg * (DH_M + 4) + lr + 4 * i] = wreg[i];
+#pragma unroll
+    for (int i = 0; i < SL; ++i) ds[lg * DH_LD + lr + 4 * i] = to_f32(sreg[i]);
+    __syncthreads();
+    if (g0 + SIMT_K < k_hi) load(g0 + SIMT_K);
+#pragma unroll 8
+    for (int kk = 0; kk < SIMT_K; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          &ws[kk * (DH_M + 4) + 4 * tr]);
+      const float4 b = *reinterpret_cast<const float4*>(
+          &ds[kk * DH_LD + 4 * tu]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[(4 * tr + i) * DH_LD + 4 * tu + j] = acc[i][j];
+    }
+
+  // rank r sums rows 8r..8r+7 of the cluster's partials in rank order and
+  // owns their epilogue (the unit index fastest, for coalesced stores)
+  cluster.sync();
+  constexpr int ROWS = DH_M / DH_SPLIT;
+  for (int e = tid; e < ROWS * DH_NT; e += DH_THREADS) {
+    const int r = rank * ROWS + e % ROWS, c = e / ROWS;
+    float sum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < DH_SPLIT; ++q) {
+      sum += cluster.map_shared_rank(red, q)[r * DH_LD + c];
+    }
+    const int k = m0 + r, b = n0 + c;
+    if (k < H && b < B) {
+      const float m = mask[(long long)d.t * B + b];
+      const long long idx = (long long)b * H + k;
+      const float dh = d.dh[idx] + to_f32(d.dys[(long long)d.t * B * H + idx]);
+      d.dh[idx] = sum + (1.0f - m) * dh;
+    }
+  }
+  cluster.sync();  // the partials stay in place until every rank has read
+}
+
+template <typename S>
+cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
+                         int H, int ndir, int ks, int first,
+                         cudaStream_t stream) {
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bptt_dh<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, DH_SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const long long cells = ((long long)B * H + CELL_THREADS - 1) / CELL_THREADS;
+  const int nbt = (B + DH_NT - 1) / DH_NT;
+  if (cells > 0x7fffffff || (long long)ndir * nbt > 65535 ||
+      (H + DH_M - 1) / DH_M > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  bptt_cell<S><<<dim3(static_cast<unsigned>(cells), ndir), CELL_THREADS, 0,
+                 stream>>>(d[0], d[1], mask, B, H, first);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(DH_SPLIT, (H + DH_M - 1) / DH_M, ndir * nbt);
+  cfg.blockDim = dim3(DH_THREADS);
+  cfg.dynamicSmemBytes = DH_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DH_SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bptt_dh<S>, d[0], d[1], mask, B, H, nbt, ks);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The f32 frame loop's design by batch size, chosen on an H100 at H=512
+// (PERF.md): the fold for one 32-row batch tile, the split beyond.
+constexpr int F32_FOLD_MAX_B = 32;
+inline bool f32_folds(int B) { return B <= F32_FOLD_MAX_B; }
+
+// the scan's frame t and its predecessor tp at loop step `step`
+inline void frame_at(int step, int T, int reverse, int* t, int* tp) {
+  if (reverse) {
+    *t = step;
+    *tp = step + 1 < T ? step + 1 : -1;
+  } else {
+    *t = T - 1 - step;
+    *tp = T - 2 - step;  // -1 at t = 0
+  }
+}
+
+// f32 W (type codes 0 and 3): bptt_gates_gemm into the front of scratch
+// ([T, B, 4H] pre), then the frame loop behind it: folded, one bptt_frame
+// launch a frame with the carries in [2][FR_PARTS + 1][B, H]; or split,
+// bptt_cell and bptt_dh a frame with the carries dh, dc in [2][B, H].
+template <typename S>
+int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
+                 const void* const* xw, const void* const* wh,
+                 const void* const* ys, const void* const* cs,
+                 const void* const* dys, void* const* dxw,
+                 float* const* scratch, const int* reverse, int fold,
+                 cudaStream_t stream) {
+  cudaError_t err = run_gates_gemm_f32<S>(T, B, H, ndir, xw, wh, ys, scratch,
+                                          reverse, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_pre = (long long)T * B * 4 * H;
+  if (!fold) {
+    SplitDir<S> d[2];
+    for (int i = 0; i < ndir; ++i) {
+      d[i].pre = scratch[i];
+      d[i].wh = static_cast<const float*>(wh[i]);
+      d[i].cs = static_cast<const S*>(cs[i]);
+      d[i].dys = static_cast<const S*>(dys[i]);
+      d[i].dxw = static_cast<S*>(dxw[i]);
+      d[i].dh = scratch[i] + n_pre;
+      d[i].dc = d[i].dh + (long long)B * H;
+    }
+    const int G = 4 * H;
+    const int ks = ((G + DH_SPLIT - 1) / DH_SPLIT + 63) / 64 * 64;
+    for (int step = 0; step < T; ++step) {
+      for (int i = 0; i < ndir; ++i) {
+        frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
+      }
+      if (ndir == 1) d[1] = d[0];
+      err = launch_split<S>(d, mask, B, H, ndir, ks, step == 0, stream);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  }
+  FrameDir<S> d[2];
+  int vec = H % 4 == 0;  // wh rows of whole 16-byte chunks
+  for (int i = 0; i < ndir; ++i) {
+    d[i].pre = scratch[i];
+    d[i].wh = static_cast<const float*>(wh[i]);
+    d[i].cs = static_cast<const S*>(cs[i]);
+    d[i].dys = static_cast<const S*>(dys[i]);
+    d[i].dxw = static_cast<S*>(dxw[i]);
+    d[i].carry = scratch[i] + n_pre;
+    vec = vec && aligned16(wh[i]);
+  }
+  const int us = ((H + FR_SLICES - 1) / FR_SLICES + 7) / 8 * 8;
+  for (int step = 0; step < T; ++step) {
+    for (int i = 0; i < ndir; ++i) {
+      frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
+    }
+    if (ndir == 1) d[1] = d[0];
+    err = launch_frame<S>(d, mask, B, H, ndir, us, step, step + 1 == T, vec,
+                          stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
-// The BPTT frames of one or two directions that share T, B, H, the types
-// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 (bf16 W, H <= 512)
-// make two launches, bptt_gates_gemm and lstm_bwd_persistent, and take
-// scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any contents);
-// codes 0 and 3 make two launches per frame and take scratch{0,1}:
-// [2, B, H] f32, zeroed by the caller (dh, dc carries). Writes dxw{0,1}
-// [T, B, 4H] in S. Returns the first non-zero CUDA error of a launch, or 0.
-extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
-                           const void* mask,
-                           const void* xw0, const void* wh0, const void* ys0,
-                           const void* cs0, const void* dys0, void* dxw0,
-                           void* scratch0, int reverse0,
-                           const void* xw1, const void* wh1, const void* ys1,
-                           const void* cs1, const void* dys1, void* dxw1,
-                           void* scratch1, int reverse1, void* stream) {
+namespace {
+
+// vo_lstm_bwd with the f32 frame loop's design named (fold; codes 0, 3)
+int bwd(int type_code, int fold, int T, int B, int H, int ndir,
+        const void* mask, const void* xw0, const void* wh0, const void* ys0,
+        const void* cs0, const void* dys0, void* dxw0, void* scratch0,
+        int reverse0, const void* xw1, const void* wh1, const void* ys1,
+        const void* cs1, const void* dys1, void* dxw1, void* scratch1,
+        int reverse1, void* stream) {
   if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1360,8 +1877,8 @@ extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (type_code) {
     case 0:
-      return run_bptt<float, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                    dxw, scratch, reverse, s);
+      return run_bptt_f32<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
+                                 scratch, reverse, fold, s);
     case 1:
       return run_bptt_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
                                        dxw, scratch, reverse, s);
@@ -1369,11 +1886,59 @@ extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
       return run_bptt_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
                                         dxw, scratch, reverse, s);
     case 3:
-      return run_bptt<bf16, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
-                                   scratch, reverse, s);
+      return run_bptt_f32<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
+                                scratch, reverse, fold, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// The BPTT frames of one or two directions that share T, B, H, the types
+// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 (bf16 W, H <= 512)
+// make two launches, bptt_gates_gemm and lstm_bwd_persistent, and take
+// scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any contents);
+// codes 0 and 3 make bptt_gates_gemm, then a frame loop chosen by B
+// (vo_lstm_bwd_f32_folds): T bptt_frame launches (folded) or T bptt_cell
+// and T bptt_dh (split); they take scratch{0,1}: [T*B*4H + 20*B*H] f32
+// (the gates, then the carries; any contents). Writes dxw{0,1} [T, B, 4H]
+// in S. Returns the first non-zero CUDA error of a launch, or 0.
+extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
+                           const void* mask,
+                           const void* xw0, const void* wh0, const void* ys0,
+                           const void* cs0, const void* dys0, void* dxw0,
+                           void* scratch0, int reverse0,
+                           const void* xw1, const void* wh1, const void* ys1,
+                           const void* cs1, const void* dys1, void* dxw1,
+                           void* scratch1, int reverse1, void* stream) {
+  return bwd(type_code, f32_folds(B), T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
+             dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
+             scratch1, reverse1, stream);
+}
+
+// 1 when vo_lstm_bwd folds the f32 frame loop at batch size B, else 0.
+extern "C" int vo_lstm_bwd_f32_folds(int B) { return f32_folds(B) ? 1 : 0; }
+
+// vo_lstm_bwd with the f32 frame loop's design named (fold 1: bptt_frame;
+// 0: bptt_cell + bptt_dh), so that both designs can be held to the plain
+// version and timed at any shape.
+extern "C" int vo_lstm_bwd_f32(int fold, int type_code, int T, int B, int H,
+                               int ndir, const void* mask,
+                               const void* xw0, const void* wh0,
+                               const void* ys0, const void* cs0,
+                               const void* dys0, void* dxw0, void* scratch0,
+                               int reverse0,
+                               const void* xw1, const void* wh1,
+                               const void* ys1, const void* cs1,
+                               const void* dys1, void* dxw1, void* scratch1,
+                               int reverse1, void* stream) {
+  if (type_code != 0 && type_code != 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return bwd(type_code, fold, T, B, H, ndir, mask, xw0, wh0, ys0, cs0, dys0,
+             dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
+             scratch1, reverse1, stream);
 }
 
 // dwh{0,1} [H, 4H] f32 from the saved ys and the dxw of vo_lstm_bwd, for

@@ -1,10 +1,11 @@
-// Pieces shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu):
-// type conversions, the gate nonlinearities, and the per-step gate product
+// Pieces shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu,
+// lstm_bi_stacked.cu): type conversions, the gate nonlinearities, and the
+// per-step gate product
 //   acc = round_to_W(h) @ wh          [TB rows x TJ units x 4 gates] per block
-// with f32 accumulation, over shared-memory tiles of h and wh. The forward
-// step and the BPTT's gate recompute run the same product; only the source
-// of h differs (the f32 carry in the forward, the saved stream-type ys row
-// of the scan predecessor in the backward).
+// with f32 accumulation, over shared-memory tiles of h and wh. The f32
+// forward step and the stacked experiment's BPTT gate recompute run the
+// same product; only the source of h differs (the f32 carry in the
+// forward, the saved ys row of the scan predecessor in the backward).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -115,6 +115,10 @@ def _bind(lib) -> None:
         p, p, p, p, p, p, p, i,  # direction 1
         p,  # stream
     ]
+    lib.vo_lstm_bwd_f32.restype = i
+    lib.vo_lstm_bwd_f32.argtypes = [i] + lib.vo_lstm_bwd.argtypes  # fold
+    lib.vo_lstm_bwd_f32_folds.restype = i
+    lib.vo_lstm_bwd_f32_folds.argtypes = [i]  # B
     lib.vo_lstm_dwh.restype = i
     lib.vo_lstm_dwh.argtypes = [
         i, i, i, i, i,  # type_code, T, B, H, ndir

@@ -28,15 +28,20 @@ design does about it.
 - Launch counters, one per call of a C entry point (which runs the whole
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
-  ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` and
-  ``BWD_PERSISTENT_LAUNCHES`` (of which bf16 weights: one launch each)
-  and ``DWH_LAUNCHES`` (dwh reduction). With bf16 weights a forward call
-  is one kernel launch for all frames (``lstm_fwd_persistent``) and a
-  BPTT call two (``bptt_gates_gemm``: every frame's gate recompute as
-  one GEMM; ``lstm_bwd_persistent``: the frame loop), H <=
-  ``PERSISTENT_MAX_H`` (larger H raises); with f32 weights the forward is
-  one ``lstm_step`` launch per frame and the BPTT two per frame
-  (``bptt_gates``, ``bptt_dh``).
+  ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` (of which the
+  gate GEMM, either weight type: one launch), ``BWD_PERSISTENT_LAUNCHES``
+  (of which bf16 weights: one frame-loop launch), ``FRAME_LAUNCHES``,
+  ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (f32 weights: the per-frame
+  kernels, each counted T a call) and ``DWH_LAUNCHES`` (dwh reduction).
+  With bf16 weights a forward call is one kernel launch for all frames
+  (``lstm_fwd_persistent``) and a BPTT call two (``bptt_gates_gemm``:
+  every frame's gate recompute as one GEMM; ``lstm_bwd_persistent``: the
+  frame loop), H <= ``PERSISTENT_MAX_H`` (larger H raises); with f32
+  weights, any H, the forward is one ``lstm_step`` launch per frame and
+  the BPTT ``bptt_gates_gemm``'s f32 form on the FMA units, then by B
+  (``vo_lstm_bwd_f32_folds``, chosen on an H100): ``bptt_frame`` a frame
+  (the cell backward and the dh product in one launch; 1 + T launches,
+  B <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ SAVE_CELL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 GATES_GEMM_LAUNCHES = 0
 BWD_PERSISTENT_LAUNCHES = 0
+FRAME_LAUNCHES = 0
+CELL_LAUNCHES = 0
+DH_LAUNCHES = 0
 DWH_LAUNCHES = 0
 _count_lock = threading.Lock()
 
@@ -66,9 +74,9 @@ _TYPE_CODES = {
 }
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _count_lock:
-        globals()[name] += 1
+        globals()[name] += n
 
 
 def _check(xw, mask, wh, dtype) -> torch.dtype:
@@ -312,15 +320,20 @@ def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
 
 
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
-                     *, return_gates: bool = False):
+                     *, return_gates: bool = False,
+                     fold: Optional[bool] = None):
     """The BPTT frame kernels over one or two directions (CUDA only):
-    with bf16 weights ``bptt_gates_gemm`` + ``lstm_bwd_persistent`` (two
-    launches, H <= ``PERSISTENT_MAX_H``), with f32 weights ``bptt_gates``
-    + ``bptt_dh`` per frame. ``dirs``: (xw, wh already in ``dtype``, ys,
-    cs, dys in the stream dtype, reverse). Returns dxw per direction, and
-    with ``return_gates`` (bf16 weights only) also the recomputed gates
-    ``pre`` [T, B, 4H] f32 per direction (what ``bptt_gates_ref``
-    computes), so that each kernel can be held to its plain version."""
+    ``bptt_gates_gemm`` (every frame's gate recompute as one GEMM), then
+    with bf16 weights ``lstm_bwd_persistent`` (one launch, H <=
+    ``PERSISTENT_MAX_H``), with f32 weights a frame loop that the library
+    chooses by B: ``bptt_frame`` per frame (folded), or ``bptt_cell`` and
+    ``bptt_dh`` per frame (split). ``dirs``: (xw, wh already in ``dtype``,
+    ys, cs, dys in the stream dtype, reverse). Returns dxw per direction,
+    and with ``return_gates`` also the recomputed gates ``pre`` [T, B, 4H]
+    f32 per direction (what ``bptt_gates_ref`` computes), so that each
+    kernel can be held to its plain version. ``fold`` names the f32 frame
+    loop's design instead of the library's choice, so that both designs
+    can be held to the plain version and timed at any shape."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -338,32 +351,44 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     # bf16 weights: the gate GEMM into scratch, then one persistent launch,
     # a cluster of ceil(H/32) CTAs holding wh in registers
     persistent = dtype == torch.bfloat16
-    if return_gates and not persistent:
-        raise ValueError("return_gates needs bf16 weights")
     if persistent and H > PERSISTENT_MAX_H:
         raise ValueError(f"the bf16 LSTM BPTT kernel takes H <= "
                          f"{PERSISTENT_MAX_H} (wh held by one 16-CTA "
                          f"cluster), got H={H}")
     lib = _build.load()
     dxw = [torch.empty_like(d[0]) for d in dirs]
-    # the recomputed gates [T, B, 4H] f32 (bf16 W), or the zeroed dh, dc
-    # carries (f32 W); freed after the call, on the launch stream
-    f32 = dict(dtype=torch.float32, device=xw0.device)
-    scratch = [torch.empty((T, B, G), **f32) if persistent
-               else torch.zeros((2, B, H), **f32) for _ in dirs]
+    # the recomputed gates [T, B, 4H] f32, and with f32 weights the
+    # carries behind them (folded, per frame parity: 8 slices' partial dh,
+    # the (1-m)*dh term and dc; split: dh and dc; [B, H] each); any
+    # contents, freed after the call on the launch stream
+    n_pre = T * B * G
+    scratch = [torch.empty(n_pre + (0 if persistent else 20 * B * H),
+                           dtype=torch.float32, device=xw0.device)
+               for _ in dirs]
     args = _dir_args([
         [xw.data_ptr(), wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
          dys.data_ptr(), dxw[k].data_ptr(), scratch[k].data_ptr(), int(rev)]
         for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 8)
-    err = lib.vo_lstm_bwd(_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
-                          mask.data_ptr(), *args,
-                          torch.cuda.current_stream(xw0.device).cuda_stream)
-    _build.check(err, "vo_lstm_bwd")
+    call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
+            mask.data_ptr(), *args,
+            torch.cuda.current_stream(xw0.device).cuda_stream)
+    if persistent or fold is None:
+        _build.check(lib.vo_lstm_bwd(*call), "vo_lstm_bwd")
+        fold = not persistent and bool(lib.vo_lstm_bwd_f32_folds(B))
+    else:
+        _build.check(lib.vo_lstm_bwd_f32(int(fold), *call), "vo_lstm_bwd_f32")
     _count("BWD_LAUNCHES")
+    _count("GATES_GEMM_LAUNCHES")
     if persistent:
-        _count("GATES_GEMM_LAUNCHES")
         _count("BWD_PERSISTENT_LAUNCHES")
-    return (dxw, scratch) if return_gates else dxw
+    elif fold:
+        _count("FRAME_LAUNCHES", T)
+    else:
+        _count("CELL_LAUNCHES", T)
+        _count("DH_LAUNCHES", T)
+    if return_gates:
+        return dxw, [s[:n_pre].view(T, B, G) for s in scratch]
+    return dxw
 
 
 def lstm_dwh(dirs, dtype: torch.dtype) -> List[torch.Tensor]:
