@@ -17,8 +17,12 @@ the exit code is non-zero and no ``ok`` line is printed):
              off) within 1e-4, bf16 streams within 3e-2; the first two
              timed with CUDA events after warm-up, with the time per
              frame, the forward kernel's launches in one call
-             (``torch.profiler``: one persistent launch with bf16 weights,
-             T with f32) and two runs bit-equal.
+             (``torch.profiler``: one persistent launch with bf16 weights;
+             with f32 one ``lstm_fwd_grid`` launch, or T of ``lstm_step``
+             where the library's shape rule runs it) and two runs
+             bit-equal. With f32 weights both designs are also named,
+             each held to the plain version within 1e-4, run twice
+             (bit-equal) and, at the timed shapes, timed side by side.
 4. service - the flagship model (bf16, seeded random weights) behind
              ``OcrService`` (max_batch=128, max_wait_ms=2.0): ~256 lines
              at height 32, 8 at heights 48/64 (device resize) through
@@ -36,7 +40,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              run twice on
              the same inputs (bit-equal), the save_cell forward's time per
              frame, launches per call and two runs bit-equal as in phase
-             3; the CTC alpha/beta recursions at an odd shape (empty
+             3, with f32 weights both forward designs checked and timed
+             side by side as there, and at the edges of the library's
+             rule between them (B=256-448 at H=512, B=128/256 at H=256,
+             B=32/128 at H=1000, T = 16384 / B); the CTC alpha/beta recursions at an odd shape (empty
              label, infeasible sample) and the three train buckets at
              K=96 (B=32, T=512, L=256; B=128, T=128, L=128; B=512, T=32,
              L=32): alpha within 2e-4 on reachable states, d lp_ext
@@ -79,12 +86,14 @@ the exit code is non-zero and no ``ok`` line is printed):
              the recurrence and one dwh sum over (T-1)*B rows instead of one
              per frame, compounded over 256 frames; the class fold's
              ``scatter_add`` uses atomics). Then the f32 path: one f32
-             forward/backward on the kernels at B=32, W=2048 and one at
-             B=128, W=512 (seeded glyph lines of W/2..W px), the BPTT
-             launch counters set to 0 just before the first and read
-             after the second (one f32 gate GEMM a BPTT call, then T
+             forward/backward on the kernels at B=32, W=2048, one at
+             B=128, W=512 and one at B=512, W=128 (seeded glyph lines of
+             W/2..W px), the LSTM launch counters set to 0 just before the
+             first and read after the last (a forward call is one
+             ``lstm_fwd_grid`` launch at B=32 and 128, T ``lstm_step``
+             launches at B=512; a BPTT call one f32 gate GEMM, then T
              ``bptt_frame`` launches at B=32, T ``bptt_cell`` and T
-             ``bptt_dh`` at B=128), then each timed: CUDA-event ms a step
+             ``bptt_dh`` beyond), then each timed: CUDA-event ms a step
              and its device time from ``torch.profiler``.
 9. experiments - the experiments' kernels (``vistaocr_tpu_torch/
              experiments``) against their plain versions, TF32 off, f32
@@ -189,7 +198,57 @@ def _recurrence_case(B, T, H, dtype, dev, seed):
 FLAGSHIP_SHAPE = (128, 512, 512)  # (B, T, H): max_batch, 2048 px / 4, hidden
 ODD_SHAPE = (5, 7, 40)
 SMALL_BUCKET_SHAPE = (512, 32, 512)  # the W=128 train bucket: 2**21 / (32 W)
-FWD_KERNEL = {"bfloat16": "lstm_fwd_persistent", "float32": "lstm_step"}
+# the f32-weight forward's two designs (the library chooses by shape)
+F32_FWD_KERNELS = {True: "lstm_fwd_grid", False: "lstm_step"}
+
+
+def fwd_kernel_name(B: int, H: int, dtype) -> str:
+    """The forward kernel the library runs at B, H (both directions)."""
+    from vistaocr_tpu_torch.ops import lstm_cuda
+
+    if _dtname(dtype) == "bfloat16":
+        return "lstm_fwd_persistent"
+    return F32_FWD_KERNELS[lstm_cuda.f32_forward_grid(B, H)]
+
+
+def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
+                    bound_ms=None) -> dict:
+    """Both f32-weight forward designs named (``lstm_fwd_grid``, one
+    launch; ``lstm_step``, one a frame) over ``dirs`` = (xw, wh f32,
+    reverse) per direction: each held to the plain outputs ``refs`` (ys per
+    direction, then cs with ``save_cell``) within 1e-4 and run twice
+    (bit-equal); with ``bound_ms`` also timed (CUDA events) and its
+    launches a call counted (torch.profiler)."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda
+
+    out = {}
+    for grid, name in F32_FWD_KERNELS.items():
+        def call(grid=grid):
+            ys, cs = lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
+                                        save_cell=save_cell, grid=grid)
+            return ys + (cs or [])
+
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        err = max(_abs(x, r) for x, r in zip(a, refs))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        _require(np.isfinite(err) and err <= 1e-4 and same,
+                 f"{name} agrees with plain (max|d| {err:.3e} <= 1e-4) and "
+                 f"is bit-equal twice ({same})")
+        row = {"kernel_name": name, "max_abs_err": err,
+               "bit_equal_twice": same}
+        if bound_ms is not None:
+            ms = _cuda_ms(call, 5)
+            us, n = _kernel_us(call, (name + "<",),
+                               {name + "<": 1 if grid else T})[name + "<"]
+            _require(n == (1 if grid else T),
+                     f"{name}: {1 if grid else T} launch(es) a call, got {n}")
+            row.update({"ms": ms, "per_frame_us": ms / T * 1e3,
+                        "launches_per_call": n, "kernel_us": us,
+                        "bound_ms": bound_ms})
+        out[name] = row
+    return out
 
 
 def cudnn_lstm_ms(B, T, H, dtype, dev, train: bool) -> float:
@@ -209,13 +268,18 @@ def cudnn_lstm_ms(B, T, H, dtype, dev, train: bool) -> float:
 
 def fwd_kernel_extras(call, B, T, dtype, ms: float, bound_ms: float) -> dict:
     """Beside a timed K1 call (both directions): the forward kernel's
-    launches in one call (torch.profiler), the time per frame, and whether
-    two runs give the same bits."""
+    launches in one call (torch.profiler: one, or T where the library runs
+    lstm_step), the time per frame, and whether two runs give the same
+    bits."""
     import torch
 
     dt = _dtname(dtype)
-    name = FWD_KERNEL[dt]
-    launches = _kernel_us(call, (name,))[name][1]
+    name = fwd_kernel_name(B, 512, dtype)
+    want = T if name == "lstm_step" else 1
+    launches = _kernel_us(call, (name + "<",), {name + "<": want})[
+        name + "<"][1]
+    _require(launches == want,
+             f"{name}: launches a call at B={B} T={T}: {launches}")
     a, b = call(), call()
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(a, b))
@@ -278,7 +342,12 @@ def kernel_phase(dev, card: str,
             print(f"kernel vs plain {tag}: max|d|={err:.3e} "
                   f"(tol {tol[dtype]:g}) {'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"LSTM kernel agrees with plain: {tag}")
+            f32 = dtype == torch.float32
+            fdirs = [(fwd[0], fwd[1], False), (bwd[0], bwd[1], True)]
             if (B, T, H) == shapes[0]:
+                if f32:  # both f32 designs named, checked only
+                    with torch.inference_mode():
+                        f32_fwd_designs(fdirs, mask, [ref_f, ref_b], False, T)
                 continue
 
             def kern():
@@ -302,11 +371,23 @@ def kernel_phase(dev, card: str,
                        **_bound(nbytes, 2 * T * 2 * B * H * 4 * H, dtype)}
                 row.update(fwd_kernel_extras(kern, B, T, dtype, ms,
                                              row["bound_ms"]))
+                if f32:
+                    row["designs"] = f32_fwd_designs(
+                        fdirs, mask, [ref_f, ref_b], False, T,
+                        row["bound_ms"])
             print(f"time {tag}, both directions: kernel {ms:.3f} ms = "
                   f"{row['per_frame_us']:.2f} us a frame (bound "
                   f"{row['bound_per_frame_us']:.3f}; {row['launches_per_call']}"
                   f" launch(es) of {row['kernel_name']} a call; two runs "
                   f"bit-equal), plain {plain_ms:.3f} ms ({card})", flush=True)
+            if f32:
+                print(f"f32 designs {tag}, inference, both directions: " +
+                      "; ".join(f"{n} {d['ms']:.3f} ms = {d['per_frame_us']:.2f}"
+                                f" us a frame, {d['launches_per_call']} "
+                                f"launch(es), max|d|={d['max_abs_err']:.3e}"
+                                for n, d in row["designs"].items()) +
+                      f" (the library runs {row['kernel_name']}) ({card})",
+                      flush=True)
             rows.setdefault((B, T), {})[dtype] = row
     return rows
 
@@ -494,15 +575,17 @@ def _bound(nbytes: float, flops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _kernel_us(fn, names) -> dict:
+def _kernel_us(fn, names, expect=None) -> dict:
     """{name: (device time per launch in us, launches)} of the kernels
     whose names contain each of ``names``, from the device events of
     ``torch.profiler`` over one call of ``fn`` after a warm-up call. The
     profiler misses kernels launched just after its window opens (it has
-    counted 448 of 512 per-frame launches, and none of a lone persistent
-    launch), so each window starts with 64 small launches and a
-    synchronise, and a window that holds none of a kernel is taken again,
-    up to three times."""
+    counted 448 of 512 per-frame launches, 31 of 32, and none of a lone
+    persistent launch), so each window starts with 64 small launches and
+    a synchronise, and a window that holds none of a kernel, or fewer
+    events of a name than ``expect`` (name: the launches ``fn`` makes)
+    says, is taken again, up to three times; the caller checks the
+    counts it gets."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -520,8 +603,12 @@ def _kernel_us(fn, names) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
         times = {n: [e.time_range.elapsed_us() for e in dev if n in e.name]
                  for n in names}
-        if all(times.values()):
-            return {n: (sum(v) / len(v), len(v)) for n, v in times.items()}
+        got = {n: (sum(v) / len(v), len(v)) for n, v in times.items() if v}
+        if len(got) == len(names) and all(
+                got[n][1] >= k for n, k in (expect or {}).items()):
+            return got
+    if len(got) == len(names):
+        return got
     _require(False, f"the profiler timed {names}: device events "
                     f"{sorted({e.name[:60] for e in dev})[:20]}")
 
@@ -653,7 +740,12 @@ def lstm_train_kernels(dev, card: str) -> dict:
             print(f"BPTT frames and dwh twice on the same inputs {tag}: "
                   f"bit-equal {same}", flush=True)
             _require(same, f"BPTT kernels deterministic: {tag}")
+            # ys of both directions, then cs: what the forward designs give
+            fwd_refs = [yc[0] for yc in ref] + [yc[1] for yc in ref]
             if (B, T, H) == LSTM_TRAIN_SHAPES[0]:
+                if f32:  # both f32 forward designs named, checked only
+                    with torch.no_grad():
+                        f32_fwd_designs(dirs, mask, fwd_refs, True, T)
                 continue
             with torch.no_grad():
                 t = {
@@ -692,7 +784,9 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 per = {fd: _kernel_us(
                     lambda fd=fd: L.lstm_bptt_frames(kdirs, mask, dtype,
                                                      fold=fd),
-                    ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])))
+                    ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])),
+                    {"bptt_gates_gemm<": 1, **{k + "<": T if f32 else 1
+                                               for k in LOOP_KERNELS[fd]}})
                     for fd in runs}
             # bounds: each input read once, each output written once; the
             # products this run needs (no h_prev at the edge frame, no dh
@@ -807,11 +901,22 @@ def lstm_train_kernels(dev, card: str) -> dict:
                     lambda: [a for yc in L.lstm_forward_cells(dirs, mask, dtype)
                              for a in yc], B, T, dtype, t["fwd"],
                     fwd_row["bound_ms"]))
+                if f32:
+                    fwd_row["designs"] = f32_fwd_designs(
+                        dirs, mask, fwd_refs, True, T, fwd_row["bound_ms"])
             print(f"save_cell {tag}: {fwd_row['per_frame_us']:.2f} us a frame "
                   f"(bound {fwd_row['bound_per_frame_us']:.3f}; "
                   f"{fwd_row['launches_per_call']} launch(es) of "
                   f"{fwd_row['kernel_name']} a call; two runs bit-equal) "
                   f"({card})", flush=True)
+            if f32:
+                print(f"f32 designs {tag}, save_cell, both directions: " +
+                      "; ".join(f"{n} {d['ms']:.3f} ms = {d['per_frame_us']:.2f}"
+                                f" us a frame, {d['launches_per_call']} "
+                                f"launch(es), max|d|={d['max_abs_err']:.3e}"
+                                for n, d in fwd_row["designs"].items()) +
+                      f" (the library runs {fwd_row['kernel_name']}; bound "
+                      f"{fwd_row['bound_ms']:.3f} ms) ({card})", flush=True)
             rows[(B, T, dtype)].update({
                 "lstm_fwd_save_cell": fwd_row,
                 "lstm_dwh": {
@@ -821,6 +926,47 @@ def lstm_train_kernels(dev, card: str) -> dict:
                              dtype)},
             })
     return rows
+
+
+# where the library's f32 forward rule (vo_lstm_fwd_f32_grid) changes
+# design, (B, H), with T = 16384 / B (a 2**21-pixel train batch): H=512
+# with wh resident (the grid up to B=320), H=256 (4 units a CTA: up to
+# B=128) and H=1000 (wh streamed from L2: B=32)
+F32_RULE_SHAPES = ((256, 512), (320, 512), (384, 512), (448, 512),
+                   (128, 256), (256, 256), (32, 1000), (128, 1000))
+
+
+def f32_forward_rule_times(dev, card: str) -> list:
+    """Both f32 forward designs (save_cell form, both directions) timed
+    side by side at the rule's edge shapes, each held to the other (1e-4),
+    with the design the library runs there."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    out = []
+    for B, H in F32_RULE_SHAPES:
+        T = 16384 // B
+        (fwd, bwd), mask = _recurrence_case(B, T, H, torch.float32, dev,
+                                            seed=B + H)
+        dirs = [(fwd[0], fwd[1], False), (bwd[0], bwd[1], True)]
+        with torch.no_grad():
+            (ya, ca), (yb, cb) = (L.lstm_fwd(dirs, mask, torch.float32,
+                                             save_cell=True, grid=g)
+                                  for g in (True, False))
+            err = max(_abs(a, b) for a, b in zip(ya + ca, yb + cb))
+            ms = {F32_FWD_KERNELS[g]: _cuda_ms(lambda g=g: L.lstm_fwd(
+                dirs, mask, torch.float32, save_cell=True, grid=g), 5)
+                for g in (True, False)}
+        _require(err <= 1e-4, f"f32 designs agree at B={B} H={H}: {err}")
+        row = {"B": B, "T": T, "H": H, "max_abs_diff": err, **{
+            f"{n}_ms": v for n, v in ms.items()},
+            "library_runs": F32_FWD_KERNELS[L.f32_forward_grid(B, H)]}
+        print(f"f32 forward rule B={B} T={T} H={H}, save_cell, both "
+              f"directions: lstm_fwd_grid {ms['lstm_fwd_grid']:.3f} ms, "
+              f"lstm_step {ms['lstm_step']:.3f} ms; the library runs "
+              f"{row['library_runs']} ({card})", flush=True)
+        out.append(row)
+    return out
 
 
 def _ctc_inputs(B, T, K, L, dev):
@@ -1081,12 +1227,15 @@ def _glyph_batch(font: dict, seed: int, B: int, W: int, wmin: int,
 
 
 # the f32 path of phase 8: one f32 forward+backward of the flagship at the
-# W=2048 bucket (the folded f32 frame loop) and one at the W=512 bucket
-# (the split one), on the kernels (the counts of its BPTT kernels)
-F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "BWD_LAUNCHES", "GATES_GEMM_LAUNCHES",
-                "FRAME_LAUNCHES", "CELL_LAUNCHES", "DH_LAUNCHES",
-                "DWH_LAUNCHES")
-F32_STEPS = ((32, 2048), (128, 512))  # (B, W): 2**21-pixel train batches
+# W=2048 bucket (lstm_fwd_grid, the folded f32 frame loop), one at the
+# W=512 bucket (lstm_fwd_grid, the split loop) and one at the W=128 bucket
+# (lstm_step, the split loop), on the kernels (the counts of its LSTM
+# kernels)
+F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES",
+                "BWD_LAUNCHES", "GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES",
+                "CELL_LAUNCHES", "DH_LAUNCHES", "DWH_LAUNCHES")
+# (B, W): 2**21-pixel train batches
+F32_STEPS = ((32, 2048), (128, 512), (512, 128))
 
 
 def f32_step(dev, font: dict, B: int, W: int):
@@ -1162,30 +1311,40 @@ def train_parity_phase(dev, font: dict, card: str) -> dict:
     _require(np.isfinite(l_k) and rel_loss <= 1e-5, "loss parity")
     _require(worst[0] <= 2e-3, f"gradient parity {worst}")
 
-    from vistaocr_tpu_torch.ops import lstm_cuda
+    from vistaocr_tpu_torch.ops import _build, lstm_cuda
 
+    lib = _build.load()
     steps = [f32_step(dev, font, B, W) for B, W in F32_STEPS]
     for name in F32_COUNTERS:
         setattr(lstm_cuda, name, 0)
-    calls = []  # BPTT calls of each step
-    for step in steps:
-        before = lstm_cuda.BWD_LAUNCHES
+    want = dict.fromkeys(F32_COUNTERS, 0)  # what each step's route launches
+    for step, (B, W) in zip(steps, F32_STEPS):
+        before = (lstm_cuda.LAUNCHES, lstm_cuda.BWD_LAUNCHES)
         loss, _ = step()
         torch.cuda.synchronize()
         _require(np.isfinite(loss.item()), "finite f32 loss")
-        calls.append(lstm_cuda.BWD_LAUNCHES - before)
+        fwd, bwd, T = (lstm_cuda.LAUNCHES - before[0],
+                       lstm_cuda.BWD_LAUNCHES - before[1], W // 4)
+        _require(fwd > 0 and bwd > 0, f"B={B}: LSTM forward and BPTT calls")
+        want["SAVE_CELL_LAUNCHES"] += fwd
+        if lstm_cuda.f32_forward_grid(B, 512):
+            want["FWD_GRID_LAUNCHES"] += fwd
+        else:
+            want["STEP_LAUNCHES"] += fwd * T
+        for name in ("BWD_LAUNCHES", "GATES_GEMM_LAUNCHES", "DWH_LAUNCHES"):
+            want[name] += bwd
+        if lib.vo_lstm_bwd_f32_folds(B):
+            want["FRAME_LAUNCHES"] += bwd * T
+        else:
+            want["CELL_LAUNCHES"] += bwd * T
+            want["DH_LAUNCHES"] += bwd * T
     counts = {name: getattr(lstm_cuda, name) for name in F32_COUNTERS}
     print(f"f32 path: launches in its steps {counts}", flush=True)
-    # LSTM frames: W / 4; B=32 folds (a bptt_frame launch a frame), B=128
-    # splits (a bptt_cell and a bptt_dh launch a frame)
-    (n_fold, n_split), (t_fold, t_split) = calls, [W // 4 for _, W in F32_STEPS]
-    _require(counts["GATES_GEMM_LAUNCHES"] == counts["BWD_LAUNCHES"]
-             and n_fold > 0 and n_split > 0
-             and counts["FRAME_LAUNCHES"] == t_fold * n_fold
-             and counts["CELL_LAUNCHES"] == counts["DH_LAUNCHES"]
-             == t_split * n_split and all(v > 0 for v in counts.values()),
-             f"one f32 gate GEMM a BPTT call, then T bptt_frame launches "
-             f"(B=32) or T bptt_cell and T bptt_dh (B=128): {counts}")
+    # the forward: lstm_fwd_grid once a layer call (B=32, 128), lstm_step T
+    # times (B=512); the BPTT: one f32 gate GEMM a call, then T bptt_frame
+    # launches (B=32) or T bptt_cell and T bptt_dh (B=128, 512)
+    _require(counts == want and all(v > 0 for v in counts.values()),
+             f"f32 path launches {counts}, want {want}")
     return {"counts": counts,
             "steps": [f32_step_timing(step, card, B, W)
                       for step, (B, W) in zip(steps, F32_STEPS)]}
@@ -1604,6 +1763,7 @@ def main(argv) -> int:
 
     _phase("train-kernels")
     lstm_rows = lstm_train_kernels(dev, f"{card}, {smi}")
+    rule_rows = f32_forward_rule_times(dev, f"{card}, {smi}")
     ctc_rows = ctc_train_kernels(dev, f"{card}, {smi}")
     font = glyph_font(17)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1662,6 +1822,36 @@ def main(argv) -> int:
                     row[f"at_B{B}_T{T}"] = with_f32(
                         lstm_rows[(B, T, torch.bfloat16)][name],
                         lstm_rows[(B, T, torch.float32)][name])
+        kernels.append(row)
+    # the f32-weight forward's two designs: launches counted on the f32 path
+    # (phase 8), numbers from phase 6's save_cell form where the library
+    # runs each (lstm_fwd_grid at the W=2048 bucket, lstm_step at W=128),
+    # every other bucket and phase 3's inference form beside
+    for name, counter, shape in (
+            ("lstm_fwd_grid", "FWD_GRID_LAUNCHES", main_shape),
+            ("lstm_step", "STEP_LAUNCHES", SMALL_BUCKET_SHAPE[:2])):
+        fwd_row = lstm_rows[(*shape, torch.float32)]["lstm_fwd_save_cell"]
+        dsg = fwd_row["designs"][name]
+        row = {"name": name, "route": "cuda",
+               "source": "vistaocr_tpu_torch/csrc/lstm_fwd.cu",
+               "replaces": "vistaocr_tpu/ops/lstm_pallas.py:51",
+               "launches": f32_path["counts"][counter],
+               "max_abs_err": dsg["max_abs_err"], "ms": dsg["ms"],
+               "plain_ms": fwd_row["plain_ms"], "bound_ms": dsg["bound_ms"],
+               "bound_by": fwd_row["bound_by"], "library_ms": None,
+               "form": "save_cell, f32 weights and streams",
+               "at": f"B{shape[0]}_T{shape[1]}",
+               "per_frame_us": dsg["per_frame_us"],
+               "launches_per_call": dsg["launches_per_call"]}
+        for B, T, _ in LSTM_TRAIN_SHAPES[1:]:
+            if (B, T) != shape:
+                row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, torch.float32)][
+                    "lstm_fwd_save_cell"]["designs"][name]
+        for (B, T), by_dtype in rows.items():
+            row[f"inference_at_B{B}_T{T}"] = by_dtype[torch.float32][
+                "designs"][name]
+        if name == "lstm_fwd_grid":
+            row["rule_times"] = rule_rows
         kernels.append(row)
     # each weight type's two BPTT kernels: bf16 launches counted on the
     # train path (phase 7), f32 on the f32 path (phase 8)

@@ -1,7 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels
 (csrc/lstm_fwd.cu in both forms: the persistent bf16-weight kernel at the
 main path's B, T and H, its determinism, its one launch per layer call
-and its H limit, and the per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
+and its H limit; the f32-weight grid kernel at ragged B, H on both sides
+of its resident-weight limit and T = 1 and 7, its determinism, its one
+launch per layer call and the library's choice between it and the
+per-frame f32 kernel; csrc/lstm_bwd.cu's BPTT
 and dwh in all four stream/weight type pairs: with bf16 weights the gate
 GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
@@ -186,6 +189,108 @@ def test_one_forward_launch_per_layer_call(dev):
                 if name in e.name:
                     counts[name] = counts.get(name, 0) + 1
         assert counts == {"lstm_fwd_persistent": 1}, counts
+
+
+# The f32-weight grid kernel (type codes 0 and 3: lstm_fwd_grid) at ragged
+# B around its 32-row tiles, H on both sides of where its wh slice stops
+# fitting in shared memory (40 and 520 resident; 1000 streamed from L2) and
+# T = 1 and 7, named explicitly (the library's shape rule is its own test).
+F32_GRID_SHAPES = [(B, T, H) for B in (1, 5, 33, 129) for H in (40, 520, 1000)
+                   for T in (1, 7)]
+F32_WEIGHT_TYPES = [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)]
+
+
+@pytest.mark.parametrize("shape", F32_GRID_SHAPES)
+@pytest.mark.parametrize("stream,tol", F32_WEIGHT_TYPES)
+def test_f32_grid_kernel_matches_plain(dev, shape, stream, tol):
+    """Both forms, both directions in one launch, ragged mask: ys (and cs)
+    against lstm_recurrence_ref; a second run gives the same bits."""
+    B, T, H = shape
+    xw, mask, wh = _device_operands(dev, B, T, H, stream, torch.float32,
+                                    seed=B * T + H, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
+    with torch.no_grad():
+        refs = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                              save_cell=True)
+                for x, w, r in dirs]
+        for save_cell in (False, True):
+            runs = [lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
+                                       save_cell=save_cell, grid=True)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            (ys, cs), (ys2, cs2) = runs
+            for k, (rys, rcs) in enumerate(refs):
+                assert ys[k].dtype == stream and ys[k].shape == (T, B, H)
+                assert (ys[k].float() - rys.float()).abs().max() <= tol
+                assert torch.equal(ys[k], ys2[k])
+                if save_cell:
+                    assert (cs[k].float() - rcs.float()).abs().max() <= tol
+                    assert torch.equal(cs[k], cs2[k])
+            assert (cs is None) == (not save_cell)
+    assert lstm_cuda.FWD_GRID_LAUNCHES == before[0] + 4
+    assert lstm_cuda.STEP_LAUNCHES == before[1]
+
+
+def test_f32_grid_kernel_one_direction_and_mixed_types(dev):
+    """One direction a call (a grid of its own shape: twice the CTAs a
+    direction) and type code 3 (bf16 streams, f32 weights) through the
+    public entry points."""
+    for stream, tol in F32_WEIGHT_TYPES:
+        for B, T, H in ((33, 9, 512), (4, 5, 1000)):
+            (xw,), mask, (wh,) = _device_operands(dev, B, T, H, stream,
+                                                  torch.float32, seed=H + B)
+            with torch.no_grad():
+                for reverse in (False, True):
+                    (ys,), _ = lstm_cuda.lstm_fwd([(xw, wh, reverse)], mask,
+                                                  torch.float32, grid=True)
+                    ref = lstm_cuda.lstm_recurrence_ref(xw, mask, wh,
+                                                        reverse=reverse)
+                    assert (ys.float() - ref.float()).abs().max() <= tol
+
+
+def _forward_kernel_counts(dev, B, T, H, save_cell):
+    """Launches of lstm_fwd_grid and lstm_step in a profiler window over
+    one f32-weight forward call of both directions (the library's route)."""
+    xw, mask, wh = _device_operands(dev, B, T, H, torch.float32,
+                                    torch.float32, seed=9, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    if save_cell:
+        def call():
+            return lstm_cuda.lstm_forward_cells(dirs, mask, torch.float32)
+    else:
+        def call():
+            return lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
+                                              wh[1])
+    with torch.no_grad():
+        return _profiled_counts(call, ("lstm_fwd_grid<", "lstm_step<"))
+
+
+@pytest.mark.parametrize("save_cell", [False, True])
+def test_f32_grid_one_forward_launch_per_layer_call(dev, save_cell):
+    """f32 weights at B=32, T=512, H=512 (the W=2048 bucket): one launch of
+    lstm_fwd_grid for the whole layer call, and no lstm_step."""
+    counts = _forward_kernel_counts(dev, 32, 512, 512, save_cell)
+    assert counts == {"lstm_fwd_grid<": 1, "lstm_step<": 0}, counts
+
+
+@pytest.mark.parametrize("B,H", [(32, 512), (128, 512), (320, 512),
+                                 (384, 512), (512, 512), (128, 256),
+                                 (256, 256), (32, 1000), (128, 1000)])
+def test_f32_grid_route_follows_the_library_rule(dev, B, H):
+    """Each shape takes the route the library names (f32_forward_grid:
+    lstm_fwd_grid, one launch, or lstm_step, T launches), and the launch
+    counters say the same."""
+    T = 3
+    grid = lstm_cuda.f32_forward_grid(B, H)
+    assert grid == (B <= (32 if H == 1000 else 128 if H == 256 else 320))
+    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
+    counts = _forward_kernel_counts(dev, B, T, H, save_cell=False)
+    assert counts == ({"lstm_fwd_grid<": 1, "lstm_step<": 0} if grid else
+                      {"lstm_fwd_grid<": 0, "lstm_step<": T}), counts
+    # the profiled call and its warm-up
+    assert lstm_cuda.FWD_GRID_LAUNCHES == before[0] + (2 if grid else 0)
+    assert lstm_cuda.STEP_LAUNCHES == before[1] + (0 if grid else 2 * T)
 
 
 def test_persistent_kernel_refuses_h_above_512(dev):

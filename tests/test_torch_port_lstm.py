@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import torch
 
 from vistaocr_tpu.models.blstm import lstm_layer as jax_lstm_layer
-from vistaocr_tpu.ops.lstm_pallas import lstm_layer_pallas
+from vistaocr_tpu.ops.lstm_pallas import _lstm_fwd_local, lstm_layer_pallas
 from vistaocr_tpu_torch.models.blstm import BLSTMStack, uses_kernel
 from vistaocr_tpu_torch.ops import lstm_cuda
 
@@ -83,6 +83,44 @@ class TestAgainstJax:
         ours = _port_layer(x, mask, wx, wh, b, reverse=False)
         np.testing.assert_allclose(ours, np.asarray(ref), atol=1e-5,
                                    rtol=1e-5)
+
+
+class TestOracleAtCardEdges:
+    """The plain f32 forward, which the card tests hold the f32 grid kernel
+    to, pinned to the JAX Pallas kernel (interpret mode) at the card tests'
+    edge shapes: a batch one row past a 32-row tile with H past 512 (65
+    CTAs a direction, the contraction padded to 640), and a small odd
+    shape; both forms, both directions, the same numpy-seeded operands."""
+
+    @pytest.mark.parametrize("B,T,H", [(33, 7, 520), (5, 7, 40)])
+    @pytest.mark.parametrize("reverse", [False, True])
+    @pytest.mark.parametrize("save_cell", [False, True])
+    def test_plain_forward_matches_pallas_interpret(self, B, T, H, reverse,
+                                                     save_cell):
+        rng = np.random.default_rng(B * H + T)
+        xw = rng.normal(0, 1, (T, B, 4 * H)).astype(np.float32)
+        wh = rng.normal(0, 1 / np.sqrt(H), (H, 4 * H)).astype(np.float32)
+        lengths = rng.integers(1, T + 1, B)
+        lengths[0] = T
+        mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+        mask = mask[:, None, :]
+        ys_j, cs_j = _lstm_fwd_local(
+            jnp.asarray(xw), jnp.asarray(mask), jnp.asarray(wh),
+            dtype=jnp.float32, interpret=True, save_cell=save_cell,
+            reverse=reverse)
+        with torch.no_grad():
+            out = lstm_cuda.lstm_recurrence_ref(
+                torch.from_numpy(xw), torch.from_numpy(mask),
+                torch.from_numpy(wh), reverse=reverse, dtype=torch.float32,
+                save_cell=save_cell)
+        ys, cs = out if save_cell else (out, None)
+        np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), atol=1e-5,
+                                   rtol=1e-5)
+        if save_cell:
+            np.testing.assert_allclose(cs.numpy(), np.asarray(cs_j),
+                                       atol=1e-5, rtol=1e-5)
+        else:
+            assert cs_j is None
 
 
 class TestWrapper:
@@ -178,3 +216,20 @@ class TestImplSwitch:
         with pytest.raises(ValueError):
             BLSTMStack(8, hidden=4, layers=1, impl="cudnn")
 
+
+
+def test_profile_script_finds_its_anchors_in_the_kernel():
+    """profile_lstm_fwd.py places its clock64 stamps in a copy of
+    csrc/lstm_fwd.cu by text anchors: each must be found exactly once in
+    the kernel as it stands (a kernel edit that moves one fails here, not
+    on the card)."""
+    import os
+
+    import profile_lstm_fwd
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_fwd.cu")
+    with open(path) as f:
+        src = profile_lstm_fwd.instrumented_source(f.read())
+    assert src.count("P[") >= len(profile_lstm_fwd.PHASES)
+    assert "vo_prof_read" in src

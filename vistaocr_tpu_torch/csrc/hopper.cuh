@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the hand-written tensor-core
 // kernels: shared-memory addresses, mbarriers, TMA and cp.async copies,
-// bulk copies and st.async between the CTAs of a cluster, the cluster
+// bulk copies from global memory and between the CTAs of a cluster,
+// st.async, proxy fences, the cluster
 // barrier, 128- and 64-byte-swizzled wgmma operand layouts and their
 // descriptors, and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions
 // (N = 128 with A from shared memory, N = 32 with A from registers). Used by lstm_bwd.cu and lstm_fwd.cu;
@@ -114,6 +115,24 @@ __device__ __forceinline__ void cp_async_wait_group() {
 // async proxy (wgmma operand reads)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// order this thread's generic-proxy global-memory accesses with its
+// async-proxy ones (bulk copies reading what generic stores wrote)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// global memory to this CTA's shared memory; the bytes complete the
+// transaction count of the mbarrier `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // --- distributed shared memory -------------------------------------------------

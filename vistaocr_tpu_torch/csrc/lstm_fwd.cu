@@ -19,13 +19,12 @@
 //
 // What bounds it on an H100: T strictly sequential frames, each one
 // [B,H] x [H,4H] product (B=32, H=512: 67 MFLOP for both directions, 0.07
-// us of the tensor cores) plus [B,4H] of xw read and [B,H] of ys (and cs)
-// written. No frame has enough work to fill the card, so a frame costs
-// its dependency chain: getting h of the previous frame to every block
-// that needs it, one K=H product, the gate math. A kernel launched per
-// frame (below, kept for f32 weights) also pays a launch and a pass over
-// all of wh from L2 (2 MiB per direction in bf16) every frame: 33 us a
-// frame.
+// us of the tensor cores, 1.0 us of the f32 FMA units) plus [B,4H] of xw
+// read and [B,H] of ys (and cs) written. No frame has enough work to fill
+// the card, so a frame costs its dependency chain: getting h of the
+// previous frame to every block that needs it, one K=H product, the gate
+// math. A kernel launched per frame (lstm_step, below) also pays a launch
+// and a pass over all of wh from L2 every frame: 33 us a frame in f32.
 //
 // bf16 weights (type codes 1 and 2): one persistent launch walks all T
 // frames (lstm_fwd_persistent).
@@ -73,8 +72,43 @@
 //   Its times on an H100 are in PERF.md.
 //
 // f32 weights (type codes 0 and 3, the parity path): wgmma has no exact
-// f32 x f32 product and TF32 would change the numbers, so these stay on
-// the per-frame kernel lstm_step, one launch per frame:
+// f32 x f32 product and TF32 would change the numbers, so the product runs
+// on the FMA units, in one persistent cooperative launch spread over the
+// whole card (lstm_fwd_grid):
+// - A direction is N = ceil(H/U) co-resident CTAs over all batch rows
+//   (U = 8 units a CTA at H=512: 64 a direction, 128 CTAs on 132 SMs). CTA
+//   r owns units U*r .. U*r+U-1 and all four gate columns of each, so the
+//   cell update is the product's epilogue and no partial sum crosses CTAs.
+// - Its [H, 4U] slice of wh (64 KB at H=512) is loaded into shared memory
+//   once and stays there for all T frames; where it does not fit (U=16,
+//   H above 576) each warp streams its rows from L2 with h (cp.async).
+// - h crosses CTAs through L2 once a frame: each CTA writes its units'
+//   f32 h(t) into one of two global buffers (by step parity), then releases
+//   a per-direction frame counter (red.release.gpu after a CTA barrier); a
+//   CTA acquires the counter (ld.acquire.gpu in a spin) before it reads
+//   h(t). The buffers are tiled so that what a warp reads a stage is one
+//   contiguous block, fetched by one bulk copy (the TMA engine, through
+//   L2: never a plain load, L1 is not coherent and the buffers are reused
+//   every other frame) completing on the warp's mbarrier for that stage.
+// - The product of a 32-row tile: the contraction is split KS ways (16 at
+//   H=512); each split is a few lanes of a warp, each lane accumulating 8
+//   rows x 8 gate columns, one byte of shared memory read per FMA, which
+//   is what the SM's shared memory can feed (4 x 8 a lane read 1.5 and was
+//   bound by it). Each warp streams its splits' columns of h through a
+//   private 4-stage ring, so the product has no block-wide barrier. The
+//   splits' partial sums meet in shared memory and each (row, unit) cell
+//   sums them in split order: fixed order, one writer per h, c, ys and cs
+//   element, so two runs give the same bits.
+// - The epilogue keeps the precise expf / tanhf of the reference (the
+//   parity route), the thread's own c and h(t-1) come from global memory
+//   (loaded at the start of the tile, in flight during the product).
+// - Co-residency: cudaLaunchCooperativeKernel refuses a grid the card
+//   cannot hold at once (the call returns the error, never deadlocks); a
+//   wait that outlives about 10 s traps.
+// - Limits: U <= 16 (H <= 1056 for two directions on 132 SMs). The library
+//   chooses lstm_fwd_grid or lstm_step by shape (f32_grid: up to B=320 at
+//   H=512, where lstm_step then wins), as measured on an H100 (PERF.md).
+// lstm_step, one launch a frame, stays for the other shapes:
 // - both directions of a BLSTM layer in the same launch (blockIdx.z), 32
 //   unit tiles x 2 batch tiles x 2 directions = 128 blocks of 128 threads
 //   at the flagship shape;
@@ -90,7 +124,7 @@
 // - h ping-pongs between two f32 buffers in global memory (every block
 //   reads all of h of step t-1 while writing its slice of step t); each
 //   c[b, j] is owned by one thread and updated in place.
-// Ragged B and H edges are masked in both kernels.
+// Ragged B and H edges are masked in all three kernels.
 
 #include <cooperative_groups.h>
 
@@ -204,6 +238,434 @@ int run_per_frame(int T, int B, int H, int ndir, const float* mask,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// --- f32 weights: one persistent launch over the whole card ------------------
+
+constexpr int GTHREADS = 256;
+constexpr int GROWS = 32;          // batch rows of a tile
+constexpr int GKD = 8;             // contraction columns of a ring stage
+constexpr int GSTAGES = 4;         // ring depth (per warp)
+constexpr int GKALIGN = 128;       // h(t) rows padded to a multiple of this
+constexpr int GMAX_U = 16;         // the most hidden units a CTA takes
+constexpr int GSMEM_MAX = 232448;  // shared memory a block can have (227 KB)
+
+__host__ __device__ constexpr int grid_hp(int H) {  // padded row of h(t)
+  return (H + GKALIGN - 1) / GKALIGN * GKALIGN;
+}
+
+template <typename S>
+struct GridDir {
+  const S* xw;            // [T, B, 4H]
+  const float* wh;        // [H, 4H]
+  S* ys;                  // [T, B, H]
+  S* cs;                  // [T, B, H] cell states (training form) or nullptr
+  float* h;               // 2 x h(t) tiled (grid_h_at) by step parity, zeroed
+  float* c;               // [B, H] cell states, zeroed
+  unsigned int* count;    // frames done x CTAs, zeroed
+  int reverse;
+};
+
+// How lstm_fwd_grid<U> splits a tile's product, gates[32 rows][4U columns]
+// over K = Hp, among its threads: a thread accumulates 8 rows x 8 columns
+// (rows rg + 4r, columns 8cg .. 8cg+7; one byte of shared memory read per
+// FMA, which the SM's 128 bytes a cycle can feed); TPS threads cover the
+// tile (lanes of one warp), KS such splits divide K into contiguous
+// ranges, and each split's partial sums meet in shared memory.
+template <int U>  // 4, 8 or 16
+struct GridShape {
+  static constexpr int C = 4 * U;                 // gate columns g*U + u
+  static constexpr int TPS = 2 * U;               // 4 row x U/2 column groups
+  static constexpr int KS = U <= 8 ? 16 : 8;
+  static constexpr int WARPS = KS * TPS / 32;     // warps in the product
+  static constexpr int SPW = 32 / TPS;            // splits a warp holds
+  static constexpr int HST = SPW * GROWS * GKD;   // h floats of a warp stage
+  static constexpr int WST = SPW * GKD * C;       // streamed wh floats
+  static constexpr int CLD = C + 4;               // padded partial-sum row
+  static constexpr int NC = (GROWS * U + GTHREADS - 1) / GTHREADS;
+};
+
+// shared memory (bytes) of lstm_fwd_grid<U>: the splits' partial sums,
+// each warp's ring (h, and wh when it is streamed) and the resident wh
+template <int U>
+__host__ __device__ constexpr int grid_smem(int H, bool resident) {
+  using G = GridShape<U>;
+  return 8 * G::WARPS * GSTAGES +
+         4 * (G::KS * GROWS * G::CLD +
+              G::WARPS * GSTAGES * (G::HST + (resident ? 0 : G::WST)) +
+              (resident ? grid_hp(H) * G::C : 0));
+}
+
+// where h(t)[b][k] lies in a tiled h buffer (nbt * GROWS * Hp floats):
+// [tile b / 32][stage][split][row b % 32][GKD columns], so that a warp's
+// ring stage (its splits' GKD columns of one stage, all 32 rows of one
+// tile) is one contiguous block, loaded by one bulk copy
+__device__ __forceinline__ long long grid_h_at(int b, int k, int kper, int nsc,
+                                               int KS) {
+  const int r = k % kper;
+  return ((((long long)(b / GROWS) * nsc + r / GKD) * KS + k / kper) * GROWS +
+          b % GROWS) * GKD + r % GKD;
+}
+
+// an mbarrier wait that traps (an error at the next synchronise) instead of
+// hanging if the awaited copy never lands
+__device__ __forceinline__ void grid_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ unsigned int ld_acquire_gpu(
+    const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Grid (N = ceil(H/U), ndir): CTA (r, dir) owns hidden units U*r ..
+// U*r + U-1 of its direction and all four gate columns of each, over every
+// batch row, for all T frames. `resident`: the CTA's [Hp, 4U] slice of wh
+// stays in shared memory; else each warp streams its rows with h. `vec`:
+// wh rows hold whole, aligned 16-byte runs of U units of a gate.
+template <typename S, int U>
+__global__ void __launch_bounds__(GTHREADS, 1)
+lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
+              int T, int B, int H, int resident, int vec) {
+  using Gs = GridShape<U>;
+  constexpr int C = Gs::C, KS = Gs::KS, CLD = Gs::CLD, NC = Gs::NC;
+  constexpr int SPW = Gs::SPW;
+  const GridDir<S> d = blockIdx.y == 0 ? d0 : d1;
+  const unsigned int N = gridDim.x;
+  const int j0 = blockIdx.x * U;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Hp = grid_hp(H);
+  const int kper = Hp / KS;          // contraction columns of a split
+  const int nsc = kper / GKD;        // ring stages a tile
+  const int nq = (B + GROWS - 1) / GROWS * nsc;
+  const long long G = 4LL * H;
+  const long long BHp = (long long)(B + GROWS - 1) / GROWS * GROWS * Hp;
+  const int wstage = Gs::HST + (resident ? 0 : Gs::WST);
+  extern __shared__ float4 grid_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(grid_raw);  // [WARPS][GSTAGES]
+  float* red = reinterpret_cast<float*>(full + Gs::WARPS * GSTAGES);
+  float* ring = red + KS * GROWS * CLD;             // [WARPS][GSTAGES] stages
+  float* w_res = ring + Gs::WARPS * GSTAGES * wstage;  // [Hp][C] if resident
+
+  // row k of the CTA's slice of wh into dst by the warp's lanes: column
+  // col = g*U + u is wh[k][g*H + j0 + u]; 16-byte copies where vec, zeros
+  // past H
+  auto load_w_row = [&](float* dst, int k) {
+    if (vec) {
+      for (int q = lane; q < C / 4; q += 32) {
+        const int g = 4 * q / U, u = 4 * q % U;
+        const bool ok = k < H && j0 + u < H;
+        cp_async16_zfill(dst + 4 * q,
+                         d.wh + (ok ? k * G + g * H + j0 + u : 0), ok);
+      }
+    } else {
+      for (int q = lane; q < C; q += 32) {
+        const int g = q / U, u = q % U;
+        const bool ok = k < H && j0 + u < H;
+        cp_async4_zfill(dst + q, d.wh + (ok ? k * G + g * H + j0 + u : 0),
+                        ok);
+      }
+    }
+  };
+  if (resident) {  // the slice, once, by every warp
+    for (int k = warp; k < Hp; k += GTHREADS / 32) {
+      load_w_row(w_res + k * C, k);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  if (tid < Gs::WARPS * GSTAGES) mbar_init(&full[tid], 1);
+  mbar_fence_init();
+  __syncthreads();
+
+  // this thread's place in the product: split ks (contraction columns
+  // ks*kper ..), rows rg + 4r of the tile, columns 8cg .. 8cg+7
+  const bool active = warp < Gs::WARPS;  // U=4: half the warps
+  const int s = lane / Gs::TPS, q_ = lane % Gs::TPS;
+  const int rg = q_ / (U / 2), cg = q_ % (U / 2);
+  const int ks0 = warp * SPW;  // the warp's first split
+  const int ks = ks0 + s;
+  float* wring = ring + (active ? warp : 0) * GSTAGES * wstage;
+  uint64_t* wfull = full + (active ? warp : 0) * GSTAGES;
+  int done = 0;  // the warp's stages of earlier frames (mbarrier phases)
+
+  // the cells of the tile at row b0 of frame t: xw, mask and the thread's
+  // own c and h(t-1) (in `h`), loaded at the tile's start, in flight
+  // during its product (loaded before the frame's release or wait
+  // instead, they delayed the release and the frame read 0.4 us slower)
+  float xv[NC][4], mv[NC], cv[NC], hv[NC];
+  auto load_cells = [&](int t, const float* h, int b0) {
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int cell = tid + e * GTHREADS;
+      const int b = b0 + cell / U, j = j0 + cell % U;
+      if (cell < GROWS * U && b < B && j < H) {
+        const S* x = d.xw + ((long long)t * B + b) * G + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xv[e][g] = to_f32(x[g * H]);
+        mv[e] = mask[(long long)t * B + b];
+        cv[e] = __ldcg(d.c + (long long)b * H + j);
+        hv[e] = __ldcg(h + grid_h_at(b, j, kper, nsc, KS));
+      }
+    }
+  };
+
+  for (int step = 0; step < T; ++step, done += nq) {
+    const int t = d.reverse ? T - 1 - step : step;
+    const float* cur = d.h + (step & 1) * BHp;
+    float* nxt = d.h + ((step + 1) & 1) * BHp;
+    // h(t-1) complete: every CTA of the direction has released it
+    if (step > 0) {
+      if (tid == 0) {
+        // co-residency makes the wait finite; a fault that breaks it traps
+        // (an error at the next synchronise) after about 10 s, not a hang
+        const long long start = clock64();
+        while (ld_acquire_gpu(d.count) < N * step) {
+          if (clock64() - start > (1LL << 34)) __trap();
+        }
+      }
+      __syncthreads();
+    }
+    // the warp's stage q: columns sc*GKD .. of each of its splits' ranges
+    // for the rows of tile q / nsc, one bulk copy of the tiled h(t-1)
+    // (through L2, completing on the stage's mbarrier; L1 is not coherent
+    // and the buffers are rewritten every other frame); streamed wh rows
+    // by cp.async
+    auto issue = [&](int q) {
+      if (q < nq) {
+        const int slot = (done + q) % GSTAGES;
+        float* st = wring + slot * wstage;
+        const int kc = q % nsc * GKD;
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&wfull[slot], Gs::HST * 4);
+          bulk_load(st, cur + ((long long)q * KS + ks0) * GROWS * GKD,
+                    Gs::HST * 4, &wfull[slot]);
+        }
+        if (!resident) {
+          for (int i = 0; i < SPW * GKD; ++i) {
+            load_w_row(st + Gs::HST + i * C,
+                       (ks0 + i / GKD) * kper + kc + i % GKD);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    if (active) {
+      // the bulk copies read what other CTAs' generic stores wrote: the
+      // issuing lane orders them after the acquire
+      if (lane == 0) fence_proxy_async_global();
+      for (int q = 0; q < GSTAGES - 1; ++q) issue(q);
+    }
+
+    float acc[8][8];
+    for (int q = 0; q < nq; ++q) {
+      const int sc = q % nsc, b0 = q / nsc * GROWS;
+      if (sc == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[r][i] = 0.0f;
+        load_cells(t, cur, b0);
+      }
+      if (active) {
+        const int slot = (done + q) % GSTAGES;
+        grid_wait(&wfull[slot], (done + q) / GSTAGES & 1);
+        if (!resident) cp_async_wait_group<GSTAGES - 2>();
+        __syncwarp();  // the whole warp is past stage q - 1: reuse its slot
+        issue(q + GSTAGES - 1);
+        const float* hs = wring + slot * wstage + s * GROWS * GKD;
+        const int k0 = ks * kper + sc * GKD;
+#pragma unroll
+        for (int kq = 0; kq < GKD / 4; ++kq) {
+          float4 h4[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            h4[r] = *reinterpret_cast<const float4*>(
+                hs + (rg + 4 * r) * GKD + 4 * kq);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float* wr =
+                resident ? w_res + (k0 + 4 * kq + kk) * C + 8 * cg
+                         : wring + slot * wstage + Gs::HST +
+                               (s * GKD + 4 * kq + kk) * C + 8 * cg;
+            const float4 wa = *reinterpret_cast<const float4*>(wr);
+            const float4 wb = *reinterpret_cast<const float4*>(wr + 4);
+            const float w8[8] = {wa.x, wa.y, wa.z, wa.w,
+                                 wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float hk = kk == 0   ? h4[r].x
+                               : kk == 1 ? h4[r].y
+                               : kk == 2 ? h4[r].z
+                                         : h4[r].w;
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                acc[r][i] = fmaf(hk, w8[i], acc[r][i]);
+              }
+            }
+          }
+        }
+      }
+      if (sc != nsc - 1) continue;
+      // the tile's product is done: the splits' partial sums, then the
+      // cell update of each (row, unit), summing the splits in order
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          float* p = red + (ks * GROWS + rg + 4 * r) * CLD + 8 * cg;
+          *reinterpret_cast<float4*>(p) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          *reinterpret_cast<float4*>(p + 4) =
+              make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        const int cell = tid + e * GTHREADS;
+        const int rr = cell / U, u = cell % U;
+        const int b = b0 + rr, j = j0 + u;
+        if (cell >= GROWS * U || b >= B || j >= H) continue;
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int k = 0; k < KS; ++k) {
+            sum += red[(k * GROWS + rr) * CLD + g * U + u];
+          }
+          pre[g] = xv[e][g] + sum;
+        }
+        const float i = sigmoid_f32(pre[0]);
+        const float f = sigmoid_f32(pre[1]);
+        const float g = tanhf(pre[2]);
+        const float o = sigmoid_f32(pre[3]);
+        const float m = mv[e];
+        const float c_new = f * cv[e] + i * g;
+        const float h_new = o * tanhf(c_new);
+        const float h = m * h_new + (1.0f - m) * hv[e];
+        const float c = m * c_new + (1.0f - m) * cv[e];
+        d.c[(long long)b * H + j] = c;
+        nxt[grid_h_at(b, j, kper, nsc, KS)] = h;
+        const long long out = ((long long)t * B + b) * H + j;
+        d.ys[out] = from_f32<S>(h);
+        if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
+      }
+      if (q == nq - 1) fence_proxy_async_global();  // h(t): bulk copies
+      // every cell has read the partial sums (the next tile rewrites them)
+      // and stored its h (the frame's release follows the last tile)
+      __syncthreads();
+    }
+    // release h(t): one count a CTA, after every thread's stores
+    if (tid == 0 && step + 1 < T) {
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                   :: "l"(d.count) : "memory");
+    }
+  }
+}
+
+// the hidden units a CTA of lstm_fwd_grid takes: the least power of two
+// (at least 4) that spreads H over at most sms / ndir CTAs a direction;
+// 0 where that needs more than GMAX_U
+inline int grid_units(int H, int ndir, int sms) {
+  const int per_dir = sms / ndir;
+  if (per_dir < 1) return 0;
+  const int need = (H + per_dir - 1) / per_dir;
+  int u = 4;
+  while (u < need) u *= 2;
+  return u <= GMAX_U ? u : 0;
+}
+
+// whether lstm_fwd_grid<U> holds the CTA's slice of wh in shared memory at
+// H (else it streams the slice from L2 every tile)
+inline bool grid_resident(int U, int H) {
+  switch (U) {
+    case 4: return grid_smem<4>(H, true) <= GSMEM_MAX;
+    case 8: return grid_smem<8>(H, true) <= GSMEM_MAX;
+    case 16: return grid_smem<16>(H, true) <= GSMEM_MAX;
+    default: return false;
+  }
+}
+
+inline int device_sms() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (sms[dev] == 0) {
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms[dev];
+}
+
+template <typename S, int U>
+cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
+                        int H, int ndir, cudaStream_t stream) {
+  auto kernel = lstm_fwd_grid<S, U>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM_MAX);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  int resident = grid_resident(U, H);
+  const int smem = grid_smem<U>(H, resident);
+  if (smem > GSMEM_MAX) return cudaErrorInvalidValue;
+  int vec = H % 4 == 0;
+  for (int i = 0; i < ndir; ++i) vec = vec && aligned16(d[i].wh);
+  int T_ = T, B_ = B, H_ = H;
+  GridDir<S> d0 = d[0], d1 = d[1];
+  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &resident, &vec};
+  // cooperative: every CTA resident at once (each waits on the others'
+  // frames), or the launch fails with cudaErrorCooperativeLaunchTooLarge
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3((H + U - 1) / U, ndir),
+      dim3(GTHREADS), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename S>
+int run_grid(int T, int B, int H, int ndir, const float* mask,
+             const void* const* xw, const void* const* wh, void* const* ys,
+             void* const* cs, float* const* scratch, const int* reverse,
+             cudaStream_t stream) {
+  const int U = grid_units(H, ndir, device_sms());
+  GridDir<S> d[2];
+  const long long BHp = (long long)(B + GROWS - 1) / GROWS * GROWS * grid_hp(H);
+  for (int i = 0; i < ndir; ++i) {
+    d[i].xw = static_cast<const S*>(xw[i]);
+    d[i].wh = static_cast<const float*>(wh[i]);
+    d[i].ys = static_cast<S*>(ys[i]);
+    d[i].cs = static_cast<S*>(cs[i]);
+    d[i].h = scratch[i];
+    d[i].c = scratch[i] + 2 * BHp;
+    d[i].count = reinterpret_cast<unsigned int*>(scratch[i] + 2 * BHp +
+                                                 (long long)B * H);
+    d[i].reverse = reverse[i];
+  }
+  if (ndir == 1) d[1] = d[0];
+  cudaError_t err;
+  switch (U) {
+    case 4: err = launch_grid<S, 4>(d, mask, T, B, H, ndir, stream); break;
+    case 8: err = launch_grid<S, 8>(d, mask, T, B, H, ndir, stream); break;
+    case 16: err = launch_grid<S, 16>(d, mask, T, B, H, ndir, stream); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // --- bf16 weights: one persistent launch for all frames -----------------------
@@ -591,14 +1053,43 @@ int run_persistent(int T, int B, int H, int ndir, const float* mask,
   return static_cast<int>(err);
 }
 
+// f32 weights: lstm_fwd_grid or lstm_step a frame, by shape (both designs'
+// times on an H100 in PERF.md): the grid kernel where its units fit a CTA
+// (grid_units) and B is at most 320 with wh resident and 8 or more units a
+// CTA (H=512: the grid wins up to B=320, lstm_step from B=384), 128 with
+// fewer units (H=256: the grid wins at B=128, not at 256), 32 with wh
+// streamed (H=1000: the grid wins at B=32, not at 128)
+inline bool f32_grid(int B, int H, int ndir) {
+  const int U = grid_units(H, ndir, device_sms());
+  if (U == 0) return false;
+  return B <= (!grid_resident(U, H) ? 32 : U >= 8 ? 320 : 128);
+}
+
+int run_f32(bool grid, int type_code, int T, int B, int H, int ndir,
+            const float* mask, const void* const* xw, const void* const* wh,
+            void* const* ys, void* const* cs, float* const* scratch,
+            const int* reverse, cudaStream_t s) {
+  if (type_code == 0) {
+    return grid ? run_grid<float>(T, B, H, ndir, mask, xw, wh, ys, cs,
+                                  scratch, reverse, s)
+                : run_per_frame<float, float>(T, B, H, ndir, mask, xw, wh, ys,
+                                              cs, scratch, reverse, s);
+  }
+  return grid ? run_grid<bf16>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+                               reverse, s)
+              : run_per_frame<bf16, float>(T, B, H, ndir, mask, xw, wh, ys,
+                                           cs, scratch, reverse, s);
+}
+
 }  // namespace
 
 // One call runs the whole recurrence of one or two directions that share
 // T, B, H, the types and the mask (the two directions of a BLSTM layer).
 // type_code: 0 = S f32 / W f32, 1 = S bf16 / W bf16, 2 = S f32 / W bf16,
 // 3 = S bf16 / W f32. Codes 1 and 2 make one persistent launch (H <= 512);
-// codes 0 and 3 one launch per frame and need scratch{0,1}: [3, B, H] f32,
-// zeroed by the caller (h ping, h pong, c); codes 1 and 2 ignore scratch.
+// codes 0 and 3 one lstm_fwd_grid launch (vo_lstm_fwd_f32_grid), else one
+// lstm_step launch per frame, and need scratch{0,1}: vo_lstm_fwd_scratch
+// floats each, zeroed by the caller; codes 1 and 2 ignore scratch.
 // cs{0,1}: [T, B, H] in S for the training form, or null for the inference
 // form. Returns the first non-zero CUDA error of a launch, or 0.
 extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
@@ -622,18 +1113,60 @@ extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (type_code) {
     case 0:
-      return run_per_frame<float, float>(T, B, H, ndir, m, xw, wh, ys, cs,
-                                         scratch, reverse, s);
+    case 3:
+      return run_f32(f32_grid(B, H, ndir), type_code, T, B, H, ndir, m, xw,
+                     wh, ys, cs, scratch, reverse, s);
     case 1:
       return run_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
                                   s);
     case 2:
       return run_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
                                    s);
-    case 3:
-      return run_per_frame<bf16, float>(T, B, H, ndir, m, xw, wh, ys, cs,
-                                        scratch, reverse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// 1 when vo_lstm_fwd runs f32 weights (type codes 0 and 3) of ndir
+// directions at batch size B and hidden size H as one lstm_fwd_grid launch,
+// 0 when it runs lstm_step a frame.
+extern "C" int vo_lstm_fwd_f32_grid(int B, int H, int ndir) {
+  return B >= 1 && f32_grid(B, H, ndir) ? 1 : 0;
+}
+
+// The f32 scratch of one direction, in floats: lstm_fwd_grid's h(t) by
+// step parity [2][B][Hp], c [B][H] and its frame counter, or lstm_step's
+// h ping, h pong and c [3][B][H], whichever is larger.
+extern "C" long long vo_lstm_fwd_scratch(int B, int H) {
+  const long long grid =
+      2LL * (B + GROWS - 1) / GROWS * GROWS * grid_hp(H) + (long long)B * H + 4;
+  const long long step = 3LL * B * H;
+  return grid > step ? grid : step;
+}
+
+// vo_lstm_fwd for type codes 0 and 3 with the design named (grid 1:
+// lstm_fwd_grid; 0: lstm_step a frame), so that both designs can be held
+// to the plain version and timed at any shape the grid kernel takes.
+extern "C" int vo_lstm_fwd_f32(int grid, int type_code, int T, int B, int H,
+                               int ndir, const void* mask,
+                               const void* xw0, const void* wh0, void* ys0,
+                               void* cs0, void* scratch0, int reverse0,
+                               const void* xw1, const void* wh1, void* ys1,
+                               void* cs1, void* scratch1, int reverse1,
+                               void* stream) {
+  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 ||
+      (type_code != 0 && type_code != 3) ||
+      (grid && grid_units(H, ndir, device_sms()) == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* xw[2] = {xw0, xw1};
+  const void* wh[2] = {wh0, wh1};
+  void* ys[2] = {ys0, ys1};
+  void* cs[2] = {cs0, cs1};
+  float* scratch[2] = {static_cast<float*>(scratch0),
+                       static_cast<float*>(scratch1)};
+  const int reverse[2] = {reverse0, reverse1};
+  return run_f32(grid != 0, type_code, T, B, H, ndir,
+                 static_cast<const float*>(mask), xw, wh, ys, cs, scratch,
+                 reverse, static_cast<cudaStream_t>(stream));
 }

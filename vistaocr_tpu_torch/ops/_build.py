@@ -106,6 +106,12 @@ def _bind(lib) -> None:
         p, p, p, p, p, i,  # direction 1
         p,  # stream
     ]
+    lib.vo_lstm_fwd_f32.restype = i
+    lib.vo_lstm_fwd_f32.argtypes = [i] + lib.vo_lstm_fwd.argtypes  # grid
+    lib.vo_lstm_fwd_f32_grid.restype = i
+    lib.vo_lstm_fwd_f32_grid.argtypes = [i, i, i]  # B, H, ndir
+    lib.vo_lstm_fwd_scratch.restype = ctypes.c_longlong
+    lib.vo_lstm_fwd_scratch.argtypes = [i, i]  # B, H
     lib.vo_lstm_bwd.restype = i
     lib.vo_lstm_bwd.argtypes = [
         i, i, i, i, i,  # type_code, T, B, H, ndir

@@ -28,6 +28,8 @@ design does about it.
 - Launch counters, one per call of a C entry point (which runs the whole
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
+  ``FWD_GRID_LAUNCHES`` (of which f32 weights on ``lstm_fwd_grid``: one
+  launch), ``STEP_LAUNCHES`` (f32 weights on ``lstm_step``: T a call),
   ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` (of which the
   gate GEMM, either weight type: one launch), ``BWD_PERSISTENT_LAUNCHES``
   (of which bf16 weights: one frame-loop launch), ``FRAME_LAUNCHES``,
@@ -36,12 +38,15 @@ design does about it.
   With bf16 weights a forward call is one kernel launch for all frames
   (``lstm_fwd_persistent``) and a BPTT call two (``bptt_gates_gemm``:
   every frame's gate recompute as one GEMM; ``lstm_bwd_persistent``: the
-  frame loop), H <= ``PERSISTENT_MAX_H`` (larger H raises); with f32
-  weights, any H, the forward is one ``lstm_step`` launch per frame and
-  the BPTT ``bptt_gates_gemm``'s f32 form on the FMA units, then by B
-  (``vo_lstm_bwd_f32_folds``, chosen on an H100): ``bptt_frame`` a frame
-  (the cell backward and the dh product in one launch; 1 + T launches,
-  B <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
+  frame loop), H <= ``PERSISTENT_MAX_H`` (larger H raises). With f32
+  weights the forward is, by shape (``f32_forward_grid``, chosen on an
+  H100), one cooperative ``lstm_fwd_grid`` launch (a direction spread
+  over the card, each CTA's slice of wh on chip, h exchanged through L2
+  behind a frame counter; H=512 up to B=320) or one ``lstm_step`` launch
+  per frame; the BPTT is ``bptt_gates_gemm``'s f32 form on the FMA units,
+  then by B (``vo_lstm_bwd_f32_folds``): ``bptt_frame`` a frame (the cell
+  backward and the dh product in one launch; 1 + T launches, B <= 32) or
+  ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ FRAME_LAUNCHES = 0
 CELL_LAUNCHES = 0
 DH_LAUNCHES = 0
 DWH_LAUNCHES = 0
+FWD_GRID_LAUNCHES = 0
+STEP_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 # the largest H the bf16-weight kernels take (MAX_H of csrc/lstm_fwd.cu,
@@ -273,11 +280,17 @@ def _dir_args(per_dir: List[list], n_fields: int) -> list:
     return args
 
 
-def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
-                mask: torch.Tensor, dtype: torch.dtype, save_cell: bool):
+def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
+             mask: torch.Tensor, dtype: torch.dtype, *,
+             save_cell: bool = False, grid: Optional[bool] = None):
     """The forward kernel over one or two directions that share T, B, H,
-    the dtypes and the mask. ``dirs``: (xw, wh already in ``dtype``,
-    reverse). Returns (ys list, cs list or None)."""
+    the dtypes and the mask (CUDA only). ``dirs``: (xw, wh already in
+    ``dtype``, reverse). Returns (ys list, cs list or None). With f32
+    weights the library chooses the design by shape
+    (``f32_forward_grid``); ``grid`` names one instead (True:
+    ``lstm_fwd_grid``, False: ``lstm_step`` a frame), so that both can be
+    held to the plain version and timed at any shape the grid kernel
+    takes."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -296,27 +309,47 @@ def _launch_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
         raise ValueError(f"the bf16 LSTM kernel takes H <= {PERSISTENT_MAX_H}"
                          f" (wh held by one 16-CTA cluster), got H={H}")
     lib = _build.load()
-    # Outputs (and the per-frame kernel's zeroed h ping, h pong, c scratch)
-    # are allocated on the launch stream; the caching allocator reuses a
-    # freed block only for work queued after the kernel on that stream.
+    # Outputs (and the f32 kernels' zeroed scratch: h(t) by step parity, c
+    # and lstm_fwd_grid's frame counter) are allocated on the launch
+    # stream; the caching allocator reuses a freed block only for work
+    # queued after the kernel on that stream.
     new = dict(dtype=xw0.dtype, device=xw0.device)
     ys = [torch.empty((T, B, H), **new) for _ in dirs]
     cs = [torch.empty((T, B, H), **new) for _ in dirs] if save_cell else None
     scratch = [None if persistent else torch.zeros(
-        (3, B, H), dtype=torch.float32, device=xw0.device) for _ in dirs]
+        lib.vo_lstm_fwd_scratch(B, H), dtype=torch.float32,
+        device=xw0.device) for _ in dirs]
     args = _dir_args([
         [xw.data_ptr(), wh.data_ptr(), ys[k].data_ptr(),
          cs[k].data_ptr() if save_cell else None,
          None if persistent else scratch[k].data_ptr(), int(rev)]
         for k, (xw, wh, rev) in enumerate(dirs)], 6)
-    stream = torch.cuda.current_stream(xw0.device).cuda_stream
-    err = lib.vo_lstm_fwd(_TYPE_CODES[(xw0.dtype, dtype)], T, B, H,
-                          len(dirs), mask.data_ptr(), *args, stream)
-    _build.check(err, "vo_lstm_fwd")
+    call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
+            mask.data_ptr(), *args,
+            torch.cuda.current_stream(xw0.device).cuda_stream)
+    if persistent or grid is None:
+        _build.check(lib.vo_lstm_fwd(*call), "vo_lstm_fwd")
+        grid = not persistent and bool(
+            lib.vo_lstm_fwd_f32_grid(B, H, len(dirs)))
+    else:
+        _build.check(lib.vo_lstm_fwd_f32(int(grid), *call), "vo_lstm_fwd_f32")
     _count("LAUNCHES")
     if save_cell:
         _count("SAVE_CELL_LAUNCHES")
+    if grid:
+        _count("FWD_GRID_LAUNCHES")
+    elif not persistent:
+        _count("STEP_LAUNCHES", T)
     return ys, cs
+
+
+def f32_forward_grid(B: int, H: int, ndir: int = 2) -> bool:
+    """Whether the library runs the f32-weight forward (type codes 0 and
+    3) of ``ndir`` directions at B, H as one ``lstm_fwd_grid`` launch
+    (else ``lstm_step`` a frame); builds the kernels on first use."""
+    from . import _build
+
+    return bool(_build.load().vo_lstm_fwd_f32_grid(B, H, ndir))
 
 
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
@@ -424,8 +457,9 @@ def lstm_forward_cells(dirs, mask: torch.Tensor, dtype: torch.dtype,
     sequence of (xw, wh, reverse); returns [(ys, cs), ...]. One kernel
     launch on CUDA (unless ``plain``); the plain version on the CPU."""
     if dirs[0][0].is_cuda and not plain:
-        ys, cs = _launch_fwd([(xw, wh.to(dtype).contiguous(), r)
-                              for xw, wh, r in dirs], mask, dtype, True)
+        ys, cs = lstm_fwd([(xw, wh.to(dtype).contiguous(), r)
+                           for xw, wh, r in dirs], mask, dtype,
+                          save_cell=True)
         return list(zip(ys, cs))
     return [lstm_recurrence_ref(xw, mask, wh, reverse=r, dtype=dtype,
                                 save_cell=True) for xw, wh, r in dirs]
@@ -489,8 +523,8 @@ def _recurrence(dirs, mask, dtype, plain: bool):
         return BLstmRecurrence.apply(mask, dtype,
                                      tuple(r for *_, r in dirs), plain, *flat)
     if dirs[0][0].is_cuda and not plain:
-        ys, _ = _launch_fwd([(xw, wh.to(dtype).contiguous(), r)
-                             for xw, wh, r in dirs], mask, dtype, False)
+        ys, _ = lstm_fwd([(xw, wh.to(dtype).contiguous(), r)
+                          for xw, wh, r in dirs], mask, dtype)
         return ys
     return [lstm_recurrence_ref(xw, mask, wh, reverse=r, dtype=dtype)
             for xw, wh, r in dirs]
