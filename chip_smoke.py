@@ -50,7 +50,16 @@ the exit code is non-zero and no ``ok`` line is printed):
              within 2e-5, and at the buckets two runs bit-equal, one
              launch of each kernel a call, each timed, and the whole
              ``ctc_loss_kernel`` forward+backward (with its torch
-             assembly) timed beside ``F.ctc_loss``. The BPTT frames
+             assembly) timed beside ``F.ctc_loss``. F2's shapes: bf16
+             weights above H=512 (B=32, T=512, H=520 and 1000; type
+             codes 1 and 2), which run on the f32-weight kernels with wh
+             widened and the products' operands rounded to bf16: each
+             kernel held to its plain version (forwards 3e-2, gate GEMM
+             1e-5 relative, frame loop, BPTT and dwh 2e-2 relative), run
+             twice bit-equal, its launches counted by the f32 shape
+             rules, and at H=1000 (bf16 streams) each timed beside its
+             bound, plain version, library call and the f32 route at the
+             same shape. The BPTT frames
              are ``bptt_gates_gemm`` (every frame's gate recompute as one
              GEMM: bf16 weights on the tensor cores, f32 on the FMA
              units), then the frame loop: ``lstm_bwd_persistent`` (bf16
@@ -78,6 +87,16 @@ the exit code is non-zero and no ``ok`` line is printed):
              40 steps and one validation; the loss must be finite and its
              last-10 mean below its first-10 mean, and every training
              kernel's launch counter must grow.
+   infer   - on phase 7's snapshot and glyph validation split (128
+             lines): ``run_inference`` greedy with a posterior dump that
+             ``decode.offline`` decodes to the same strings (a line may
+             differ only where the f16 dump ties its top two classes at
+             a frame); host beam (``--decoder beam --beam-impl host``)
+             with a char LM and a lexicon built from the split's
+             transcripts on the C++ engine, which must have built; then
+             ``OcrService(decoder="beam", beam_impl="host",
+             device_resize=False)`` on colour (RGB/RGBA) lines at and off
+             the contract height; greedy and host-beam lines/s.
 8. train-parity - one f32 train-mode forward/backward of the flagship
              model from the same parameters with ``lstm_impl``/``ctc_impl``
              ``"auto"`` (kernels) against ``"scan"`` (plain): the loss within
@@ -94,7 +113,12 @@ the exit code is non-zero and no ``ok`` line is printed):
              launches at B=512; a BPTT call one f32 gate GEMM, then T
              ``bptt_frame`` launches at B=32, T ``bptt_cell`` and T
              ``bptt_dh`` beyond), then each timed: CUDA-event ms a step
-             and its device time from ``torch.profiler``.
+             and its device time from ``torch.profiler``. Then F2's path:
+             a bf16 flagship at ``lstm_hidden`` 520 and 1000, one train
+             step and one inference forward each at B=32, W=2048 and
+             B=128, W=512, the LSTM counters set to 0 before and read
+             after: every f32-weight kernel launched as its shape rule
+             says, no persistent kernel.
 9. experiments - the experiments' kernels (``vistaocr_tpu_torch/
              experiments``) against their plain versions, TF32 off, f32
              within 1e-4 (dK, dxw and dwh relative to their tensor's
@@ -490,6 +514,139 @@ def service_profile(snap: str, smi: str, top: int = 12) -> None:
               prof.events()).splitlines(True)[:top]), flush=True)
 
 
+
+def _colour(img, i: int):
+    """A grayscale line as an RGB (or, every third, RGBA) array."""
+    rgb = np.stack([img, np.roll(img, i, axis=1), 255 - img // 3], axis=-1)
+    if i % 3 == 1:
+        alpha = np.full(img.shape + (1,), 255 - i % 7, np.uint8)
+        rgb = np.concatenate([rgb, alpha], axis=-1)
+    return rgb.astype(np.uint8)
+
+
+def _from_lexicon(text: str, lexicon: set) -> bool:
+    """Lexicon words, the last of which may be a word's prefix (the beam
+    keeps a mid-word final where no whole-word final survives)."""
+    *head, last = text.split() or [""]
+    return set(head) <= lexicon and (
+        last in lexicon or any(w.startswith(last) for w in lexicon))
+
+
+def infer_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
+    """``run_inference`` of the flagship snapshot ``snap`` (phase 7's, 40
+    bf16 steps) on the glyph validation split of ``data``: greedy with a
+    posterior dump that the port's ``decode.offline`` decodes to the same
+    strings (a line may differ only where the dump's f16 log-probs tie
+    its top two classes at some frame: f16 keeps 11 bits); host beam with
+    a char LM and a lexicon built from the split's transcripts, on the C++
+    engine (required: a broken build fails here); then ``OcrService`` with
+    ``beam_impl="host"`` and ``device_resize=False`` on colour lines at
+    and off the contract height. The K1 forward's launches are counted
+    over the phase; greedy and host-beam lines/s printed with the card."""
+    from vistaocr_tpu_torch import infer
+    from vistaocr_tpu_torch.data import open_dataset
+    from vistaocr_tpu_torch.decode import native_binding, offline
+    from vistaocr_tpu_torch.decode.lm import train_char_lm
+    from vistaocr_tpu_torch.ops import lstm_cuda
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+    from vistaocr_tpu_torch.text import uxxxx_to_utf8
+
+    _require(native_binding.available(),
+             f"the C++ beam engine builds: {native_binding.build_error()}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = list(open_dataset(data, "val").transcripts())
+        lm_path, lex_path = os.path.join(tmp, "char.arpa"), os.path.join(
+            tmp, "words.txt")
+        train_char_lm(texts, order=3).write_arpa(lm_path)
+        words = sorted({w for t in texts for w in uxxxx_to_utf8(t).split()})
+        with open(lex_path, "w") as f:
+            f.write("\n".join(words) + "\n")
+
+        def run(tag, **kw):
+            path = os.path.join(tmp, f"{tag}.jsonl")
+            report = infer.run_inference(snap, data, "val", out_path=path,
+                                         device=dev, log=lambda m: None, **kw)
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+            _require(report["lines"] == len(recs) == len(texts),
+                     f"{tag}: {len(texts)} lines, got {report['lines']}")
+            return report, recs
+
+        lstm_cuda.LAUNCHES = 0
+        run("warm")  # cuDNN's first calls at each shape
+        greedy, recs = run("greedy")
+        dump = os.path.join(tmp, "dump")
+        dumped, recs = run("dump", dump_posteriors=dump)
+        off = os.path.join(tmp, "offline.jsonl")
+        offline.decode_posteriors(dump, decoder="greedy", out_path=off,
+                                  log=lambda m: None)
+        with open(off) as f:
+            off_hyps = {r["id"]: r["hyp_uxxxx"] for r in map(json.loads, f)}
+        hyps = {r["id"]: r["hyp_uxxxx"] for r in recs}
+        differ = {i for i in hyps if off_hyps.get(i) != hyps[i]}
+        tied = set()
+        for lid, lp in infer.iter_posteriors(dump):
+            top = np.sort(lp, axis=1)[:, -2:]
+            ulp = np.exp2(np.floor(np.log2(np.abs(top[:, 1]) + 1e-30)) - 10)
+            if (top[:, 1] - top[:, 0] <= ulp).any():
+                tied.add(lid)
+        same = len(hyps) - len(differ)
+        _require(set(off_hyps) == set(hyps) and differ <= tied,
+                 f"the offline decode of the dump gives run_inference's "
+                 f"greedy hypotheses: {len(differ)} lines differ, of them "
+                 f"{len(differ - tied)} with no f16 tie")
+        _require(all(r["conf"] is not None and 0 < r["conf"] <= 1
+                     for r in recs), "greedy confidences in (0, 1]")
+        beam, brecs = run("beam", decoder="beam", beam_impl="host",
+                          lm_path=lm_path, lexicon_path=lex_path)
+        lexicon = set(words)
+        _require(all(_from_lexicon(r["hyp_text"], lexicon) for r in brecs),
+                 "host-beam hypotheses are lexicon words")
+        rng = np.random.default_rng(41)
+        lines = [img for img, _ in glyph_lines(font, rng, 24, 40, 1500)]
+        lines = [_colour(img, i) for i, img in enumerate(lines)]
+        lines += [np.repeat(img, 2, axis=0) for img in lines[:4]]  # H=64
+        lines += [img[::2] for img in lines[4:8]]  # H=16
+        svc = OcrService(snap, ServiceConfig(
+            decoder="beam", beam_impl="host", lm_path=lm_path,
+            lexicon_path=lex_path, device_resize=False, max_batch=32,
+            warmup=False), device=dev)
+        try:
+            t0 = time.time()
+            results = svc.ocr_lines(lines)
+            svc_dt = time.time() - t0
+            results.append(svc.submit(lines[0]).result(timeout=300))
+        finally:
+            svc.close()
+        _require(len(results) == len(lines) + 1 and all(
+            _from_lexicon(r.text, lexicon) and r.confidence is None
+            for r in results),
+            "service host beam on colour lines: lexicon words, no score")
+        launches = lstm_cuda.LAUNCHES
+        _require(launches > 0, "the LSTM forward kernel ran in the phase")
+        out = {"greedy_lines_per_sec": greedy["lines_per_sec"],
+               "greedy_with_dump_lines_per_sec": dumped["lines_per_sec"],
+               "greedy_cer": greedy["cer"],
+               "beam_lines_per_sec": beam["lines_per_sec"],
+               "beam_cer": beam["cer"], "lines": len(texts),
+               "offline_same": same, "offline_f16_tied": len(tied),
+               "service_lines": len(lines),
+               "service_lines_per_sec": len(lines) / svc_dt,
+               "lstm_fwd_launches": launches}
+    print(f"infer: run_inference greedy {out['greedy_lines_per_sec']} "
+          f"lines/s ({out['greedy_with_dump_lines_per_sec']} with the "
+          f"posterior dump), host beam (C++ engine, char LM + lexicon) "
+          f"{out['beam_lines_per_sec']} lines/s over {len(texts)} glyph "
+          f"lines (CER {out['greedy_cer']} / {out['beam_cer']}); offline "
+          f"decode of the dump equal on {same} lines ({len(tied)} with an "
+          f"f16 tie at some frame); "
+          f"service host beam, host resize: {out['service_lines']} colour "
+          f"lines at {out['service_lines_per_sec']:.1f} lines/s; "
+          f"lstm_fwd launches {launches} ({smi})", flush=True)
+    return out
+
+
 def parity_phase(snap: str, dev) -> None:
     import torch
     from vistaocr_tpu_torch.checkpoint import load_model
@@ -579,10 +736,14 @@ def _kernel_us(fn, names, expect=None) -> dict:
     """{name: (device time per launch in us, launches)} of the kernels
     whose names contain each of ``names``, from the device events of
     ``torch.profiler`` over one call of ``fn`` after a warm-up call. The
-    profiler misses kernels launched just after its window opens (it has
-    counted 448 of 512 per-frame launches, 31 of 32, and none of a lone
-    persistent launch), so each window starts with 64 small launches and
-    a synchronise, and a window that holds none of a kernel, or fewer
+    profiler keeps only device events that lie inside its window on the
+    host's clock, and the device's timestamps, converted to that clock,
+    can fall outside it: it has dropped the first per-frame launches (448
+    of 512 counted, 31 of 32), and a lone persistent launch at the end of
+    the call, which ends just before the synchronise returns. So each
+    window starts with 64 small launches, a synchronise and a 20 ms
+    pause, and ends with a synchronise and another 20 ms pause before it
+    closes. A window that holds none of a kernel, or fewer
     events of a name than ``expect`` (name: the launches ``fn`` makes)
     says, is taken again, up to three times; the caller checks the
     counts it gets."""
@@ -597,8 +758,10 @@ def _kernel_us(fn, names, expect=None) -> dict:
             for _ in range(64):
                 pad.add_(1.0)
             torch.cuda.synchronize()
+            time.sleep(0.02)
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.02)
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         times = {n: [e.time_range.elapsed_us() for e in dev if n in e.name]
@@ -967,6 +1130,319 @@ def f32_forward_rule_times(dev, card: str) -> list:
               f"{row['library_runs']} ({card})", flush=True)
         out.append(row)
     return out
+
+
+# bf16 weights above H=512 (type codes 1 and 2): the f32-weight kernels with
+# wh widened to f32 and the products' operands rounded to bf16; (B, T, H)
+# checked in both codes, the last one also timed (code 1, the model's) and
+# beside it the f32 route (code 0) at the same shape
+F2_SHAPES = ((32, 512, 520), (32, 512, 1000))
+F2_TIMED = F2_SHAPES[-1]
+F2_COUNTERS = ("FWD_GRID_LAUNCHES", "STEP_LAUNCHES", "GATES_GEMM_LAUNCHES",
+               "FRAME_LAUNCHES", "CELL_LAUNCHES", "DH_LAUNCHES",
+               "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+
+
+def _counter_deltas(mod, names, before) -> dict:
+    return {n: getattr(mod, n) - b for n, b in zip(names, before)}
+
+
+def f2_train_kernels(dev, card: str) -> dict:
+    """bf16 weights at ``F2_SHAPES``, type codes 1 and 2, both directions,
+    ragged mask: the save_cell and inference forwards (3e-2 of the plain
+    version), the gate GEMM (1e-5 relative), the frame loop on the
+    kernel's gates and the whole BPTT (2e-2 relative), dwh from the plain
+    dxw (2e-2 relative), each run twice (bit-equal), with the launches of
+    each call counted (the library's route: the f32 shape rules). At
+    ``F2_TIMED`` with bf16 streams each kernel is timed beside its bound
+    (operations at the bf16 peak: the products are of bf16 values), its
+    plain version, the library call where there is one and the f32 route
+    (f32 weights and streams) at the same shape. Returns kernel rows."""
+    import torch
+    from vistaocr_tpu_torch.ops import _build, lstm_cuda as L
+
+    lib = _build.load()
+    bf16, f32 = torch.bfloat16, torch.float32
+    checked, rows = [], {}
+    for (B, T, H) in F2_SHAPES:
+        grid = L.f32_forward_grid(B, H)
+        folds = bool(lib.vo_lstm_bwd_f32_folds(B))
+        for stream in (bf16, f32):
+            tag = (f"B={B} T={T} H={H}, bf16 weights, {_dtname(stream)} "
+                   f"streams")
+            (fwd, bwd), mask = _recurrence_case(B, T, H, stream, dev,
+                                                seed=B + T + H)
+            dirs = [(fwd[0], fwd[1].to(bf16), False),
+                    (bwd[0], bwd[1].to(bf16), True)]
+            rng = np.random.default_rng(H)
+            dys = [torch.from_numpy(rng.normal(0, 1, (T, B, H)).astype(
+                np.float32)).to(dev, stream) for _ in range(2)]
+            before = [getattr(L, n) for n in F2_COUNTERS]
+            with torch.no_grad():
+                cells = [L.lstm_forward_cells(dirs, mask, bf16)
+                         for _ in range(2)]
+                inf = [L.blstm_recurrence(dirs[0][0], dirs[1][0], mask,
+                                          dirs[0][1], dirs[1][1])
+                       for _ in range(2)]
+                ref = L.lstm_forward_cells(dirs, mask, bf16, plain=True)
+                bdirs = [(x, w, ys, cs, dy, r) for (x, w, r), (ys, cs), dy
+                         in zip(dirs, ref, dys)]
+                runs = [L.lstm_bptt_frames(bdirs, mask, bf16,
+                                           return_gates=True)
+                        for _ in range(2)]
+                ref_b = L.lstm_bptt(bdirs, mask, bf16, plain=True)
+                ddirs = [(d[2], g, d[5]) for d, (g, _) in zip(bdirs, ref_b)]
+                dwhs = [L.lstm_dwh(ddirs, bf16) for _ in range(2)]
+                torch.cuda.synchronize()
+                got = _counter_deltas(L, F2_COUNTERS, before)
+                (dxw_k, pre_k), (dxw_2, pre_2) = runs
+                pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r, dtype=bf16)
+                         for x, w, ys, _, _, r in bdirs]
+                loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
+                                            dtype=bf16)
+                          for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
+            want = {"FWD_GRID_LAUNCHES": 4 if grid else 0,
+                    "STEP_LAUNCHES": 0 if grid else 4 * T,
+                    "GATES_GEMM_LAUNCHES": 2,
+                    "FRAME_LAUNCHES": 2 * T if folds else 0,
+                    "CELL_LAUNCHES": 0 if folds else 2 * T,
+                    "DH_LAUNCHES": 0 if folds else 2 * T,
+                    "DWH_LAUNCHES": 2, "BWD_PERSISTENT_LAUNCHES": 0}
+            err = {
+                "save_cell": max(max(_abs(y, ry), _abs(c, rc)) for (y, c), (
+                    ry, rc) in zip(cells[0], ref)),
+                "inference": max(_abs(y, ry) for y, (ry, _) in zip(
+                    inf[0], ref)),
+                "gates_rel": max(_rel(a, b) for a, b in zip(pre_k, pre_r)),
+                "loop_rel": max(_rel(a, b) for a, b in zip(dxw_k, loop_r)),
+                "dxw_rel": max(_rel(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
+                "dxw_abs": max(_abs(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
+                "dwh_rel": max(_rel(a, b) for a, (_, b) in zip(dwhs[0],
+                                                               ref_b)),
+                "dwh_abs": max(_abs(a, b) for a, (_, b) in zip(dwhs[0],
+                                                               ref_b)),
+                "gates_abs": max(_abs(a, b) for a, b in zip(pre_k, pre_r)),
+                "loop_abs": max(_abs(a, b) for a, b in zip(dxw_k, loop_r))}
+            same = (all(torch.equal(a, b) for (ya, ca), (yb, cb) in zip(
+                        *cells) for a, b in ((ya, yb), (ca, cb)))
+                    and all(torch.equal(a, b) for a, b in zip(*inf))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        dxw_k + pre_k, dxw_2 + pre_2))
+                    and all(torch.equal(a, b) for a, b in zip(*dwhs)))
+            ok = (err["save_cell"] <= 3e-2 and err["inference"] <= 3e-2
+                  and err["gates_rel"] <= 1e-5 and err["loop_rel"] <= 2e-2
+                  and err["dxw_rel"] <= 2e-2 and err["dwh_rel"] <= 2e-2
+                  and same and got == want)
+            print(f"F2 kernels vs plain {tag}: " + "; ".join(
+                f"{k} {v:.3e}" for k, v in err.items()) + f"; bit-equal "
+                f"twice {same}; launches {got} ("
+                f"{'lstm_fwd_grid' if grid else 'lstm_step'}, "
+                f"{'fold' if folds else 'split'}) "
+                f"{'ok' if ok else 'FAIL'}", flush=True)
+            _require(ok, f"F2 kernels agree with plain, bit-equal, launches "
+                         f"{got} == {want}: {tag}")
+            checked.append({"B": B, "T": T, "H": H,
+                            "streams": _dtname(stream), **err,
+                            "bit_equal_twice": same, "launches": got})
+            if (B, T, H) != F2_TIMED or stream != bf16:
+                continue
+            rows = f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r,
+                              err, ref)
+    for row in rows.values():
+        row["checked"] = checked
+    return rows
+
+
+def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
+               ref) -> dict:
+    """Each F2 kernel timed at F2_TIMED (bf16 streams and weights) beside
+    its bound, plain version, library call and the f32 route."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    T, B, G = dirs[0][0].shape
+    H = G // 4
+    d32 = [(x.float(), w.float(), r) for x, w, r in dirs]
+    b32 = [(x.float(), w.float(), ys.float(), cs.float(), dy.float(), r)
+           for x, w, ys, cs, dy, r in bdirs]
+    dd32 = [(y.float(), g.float(), r) for y, g, r in ddirs]
+    with torch.no_grad():
+        t = {
+            "fwd": _cuda_ms(lambda: L.lstm_forward_cells(dirs, mask, bf16),
+                            5),
+            "fwd_grid": _cuda_ms(lambda: L.lstm_fwd(
+                dirs, mask, bf16, save_cell=True, grid=True), 5),
+            "fwd_step": _cuda_ms(lambda: L.lstm_fwd(
+                dirs, mask, bf16, save_cell=True, grid=False), 5),
+            "fwd_f32": _cuda_ms(lambda: L.lstm_forward_cells(d32, mask, f32),
+                                5),
+            "fwd_plain": _cuda_ms(lambda: L.lstm_forward_cells(
+                dirs, mask, bf16, plain=True), 1),
+            "frames": _cuda_ms(lambda: L.lstm_bptt_frames(bdirs, mask, bf16),
+                               5),
+            "frames_f32": _cuda_ms(lambda: L.lstm_bptt_frames(b32, mask, f32),
+                                   5),
+            "dwh": _cuda_ms(lambda: L.lstm_dwh(ddirs, bf16), 20),
+            "dwh_f32": _cuda_ms(lambda: L.lstm_dwh(dd32, f32), 5),
+            "dwh_plain": _cuda_ms(lambda: [L.lstm_dwh_ref(
+                y, g, reverse=r, dtype=bf16) for y, g, r in ddirs], 1),
+            "dwh_lib": _cuda_ms(lambda: [dwh_one_product(
+                y, g, r, bf16) for y, g, r in ddirs], 20),
+            "gates_plain": _cuda_ms(lambda: [L.bptt_gates_ref(
+                x, ys, w, reverse=r, dtype=bf16)
+                for x, w, ys, _, _, r in bdirs], 2),
+            "gates_lib": _cuda_ms(lambda: [gates_one_product(
+                x, ys, w, r, bf16) for x, w, ys, _, _, r in bdirs], 20),
+            "loop_plain": _cuda_ms(lambda: [L.bptt_frames_ref(
+                p, mask, w, cs, dy, reverse=r, dtype=bf16)
+                for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1),
+        }
+        dg = [g[T // 2].to(bf16).float() for _, g, _ in ddirs]
+        wq = [w.float() for _, w, _ in dirs]
+        t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w in
+                                        zip(dg, wq)], 50)
+        per = {fd: _kernel_us(
+            lambda fd=fd: L.lstm_bptt_frames(bdirs, mask, bf16, fold=fd),
+            ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])),
+            {"bptt_gates_gemm<": 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
+            for fd in F32_DESIGNS}
+        fwd_us = {g: _kernel_us(lambda g=g: L.lstm_fwd(
+            dirs, mask, bf16, save_cell=True, grid=g), (n + "<",),
+            {n + "<": 1 if g else T})[n + "<"]
+            for g, n in F32_FWD_KERNELS.items()}
+    R = (T - 1) * B
+    flops = 2 * 2 * R * H * 4 * H  # one product over every frame, 2 dirs
+    whq = [w for _, w, _ in dirs]
+    fwd_bytes = _nbytes(mask, *(x for x, _, _ in dirs), *whq,
+                        *(a for yc in ref for a in yc))
+    pre_bytes = 2 * T * B * G * 4
+    dxw_bytes = _nbytes(*(g for _, g, _ in ddirs))
+    gemm_in = _nbytes(*(x for x, *_ in bdirs), *(d[2] for d in bdirs), *whq)
+    loop_in = _nbytes(mask, *whq, *(a for d in bdirs for a in d[3:5]))
+    cell_in = _nbytes(mask, *(a for d in bdirs for a in d[3:5]))
+    dh_in = _nbytes(mask, *whq, *(d[4] for d in bdirs))
+    dwh_in = _nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
+    dwh_out = 2 * H * G * 4
+    fwd_bound = _bound(fwd_bytes, 2 * 2 * T * B * H * G, bf16)
+    rows = {}
+    for g, name in F32_FWD_KERNELS.items():
+        us, n = fwd_us[g]
+        rows[name] = {"max_abs_err": err["save_cell"],
+                      "ms": t["fwd_grid" if g else "fwd_step"],
+                      "plain_ms": t["fwd_plain"], "library_ms": None,
+                      **fwd_bound, "launches_per_call": n,
+                      "kernel_us_per_launch": us,
+                      "library_route_ms": t["fwd"],
+                      "f32_route_ms": t["fwd_f32"]}
+    gp = per[True]["bptt_gates_gemm<"]
+    rows["bptt_gates_gemm"] = {
+        "max_abs_err": err["gates_abs"], "ms": gp[0] / 1e3,
+        "plain_ms": t["gates_plain"], "library_ms": t["gates_lib"],
+        **_bound(gemm_in + pre_bytes, flops, bf16), "launches_per_call": 1}
+    bounds = {"bptt_frame": (pre_bytes + loop_in + dxw_bytes, flops),
+              "bptt_cell": (pre_bytes + cell_in + dxw_bytes,
+                            2 * 40 * T * B * H),
+              "bptt_dh": (dxw_bytes + dh_in, flops)}
+    for fd in F32_DESIGNS:
+        for k in LOOP_KERNELS[fd]:
+            us, n = per[fd][k + "<"]
+            rows[k] = {"max_abs_err": err["loop_abs"], "ms": us * n / 1e3,
+                       "plain_ms": t["loop_plain"],
+                       "library_ms": t["dh_lib"] * T if k == "bptt_dh"
+                       else None, **_bound(*bounds[k], bf16),
+                       "launches_per_call": n, "per_frame_us": us}
+    rows["lstm_dwh"] = {"max_abs_err": err["dwh_abs"], "ms": t["dwh"],
+                        "plain_ms": t["dwh_plain"], "library_ms": t["dwh_lib"],
+                        **_bound(dwh_in + dwh_out, flops, bf16),
+                        "f32_route_ms": t["dwh_f32"]}
+    for k in ("bptt_gates_gemm", "bptt_frame", "bptt_cell", "bptt_dh"):
+        rows[k]["frames_ms"] = t["frames"]
+        rows[k]["f32_route_frames_ms"] = t["frames_f32"]
+    print(f"F2 times B={B} T={T} H={H}, bf16 weights and streams, both "
+          f"directions: save_cell lstm_fwd_grid {t['fwd_grid']:.3f} ms "
+          f"({t['fwd_grid'] / T * 1e3:.2f} us a frame), lstm_step "
+          f"{t['fwd_step']:.3f} ms, the library's {t['fwd']:.3f} ms, f32 "
+          f"route {t['fwd_f32']:.3f} ms, bound {fwd_bound['bound_ms']:.3f} "
+          f"ms, plain {t['fwd_plain']:.3f} ms; BPTT frames "
+          f"{t['frames']:.3f} ms (f32 route {t['frames_f32']:.3f}; gate "
+          f"GEMM {gp[0]:.2f} us, bptt_frame "
+          f"{per[True]['bptt_frame<'][0]:.2f} us x T, bptt_cell "
+          f"{per[False]['bptt_cell<'][0]:.2f} + bptt_dh "
+          f"{per[False]['bptt_dh<'][0]:.2f} us x T; plain loop "
+          f"{t['loop_plain']:.3f} ms); dwh {t['dwh']:.4f} ms (f32 route "
+          f"{t['dwh_f32']:.4f}, torch.mm {t['dwh_lib']:.4f}) ({card})",
+          flush=True)
+    return rows
+
+
+# F2's main path: a bf16 flagship at lstm_hidden 520 and 1000, one train
+# step (forward + backward through entry points) and one inference forward
+# at the W=2048 (B=32) and W=512 (B=128) buckets
+F2_PATH = tuple((H, B, W) for H in (520, 1000)
+                for B, W in ((32, 2048), (128, 512)))
+
+
+def f2_path_phase(dev, font: dict, card: str) -> dict:
+    """F2's main path with the LSTM counters set to 0 before the first step
+    and read after the last: what each call's route launches, by the f32
+    shape rules (lstm_fwd_grid or lstm_step; bptt_frame, or bptt_cell and
+    bptt_dh), and never a persistent kernel."""
+    import torch
+    from vistaocr_tpu_torch import train as TR
+    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
+    from vistaocr_tpu_torch.ops import _build, lstm_cuda
+
+    lib = _build.load()
+    cases = []
+    for H, B, W in F2_PATH:
+        alphabet, batch = _glyph_batch(font, H + B, B, W, W // 2,
+                                       min(256, W // 4), dev)
+        model = CnnLstmOcr(ModelConfig(num_classes=alphabet.num_classes,
+                                       compute_dtype="bfloat16",
+                                       lstm_hidden=H, dropout=0.0))
+        init_parameters(model, torch.Generator().manual_seed(H))
+        cases.append((H, B, W, model.to(dev), batch))
+    names = F2_COUNTERS + ("LAUNCHES", "BWD_LAUNCHES")
+    for name in names:
+        setattr(lstm_cuda, name, 0)
+    want = dict.fromkeys(names, 0)
+    t0 = time.time()
+    for H, B, W, model, batch in cases:
+        before = (lstm_cuda.LAUNCHES, lstm_cuda.BWD_LAUNCHES)
+        loss, grads = TR.loss_and_grads(model, *batch,
+                                        torch.ones(B, device=dev))
+        with torch.inference_mode():
+            lp, fm = model(batch[0], batch[1])
+        torch.cuda.synchronize()
+        _require(np.isfinite(loss.item()) and all(
+            torch.isfinite(g).all().item() for g in grads.values())
+            and torch.isfinite(lp[fm]).all().item(),
+            f"F2 path H={H} B={B}: finite loss, gradients and log-probs")
+        fwd = lstm_cuda.LAUNCHES - before[0]
+        bwd = lstm_cuda.BWD_LAUNCHES - before[1]
+        T = W // 4
+        want["LAUNCHES"] += fwd
+        want["BWD_LAUNCHES"] += bwd
+        if lstm_cuda.f32_forward_grid(B, H):
+            want["FWD_GRID_LAUNCHES"] += fwd
+        else:
+            want["STEP_LAUNCHES"] += fwd * T
+        want["GATES_GEMM_LAUNCHES"] += bwd
+        want["DWH_LAUNCHES"] += bwd
+        if lib.vo_lstm_bwd_f32_folds(B):
+            want["FRAME_LAUNCHES"] += bwd * T
+        else:
+            want["CELL_LAUNCHES"] += bwd * T
+            want["DH_LAUNCHES"] += bwd * T
+    counts = {name: getattr(lstm_cuda, name) for name in names}
+    print(f"F2 path (bf16 flagship at H=520 and 1000, a train step and an "
+          f"inference forward at B=32 W=2048 and B=128 W=512) in "
+          f"{time.time() - t0:.2f} s: launches {counts} ({card})", flush=True)
+    _require(counts == want and counts["BWD_PERSISTENT_LAUNCHES"] == 0 and all(
+        v > 0 for k, v in counts.items() if k != "BWD_PERSISTENT_LAUNCHES"),
+        f"F2 path launches {counts}, want {want}")
+    return counts
 
 
 def _ctc_inputs(B, T, K, L, dev):
@@ -1764,13 +2240,18 @@ def main(argv) -> int:
     _phase("train-kernels")
     lstm_rows = lstm_train_kernels(dev, f"{card}, {smi}")
     rule_rows = f32_forward_rule_times(dev, f"{card}, {smi}")
+    f2_rows = f2_train_kernels(dev, f"{card}, {smi}")
     ctc_rows = ctc_train_kernels(dev, f"{card}, {smi}")
     font = glyph_font(17)
     with tempfile.TemporaryDirectory() as tmp:
         _phase("train")
         counts = train_phase(tmp, font, smi)
+        _phase("infer")
+        infer_out = infer_phase(dev, os.path.join(tmp, "run", "last"),
+                                os.path.join(tmp, "glyphs"), font, smi)
     _phase("train-parity")
     f32_path = train_parity_phase(dev, font, f"{card}, {smi}")
+    f2_counts = f2_path_phase(dev, font, f"{card}, {smi}")
     _phase("experiments")
     stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
@@ -1796,6 +2277,7 @@ def main(argv) -> int:
                    rows[FLAGSHIP_SHAPE[:2]][torch.float32]),
         "at_B512_T32": with_f32(rows[SMALL_BUCKET_SHAPE[:2]][torch.bfloat16],
                                 rows[SMALL_BUCKET_SHAPE[:2]][torch.float32]),
+        "infer": infer_out,
     }]
     main_shape = (32, 512)  # the W=2048 bucket
     lstm_meta = {
@@ -1880,6 +2362,29 @@ def main(argv) -> int:
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]
         kernels.append(row)
+    # F2's route: bf16 weights above H=512 on the f32-weight kernels, with
+    # launches counted on F2's main path (phase 8) and times at F2_TIMED
+    for name, src, rep, counter in (
+            ("lstm_fwd_grid", "lstm_fwd.cu", "lstm_pallas.py:51",
+             "FWD_GRID_LAUNCHES"),
+            ("lstm_step", "lstm_fwd.cu", "lstm_pallas.py:51",
+             "STEP_LAUNCHES"),
+            ("bptt_gates_gemm", "lstm_bwd.cu", "lstm_pallas.py:281",
+             "GATES_GEMM_LAUNCHES"),
+            ("bptt_frame", "lstm_bwd.cu", "lstm_pallas.py:281",
+             "FRAME_LAUNCHES"),
+            ("bptt_cell", "lstm_bwd.cu", "lstm_pallas.py:281",
+             "CELL_LAUNCHES"),
+            ("bptt_dh", "lstm_bwd.cu", "lstm_pallas.py:281", "DH_LAUNCHES"),
+            ("lstm_dwh", "lstm_bwd.cu", "lstm_pallas.py:264",
+             "DWH_LAUNCHES")):
+        kernels.append({
+            "name": f"{name}_bf16w_f2", "route": "cuda",
+            "source": f"vistaocr_tpu_torch/csrc/{src}",
+            "replaces": f"vistaocr_tpu/ops/{rep}",
+            "launches": f2_counts[counter],
+            "form": "bf16 weights above H=512 on the f32-weight kernels",
+            "at": "B{}_T{}_H{}".format(*F2_TIMED), **f2_rows[name]})
     for name, rep, counter in (("ctc_alpha", "ctc_pallas.py:74",
                                 "ALPHA_LAUNCHES"),
                                ("ctc_beta", "ctc_pallas.py:157",

@@ -10,7 +10,11 @@ GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
 f32 weights the f32 gate GEMM and the per-frame kernel at the GEMM's
 tile edges, several clusters and H > 512, their determinism and their
-1 + T launches; csrc/ctc.cu's alpha/beta at the
+1 + T launches; bf16 weights above H=512 (type codes 1 and 2) on the
+f32-weight kernels: the forward in both forms and designs, the gate
+GEMM, both frame loops and dwh at H=520 and 1000 on both sides of a
+32-row tile, their determinism, their launches (counters and profiler)
+and autograd; csrc/ctc.cu's alpha/beta at the
 three train buckets, S > 1024 and T below its ring depth, their
 determinism and their one launch each a call) against their plain
 PyTorch versions, including ragged B/H edges and the tile edges, T = 1,
@@ -30,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from vistaocr_tpu_torch.ops import lstm_cuda
+from vistaocr_tpu_torch.ops import _build, lstm_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -294,10 +298,67 @@ def test_f32_grid_route_follows_the_library_rule(dev, B, H):
 
 
 def test_persistent_kernel_refuses_h_above_512(dev):
+    """Above H=512 the persistent kernel is not launched: bf16 weights
+    take the f32-weight kernels (B=4 at H=520: lstm_fwd_grid, one launch)
+    and agree with the plain version as the persistent kernel does."""
     xw, mask, wh = _device_operands(dev, 4, 3, 520, torch.bfloat16,
                                     torch.bfloat16, seed=1)
-    with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
-        lstm_cuda.lstm_recurrence(xw[0], mask, wh[0])
+    before = (lstm_cuda.LAUNCHES, lstm_cuda.FWD_GRID_LAUNCHES,
+              lstm_cuda.STEP_LAUNCHES)
+    with torch.no_grad():
+        ys = lstm_cuda.lstm_recurrence(xw[0], mask, wh[0])
+        ref = lstm_cuda.lstm_recurrence_ref(xw[0], mask, wh[0])
+    torch.cuda.synchronize()
+    assert (lstm_cuda.LAUNCHES, lstm_cuda.FWD_GRID_LAUNCHES,
+            lstm_cuda.STEP_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                         before[2])
+    assert ys.dtype == torch.bfloat16
+    assert (ys.float() - ref.float()).abs().max().item() <= 3e-2
+
+
+# bf16 weights above H=512 (type codes 1 and 2: the f32-weight kernels with
+# wh widened to f32 and h rounded to bf16 where the product reads it): H on
+# both sides of the grid kernel's resident-weight limit, B on both sides of
+# a 32-row tile, a ragged mask; each design named and the library's choice
+F2_SHAPES = [(B, 7, H) for B in (5, 33) for H in (520, 1000)]
+
+
+@pytest.mark.parametrize("shape", F2_SHAPES)
+@pytest.mark.parametrize("stream,compute,tol", BF16_WEIGHT_TYPES)
+def test_bf16_weights_above_512_forward_matches_plain(dev, shape, stream,
+                                                      compute, tol):
+    """Both forms and both directions against lstm_recurrence_ref within
+    the persistent kernel's bound, through lstm_fwd_grid, lstm_step and the
+    library's choice (one grid launch, or T step launches, a call); a
+    second run gives the same bits."""
+    B, T, H = shape
+    xw, mask, wh = _device_operands(dev, B, T, H, stream, compute,
+                                    seed=B * T + H, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    with torch.no_grad():
+        refs = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                              save_cell=True)
+                for x, w, r in dirs]
+        library = lstm_cuda.f32_forward_grid(B, H)
+        for grid in (True, False, None):
+            for save_cell in (False, True):
+                before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
+                runs = [lstm_cuda.lstm_fwd(dirs, mask, compute,
+                                           save_cell=save_cell, grid=grid)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                on_grid = library if grid is None else grid
+                assert (lstm_cuda.FWD_GRID_LAUNCHES - before[0],
+                        lstm_cuda.STEP_LAUNCHES - before[1]) == (
+                    (2, 0) if on_grid else (0, 2 * T))
+                (ys, cs), (ys2, cs2) = runs
+                for k, (rys, rcs) in enumerate(refs):
+                    assert ys[k].dtype == stream
+                    assert (ys[k].float() - rys.float()).abs().max() <= tol
+                    assert torch.equal(ys[k], ys2[k])
+                    if save_cell:
+                        assert (cs[k].float() - rcs.float()).abs().max() <= tol
+                        assert torch.equal(cs[k], cs2[k])
 
 
 def test_non_contiguous_input_raises(dev):
@@ -482,13 +543,10 @@ def _typed_bptt_operands(dev, B, T, H, stream, compute, seed):
 
 
 def _check_bptt(dev, B, T, H, stream, compute):
+    """lstm_bptt against its plain version (bf16 weights above H=512: the
+    f32-weight kernels, with the persistent kernels' bound)."""
     dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute,
                                       seed=B * T + H)
-    if compute == torch.bfloat16 and H > lstm_cuda.PERSISTENT_MAX_H:
-        # bf16 weights: a 16-CTA cluster holds all of wh, so H <= 512
-        with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
-            lstm_cuda.lstm_bptt(dirs, mask, compute)
-        return
     before = (lstm_cuda.BWD_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
     with torch.no_grad():
         got = lstm_cuda.lstm_bptt(dirs, mask, compute)
@@ -533,7 +591,8 @@ F32_FRAME_SHAPES = [(70, 5, 200), (33, 4, 1000)]
 # and bptt_dh beyond), bptt_gates_gemm's and
 # lstm_dwh's 128 x 128 tiles, stages and 16-byte rows (H % 8),
 # lstm_bwd_persistent's 32-unit CTAs and 32-row clusters (bf16 W; H > 512
-# raises there), and T = 1 (no dwh rows) and 2 (one frame's rows)
+# takes the f32-weight kernels there), and T = 1 (no dwh rows) and 2 (one
+# frame's rows)
 @pytest.mark.parametrize("shape", [(8, 2, 64), (9, 2, 65), (128, 3, 64),
                                    (129, 2, 65), (8, 1, 520), (9, 3, 520),
                                    *F32_GEMM_SHAPES, *F32_FRAME_SHAPES])
@@ -546,11 +605,9 @@ def test_bptt_tile_edges_match_plain(dev, shape, stream, compute):
 def test_bptt_and_dwh_are_deterministic(dev, stream, compute):
     """Fixed summation orders, no float atomics: two runs, the same bits,
     also with several frame-loop clusters a direction and H > 512 (f32
-    weights, both frame-loop designs)."""
+    weights, both frame-loop designs; bf16 weights, the library's)."""
     f32 = compute == torch.float32
     for B, T, H in [(33, 9, 72), (129, 2, 65), *F32_FRAME_SHAPES]:
-        if not f32 and H > lstm_cuda.PERSISTENT_MAX_H:
-            continue
         dirs, mask = _typed_bptt_operands(dev, B, T, H, stream, compute,
                                           seed=2)
         kdirs = [(x, w.to(compute).contiguous(), y, c, dy, r)
@@ -731,14 +788,126 @@ def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
 
 
 def test_bf16_weight_bptt_refuses_h_above_512(dev):
-    dirs, mask = _typed_bptt_operands(dev, 4, 3, 520, torch.bfloat16,
+    """Above H=512 lstm_bwd_persistent is not launched: bf16 weights take
+    the f32-weight BPTT (B=4: one gate GEMM, then bptt_frame a frame),
+    against bptt_frames_ref within the persistent kernel's bound."""
+    T = 3
+    dirs, mask = _typed_bptt_operands(dev, 4, T, 520, torch.bfloat16,
                                       torch.bfloat16, seed=1)
     kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
              for x, w, y, c, dy, r in dirs]
-    before = lstm_cuda.BWD_LAUNCHES
-    with torch.no_grad(), pytest.raises(ValueError, match="H <= 512"):
-        lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
-    assert lstm_cuda.BWD_LAUNCHES == before
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
+    with torch.no_grad():
+        got = lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
+        ref = lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16, plain=True)
+    torch.cuda.synchronize()
+    assert [getattr(lstm_cuda, n) - b for n, b in zip(
+        _F32_COUNTERS, before)] == [1, T, 0, 0, 0]
+    for dxw, (rdxw, _) in zip(got, ref):
+        assert _rel_err(dxw, rdxw) <= _BF16_REL
+
+
+@pytest.mark.parametrize("shape", F2_SHAPES)
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fold", [True, False, None])
+def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
+    """Type codes 1 and 2 above H=512 on the f32-weight BPTT: the gate
+    GEMM against bptt_gates_ref within 1e-5 of the largest magnitude (the
+    same bf16-rounded products in f32), the frame loop of each design (and
+    the library's) on the kernel's own gates against bptt_frames_ref, dwh
+    against lstm_dwh_ref, within the persistent kernels' bound; an invalid
+    row's gradients are zeros; two runs give the same bits; one gate GEMM
+    and T bptt_frame, or T bptt_cell and T bptt_dh, launches a call."""
+    B, T, H = shape
+    dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.bfloat16,
+                                      seed=B + T * H)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
+    with torch.no_grad():
+        (dxw, pre), (dxw2, pre2) = (lstm_cuda.lstm_bptt_frames(
+            kdirs, mask, torch.bfloat16, return_gates=True, fold=fold)
+            for _ in range(2))
+        dwh = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g in zip(dirs, dxw)],
+                                  torch.bfloat16) for _ in range(2)]
+        for k, (x, w, ys, cs, dy, r) in enumerate(dirs):
+            ref = lstm_cuda.bptt_gates_ref(x, ys, w, reverse=r,
+                                           dtype=torch.bfloat16)
+            assert _rel_err(pre[k], ref) <= 1e-5
+            loop = lstm_cuda.bptt_frames_ref(pre[k], mask, w, cs, dy,
+                                             reverse=r, dtype=torch.bfloat16)
+            assert dxw[k].dtype == stream
+            assert _rel_err(dxw[k], loop) <= _BF16_REL
+            rdwh = lstm_cuda.lstm_dwh_ref(ys, dxw[k], reverse=r,
+                                          dtype=torch.bfloat16)
+            assert _rel_err(dwh[0][k], rdwh) <= 1e-5
+            assert torch.equal(dxw[k], dxw2[k]) and torch.equal(pre[k], pre2[k])
+            assert torch.equal(dwh[0][k], dwh[1][k])
+            if B > 3:
+                assert not dxw[k][:, 3].float().abs().max().item()
+    torch.cuda.synchronize()
+    folded = fold if fold is not None else bool(
+        _build.load().vo_lstm_bwd_f32_folds(B))
+    frames = (T, 0, 0) if folded else (0, T, T)
+    assert [getattr(lstm_cuda, n) - b for n, b in zip(
+        _F32_COUNTERS, before)] == [2, *(2 * f for f in frames), 0]
+
+
+@pytest.mark.parametrize("H", [520, 1000])
+def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
+    """B=32, T=24, bf16 streams and weights, both directions: a forward
+    call is one lstm_fwd_grid launch, a BPTT call one bptt_gates_gemm, T
+    bptt_frame and one dwh launch, and no persistent kernel (profiler)."""
+    T = 24
+    xw, mask, wh = _device_operands(dev, 32, T, H, torch.bfloat16,
+                                    torch.bfloat16, seed=H, ndir=2)
+    with torch.no_grad():
+        fwd = _profiled_counts(
+            lambda: lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
+                                               wh[1]),
+            ("lstm_fwd_grid<", "lstm_step<", "lstm_fwd_persistent<"))
+    assert fwd == {"lstm_fwd_grid<": 1, "lstm_step<": 0,
+                   "lstm_fwd_persistent<": 0}, fwd
+    dirs, mask = _bf16_bptt_operands(dev, 32, T, H, torch.bfloat16, seed=H)
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
+            _BPTT_KERNELS)
+    assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 0,
+                      "bptt_gates<": 0, "bptt_frame<": T, "bptt_cell<": 0,
+                      "bptt_dh<": 0, "lstm_dwh": 1}, counts
+
+
+def test_bf16_weights_above_512_autograd_matches_plain(dev):
+    """BLstmRecurrence at H=520 with bf16 weights (the model's route
+    through lstm_impl="auto"): the forward on lstm_fwd_grid and the
+    backward on the f32-weight BPTT against the plain forward and BPTT."""
+    B, T, H = 6, 5, 520
+    dirs, mask = _bptt_operands(dev, B, T, H, torch.bfloat16, seed=12)
+    xw, wh = dirs[0][0], dirs[0][1]
+    xf = xw.clone().requires_grad_(True)
+    xb = (xw * 0.5).requires_grad_(True)
+    wf = wh.clone().requires_grad_(True)
+    wb = (wh * 0.7).requires_grad_(True)
+    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
+              lstm_cuda.BWD_PERSISTENT_LAUNCHES)
+    ys_f, ys_b = lstm_cuda.blstm_recurrence(xf, xb, mask, wf, wb)
+    (ys_f * dirs[0][4] + ys_b * dirs[1][4]).sum().backward()
+    assert (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
+            lstm_cuda.BWD_PERSISTENT_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1, before[2])
+    with torch.no_grad():
+        for x, w, dy, r, g_x, g_w in ((xf, wf, dirs[0][4], False, xf.grad,
+                                       wf.grad),
+                                      (xb, wb, dirs[1][4], True, xb.grad,
+                                       wb.grad)):
+            ys, cs = lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                                   save_cell=True)
+            rdx, rdw = lstm_cuda.lstm_bptt_ref(x, mask, w, ys, cs, dy,
+                                               reverse=r)
+            assert g_x.dtype == g_w.dtype == torch.bfloat16
+            assert _rel_err(g_x, rdx) <= _BF16_REL
+            assert _rel_err(g_w, rdw) <= _BF16_REL
 
 
 def test_dwh_matches_torch_mm_at_flagship(dev):

@@ -1,6 +1,7 @@
 """The port stands alone: every module of vistaocr_tpu_torch imports with
 jax, jaxlib, flax, optax, PIL and msgpack blocked and pulls in nothing of
-the JAX package; its copies of the text codec, alphabet and bidi modules
+the JAX package (and so does each offline-inference and host-decoding
+module on its own); its copies of the text codec, alphabet and bidi modules
 agree with the JAX package's; and chip_smoke.py refuses to run (non-zero
 exit, no result line) where there is no CUDA device."""
 
@@ -50,6 +51,35 @@ def test_every_module_imports_without_jax_pil_or_msgpack():
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[0])
     assert count >= 20, proc.stdout
+
+
+_HOST_MODULES = ("vistaocr_tpu_torch.infer", "vistaocr_tpu_torch.decode.beam",
+                 "vistaocr_tpu_torch.decode.lm",
+                 "vistaocr_tpu_torch.decode.lexicon",
+                 "vistaocr_tpu_torch.decode.native_binding",
+                 "vistaocr_tpu_torch.decode.offline",
+                 "vistaocr_tpu_torch.data.transforms",
+                 "vistaocr_tpu_torch.serve.service")
+
+
+def test_host_modules_import_without_jax_or_pil():
+    """The offline-inference and host-decoding modules in a fresh
+    interpreter with jax, flax, optax and PIL blocked: none of them, and
+    nothing of the JAX package, is imported."""
+    code = (
+        "import sys\n"
+        "for n in ('jax', 'jaxlib', 'flax', 'optax', 'PIL'):\n"
+        "    sys.modules[n] = None\n"
+        "import importlib\n"
+        f"for name in {_HOST_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('vistaocr_tpu', 'jax', 'flax', 'optax', 'PIL')\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=_env(), cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_chip_smoke_fails_without_cuda():

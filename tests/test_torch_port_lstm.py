@@ -122,6 +122,38 @@ class TestOracleAtCardEdges:
         else:
             assert cs_j is None
 
+    @pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("reverse", [False, True])
+    def test_plain_bf16_forward_matches_pallas_interpret(self, stream,
+                                                          reverse):
+        """bf16 weights above H=512 (type codes 1 and 2, which the card
+        runs on the f32-weight kernels with h rounded to bf16): the plain
+        save_cell forward against the Pallas kernel within the bf16 bound
+        of this file (3e-2)."""
+        B, T, H = 33, 7, 520
+        rng = np.random.default_rng(B * H + T + 1)
+        xw = rng.normal(0, 1, (T, B, 4 * H)).astype(np.float32)
+        wh = rng.normal(0, 1 / np.sqrt(H), (H, 4 * H)).astype(np.float32)
+        lengths = rng.integers(1, T + 1, B)
+        lengths[0] = T
+        mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+        mask = mask[:, None, :]
+        jdt = jnp.bfloat16 if stream == torch.bfloat16 else jnp.float32
+        ys_j, cs_j = _lstm_fwd_local(
+            jnp.asarray(xw).astype(jdt), jnp.asarray(mask),
+            jnp.asarray(wh).astype(jnp.bfloat16), dtype=jnp.bfloat16,
+            interpret=True, save_cell=True, reverse=reverse)
+        with torch.no_grad():
+            ys, cs = lstm_cuda.lstm_recurrence_ref(
+                torch.from_numpy(xw).to(stream), torch.from_numpy(mask),
+                torch.from_numpy(wh).to(torch.bfloat16), reverse=reverse,
+                dtype=torch.bfloat16, save_cell=True)
+        assert ys.dtype == cs.dtype == stream
+        for ours, ref in ((ys, ys_j), (cs, cs_j)):
+            np.testing.assert_allclose(ours.float().numpy(),
+                                       np.asarray(ref.astype(jnp.float32)),
+                                       atol=3e-2, rtol=3e-2)
+
 
 class TestWrapper:
     def _operands(self, T=6, B=3, H=5):

@@ -218,14 +218,19 @@ def _jax_bptt(seed, stream, compute, reverse, shape=None):
 _PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
 # (stream, compute, shape): each pair at _case's shape, then the f32-weight
-# pairs at the shapes only their kernels serve, H above 512 (the bf16
-# kernels refuse it) and T = 1 (no frame has a predecessor)
+# pairs at the shapes only their kernels served until bf16 weights above
+# H=512 went to them too, H above 512 and T = 1 (no frame has a
+# predecessor), and the bf16-weight pairs above H=512 (the f32-weight
+# kernels' route for them on the card)
 _BPTT_CASES = [pytest.param(s, c, None, id=f"stream{i}-compute{i}")
                for i, (s, c) in enumerate(_PAIRS)] + [
     pytest.param(s, c, shape, id=f"{name}-T{shape[0]}-B{shape[1]}-H{shape[2]}")
     for s, c, name in ((torch.float32, torch.float32, "f32-f32"),
                        (torch.bfloat16, torch.float32, "bf16-f32"))
-    for shape in ((4, 3, 520), (1, 5, 8))]
+    for shape in ((4, 3, 520), (1, 5, 8))] + [
+    pytest.param(s, c, (4, 3, 520), id=f"{name}-T4-B3-H520")
+    for s, c, name in ((torch.bfloat16, torch.bfloat16, "bf16-bf16"),
+                       (torch.float32, torch.bfloat16, "f32-bf16"))]
 
 
 @pytest.mark.parametrize("stream,compute,shape", _BPTT_CASES)

@@ -283,3 +283,44 @@ class TestConfigAndSnapshots:
                                    atol=1e-5)
         H = cfg.lstm_hidden
         assert (a.blstm.l1_bwd_b.detach()[H:2 * H] == 1).all()
+
+
+def test_bf16_model_at_h520_matches_jax():
+    """bf16 weights above H=512 (the width the card runs on the f32-weight
+    kernels with bf16 rounding): the port's CnnLstmOcr and the JAX model
+    (its "scan" path) on the same weights, in bf16. Both round the same
+    operands to bf16, but sum in another order, so a value may land one
+    bf16 ulp away; the bound is read off JAX itself, as the bf16 train-step
+    test does: the port's log-probs on valid frames within twice JAX's own
+    bf16-vs-f32 difference (and 2**-8 at least)."""
+    out = {}
+    # seeded weights made by the port (the JAX init at this width is slow
+    # on the CPU), in the flax layout both models load
+    for dt in ("float32", "bfloat16"):
+        cfg_j = _flagship_topology(JaxConfig, JaxStage)
+        cfg_j = JaxConfig.from_json(json.dumps(
+            {**json.loads(cfg_j.to_json()), "lstm_hidden": 520,
+             "compute_dtype": dt}))
+        if dt == "float32":
+            model = CnnLstmOcr(ModelConfig.from_json(cfg_j.to_json()))
+            init_parameters(model, torch.Generator().manual_seed(42))
+            variables = _randomize_batch_stats(
+                checkpoint.state_dict_to_variables(model.state_dict()))
+            variables = jax.tree.map(lambda x: np.asarray(x, np.float32),
+                                     variables)
+        images, widths = _batch(2)
+        lp_j, fm_j = JaxModel(cfg_j).apply(
+            variables, jnp.asarray(images), jnp.asarray(widths), train=False)
+        out[dt] = (np.asarray(lp_j, np.float32), np.asarray(fm_j))
+    cfg_t = ModelConfig.from_json(cfg_j.to_json().replace('"scan"', '"auto"'))
+    assert cfg_t.lstm_hidden == 520 and cfg_t.compute_dtype == "bfloat16"
+    model = CnnLstmOcr(cfg_t)
+    model.load_state_dict(checkpoint.variables_to_state_dict(variables))
+    lp_t, fm_t = _port_forward(model, *_batch(2))
+    lp_j, fm_j = out["bfloat16"]
+    np.testing.assert_array_equal(fm_t, fm_j)
+    assert np.isfinite(lp_t[fm_t]).all()
+    jax_gap = np.abs(lp_j - out["float32"][0])[fm_t].max()
+    bound = max(2.0 * jax_gap, 2.0 ** -8)
+    diff = np.abs(lp_t - lp_j)[fm_t].max()
+    assert diff <= bound, (diff, jax_gap)

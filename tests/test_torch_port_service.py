@@ -2,8 +2,11 @@
 untrained tiny snapshot written by the JAX package: the same numpy lines
 (mixed widths at the contract height, plus lines at odd heights that take
 the on-device resize) through ``ocr_lines`` and ``submit`` give equal
-texts, equal bucket widths and confidences within 1e-3. Options the port
-does not have yet raise instead of being ignored."""
+texts, equal bucket widths and confidences within 1e-3; the host routes
+(``decoder="beam"`` with ``beam_impl="host"``, a char LM, a lexicon and a
+word LM; ``device_resize=False``, the host resize) give the JAX service's
+texts on colour lines, PIL images and lines off the contract height.
+Options the port does not have yet raise instead of being ignored."""
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ import jax
 import torch
 
 from vistaocr_tpu import checkpoint as jax_ckpt
+from vistaocr_tpu.decode import BeamConfig as JaxBeamConfig
 from vistaocr_tpu.data.buckets import ShapeContract as JaxContract
 from vistaocr_tpu.models import CnnLstmOcr as JaxModel
 from vistaocr_tpu.models import ModelConfig as JaxConfig
@@ -21,6 +25,7 @@ from vistaocr_tpu.serve import ServiceConfig as JaxServiceConfig
 from vistaocr_tpu.text import Alphabet as JaxAlphabet
 
 from vistaocr_tpu_torch.data import ShapeContract
+from vistaocr_tpu_torch.decode import BeamConfig
 from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
 
 torch.set_num_threads(2)
@@ -106,12 +111,89 @@ class TestAgainstJaxService:
         assert ours.stats["lines"] == n + 3
 
 
+def _colour_lines():
+    """Colour (RGB, RGBA) and grayscale lines at and off the contract
+    height, as arrays and as PIL images."""
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    gray = _lines()
+    out = []
+    for i, g in enumerate(gray[:8] + gray[-2:]):
+        rgb = np.stack([g, np.roll(g, i, axis=1), 255 - g // 3], axis=-1)
+        rgb = rgb.astype(np.uint8)
+        if i % 3 == 1:  # RGBA with a random alpha
+            rgb = np.concatenate(
+                [rgb, rng.integers(0, 256, g.shape + (1,), np.uint8)], -1)
+        out.append(Image.fromarray(rgb) if i % 4 == 3 else rgb)
+    out.append(np.repeat(gray[3], 2, axis=0))  # twice the contract height
+    out.append(gray[5][::2])  # half of it
+    return out
+
+
+@pytest.fixture(scope="module")
+def host_beam_files(tmp_path_factory):
+    """A char LM and a lexicon over the snapshot's alphabet."""
+    from vistaocr_tpu_torch.decode.lm import train_char_lm
+    from vistaocr_tpu_torch.text import utf8_to_uxxxx
+
+    words = ["a", "ab", "bad", "bead", "cab", "code", "dec", "deco",
+             "ebb", "odd", "ode"]
+    d = tmp_path_factory.mktemp("host_beam")
+    texts = [" ".join(words[i:i + 3]) for i in range(len(words))]
+    lm_path = str(d / "char.arpa")
+    train_char_lm([utf8_to_uxxxx(t) for t in texts], order=3).write_arpa(
+        lm_path)
+    lex_path = str(d / "words.txt")
+    with open(lex_path, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return lm_path, lex_path
+
+
+class TestHostRoutes:
+    @pytest.mark.parametrize("decoder", ["greedy", "beam"])
+    def test_host_resize_and_host_beam_match_jax(self, snapshot,
+                                                 host_beam_files, decoder):
+        lm_path, lex_path = host_beam_files
+        kw = dict(max_batch=8, warmup=False, device_resize=False)
+        jkw, pkw = dict(kw), dict(kw)
+        if decoder == "beam":
+            beam = dict(decoder="beam", beam_impl="host", lm_path=lm_path,
+                        lexicon_path=lex_path)
+            jkw.update(beam, beam=JaxBeamConfig(lm_alpha=0.5, beam_width=8))
+            pkw.update(beam, beam=BeamConfig(lm_alpha=0.5, beam_width=8))
+        theirs = JaxService(snapshot, JaxServiceConfig(**jkw))
+        ours = OcrService(snapshot, ServiceConfig(**pkw), device="cpu")
+        try:
+            lines = _colour_lines()
+            got, want = ours.ocr_lines(lines), theirs.ocr_lines(lines)
+            got.append(ours.submit(lines[2]).result(timeout=120))
+            want.append(theirs.submit(lines[2]).result(timeout=120))
+        finally:
+            ours.close()
+            theirs.close()
+        assert [r.text for r in got] == [r.text for r in want]
+        assert [r.uxxxx for r in got] == [r.uxxxx for r in want]
+        assert [r.bucket_width for r in got] == [r.bucket_width for r in want]
+        if decoder == "beam":
+            assert all(r.confidence is None for r in got)
+            words = set(open(lex_path).read().split())
+            assert any(r.text for r in got)
+            assert all(set(r.text.split()) <= words for r in got)
+        else:
+            for a, b in zip(got, want):
+                assert abs(a.confidence - b.confidence) <= 1e-3
+
+
 class TestOptions:
+    # the on-device beam (beam_impl="device", the default) with each of
+    # its tables, deskew, int8 and a data mesh
     @pytest.mark.parametrize("kw", [
-        {"decoder": "beam"}, {"lm_path": "lm.arpa"},
-        {"lexicon_path": "words.txt"}, {"word_lm_path": "w.arpa"},
+        {"decoder": "beam"}, {"decoder": "beam", "lm_path": "lm.arpa"},
+        {"decoder": "beam", "lexicon_path": "words.txt"},
+        {"decoder": "beam", "word_lm_path": "w.arpa"},
         {"device_deskew": True}, {"quantize": "int8"}, {"mesh_data": 4},
-        {"device_resize": False},
+        {"decoder": "beam", "device_resize": False, "device_lm": False},
     ])
     def test_unported_options_raise(self, snapshot, kw):
         with pytest.raises(NotImplementedError):

@@ -4,19 +4,24 @@ The JAX package stays the reference; this package mirrors its module
 names and public layouts (images ``[B,H,W]`` uint8, widths ``[B]`` int32,
 log-probs ``[B,T,K]``, LSTM weights ``wx [D,4H]``, ``wh [H,4H]``,
 ``b [4H]`` in i, f, g, o order) and runs on an NVIDIA H100. Ported so
-far: the greedy serving path (``serve.OcrService``) and the training
-path (``train.fit``), with the LSTM recurrence, its BPTT and the CTC
-alpha/beta recursions in hand-written CUDA kernels (``csrc/*.cu``).
+far: the greedy and host-beam serving path (``serve.OcrService``), the
+training path (``train.fit``) and offline inference (``infer``), with
+the LSTM recurrence, its BPTT and the CTC alpha/beta recursions in
+hand-written CUDA kernels (``csrc/*.cu``).
 
 - ``text``     : uxxxx codec, alphabet, CER/WER (copies of the JAX
   package's)
 - ``data``     : ``ShapeContract``/``BucketSpec``/``make_ladder``, the
-  shard store, ``BatchPipeline``, numpy host transforms
+  shard store, ``BatchPipeline``, numpy host transforms (PIL's
+  grayscale and BILINEAR resize, byte-equal, without PIL)
 - ``ops``      : preprocess/augment, on-device resize, the LSTM and CTC
   kernel wrappers, the plain CTC
 - ``models``   : ConvStack, BLSTMStack, CnnLstmOcr (eval and train mode)
-- ``decode``   : greedy CTC collapse
+- ``decode``   : greedy CTC collapse; the host prefix beam search with a
+  char LM, a lexicon and a word LM (the C++ engine or the Python
+  expansion); offline decoding of posterior dumps
 - ``serve``    : width-routed batched service
+- ``infer``    : ``run_inference`` and the evaluation CLI
 - ``train``    : ``TrainConfig``, ``fit`` and the trainer's CLI
 - ``experiments``: the fused stem and the direction-stacked BLSTM with
   their own kernels, measured against the production path (the model

@@ -23,14 +23,20 @@ parameters (conv HWIO -> OIHW, Dense ``[in,out]`` -> Linear
 kept in the JAX layout); ``state_dict_to_variables`` is its inverse, so a
 snapshot the port trained loads into the JAX model.
 
-A trainer's snapshot also carries ``opt_state.npz`` (the port's optimizer
-state as named numpy arrays, ``has_opt_state`` / ``load_opt_state``),
-named in ``meta.json`` (``"opt_state"``) so that a later JAX save of the
-same directory, whose ``meta.json`` lacks it, retires it. ``meta.json``
-records ``step`` and ``extra`` (epoch, train config, val CER); ``promote``
-copies ``last/`` over ``best/`` (``checkpoint.py:122`` of the JAX
-package). The JAX package's ``opt_state.msgpack`` is not read, and a port
-save removes it: it would describe other weights.
+A trainer's snapshot also carries its optimizer state in both packages'
+forms: ``opt_state.npz`` (the port's state as named numpy arrays), named
+in ``meta.json`` (``"opt_state"``), and ``opt_state.msgpack``, flax's
+serialisation of the JAX trainer's ``optax.chain(identity,
+scale_by_adam | trace)`` state (``opt_state_to_flax``), which the JAX
+``train --resume`` reads. ``load_opt_state`` reads the npz where the last
+``meta.json`` names it, else the JAX package's ``opt_state.msgpack``
+(``opt_state_from_flax``: ``count``, ``mu``/``nu`` or ``trace`` mapped
+onto the port's parameter names and layouts), so a JAX save over a port
+run (whose ``meta.json`` names no npz) resumes with JAX's moments, and a
+port save retires a JAX file by overwriting it (or removing it when it
+writes no optimizer state). ``meta.json`` records ``step`` and ``extra``
+(epoch, train config, val CER); ``promote`` copies ``last/`` over
+``best/`` (``checkpoint.py:122`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -188,6 +194,42 @@ def flax_msgpack_bytes(tree: Dict[str, Any]) -> bytes:
     return msgpack.packb(ordered(tree), default=ext, strict_types=True)
 
 
+def opt_state_to_flax(opt_state: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The port's optimizer state (``count``, ``mu/<name>`` and
+    ``nu/<name>``, or ``trace/<name>``) as the state tree of the JAX
+    trainer's ``optax.chain(identity, scale_by_adam | trace)``: ``{"0":
+    {}, "1": {"count", "mu", "nu"} | {"trace"}}``, each moment a tree of
+    the flax parameter paths in the JAX layouts."""
+    slots = sorted({k.split("/", 1)[0] for k in opt_state if "/" in k})
+    if slots not in (["mu", "nu"], ["trace"]):
+        raise ValueError(f"unrecognised optimizer state slots {slots}")
+    core: Dict[str, Any] = {}
+    for slot in slots:
+        sd = {k.split("/", 1)[1]: torch.from_numpy(np.asarray(v))
+              for k, v in opt_state.items() if k.startswith(slot + "/")}
+        core[slot] = state_dict_to_variables(sd)["params"]
+    if slots == ["mu", "nu"]:
+        core["count"] = np.asarray(opt_state["count"], np.int32)
+    return {"0": {}, "1": core}
+
+
+def opt_state_from_flax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Inverse of ``opt_state_to_flax``: the JAX trainer's optimizer state
+    tree (as ``read_flax_msgpack`` gives it) as the port's named arrays.
+    SGD's state has no step count; the port's (unused by SGD) is 0."""
+    core = tree.get("1") if set(tree) == {"0", "1"} else None
+    if not isinstance(core, dict) or set(core) not in (
+            {"count", "mu", "nu"}, {"trace"}):
+        raise ValueError(
+            "not the JAX trainer's optax.chain(identity, scale_by_adam | "
+            f"trace) state: keys {sorted(tree)}")
+    out = {"count": np.asarray(core.get("count", 0), np.int32)}
+    for slot in sorted(set(core) - {"count"}):
+        for name, t in variables_to_state_dict({"params": core[slot]}).items():
+            out[f"{slot}/{name}"] = t.numpy()
+    return out
+
+
 def _atomic_write(dst: str, write) -> None:
     tmp = dst + ".tmp"
     with open(tmp, "wb") as f:
@@ -207,13 +249,14 @@ def save_snapshot(
     extra: Optional[dict] = None,
 ) -> str:
     """Write ``weights.msgpack`` (flax's format) and ``weights.npz``
-    (flattened flax paths, JAX layouts), the optimizer state
-    ``opt_state.npz`` when given, and then ``meta.json``; a snapshot is
-    valid iff ``meta.json`` exists. A JAX ``opt_state.msgpack`` left in
-    ``path`` is removed first."""
+    (flattened flax paths, JAX layouts), the optimizer state when given
+    (``opt_state.npz`` and the JAX trainer's ``opt_state.msgpack``), and
+    then ``meta.json``; a snapshot is valid iff ``meta.json`` exists.
+    Without an optimizer state, an ``opt_state.msgpack`` left in ``path``
+    is removed first: it would describe other weights."""
     os.makedirs(path, exist_ok=True)
     jax_opt = os.path.join(path, _JAX_OPT)
-    if os.path.exists(jax_opt):
+    if opt_state is None and os.path.exists(jax_opt):
         os.remove(jax_opt)
     variables = state_dict_to_variables(state_dict)
     payload = flax_msgpack_bytes(variables)
@@ -223,6 +266,8 @@ def save_snapshot(
     if opt_state is not None:
         _atomic_write(os.path.join(path, _OPT),
                       lambda f: np.savez(f, **opt_state))
+        opt_payload = flax_msgpack_bytes(opt_state_to_flax(opt_state))
+        _atomic_write(jax_opt, lambda f: f.write(opt_payload))
     meta = {
         "version": 1,
         "step": int(step),
@@ -265,17 +310,28 @@ def load_snapshot(
     return variables, model_config, alphabet, contract, meta
 
 
-def has_opt_state(path: str) -> bool:
-    """Whether the port's optimizer state belongs to this snapshot: the
-    last ``meta.json`` written names it (a JAX save does not)."""
+def _port_opt_is_current(path: str) -> bool:
+    """The port's npz belongs to this snapshot: the last ``meta.json``
+    written names it (a JAX save does not)."""
     return (os.path.exists(os.path.join(path, _OPT))
             and load_meta(path).get("opt_state") == _OPT)
 
 
+def has_opt_state(path: str) -> bool:
+    """Whether this snapshot carries an optimizer state of either package
+    (the port's npz named by ``meta.json``, or ``opt_state.msgpack``)."""
+    return (_port_opt_is_current(path)
+            or os.path.exists(os.path.join(path, _JAX_OPT)))
+
+
 def load_opt_state(path: str) -> Dict[str, np.ndarray]:
-    """The optimizer state ``save_snapshot`` wrote, as named arrays."""
-    with np.load(os.path.join(path, _OPT)) as z:
-        return {k: z[k] for k in z.files}
+    """The snapshot's optimizer state as the port's named arrays: the
+    port's npz where ``meta.json`` names it, else the JAX trainer's
+    ``opt_state.msgpack``."""
+    if _port_opt_is_current(path):
+        with np.load(os.path.join(path, _OPT)) as z:
+            return {k: z[k] for k in z.files}
+    return opt_state_from_flax(read_flax_msgpack(os.path.join(path, _JAX_OPT)))
 
 
 def promote(src: str, dst: str) -> None:

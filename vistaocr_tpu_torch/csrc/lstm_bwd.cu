@@ -90,7 +90,11 @@
 //     cluster barrier, gather, product) per 32-row batch tile, at two
 //     CTAs an SM; past one batch tile that costs more than a second
 //     launch a frame and bptt_dh's small CTAs.
-//   Any H.
+//   Any H. Above H=512, bf16 weights (type codes 1 and 2) take this route
+//   too: the caller passes wh widened to f32 (exact), and with f32 streams
+//   (code 2) the products' operands, ys in the gate GEMM and dxw read back
+//   for dh, are rounded to bf16 where they are read (bf16 streams are bf16
+//   values already), so only the summation order differs.
 // - dwh is not summed frame by frame as on the TPU (where the kernel keeps
 //   it in VMEM across the grid): it is one product over K = (T-1)*B rows
 //   after the loop, taking ys and dxw at a one-frame offset (the rows of
@@ -104,9 +108,9 @@
 //   the shared-memory store (f32 streams, or rows TMA cannot describe).
 //   f32/f32 stays on the f32 FMA units, so that no TF32 rounding changes
 //   its numbers: 128 x 128 tiles, 8 x 8 per thread, double-buffered.
-// Ragged B, H and 4H edges read as zeros, so any B, T >= 1 and H >= 1
-// (H <= 512 with bf16 W); every output element is written, and two runs
-// give the same bits. Times on an H100 are in PERF.md.
+// Ragged B, H and 4H edges read as zeros, so any B, T >= 1 and H >= 1;
+// every output element is written, and two runs give the same bits. Times
+// on an H100 are in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
@@ -1163,8 +1167,10 @@ __device__ __forceinline__ void gemm_f32_stage(S* as, float* bs,
 }
 
 // An overload of the bf16 form's name, so that one profiler filter,
-// "bptt_gates_gemm<", finds the gate GEMM of either weight type.
-template <typename S>
+// "bptt_gates_gemm<", finds the gate GEMM of either weight type. RT: the
+// type the ys operand is rounded to (float: none; bf16 for f32 streams with
+// bf16 weights widened to f32, type code 2 above H=512).
+template <typename S, typename RT>
 __global__ void __launch_bounds__(QTHREADS, 2)
 bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
   const GatesF32Dir d = blockIdx.z == 0 ? d0 : d1;
@@ -1203,7 +1209,8 @@ bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
       float4 av[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        av[i] = ld4_f32(a + (4 * tm + i % 4 + 64 * (i / 4)) * QK + 4 * q);
+        av[i] = round4<RT>(
+            ld4_f32(a + (4 * tm + i % 4 + 64 * (i / 4)) * QK + 4 * q));
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -1246,7 +1253,7 @@ bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
   }
 }
 
-template <typename S>
+template <typename S, typename RT>
 cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
                                const void* const* xw, const void* const* wh,
                                const void* const* ys, float* const* pre,
@@ -1270,7 +1277,8 @@ cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
   // ys rows of whole 16-byte chunks (wh's rows, 16H bytes, always are)
   const int vec = aligned && H % (16 / static_cast<int>(sizeof(S))) == 0;
   constexpr int smem = gemm_f32_smem<S>();
-  void (*kernel)(GatesF32Dir, GatesF32Dir, int, int, int) = bptt_gates_gemm<S>;
+  void (*kernel)(GatesF32Dir, GatesF32Dir, int, int, int) =
+      bptt_gates_gemm<S, RT>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1348,7 +1356,7 @@ inline int frame_smem(int pw) {
   return (FR_M * FR_WLD + 4 * FR_U * FR_B + 4 * pw * FR_B) * 4;
 }
 
-template <typename S>
+template <typename S, typename RT>
 __global__ void __launch_bounds__(FR_THREADS, 2)
 bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
            int B, int H, int nbt, int us, int pw, int step, int last,
@@ -1447,7 +1455,7 @@ bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
           out[FR_PARTS * BH + idx] = m * (dc_t * gf) + (1.0f - m) * dc;
         }
 #pragma unroll
-        for (int g = 0; g < 4; ++g) v[g] = to_f32(g4[g]);
+        for (int g = 0; g < 4; ++g) v[g] = round_to<RT>(to_f32(g4[g]));
       }
 #pragma unroll
       for (int g = 0; g < 4; ++g) piece[(g * pw + uu) * FR_B + b] = v[g];
@@ -1529,7 +1537,7 @@ bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
   if (nch > 0) cluster_wait_acquire();
 }
 
-template <typename S>
+template <typename S, typename RT>
 cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
                          int H, int ndir, int us, int step, int last, int vec,
                          cudaStream_t stream) {
@@ -1540,7 +1548,8 @@ cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
   static int configured = 0;  // per instantiation: the largest opt-in yet
   if (smem > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bptt_frame<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bptt_frame<S, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     configured = smem;
   }
@@ -1559,8 +1568,8 @@ cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, bptt_frame<S>, d[0], d[1], mask, B, H, nbt, us,
-                         pw, step, last, vec);
+      cudaLaunchKernelEx(&cfg, bptt_frame<S, RT>, d[0], d[1], mask, B, H, nbt,
+                         us, pw, step, last, vec);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1636,7 +1645,7 @@ constexpr int DH_SMEM =
     1024 + std::max(SIMT_K * (DH_M + 4) * 4 + SIMT_K * DH_LD * 4,
                     DH_M * DH_LD * 4);
 
-template <typename S>
+template <typename S, typename RT>
 __global__ void __launch_bounds__(DH_THREADS)
 bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
         int B, int H, int nbt, int ks) {
@@ -1688,7 +1697,9 @@ bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
 #pragma unroll
     for (int i = 0; i < WL; ++i) ws[lg * (DH_M + 4) + lr + 4 * i] = wreg[i];
 #pragma unroll
-    for (int i = 0; i < SL; ++i) ds[lg * DH_LD + lr + 4 * i] = to_f32(sreg[i]);
+    for (int i = 0; i < SL; ++i) {
+      ds[lg * DH_LD + lr + 4 * i] = round_to<RT>(to_f32(sreg[i]));
+    }
     __syncthreads();
     if (g0 + SIMT_K < k_hi) load(g0 + SIMT_K);
 #pragma unroll 8
@@ -1735,14 +1746,15 @@ bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
   cluster.sync();  // the partials stay in place until every rank has read
 }
 
-template <typename S>
+template <typename S, typename RT>
 cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
                          int H, int ndir, int ks, int first,
                          cudaStream_t stream) {
   static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bptt_dh<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, DH_SMEM);
+        bptt_dh<S, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DH_SMEM);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -1768,7 +1780,8 @@ cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bptt_dh<S>, d[0], d[1], mask, B, H, nbt, ks);
+  err = cudaLaunchKernelEx(&cfg, bptt_dh<S, RT>, d[0], d[1], mask, B, H, nbt,
+                           ks);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1788,19 +1801,22 @@ inline void frame_at(int step, int T, int reverse, int* t, int* tp) {
   }
 }
 
-// f32 W (type codes 0 and 3): bptt_gates_gemm into the front of scratch
-// ([T, B, 4H] pre), then the frame loop behind it: folded, one bptt_frame
-// launch a frame with the carries in [2][FR_PARTS + 1][B, H]; or split,
-// bptt_cell and bptt_dh a frame with the carries dh, dc in [2][B, H].
-template <typename S>
+// f32 W (type codes 0 and 3; 1 and 2 above H=512, with wh widened):
+// bptt_gates_gemm into the front of scratch ([T, B, 4H] pre), then the
+// frame loop behind it: folded, one bptt_frame launch a frame with the
+// carries in [2][FR_PARTS + 1][B, H]; or split, bptt_cell and bptt_dh a
+// frame with the carries dh, dc in [2][B, H]. RT: the type the products'
+// operands (ys, and dxw read back) are rounded to: float, or bf16 for f32
+// streams with bf16 weights (bf16 streams are bf16 values already).
+template <typename S, typename RT>
 int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
                  const void* const* xw, const void* const* wh,
                  const void* const* ys, const void* const* cs,
                  const void* const* dys, void* const* dxw,
                  float* const* scratch, const int* reverse, int fold,
                  cudaStream_t stream) {
-  cudaError_t err = run_gates_gemm_f32<S>(T, B, H, ndir, xw, wh, ys, scratch,
-                                          reverse, stream);
+  cudaError_t err = run_gates_gemm_f32<S, RT>(T, B, H, ndir, xw, wh, ys,
+                                              scratch, reverse, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_pre = (long long)T * B * 4 * H;
   if (!fold) {
@@ -1821,7 +1837,7 @@ int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
         frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
       }
       if (ndir == 1) d[1] = d[0];
-      err = launch_split<S>(d, mask, B, H, ndir, ks, step == 0, stream);
+      err = launch_split<S, RT>(d, mask, B, H, ndir, ks, step == 0, stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     return 0;
@@ -1843,8 +1859,8 @@ int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
       frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
     }
     if (ndir == 1) d[1] = d[0];
-    err = launch_frame<S>(d, mask, B, H, ndir, us, step, step + 1 == T, vec,
-                          stream);
+    err = launch_frame<S, RT>(d, mask, B, H, ndir, us, step, step + 1 == T,
+                              vec, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -1854,8 +1870,10 @@ int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
 
 namespace {
 
-// vo_lstm_bwd with the f32 frame loop's design named (fold; codes 0, 3)
-int bwd(int type_code, int fold, int T, int B, int H, int ndir,
+// vo_lstm_bwd with the f32 frame loop's design named (fold); `persistent`:
+// codes 1 and 2 take the bf16-weight kernels (else the f32-weight route)
+int bwd(int type_code, bool persistent, int fold, int T, int B, int H,
+        int ndir,
         const void* mask, const void* xw0, const void* wh0, const void* ys0,
         const void* cs0, const void* dys0, void* dxw0, void* scratch0,
         int reverse0, const void* xw1, const void* wh1, const void* ys1,
@@ -1875,19 +1893,25 @@ int bwd(int type_code, int fold, int T, int B, int H, int ndir,
   const int reverse[2] = {reverse0, reverse1};
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (persistent && type_code == 1) {
+    return run_bptt_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                     dxw, scratch, reverse, s);
+  }
+  if (persistent && type_code == 2) {
+    return run_bptt_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                      dxw, scratch, reverse, s);
+  }
   switch (type_code) {
     case 0:
-      return run_bptt_f32<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
-                                 scratch, reverse, fold, s);
-    case 1:
-      return run_bptt_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                       dxw, scratch, reverse, s);
+      return run_bptt_f32<float, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                        dxw, scratch, reverse, fold, s);
     case 2:
-      return run_bptt_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                        dxw, scratch, reverse, s);
+      return run_bptt_f32<float, bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                       dxw, scratch, reverse, fold, s);
+    case 1:  // bf16 streams: every operand is a bf16 value, as in code 3
     case 3:
-      return run_bptt_f32<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys, dxw,
-                                scratch, reverse, fold, s);
+      return run_bptt_f32<bf16, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
+                                       dxw, scratch, reverse, fold, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1896,12 +1920,14 @@ int bwd(int type_code, int fold, int T, int B, int H, int ndir,
 }  // namespace
 
 // The BPTT frames of one or two directions that share T, B, H, the types
-// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 (bf16 W, H <= 512)
-// make two launches, bptt_gates_gemm and lstm_bwd_persistent, and take
-// scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any contents);
-// codes 0 and 3 make bptt_gates_gemm, then a frame loop chosen by B
+// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 with H <= 512
+// (wh in bf16) make two launches, bptt_gates_gemm and lstm_bwd_persistent,
+// and take scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any
+// contents). Every other call takes the f32-weight route (wh in f32; codes
+// 1 and 2 above H=512: the bf16 weights widened, the products' operands
+// rounded to bf16): bptt_gates_gemm, then a frame loop chosen by B
 // (vo_lstm_bwd_f32_folds): T bptt_frame launches (folded) or T bptt_cell
-// and T bptt_dh (split); they take scratch{0,1}: [T*B*4H + 20*B*H] f32
+// and T bptt_dh (split); it takes scratch{0,1}: [T*B*4H + 20*B*H] f32
 // (the gates, then the carries; any contents). Writes dxw{0,1} [T, B, 4H]
 // in S. Returns the first non-zero CUDA error of a launch, or 0.
 extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
@@ -1912,17 +1938,18 @@ extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
                            const void* xw1, const void* wh1, const void* ys1,
                            const void* cs1, const void* dys1, void* dxw1,
                            void* scratch1, int reverse1, void* stream) {
-  return bwd(type_code, f32_folds(B), T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
-             dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
-             scratch1, reverse1, stream);
+  return bwd(type_code, H <= BMAX_H, f32_folds(B), T, B, H, ndir, mask, xw0,
+             wh0, ys0, cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1,
+             cs1, dys1, dxw1, scratch1, reverse1, stream);
 }
 
 // 1 when vo_lstm_bwd folds the f32 frame loop at batch size B, else 0.
 extern "C" int vo_lstm_bwd_f32_folds(int B) { return f32_folds(B) ? 1 : 0; }
 
-// vo_lstm_bwd with the f32 frame loop's design named (fold 1: bptt_frame;
-// 0: bptt_cell + bptt_dh), so that both designs can be held to the plain
-// version and timed at any shape.
+// vo_lstm_bwd's f32-weight route with the frame loop's design named (fold
+// 1: bptt_frame; 0: bptt_cell + bptt_dh), so that both designs can be held
+// to the plain version and timed at any shape; any type code at any H
+// (codes 1 and 2: wh widened to f32, as vo_lstm_bwd takes it above H=512).
 extern "C" int vo_lstm_bwd_f32(int fold, int type_code, int T, int B, int H,
                                int ndir, const void* mask,
                                const void* xw0, const void* wh0,
@@ -1933,11 +1960,8 @@ extern "C" int vo_lstm_bwd_f32(int fold, int type_code, int T, int B, int H,
                                const void* ys1, const void* cs1,
                                const void* dys1, void* dxw1, void* scratch1,
                                int reverse1, void* stream) {
-  if (type_code != 0 && type_code != 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return bwd(type_code, fold, T, B, H, ndir, mask, xw0, wh0, ys0, cs0, dys0,
-             dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
+  return bwd(type_code, false, fold, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
+             dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
              scratch1, reverse1, stream);
 }
 

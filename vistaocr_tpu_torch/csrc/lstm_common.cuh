@@ -1,6 +1,6 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu,
-// lstm_bi_stacked.cu): type conversions, the gate nonlinearities, and the
-// per-step gate product
+// lstm_bi_stacked.cu): type conversions and roundings, the gate
+// nonlinearities, and the per-step gate product
 //   acc = round_to_W(h) @ wh          [TB rows x TJ units x 4 gates] per block
 // with f32 accumulation, over shared-memory tiles of h and wh. The f32
 // forward step and the stacked experiment's BPTT gate recompute run the
@@ -41,6 +41,17 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// four values rounded to the type T and back to f32 (no-op for float)
+template <typename T>
+__device__ __forceinline__ float4 round4(float4 v) {
+  return make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z),
+                     round_to<T>(v.w));
+}
+template <>
+__device__ __forceinline__ float4 round4<float>(float4 v) {
+  return v;
+}
+
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
@@ -65,9 +76,10 @@ struct Tiles {
 // rows b = b0 + 4*tr + r and units j = j0 + 2*tu + s (tr = tid / 8,
 // tu = tid % 8). h is [B, H] row-major in the type HT. The next K chunk
 // is loaded into registers while the current one is multiplied, and
-// converted (HT -> f32, rounding to W) only when stored to shared memory,
-// so the loads stay in flight during the FMAs.
-template <typename HT, typename W>
+// converted (HT -> f32, rounding to R) only when stored to shared memory,
+// so the loads stay in flight during the FMAs. R is the type h is rounded
+// to: W, or bf16 where bf16 weights come widened to f32 (W = float).
+template <typename HT, typename W, typename R = W>
 __device__ __forceinline__ void gate_product(
     float (&acc)[4][2][4], const HT* __restrict__ h, const W* __restrict__ wh,
     int B, int H, int b0, int j0, Tiles& sm) {
@@ -101,9 +113,9 @@ __device__ __forceinline__ void gate_product(
   for (int k0 = 0; k0 < H; k0 += TK) {
 #pragma unroll
     for (int i = 0; i < H_LOADS; ++i) {
-      // h rounded to the weight type, as the reference rounds h to the
+      // h rounded to the compute type, as the reference rounds h to the
       // compute dtype before the product
-      sm.hs[hk][hb + (THREADS / TK) * i] = round_to<W>(to_f32(hreg[i]));
+      sm.hs[hk][hb + (THREADS / TK) * i] = round_to<R>(to_f32(hreg[i]));
     }
 #pragma unroll
     for (int i = 0; i < W_LOADS; ++i) {

@@ -66,10 +66,14 @@
 //   during the product instead, they slow its shared-memory reads).
 // - Each ys/cs element has one writer, no atomics: two runs give the same
 //   bits.
-// - Limits: H <= 512 (16 CTAs x 32 units; larger H is refused: a cluster
-//   cannot hold more of wh), any B (ceil(B/32) clusters per direction;
-//   those beyond what the card holds at once run in later waves), any T.
-//   Its times on an H100 are in PERF.md.
+// - Limits: H <= 512 (16 CTAs x 32 units: a cluster cannot hold more of
+//   wh), any B (ceil(B/32) clusters per direction; those beyond what the
+//   card holds at once run in later waves), any T. Its times on an H100
+//   are in PERF.md.
+// - Above H=512, bf16 weights take the f32-weight route below: the caller
+//   passes wh widened to f32 (exact), and h is rounded to bf16 where the
+//   product reads it (the f32 carry, the mask freeze and the exchanged h
+//   stay f32), so only the summation order differs from the reference.
 //
 // f32 weights (type codes 0 and 3, the parity path): wgmma has no exact
 // f32 x f32 product and TF32 would change the numbers, so the product runs
@@ -152,7 +156,9 @@ struct Dir {
   int t;              // frame index this step processes
 };
 
-template <typename S, typename W>
+// R: the type h is rounded to before the product (W, or bf16 for bf16
+// weights widened to f32)
+template <typename S, typename W, typename R>
 __global__ void __launch_bounds__(THREADS)
 lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
           int B, int H) {
@@ -173,7 +179,7 @@ lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
     for (int s = 0; s < 2; ++s)
 #pragma unroll
       for (int g = 0; g < 4; ++g) acc[r][s][g] = 0.0f;
-  gate_product<float, W>(acc, d.h_in, d.wh, B, H, b0, j0, sm);
+  gate_product<float, W, R>(acc, d.h_in, d.wh, B, H, b0, j0, sm);
 
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -209,7 +215,7 @@ lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
   }
 }
 
-template <typename S, typename W>
+template <typename S, typename W, typename R>
 int run_per_frame(int T, int B, int H, int ndir, const float* mask,
                   const void* const* xw, const void* const* wh,
                   void* const* ys, void* const* cs, float* const* scratch,
@@ -233,7 +239,7 @@ int run_per_frame(int T, int B, int H, int ndir, const float* mask,
       d[i].t = reverse[i] ? T - 1 - step : step;
     }
     if (ndir == 1) d[1] = d[0];
-    lstm_step<S, W><<<grid, THREADS, 0, stream>>>(d[0], d[1], mask, B, H);
+    lstm_step<S, W, R><<<grid, THREADS, 0, stream>>>(d[0], d[1], mask, B, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -335,8 +341,11 @@ __device__ __forceinline__ unsigned int ld_acquire_gpu(
 // U*r + U-1 of its direction and all four gate columns of each, over every
 // batch row, for all T frames. `resident`: the CTA's [Hp, 4U] slice of wh
 // stays in shared memory; else each warp streams its rows with h. `vec`:
-// wh rows hold whole, aligned 16-byte runs of U units of a gate.
-template <typename S, int U>
+// wh rows hold whole, aligned 16-byte runs of U units of a gate. R: the
+// type h is rounded to as the product reads it (float: none; bf16 for
+// bf16 weights widened to f32); the f32 h that the freeze and the next
+// frame's exchange carry stays unrounded.
+template <typename S, int U, typename R>
 __global__ void __launch_bounds__(GTHREADS, 1)
 lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
               int T, int B, int H, int resident, int vec) {
@@ -493,8 +502,8 @@ lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
           float4 h4[8];
 #pragma unroll
           for (int r = 0; r < 8; ++r) {
-            h4[r] = *reinterpret_cast<const float4*>(
-                hs + (rg + 4 * r) * GKD + 4 * kq);
+            h4[r] = round4<R>(*reinterpret_cast<const float4*>(
+                hs + (rg + 4 * r) * GKD + 4 * kq));
           }
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
@@ -611,10 +620,10 @@ inline int device_sms() {
   return sms[dev];
 }
 
-template <typename S, int U>
+template <typename S, int U, typename R>
 cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
                         int H, int ndir, cudaStream_t stream) {
-  auto kernel = lstm_fwd_grid<S, U>;
+  auto kernel = lstm_fwd_grid<S, U, R>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -638,7 +647,7 @@ cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <typename S>
+template <typename S, typename R>
 int run_grid(int T, int B, int H, int ndir, const float* mask,
              const void* const* xw, const void* const* wh, void* const* ys,
              void* const* cs, float* const* scratch, const int* reverse,
@@ -660,9 +669,11 @@ int run_grid(int T, int B, int H, int ndir, const float* mask,
   if (ndir == 1) d[1] = d[0];
   cudaError_t err;
   switch (U) {
-    case 4: err = launch_grid<S, 4>(d, mask, T, B, H, ndir, stream); break;
-    case 8: err = launch_grid<S, 8>(d, mask, T, B, H, ndir, stream); break;
-    case 16: err = launch_grid<S, 16>(d, mask, T, B, H, ndir, stream); break;
+    case 4: err = launch_grid<S, 4, R>(d, mask, T, B, H, ndir, stream); break;
+    case 8: err = launch_grid<S, 8, R>(d, mask, T, B, H, ndir, stream); break;
+    case 16:
+      err = launch_grid<S, 16, R>(d, mask, T, B, H, ndir, stream);
+      break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -1065,20 +1076,40 @@ inline bool f32_grid(int B, int H, int ndir) {
   return B <= (!grid_resident(U, H) ? 32 : U >= 8 ? 320 : 128);
 }
 
+template <typename S, typename R>
+int run_f32_as(bool grid, int T, int B, int H, int ndir, const float* mask,
+               const void* const* xw, const void* const* wh, void* const* ys,
+               void* const* cs, float* const* scratch, const int* reverse,
+               cudaStream_t s) {
+  return grid ? run_grid<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+                               reverse, s)
+              : run_per_frame<S, float, R>(T, B, H, ndir, mask, xw, wh, ys, cs,
+                                           scratch, reverse, s);
+}
+
+// The f32-weight route of every type code: wh in f32 (for codes 1 and 2
+// the bf16 weights widened, which is exact), h rounded to bf16 before the
+// product for codes 1 and 2, as the reference rounds it.
 int run_f32(bool grid, int type_code, int T, int B, int H, int ndir,
             const float* mask, const void* const* xw, const void* const* wh,
             void* const* ys, void* const* cs, float* const* scratch,
             const int* reverse, cudaStream_t s) {
-  if (type_code == 0) {
-    return grid ? run_grid<float>(T, B, H, ndir, mask, xw, wh, ys, cs,
-                                  scratch, reverse, s)
-                : run_per_frame<float, float>(T, B, H, ndir, mask, xw, wh, ys,
-                                              cs, scratch, reverse, s);
+  switch (type_code) {
+    case 0:
+      return run_f32_as<float, float>(grid, T, B, H, ndir, mask, xw, wh, ys,
+                                      cs, scratch, reverse, s);
+    case 1:
+      return run_f32_as<bf16, bf16>(grid, T, B, H, ndir, mask, xw, wh, ys, cs,
+                                    scratch, reverse, s);
+    case 2:
+      return run_f32_as<float, bf16>(grid, T, B, H, ndir, mask, xw, wh, ys,
+                                     cs, scratch, reverse, s);
+    case 3:
+      return run_f32_as<bf16, float>(grid, T, B, H, ndir, mask, xw, wh, ys, cs,
+                                     scratch, reverse, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return grid ? run_grid<bf16>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
-                               reverse, s)
-              : run_per_frame<bf16, float>(T, B, H, ndir, mask, xw, wh, ys,
-                                           cs, scratch, reverse, s);
 }
 
 }  // namespace
@@ -1086,10 +1117,12 @@ int run_f32(bool grid, int type_code, int T, int B, int H, int ndir,
 // One call runs the whole recurrence of one or two directions that share
 // T, B, H, the types and the mask (the two directions of a BLSTM layer).
 // type_code: 0 = S f32 / W f32, 1 = S bf16 / W bf16, 2 = S f32 / W bf16,
-// 3 = S bf16 / W f32. Codes 1 and 2 make one persistent launch (H <= 512);
-// codes 0 and 3 one lstm_fwd_grid launch (vo_lstm_fwd_f32_grid), else one
-// lstm_step launch per frame, and need scratch{0,1}: vo_lstm_fwd_scratch
-// floats each, zeroed by the caller; codes 1 and 2 ignore scratch.
+// 3 = S bf16 / W f32. Codes 1 and 2 with H <= 512 make one persistent
+// launch (wh in bf16; scratch ignored). Every other call takes the f32
+// weight route: one lstm_fwd_grid launch (vo_lstm_fwd_f32_grid), else one
+// lstm_step launch per frame, with wh in f32 (codes 1 and 2 above H=512:
+// the bf16 weights widened, h rounded to bf16 before each product) and
+// scratch{0,1}: vo_lstm_fwd_scratch floats each, zeroed by the caller.
 // cs{0,1}: [T, B, H] in S for the training form, or null for the inference
 // form. Returns the first non-zero CUDA error of a launch, or 0.
 extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
@@ -1111,25 +1144,20 @@ extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
   const int reverse[2] = {reverse0, reverse1};
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (type_code) {
-    case 0:
-    case 3:
-      return run_f32(f32_grid(B, H, ndir), type_code, T, B, H, ndir, m, xw,
-                     wh, ys, cs, scratch, reverse, s);
-    case 1:
-      return run_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
-                                  s);
-    case 2:
-      return run_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
-                                   s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (type_code == 1 && H <= MAX_H) {
+    return run_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, reverse, s);
   }
+  if (type_code == 2 && H <= MAX_H) {
+    return run_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
+                                 s);
+  }
+  return run_f32(f32_grid(B, H, ndir), type_code, T, B, H, ndir, m, xw, wh,
+                 ys, cs, scratch, reverse, s);
 }
 
-// 1 when vo_lstm_fwd runs f32 weights (type codes 0 and 3) of ndir
-// directions at batch size B and hidden size H as one lstm_fwd_grid launch,
-// 0 when it runs lstm_step a frame.
+// 1 when vo_lstm_fwd's f32-weight route (type codes 0 and 3, and 1 and 2
+// above H=512) runs ndir directions at batch size B and hidden size H as
+// one lstm_fwd_grid launch, 0 when it runs lstm_step a frame.
 extern "C" int vo_lstm_fwd_f32_grid(int B, int H, int ndir) {
   return B >= 1 && f32_grid(B, H, ndir) ? 1 : 0;
 }
@@ -1144,9 +1172,11 @@ extern "C" long long vo_lstm_fwd_scratch(int B, int H) {
   return grid > step ? grid : step;
 }
 
-// vo_lstm_fwd for type codes 0 and 3 with the design named (grid 1:
+// vo_lstm_fwd's f32-weight route with the design named (grid 1:
 // lstm_fwd_grid; 0: lstm_step a frame), so that both designs can be held
-// to the plain version and timed at any shape the grid kernel takes.
+// to the plain version and timed at any shape the grid kernel takes; any
+// type code at any H (codes 1 and 2: wh widened to f32, as vo_lstm_fwd
+// takes it above H=512).
 extern "C" int vo_lstm_fwd_f32(int grid, int type_code, int T, int B, int H,
                                int ndir, const void* mask,
                                const void* xw0, const void* wh0, void* ys0,
@@ -1155,7 +1185,6 @@ extern "C" int vo_lstm_fwd_f32(int grid, int type_code, int T, int B, int H,
                                void* cs1, void* scratch1, int reverse1,
                                void* stream) {
   if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 ||
-      (type_code != 0 && type_code != 3) ||
       (grid && grid_units(H, ndir, device_sms()) == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

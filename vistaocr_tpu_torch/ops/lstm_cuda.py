@@ -38,9 +38,11 @@ design does about it.
   With bf16 weights a forward call is one kernel launch for all frames
   (``lstm_fwd_persistent``) and a BPTT call two (``bptt_gates_gemm``:
   every frame's gate recompute as one GEMM; ``lstm_bwd_persistent``: the
-  frame loop), H <= ``PERSISTENT_MAX_H`` (larger H raises). With f32
-  weights the forward is, by shape (``f32_forward_grid``, chosen on an
-  H100), one cooperative ``lstm_fwd_grid`` launch (a direction spread
+  frame loop), H <= ``PERSISTENT_MAX_H``. Above that, bf16 weights take
+  the f32-weight kernels below, with wh widened to f32 (exact) and the
+  products' operands rounded to bf16 where the plain versions round them.
+  With f32 weights the forward is, by shape (``f32_forward_grid``, chosen
+  on an H100), one cooperative ``lstm_fwd_grid`` launch (a direction spread
   over the card, each CTA's slice of wh on chip, h exchanged through L2
   behind a frame counter; H=512 up to B=320) or one ``lstm_step`` launch
   per frame; the BPTT is ``bptt_gates_gemm``'s f32 form on the FMA units,
@@ -69,8 +71,9 @@ FWD_GRID_LAUNCHES = 0
 STEP_LAUNCHES = 0
 _count_lock = threading.Lock()
 
-# the largest H the bf16-weight kernels take (MAX_H of csrc/lstm_fwd.cu,
-# BMAX_H of csrc/lstm_bwd.cu: a 16-CTA cluster holds all of wh)
+# the largest H the persistent bf16-weight kernels take (MAX_H of
+# csrc/lstm_fwd.cu, BMAX_H of csrc/lstm_bwd.cu: a 16-CTA cluster holds all
+# of wh); above it bf16 weights run on the f32-weight kernels
 PERSISTENT_MAX_H = 512
 
 _TYPE_CODES = {
@@ -270,6 +273,18 @@ def _check_launch(tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError("the LSTM kernels take contiguous tensors only")
 
 
+def _persistent(dtype: torch.dtype, H: int) -> bool:
+    """Whether bf16 weights at H run on the persistent kernels (else every
+    weight type takes the f32-weight kernels, bf16 wh widened to f32)."""
+    return dtype == torch.bfloat16 and H <= PERSISTENT_MAX_H
+
+
+def _kernel_wh(wh: torch.Tensor, persistent: bool) -> torch.Tensor:
+    """wh as the kernels read it: bf16 for the persistent kernels, f32
+    (bf16 values widened exactly) for the f32-weight ones."""
+    return wh if persistent else wh.to(torch.float32).contiguous()
+
+
 def _dir_args(per_dir: List[list], n_fields: int) -> list:
     """Flatten per-direction C arguments; with one direction the second
     direction's slots repeat the first (the kernel does not read them)."""
@@ -285,12 +300,13 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
              save_cell: bool = False, grid: Optional[bool] = None):
     """The forward kernel over one or two directions that share T, B, H,
     the dtypes and the mask (CUDA only). ``dirs``: (xw, wh already in
-    ``dtype``, reverse). Returns (ys list, cs list or None). With f32
-    weights the library chooses the design by shape
+    ``dtype``, reverse). Returns (ys list, cs list or None). On the
+    f32-weight route (f32 weights; bf16 weights above
+    ``PERSISTENT_MAX_H``) the library chooses the design by shape
     (``f32_forward_grid``); ``grid`` names one instead (True:
-    ``lstm_fwd_grid``, False: ``lstm_step`` a frame), so that both can be
-    held to the plain version and timed at any shape the grid kernel
-    takes."""
+    ``lstm_fwd_grid``, False: ``lstm_step`` a frame), also for bf16
+    weights at any H, so that both can be held to the plain version and
+    timed at any shape the grid kernel takes."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -302,12 +318,9 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
             raise ValueError("both directions must share shape and dtype")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
-    # bf16 weights: one persistent launch, a cluster of ceil(H/32) CTAs
-    # (at most 16) holding wh in shared memory
-    persistent = dtype == torch.bfloat16
-    if persistent and H > PERSISTENT_MAX_H:
-        raise ValueError(f"the bf16 LSTM kernel takes H <= {PERSISTENT_MAX_H}"
-                         f" (wh held by one 16-CTA cluster), got H={H}")
+    # bf16 weights up to PERSISTENT_MAX_H: one persistent launch, a cluster
+    # of ceil(H/32) CTAs holding wh in shared memory
+    persistent = _persistent(dtype, H) and grid is None
     lib = _build.load()
     # Outputs (and the f32 kernels' zeroed scratch: h(t) by step parity, c
     # and lstm_fwd_grid's frame counter) are allocated on the launch
@@ -319,11 +332,12 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     scratch = [None if persistent else torch.zeros(
         lib.vo_lstm_fwd_scratch(B, H), dtype=torch.float32,
         device=xw0.device) for _ in dirs]
+    whs = [_kernel_wh(wh, persistent) for _, wh, _ in dirs]
     args = _dir_args([
-        [xw.data_ptr(), wh.data_ptr(), ys[k].data_ptr(),
+        [xw.data_ptr(), whs[k].data_ptr(), ys[k].data_ptr(),
          cs[k].data_ptr() if save_cell else None,
          None if persistent else scratch[k].data_ptr(), int(rev)]
-        for k, (xw, wh, rev) in enumerate(dirs)], 6)
+        for k, (xw, _, rev) in enumerate(dirs)], 6)
     call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
             mask.data_ptr(), *args,
             torch.cuda.current_stream(xw0.device).cuda_stream)
@@ -345,8 +359,9 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
 
 def f32_forward_grid(B: int, H: int, ndir: int = 2) -> bool:
     """Whether the library runs the f32-weight forward (type codes 0 and
-    3) of ``ndir`` directions at B, H as one ``lstm_fwd_grid`` launch
-    (else ``lstm_step`` a frame); builds the kernels on first use."""
+    3; 1 and 2 above ``PERSISTENT_MAX_H``) of ``ndir`` directions at B, H
+    as one ``lstm_fwd_grid`` launch (else ``lstm_step`` a frame); builds
+    the kernels on first use."""
     from . import _build
 
     return bool(_build.load().vo_lstm_fwd_f32_grid(B, H, ndir))
@@ -357,16 +372,17 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
                      fold: Optional[bool] = None):
     """The BPTT frame kernels over one or two directions (CUDA only):
     ``bptt_gates_gemm`` (every frame's gate recompute as one GEMM), then
-    with bf16 weights ``lstm_bwd_persistent`` (one launch, H <=
-    ``PERSISTENT_MAX_H``), with f32 weights a frame loop that the library
-    chooses by B: ``bptt_frame`` per frame (folded), or ``bptt_cell`` and
-    ``bptt_dh`` per frame (split). ``dirs``: (xw, wh already in ``dtype``,
+    with bf16 weights up to ``PERSISTENT_MAX_H`` ``lstm_bwd_persistent``
+    (one launch), else (f32 weights; bf16 weights above it, widened to
+    f32) a frame loop that the library chooses by B: ``bptt_frame`` per
+    frame (folded), or ``bptt_cell`` and ``bptt_dh`` per frame (split). ``dirs``: (xw, wh already in ``dtype``,
     ys, cs, dys in the stream dtype, reverse). Returns dxw per direction,
     and with ``return_gates`` also the recomputed gates ``pre`` [T, B, 4H]
     f32 per direction (what ``bptt_gates_ref`` computes), so that each
     kernel can be held to its plain version. ``fold`` names the f32 frame
     loop's design instead of the library's choice, so that both designs
-    can be held to the plain version and timed at any shape."""
+    can be held to the plain version and timed at any shape (for bf16
+    weights at any H: the f32-weight route)."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -381,13 +397,10 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
             raise ValueError("ys, cs and dys must be [T, B, H]")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
-    # bf16 weights: the gate GEMM into scratch, then one persistent launch,
-    # a cluster of ceil(H/32) CTAs holding wh in registers
-    persistent = dtype == torch.bfloat16
-    if persistent and H > PERSISTENT_MAX_H:
-        raise ValueError(f"the bf16 LSTM BPTT kernel takes H <= "
-                         f"{PERSISTENT_MAX_H} (wh held by one 16-CTA "
-                         f"cluster), got H={H}")
+    # bf16 weights up to PERSISTENT_MAX_H: the gate GEMM into scratch, then
+    # one persistent launch, a cluster of ceil(H/32) CTAs holding wh in
+    # registers
+    persistent = _persistent(dtype, H) and fold is None
     lib = _build.load()
     dxw = [torch.empty_like(d[0]) for d in dirs]
     # the recomputed gates [T, B, 4H] f32, and with f32 weights the
@@ -398,10 +411,11 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     scratch = [torch.empty(n_pre + (0 if persistent else 20 * B * H),
                            dtype=torch.float32, device=xw0.device)
                for _ in dirs]
+    whs = [_kernel_wh(d[1], persistent) for d in dirs]
     args = _dir_args([
-        [xw.data_ptr(), wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+        [xw.data_ptr(), whs[k].data_ptr(), ys.data_ptr(), cs.data_ptr(),
          dys.data_ptr(), dxw[k].data_ptr(), scratch[k].data_ptr(), int(rev)]
-        for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 8)
+        for k, (xw, _, ys, cs, dys, rev) in enumerate(dirs)], 8)
     call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
             mask.data_ptr(), *args,
             torch.cuda.current_stream(xw0.device).cuda_stream)

@@ -1,14 +1,20 @@
 """Batched inference service on one CUDA device.
 
-Counterpart of ``vistaocr_tpu/serve/service.py:50-916``, greedy path:
+Counterpart of ``vistaocr_tpu/serve/service.py:50-916``, greedy and
+host-beam paths:
 
     submit(image) -> Future
         | grayscale + polarity (host, numpy)     [data/transforms]
+        | (device_resize=False: the host resize, PIL's BILINEAR in numpy)
         | route to bucket by width               [ShapeContract]
         | enqueue; flush on max_batch or deadline
         v
     per-bucket batch on the device: (resize) + preprocess + CNN +
-    BLSTM (CUDA kernel) + head + greedy collapse and packed score
+    BLSTM (CUDA kernel) + head + greedy collapse and packed score, or
+    (decoder="beam", beam_impl="host") the per-frame top-k
+        v
+    host: (beam: the prefix beam search with the char LM, lexicon and
+    word LM, on the C++ engine or the Python expansion [decode/beam])
         v
     future.set_result(LineResult)
 
@@ -27,17 +33,18 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..checkpoint import load_model
 from ..data.buckets import BucketSpec
-from ..data.transforms import maybe_invert, to_grayscale
+from ..data.transforms import maybe_invert, normalize_line, to_grayscale
+from ..decode import BeamConfig, beam_decode, beam_topk, load_lm
 from ..decode.greedy import SCORE_SCALE, greedy_frames_packed
 from ..ops.resize import MAX_SCALE, host_pool, resize_lines, resized_to_uint8
-from ..runtime import resolve_device, disable_tf32
+from ..runtime import HostCopy, disable_tf32, resolve_device
 from ..text import uxxxx_to_utf8
 
 
@@ -45,13 +52,17 @@ from ..text import uxxxx_to_utf8
 class ServiceConfig:
     """The JAX ``ServiceConfig`` fields and defaults (see the JAX module
     for each knob's rationale). Options of unported modules raise when
-    set; the tuning knobs that only those modules read (``beam``,
-    ``beam_impl``, ``device_lm``, ``quantize_float_prefix``) come with
-    them."""
+    set: the on-device beam (``beam_impl="device"``, the default, with
+    ``device_lm``), deskew, int8 and a data mesh;
+    ``quantize_float_prefix`` comes with int8."""
 
     max_batch: int = 32
     max_wait_ms: float = 5.0
-    decoder: str = "greedy"  # greedy (beam: not ported yet)
+    decoder: str = "greedy"  # greedy | beam
+    beam: BeamConfig = dataclasses.field(default_factory=BeamConfig)
+    # device (the on-device search: not ported yet) | host (the C++
+    # engine or the Python expansion over the device's per-frame top-k)
+    beam_impl: str = "device"
     # Batches a bucket worker keeps in flight before it blocks on the
     # oldest one's readback.
     pipeline_depth: int = 2
@@ -60,10 +71,13 @@ class ServiceConfig:
     batch_sizes: Sequence[int] = ()
     mesh_data: int = 0
     lm_path: Optional[str] = None
+    # interleaved LM fusion inside the device beam (read only there)
+    device_lm: bool = True
     lexicon_path: Optional[str] = None
     word_lm_path: Optional[str] = None
     device_deskew: bool = False
-    # Requests at non-contract heights are resized on the device.
+    # Requests at non-contract heights are resized on the device; False:
+    # on the host at request prep (normalize_line).
     device_resize: bool = True
     quantize: str = "none"
     warmup: bool = True
@@ -75,21 +89,21 @@ class ServiceConfig:
 def _check_supported(config: ServiceConfig) -> None:
     """Raise on every option whose module is not ported yet."""
     todo = []
-    if config.decoder != "greedy":
-        if config.decoder != "beam":
-            raise ValueError(f"unknown decoder {config.decoder!r}")
-        todo.append("decoder='beam' (ROADMAP Queue 1: device beam/LM/lexicon)")
-    if config.lm_path:
-        todo.append("lm_path (ROADMAP Queue 1: device beam/LM/lexicon)")
-    if config.lexicon_path:
-        todo.append("lexicon_path (ROADMAP Queue 1: device beam/LM/lexicon)")
-    if config.word_lm_path:
-        todo.append("word_lm_path (ROADMAP Queue 1: device beam/LM/lexicon)")
+    if config.decoder not in ("greedy", "beam"):
+        raise ValueError(f"unknown decoder {config.decoder!r}")
+    if config.beam_impl not in ("device", "host"):
+        raise ValueError(f"unknown beam_impl {config.beam_impl!r}")
+    if config.decoder == "beam" and config.beam_impl == "device":
+        todo.append("decoder='beam' with beam_impl='device' (ROADMAP "
+                    "Queue 1: device beam); beam_impl='host' is ported")
+    if config.lexicon_path and config.decoder != "beam":
+        raise ValueError("lexicon_path needs decoder='beam' (the constraint "
+                         "lives in the beam search)")
+    if config.word_lm_path and config.decoder != "beam":
+        raise ValueError("word_lm_path needs decoder='beam' (word-LM fusion "
+                         "lives in the beam search)")
     if config.device_deskew:
         todo.append("device_deskew=True (ROADMAP Queue 1: deskew)")
-    if not config.device_resize:
-        todo.append("device_resize=False, the PIL host resize "
-                    "(ROADMAP Queue 1: host prep)")
     if config.quantize == "int8":
         todo.append("quantize='int8' (ROADMAP Queue 1: int8)")
     elif config.quantize != "none":
@@ -109,7 +123,8 @@ class LineResult:
     latency_ms: float
     bucket_width: int
     # Per-frame geometric-mean probability of the greedy best path, in
-    # (0, 1]: exp(best-path log-prob / valid frames).
+    # (0, 1]: exp(best-path log-prob / valid frames). None on the host
+    # beam path (its engines return no score).
     confidence: Optional[float] = None
 
     @property
@@ -136,12 +151,13 @@ _RAW_SLACK = 8
 
 @dataclasses.dataclass
 class _Handle:
-    """One dispatched batch: the packed [B, T+1] int32 result on the
-    device and, once prefetched, its pinned host copy and a CUDA event."""
+    """One dispatched batch: its results on the device (greedy: the packed
+    [B, T+1] int32 rows; host beam: log-probs, frame mask and the
+    per-frame top-k values and ids) and, once prefetched, their host
+    copy."""
 
-    packed: torch.Tensor
-    host: Optional[torch.Tensor] = None
-    event: Any = None
+    tensors: tuple
+    copy: Optional[HostCopy] = None
 
 
 class OcrService:
@@ -159,6 +175,20 @@ class OcrService:
         disable_tf32()
         self.model, self.alphabet, self.contract = load_model(
             snapshot, self.device)
+        # the host beam's lexicon, word LM and char LM (load_lm: the C++
+        # scorer when the native engine is built, else the Python ArpaLM)
+        self._lexicon = self._word_lm = None
+        if config.lexicon_path:
+            from ..decode.lexicon import Lexicon
+
+            self._lexicon = Lexicon.read_words(self.alphabet,
+                                               config.lexicon_path)
+        if config.word_lm_path:
+            from ..decode.lm import ArpaLM
+
+            self._word_lm = ArpaLM.read_arpa(config.word_lm_path)
+        self._lm = (load_lm(config.lm_path, self.alphabet)
+                    if config.lm_path else None)
         if config.serve_align:
             a = config.serve_align
             coarse = tuple(sorted({
@@ -208,10 +238,15 @@ class OcrService:
 
     # ---- client API ---------------------------------------------------------
     def _prep(self, image) -> _Pending:
-        """Host-side request prep: grayscale + polarity (+ rare integer
-        pre-pooling); the geometric resize runs on the device."""
+        """Host-side request prep. With device_resize, only grayscale +
+        polarity (+ rare integer pre-pooling) happen here and the
+        geometric resize runs on the device; without it the whole chain
+        (normalize_line) runs here."""
         H = self.contract.height
         max_w = self.contract.bucket_widths[-1]
+        if not self.config.device_resize:
+            norm = normalize_line(image, H, max_width=max_w)
+            return _Pending(norm, norm.shape[1], Future(), time.time())
         arr = maybe_invert(to_grayscale(image))
         h, w = arr.shape
         cap = MAX_SCALE * H
@@ -226,8 +261,8 @@ class OcrService:
         return _Pending(arr, new_w, Future(), time.time(), raw=True)
 
     def submit(self, image) -> Future:
-        """image: [H, W] uint8 array, any height. Returns a
-        Future[LineResult]."""
+        """image: [H, W]/[H, W, C] uint8 array or PIL image, any height.
+        Returns a Future[LineResult]."""
         p = self._prep(image)
         b = self.contract.bucket_for_width(p.width)
         self._queues[b].put(p)
@@ -275,13 +310,21 @@ class OcrService:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device, non_blocking=True)
 
+    def _decode_tail(self, lp, fm) -> _Handle:
+        """The device work after the forward: the greedy collapse and
+        packed score, or the host beam's per-frame top-k."""
+        if self.config.decoder == "beam":
+            k = min(self.config.beam.topk, lp.shape[-1])
+            return _Handle((lp, fm, *beam_topk(lp, k)))
+        return _Handle((greedy_frames_packed(lp, fm),))
+
     def _dispatch(self, images_np, widths_np) -> _Handle:
         """Device work for one assembled contract-height batch (call under
         the dispatch lock)."""
         with torch.inference_mode():
             lp, fm = self.model(self._to_device(images_np),
                                 self._to_device(widths_np))
-            return _Handle(greedy_frames_packed(lp, fm))
+            return self._decode_tail(lp, fm)
 
     def _dispatch_raw(self, raw, heights, widths, new_widths) -> _Handle:
         """Device work for a raw batch: on-device resize in front of the
@@ -296,7 +339,7 @@ class OcrService:
                 new_w, out_h=H, out_w=out_w,
             ))
             lp, fm = self.model(img, new_w)
-            return _Handle(greedy_frames_packed(lp, fm))
+            return self._decode_tail(lp, fm)
 
     def _assemble_chunk(self, bucket_idx: int, chunk: List[_Pending],
                         raw: bool):
@@ -310,23 +353,22 @@ class OcrService:
                 else self._dispatch(*assembled))
 
     def _prefetch_handle(self, handle: _Handle) -> None:
-        """Start the batch's device->host copy into pinned memory."""
-        if self.device.type != "cuda" or handle.host is not None:
-            return
-        host = torch.empty(handle.packed.shape, dtype=handle.packed.dtype,
-                           pin_memory=True)
-        host.copy_(handle.packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        handle.host, handle.event = host, event
+        """Start the batch's device->host copies into pinned memory."""
+        if handle.copy is None:
+            handle.copy = HostCopy(handle.tensors)
 
     def _finalize(self, handle: _Handle, n: int):
-        """Host side of a dispatched batch -> n (id row, log-prob) pairs."""
-        if handle.host is not None:
-            handle.event.synchronize()
-            packed = handle.host.numpy()
-        else:
-            packed = handle.packed.cpu().numpy()
+        """Host side of a dispatched batch -> n (id row, log-prob) pairs
+        (greedy), or n uxxxx hypotheses (host beam)."""
+        self._prefetch_handle(handle)
+        arrays = handle.copy.get()
+        if self.config.decoder == "beam":
+            lp, fm, vals, ids = arrays
+            return beam_decode(
+                lp, fm, self.alphabet, self.config.beam, lm=self._lm,
+                valid=np.arange(lp.shape[0]) < n, precomputed_topk=(vals, ids),
+                lexicon=self._lexicon, word_lm=self._word_lm)
+        (packed,) = arrays
         return [
             (row[:-1][row[:-1] != 0], row[-1] / SCORE_SCALE)
             for row in packed[:n]
@@ -426,15 +468,24 @@ class OcrService:
     def _resolve(self, bucket_idx: int, pendings: List[_Pending], hyps):
         spec = BucketSpec.of(self.contract, bucket_idx)
         now = time.time()
-        for p, (ids_row, logp) in zip(pendings, hyps):
-            # normalise by the line's frame count, known from its width
-            frames = self.contract.frames_for_width(p.width)
-            conf = float(np.exp(min(logp / max(frames, 1), 0.0)))
-            ids = ids_row.tolist()
+        for p, hyp in zip(pendings, hyps):
+            if isinstance(hyp, str):  # host beam: uxxxx, no score
+                conf = None
+                text = "".join(self._char_of.get(t) or uxxxx_to_utf8(t)
+                               for t in hyp.split())
+                uxxxx = hyp
+            else:  # greedy: (id row, log-prob)
+                ids_row, logp = hyp
+                # normalise by the line's frame count, known from its width
+                frames = self.contract.frames_for_width(p.width)
+                conf = float(np.exp(min(logp / max(frames, 1), 0.0)))
+                ids = ids_row.tolist()
+                text = "".join([self._chr_list[j] for j in ids])
+                uxxxx = " ".join([self._tok_list[j] for j in ids])
             p.future.set_result(
                 LineResult(
-                    text="".join([self._chr_list[j] for j in ids]),
-                    uxxxx=" ".join([self._tok_list[j] for j in ids]),
+                    text=text,
+                    uxxxx=uxxxx,
                     latency_ms=(now - p.t_submit) * 1000.0,
                     bucket_width=spec.width,
                     confidence=conf,
