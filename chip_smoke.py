@@ -27,7 +27,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              ``OcrService`` (max_batch=128, max_wait_ms=2.0): ~256 lines
              at height 32, 8 at heights 48/64 (device resize) through
              ``ocr_lines``, 16 through ``submit``; the kernel's launch
-             counter must grow.
+             counter must grow. Then the same lines through a service
+             with ``device_deskew=True`` (deskew on the card in front of
+             the forward, at the contract height and after the device
+             resize), every line scored.
 5. parity  - the same snapshot in f32: ``lstm_impl="scan"`` (plain)
              against ``"auto"`` (kernel), log-probs within 1e-3 on valid
              frames, greedy ids equal where the plain run's top-2 margin
@@ -96,7 +99,29 @@ the exit code is non-zero and no ``ok`` line is printed):
              transcripts on the C++ engine, which must have built; then
              ``OcrService(decoder="beam", beam_impl="host",
              device_resize=False)`` on colour (RGB/RGBA) lines at and off
-             the contract height; greedy and host-beam lines/s.
+             the contract height; greedy and host-beam lines/s. Then the
+             device beam (the default ``beam_impl``): plain, with the char
+             LM and lexicon fused (lexicon words, confidences, the report's
+             ``lm_fusion``) and with ``--nbest 4`` (lists of 1-4 whose
+             first is the fused 1-best), each run twice (the first
+             captures its graphs); its graph replay counter must
+             grow; lines/s of each.
+   service-beam - the device beam behind ``OcrService(max_batch=128)``
+             on phase 7's snapshot and 128 new glyph lines: plain (its
+             warm-up captures every graph of the ladder), with the char LM
+             and lexicon of the ``infer`` phase fused, and with a word LM
+             too: counters set to 0 before ``ocr_lines`` and read after
+             (graph replays and K1 launches must grow), then the same
+             posteriors (the model's on those lines, and 64 seeded lines
+             of 256 frames) through the service's device tail and the
+             host C++ engine: equal strings, or a difference printed with
+             its reason where no beam ends at a word boundary (the
+             documented fallback); two replays bit-equal, graph and eager
+             equal. Lines/s of a warm call beside the host beam and greedy
+             on the same lines, the device-busy share of a warm call, and
+             the search alone at B=128, T=512 (W=16, k=8): ms a batch as
+             a graph and eagerly, device launches a frame, its bound. One
+             JSON line holds these readings.
 8. train-parity - one f32 train-mode forward/backward of the flagship
              model from the same parameters with ``lstm_impl``/``ctc_impl``
              ``"auto"`` (kernels) against ``"scan"`` (plain): the loss within
@@ -486,6 +511,25 @@ def service_phase(snap: str, card: str, smi: str) -> int:
               f" bucket={results[0].bucket_width}", flush=True)
     finally:
         svc.close()
+    # deskew on the device in front of the forward, both dispatches (the
+    # contract height and the device resize)
+    svc = OcrService(snap, ServiceConfig(max_batch=128, max_wait_ms=2.0,
+                                         device_deskew=True), device="cuda")
+    try:
+        lstm_cuda.LAUNCHES = 0
+        svc.ocr_lines(bulk)
+        t0 = time.time()
+        skewed = svc.ocr_lines(bulk)
+        dt = time.time() - t0
+        _require(len(skewed) == len(bulk) and lstm_cuda.LAUNCHES > 0
+                 and all(0 < r.confidence <= 1 for r in skewed),
+                 "device_deskew service: every line answered and scored")
+        print(f"ocr_lines with device_deskew: {len(bulk)} lines in {dt:.3f} "
+              f"s = {len(bulk) / dt:.1f} lines/s ({smi}); "
+              f"{sum(a.text == b.text for a, b in zip(skewed, results))} "
+              "texts as without it", flush=True)
+    finally:
+        svc.close()
     return launches
 
 
@@ -545,6 +589,7 @@ def infer_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
     over the phase; greedy and host-beam lines/s printed with the card."""
     from vistaocr_tpu_torch import infer
     from vistaocr_tpu_torch.data import open_dataset
+    from vistaocr_tpu_torch.decode import device_beam as db
     from vistaocr_tpu_torch.decode import native_binding, offline
     from vistaocr_tpu_torch.decode.lm import train_char_lm
     from vistaocr_tpu_torch.ops import lstm_cuda
@@ -603,6 +648,42 @@ def infer_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
         lexicon = set(words)
         _require(all(_from_lexicon(r["hyp_text"], lexicon) for r in brecs),
                  "host-beam hypotheses are lexicon words")
+        # the device beam (the default beam_impl): plain, with the char LM
+        # and lexicon fused, and their n-best lists; each run twice, the
+        # first capturing a graph per batch shape, the second replaying
+        db.GRAPH_REPLAYS = 0
+        captures = db.GRAPH_CAPTURES
+        cold = {}
+        for tag, kw in (("plain", {}),
+                        ("fused", dict(lm_path=lm_path,
+                                       lexicon_path=lex_path)),
+                        ("nbest", dict(lm_path=lm_path,
+                                       lexicon_path=lex_path, nbest=4))):
+            cold[tag] = run(f"beam_device_{tag}_cold", decoder="beam",
+                            **kw)[0]["lines_per_sec"]
+            if tag == "plain":
+                dplain, _ = run("beam_device_plain", decoder="beam")
+            elif tag == "fused":
+                dbeam, drecs = run("beam_device", decoder="beam", **kw)
+            else:
+                dnbest, nrecs = run("beam_device_nbest", decoder="beam",
+                                    **kw)
+        replays, captures = db.GRAPH_REPLAYS, db.GRAPH_CAPTURES - captures
+        _require(replays > 0, "run_inference replayed the device beam graph")
+        _require(dbeam["decoder"] == "beam:device"
+                 and dbeam["lm_fusion"] == "device-interleaved",
+                 f"device beam report {dbeam}")
+        _require(all(_from_lexicon(r["hyp_text"], lexicon) for r in drecs)
+                 and all(0 < r["conf"] <= 1 for r in drecs),
+                 "device-beam hypotheses are lexicon words, scored")
+        _require(all(1 <= len(r["nbest"]) <= 4
+                     and r["nbest"][0]["hyp_uxxxx"] == r["hyp_uxxxx"]
+                     for r in nrecs), "n-best lists of 1-4, best first")
+        _require([r["hyp_uxxxx"] for r in nrecs]
+                 == [r["hyp_uxxxx"] for r in drecs],
+                 "the fused n-best's first is the fused 1-best")
+        dev_host_same = sum(a["hyp_uxxxx"] == b["hyp_uxxxx"]
+                            for a, b in zip(drecs, brecs))
         rng = np.random.default_rng(41)
         lines = [img for img, _ in glyph_lines(font, rng, 24, 40, 1500)]
         lines = [_colour(img, i) for i, img in enumerate(lines)]
@@ -630,6 +711,14 @@ def infer_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
                "greedy_cer": greedy["cer"],
                "beam_lines_per_sec": beam["lines_per_sec"],
                "beam_cer": beam["cer"], "lines": len(texts),
+               "device_beam_plain_lines_per_sec": dplain["lines_per_sec"],
+               "device_beam_lines_per_sec": dbeam["lines_per_sec"],
+               "device_beam_nbest_lines_per_sec": dnbest["lines_per_sec"],
+               "device_beam_cer": dbeam["cer"],
+               "device_beam_equals_host_beam": dev_host_same,
+               "device_beam_graph_replays": replays,
+               "device_beam_graph_captures": captures,
+               "device_beam_cold_lines_per_sec": cold,
                "offline_same": same, "offline_f16_tied": len(tied),
                "service_lines": len(lines),
                "service_lines_per_sec": len(lines) / svc_dt,
@@ -638,13 +727,210 @@ def infer_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
           f"lines/s ({out['greedy_with_dump_lines_per_sec']} with the "
           f"posterior dump), host beam (C++ engine, char LM + lexicon) "
           f"{out['beam_lines_per_sec']} lines/s over {len(texts)} glyph "
-          f"lines (CER {out['greedy_cer']} / {out['beam_cer']}); offline "
+          f"lines (CER {out['greedy_cer']} / {out['beam_cer']}); device "
+          f"beam plain {out['device_beam_plain_lines_per_sec']}, char LM + "
+          f"lexicon fused {out['device_beam_lines_per_sec']} (CER "
+          f"{out['device_beam_cer']}; equal to the host beam on "
+          f"{dev_host_same} lines), --nbest 4 "
+          f"{out['device_beam_nbest_lines_per_sec']} lines/s (warm; the "
+          f"runs that captured the graphs {cold}), {captures} graphs "
+          f"captured, {replays} replays; offline "
           f"decode of the dump equal on {same} lines ({len(tied)} with an "
           f"f16 tie at some frame); "
           f"service host beam, host resize: {out['service_lines']} colour "
           f"lines at {out['service_lines_per_sec']:.1f} lines/s; "
           f"lstm_fwd launches {launches} ({smi})", flush=True)
     return out
+
+
+def _hyp_uxxxx(alphabet, hyp) -> str:
+    """A service finalize's hypothesis as uxxxx: an id row or a uxxxx
+    string, with or without its score."""
+    if isinstance(hyp, tuple):
+        hyp = hyp[0]
+    return hyp if isinstance(hyp, str) else alphabet.decode(hyp.tolist())
+
+
+def _ends_mid_word(uxxxx: str, lexicon: set) -> bool:
+    """The hypothesis's last word is no lexicon word: the search fell back
+    to every beam because none ended at a word boundary."""
+    from vistaocr_tpu_torch.text import uxxxx_to_utf8
+
+    text = uxxxx_to_utf8(uxxxx).split()
+    return bool(text) and text[-1] not in lexicon
+
+
+def beam_same_posteriors(svc, lines, words) -> dict:
+    """The device beam's tail (``_decode_tail`` + ``_finalize``, the
+    service's own) and the host engine (``beam_decode``: the C++ engine
+    with the service's char LM, lexicon and word LM) on the same
+    posteriors: the model's, batch by batch as ``ocr_lines`` assembles
+    ``lines``, then 64 seeded CTC-shaped lines of 256 frames
+    (``beam_posteriors``), whose hypotheses are long whatever the
+    snapshot learned. On the first batch also the graph twice (bit-equal)
+    and eagerly (the same rows). Lines that differ only where no beam
+    ends at a word boundary (``decode/device_beam.py``: the documented
+    fallback, where the host oracle still word-scores the partial
+    trailing word) are printed with that reason; any other difference
+    fails."""
+    import torch
+    from vistaocr_tpu_torch.decode import beam_decode
+
+    groups: dict = {}
+    for img in lines:
+        p = svc._prep(img)
+        groups.setdefault(svc.contract.bucket_for_width(p.width), []).append(p)
+    batches = []
+    with torch.inference_mode():
+        for b, plist in sorted(groups.items()):
+            for i in range(0, len(plist), svc.config.max_batch):
+                chunk = plist[i:i + svc.config.max_batch]
+                images, widths, _ = svc._assemble(b, chunk)
+                batches.append((*svc.model(svc._to_device(images),
+                                           svc._to_device(widths)),
+                                len(chunk)))
+    batches.append((*beam_posteriors(64, 256, svc.alphabet.num_classes,
+                                     svc.device, seed=5), 64))
+    tally = {"same": 0, "no_boundary_fallback": 0, "nonempty": 0}
+    for n, (lp, fm, count) in enumerate(batches):
+        with torch.inference_mode():
+            dev_hyps = svc._finalize(svc._decode_tail(lp, fm), count)
+            if n == 0:
+                one = svc._beam_prog(lp, fm, **svc._beam_kw)
+                two = svc._beam_prog(lp, fm, **svc._beam_kw)
+                eager = svc._beam_prog(lp, fm, graph=False, **svc._beam_kw)
+                _require(all(torch.equal(a, c) for a, c in zip(one, two)),
+                         "two graph replays bit-equal")
+                _require(all(torch.equal(a, c) for a, c in zip(one, eager)),
+                         "graph and eager give the same rows")
+        host = beam_decode(lp, fm, svc.alphabet, svc.config.beam,
+                           lm=svc._lm, valid=np.arange(lp.shape[0]) < count,
+                           lexicon=svc._lexicon, word_lm=svc._word_lm)
+        for d, h in zip(dev_hyps, host):
+            d = _hyp_uxxxx(svc.alphabet, d)
+            tally["nonempty"] += bool(d)
+            if d == h:
+                tally["same"] += 1
+            elif words and (_ends_mid_word(d, words)
+                            or _ends_mid_word(h, words)):
+                tally["no_boundary_fallback"] += 1
+                print(f"  differs only by the no-boundary fallback (no beam "
+                      f"ends at a word boundary; the host oracle word-scores "
+                      f"the partial trailing word, the device search does "
+                      f"not): device {d!r}, host {h!r}", flush=True)
+            else:
+                _require(False, f"device beam {d!r} == host beam {h!r} on "
+                                "the same posteriors")
+    return tally
+
+
+def service_beam_phase(dev, snap: str, data: str, font: dict, card: str,
+                       smi: str) -> dict:
+    """The device beam (``decoder="beam"``, ``beam_impl="device"``, the
+    default) behind ``OcrService(max_batch=128)`` on phase 7's snapshot
+    and 128 new glyph lines of 40-2048 px: plain (its warm-up captures
+    every (bucket, batch size) graph), then with the char LM (order 3)
+    and lexicon built from the glyph validation transcripts as the
+    ``infer`` phase builds them, then with a word-bigram LM over the same
+    transcripts as well. Each through ``ocr_lines`` with the graph replay
+    and K1 launch counters set to 0 before and read after (both must
+    grow), confidences in (0, 1]; then the same posteriors through the
+    device tail and the host engine (``beam_same_posteriors``); then a warm
+    ``ocr_lines`` call timed. Beside them, on the same lines: the greedy
+    service and the host beam with the char LM and lexicon (lines/s);
+    the device-busy share of a warm ``ocr_lines`` call of the word-LM
+    service (``torch.profiler``); and ``device_beam_timing`` of the plain
+    and word-LM services' programs."""
+    from torch.profiler import ProfilerActivity, profile
+    from vistaocr_tpu_torch.data import open_dataset
+    from vistaocr_tpu_torch.decode import BeamConfig
+    from vistaocr_tpu_torch.decode import device_beam as db
+    from vistaocr_tpu_torch.decode.lm import train_char_lm
+    from vistaocr_tpu_torch.ops import lstm_cuda
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+    from vistaocr_tpu_torch.text import uxxxx_to_utf8
+    from vistaocr_tpu_torch.train import device_time_summary
+
+    out: dict = {}
+    beam = BeamConfig(lm_alpha=0.5, word_lm_alpha=0.5)
+    lines = [img for img, _ in glyph_lines(font, np.random.default_rng(43),
+                                           128, 40, 2048)]
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = list(open_dataset(data, "val").transcripts())
+        lm_path = os.path.join(tmp, "char.arpa")
+        lex_path = os.path.join(tmp, "words.txt")
+        wlm_path = os.path.join(tmp, "words.arpa")
+        train_char_lm(texts, order=3).write_arpa(lm_path)
+        utf8 = [uxxxx_to_utf8(t) for t in texts]
+        words = sorted({w for t in utf8 for w in t.split()})
+        with open(lex_path, "w") as f:
+            f.write("\n".join(words) + "\n")
+        train_char_lm(utf8, order=2).write_arpa(wlm_path)
+        base = dict(max_batch=128, max_wait_ms=2.0, beam=beam)
+        routes = {
+            "plain": dict(decoder="beam"),
+            "char_lm_lexicon": dict(decoder="beam", lm_path=lm_path,
+                                    lexicon_path=lex_path),
+            "char_lm_lexicon_word_lm": dict(
+                decoder="beam", lm_path=lm_path, lexicon_path=lex_path,
+                word_lm_path=wlm_path),
+            "host_beam_char_lm_lexicon": dict(
+                decoder="beam", beam_impl="host", lm_path=lm_path,
+                lexicon_path=lex_path),
+            "greedy": dict(),
+        }
+        programs = {}
+        for name, opts in routes.items():
+            t0 = time.time()
+            svc = OcrService(snap, ServiceConfig(
+                warmup=name == "plain", **base, **opts), device=dev)
+            try:
+                init_s = time.time() - t0
+                db.GRAPH_REPLAYS = 0
+                lstm_cuda.LAUNCHES = 0
+                results = svc.ocr_lines(lines)
+                replays, launches = db.GRAPH_REPLAYS, lstm_cuda.LAUNCHES
+                device_beam = svc._beam_prog is not None
+                _require(len(results) == len(lines) and launches > 0,
+                         f"{name}: every line answered, K1 launched")
+                _require(all(isinstance(r.text, str) for r in results),
+                         f"{name}: texts")
+                if name.startswith("host"):
+                    _require(all(r.confidence is None for r in results),
+                             f"{name}: no score")
+                else:
+                    _require(all(0 < r.confidence <= 1 for r in results),
+                             f"{name}: confidences in (0, 1]")
+                row = {"init_s": init_s, "replays": replays,
+                       "k1_launches": launches}
+                if device_beam:
+                    _require(replays > 0, f"{name}: the graph replayed")
+                    row.update(beam_same_posteriors(
+                        svc, lines, set(words) if svc._lexicon else None))
+                    programs[name] = (svc._beam_prog, svc._beam_kw,
+                                      svc.alphabet.num_classes)
+                t0 = time.time()
+                warm = svc.ocr_lines(lines)
+                row["lines_per_sec"] = len(lines) / (time.time() - t0)
+                row["same_as_first_call"] = sum(
+                    a.uxxxx == b.uxxxx for a, b in zip(results, warm))
+                if name == "char_lm_lexicon_word_lm":
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        svc.ocr_lines(lines)
+                    summary = device_time_summary(prof.events())
+                    row["profile"] = summary.splitlines()[0]
+                    print(f"service device beam ({name}) profile, one warm "
+                          f"ocr_lines call over {len(lines)} lines ({smi}):"
+                          "\n" + "".join(summary.splitlines(True)[:12]),
+                          flush=True)
+            finally:
+                svc.close()
+            out[name] = row
+            print(f"service {name}: {len(lines)} glyph lines, warm "
+                  f"{row['lines_per_sec']:.1f} lines/s ({smi}); {row}",
+                  flush=True)
+    return out, programs
 
 
 def parity_phase(snap: str, dev) -> None:
@@ -730,6 +1016,90 @@ def _bound(nbytes: float, flops: float, dtype) -> dict:
     t_ops = flops / PEAK_FLOPS[_dtname(dtype)] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# the device beam where the service's batches are largest: max_batch 128,
+# T = 2048 px / 4 frames, the BeamConfig defaults (W=16, k=8)
+BEAM_TIMED = (128, 512)
+# the search state one pool candidate carries a frame: two 32-bit hashes,
+# the last token, the blank / non-blank masses, the score, parent and token
+BEAM_CANDIDATE_BYTES = 32
+
+
+def beam_posteriors(B: int, T: int, K: int, dev, seed: int):
+    """Seeded CTC-shaped log-probs [B, T, K] (blank-heavy, a few symbols
+    peaked a line) and a ragged frame mask (row 0 full) on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0.0, 2.0, (B, T, K)).astype(np.float32)
+    logits[..., 0] += 3.0
+    for b in range(B):
+        logits[b, :, rng.integers(1, K, 4)] += 2.0
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    frames = rng.integers(T // 4, T + 1, B)
+    frames[0] = T
+    mask = np.arange(T)[None, :] < frames[:, None]
+    return (torch.from_numpy(lp.astype(np.float32)).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def device_beam_timing(dev, card: str, variants: dict, K: int) -> dict:
+    """The device beam search at ``BEAM_TIMED`` on seeded posteriors over
+    ``K`` classes, per variant (name: (a service's ``BeamProgram``, its
+    tables on the card)): the
+    CUDA graph twice (bit-equal) and eagerly (the same rows), then ms a
+    batch of each (CUDA events), device launches a frame (the slope of
+    ``torch.profiler``'s device events between an eager 16- and 48-frame
+    search), the bound (log-probs and mask read once, the outputs written
+    once, at 3.35 TB/s) and the pool's bytes a frame (``BEAM_CANDIDATE_BYTES``
+    a candidate, W * (k+1) candidates a line)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vistaocr_tpu_torch.decode import BeamConfig
+
+    B, T = BEAM_TIMED
+    cfg = BeamConfig()
+    W, k = cfg.beam_width, min(cfg.topk, K - 1)
+    lp, mask = beam_posteriors(B, T, K, dev, seed=3)
+    rows = {}
+    for name, (prog, kw) in variants.items():
+        first, second = prog(lp, mask, **kw), prog(lp, mask, **kw)
+        eager = prog(lp, mask, graph=False, **kw)
+        _require(all(torch.equal(a, b) for a, b in zip(first, second)),
+                 f"device beam {name}: two graph replays bit-equal")
+        _require(all(torch.equal(a, b) for a, b in zip(first, eager)),
+                 f"device beam {name}: graph and eager give the same rows")
+        graph_ms = _cuda_ms(lambda: prog(lp, mask, **kw), 10)
+        eager_ms = _cuda_ms(lambda: prog(lp, mask, graph=False, **kw), 2)
+        events = {}
+        for frames in (16, 48):
+            prog(lp[:, :frames], mask[:, :frames], graph=False, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prog(lp[:, :frames], mask[:, :frames], graph=False, **kw)
+                torch.cuda.synchronize()
+            events[frames] = sum(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                for e in prof.events())
+        per_frame = (events[48] - events[16]) / 32
+        io = _nbytes(lp, mask, *first)
+        pool = B * W * (k + 1) * BEAM_CANDIDATE_BYTES
+        rows[name] = {
+            "ms": graph_ms, "eager_ms": eager_ms,
+            "launches_per_frame": per_frame,
+            "device_events_16_48": [events[16], events[48]],
+            "bound_ms": io / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "pool_bytes_per_frame": pool,
+            "pool_ms": T * pool / HBM_BYTES_PER_S * 1e3,
+            "at": f"B{B}_T{T}_K{K}_W{W}_k{k}"}
+        print(f"device beam {name} at B={B}, T={T}, K={K}, W={W}, k={k}: "
+              f"graph {graph_ms:.3f} ms a batch, eager {eager_ms:.3f}; "
+              f"{per_frame:.1f} device launches a frame; bound "
+              f"{rows[name]['bound_ms']:.4f} ms (I/O bytes), pool "
+              f"{pool} B a frame = {rows[name]['pool_ms']:.4f} ms over T "
+              f"({card})", flush=True)
+    return rows
 
 
 def _kernel_us(fn, names, expect=None) -> dict:
@@ -2249,6 +2619,21 @@ def main(argv) -> int:
         _phase("infer")
         infer_out = infer_phase(dev, os.path.join(tmp, "run", "last"),
                                 os.path.join(tmp, "glyphs"), font, smi)
+        _phase("service-beam")
+        beam_svc, programs = service_beam_phase(
+            dev, os.path.join(tmp, "run", "last"),
+            os.path.join(tmp, "glyphs"), font, card, smi)
+        beam_rows = device_beam_timing(
+            dev, f"{card}, {smi}",
+            {n: programs[n][:2] for n in ("plain", "char_lm_lexicon_word_lm")},
+            programs["plain"][2])
+        print(json.dumps({"device_beam": {
+            "note": "no TPU kernel: the search is XLA in JAX, plain torch "
+                    "in one CUDA graph per shape here",
+            "replaces": "vistaocr_tpu/decode/device_beam.py:160",
+            "timing": beam_rows, "service": beam_svc,
+            "infer": {k: v for k, v in infer_out.items()
+                      if "beam" in k}}}), flush=True)
     _phase("train-parity")
     f32_path = train_parity_phase(dev, font, f"{card}, {smi}")
     f2_counts = f2_path_phase(dev, font, f"{card}, {smi}")

@@ -20,8 +20,11 @@ determinism and their one launch each a call) against their plain
 PyTorch versions, including ragged B/H edges and the tile edges, T = 1,
 S = 1, empty labels and an infeasible CTC sample; the BPTT
 kernels' determinism and dwh against one cuBLAS GEMM; their launch
-counters; the autograd Functions' backward on the card; and the
-model and service paths that launch them. Every test is marked
+counters; the autograd Functions' backward on the card; the model and
+service paths that launch them; and the device beam search (every
+variant's CUDA graph against the CPU search, replays bit-equal and equal
+to the eager form, a graph per shape, a failed capture raising) and
+deskew on the card against the CPU. Every test is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it runs
 on a machine that has only PyTorch:
 
@@ -433,6 +436,263 @@ def test_service_launches_the_kernel(dev):
             assert all(0 < r.confidence <= 1 for r in results)
         finally:
             svc.close()
+
+
+# --- the device beam search and deskew --------------------------------------
+
+def _beam_posteriors(seed, B=6, T=40, K=8):
+    """Blank-heavy seeded log-probs and a ragged mask, numpy."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 2.5, (B, T, K)).astype(np.float32)
+    logits[..., 0] += 1.5
+    lp = (logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+          ).astype(np.float32)
+    frames = rng.integers(4, T + 1, B)
+    frames[0] = T
+    return lp, np.arange(T)[None, :] < frames[:, None]
+
+
+def _beam_variants():
+    """(name, search keywords with host tables) for every variant of the
+    search: plain and all-beams, the char LM at order 2, 3 and 4, the
+    lexicon hard and with the unk bypass, the word LM dense, hashed
+    bigram and hashed trigram, and the full stack with n-best finals."""
+    from vistaocr_tpu_torch.decode import lm as plm
+    from vistaocr_tpu_torch.decode.lexicon import Lexicon
+    from vistaocr_tpu_torch.text import Alphabet, utf8_to_uxxxx
+
+    al = Alphabet.from_charset("abcdef ")
+    rng = np.random.default_rng(5)
+    words = sorted({"".join(rng.choice(list("abcdef"), rng.integers(1, 5)))
+                    for _ in range(15)})
+    lex = Lexicon.from_words(al, words)
+    corpus = [" ".join(rng.choice(words, 3)) for _ in range(100)]
+    chars = [utf8_to_uxxxx(t) for t in corpus]
+    lm2, lm3, lm4 = (plm.train_char_lm(chars, order=o) for o in (2, 3, 4))
+    wlm2 = plm.train_char_lm(corpus, order=2)
+    wlm3 = plm.train_char_lm(corpus, order=3)
+    h4 = plm.hashed_logp_table(lm4, al)
+    hw = plm.hashed_word_logp_table(wlm2, lex.words)
+    nt, bd = lex.dense_tables()
+    ntu, bdu = lex.dense_tables(unk=True)
+    hard = dict(lex_next=nt, lex_boundary=bd)
+    word = dict(space_id=lex.space_id, word_alpha=0.7, word_beta=0.3)
+    char = dict(lm_alpha=0.5, lm_beta=0.2)
+    dense_word = dict(word_table=plm.dense_word_logp_table(wlm2, lex.words),
+                      word_ids=lex.word_id_table())
+    return [
+        ("plain", {}),
+        ("plain_all_beams", dict(all_beams=True)),
+        ("char_lm2", dict(lm_table=plm.dense_logp_table(lm2, al), **char)),
+        ("char_lm3", dict(lm_table=plm.dense_logp_table(lm3, al), **char)),
+        ("char_lm4", dict(lm_table=h4["t3"], lm_hash_keys=h4["keys"],
+                          lm_hash_vals=h4["vals"], lm_rows=h4["rows"],
+                          lm_probes=int(h4["probes"]), **char)),
+        ("lexicon", hard),
+        ("lexicon_unk", dict(lex_next=ntu, lex_boundary=bdu,
+                             lex_unk_logp=-2.0, space_id=lex.space_id)),
+        ("word_dense", dict(**hard, **dense_word, **word)),
+        ("word_hashed", dict(**hard, word_uni=hw["uni"], word_bo=hw["bo"],
+                             word_hash_keys=hw["keys"],
+                             word_hash_vals=hw["vals"],
+                             word_probes=int(hw["probes"]),
+                             word_ids=lex.word_id_table(), **word)),
+        ("word_trigram_unk", dict(
+            lex_next=ntu, lex_boundary=bdu, lex_unk_logp=-1.5,
+            word_unk_logp=plm.word_unk_logp(wlm3),
+            word_ids=lex.word_id_table(unk=True),
+            **plm.device_word_tables(wlm3, lex.words), **word)),
+        ("full_stack_nbest", dict(lm_table=plm.dense_logp_table(lm3, al),
+                                  all_beams=True, **char, **hard,
+                                  **dense_word, **word)),
+    ]
+
+
+BEAM_VARIANTS = ["plain", "plain_all_beams", "char_lm2", "char_lm3",
+                 "char_lm4", "lexicon", "lexicon_unk", "word_dense",
+                 "word_hashed", "word_trigram_unk", "full_stack_nbest"]
+
+
+def _beam_program(kw, device):
+    """A BeamProgram of the variant, and its call's tables on device."""
+    import functools
+
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    static = {k: v for k, v in kw.items()
+              if k in ("all_beams", "lm_alpha", "lm_beta")}
+    tables = db.device_tables(
+        {k: v for k, v in kw.items() if k not in static}, device)
+    prog = db.BeamProgram(functools.partial(
+        db.beam_scan_collapsed, beam_width=8, topk=4, prune_logp=-12.0,
+        **static))
+    return prog, tables
+
+
+@pytest.mark.parametrize("name", BEAM_VARIANTS)
+def test_device_beam_on_cuda_matches_cpu(dev, name):
+    """Each variant's graph on the card against the same search on the
+    CPU: integer rows equal, scores within 1e-5; two replays bit-equal
+    and equal to the eager form on the card."""
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    kw = dict(_beam_variants())[name]
+    lp, mask = _beam_posteriors(len(name))
+    cpu_prog, cpu_tables = _beam_program(kw, "cpu")
+    want = cpu_prog(torch.from_numpy(lp), torch.from_numpy(mask),
+                    **cpu_tables)
+    prog, tables = _beam_program(kw, dev)
+    lp_d, mask_d = torch.from_numpy(lp).to(dev), torch.from_numpy(mask).to(dev)
+    captures = db.GRAPH_CAPTURES
+    replays = db.GRAPH_REPLAYS
+    first = prog(lp_d, mask_d, **tables)
+    second = prog(lp_d, mask_d, **tables)
+    eager = prog(lp_d, mask_d, graph=False, **tables)
+    assert db.GRAPH_CAPTURES == captures + 1
+    assert db.GRAPH_REPLAYS == replays + 2
+    assert len(first) == len(want)
+    for g, g2, e, w in zip(first, second, eager, want):
+        assert g.is_cuda and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, g2) and torch.equal(g, e)
+        g = g.cpu()
+        if w.is_floating_point():
+            assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+            fin = torch.isfinite(w)
+            assert torch.equal(g[~fin], w[~fin])
+            assert (g[fin] - w[fin]).abs().max().item() <= 1e-5
+        else:
+            assert torch.equal(g, w)
+
+
+def test_device_beam_graph_per_shape_and_new_inputs(dev):
+    """A second shape captures its own graph; new inputs of a captured
+    shape replay it and give the eager result."""
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    prog, tables = _beam_program(dict(_beam_variants())["char_lm3"], dev)
+    for seed, (B, T) in enumerate([(6, 40), (3, 17), (6, 40)]):
+        lp, mask = _beam_posteriors(seed, B=B, T=T)
+        lp_d = torch.from_numpy(lp).to(dev)
+        mask_d = torch.from_numpy(mask).to(dev)
+        got = prog(lp_d, mask_d, **tables)
+        want = prog(lp_d, mask_d, graph=False, **tables)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(prog._graphs) == 2
+
+
+def test_device_beam_graph_serves_other_tables_of_its_shapes(dev):
+    """Tables of the same shapes but other values (another LM) reuse the
+    graph: the program copies them into its own tables before the
+    replay, so each call gives that call's eager result."""
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    variants = dict(_beam_variants())
+    prog, tables = _beam_program(variants["char_lm3"], dev)
+    other = {k: (v.flip(-1).contiguous() if v.is_floating_point() else v)
+             for k, v in tables.items()}
+    lp, mask = _beam_posteriors(7)
+    lp_d, mask_d = torch.from_numpy(lp).to(dev), torch.from_numpy(mask).to(dev)
+    captures = db.GRAPH_CAPTURES
+    for kw in (tables, other, tables, other):
+        got = prog(lp_d, mask_d, **kw)
+        want = prog(lp_d, mask_d, graph=False, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert db.GRAPH_CAPTURES == captures + 1
+    table = tables["lm_table"]
+    table.mul_(0.5)  # written in place: copied in again
+    got = prog(lp_d, mask_d, **tables)
+    want = prog(lp_d, mask_d, graph=False, **tables)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_device_beam_capture_failure_raises(dev, monkeypatch):
+    """A search that fails while its graph is captured raises from the
+    program; nothing runs eagerly in its place, no graph is kept, and the
+    card captures a sound search afterwards."""
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    lp, mask = _beam_posteriors(1)
+    lp_d, mask_d = torch.from_numpy(lp).to(dev), torch.from_numpy(mask).to(dev)
+    real = db._backtrace
+
+    def failing_backtrace(parents, tokens):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("not capturable")
+        return real(parents, tokens)
+
+    monkeypatch.setattr(db, "_backtrace", failing_backtrace)
+    prog, tables = _beam_program({}, dev)
+    replays = db.GRAPH_REPLAYS
+    with pytest.raises(RuntimeError, match="not capturable"):
+        prog(lp_d, mask_d, **tables)
+    assert db.GRAPH_REPLAYS == replays and not prog._graphs
+    monkeypatch.setattr(db, "_backtrace", real)
+    prog, tables = _beam_program({}, dev)
+    got = prog(lp_d, mask_d, **tables)
+    want = prog(lp_d, mask_d, graph=False, **tables)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_device_beam_tables_on_another_device_raise(dev):
+    prog, tables = _beam_program(dict(_beam_variants())["lexicon"], "cpu")
+    lp, mask = _beam_posteriors(2)
+    with pytest.raises(ValueError, match="table"):
+        prog(torch.from_numpy(lp).to(dev), torch.from_numpy(mask).to(dev),
+             **tables)
+
+
+def test_device_deskew_on_cuda_matches_cpu(dev):
+    from vistaocr_tpu_torch.ops.deskew import device_deskew
+
+    rng = np.random.default_rng(3)
+    H, W = 32, 200
+    images = np.full((5, H, W), 255, np.uint8)
+    widths = np.array([200, 180, 150, 90, 200], np.int32)
+    for b, deg in enumerate((-3.0, -1.0, 0.0, 2.0, 4.0)):
+        for x in range(8, widths[b] - 8, 5):
+            y = int(16 + (x - widths[b] / 2) * np.tan(np.radians(deg)))
+            images[b, max(y - 4, 0): y + 4, x: x + 3] = rng.integers(0, 60)
+    out_c, tan_c = device_deskew(torch.from_numpy(images),
+                                 torch.from_numpy(widths))
+    out_d, tan_d = device_deskew(torch.from_numpy(images).to(dev),
+                                 torch.from_numpy(widths).to(dev))
+    assert (tan_d.cpu() - tan_c).abs().max().item() <= 1e-5
+    diff = (out_d.cpu().int() - out_c.int()).abs().max().item()
+    assert diff <= 1
+    assert (tan_c != 0).sum().item() >= 3
+
+
+def test_service_device_beam_on_cuda_matches_cpu(dev):
+    """OcrService with the device beam (the default beam_impl) and
+    device deskew on the card: the warm-up captures a graph per shape,
+    each batch replays one, and the texts equal the CPU service's."""
+    from vistaocr_tpu_torch.decode import device_beam as db
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    rng = np.random.default_rng(4)
+    lines = [rng.integers(0, 256, (32, int(w)), np.uint8)
+             for w in rng.integers(20, 250, 9)]
+    lines.append(rng.integers(0, 256, (48, 150), np.uint8))
+    cfg = dict(decoder="beam", max_batch=8, device_deskew=True)
+    with tempfile.TemporaryDirectory() as d:
+        _tiny_snapshot(d)
+        out = {}
+        for device in ("cpu", "cuda"):
+            captures = db.GRAPH_CAPTURES
+            svc = OcrService(d, ServiceConfig(**cfg), device=device)
+            try:
+                replays = db.GRAPH_REPLAYS
+                out[device] = svc.ocr_lines(lines)
+                if device == "cuda":
+                    assert db.GRAPH_CAPTURES == captures + 2  # 2 buckets
+                    assert db.GRAPH_REPLAYS > replays
+                else:
+                    assert db.GRAPH_CAPTURES == captures
+            finally:
+                svc.close()
+    assert [r.text for r in out["cuda"]] == [r.text for r in out["cpu"]]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert abs(a.confidence - b.confidence) <= 1e-3
 
 
 # --- training kernels: save_cell forward, BPTT, dwh, CTC alpha/beta --------

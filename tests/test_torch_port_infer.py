@@ -8,11 +8,16 @@ one snapshot (a short port ``fit`` on synth-tiny shards, which the JAX
   trained on the split's transcripts and a lexicon of its words): the
   same hypotheses and the same CER/WER as the JAX ``run_inference``,
   confidences within 1e-3;
+- the beam search on the device (``--decoder beam``, the default
+  ``--beam-impl device``): plain, with the char LM and lexicon fused in
+  the search, and ``--nbest 4`` with and without them: the same
+  hypotheses, n-best lists, confidences and report keys as the JAX
+  ``run_inference``;
 - ``--dump-posteriors``: each package's ``decode_posteriors`` decodes
   either package's dump to the same strings (greedy and beam), and the
   port's greedy decode of its own dump gives its ``run_inference``
   hypotheses;
-- the on-device beam and int8 raise ``NotImplementedError``.
+- int8 raises ``NotImplementedError``.
 """
 
 import contextlib
@@ -69,7 +74,7 @@ def _records(path):
 
 
 _FLAGS = {"decoder": "--decoder", "beam_impl": "--beam-impl",
-          "lm_path": "--lm", "lexicon_path": "--lexicon"}
+          "lm_path": "--lm", "lexicon_path": "--lexicon", "nbest": "--nbest"}
 
 
 def _both(case, tag, **kw):
@@ -108,6 +113,13 @@ def _check_same(runs, scored):
     assert [r["hyp_uxxxx"] for r in recs_p] == [r["hyp_uxxxx"] for r in recs_j]
     assert [r["ref_uxxxx"] for r in recs_p] == [r["ref_uxxxx"] for r in recs_j]
     assert any(r["hyp_uxxxx"] for r in recs_p)
+    for a, b in zip(recs_p, recs_j):
+        assert ("nbest" in a) == ("nbest" in b)
+        if "nbest" in b:
+            assert [h["hyp_uxxxx"] for h in a["nbest"]] == [
+                h["hyp_uxxxx"] for h in b["nbest"]]
+            for ha, hb in zip(a["nbest"], b["nbest"]):
+                assert abs(ha["score"] - hb["score"]) <= 1e-3
     for a, b in zip(recs_p, recs_j):
         if scored:
             assert abs(a["conf"] - b["conf"]) <= 1e-3
@@ -162,9 +174,38 @@ def test_offline_decoders_read_each_others_dumps(case, greedy_runs, decoder):
             (r["id"], r["hyp_uxxxx"]) for r in recs)
 
 
-@pytest.mark.parametrize("kw", [dict(decoder="beam"),
-                                dict(decoder="beam", beam_impl="device"),
-                                dict(quantize="int8")])
+# (options, scored): the device beam plain, with the char LM and lexicon
+# fused, and n-best lists (fused: scores final on the device; plain: the
+# CTC finals)
+DEVICE_BEAM = {
+    "plain": (dict(decoder="beam"), True),
+    "lm_lexicon": (dict(decoder="beam", lm_path="lm", lexicon_path="lex"),
+                   True),
+    "nbest_lm_lexicon": (dict(decoder="beam", beam_impl="device",
+                              lm_path="lm", lexicon_path="lex", nbest=4),
+                         False),
+    "nbest_plain": (dict(decoder="beam", nbest=4), False),
+}
+
+
+@pytest.mark.parametrize("name", list(DEVICE_BEAM))
+def test_device_beam_matches_jax(case, name):
+    _, _, lm_path, lex_path, _ = case
+    kw, scored = DEVICE_BEAM[name]
+    kw = {k: {"lm": lm_path, "lex": lex_path}.get(v, v) for k, v in kw.items()}
+    runs = _both(case, f"dev_{name}", **kw)
+    _check_same(runs, scored=scored)
+    report = runs["port"][0]
+    assert report["decoder"] == "beam:device"
+    if "lm_path" in kw:
+        assert report["lm_fusion"] == "device-interleaved"
+    if kw.get("nbest"):
+        assert all(1 <= len(r["nbest"]) <= 4 for r in runs["port"][1])
+
+
+# the id as it was while the device beam's cases shared the list
+@pytest.mark.parametrize("kw", [pytest.param(dict(quantize="int8"),
+                                             id="kw2")])
 def test_unported_options_raise(case, kw):
     data, snap, _, _, _ = case
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,8 +5,13 @@ the on-device resize) through ``ocr_lines`` and ``submit`` give equal
 texts, equal bucket widths and confidences within 1e-3; the host routes
 (``decoder="beam"`` with ``beam_impl="host"``, a char LM, a lexicon and a
 word LM; ``device_resize=False``, the host resize) give the JAX service's
-texts on colour lines, PIL images and lines off the contract height.
-Options the port does not have yet raise instead of being ignored."""
+texts on colour lines, PIL images and lines off the contract height; the
+device beam (``beam_impl="device"``, the default: plain, the char LM
+fused at order 3 and 4 or rescored in two passes, the lexicon with and
+without the ``<unk>`` bypass, the word LM) and ``device_deskew`` give
+the JAX service's texts and confidences on lines at and off the contract
+height. Options the port does not have yet raise instead of being
+ignored."""
 
 import numpy as np
 import pytest
@@ -185,20 +190,113 @@ class TestHostRoutes:
                 assert abs(a.confidence - b.confidence) <= 1e-3
 
 
+@pytest.fixture(scope="module")
+def device_beam_files(tmp_path_factory, host_beam_files):
+    """An order-4 char LM and a word-bigram LM over the lexicon's words,
+    beside ``host_beam_files``' order-3 char LM and lexicon."""
+    from vistaocr_tpu_torch.decode.lm import train_char_lm
+    from vistaocr_tpu_torch.text import utf8_to_uxxxx
+
+    lm_path, lex_path = host_beam_files
+    words = open(lex_path).read().split()
+    d = tmp_path_factory.mktemp("device_beam")
+    texts = [" ".join(words[i:i + 3]) for i in range(len(words))]
+    lm4_path = str(d / "char4.arpa")
+    train_char_lm([utf8_to_uxxxx(t) for t in texts], order=4).write_arpa(
+        lm4_path)
+    wlm_path = str(d / "words.arpa")
+    train_char_lm(texts * 3, order=2).write_arpa(wlm_path)
+    return {"lm": lm_path, "lm4": lm4_path, "lex": lex_path,
+            "wlm": wlm_path}
+
+
+def _beam_lines():
+    """Lines of one bucket at the contract height, and two off it (the
+    device resize): one compiled JAX program a route."""
+    rng = np.random.default_rng(31)
+    out = []
+    for w in (24, 60, 96, 110, 128):
+        img = np.full((32, w), 255, np.uint8)
+        for _ in range(max(3, w // 6)):
+            y, x = int(rng.integers(3, 29)), int(rng.integers(0, w))
+            img[y - 3: y + 3, x: x + int(rng.integers(1, 6))] = int(
+                rng.integers(0, 70))
+        out.append(img)
+    out.append(np.repeat(out[2], 2, axis=0)[:, :120])  # height 64
+    out.append(rng.integers(0, 256, (48, 150), np.uint8))
+    return out
+
+
+# the device beam (the default beam_impl) with each of its tables, and
+# device deskew: (name, options, BeamConfig fields) with the file names of
+# device_beam_files
+DEVICE_ROUTES = [
+    ("plain", dict(decoder="beam"), {}),
+    ("char_lm3", dict(decoder="beam", lm_path="lm"), dict(lm_alpha=0.6)),
+    ("lexicon", dict(decoder="beam", lexicon_path="lex"), {}),
+    ("word_lm", dict(decoder="beam", lexicon_path="lex", word_lm_path="wlm"),
+     dict(word_lm_alpha=0.8, word_lm_beta=0.3)),
+    ("full_stack_unk", dict(decoder="beam", lm_path="lm", lexicon_path="lex",
+                            word_lm_path="wlm"),
+     dict(lm_alpha=0.5, lm_beta=0.2, word_lm_alpha=0.7, lex_unk_logp=-2.0)),
+    ("char_lm4_deskew", dict(decoder="beam", lm_path="lm4",
+                             device_deskew=True), dict(lm_alpha=0.6)),
+    ("two_pass_host_resize", dict(decoder="beam", lm_path="lm",
+                                  device_lm=False, device_resize=False),
+     dict(lm_alpha=0.6)),
+    ("greedy_deskew", dict(device_deskew=True), {}),
+]
+
+
+class TestDeviceRoutes:
+    @pytest.mark.parametrize("name,opts,beam", DEVICE_ROUTES,
+                             ids=[r[0] for r in DEVICE_ROUTES])
+    def test_matches_jax(self, snapshot, device_beam_files, name, opts,
+                         beam):
+        opts = {k: (device_beam_files[v] if k.endswith("_path") else v)
+                for k, v in opts.items()}
+        kw = dict(max_batch=8, warmup=False, **opts)
+        bc = dict(beam_width=8, topk=4, **beam)
+        theirs = JaxService(snapshot, JaxServiceConfig(
+            **kw, beam=JaxBeamConfig(**bc)))
+        ours = OcrService(snapshot, ServiceConfig(**kw, beam=BeamConfig(**bc)),
+                          device="cpu")
+        try:
+            lines = _beam_lines()
+            got, want = ours.ocr_lines(lines), theirs.ocr_lines(lines)
+            got.append(ours.submit(lines[3]).result(timeout=120))
+            want.append(theirs.submit(lines[3]).result(timeout=120))
+        finally:
+            ours.close()
+            theirs.close()
+        _compare(got, want)
+        if "lexicon_path" in opts and not beam.get("lex_unk_logp"):
+            # lexicon words; the last may be a word's prefix where no beam
+            # ends at a word boundary (the fallback to every beam)
+            words = open(opts["lexicon_path"]).read().split()
+            for r in got:
+                *head, last = r.text.split() or [""]
+                assert set(head) <= set(words)
+                assert any(w.startswith(last) for w in words)
+
+
 class TestOptions:
-    # the on-device beam (beam_impl="device", the default) with each of
-    # its tables, deskew, int8 and a data mesh
+    # int8 and a data mesh (the ids as they were while the device beam's
+    # and deskew's cases shared the list)
     @pytest.mark.parametrize("kw", [
-        {"decoder": "beam"}, {"decoder": "beam", "lm_path": "lm.arpa"},
-        {"decoder": "beam", "lexicon_path": "words.txt"},
-        {"decoder": "beam", "word_lm_path": "w.arpa"},
-        {"device_deskew": True}, {"quantize": "int8"}, {"mesh_data": 4},
-        {"decoder": "beam", "device_resize": False, "device_lm": False},
-    ])
+        pytest.param({"quantize": "int8"}, id="kw5"),
+        pytest.param({"mesh_data": 4}, id="kw6")])
     def test_unported_options_raise(self, snapshot, kw):
         with pytest.raises(NotImplementedError):
             OcrService(snapshot, ServiceConfig(warmup=False, **kw),
                        device="cpu")
+
+    def test_device_word_lm_needs_a_lexicon(self, snapshot,
+                                            device_beam_files):
+        with pytest.raises(ValueError, match="lexicon_path"):
+            OcrService(snapshot, ServiceConfig(
+                decoder="beam", word_lm_path=device_beam_files["wlm"],
+                warmup=False), device="cpu")
 
     def test_cuda_without_a_card_raises(self, snapshot):
         if torch.cuda.is_available():

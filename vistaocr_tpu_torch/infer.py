@@ -3,13 +3,15 @@
 Counterpart of ``vistaocr_tpu/infer.py``: loads a self-describing
 snapshot (``checkpoint.load_model``), runs a split through the bucketed
 pipeline on one device, writes hypotheses and a CER/WER report, with the
-same arguments and report keys. Greedy decoding and the host beam search
-(``--decoder beam --beam-impl host``: the C++ engine or the Python
-expansion, with a char LM, a lexicon and a word LM) are ported; the
-on-device beam search (``--beam-impl device``, the JAX default) and int8
-(``--quantize int8``) raise ``NotImplementedError`` naming their ROADMAP
-items. ``--dump-posteriors`` writes the JAX package's dump format, so
-either package's ``decode.offline`` reads it.
+same arguments and report keys: greedy decoding; the beam search on the
+device (``--decoder beam``, ``--beam-impl device`` the default:
+``decode/device_beam.py``, one CUDA graph per batch shape on the card,
+with the char LM, lexicon and word LM fused in the search, two-pass LM
+rescoring of the W finals where the LM is not fused, and ``--nbest``);
+and on the host (``--beam-impl host``: the C++ engine or the Python
+expansion). int8 (``--quantize int8``) raises ``NotImplementedError``
+naming its ROADMAP item. ``--dump-posteriors`` writes the JAX package's
+dump format, so either package's ``decode.offline`` reads it.
 
 Usage:
     python -m vistaocr_tpu_torch.infer --snapshot <dir>/best \\
@@ -147,7 +149,7 @@ def run_inference(
     out_path: Optional[str] = None,
     eval_align: int = 128,  # re-bucket the snapshot ladder (0 = keep)
     decoder: str = "greedy",  # greedy | beam
-    beam_impl: str = "device",  # device (not ported yet) | host
+    beam_impl: str = "device",  # device | host
     beam_config=None,
     lm_path: Optional[str] = None,
     lm_alpha: float = 0.5,
@@ -171,10 +173,6 @@ def run_inference(
 
     if decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {decoder!r}")
-    if decoder == "beam" and beam_impl == "device":
-        raise NotImplementedError(
-            "not ported to vistaocr_tpu_torch yet: --beam-impl device "
-            "(ROADMAP Queue 1: device beam); use --beam-impl host")
     if beam_impl not in ("device", "host"):
         raise ValueError(f"unknown beam_impl {beam_impl!r}")
     if quantize == "int8":
@@ -226,11 +224,17 @@ def run_inference(
         from .decode.lm import ArpaLM
 
         word_lm = ArpaLM.read_arpa(word_lm_path)
-    # One LM load, picked for the engine that will run: the Python
+        if beam_impl == "device" and (lexicon is None or word_lm.order > 3):
+            raise ValueError(
+                "device word fusion needs --lexicon and a word LM of "
+                "order <= 3 (bigram dense/hashed, trigram hashed); use "
+                "--beam-impl host otherwise")
+    # One LM load, picked for the engine that will run: the host's Python
     # expansion (n-best, or a word LM above bigram) needs the Python
     # ArpaLM; every other path takes load_lm's choice (NativeLM when the
     # C++ engine is built).
-    py_expansion = nbest > 1 or (word_lm is not None and word_lm.order > 2)
+    py_expansion = beam_impl == "host" and (
+        nbest > 1 or (word_lm is not None and word_lm.order > 2))
     if not lm_path:
         lm = None
     elif py_expansion:
@@ -253,6 +257,7 @@ def run_inference(
 
     hyps, refs, ids = [], [], []
     confs: list = []  # per-line confidence; parallel to hyps where defined
+    lm_fusion = None  # how the LMs run in the device beam, for the report
     nbest_lists: list = []  # per-line ranked (uxxxx, score), --nbest > 1
     t0 = time.time()
     # Two phases, as in serve.OcrService.ocr_lines: dispatch each batch's
@@ -266,7 +271,97 @@ def run_inference(
         frames = contract.frames_for_width(int(ds_widths[line_index]))
         return float(np.exp(min(logp / max(frames, 1), 0.0)))
 
-    if decoder == "beam":
+    def _add_nbest(lists):
+        for ranked in lists:
+            hyps.append(ranked[0][0] if ranked else "")
+            confs.append(None)
+            nbest_lists.append(ranked)
+
+    if decoder == "beam" and beam_impl == "device":
+        from .decode.device_beam import (
+            beam_scan_program,
+            device_beam_decode,
+            device_beam_nbest,
+            device_tables,
+        )
+        from .decode.greedy import SCORE_SCALE, collapse_frames
+
+        # The char LM fused in the search at order 2-3 (dense table) or 4
+        # (hashed contexts); higher orders are rescored on the host
+        # (two-pass). The lexicon and word LM run in the search too.
+        tables: dict = {}
+        with_lm = lm is not None and beam_config.lm_alpha != 0
+        if with_lm:
+            from .decode.lm import ArpaLM, dense_logp_table, hashed_logp_table
+
+            py_lm = lm if isinstance(lm, ArpaLM) else ArpaLM.read_arpa(
+                lm_path)
+            if 2 <= py_lm.order <= 3:
+                tables["lm_table"] = dense_logp_table(py_lm, alphabet)
+                lm_fusion = "device-interleaved"
+            elif py_lm.order == 4:
+                t = hashed_logp_table(py_lm, alphabet)
+                tables.update(lm_table=t["t3"], lm_hash_keys=t["keys"],
+                              lm_hash_vals=t["vals"], lm_rows=t["rows"],
+                              lm_probes=int(t["probes"]))
+                lm_fusion = "device-interleaved-4gram"
+        if lexicon is not None:
+            if with_lm and "lm_table" not in tables:
+                raise ValueError(
+                    "device lexicon decoding with an LM needs order <= 4 "
+                    "(fused); use --beam-impl host for higher orders")
+            use_unk = beam_config.lex_unk_logp != 0.0
+            next_tbl, boundary = lexicon.dense_tables(unk=use_unk)
+            tables.update(lex_next=next_tbl, lex_boundary=boundary)
+            if use_unk:
+                tables.update(lex_unk_logp=float(beam_config.lex_unk_logp),
+                              space_id=lexicon.space_id)
+            if word_lm is not None and beam_config.word_lm_alpha != 0:
+                from .decode.lm import device_word_tables, word_unk_logp
+
+                tables.update(
+                    device_word_tables(word_lm, lexicon.words),
+                    word_ids=lexicon.word_id_table(unk=use_unk),
+                    space_id=lexicon.space_id,
+                    word_alpha=float(beam_config.word_lm_alpha),
+                    word_beta=float(beam_config.word_lm_beta))
+                if use_unk:
+                    tables["word_unk_logp"] = float(word_unk_logp(word_lm))
+                lm_fusion = (lm_fusion or "") + "+device-word"
+        kw = device_tables(tables, dev)
+        fused = bool(tables)
+        prog = beam_scan_program(
+            beam_config, all_beams=nbest > 1 or (with_lm and not fused),
+            fused_lm=fused)
+
+        def dispatch(batch, log_probs, frame_mask):
+            out = prog(log_probs, frame_mask, **kw)
+            # with a fused LM or lexicon only the packed rows leave
+            return HostCopy(out[1:] if fused and nbest == 1 else out)
+
+        def finalize(entry):
+            indices, valid, _, copy = entry
+            pre = copy.get()
+            if nbest > 1:  # fused finals are final; else rescored here
+                _add_nbest(device_beam_nbest(
+                    alphabet, beam_config, pre, lm=None if fused else lm,
+                    valid=valid, nbest=nbest))
+            elif fused:
+                (packed,) = pre  # [B, T+1]
+                for i in np.flatnonzero(np.asarray(valid)):
+                    hyps.append(collapse_frames(packed[i, :-1], alphabet))
+                    confs.append(_conf_of(int(indices[i]),
+                                          packed[i, -1] / SCORE_SCALE))
+            else:
+                scored = device_beam_decode(
+                    None, None, alphabet, beam_config, lm=lm, valid=valid,
+                    precomputed=pre, return_scores=True)
+                for (hyp, ctc), i in zip(scored,
+                                         np.flatnonzero(np.asarray(valid))):
+                    hyps.append(hyp)
+                    confs.append(_conf_of(int(indices[i]), ctc))
+            _collect_refs(indices, valid, ds, refs, ids)
+    elif decoder == "beam":
         from .decode.beam import beam_topk
 
         def dispatch(batch, log_probs, frame_mask):
@@ -283,10 +378,7 @@ def run_inference(
                 word_lm=word_lm, nbest=nbest,
             )
             if nbest > 1:  # ranked (uxxxx, score) lists per line
-                for ranked in decoded:
-                    hyps.append(ranked[0][0] if ranked else "")
-                    confs.append(None)
-                    nbest_lists.append(ranked)
+                _add_nbest(decoded)
             else:
                 hyps.extend(decoded)
                 confs.extend([None] * len(decoded))  # host: no scores
@@ -338,6 +430,7 @@ def run_inference(
         "decoder": (
             f"{decoder}:{beam_impl}" if decoder == "beam" else decoder
         ),
+        **({"lm_fusion": lm_fusion} if lm_fusion else {}),
         "lines": len(hyps),
         "cer": round(c, 5),
         "wer": round(w, 5),
@@ -388,18 +481,18 @@ def main(argv=None):
                         "for eval (fewer distinct shapes); 0 keeps it")
     p.add_argument("--decoder", choices=("greedy", "beam"), default="greedy")
     p.add_argument("--beam-impl", choices=("device", "host"), default="device",
-                   help="beam engine: the on-device search (device, not "
-                        "ported yet) or the host C++/Python expansion "
-                        "(host)")
+                   help="beam engine: the search on the device (device; "
+                        "one CUDA graph per batch shape on a card) or the "
+                        "host C++/Python expansion (host)")
     p.add_argument("--word-lm", default=None, metavar="ARPA",
                    help="word-level ARPA LM (utf8 word tokens): fuse at "
-                        "word boundaries (with --beam-impl host)")
+                        "word boundaries (the device beam needs --lexicon "
+                        "and order <= 3)")
     p.add_argument("--word-lm-alpha", type=float, default=0.5)
     p.add_argument("--word-lm-beta", type=float, default=0.0)
     p.add_argument("--lexicon", default=None, metavar="WORDS",
                    help="word list (one per line, utf8): constrain beam "
-                        "hypotheses to lexicon words (with --beam-impl "
-                        "host)")
+                        "hypotheses to lexicon words")
     p.add_argument("--lex-unk-logp", type=float, default=0.0,
                    help="with --lexicon: per-character log penalty for "
                         "out-of-lexicon words (<unk> character-bypass "

@@ -1,7 +1,6 @@
 """Batched inference service on one CUDA device.
 
-Counterpart of ``vistaocr_tpu/serve/service.py:50-916``, greedy and
-host-beam paths:
+Counterpart of ``vistaocr_tpu/serve/service.py:50-916``:
 
     submit(image) -> Future
         | grayscale + polarity (host, numpy)     [data/transforms]
@@ -9,25 +8,30 @@ host-beam paths:
         | route to bucket by width               [ShapeContract]
         | enqueue; flush on max_batch or deadline
         v
-    per-bucket batch on the device: (resize) + preprocess + CNN +
-    BLSTM (CUDA kernel) + head + greedy collapse and packed score, or
-    (decoder="beam", beam_impl="host") the per-frame top-k
+    per-bucket batch on the device: (resize) + (deskew) + preprocess +
+    CNN + BLSTM (CUDA kernel) + head, then the decode tail: the greedy
+    collapse and packed score; or (decoder="beam", beam_impl="device",
+    the default) the beam search with the char LM, lexicon and word LM
+    fused in it [decode/device_beam], one CUDA graph per batch shape on
+    the card; or (beam_impl="host") the per-frame top-k
         v
-    host: (beam: the prefix beam search with the char LM, lexicon and
-    word LM, on the C++ engine or the Python expansion [decode/beam])
+    host: the id rows to text; (device beam without a fused LM: the
+    best final, or two-pass LM rescoring of the W finals; host beam: the
+    prefix beam search on the C++ engine or the Python expansion)
         v
     future.set_result(LineResult)
 
-PyTorch runs eagerly, so nothing is compiled per bucket; the bucket
-ladder and the 8/32/128 batch-size ladder still bound the shapes the
-device sees (and the padding each batch carries). Options whose modules
-are not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item; none is ignored.
+The model runs eagerly; the bucket ladder and the 8/32/128 batch-size
+ladder bound the shapes the device sees (and the padding each batch
+carries), and ``warmup`` captures the device beam's graph of each. Options
+whose modules are not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item; none is ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -42,7 +46,14 @@ from ..checkpoint import load_model
 from ..data.buckets import BucketSpec
 from ..data.transforms import maybe_invert, normalize_line, to_grayscale
 from ..decode import BeamConfig, beam_decode, beam_topk, load_lm
+from ..decode.device_beam import (
+    BeamProgram,
+    beam_scan_collapsed,
+    device_beam_decode,
+    device_tables,
+)
 from ..decode.greedy import SCORE_SCALE, greedy_frames_packed
+from ..ops.deskew import device_deskew
 from ..ops.resize import MAX_SCALE, host_pool, resize_lines, resized_to_uint8
 from ..runtime import HostCopy, disable_tf32, resolve_device
 from ..text import uxxxx_to_utf8
@@ -52,16 +63,16 @@ from ..text import uxxxx_to_utf8
 class ServiceConfig:
     """The JAX ``ServiceConfig`` fields and defaults (see the JAX module
     for each knob's rationale). Options of unported modules raise when
-    set: the on-device beam (``beam_impl="device"``, the default, with
-    ``device_lm``), deskew, int8 and a data mesh;
-    ``quantize_float_prefix`` comes with int8."""
+    set: int8 and a data mesh; ``quantize_float_prefix`` comes with
+    int8."""
 
     max_batch: int = 32
     max_wait_ms: float = 5.0
     decoder: str = "greedy"  # greedy | beam
     beam: BeamConfig = dataclasses.field(default_factory=BeamConfig)
-    # device (the on-device search: not ported yet) | host (the C++
-    # engine or the Python expansion over the device's per-frame top-k)
+    # device (the search on the device, decode/device_beam.py) | host
+    # (the C++ engine or the Python expansion over the device's
+    # per-frame top-k)
     beam_impl: str = "device"
     # Batches a bucket worker keeps in flight before it blocks on the
     # oldest one's readback.
@@ -71,10 +82,13 @@ class ServiceConfig:
     batch_sizes: Sequence[int] = ()
     mesh_data: int = 0
     lm_path: Optional[str] = None
-    # interleaved LM fusion inside the device beam (read only there)
+    # The char LM fused inside the device beam (order 2-3 dense, 4
+    # hashed); False, or a higher order: two-pass rescoring of the W
+    # finals on the host.
     device_lm: bool = True
     lexicon_path: Optional[str] = None
     word_lm_path: Optional[str] = None
+    # Deskew on the device in front of the forward (ops/deskew.py).
     device_deskew: bool = False
     # Requests at non-contract heights are resized on the device; False:
     # on the host at request prep (normalize_line).
@@ -93,17 +107,12 @@ def _check_supported(config: ServiceConfig) -> None:
         raise ValueError(f"unknown decoder {config.decoder!r}")
     if config.beam_impl not in ("device", "host"):
         raise ValueError(f"unknown beam_impl {config.beam_impl!r}")
-    if config.decoder == "beam" and config.beam_impl == "device":
-        todo.append("decoder='beam' with beam_impl='device' (ROADMAP "
-                    "Queue 1: device beam); beam_impl='host' is ported")
     if config.lexicon_path and config.decoder != "beam":
         raise ValueError("lexicon_path needs decoder='beam' (the constraint "
                          "lives in the beam search)")
     if config.word_lm_path and config.decoder != "beam":
         raise ValueError("word_lm_path needs decoder='beam' (word-LM fusion "
                          "lives in the beam search)")
-    if config.device_deskew:
-        todo.append("device_deskew=True (ROADMAP Queue 1: deskew)")
     if config.quantize == "int8":
         todo.append("quantize='int8' (ROADMAP Queue 1: int8)")
     elif config.quantize != "none":
@@ -122,9 +131,9 @@ class LineResult:
     uxxxx: str
     latency_ms: float
     bucket_width: int
-    # Per-frame geometric-mean probability of the greedy best path, in
-    # (0, 1]: exp(best-path log-prob / valid frames). None on the host
-    # beam path (its engines return no score).
+    # Per-frame geometric-mean probability of the decode, in (0, 1]:
+    # exp(greedy best-path or device-beam winner's CTC log-prob / valid
+    # frames). None on the host beam path (its engines return no score).
     confidence: Optional[float] = None
 
     @property
@@ -151,11 +160,14 @@ _RAW_SLACK = 8
 
 @dataclasses.dataclass
 class _Handle:
-    """One dispatched batch: its results on the device (greedy: the packed
-    [B, T+1] int32 rows; host beam: log-probs, frame mask and the
+    """One dispatched batch: its kind and results on the device (greedy,
+    and the device beam with a fused LM or lexicon: the packed [B, T+1]
+    int32 rows; the device beam otherwise: totals and the best [B, T] or
+    every beam's [B, W, T] rows; host beam: log-probs, frame mask and the
     per-frame top-k values and ids) and, once prefetched, their host
     copy."""
 
+    kind: str  # greedy | beam_fused | beam_dev | beam_host
     tensors: tuple
     copy: Optional[HostCopy] = None
 
@@ -175,20 +187,11 @@ class OcrService:
         disable_tf32()
         self.model, self.alphabet, self.contract = load_model(
             snapshot, self.device)
-        # the host beam's lexicon, word LM and char LM (load_lm: the C++
-        # scorer when the native engine is built, else the Python ArpaLM)
-        self._lexicon = self._word_lm = None
-        if config.lexicon_path:
-            from ..decode.lexicon import Lexicon
-
-            self._lexicon = Lexicon.read_words(self.alphabet,
-                                               config.lexicon_path)
-        if config.word_lm_path:
-            from ..decode.lm import ArpaLM
-
-            self._word_lm = ArpaLM.read_arpa(config.word_lm_path)
         self._lm = (load_lm(config.lm_path, self.alphabet)
                     if config.lm_path else None)
+        _t_tables = time.time()
+        self._build_decode_tables(config)
+        _tables_s = time.time() - _t_tables
         if config.serve_align:
             a = config.serve_align
             coarse = tuple(sorted({
@@ -196,7 +199,6 @@ class OcrService:
             }))
             self.contract = dataclasses.replace(
                 self.contract, bucket_widths=coarse)
-        _t_tables = time.time()
         self._char_of = {t: uxxxx_to_utf8(t) for t in self.alphabet.tokens}
         # id-indexed tables (0 = blank = empty) for the greedy finalize
         self._tok_list = [""] + self.alphabet.tokens
@@ -211,7 +213,6 @@ class OcrService:
                 s *= 4
             sizes.append(config.max_batch)
         self._batch_sizes = tuple(sorted(set(sizes)))
-        _tables_s = time.time() - _t_tables
         self._queues: List[queue.Queue] = [
             queue.Queue() for _ in self.contract.bucket_widths
         ]
@@ -235,6 +236,79 @@ class OcrService:
             "warmup_graphs": (len(self.contract.bucket_widths)
                               * len(self._batch_sizes)),
         }
+
+    def _build_decode_tables(self, config: ServiceConfig) -> None:
+        """The beam's lexicon and word LM (both engines), and for the
+        device beam its tables on the device, as the JAX service builds
+        them: the trie (``Lexicon.dense_tables``, with the unk row under
+        ``lex_unk_logp``), the word LM (``device_word_tables``: dense or
+        hashed bigram, hashed trigram), and under ``device_lm`` the char
+        LM (dense order 2-3, hashed order 4); then the search program
+        (``_beam_all``: every beam's finals leave the device for two-pass
+        LM rescoring)."""
+        bc = config.beam
+        device_beam = config.decoder == "beam" and config.beam_impl == "device"
+        want_lm = bool(config.lm_path) and bc.lm_alpha != 0.0
+        use_unk = (config.lexicon_path is not None
+                   and bc.lex_unk_logp != 0.0)
+        tables: dict = {}
+        self._lexicon = self._word_lm = None
+        if config.lexicon_path and config.decoder == "beam":
+            from ..decode.lexicon import Lexicon
+
+            self._lexicon = Lexicon.read_words(self.alphabet,
+                                               config.lexicon_path)
+            if device_beam:
+                next_tbl, boundary = self._lexicon.dense_tables(unk=use_unk)
+                tables.update(lex_next=next_tbl, lex_boundary=boundary)
+                if use_unk:
+                    tables.update(lex_unk_logp=float(bc.lex_unk_logp),
+                                  space_id=self._lexicon.space_id)
+        if config.word_lm_path and config.decoder == "beam":
+            from ..decode.lm import ArpaLM, device_word_tables, word_unk_logp
+
+            self._word_lm = ArpaLM.read_arpa(config.word_lm_path)
+            if device_beam:
+                if self._lexicon is None or self._word_lm.order > 3:
+                    raise ValueError(
+                        "device word fusion needs lexicon_path and a word LM "
+                        "of order <= 3; use beam_impl='host' otherwise")
+                tables.update(
+                    device_word_tables(self._word_lm, self._lexicon.words),
+                    word_ids=self._lexicon.word_id_table(unk=use_unk),
+                    space_id=self._lexicon.space_id,
+                    word_alpha=float(bc.word_lm_alpha),
+                    word_beta=float(bc.word_lm_beta))
+                if use_unk:
+                    tables["word_unk_logp"] = float(
+                        word_unk_logp(self._word_lm))
+        lm_fused = False
+        if want_lm and config.device_lm and device_beam:
+            from ..decode.lm import ArpaLM, dense_logp_table, hashed_logp_table
+
+            py_lm = ArpaLM.read_arpa(config.lm_path)
+            if 2 <= py_lm.order <= 3:
+                tables["lm_table"] = dense_logp_table(py_lm, self.alphabet)
+                lm_fused = True
+            elif py_lm.order == 4:
+                t = hashed_logp_table(py_lm, self.alphabet)
+                tables.update(lm_table=t["t3"], lm_hash_keys=t["keys"],
+                              lm_hash_vals=t["vals"], lm_rows=t["rows"],
+                              lm_probes=int(t["probes"]))
+                lm_fused = True
+        self._beam_fused = bool(tables)
+        self._beam_all = want_lm and not lm_fused
+        if self._beam_fused and self._beam_all:
+            raise ValueError(
+                "device lexicon serving with an LM needs order <= 4 "
+                "(fused); use beam_impl='host' for higher orders")
+        self._beam_kw = device_tables(tables, self.device)
+        fuse = (dict(lm_alpha=float(bc.lm_alpha), lm_beta=float(bc.lm_beta))
+                if lm_fused else {})
+        self._beam_prog = BeamProgram(functools.partial(
+            beam_scan_collapsed, beam_width=bc.beam_width, topk=bc.topk,
+            prune_logp=float(bc.prune_logp), all_beams=self._beam_all,
+            **fuse)) if device_beam else None
 
     # ---- client API ---------------------------------------------------------
     def _prep(self, image) -> _Pending:
@@ -312,19 +386,32 @@ class OcrService:
 
     def _decode_tail(self, lp, fm) -> _Handle:
         """The device work after the forward: the greedy collapse and
-        packed score, or the host beam's per-frame top-k."""
+        packed score; the device beam (with a fused LM or lexicon only
+        the packed winner rows leave the device, as in JAX); or the host
+        beam's per-frame top-k."""
         if self.config.decoder == "beam":
-            k = min(self.config.beam.topk, lp.shape[-1])
-            return _Handle((lp, fm, *beam_topk(lp, k)))
-        return _Handle((greedy_frames_packed(lp, fm),))
+            if self.config.beam_impl == "host":
+                k = min(self.config.beam.topk, lp.shape[-1])
+                return _Handle("beam_host", (lp, fm, *beam_topk(lp, k)))
+            out = self._beam_prog(lp, fm, **self._beam_kw)
+            if self._beam_fused:
+                return _Handle("beam_fused", (out[1],))
+            return _Handle("beam_dev", out)
+        return _Handle("greedy", (greedy_frames_packed(lp, fm),))
+
+    def _forward(self, images, widths) -> _Handle:
+        """(Deskew +) the model + the decode tail on device tensors."""
+        if self.config.device_deskew:
+            images = device_deskew(images, widths)[0]
+        lp, fm = self.model(images, widths)
+        return self._decode_tail(lp, fm)
 
     def _dispatch(self, images_np, widths_np) -> _Handle:
         """Device work for one assembled contract-height batch (call under
         the dispatch lock)."""
         with torch.inference_mode():
-            lp, fm = self.model(self._to_device(images_np),
-                                self._to_device(widths_np))
-            return self._decode_tail(lp, fm)
+            return self._forward(self._to_device(images_np),
+                                 self._to_device(widths_np))
 
     def _dispatch_raw(self, raw, heights, widths, new_widths) -> _Handle:
         """Device work for a raw batch: on-device resize in front of the
@@ -338,8 +425,7 @@ class OcrService:
                 raw_d, self._to_device(heights), self._to_device(widths),
                 new_w, out_h=H, out_w=out_w,
             ))
-            lp, fm = self.model(img, new_w)
-            return self._decode_tail(lp, fm)
+            return self._forward(img, new_w)
 
     def _assemble_chunk(self, bucket_idx: int, chunk: List[_Pending],
                         raw: bool):
@@ -359,15 +445,21 @@ class OcrService:
 
     def _finalize(self, handle: _Handle, n: int):
         """Host side of a dispatched batch -> n (id row, log-prob) pairs
-        (greedy), or n uxxxx hypotheses (host beam)."""
+        (greedy, fused device beam), n (uxxxx, CTC log-prob) pairs
+        (device beam), or n uxxxx hypotheses (host beam)."""
         self._prefetch_handle(handle)
         arrays = handle.copy.get()
-        if self.config.decoder == "beam":
+        valid = np.arange(arrays[0].shape[0]) < n
+        if handle.kind == "beam_host":
             lp, fm, vals, ids = arrays
             return beam_decode(
                 lp, fm, self.alphabet, self.config.beam, lm=self._lm,
-                valid=np.arange(lp.shape[0]) < n, precomputed_topk=(vals, ids),
+                valid=valid, precomputed_topk=(vals, ids),
                 lexicon=self._lexicon, word_lm=self._word_lm)
+        if handle.kind == "beam_dev":
+            return device_beam_decode(
+                None, None, self.alphabet, self.config.beam, lm=self._lm,
+                valid=valid, precomputed=arrays, return_scores=True)
         (packed,) = arrays
         return [
             (row[:-1][row[:-1] != 0], row[-1] / SCORE_SCALE)
@@ -376,8 +468,8 @@ class OcrService:
 
     def _warmup(self):
         """Run every (bucket, batch size) shape once, so the first real
-        requests do not pay the kernel build or cuDNN's first-call
-        set-up."""
+        requests do not pay the kernel build, cuDNN's first-call set-up or
+        the capture of the device beam's graph for the shape."""
         for i in range(len(self.contract.bucket_widths)):
             spec = BucketSpec.of(self.contract, i)
             for B in self._batch_sizes:
@@ -469,17 +561,18 @@ class OcrService:
         spec = BucketSpec.of(self.contract, bucket_idx)
         now = time.time()
         for p, hyp in zip(pendings, hyps):
-            if isinstance(hyp, str):  # host beam: uxxxx, no score
-                conf = None
-                text = "".join(self._char_of.get(t) or uxxxx_to_utf8(t)
-                               for t in hyp.split())
-                uxxxx = hyp
-            else:  # greedy: (id row, log-prob)
-                ids_row, logp = hyp
+            conf = None
+            if isinstance(hyp, tuple):  # (id row or uxxxx, log-prob)
+                hyp, logp = hyp
                 # normalise by the line's frame count, known from its width
                 frames = self.contract.frames_for_width(p.width)
                 conf = float(np.exp(min(logp / max(frames, 1), 0.0)))
-                ids = ids_row.tolist()
+            if isinstance(hyp, str):  # beam: uxxxx
+                text = "".join(self._char_of.get(t) or uxxxx_to_utf8(t)
+                               for t in hyp.split())
+                uxxxx = hyp
+            else:  # greedy, fused device beam: id row
+                ids = hyp.tolist()
                 text = "".join([self._chr_list[j] for j in ids])
                 uxxxx = " ".join([self._tok_list[j] for j in ids])
             p.future.set_result(
