@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's serving and training paths once on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py        # every phase, as below
-    python3 chip_smoke.py --ctc  # phases 1, 2 and the CTC part of 6
+    python3 chip_smoke.py         # every phase, as below
+    python3 chip_smoke.py --ctc   # phases 1, 2 and the CTC part of 6
+    python3 chip_smoke.py --int8  # phases 1, 2, 7 (its snapshot) and int8
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -122,6 +123,34 @@ the exit code is non-zero and no ``ok`` line is printed):
              the search alone at B=128, T=512 (W=16, k=8): ms a batch as
              a graph and eagerly, device launches a frame, its bound. One
              JSON line holds these readings.
+   int8    - on phase 7's snapshot (``int8_phase``): (a) the port's
+             writer calibrates 4 glyph train batches and writes
+             ``qstack.msgpack``, read back; (b) each of the six convs on
+             ``csrc/int8_conv.cu`` bit-equal to its plain version (and
+             two runs bit-equal) at B=32 of the W=2048 bucket and an odd
+             shape (B=3, W=37, CI=5), each timed at B=128, W=512 and
+             B=32, W=2048 beside its bound (int8 operations at 1,979
+             TOP/s or bytes at 3.35 TB/s), its plain version, the same
+             function from ``F.unfold`` + ``torch._int_mm`` (checked
+             equal) and the float path's cuDNN bf16 conv; (c)
+             ``OcrService(max_batch=128, quantize="int8")`` on 128 glyph
+             lines, float prefix 0 and 2, greedy and the device beam,
+             beside the bf16 service, each on phase 7's snapshot and on
+             the seeded random-init flagship (phase 4's, calibrated on
+             the glyph train split): int8 launches (six a batch, fewer
+             under a prefix) and K1 launches (``lstm_fwd_persistent``,
+             one a BLSTM layer and batch) counted in the timed call, warm
+             lines/s, each batch's posteriors from the service bit-equal
+             to ``quantized_forward`` on the same batch and held to the
+             margin gate of ``tests/test_quant.py`` against the float
+             model's (no flip where the float top-2 margin exceeds 0.15,
+             flips on at most 5% of valid frames), greedy strings
+             against bf16's (the share equal; edits at most 10% of the
+             frames, two a flipped frame); (d) ``run_inference`` int8
+             and bf16: lines/s, CER, int8 and K1 launches; (e)
+             ``normalize_line(do_deskew=True)`` on glyph lines rotated
+             by known angles (the estimate within 0.5 degrees): host
+             deskew without PIL. The phase prints its seconds.
 8. train-parity - one f32 train-mode forward/backward of the flagship
              model from the same parameters with ``lstm_impl``/``ctc_impl``
              ``"auto"`` (kernels) against ``"scan"`` (plain): the loss within
@@ -2561,10 +2590,462 @@ def experiments_path_phase(dev, font: dict, smi: str) -> dict:
     return counts
 
 
+# --- int8 ------------------------------------------------------------------
+# (B, W): a service batch at max_batch of the W=512 bucket, and the widest
+# bucket at 2**21 pixels
+INT8_TIMED = ((128, 512), (32, 2048))
+INT8_ODD = (3, 32, 37, 5, 24)  # (B, H, W, CI, CO)
+INT8_OPS_PER_S = 1979e12  # the int8 tensor cores, dense
+MARGIN, MAX_FLIP_SHARE = 0.15, 0.05  # tests/test_quant.py's margin gate
+DESKEW_ANGLES = (-3.0, -1.5, 2.0, 4.0)
+
+
+def _padded_batch(lines, dev):
+    """(images [B, 32, W], widths) of lines, W the longest rounded up to
+    a multiple of 128."""
+    import torch
+
+    W = -(-max(x.shape[1] for x in lines) // 128) * 128
+    images = np.full((len(lines), 32, W), 255, np.uint8)
+    for i, x in enumerate(lines):
+        images[i, :, :x.shape[1]] = x
+    widths = np.array([x.shape[1] for x in lines], np.int32)
+    return torch.from_numpy(images).to(dev), torch.from_numpy(widths).to(dev)
+
+
+def int8_conv_inputs(qs, images, widths, cfg):
+    """Each conv's input on the int8 path (NHWC), in application order."""
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops.int8_conv import int8_conv
+    from vistaocr_tpu_torch.ops.preprocess import preprocess_images
+
+    x = preprocess_images(images, widths, standardize=cfg.standardize_input,
+                          dtype=cfg.dtype)
+    inputs, i = [], 0
+    for st in cfg.stages:
+        for _ in range(st.num_convs):
+            inputs.append(x)
+            c = qs.convs[i]
+            x = int8_conv(x, c.weight, c.scale, c.bias, c.inv_s)
+            i += 1
+        x = quant._nhwc_pool(x, st.pool, cfg.conv_pool)
+    return inputs
+
+
+def int_mm_conv(x, wp, scale, bias, inv_s: float):
+    """The int8 conv from library calls: the quantize, ``F.unfold``
+    columns, ``torch._int_mm`` (exact int32 sums, K zero-padded to a
+    multiple of 8) and the epilogue. A yardstick; the port never calls
+    it."""
+    import torch
+    import torch.nn.functional as F
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    B, H, W, ci = x.shape
+    co = wp.shape[0]
+    xq = torch.round(x.to(torch.float32) * inv_s).clamp_(-127, 127)
+    cols = F.unfold(xq.permute(0, 3, 1, 2), 3, padding=1)  # k = (c, kh, kw)
+    k8 = -(-9 * ci // 8) * 8
+    a = torch.zeros((B * H * W, k8), dtype=torch.int8, device=x.device)
+    a[:, : 9 * ci] = cols.transpose(1, 2).reshape(B * H * W, 9 * ci)
+    w = torch.zeros((k8, co), dtype=torch.int8, device=x.device)
+    w[: 9 * ci] = ic._unpack(wp, ci).reshape(co, 9 * ci).t()
+    acc = torch._int_mm(a, w).reshape(B, H, W, co)
+    return ic.epilogue_ref(acc, scale, bias, x.dtype)
+
+
+def int8_kernel_rows(dev, qs, fkernels, cfg, font, smi: str) -> dict:
+    """Each of the six convs, kernel against plain version (bit-equal, and
+    two runs bit-equal) at B=32 of the W=2048 bucket on glyph lines, and
+    at an odd shape; at ``INT8_TIMED`` each timed beside its bound, the
+    plain version, ``int_mm_conv`` (checked equal) and the cuDNN bf16
+    conv of the float path. Returns {(B, W): {conv: row}}."""
+    import torch
+    import torch.nn.functional as F
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    rng = np.random.default_rng(5)
+    B, H, W, ci, co = INT8_ODD
+    odd = (torch.from_numpy(rng.normal(0, 1, (B, H, W, ci)).astype(
+        np.float32)).to(dev, cfg.dtype),
+        ic.pack_weights(torch.from_numpy(rng.integers(
+            -127, 128, (co, ci, 3, 3)).astype(np.int8))).to(dev),
+        torch.from_numpy(rng.uniform(1e-4, 1e-3, co).astype(
+            np.float32)).to(dev),
+        torch.zeros(co, device=dev), 42.0)
+    got = ic.int8_conv(*odd)
+    _require(torch.equal(got, ic.int8_conv_ref(*odd))
+             and torch.equal(got, ic.int8_conv(*odd)),
+             f"int8 conv bit-equal at the odd shape {INT8_ODD}")
+    rows: dict = {}
+    names = [f"conv{si}_{c}" for si, st in enumerate(cfg.stages)
+             for c in range(st.num_convs)]
+    for B, W in INT8_TIMED:
+        lines = [img for img, _ in glyph_lines(
+            font, np.random.default_rng(B + W), B, W // 2, W)]
+        images, widths = _padded_batch(lines, dev)
+        xs = int8_conv_inputs(qs, images, widths, cfg)
+        rows[(B, W)] = {}
+        for name, x, c, fk in zip(names, xs, qs.convs, fkernels):
+            args = (x, c.weight, c.scale, c.bias, c.inv_s)
+            y = ic.int8_conv(*args)
+            ref = ic.int8_conv_ref(*args)
+            err = (y.float() - ref.float()).abs().max().item()
+            _require(torch.equal(y, ref) and torch.equal(
+                y, ic.int8_conv(*args)),
+                f"int8 conv {name} at B={B} W={W}: bit-equal to its plain "
+                f"version and across runs (max |err| {err})")
+            _require(torch.equal(int_mm_conv(*args), y),
+                     f"{name}: _int_mm + unfold equal to the kernel")
+            Bx, Hx, Wx, cix = x.shape
+            cox = c.weight.shape[0]
+            ops = 2.0 * Bx * Hx * Wx * cox * 9 * cix
+            nbytes = _nbytes(x, y, c.weight, c.scale, c.bias)
+            t_ops = ops / INT8_OPS_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            xn = x.permute(0, 3, 1, 2).contiguous()
+            rows[(B, W)][name] = {
+                "shape": [Bx, Hx, Wx, cix, cox], "max_abs_err": err,
+                "ms": _cuda_ms(lambda: ic.int8_conv(*args), 10),
+                "plain_ms": _cuda_ms(lambda: ic.int8_conv_ref(*args), 1),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": _cuda_ms(lambda: int_mm_conv(*args), 3),
+                "library_call": "quantize + F.unfold + torch._int_mm + "
+                                "epilogue",
+                "cudnn_bf16_ms": _cuda_ms(
+                    lambda: F.conv2d(xn, fk, padding=1), 10)}
+            del xn
+        print(f"int8 convs at B={B} W={W} ({smi}): " + "; ".join(
+                f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+                f"_int_mm {r['library_ms']:.4f}, cuDNN bf16 "
+                f"{r['cudnn_bf16_ms']:.4f})" for n, r in rows[(B, W)].items()),
+            flush=True)
+        del xs
+    return rows
+
+
+def _margin_gate(ref_lp, lp, fm) -> dict:
+    """tests/test_quant.py:114-139 on the posteriors: no argmax flip on a
+    frame whose float top-2 margin exceeds MARGIN, flips on at most
+    MAX_FLIP_SHARE of the valid frames."""
+    import torch
+
+    top2 = torch.topk(ref_lp.float().exp(), 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flip = fm & (lp.argmax(-1) != ref_lp.argmax(-1))
+    return {"confident_flips": int((flip & (margin > MARGIN)).sum()),
+            "flips": int(flip.sum()), "valid_frames": int(fm.sum()),
+            "nonblank_frames": int((fm & (ref_lp.argmax(-1) != 0)).sum()),
+            "max_prob_drift": float((lp.float().exp() - ref_lp.float().exp()
+                                     ).abs()[fm].max())}
+
+
+def _spy_forward(svc) -> list:
+    """Record each batch that ``svc.ocr_lines`` dispatches: its count of
+    real rows (the rest are pad slots), its model input and its
+    posteriors, by wrapping ``_assemble_chunk``, ``_forward`` and
+    ``_decode_tail`` on the instance (``ocr_lines`` assembles and
+    dispatches each chunk in turn in the caller's thread, the tail inside
+    the forward). Returns the list of [rows, images, widths, log_probs,
+    frame_mask] it appends to; ``del svc._assemble_chunk, svc._forward,
+    svc._decode_tail`` ends it."""
+    seen: list = []
+    rows: list = []
+    assemble, forward, tail = (svc._assemble_chunk, svc._forward,
+                               svc._decode_tail)
+
+    def spy_assemble(bucket_idx, chunk, raw):
+        rows.append(len(chunk))
+        return assemble(bucket_idx, chunk, raw)
+
+    def spy_forward(images, widths):
+        seen.append([rows.pop(0), images.clone(), widths.clone()])
+        return forward(images, widths)
+
+    def spy_tail(lp, fm):
+        seen[-1] += [lp.clone(), fm.clone()]
+        return tail(lp, fm)
+
+    svc._assemble_chunk, svc._forward, svc._decode_tail = (
+        spy_assemble, spy_forward, spy_tail)
+    return seen
+
+
+def _service_gate(svc, seen: list, prefix: int) -> dict:
+    """Each recorded batch of an int8 service: its posteriors bit-equal to
+    ``quantized_forward`` on the same batch, its frame mask equal to the
+    float model's, and ``_margin_gate`` of its real rows against the float
+    model's posteriors, summed over the batches."""
+    import torch
+    from vistaocr_tpu_torch.models import quant
+
+    parts = []
+    with torch.inference_mode():
+        for n, images, widths, lp, fm in seen:
+            qlp, qfm = quant.quantized_forward(svc.model, svc._qstack, images,
+                                               widths, float_prefix=prefix)
+            ref_lp, ref_fm = svc.model(images, widths)
+            _require(torch.equal(qlp, lp) and torch.equal(qfm, fm)
+                     and torch.equal(ref_fm, fm) and torch.isfinite(lp).all(),
+                     "int8 service posteriors finite and bit-equal to "
+                     "quantized_forward on the same batch (max |diff| "
+                     f"{(qlp - lp).abs().max().item()}), frame masks equal")
+            parts.append(_margin_gate(ref_lp[:n], lp[:n], fm[:n]))
+    g = {k: sum(p[k] for p in parts) for k in (
+        "confident_flips", "flips", "valid_frames", "nonblank_frames")}
+    g["max_prob_drift"] = max(p["max_prob_drift"] for p in parts)
+    g["flip_share"] = g["flips"] / g["valid_frames"]
+    g["batches_checked"] = len(parts)
+    return g
+
+
+def _edits(a: str, b: str) -> int:
+    """Edit distance, the common prefix and suffix stripped first."""
+    from vistaocr_tpu_torch.text import levenshtein
+
+    i = 0
+    while i < min(len(a), len(b)) and a[i] == b[i]:
+        i += 1
+    j = 0
+    while j < min(len(a), len(b)) - i and a[-1 - j] == b[-1 - j]:
+        j += 1
+    return levenshtein(a[i:len(a) - j], b[i:len(b) - j])
+
+
+def int8_service_run(snap: str, kw: dict, lines, dev, n_convs: int,
+                     layers: int) -> tuple:
+    """One ``OcrService(max_batch=128)`` over ``lines``: a warm call (for
+    an int8 service recorded by ``_spy_forward``), then the counters of
+    both kernels set to 0 around a timed call: the int8 conv ``n_convs -
+    quantize_float_prefix`` launches a batch (none in float), K1
+    (``lstm_fwd_persistent``) one a BLSTM layer and batch, and no other
+    form of the forward recurrence. Returns (row, texts)."""
+    from vistaocr_tpu_torch.ops import int8_conv as ic, lstm_cuda
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    int8 = kw.get("quantize") == "int8"
+    svc = OcrService(snap, ServiceConfig(max_batch=128, max_wait_ms=2.0,
+                                         **kw), device=dev)
+    try:
+        seen = _spy_forward(svc) if int8 else None
+        svc.ocr_lines(lines)  # warm (the beam: captures its graphs)
+        if int8:
+            del svc._assemble_chunk, svc._forward, svc._decode_tail
+        ic.LAUNCHES = 0
+        for name in ("LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES"):
+            setattr(lstm_cuda, name, 0)
+        b0 = svc.stats["batches"]
+        t0 = time.time()
+        res = svc.ocr_lines(lines)
+        dt = time.time() - t0
+        launches, k1 = ic.LAUNCHES, lstm_cuda.LAUNCHES
+        other_forms = lstm_cuda.FWD_GRID_LAUNCHES + lstm_cuda.STEP_LAUNCHES
+        batches = svc.stats["batches"] - b0
+        gate = (_service_gate(svc, seen, kw.get("quantize_float_prefix", 0))
+                if int8 else None)
+    finally:
+        svc.close()
+    _require(len(res) == len(lines) and all(
+        0 < r.confidence <= 1 for r in res), f"{kw}: every line scored")
+    expect = (n_convs - kw.get("quantize_float_prefix", 0)) * batches * int8
+    _require(launches == expect and batches > 0,
+             f"{kw}: {launches} int8 launches, {expect} expected")
+    _require(k1 == layers * batches and other_forms == 0,
+             f"{kw}: {k1} K1 launches ({other_forms} not persistent), "
+             f"{layers * batches} persistent expected")
+    row = {"lines_per_s": len(lines) / dt, "seconds": dt, "batches": batches,
+           "int8_launches": launches, "launches_per_batch": launches / batches,
+           "k1_launches": k1, "k1_launches_per_batch": k1 / batches}
+    if gate is not None:
+        _require(gate["confident_flips"] == 0
+                 and gate["flips"] <= MAX_FLIP_SHARE * gate["valid_frames"],
+                 f"int8 margin gate on the service's posteriors ({kw}): "
+                 f"{gate}")
+        row["margin_gate"] = gate
+    return row, [r.text for r in res]
+
+
+def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
+    """int8 on phase 7's flagship snapshot: (a) the port's writer
+    calibrates on 4 glyph train batches and writes ``qstack.msgpack``,
+    read back; (b) ``int8_kernel_rows``; (c) ``int8_service_run`` of the
+    bf16 service and of ``OcrService(max_batch=128, quantize="int8")``
+    with ``quantize_float_prefix`` 0 and 2, greedy, and the device beam,
+    on 128 glyph lines, for phase 7's snapshot and for the seeded
+    random-init flagship: both kernels' launches counted, warm lines/s,
+    the service's own posteriors held to ``quantized_forward`` and to the
+    margin gate, and the greedy strings' edits from bf16's bounded; (d)
+    ``run_inference`` greedy, int8 and bf16: lines/s, CER and both
+    kernels' launches; (e) ``normalize_line(do_deskew=True)`` on
+    glyph lines rotated by known angles (host deskew without PIL)."""
+    from vistaocr_tpu_torch import infer
+    from vistaocr_tpu_torch.checkpoint import load_model
+    from vistaocr_tpu_torch.data import transforms
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops import int8_conv as ic, lstm_cuda
+
+    t_phase = time.time()
+    out: dict = {}
+    # (a) the writer
+    t0 = time.time()
+    path = quant.quantize_snapshot(snap, data, calib_batches=4, device=dev)
+    raw = quant.load_qstack(snap)
+    model, _, _ = load_model(snap, dev)
+    cfg = model.config
+    n = sum(st.num_convs for st in cfg.stages)
+    _require(set(raw) == {"kernels", "fkernels", "wscales", "biases",
+                          "in_scales"} and all(len(v) == n
+                                               for v in raw.values()),
+             f"qstack read back: {n} convs of each field")
+    for wq, fk, s in zip(raw["kernels"], raw["fkernels"], raw["in_scales"]):
+        _require(wq.dtype == np.int8 and wq.shape == fk.shape
+                 and np.abs(wq).max() == 127 and np.isfinite(s) and s > 0,
+                 f"qstack conv: int8 {wq.shape}, scale {s}")
+    out["qstack"] = {"seconds": round(time.time() - t0, 3),
+                     "bytes": os.path.getsize(path),
+                     "in_scales": [float(s) for s in raw["in_scales"]]}
+    print(f"int8 (a): qstack written and read back {out['qstack']}",
+          flush=True)
+    qs = quant.QuantizedStack(raw, dev, cfg.dtype)
+    # (b) each conv against its plain version, timed
+    out["convs"] = int8_kernel_rows(dev, qs, qs.fkernels, cfg, font, smi)
+    # (c) the service, on phase 7's snapshot (40 steps: its frames may be
+    # all blank) and on the seeded random-init flagship (phase 4's
+    # snapshot: no frame is blank-bound), its qstack calibrated here
+    lines = [img for img, _ in glyph_lines(font, np.random.default_rng(47),
+                                           128, 40, 2048)]
+    routes = (("bf16", {}), ("int8", dict(quantize="int8")),
+              ("int8_prefix2", dict(quantize="int8",
+                                    quantize_float_prefix=2)),
+              ("int8_device_beam", dict(quantize="int8", decoder="beam",
+                                        warmup=False)))
+    svc_out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        flagship_snapshot(tmp)
+        rmodel, _, _ = load_model(tmp, dev)
+        quant.save_qstack(tmp, quant.quantize_model(
+            rmodel, quant.calibration_batches(data, tmp)))
+        del rmodel
+        for snap_tag, path in (("", snap), ("_random_init", tmp)):
+            greedy: dict = {}
+            for tag, kw in routes:
+                row, texts = int8_service_run(path, kw, lines, dev, n,
+                                              cfg.lstm_layers)
+                if tag != "int8_device_beam":
+                    greedy[tag] = texts
+                    row["nonempty_strings"] = sum(bool(t) for t in texts)
+                svc_out[tag + snap_tag] = row
+            # greedy strings against bf16's: each flipped frame moves a
+            # greedy string by at most 2 edits, so the margin gate's flip
+            # share bounds the edits by 2 * MAX_FLIP_SHARE of the frames
+            for tag in ("int8", "int8_prefix2"):
+                row = svc_out[tag + snap_tag]
+                edits = sum(_edits(a, b) for a, b in zip(greedy[tag],
+                                                         greedy["bf16"]))
+                frames = row["margin_gate"]["valid_frames"]
+                row["greedy_equal_to_bf16"] = float(np.mean(
+                    [a == b for a, b in zip(greedy[tag], greedy["bf16"])]))
+                row["greedy_edits_to_bf16"] = edits
+                row["greedy_edits_per_frame"] = edits / frames
+                _require(edits <= 2 * MAX_FLIP_SHARE * frames,
+                         f"{tag}{snap_tag}: {edits} edits from bf16's greedy "
+                         f"strings over {frames} frames")
+    out["launches"] = svc_out["int8"]["int8_launches"]
+    out["service"] = svc_out
+    print(f"int8 (c) service, 128 glyph lines ({smi}): "
+          + json.dumps(svc_out), flush=True)
+    # (d) offline inference on the glyph validation split, both kernels'
+    # counters set to 0 around the timed run
+    inf: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, kw in (("bf16", {}), ("int8", dict(quantize="int8"))):
+            msgs = []
+            infer.run_inference(snap, data, "val", device=dev,
+                                log=msgs.append, **kw)  # warm
+            ic.LAUNCHES = 0
+            for name in ("LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES"):
+                setattr(lstm_cuda, name, 0)
+            rep = infer.run_inference(
+                snap, data, "val", device=dev, log=msgs.append,
+                out_path=os.path.join(tmp, f"{tag}.jsonl"), **kw)
+            launches, k1 = ic.LAUNCHES, lstm_cuda.LAUNCHES
+            other_forms = (lstm_cuda.FWD_GRID_LAUNCHES
+                           + lstm_cuda.STEP_LAUNCHES)
+            _require(rep.get("quantize") == kw.get("quantize") and (
+                tag == "bf16" or "int8 PTQ: loaded stored qstack from "
+                "snapshot" in msgs), f"infer {tag}: {rep}")
+            # a batch: n int8 launches (none in bf16), one K1 a layer
+            _require(k1 > 0 and k1 % cfg.lstm_layers == 0
+                     and other_forms == 0 and launches == (
+                         n * k1 // cfg.lstm_layers if tag == "int8" else 0),
+                     f"infer {tag}: {launches} int8 and {k1} K1 launches "
+                     f"({other_forms} not persistent)")
+            inf[tag] = {"lines_per_s": rep["lines_per_sec"],
+                        "cer": rep["cer"], "wer": rep["wer"],
+                        "lines": rep["lines"], "int8_launches": launches,
+                        "k1_launches": k1}
+    out["infer"] = inf
+    print(f"int8 (d) run_inference ({smi}): {json.dumps(inf)}", flush=True)
+    # (e) host deskew with PIL made unimportable for the duration
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None  # `import PIL` raises ImportError
+    skew = []
+    try:
+        for (img, _), angle in zip(
+                glyph_lines(font, np.random.default_rng(53),
+                            len(DESKEW_ANGLES), 300, 900), DESKEW_ANGLES):
+            rot = transforms._rotate(img, angle, expand=True, fillcolor=255)
+            est = transforms.estimate_skew(rot)
+            norm = transforms.normalize_line(rot, 32, do_deskew=True)
+            _require(norm.shape[0] == 32 and norm.dtype == np.uint8
+                     and abs(est + angle) <= 0.5,
+                     f"deskew of a line rotated by {angle}: estimate {est}")
+            skew.append({"angle": angle, "estimate": est,
+                         "out_shape": list(norm.shape)})
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+    out["deskew"] = {"pil_blocked": True, "lines": skew}
+    out["seconds"] = time.time() - t_phase
+    print(f"int8 (e) host deskew: {json.dumps(out['deskew'])}; int8 phase "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def int8_row(int8_out: dict) -> dict:
+    """The kernels line's row: one service batch's six launches at
+    B=128, W=512 summed (each conv at both timed shapes beside it)."""
+    per = int8_out["convs"][INT8_TIMED[0]]
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "cudnn_bf16_ms")
+    total = {k: sum(r[k] for r in per.values()) for k in keys}
+    return {
+        "name": "int8_conv", "route": "cuda",
+        "source": "vistaocr_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "vistaocr_tpu/models/quant.py:214 (XLA int8 conv in "
+                    "JAX; not a TPU kernel)",
+        "launches": int8_out["launches"],
+        "max_abs_err": max(r["max_abs_err"] for rows in
+                           int8_out["convs"].values() for r in rows.values()),
+        **total,
+        "bound_by": ("bytes" if sum(r["bound_by"] == "bytes"
+                                    for r in per.values()) * 2 >= len(per)
+                     else "operations"),
+        "library_call": "quantize + F.unfold + torch._int_mm + epilogue",
+        "form": "the six convs of one batch at B=128, W=512, summed",
+        "convs": {f"B{B}_W{W}": rows
+                  for (B, W), rows in int8_out["convs"].items()},
+        "service": int8_out["service"], "infer": int8_out["infer"],
+        "qstack": int8_out["qstack"], "deskew": int8_out["deskew"],
+        "phase_seconds": int8_out["seconds"]}
+
+
 def main(argv) -> int:
     ctc_only = argv == ["--ctc"]
-    if argv and not ctc_only:
-        print("usage: chip_smoke.py [--ctc]", file=sys.stderr)
+    int8_only = argv == ["--int8"]
+    if argv and not (ctc_only or int8_only):
+        print("usage: chip_smoke.py [--ctc | --int8]", file=sys.stderr)
         return 2
     _phase("device")
     import torch
@@ -2594,6 +3075,17 @@ def main(argv) -> int:
         _phase("train-kernels (CTC only)")
         ctc_rows = ctc_train_kernels(dev, f"{card}, {smi}")
         print(json.dumps({f"B{B}_T{T}": r for (B, T), r in ctc_rows.items()}))
+        print(smi)
+        return 0
+    if int8_only:
+        font = glyph_font(17)
+        with tempfile.TemporaryDirectory() as tmp:
+            _phase("train")
+            train_phase(tmp, font, smi)
+            _phase("int8")
+            int8_out = int8_phase(dev, os.path.join(tmp, "run", "last"),
+                                  os.path.join(tmp, "glyphs"), font, smi)
+        print(json.dumps({"kernels": [int8_row(int8_out)]}))
         print(smi)
         return 0
 
@@ -2634,6 +3126,9 @@ def main(argv) -> int:
             "timing": beam_rows, "service": beam_svc,
             "infer": {k: v for k, v in infer_out.items()
                       if "beam" in k}}}), flush=True)
+        _phase("int8")
+        int8_out = int8_phase(dev, os.path.join(tmp, "run", "last"),
+                              os.path.join(tmp, "glyphs"), font, smi)
     _phase("train-parity")
     f32_path = train_parity_phase(dev, font, f"{card}, {smi}")
     f2_counts = f2_path_phase(dev, font, f"{card}, {smi}")
@@ -2803,6 +3298,7 @@ def main(argv) -> int:
                         "launches": exp_counts[counter],
                         **with_f32(table[(*shape, "bfloat16")][name],
                                    table[(*shape, "float32")][name])})
+    kernels.append(int8_row(int8_out))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,12 @@ counters; the autograd Functions' backward on the card; the model and
 service paths that launch them; and the device beam search (every
 variant's CUDA graph against the CPU search, replays bit-equal and equal
 to the eager form, a graph per shape, a failed capture raising) and
-deskew on the card against the CPU. Every test is marked
+deskew on the card against the CPU; and csrc/int8_conv.cu (the int8
+conv of the int8 serving path, ``-k int8``): bit-equal to its plain
+version over ragged shapes and both input types, half-even rounding and
+clamping at the quantum edges, reruns bit-equal, its launch counter,
+refusals of what it does not take, a CUDA graph replay, and an int8
+service on the card. Every test is marked
 ``cuda`` and skips without a card. This file imports no JAX, so it runs
 on a machine that has only PyTorch:
 
@@ -578,6 +583,50 @@ def test_device_beam_graph_per_shape_and_new_inputs(dev):
         want = prog(lp_d, mask_d, graph=False, **tables)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert len(prog._graphs) == 2
+
+
+def test_device_beam_captures_while_another_thread_copies(dev):
+    """Captures run while another thread pins host memory, copies it to
+    the card and waits on its event, as ``infer``'s batch producer and the
+    service's host copies do: every shape captures, and its graph gives
+    the eager result."""
+    import threading
+
+    from vistaocr_tpu_torch.decode import device_beam as db
+
+    prog, tables = _beam_program(dict(_beam_variants())["char_lm3"], dev)
+    stop, errors = threading.Event(), []
+
+    def churn():
+        try:
+            rng = np.random.default_rng(0)
+            while not stop.is_set():
+                a = torch.from_numpy(rng.integers(
+                    0, 256, int(rng.integers(1 << 10, 1 << 20)), np.uint8))
+                d = a.pin_memory().to(dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                event.synchronize()
+                del d
+        except BaseException as e:
+            errors.append(e)
+
+    thread = threading.Thread(target=churn, daemon=True)
+    thread.start()
+    try:
+        captures = db.GRAPH_CAPTURES
+        for seed, T in enumerate(range(20, 44, 3)):
+            lp, mask = _beam_posteriors(seed, B=5, T=T)
+            lp_d = torch.from_numpy(lp).to(dev)
+            mask_d = torch.from_numpy(mask).to(dev)
+            got = prog(lp_d, mask_d, **tables)
+            want = prog(lp_d, mask_d, graph=False, **tables)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert db.GRAPH_CAPTURES == captures + 8
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors, errors
 
 
 def test_device_beam_graph_serves_other_tables_of_its_shapes(dev):
@@ -1538,3 +1587,163 @@ def test_experiment_functions_backward_on_cuda(dev, dtype):
     tol = 1e-4 if dtype == torch.float32 else BF16_BPTT_REL
     for a, b in zip(rest_k, rest_p):
         assert _rel_err(a, b) <= tol
+
+
+# --- the int8 conv (csrc/int8_conv.cu) ---------------------------------------
+def _int8_operands(dev, B, H, W, ci, co, dtype, seed):
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (B, H, W, ci)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (co, ci, 3, 3)).astype(
+        np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32))
+    inv_s = float(np.float32(127.0 / 3.0))
+    return (x.to(dev, dtype), int8_conv.pack_weights(wq).to(dev),
+            scale.to(dev), bias.to(dev), inv_s)
+
+
+INT8_SHAPES = [(B, 5, W, ci, co) for ci in (1, 5, 64) for co in (8, 24)
+               for B in (1, 3) for W in (1, 37)]
+INT8_SHAPES += [(4, 32, 64, 1, 64), (2, 16, 33, 64, 128),
+                (3, 8, 17, 128, 256), (1, 4, 9, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_conv_matches_plain(dev, shape, dtype):
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    ops = _int8_operands(dev, *shape, dtype, seed=sum(shape))
+    got = int8_conv.int8_conv(*ops)
+    want = int8_conv.int8_conv_ref(*ops)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert got.shape == (*shape[:3], shape[4])
+    assert torch.equal(got, want)
+    # the plain version on the CPU: the same arithmetic
+    cpu = int8_conv.int8_conv_ref(*(o.cpu() if torch.is_tensor(o) else o
+                                    for o in ops))
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_rounds_half_even_and_clamps(dev, dtype):
+    """Inputs exactly on a .5 quantum and beyond +-127 s: a centre-tap
+    weight of +1 (channel 0) and -1 (channel 1) with scale 1, bias 0 gives
+    relu(xq) and relu(-xq), so xq = y0 - y1."""
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    inv_s = 4.0  # s = 0.25: (k + 0.5) / 4 is exact in bf16 for small k
+    k = torch.arange(-140, 140, dtype=torch.float32)
+    x = torch.cat([(k + 0.5) / inv_s, k / inv_s, torch.tensor(
+        [1e3, -1e3, 31.875, -31.875, 40.0, -40.0])])
+    x = x.to(dtype)
+    wq = torch.zeros((2, 1, 3, 3), dtype=torch.int8)
+    wq[0, 0, 1, 1], wq[1, 0, 1, 1] = 1, -1
+    args = (x.reshape(1, 1, -1, 1).contiguous().to(dev),
+            int8_conv.pack_weights(wq).to(dev),
+            torch.ones(2, device=dev), torch.zeros(2, device=dev), inv_s)
+    y = int8_conv.int8_conv(*args)
+    assert torch.equal(y, int8_conv.int8_conv_ref(*args))
+    xq = (y[..., 0] - y[..., 1]).float().reshape(-1).cpu()
+    want = torch.round(x.float() * inv_s).clamp(-127, 127)
+    assert torch.equal(xq, want)
+    assert want.abs().max() == 127
+    # -0.5, 0.5, 1.5 (k = -1, 0, 1) round to -0, 0, 2
+    assert torch.equal(want[139:142], torch.tensor([0.0, 0.0, 2.0]))
+
+
+def test_int8_conv_is_deterministic_and_counts(dev):
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    ops = _int8_operands(dev, 8, 32, 200, 64, 64, torch.bfloat16, seed=3)
+    before = int8_conv.LAUNCHES
+    a = int8_conv.int8_conv(*ops)
+    b = int8_conv.int8_conv(*ops)
+    assert int8_conv.LAUNCHES == before + 2
+    int8_conv.int8_conv_ref(*ops)
+    assert int8_conv.LAUNCHES == before + 2
+    assert torch.equal(a, b)
+
+
+def test_int8_conv_refuses_what_it_does_not_take(dev):
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    x, wp, scale, bias, inv_s = _int8_operands(dev, 2, 4, 9, 5, 8,
+                                               torch.float32, seed=1)
+    for bad in ((x, wp.cpu(), scale, bias), (x, wp, scale.cpu(), bias),
+                (x.half(), wp, scale, bias),
+                (x.transpose(1, 2), wp, scale, bias),
+                (x, wp[:, :32].contiguous(), scale, bias),
+                (x, wp, scale.double(), bias)):
+        with pytest.raises(ValueError):
+            int8_conv.int8_conv(*bad, inv_s)
+
+
+def test_int8_conv_replays_in_a_cuda_graph(dev):
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    ops = _int8_operands(dev, 3, 16, 40, 64, 128, torch.bfloat16, seed=4)
+    x = ops[0].clone()
+    eager = int8_conv.int8_conv(*ops)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        int8_conv.int8_conv(x, *ops[1:])  # warm-up on the side stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_conv.int8_conv(x, *ops[1:])
+    x.copy_(ops[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.copy_(-ops[0])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, int8_conv.int8_conv_ref(-ops[0], *ops[1:]))
+
+
+def test_int8_service_launches_the_kernel(dev):
+    """An int8 service on the card (a tiny snapshot, its qstack
+    calibrated by the port): every route through the int8 conv (six
+    launches a batch) and K1 (one launch a BLSTM layer and batch), greedy
+    and the device beam, against the same service on the CPU."""
+    from vistaocr_tpu_torch.checkpoint import load_model
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops import int8_conv, lstm_cuda
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    rng = np.random.default_rng(2)
+    lines = [rng.integers(0, 256, (32, int(w)), np.uint8)
+             for w in rng.integers(20, 250, 12)]
+    with tempfile.TemporaryDirectory() as d:
+        _tiny_snapshot(d)
+        model, _, _ = load_model(d, "cpu")
+        calib = [(np.stack([np.pad(x[:, :100], ((0, 0), (0, 100 - min(
+            100, x.shape[1])))) for x in lines[:4]]),
+                  np.full(4, 100, np.int32))]
+        quant.save_qstack(d, quant.quantize_model(model, calib))
+        for decoder in ("greedy", "beam"):
+            cfg = ServiceConfig(max_batch=8, warmup=False, quantize="int8",
+                                decoder=decoder)
+            texts = {}
+            for device in ("cuda", "cpu"):
+                svc = OcrService(d, cfg, device=device)
+                try:
+                    before = (int8_conv.LAUNCHES, lstm_cuda.LAUNCHES,
+                              svc.stats["batches"])
+                    texts[device] = [r.text for r in svc.ocr_lines(lines)]
+                    launched = int8_conv.LAUNCHES - before[0]
+                    k1 = lstm_cuda.LAUNCHES - before[1]
+                    batches = svc.stats["batches"] - before[2]
+                finally:
+                    svc.close()
+                on_card = device == "cuda"
+                assert batches > 0
+                assert launched == 6 * batches * on_card
+                assert k1 == model.config.lstm_layers * batches * on_card
+            same = np.mean([a == b for a, b in zip(*texts.values())])
+            assert same >= 0.9, texts

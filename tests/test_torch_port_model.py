@@ -188,8 +188,12 @@ class TestConfigAndSnapshots:
             CnnLstmOcr(_tiny(ModelConfig, ConvStageSpec, stem_impl="pallas"))
 
     def test_ablation_knobs_raise(self):
-        with pytest.raises(NotImplementedError):
-            CnnLstmOcr(_tiny(ModelConfig, ConvStageSpec, conv_norm="none"))
+        # the knobs' JAX values run (tests/test_torch_port_ablations.py);
+        # values neither package defines raise
+        with pytest.raises(ValueError, match="conv_norm"):
+            CnnLstmOcr(_tiny(ModelConfig, ConvStageSpec, conv_norm="layer"))
+        with pytest.raises(ValueError, match="conv_pool"):
+            CnnLstmOcr(_tiny(ModelConfig, ConvStageSpec, conv_pool="avg"))
 
     def test_jax_snapshot_loads_with_equal_log_probs(self, tmp_path):
         cfg_j = _tiny(JaxConfig, JaxStage)

@@ -3,7 +3,12 @@ only) byte-equal to the JAX package's PIL-based transforms on the CPU:
 ``to_grayscale`` on seeded RGB, RGBA and grayscale arrays and PIL images;
 ``height_normalize`` and ``normalize_line`` (grayscale, polarity, PIL's
 BILINEAR resize) on up- and down-scaling, the ``max_width`` clamp, a
-width of 1 and a height of 1; ``do_deskew`` refused by name."""
+width of 1 and a height of 1; host deskew: PIL's ``rotate(BILINEAR)``
+replica at seeded angles in [-5, 5] with both ``expand`` values and both
+fill colours (and PIL's fast paths), the default resize (BICUBIC for
+mode ``L``) replica, and 200 seeded skewed lines through
+``estimate_skew``, ``deskew`` and ``normalize_line(do_deskew=True)``
+against the JAX package's PIL path."""
 
 import numpy as np
 import pytest
@@ -100,5 +105,81 @@ def test_normalize_line_byte_equal(case, channels):
 
 
 def test_deskew_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: deskew"):
-        transforms.normalize_line(_colour(0, (40, 90)), 32, do_deskew=True)
+    # host deskew is ported: the line that was refused runs, byte-equal
+    img = _colour(0, (40, 90))
+    np.testing.assert_array_equal(
+        transforms.normalize_line(img, 32, do_deskew=True),
+        jax_tf.normalize_line(img, 32, do_deskew=True))
+
+
+# --- host deskew: PIL's rotate and default (BICUBIC) resize in numpy ---------
+@pytest.mark.parametrize("expand", [False, True])
+@pytest.mark.parametrize("fill", [0, 255])
+def test_rotate_matches_pil(expand, fill):
+    rng = np.random.default_rng(11 + 2 * expand + (fill > 0))
+    for _ in range(40):
+        h, w = int(rng.integers(1, 70)), int(rng.integers(1, 400))
+        img = rng.integers(0, 256, (h, w), np.uint8)
+        angle = float(rng.uniform(-5, 5))
+        ref = np.asarray(Image.fromarray(img).rotate(
+            angle, resample=Image.BILINEAR, expand=expand, fillcolor=fill))
+        np.testing.assert_array_equal(
+            transforms._rotate(img, angle, expand=expand, fillcolor=fill),
+            ref)
+    img = rng.integers(0, 256, (9, 13), np.uint8)
+    for angle in (0.0, 90.0, 180.0, 270.0, -90.0):  # PIL's fast paths
+        np.testing.assert_array_equal(
+            transforms._rotate(img, angle, expand=expand, fillcolor=fill),
+            np.asarray(Image.fromarray(img).rotate(
+                angle, resample=Image.BILINEAR, expand=expand,
+                fillcolor=fill)))
+
+
+def test_default_resize_is_bicubic_and_matches_pil():
+    rng = np.random.default_rng(12)
+    for _ in range(60):
+        h, w = int(rng.integers(1, 70)), int(rng.integers(1, 1300))
+        img = rng.integers(0, 256, (h, w), np.uint8)
+        size = (int(rng.integers(1, 600)), int(rng.integers(1, 70)))
+        ref = np.asarray(Image.fromarray(img).resize(size))
+        np.testing.assert_array_equal(
+            transforms._resize(img, *size, "bicubic"), ref)
+        np.testing.assert_array_equal(ref, np.asarray(
+            Image.fromarray(img).resize(size, resample=Image.BICUBIC)))
+
+
+def _skewed_lines(seed, n):
+    """Seeded ink-on-paper lines (h 4-64, w 4-1200) with strokes along a
+    random slope: both early returns (h or w < 8) and the w > 512
+    subsample are hit."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = int(rng.integers(4, 65)), int(rng.integers(4, 1201))
+        img = np.full((h, w), 255, np.uint8)
+        slope = rng.uniform(-0.08, 0.08)
+        for _ in range(max(2, w // 10)):
+            x = int(rng.integers(0, w))
+            y = int(h / 2 + slope * (x - w / 2)
+                    + rng.integers(-(h // 4) - 1, h // 4 + 1))
+            y = min(max(y, 0), h - 1)
+            img[max(0, y - 2):y + 2, x:x + int(rng.integers(1, 6))] = int(
+                rng.integers(0, 80))
+        out.append(img)
+    return out
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_deskew_matches_jax(part):
+    lines = _skewed_lines(40 + part, 50)
+    sizes = [x.shape for x in lines]
+    assert any(min(s) < 8 for s in sizes) and any(s[1] > 512 for s in sizes)
+    for img in lines:
+        assert transforms.estimate_skew(img) == jax_tf.estimate_skew(img)
+        got, ref = transforms.deskew(img), jax_tf.deskew(img)
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(
+            transforms.normalize_line(img, 32, do_deskew=True,
+                                      max_width=2048),
+            jax_tf.normalize_line(img, 32, do_deskew=True, max_width=2048))

@@ -166,16 +166,26 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
 
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
-    for key in flatten(tree):
-        if "__msgpack_chunked_array__" in key:
-            raise ValueError(f"chunked arrays are not supported ({path})")
+
+    def check(node):
+        if isinstance(node, dict):
+            if "__msgpack_chunked_array__" in node:
+                raise ValueError(f"chunked arrays are not supported ({path})")
+            for v in node.values():
+                check(v)
+        elif isinstance(node, list):
+            for v in node:
+                check(v)
+
+    check(tree)
     return tree
 
 
 def flax_msgpack_bytes(tree: Dict[str, Any]) -> bytes:
-    """flax ``serialization.to_bytes`` of a nested dict of numpy arrays,
-    without flax, byte for byte: msgpack maps with their keys in sorted
-    order (as flax's tree copy leaves them), arrays as ext type 1 holding
+    """flax ``serialization.to_bytes`` (and ``msgpack_serialize``) of a
+    nested dict of numpy arrays, without flax, byte for byte: msgpack maps
+    with their keys in sorted order (as flax's tree copy leaves them),
+    lists as msgpack arrays, arrays as ext type 1 holding
     ``packb((shape, dtype_name, bytes))``. The inverse of
     ``read_flax_msgpack``."""
     import msgpack
@@ -183,6 +193,8 @@ def flax_msgpack_bytes(tree: Dict[str, Any]) -> bytes:
     def ordered(node):
         if isinstance(node, dict):
             return {str(k): ordered(node[k]) for k in sorted(node, key=str)}
+        if isinstance(node, list):
+            return [ordered(v) for v in node]
         return node
 
     def ext(x):

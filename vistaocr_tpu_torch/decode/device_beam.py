@@ -782,7 +782,11 @@ class BeamProgram:
             self._fn(lp[:, :2], fm[:, :2], **kw)
         torch.cuda.current_stream(log_probs.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # thread_local: a batch producer or a host copy in another thread
+        # (pinned allocations, copies, event waits) may run during the
+        # capture; under the default "global" mode its calls would
+        # invalidate the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outputs = self._fn(lp, fm, **kw)
         GRAPH_CAPTURES += 1
         return _Graph(lp, fm, graph, outputs)

@@ -9,9 +9,10 @@ device (``--decoder beam``, ``--beam-impl device`` the default:
 with the char LM, lexicon and word LM fused in the search, two-pass LM
 rescoring of the W finals where the LM is not fused, and ``--nbest``);
 and on the host (``--beam-impl host``: the C++ engine or the Python
-expansion). int8 (``--quantize int8``) raises ``NotImplementedError``
-naming its ROADMAP item. ``--dump-posteriors`` writes the JAX package's
-dump format, so either package's ``decode.offline`` reads it.
+expansion); int8 (``--quantize int8``: the snapshot's stored qstack, or
+one calibrated on the train split, ``models/quant.py``).
+``--dump-posteriors`` writes the JAX package's dump format, so either
+package's ``decode.offline`` reads it.
 
 Usage:
     python -m vistaocr_tpu_torch.infer --snapshot <dir>/best \\
@@ -161,7 +162,7 @@ def run_inference(
     word_lm_path: Optional[str] = None,
     word_lm_alpha: float = 0.5,
     word_lm_beta: float = 0.0,
-    quantize: str = "none",  # "none" | "int8" (not ported yet)
+    quantize: str = "none",  # "none" | "int8" (PTQ conv stack, models/quant.py)
     quantize_float_prefix: int = 0,
     calib_batches: int = 4,
     log=print,
@@ -175,13 +176,8 @@ def run_inference(
         raise ValueError(f"unknown decoder {decoder!r}")
     if beam_impl not in ("device", "host"):
         raise ValueError(f"unknown beam_impl {beam_impl!r}")
-    if quantize == "int8":
-        raise NotImplementedError(
-            "not ported to vistaocr_tpu_torch yet: --quantize int8 "
-            "(ROADMAP Queue 1: int8)")
-    if quantize != "none":
+    if quantize not in ("none", "int8"):
         raise ValueError(f"unknown --quantize mode {quantize!r}")
-    del quantize_float_prefix, calib_batches  # int8 only
 
     disable_tf32()
     model, alphabet, contract = load_model(snapshot, device)
@@ -207,6 +203,32 @@ def run_inference(
     if pipe.dropped:
         log(f"warning: {pipe.dropped} lines fit no bucket; skipped")
     eval_step = make_eval_step(model)
+    if quantize == "int8":
+        # int8 PTQ of the conv stack (models/quant.py); bridge, BLSTM and
+        # head keep the model's type, logits stay f32
+        from .models.quant import (
+            calibration_batches,
+            load_qstack,
+            make_quantized_eval_step,
+            quantize_model,
+        )
+
+        # prefer the snapshot's stored artifact: no calibration pass,
+        # the same result every run
+        qstack = load_qstack(snapshot)
+        if qstack is not None:
+            log("int8 PTQ: loaded stored qstack from snapshot")
+        else:
+            # calibrate on the TRAIN split where the dataset has one, so
+            # the scored split does not set the scales
+            calib = calibration_batches(
+                data_dir, snapshot, calib_batches=calib_batches,
+                batch_pixels=batch_pixels, split="train")
+            qstack = quantize_model(model, calib)
+            log(f"int8 PTQ: conv stack quantized "
+                f"(calibrated over {len(calib)} train batches)")
+        eval_step = make_quantized_eval_step(
+            model, qstack, float_prefix=quantize_float_prefix)
 
     lexicon = None
     if lexicon_path:
@@ -431,6 +453,7 @@ def run_inference(
             f"{decoder}:{beam_impl}" if decoder == "beam" else decoder
         ),
         **({"lm_fusion": lm_fusion} if lm_fusion else {}),
+        **({"quantize": quantize} if quantize != "none" else {}),
         "lines": len(hyps),
         "cer": round(c, 5),
         "wer": round(w, 5),
@@ -508,9 +531,17 @@ def main(argv=None):
     p.add_argument("--lm-alpha", type=float, default=0.5)
     p.add_argument("--lm-beta", type=float, default=0.0)
     p.add_argument("--quantize", choices=("none", "int8"), default="none",
-                   help="int8: not ported yet (ROADMAP Queue 1: int8)")
-    p.add_argument("--quantize-float-prefix", type=int, default=0)
-    p.add_argument("--calib-batches", type=int, default=4)
+                   help="int8: post-training-quantize the conv stack "
+                        "(BN-folded per-channel int8 weights, calibrated "
+                        "activation scales; the snapshot's stored "
+                        "qstack.msgpack when it has one)")
+    p.add_argument("--quantize-float-prefix", type=int, default=0,
+                   help="with --quantize int8: keep the first N convs "
+                        "in float (folded kernels)")
+    p.add_argument("--calib-batches", type=int, default=4,
+                   help="with --quantize: calibration batches drawn from "
+                        "the train split when the snapshot stores no "
+                        "qstack")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises without a card)")
     args = p.parse_args(argv)

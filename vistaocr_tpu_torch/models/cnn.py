@@ -7,6 +7,10 @@ closed by a max-pool. NCHW inside; the pooling uses
 (``cnn.py:100-103``), which is what keeps the frame arithmetic
 ``ceil(width / width_stride)`` for widths that are not multiples of 4.
 
+The JAX ablation knobs (``cnn.py:87-104``): ``norm="none"`` runs no
+BatchNorm and holds no ``bns``; ``pool_impl="stride"`` subsamples,
+``x[:, :, ::p0, ::p1]``, which gives the same ``ceil(W/p)`` frames.
+
 Parameters stay float32 (the JAX ``param_dtype``); ``forward`` casts them
 to the compute dtype, as flax does inside each layer.
 
@@ -59,6 +63,21 @@ def height_stride_of(stages: Sequence[ConvStageSpec]) -> int:
     return s
 
 
+NORMS = ("batch", "none")
+POOLS = ("max", "stride")
+
+
+def pool(x: torch.Tensor, window: Tuple[int, int], impl: str) -> torch.Tensor:
+    """A stage's pool on NCHW ``x`` (any memory format): flax's SAME
+    max-pool (``ceil_mode``), or the ``"stride"`` subsample; both give
+    ``ceil(W / p)`` columns."""
+    if window == (1, 1):
+        return x
+    if impl == "stride":
+        return x[:, :, :: window[0], :: window[1]]
+    return F.max_pool2d(x, window, window, ceil_mode=True)
+
+
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 
 
@@ -81,21 +100,23 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 class ConvStack(nn.Module):
     """``skip_first=True`` omits conv0_0 (the model's separate stem conv
-    computes it) but still applies bn0_0 + ReLU, so the parameters line
-    up with the JAX tree. ``in_channels`` is the input channel count of
+    computes it) but still applies bn0_0 (under ``norm="batch"``) + ReLU,
+    so the parameters line up with the JAX tree. ``in_channels`` is the input channel count of
     the first conv that this stack does run."""
 
     def __init__(self, stages: Tuple[ConvStageSpec, ...] = DEFAULT_STAGES,
                  *, in_channels: int = 1, skip_first: bool = False,
                  norm: str = "batch", pool_impl: str = "max"):
         super().__init__()
-        if norm != "batch" or pool_impl != "max":
-            raise NotImplementedError(
-                f"conv_norm={norm!r}/conv_pool={pool_impl!r} ablation knobs "
-                "are not ported yet (ROADMAP Queue 1, model ablations)"
-            )
+        if norm not in NORMS:
+            raise ValueError(f"unknown conv_norm {norm!r}; one of {NORMS}")
+        if pool_impl not in POOLS:
+            raise ValueError(
+                f"unknown conv_pool {pool_impl!r}; one of {POOLS}")
         self.stages = tuple(stages)
         self.skip_first = skip_first
+        self.norm = norm
+        self.pool_impl = pool_impl
         self.convs = nn.ModuleDict()
         self.bns = nn.ModuleDict()
         c_in = stages[0].channels if skip_first else in_channels
@@ -104,8 +125,9 @@ class ConvStack(nn.Module):
                 if not (skip_first and si == 0 and ci == 0):
                     self.convs[f"conv{si}_{ci}"] = nn.Conv2d(
                         c_in, stage.channels, 3, padding=1, bias=False)
-                self.bns[f"bn{si}_{ci}"] = nn.BatchNorm2d(
-                    stage.channels, eps=1e-5)
+                if norm == "batch":
+                    self.bns[f"bn{si}_{ci}"] = nn.BatchNorm2d(
+                        stage.channels, eps=1e-5)
                 c_in = stage.channels
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -118,18 +140,18 @@ class ConvStack(nn.Module):
                 name = f"conv{si}_{ci}"
                 if name in self.convs:
                     x = F.conv2d(x, self.convs[name].weight.to(dt), padding=1)
-                bn = self.bns[f"bn{si}_{ci}"]
-                if train:
+                bn = (self.bns[f"bn{si}_{ci}"] if self.norm == "batch"
+                      else None)
+                if bn is not None and train:
                     x = batch_norm_train(x, bn)
-                else:
+                elif bn is not None:
                     x = F.batch_norm(
                         x, bn.running_mean.to(dt), bn.running_var.to(dt),
                         bn.weight.to(dt), bn.bias.to(dt), training=False,
                         eps=bn.eps,
                     )
                 x = F.relu(x)
-            if stage.pool != (1, 1):
-                x = F.max_pool2d(x, stage.pool, stage.pool, ceil_mode=True)
+            x = pool(x, stage.pool, self.pool_impl)
         return x
 
     @property

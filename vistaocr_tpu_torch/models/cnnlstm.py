@@ -131,7 +131,21 @@ class CnnLstmOcr(nn.Module):
 
         b, c, hp, t = x.shape
         x = x.permute(0, 3, 2, 1).reshape(b, t, hp * c)  # C fastest
+        return self.sequence_head(x, widths, train=train, generator=generator)
 
+    def sequence_head(
+        self,
+        x: torch.Tensor,  # [B, T, H' * C] width-major features, C fastest
+        widths: torch.Tensor,  # [B]
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Bridge + ReLU, BLSTM and the f32 head with log-softmax over the
+        conv features; also the tail of the int8 path (``models/quant.py``
+        ``sequence_head_apply``). Returns (log_probs, frame_mask)."""
+        cfg = self.config
+        dt = cfg.dtype
+        t = x.shape[1]
         frames = -(-widths.to(torch.int64) // cfg.width_stride)
         tpos = torch.arange(t, device=x.device)
         frame_mask = tpos[None, :] < frames[:, None]

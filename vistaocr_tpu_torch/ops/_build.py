@@ -158,6 +158,14 @@ def _bind(lib) -> None:
         p, p, p,  # dxw, dwh, scratch
         p,  # stream
     ]
+    lib.vo_int8_conv.restype = i
+    lib.vo_int8_conv.argtypes = [
+        i, i, i, i, i, i, i,  # type_code, B, H, W, CI, CO, KP
+        p, p, p, p,  # x, wq, scale, bias
+        ctypes.c_float,  # inv_s
+        p,  # y
+        p,  # stream
+    ]
     lib.vo_stem_partials.restype = ctypes.c_longlong
     lib.vo_stem_partials.argtypes = [i, i, i]  # B, H, W
     lib.vo_stem_fwd.restype = i

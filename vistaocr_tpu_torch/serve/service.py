@@ -23,9 +23,12 @@ Counterpart of ``vistaocr_tpu/serve/service.py:50-916``:
 
 The model runs eagerly; the bucket ladder and the 8/32/128 batch-size
 ladder bound the shapes the device sees (and the padding each batch
-carries), and ``warmup`` captures the device beam's graph of each. Options
-whose modules are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item; none is ignored.
+carries), and ``warmup`` captures the device beam's graph of each. With
+``quantize="int8"`` the conv stack of every route is the snapshot's
+stored int8 stack (``models/quant.py``: the int8 conv kernel on the card),
+and the bridge, BLSTM and head stay in the model's type. A data mesh is
+not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item; no option is ignored.
 """
 
 from __future__ import annotations
@@ -62,9 +65,8 @@ from ..text import uxxxx_to_utf8
 @dataclasses.dataclass
 class ServiceConfig:
     """The JAX ``ServiceConfig`` fields and defaults (see the JAX module
-    for each knob's rationale). Options of unported modules raise when
-    set: int8 and a data mesh; ``quantize_float_prefix`` comes with
-    int8."""
+    for each knob's rationale). A data mesh is not ported and raises when
+    set."""
 
     max_batch: int = 32
     max_wait_ms: float = 5.0
@@ -93,7 +95,12 @@ class ServiceConfig:
     # Requests at non-contract heights are resized on the device; False:
     # on the host at request prep (normalize_line).
     device_resize: bool = True
+    # int8 serving (models/quant.py): the snapshot's qstack.msgpack (write
+    # it once with `python -m vistaocr_tpu_torch.models.quant`) in place of
+    # the conv stack in every route. "none" | "int8".
     quantize: str = "none"
+    # With int8: the first N convs run with the folded float kernels.
+    quantize_float_prefix: int = 0
     warmup: bool = True
     # Serving re-buckets the snapshot's ladder onto serve_align multiples
     # (0 keeps the snapshot's ladder).
@@ -113,9 +120,7 @@ def _check_supported(config: ServiceConfig) -> None:
     if config.word_lm_path and config.decoder != "beam":
         raise ValueError("word_lm_path needs decoder='beam' (word-LM fusion "
                          "lives in the beam search)")
-    if config.quantize == "int8":
-        todo.append("quantize='int8' (ROADMAP Queue 1: int8)")
-    elif config.quantize != "none":
+    if config.quantize not in ("none", "int8"):
         raise ValueError(f"unknown quantize mode {config.quantize!r}")
     if config.mesh_data not in (0, 1):
         todo.append(f"mesh_data={config.mesh_data} (ROADMAP Queue 1: "
@@ -187,6 +192,7 @@ class OcrService:
         disable_tf32()
         self.model, self.alphabet, self.contract = load_model(
             snapshot, self.device)
+        self._qstack = self._load_qstack(snapshot, config)
         self._lm = (load_lm(config.lm_path, self.alphabet)
                     if config.lm_path else None)
         _t_tables = time.time()
@@ -236,6 +242,25 @@ class OcrService:
             "warmup_graphs": (len(self.contract.bucket_widths)
                               * len(self._batch_sizes)),
         }
+
+    def _load_qstack(self, snapshot: str, config: ServiceConfig):
+        """int8 serving: the snapshot's stored qstack packed on the device
+        (serving never calibrates), or None."""
+        if config.quantize != "int8":
+            return None
+        from ..models.quant import QuantizedStack, load_qstack
+
+        qs = load_qstack(snapshot)
+        if qs is None:
+            raise ValueError(
+                "quantize='int8' needs qstack.msgpack in the snapshot "
+                "dir; create it once with `python -m "
+                "vistaocr_tpu_torch.models.quant --snapshot ... --data ...`"
+            )
+        qs = QuantizedStack(qs, self.device, self.model.config.dtype)
+        qs.check_float_prefix(config.quantize_float_prefix,
+                              "quantize_float_prefix")
+        return qs
 
     def _build_decode_tables(self, config: ServiceConfig) -> None:
         """The beam's lexicon and word LM (both engines), and for the
@@ -400,10 +425,18 @@ class OcrService:
         return _Handle("greedy", (greedy_frames_packed(lp, fm),))
 
     def _forward(self, images, widths) -> _Handle:
-        """(Deskew +) the model + the decode tail on device tensors."""
+        """(Deskew +) the model (its conv stack int8 under quantize) + the
+        decode tail on device tensors."""
         if self.config.device_deskew:
             images = device_deskew(images, widths)[0]
-        lp, fm = self.model(images, widths)
+        if self._qstack is None:
+            lp, fm = self.model(images, widths)
+        else:
+            from ..models.quant import quantized_forward
+
+            lp, fm = quantized_forward(
+                self.model, self._qstack, images, widths,
+                float_prefix=self.config.quantize_float_prefix)
         return self._decode_tail(lp, fm)
 
     def _dispatch(self, images_np, widths_np) -> _Handle:

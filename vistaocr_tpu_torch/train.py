@@ -6,14 +6,15 @@ fields and ``PRESETS``, the same CLI flags (``--device`` in place of
 batches from ``BatchPipeline.device_epoch``; ``train_step`` runs the
 forward in train mode (BatchNorm batch statistics, dropout, augment), the
 CTC loss (``ctc_impl``), the backward, the global-norm clip, Adam or SGD,
-and the BatchNorm running-statistics update; every ``val_interval_steps``
+and the BatchNorm running-statistics update (none under the model's
+``conv_norm="none"``, which holds no BatchNorm); every ``val_interval_steps``
 a greedy validation with CER/WER and a snapshot (``last/``, promoted to
 ``best/`` on a new best CER, plateau LR decay); metrics as JSONL;
 divergence checks; resume from ``last/`` with the optimizer state.
 
-Not ported on purpose: the mesh, multi-host launch and data parallelism
-(ROADMAP Queue 1, item 9), the device-resident dataset cache and the
-epoch-fused trainer (``train.py:303-377``; ROADMAP Queue 1, item 3b):
+Not ported yet: the mesh, multi-host launch and data parallelism
+(ROADMAP Queue 1, item 7), the device-resident dataset cache and the
+epoch-fused trainer (``train.py:303-377``; ROADMAP Queue 1, item 5):
 ``device_cache`` and ``fused_epochs`` stay in ``TrainConfig`` with
 ``"auto"`` meaning off here, and ``"on"`` raises.
 
@@ -382,11 +383,11 @@ def _check_unported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "device_cache='on' / fused_epochs='on': the device-resident "
             "dataset cache and the epoch-fused trainer are not ported yet "
-            "(ROADMAP Queue 1, item 3b)")
+            "(ROADMAP Queue 1, item 5)")
     if cfg.mesh_model != 1:
         raise NotImplementedError(
             "mesh_model != 1: multi-GPU training is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            "(ROADMAP Queue 1, item 7)")
 
 
 def device_time_summary(events, top: int = 25) -> str:
