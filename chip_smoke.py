@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py         # every phase, as below
     python3 chip_smoke.py --ctc   # phases 1, 2 and the CTC part of 6
     python3 chip_smoke.py --int8  # phases 1, 2, 7 (its snapshot) and int8
+    python3 chip_smoke.py --http  # phases 1, 2 and 4b (the HTTP server)
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -32,6 +33,20 @@ the exit code is non-zero and no ``ok`` line is printed):
              with ``device_deskew=True`` (deskew on the card in front of
              the forward, at the contract height and after the device
              resize), every line scored.
+4b. http   - the port's HTTP server (``serve/http_server.py``) over the
+             flagship of phase 4 (``http_phase``): the PNG/JPEG decoder
+             without PIL on every file of ``tests/torch_port_images``
+             (each array's sha256 against the manifest written from
+             Pillow) and its ms an image; 271 lines (PNG at heights
+             32/48/64, widths 40-2048, and the corpus's JPEG lines) from
+             eight client threads mixing raw and JSON ``/ocr`` and
+             ``/ocr_batch`` of 16: every answer 200, every text equal to
+             ``ocr_lines`` on the same arrays, ``/stats`` grown by the
+             count, bad body / TIFF / empty batch 400, K1 two launches a
+             batch and no f32-weight forward; HTTP and ``ocr_lines``
+             lines/s and the request p50/p99; a second server on the
+             device beam under the same load, its texts equal to a serial
+             ``ocr_lines``; ``serve.soak`` 20 s with 8 clients, no error.
 5. parity  - the same snapshot in f32: ``lstm_impl="scan"`` (plain)
              against ``"auto"`` (kernel), log-probs within 1e-3 on valid
              frames, greedy ids equal where the plain run's top-2 margin
@@ -586,6 +601,312 @@ def service_profile(snap: str, smi: str, top: int = 12) -> None:
           f"({smi}):\n" + "".join(device_time_summary(
               prof.events()).splitlines(True)[:top]), flush=True)
 
+
+
+# --- phase 4b: the HTTP server ----------------------------------------------
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "torch_port_images")
+DECODE_TIMED = ("grey_64x2048.png", "grey_64x2048_q90.jpg",
+                "rgb420_32x2048_q90.jpg")
+HTTP_CLIENTS = 8
+HTTP_BATCH = 16  # images a /ocr_batch call
+
+
+def png_bytes(img) -> bytes:
+    """A minimal grey 8-bit PNG writer: zlib over rows whose filter type
+    cycles through all five (None, Sub, Up, Average, Paeth)."""
+    import struct
+    import zlib
+
+    def chunk(cid, data):
+        return (struct.pack(">I", len(data)) + cid + data
+                + struct.pack(">I", zlib.crc32(data, zlib.crc32(cid))))
+
+    H, W = img.shape
+    rows = bytearray()
+    prev = np.zeros(W, np.int64)
+    for y in range(H):
+        row = img[y].astype(np.int64)
+        a = np.concatenate([[0], row[:-1]])
+        c = np.concatenate([[0], prev[:-1]])
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        ft = y % 5
+        pred = (0, a, prev, (a + prev) // 2, paeth)[ft]
+        rows.append(ft)
+        rows += ((row - pred) % 256).astype(np.uint8).tobytes()
+        prev = row
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(rows), 6))
+            + chunk(b"IEND", b""))
+
+
+def decoder_check(smi: str) -> dict:
+    """Every corpus file decoded without PIL, its array's sha256, dtype and
+    shape held to the manifest (written from Pillow); the median ms an
+    image of the timed trio."""
+    import hashlib
+    from vistaocr_tpu_torch.serve import imagecodec
+
+    with open(os.path.join(CORPUS, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in manifest.items():
+        with open(os.path.join(CORPUS, name), "rb") as f:
+            arr = imagecodec.decode_image(f.read())
+        got = {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+               "dtype": str(arr.dtype), "shape": list(arr.shape)}
+        _require(got == want, f"{name}: decoded {got} == manifest {want}")
+    ms = {}
+    for name in DECODE_TIMED:
+        with open(os.path.join(CORPUS, name), "rb") as f:
+            raw = f.read()
+        times = []
+        for _ in range(60):
+            t0 = time.perf_counter()
+            imagecodec.decode_image(raw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times[10:]))
+    print(f"decoder: {len(manifest)} corpus files equal to the manifest; "
+          f"median ms an image {json.dumps(ms)} (host CPU of the card "
+          f"machine; {smi})", flush=True)
+    return {"files": len(manifest), "ms": ms}
+
+
+def http_requests(rng):
+    """(bodies, decoded arrays): 256 text-like lines at heights 32, 48 and
+    64, widths 40-2048, as PNG, then the corpus's JPEG lines."""
+    from vistaocr_tpu_torch.serve import imagecodec
+
+    lines = []
+    for k, h in enumerate((32, 48, 64)):
+        lines += _lines(rng, 86 - (k == 2) * 2, h, 40, 2048)
+    bodies = [png_bytes(img) for img in lines]
+    for name in sorted(os.listdir(CORPUS)):
+        if name.endswith(".jpg"):
+            with open(os.path.join(CORPUS, name), "rb") as f:
+                bodies.append(f.read())
+    return bodies, [imagecodec.decode_image(b) for b in bodies]
+
+
+def http_load(url: str, bodies) -> tuple:
+    """Eight client threads at once, each request raw ``/ocr``, JSON
+    ``/ocr`` or ``/ocr_batch`` of 16 in turn: (texts by body, request
+    latencies ms, the service's own ``latency_ms`` of each ``/ocr``, wall
+    s, statuses)."""
+    import base64
+    import threading
+    import urllib.request
+
+    units, i, k = [], 0, 0
+    while i < len(bodies):
+        kind = ("raw", "json", "batch")[k % 3]
+        n = HTTP_BATCH if kind == "batch" else 1
+        units.append((kind, list(range(i, min(i + n, len(bodies))))))
+        i += n
+        k += 1
+    texts = [None] * len(bodies)
+    lat, svc_lat, statuses, lock = [], [], [], threading.Lock()
+
+    def post(path, data, ctype):
+        req = urllib.request.Request(url + path, data=data, method="POST",
+                                     headers={"Content-Type": ctype})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    def client(c):
+        for kind, idx in units[c::HTTP_CLIENTS]:
+            t0 = time.perf_counter()
+            if kind == "raw":
+                status, body = post("/ocr", bodies[idx[0]], "image/png")
+                got = [body]
+            elif kind == "json":
+                status, body = post("/ocr", json.dumps({"image_b64": (
+                    base64.b64encode(bodies[idx[0]]).decode())}).encode(),
+                    "application/json")
+                got = [body]
+            else:
+                status, body = post("/ocr_batch", json.dumps({
+                    "images_b64": [base64.b64encode(bodies[j]).decode()
+                                   for j in idx]}).encode(),
+                    "application/json")
+                got = body["results"]
+            dt = (time.perf_counter() - t0) * 1e3
+            with lock:
+                lat.append(dt)
+                statuses.append(status)
+                if kind != "batch":
+                    svc_lat.append(got[0]["latency_ms"])
+                for j, r in zip(idx, got):
+                    texts[j] = r["text"]
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return texts, lat, svc_lat, time.perf_counter() - t0, statuses
+
+
+def _http_server(svc):
+    import threading
+    from http.server import ThreadingHTTPServer
+    from vistaocr_tpu_torch.serve.http_server import make_handler
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_port}"
+
+
+def _bad_requests(url: str) -> list:
+    import urllib.error
+    import urllib.request
+
+    out = []
+    for path, data, ctype in (
+            ("/ocr", b"not an image", "image/png"),
+            ("/ocr", b"II*\x00" + bytes(60), "image/tiff"),
+            ("/ocr_batch", json.dumps({"images_b64": []}).encode(),
+             "application/json")):
+        req = urllib.request.Request(url + path, data=data, method="POST",
+                                     headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out.append(r.status)
+        except urllib.error.HTTPError as e:
+            out.append(e.code)
+    return out
+
+
+def _text_gate(name, svc, http_texts, ref_texts, arrays) -> dict:
+    """HTTP texts against direct ``ocr_lines`` on the same arrays. The
+    service pads a batch to its ladder size (8, 32 or 128), and in bf16
+    the forward's rounding follows that size, so a line that rode in a
+    batch of another size than in the bulk call is held to ``ocr_lines``
+    of itself at each ladder size (1, 9 and 33 copies): its HTTP text must
+    equal one of them. Counts: equal to the bulk call, equal at another
+    ladder size, equal to none (the gate)."""
+    out = {"equal": 0, "other_batch_size": 0, "none": 0}
+    for i, (a, b) in enumerate(zip(http_texts, ref_texts)):
+        if a == b:
+            out["equal"] += 1
+            continue
+        at = [svc.ocr_lines([arrays[i]] * k)[0].text for k in (1, 9, 33)]
+        out["other_batch_size" if a in at else "none"] += 1
+        print(f"  {name}: line {i} {arrays[i].shape}: http {a!r}, bulk "
+              f"ocr_lines {b!r}, alone at B=8/32/128 {at!r}", flush=True)
+    return out
+
+
+def http_phase(snap: str, card: str, smi: str) -> dict:
+    """The port's HTTP server over the bf16 flagship on 127.0.0.1:0 (a
+    thread): the decoder against the committed corpus; 271 lines (256 PNG
+    at heights 32/48/64, widths 40-2048, plus the corpus's 15 JPEG lines)
+    from eight clients at once, mixing raw and JSON ``/ocr`` and
+    ``/ocr_batch`` of 16, twice (the second timed): every answer 200 and
+    its text equal to ``ocr_lines`` on the same decoded arrays (at the
+    batch size it rode in, ``_text_gate``); ``/stats`` lines grow by the
+    count sent; a bad body, a TIFF header and an empty batch answer
+    400; K1's launches (``lstm_cuda.LAUNCHES``, set to 0 before the load
+    and read after) two a batch, no f32-weight forward. Then a second
+    server with the device beam (plain) under the same mixed load of 101
+    lines, its texts equal to a serial ``ocr_lines``; then ``serve.soak``
+    20 s with 8 clients and no error."""
+    from vistaocr_tpu_torch.ops import lstm_cuda
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig, soak
+
+    t_phase = time.time()
+    out = {"decode": decoder_check(smi)}
+    bodies, arrays = http_requests(np.random.default_rng(11))
+    n = len(bodies)
+    svc = OcrService(snap, ServiceConfig(max_batch=128, max_wait_ms=2.0),
+                     device="cuda")
+    httpd, url = _http_server(svc)
+    try:
+        ref = [r.text for r in svc.ocr_lines(arrays)]  # also warms shapes
+        t0 = time.perf_counter()
+        svc.ocr_lines(arrays)
+        direct_s = time.perf_counter() - t0
+        http_load(url, bodies)  # the first load, untimed
+        lines0 = svc.stats["lines"]
+        batches0 = svc.stats["batches"]
+        lstm_cuda.LAUNCHES = 0
+        lstm_cuda.FWD_GRID_LAUNCHES = 0
+        lstm_cuda.STEP_LAUNCHES = 0
+        texts, lat, svc_lat, wall, statuses = http_load(url, bodies)
+        launches = lstm_cuda.LAUNCHES
+        grid, step = lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES
+        batches = svc.stats["batches"] - batches0
+        grown = svc.stats["lines"] - lines0
+        bad = _bad_requests(url)
+        gate = _text_gate("greedy", svc, texts, ref, arrays)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    lat = np.sort(np.asarray(lat))
+    svc_lat = np.sort(np.asarray(svc_lat))
+    out.update({
+        "lines": n, "requests": len(lat),
+        "http_lines_per_s": n / wall, "ocr_lines_lines_per_s": n / direct_s,
+        "p50_ms": float(lat[len(lat) // 2]),
+        "p99_ms": float(lat[min(len(lat) - 1, int(len(lat) * 0.99))]),
+        "service_latency_p50_ms": float(svc_lat[len(svc_lat) // 2]),
+        "launches_http": launches, "batches_http": batches, "texts": gate})
+    print(f"http greedy (warm): {n} lines in {len(lat)} requests from "
+          f"{HTTP_CLIENTS} clients, {n / wall:.1f} lines/s, request p50 "
+          f"{out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms (the "
+          f"service's own latency_ms p50 {out['service_latency_p50_ms']:.2f}"
+          f"); ocr_lines on the same arrays {n / direct_s:.1f} lines/s; K1 "
+          f"launches {launches} over {batches} batches; texts {gate} "
+          f"({card}, {smi})", flush=True)
+    _require(all(s == 200 for s in statuses), f"every answer 200: {statuses}")
+    _require(None not in texts, "every line answered")
+    _require(grown == n, f"/stats lines grew by {grown}, sent {n}")
+    _require(bad == [400, 400, 400], f"bad requests answer 400: {bad}")
+    _require(launches == 2 * batches and batches > 0,
+             f"K1 two launches a batch: {launches} over {batches} batches")
+    _require(grid == 0 and step == 0,
+             f"no f32-weight forward: grid {grid}, step {step}")
+    _require(gate["none"] == 0, f"HTTP texts equal to ocr_lines: {gate}")
+
+    # the device beam behind a second server: /ocr_batch runs ocr_lines in
+    # a handler thread while the bucket workers dispatch and replay
+    beam_cfg = ServiceConfig(max_batch=128, max_wait_ms=2.0, decoder="beam",
+                             warmup=False)
+    svc = OcrService(snap, beam_cfg, device="cuda")
+    httpd, url = _http_server(svc)
+    sub = list(range(0, 256, 3))[:86] + list(range(256, n))
+    try:
+        texts, _, _, wall_b, statuses = http_load(
+            url, [bodies[i] for i in sub])
+        ref = [r.text for r in svc.ocr_lines([arrays[i] for i in sub])]
+        gate_b = _text_gate("beam", svc, texts, ref,
+                            [arrays[i] for i in sub])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    out["beam"] = {"lines": len(sub), "http_lines_per_s": len(sub) / wall_b,
+                   "texts": gate_b}
+    print(f"http device beam: {len(sub)} lines, {len(sub) / wall_b:.1f} "
+          f"lines/s (graph captures included); texts against a serial "
+          f"ocr_lines {gate_b} ({smi})", flush=True)
+    _require(all(s == 200 for s in statuses), "beam: every answer 200")
+    _require(gate_b["none"] == 0, f"beam: texts equal to ocr_lines: {gate_b}")
+
+    report = soak.main(["--snapshot", snap, "--seconds", "20", "--clients",
+                        "8", "--device", "cuda"])
+    out["soak"] = report
+    print(f"serve.soak 20 s, 8 clients ({smi})", flush=True)
+    _require(report["errors"] == 0, f"soak errors: {report['first_errors']}")
+    out["seconds"] = time.time() - t_phase
+    print(f"http phase {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def _colour(img, i: int):
@@ -3044,8 +3365,10 @@ def int8_row(int8_out: dict) -> dict:
 def main(argv) -> int:
     ctc_only = argv == ["--ctc"]
     int8_only = argv == ["--int8"]
-    if argv and not (ctc_only or int8_only):
-        print("usage: chip_smoke.py [--ctc | --int8]", file=sys.stderr)
+    http_only = argv == ["--http"]
+    if argv and not (ctc_only or int8_only or http_only):
+        print("usage: chip_smoke.py [--ctc | --int8 | --http]",
+              file=sys.stderr)
         return 2
     _phase("device")
     import torch
@@ -3077,6 +3400,14 @@ def main(argv) -> int:
         print(json.dumps({f"B{B}_T{T}": r for (B, T), r in ctc_rows.items()}))
         print(smi)
         return 0
+    if http_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            flagship_snapshot(tmp)
+            _phase("http")
+            http_out = http_phase(tmp, card, smi)
+        print(json.dumps({"http": http_out}))
+        print(smi)
+        return 0
     if int8_only:
         font = glyph_font(17)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3096,6 +3427,8 @@ def main(argv) -> int:
         flagship_snapshot(tmp)
         _phase("service")
         launches = service_phase(tmp, card, smi)
+        _phase("http")
+        http_out = http_phase(tmp, card, smi)
         _phase("parity")
         parity_phase(tmp, dev)
 
@@ -3153,6 +3486,7 @@ def main(argv) -> int:
         "source": "vistaocr_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "vistaocr_tpu/ops/lstm_pallas.py:51",
         "launches": launches,
+        "launches_http": http_out["launches_http"],
         **with_f32(rows[FLAGSHIP_SHAPE[:2]][torch.bfloat16],
                    rows[FLAGSHIP_SHAPE[:2]][torch.float32]),
         "at_B512_T32": with_f32(rows[SMALL_BUCKET_SHAPE[:2]][torch.bfloat16],

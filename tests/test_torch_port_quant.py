@@ -212,7 +212,7 @@ def test_calibration_scales_match_jax(case, dtype):
     ref = jq.calibrate_in_scales(jk, jb, jmodel.config, batches)
     model = _port_model(snap)
     ours = pq.calibrate_in_scales(*pq.fold_conv_params(model), model.config,
-                                  batches)
+                                  batches, device="cpu")
     assert ours.dtype == np.float32 and ours.shape == (N_CONVS,)
     rtol = 1e-5 if dtype == "float32" else 2.0 ** -7  # one bf16 ulp
     np.testing.assert_allclose(ours, ref, rtol=rtol, atol=0)
@@ -446,3 +446,18 @@ def test_errors_match_jax(case, tmp_path):
             torch.from_numpy(widths), cfg, float_prefix=2)
     OcrService(old, ServiceConfig(warmup=False, quantize="int8"),
                device="cpu").close()
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU-only "
+                    "refusal; on a card the default runs there")
+def test_calibration_defaults_to_the_card(case):
+    """calibrate_in_scales runs on the card unless asked for the CPU: its
+    default raises where torch sees no card."""
+    data, snaps, _ = case
+    snap = snaps["float32"]
+    batches = pq.calibration_batches(data, snap, calib_batches=1,
+                                     batch_pixels=2**16)
+    model = _port_model(snap)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pq.calibrate_in_scales(*pq.fold_conv_params(model), model.config,
+                               batches)

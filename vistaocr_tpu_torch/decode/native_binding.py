@@ -3,32 +3,27 @@
 Counterpart of ``vistaocr_tpu/decode/native_binding.py``. The C++ engine
 ``decode/native/beam.cpp`` is a byte-identical copy of the JAX package's
 (it depends on no framework; a test holds the two equal). It is built
-with g++ on first use into ``vistaocr_tpu_torch/_build/`` under a name
-keyed by a hash of the source and the flags, through a temporary file
-named for the building process and thread and renamed onto the final
-name, so that concurrent builders (test workers) never read or replace
-each other's half-written files. A failed build is reported with its own
-cause (g++ missing, the compiler's error, a timeout, or the rename);
-callers check ``available()`` and take the Python implementations
-otherwise, as in the JAX package.
+with g++ on first use into ``vistaocr_tpu_torch/_build/`` by
+``native_build`` (a name keyed by a hash of the source and the flags, a
+per-process, per-thread temporary file renamed onto it, each failure
+reported with its own cause); callers check ``available()`` and take the
+Python implementations otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "decode", "native", "beam.cpp")
-BUILD_DIR = os.path.join(_PKG, "_build")
-_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from .. import native_build
+
+_SRC = os.path.join(native_build.PKG_DIR, "decode", "native", "beam.cpp")
+BUILD_DIR = native_build.BUILD_DIR
+_FLAGS = native_build.FLAGS
 
 _lock = threading.Lock()
 _lib = None
@@ -37,34 +32,12 @@ _build_error: Optional[str] = None
 
 def library_path() -> str:
     """Where the library built from this source and these flags lives."""
-    h = hashlib.sha256()
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"_native-{h.hexdigest()[:16]}.so")
+    return native_build.library_path(_SRC, BUILD_DIR, "_native", _FLAGS)
 
 
 def _build(so: str) -> Optional[str]:
     """Compile beam.cpp to ``so``; None, or why it failed."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        return "g++ not found"
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    try:
-        subprocess.run([gxx, *_FLAGS, _SRC, "-o", tmp], check=True,
-                       capture_output=True, timeout=240)
-        os.replace(tmp, so)
-        return None
-    except subprocess.CalledProcessError as e:
-        return "g++ failed: " + e.stderr.decode(errors="replace")[-2000:]
-    except subprocess.TimeoutExpired:
-        return "g++ timed out"
-    except OSError as e:
-        return f"installing the built library failed: {e}"
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    return native_build.build(_SRC, so, _FLAGS)
 
 
 def _load():

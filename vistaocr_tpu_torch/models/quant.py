@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from ..ops.int8_conv import int8_conv, pack_weights
 from ..ops.preprocess import preprocess_images
+from ..runtime import resolve_device
 from .cnn import pool
 from .cnnlstm import CnnLstmOcr, ModelConfig
 
@@ -134,11 +135,12 @@ def folded_conv_features(kernels, biases, images, widths,
 
 
 def calibrate_in_scales(kernels, biases, config: ModelConfig,
-                        batches: Iterable, *, device="cpu") -> np.ndarray:
+                        batches: Iterable, *, device="cuda") -> np.ndarray:
     """Freeze per-conv-input scales from calibration data: scale_i = max
     over batches of max|input_i| / 127. ``batches`` yields (images [B,H,W]
-    uint8, widths [B] int32), numpy or tensors; each runs on ``device``."""
-    dev = torch.device(device)
+    uint8, widths [B] int32), numpy or tensors; each runs on ``device``
+    (the card unless the CPU is asked for; raises without a card)."""
+    dev = resolve_device(device)
     ks = [_host(k).to(dev, config.dtype) for k in kernels]
     bs = [_host(b).to(dev) for b in biases]
     m = None
