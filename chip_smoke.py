@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --ctc   # phases 1, 2 and the CTC part of 6
     python3 chip_smoke.py --int8  # phases 1, 2, 7 (its snapshot) and int8
     python3 chip_smoke.py --http  # phases 1, 2 and 4b (the HTTP server)
+    python3 chip_smoke.py --dp    # phases 1, 2 and dp (data parallelism)
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -215,6 +216,24 @@ the exit code is non-zero and no ``ok`` line is printed):
              must grow in that run. The same two paths in bf16 are timed
              side by side: finite log-probs, each loss within 1e-3 of
              the f32 production loss.
+dp         - data parallelism on the one card (``dp_phase``; correctness,
+             not scaling): two ranks on ``cuda:0`` over gloo
+             (``tests/torch_port_dp_child.py``, ``maybe_init_distributed(
+             ..., backend="gloo")``: NCCL refuses two ranks on one device)
+             train the flagship at full width (bf16, H=512, 2 layers,
+             dropout 0, seeded weights) on seeded glyph batches of 32 lines
+             in the W=512 bucket, 16 rows a rank, for 4 Adam steps, held
+             against one process on the same batches (each step's loss
+             within 2**-8 relative), and one f32 step held to JAX's DP
+             tolerances (loss 1e-5 relative, parameters atol 3e-3 / rtol
+             2e-2); the two ranks' losses, state dicts and launch counts
+             bit-equal, and each rank's K1, K2/K3 and K4/K5 launched. Then
+             one rank over NCCL through the trainer's CLI
+             (``--num-processes 1``), 4 steps and a validation on a small
+             glyph set. Then the service: ``mesh_data=-1`` (a shard a
+             card) equal to ``mesh_data=0``, and two shards on ``cuda:0``
+             (the device list patched) giving, line for line, the texts
+             and confidences of one shard, greedy and the device beam.
 10. profiles - cuDNN's ``nn.LSTM(H, H, bidirectional=True)`` at each
              shape and dtype where phases 3 and 6 timed K1 (with autograd
              recording where K1 ran its save_cell form): a scale reference
@@ -2333,7 +2352,7 @@ def glyph_lines(font: dict, rng, n: int, wmin: int, wmax: int):
 
 
 def write_glyph_dataset(path: str, font: dict, seed: int, n_train: int,
-                        n_val: int) -> None:
+                        n_val: int, widths=(40, 2048)) -> None:
     from vistaocr_tpu_torch.data import ShardWriter, write_manifest
     from vistaocr_tpu_torch.text import utf8_to_uxxxx
 
@@ -2341,7 +2360,7 @@ def write_glyph_dataset(path: str, font: dict, seed: int, n_train: int,
     splits = {}
     for split, n in (("train", n_train), ("val", n_val)):
         w = ShardWriter(path, split, 32)
-        for i, (img, text) in enumerate(glyph_lines(font, rng, n, 40, 2048)):
+        for i, (img, text) in enumerate(glyph_lines(font, rng, n, *widths)):
             w.add(f"{split}-{i:06d}", img, utf8_to_uxxxx(text))
         splits[split] = w.close()
     write_manifest(path, 32, splits)
@@ -2420,6 +2439,248 @@ def _glyph_batch(font: dict, seed: int, B: int, W: int, wmin: int,
         lls[i] = len(ids)
     return alphabet, [torch.from_numpy(a).to(dev)
                       for a in (images, widths, labels, lls)]
+
+
+# the dp phase: two ranks on one card over gloo (NCCL refuses two ranks on
+# one device), held against one process on the same global batches
+DP_BATCH, DP_WIDTH, DP_STEPS = 32, 512, 4  # 16 rows a rank
+DP_TIMEOUT_S = 240  # each spawned run; every rank is killed after
+# tests/test_torch_port_train.py: a bf16 step's loss against another
+# framework's within 2**-8 relative (twice JAX's own bf16-vs-f32 gap)
+BF16_STEP_LOSS_REL = 2.0 ** -8
+DP_K = {"K1": ("SAVE_CELL_LAUNCHES",),
+        "K2/K3": ("GATES_GEMM_LAUNCHES", "BWD_PERSISTENT_LAUNCHES",
+                  "DWH_LAUNCHES"),
+        "K4/K5": ("ALPHA_LAUNCHES", "BETA_LAUNCHES")}
+
+
+def _dp_child():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_port_dp_child.py")
+    spec = importlib.util.spec_from_file_location("torch_port_dp_child", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dp_train_job(job: str, font: dict) -> None:
+    """The flagship at full width (bf16 and f32, dropout 0, seeded
+    weights) and DP_STEPS seeded glyph batches of DP_BATCH lines in the
+    W=DP_WIDTH bucket (the first with its last row padding)."""
+    import torch
+    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
+
+    batches = {}
+    for k in range(DP_STEPS):
+        alphabet, batch = _glyph_batch(font, 40 + k, DP_BATCH, DP_WIDTH,
+                                       DP_WIDTH // 2, DP_WIDTH // 4, "cpu")
+        for f, t in zip(("images", "widths", "labels", "label_lengths"),
+                        batch):
+            batches[f"{f}_{k}"] = t.numpy()
+        batches[f"valid_{k}"] = np.arange(DP_BATCH) < DP_BATCH - (k == 0)
+    cfgs = {dt: ModelConfig(num_classes=alphabet.num_classes,
+                            compute_dtype=dt, dropout=0.0)
+            for dt in ("bfloat16", "float32")}
+    model = CnnLstmOcr(cfgs["float32"])
+    init_parameters(model, torch.Generator().manual_seed(5))
+    np.savez(os.path.join(job, "weights.npz"), **{
+        f"sd/{k}": v.numpy() for k, v in model.state_dict().items()})
+    np.savez(os.path.join(job, "batches.npz"), **batches)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"runs": [
+            {"config": cfgs["bfloat16"].to_json(), "optimizer": "adam",
+             "lr": 1e-3, "steps": DP_STEPS},
+            {"config": cfgs["float32"].to_json(), "optimizer": "adam",
+             "lr": 1e-3, "steps": 1}]}, f)
+
+
+def dp_train_check(dev, font: dict, smi: str) -> dict:
+    """Two gloo ranks on ``dev`` against one process: per-step bf16 loss
+    within BF16_STEP_LOSS_REL, the f32 step within JAX's DP tolerances
+    (loss 1e-5 relative, parameters atol 3e-3 / rtol 2e-2), the ranks'
+    state dicts, losses and launch counts bit-equal, and each rank's K1,
+    K2/K3 and K4/K5 launched."""
+    child = _dp_child()
+    with tempfile.TemporaryDirectory() as job:
+        dp_train_job(job, font)
+        t0 = time.time()
+        ranks, outs = child.spawn_ranks(job, 2, str(dev), "gloo",
+                                        DP_TIMEOUT_S)
+        ranks_s = time.time() - t0
+        for out in outs:
+            print(out.strip(), flush=True)
+        t0 = time.time()
+        one = child.run_job(job, device=str(dev))
+        one_s = time.time() - t0
+    r0, r1 = ranks
+    _require(sorted(r0) == sorted(r1) and all(
+        np.array_equal(r0[k], r1[k]) for k in r0),
+        "the two ranks' losses, state dicts and launch counts bit-equal: "
+        f"{[k for k in r0 if not np.array_equal(r0[k], r1[k])][:5]}")
+    rel = np.abs(r0["0/loss"] - one["0/loss"]) / np.abs(one["0/loss"])
+    _require(np.isfinite(r0["0/loss"]).all()
+             and (rel <= BF16_STEP_LOSS_REL).all(),
+             f"bf16 loss of each step within 2**-8: ranks {r0['0/loss']}, "
+             f"one process {one['0/loss']}")
+    f32_rel = float(abs(r0["1/loss"][0] - one["1/loss"][0])
+                    / abs(one["1/loss"][0]))
+    _require(f32_rel <= 1e-5, f"f32 loss within 1e-5: {f32_rel}")
+    worst = 0.0
+    for k in one:
+        if k.startswith("1/sd/") and not k.endswith("num_batches_tracked"):
+            diff = np.abs(r0[k] - one[k])
+            worst = max(worst, float(diff.max()))
+            _require((diff <= 3e-3 + 2e-2 * np.abs(one[k])).all(),
+                     f"f32 {k[5:]} after one Adam step within atol 3e-3 / "
+                     "rtol 2e-2")
+    counts = []
+    for r, res in enumerate(ranks):
+        c = {group: sum(int(res[f"0/count/{n}"]) for n in names)
+             for group, names in DP_K.items()}
+        _require(all(v > 0 for v in c.values()),
+                 f"rank {r} launched K1, K2/K3 and K4/K5: {c}")
+        counts.append(c)
+    out = {"ranks": 2, "backend": "gloo", "device": str(dev),
+           "rows_a_rank": DP_BATCH // 2, "width": DP_WIDTH,
+           "steps": DP_STEPS, "bf16_loss_ranks": r0["0/loss"].tolist(),
+           "bf16_loss_one": one["0/loss"].tolist(),
+           "bf16_loss_rel_max": float(rel.max()),
+           "f32_loss_rel": f32_rel, "f32_param_max_abs_diff": worst,
+           "launches_a_rank": counts,
+           "launches_a_rank_by_counter": {
+               n: int(r0[f"0/count/{n}"]) for names in DP_K.values()
+               for n in names},
+           "ranks_s": ranks_s, "one_process_s": one_s}
+    print(f"dp train: 2 gloo ranks x {DP_BATCH // 2} rows on {dev}, "
+          f"{DP_STEPS} bf16 steps: loss {r0['0/loss'].tolist()} against one "
+          f"process {one['0/loss'].tolist()} (worst {rel.max():.2e}); f32 "
+          f"loss rel {f32_rel:.2e}, parameters max |diff| {worst:.2e}; "
+          f"launches a rank {counts}; ranks "
+          f"{ranks_s:.1f} s, one process {one_s:.1f} s ({smi})", flush=True)
+    return out
+
+
+def dp_nccl_cli(tmp: str, font: dict, smi: str) -> dict:
+    """One rank over NCCL through the trainer's CLI: a few steps and a
+    validation on a small glyph data set."""
+    child = _dp_child()
+    data, run = os.path.join(tmp, "dp_glyphs"), os.path.join(tmp, "dp_run")
+    write_glyph_dataset(data, font, seed=23, n_train=256, n_val=32,
+                        widths=(200, 512))
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "vistaocr_tpu_torch.train",
+           "--data-dir", data, "--snapshot-dir", run,
+           "--bucket-widths", "256,512", "--batch-pixels", str(2**19),
+           "--max-steps", "4", "--val-interval-steps", "4",
+           "--log-interval", "1", "--coordinator-address",
+           f"127.0.0.1:{child.free_port()}", "--num-processes", "1",
+           "--process-id", "0"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                          text=True, timeout=DP_TIMEOUT_S)
+    wall = time.time() - t0
+    _require(proc.returncode == 0,
+             f"NCCL CLI run exited {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    _require(summary["steps"] == 4 and len(losses) == 4
+             and all(np.isfinite(losses)),
+             f"4 NCCL CLI steps with finite losses: {summary} {losses}")
+    _require("mesh=data:1xmodel:1 (rank 0)" in proc.stdout,
+             "the CLI run joined its one-rank group")
+    print(f"dp nccl: one rank (cpu:gloo,cuda:nccl) through the CLI, 4 steps "
+          f"in {wall:.1f} s of command time: losses {losses}, val CER "
+          f"{summary['last_val_cer']} ({smi})", flush=True)
+    return {"backend": "cpu:gloo,cuda:nccl", "ranks": 1, "steps": 4,
+            "losses": losses, "val_cer": summary["last_val_cer"],
+            "wall_s": wall}
+
+
+def dp_service_check(dev, font: dict, snap: str, smi: str) -> dict:
+    """The service with mesh_data=-1 against mesh_data=0, and two shards
+    on ``dev`` (the device list patched to it twice) against one, greedy
+    and the device beam. Every line falls in the W=512 bucket and the
+    two-shard service takes full batches of 32, so each shard runs the
+    16-row batches that the one-shard service at max_batch=16 runs: the
+    texts and confidences must be equal, not near."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda
+    from vistaocr_tpu_torch.parallel import mesh as pmesh
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    lines = [img for img, _ in glyph_lines(font, np.random.default_rng(9),
+                                            64, 420, 512)]
+    _require(all(385 <= img.shape[1] <= 512 for img in lines),
+             "every dp service line in the W=512 bucket")
+
+    def serve(**kw):
+        svc = OcrService(snap, ServiceConfig(warmup=False, **kw),
+                         device=str(dev))
+        try:
+            svc.ocr_lines(lines)  # the first call builds and captures
+            lstm_cuda.LAUNCHES = 0
+            t0 = time.time()
+            got = svc.ocr_lines(lines)
+            dt = time.time() - t0
+            return got, len(svc._shards), lstm_cuda.LAUNCHES, dt
+        finally:
+            svc.close()
+
+    out = {}
+    real = pmesh.local_devices
+    for decoder in ("greedy", "beam"):
+        one, n1, _, _ = serve(max_batch=32, decoder=decoder)
+        every, n_all, _, _ = serve(max_batch=32, decoder=decoder,
+                                   mesh_data=-1)
+        _require(n1 == 1 and n_all == torch.cuda.device_count(),
+                 f"mesh_data=-1 holds a shard a card: {n_all}")
+        if n_all == 1:
+            _require([(r.text, r.confidence) for r in every]
+                     == [(r.text, r.confidence) for r in one],
+                     f"{decoder}: mesh_data=-1 equals mesh_data=0")
+        half, _, _, _ = serve(max_batch=16, decoder=decoder)
+        pmesh.local_devices = lambda device_type="cuda": [dev, dev]
+        try:
+            two, n2, launches, dt = serve(max_batch=32, decoder=decoder,
+                                          mesh_data=2)
+        finally:
+            pmesh.local_devices = real
+        same = sum((a.text, a.confidence) == (b.text, b.confidence)
+                   for a, b in zip(two, half))
+        _require(n2 == 2 and same == len(lines) and launches > 0
+                 and any(r.text for r in two),
+                 f"{decoder}: two shards on {dev} give the texts and "
+                 f"confidences of one ({same}/{len(lines)}), K1 launched "
+                 f"({launches})")
+        out[decoder] = {"lines": len(lines), "equal": same,
+                        "k1_launches_two_shards": launches,
+                        "two_shards_lines_per_s": len(lines) / dt}
+        print(f"dp service {decoder}: mesh_data=-1 = {n_all} shard(s), equal"
+              f" to mesh_data=0; two shards on {dev}: {same}/{len(lines)} "
+              f"texts and confidences equal to one shard, K1 launches "
+              f"{launches}, {len(lines) / dt:.1f} lines/s warm ({smi})",
+              flush=True)
+    return out
+
+
+def dp_phase(dev, font: dict, smi: str) -> dict:
+    t0 = time.time()
+    out = {"train": dp_train_check(dev, font, smi)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["nccl_cli"] = dp_nccl_cli(tmp, font, smi)
+        snap = os.path.join(tmp, "snap")
+        flagship_snapshot(snap)
+        out["service"] = dp_service_check(dev, font, snap, smi)
+    out["seconds"] = time.time() - t0
+    out["note"] = ("correctness on one shared card, not scaling: both "
+                   "ranks and both shards time-slice one GPU")
+    print(f"dp phase: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 # the f32 path of phase 8: one f32 forward+backward of the flagship at the
@@ -3080,13 +3341,13 @@ def _spy_forward(svc) -> list:
         rows.append(len(chunk))
         return assemble(bucket_idx, chunk, raw)
 
-    def spy_forward(images, widths):
+    def spy_forward(images, widths, *shard):
         seen.append([rows.pop(0), images.clone(), widths.clone()])
-        return forward(images, widths)
+        return forward(images, widths, *shard)
 
-    def spy_tail(lp, fm):
+    def spy_tail(lp, fm, *shard):
         seen[-1] += [lp.clone(), fm.clone()]
-        return tail(lp, fm)
+        return tail(lp, fm, *shard)
 
     svc._assemble_chunk, svc._forward, svc._decode_tail = (
         spy_assemble, spy_forward, spy_tail)
@@ -3366,8 +3627,9 @@ def main(argv) -> int:
     ctc_only = argv == ["--ctc"]
     int8_only = argv == ["--int8"]
     http_only = argv == ["--http"]
-    if argv and not (ctc_only or int8_only or http_only):
-        print("usage: chip_smoke.py [--ctc | --int8 | --http]",
+    dp_only = argv == ["--dp"]
+    if argv and not (ctc_only or int8_only or http_only or dp_only):
+        print("usage: chip_smoke.py [--ctc | --int8 | --http | --dp]",
               file=sys.stderr)
         return 2
     _phase("device")
@@ -3406,6 +3668,12 @@ def main(argv) -> int:
             _phase("http")
             http_out = http_phase(tmp, card, smi)
         print(json.dumps({"http": http_out}))
+        print(smi)
+        return 0
+    if dp_only:
+        _phase("dp")
+        dp_out = dp_phase(dev, glyph_font(17), smi)
+        print(json.dumps({"dp": dp_out}))
         print(smi)
         return 0
     if int8_only:
@@ -3469,6 +3737,9 @@ def main(argv) -> int:
     stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
     exp_counts = experiments_path_phase(dev, font, smi)
+    _phase("dp")
+    dp_out = dp_phase(dev, font, smi)
+    print(json.dumps({"dp": dp_out}), flush=True)
     _phase("profiles")
     cudnn_phase(dev, f"{card}, {smi}", rows, lstm_rows)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3633,6 +3904,17 @@ def main(argv) -> int:
                         **with_f32(table[(*shape, "bfloat16")][name],
                                    table[(*shape, "float32")][name])})
     kernels.append(int8_row(int8_out))
+    # the dp phase's launches on each of its two ranks (bf16 steps)
+    dp_counts = dp_out["train"]["launches_a_rank_by_counter"]
+    for row in kernels:
+        counter = {"lstm_fwd_save_cell": "SAVE_CELL_LAUNCHES",
+                   "lstm_dwh": "DWH_LAUNCHES",
+                   "bptt_gates_gemm": "GATES_GEMM_LAUNCHES",
+                   "lstm_bwd_persistent": "BWD_PERSISTENT_LAUNCHES",
+                   "ctc_alpha": "ALPHA_LAUNCHES",
+                   "ctc_beta": "BETA_LAUNCHES"}.get(row["name"])
+        if counter:
+            row["launches_dp_a_rank"] = dp_counts[counter]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

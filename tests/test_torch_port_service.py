@@ -282,11 +282,12 @@ class TestDeviceRoutes:
 
 class TestOptions:
     # int8 without the snapshot's qstack (int8 is ported: the JAX error)
-    # and a data mesh (not ported); the ids as they were while the device
-    # beam's and deskew's cases shared the list
+    # and a data mesh over more devices than there are (the mesh is
+    # ported: the JAX make_mesh error); the ids as they were while the
+    # device beam's and deskew's cases shared the list
     @pytest.mark.parametrize("kw,error", [
         pytest.param({"quantize": "int8"}, ValueError, id="kw5"),
-        pytest.param({"mesh_data": 4}, NotImplementedError, id="kw6")])
+        pytest.param({"mesh_data": 4}, ValueError, id="kw6")])
     def test_unported_options_raise(self, snapshot, kw, error):
         with pytest.raises(error):
             OcrService(snapshot, ServiceConfig(warmup=False, **kw),

@@ -20,9 +20,12 @@ hand-written CUDA kernels (``csrc/*.cu``).
 - ``decode``   : greedy CTC collapse; the host prefix beam search with a
   char LM, a lexicon and a word LM (the C++ engine or the Python
   expansion); offline decoding of posterior dumps
-- ``serve``    : width-routed batched service
+- ``parallel`` : the mesh's data axis (ranks of a process group in
+  training, local devices in the service)
+- ``serve``    : width-routed batched service (``mesh_data`` shards)
 - ``infer``    : ``run_inference`` and the evaluation CLI
-- ``train``    : ``TrainConfig``, ``fit`` and the trainer's CLI
+- ``train``    : ``TrainConfig``, ``fit`` (one device, or one process a
+  GPU) and the trainer's CLI
 - ``experiments``: the fused stem and the direction-stacked BLSTM with
   their own kernels, measured against the production path (the model
   does not import them)

@@ -13,21 +13,31 @@ Batches are assembled with numpy (``dataset.read_into``); the JAX
 package's C++ assembler is not ported. ``device_epoch(epoch, device)``
 runs a producer thread that assembles batches ahead and copies them to
 the device from pinned host memory with ``non_blocking`` copies; images
-travel as uint8 and are normalised on the device. There is no multi-host
-branch.
+travel as uint8 and are normalised on the device.
+
+Data parallelism: every rank derives the same global plan and batch sizes
+(``batch_multiple`` = the rank count), and ``device_epoch(...,
+shard=(index, count))`` assembles and copies only rank ``index``'s
+contiguous rows of each global batch, with ``valid`` and ``indices``
+kept global so that evaluation can put the batch back together in order.
+``plan_fingerprint`` is the JAX one, CRC32 for CRC32, which the trainer
+compares across ranks. The prefetch thread only copies to the local
+device; it issues no collective.
 """
 
 from __future__ import annotations
 
 import math
 import queue
+import zlib
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_rows
 from ..text import Alphabet
 from .buckets import BucketSpec, ShapeContract
 
@@ -137,23 +147,27 @@ class BatchPipeline:
                 total += -(-len(members) // bsz) if members else 0
         return total
 
-    def _assemble(self, bucket_idx: int, idxs: Sequence[int], bsz: int) -> Batch:
+    def _assemble(self, bucket_idx: int, idxs: Sequence[int], bsz: int,
+                  rows: slice = slice(None)) -> Batch:
+        """The batch's ``rows`` (all by default); ``valid`` and ``indices``
+        cover the whole batch."""
         spec = self.spec_for(bucket_idx)
         n = len(idxs)
-        images = np.full((bsz, spec.height, spec.width), 255, dtype=np.uint8)
-        widths = np.zeros((bsz,), dtype=np.int32)
-        labels = np.zeros((bsz, spec.label_len), dtype=np.int32)
-        label_lengths = np.zeros((bsz,), dtype=np.int32)
-        valid = np.zeros((bsz,), dtype=bool)
-        out_indices = np.zeros((bsz,), dtype=np.int64)
-        for slot in range(bsz):
-            i = idxs[slot] if slot < n else idxs[slot % n]  # pad tail by repeat
-            widths[slot] = self.dataset.read_into(i, images[slot])
+        slots = range(bsz)[rows]
+        m = len(slots)
+        images = np.full((m, spec.height, spec.width), 255, dtype=np.uint8)
+        widths = np.zeros((m,), dtype=np.int32)
+        labels = np.zeros((m, spec.label_len), dtype=np.int32)
+        label_lengths = np.zeros((m,), dtype=np.int32)
+        valid = np.arange(bsz) < n
+        # pad the tail by repeating samples
+        out_indices = np.asarray([idxs[s % n] for s in range(bsz)], np.int64)
+        for r, slot in enumerate(slots):
+            i = out_indices[slot]
+            widths[r] = self.dataset.read_into(i, images[r])
             ids = self.encoded[i]
-            labels[slot, : len(ids)] = ids
-            label_lengths[slot] = len(ids)
-            valid[slot] = slot < n
-            out_indices[slot] = i
+            labels[r, : len(ids)] = ids
+            label_lengths[r] = len(ids)
         return Batch(images=images, widths=widths, labels=labels,
                      label_lengths=label_lengths, valid=valid, bucket=spec,
                      indices=out_indices)
@@ -180,16 +194,29 @@ class BatchPipeline:
             rng.shuffle(plan)
         return plan
 
-    def epoch(self, epoch: Optional[int] = None) -> Iterator[Batch]:
-        """Yield all batches for one epoch (numpy arrays)."""
+    def plan_fingerprint(self, epoch: int = 0) -> int:
+        """CRC32 over the batch sizes and the epoch plan: equal across
+        ranks iff they will feed identical global batches."""
+        h = zlib.crc32(np.asarray(self.batch_sizes, np.int64).tobytes())
+        for b, idxs in self.plan(epoch):
+            h = zlib.crc32(np.int64(b).tobytes(), h)
+            h = zlib.crc32(np.asarray(idxs, np.int64).tobytes(), h)
+        return h
+
+    def epoch(self, epoch: Optional[int] = None,
+              shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
+        """Yield all batches for one epoch (numpy arrays); with ``shard =
+        (index, count)`` each holds only that shard's rows."""
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
         for b, idxs in self.plan(epoch):
-            yield self._assemble(b, idxs, self.batch_sizes[b])
+            bsz = self.batch_sizes[b]
+            yield self._assemble(b, idxs, bsz, shard_rows(bsz, *shard))
 
     def device_epoch(self, epoch: Optional[int] = None, *, device,
-                     prefetch: int = 2) -> Iterator[Batch]:
+                     prefetch: int = 2,
+                     shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
         """Like :meth:`epoch`, with batches assembled by a producer thread
         ``prefetch`` ahead and copied to ``device`` (pinned host memory,
         ``non_blocking`` copies on a CUDA device)."""
@@ -216,7 +243,7 @@ class BatchPipeline:
 
         def producer():
             try:
-                for batch in self.epoch(epoch):
+                for batch in self.epoch(epoch, shard):
                     if stop.is_set():
                         return
                     q.put(put(batch))

@@ -20,7 +20,11 @@ normalises with the batch statistics, taken in float32 over every
 position of the batch (padding included) with the biased variance
 ``E[x^2] - E[x]^2`` clamped at 0, and updates the running statistics as
 ``0.9 * running + 0.1 * batch`` with that biased variance (torch's own
-``BatchNorm2d`` update would use the unbiased one).
+``BatchNorm2d`` update would use the unbiased one). Under data
+parallelism (a ``group`` of ranks, each with its rows of the global
+batch) the statistics are those of the global batch, as GSPMD computes
+flax's: the per-channel sums of x and x^2 are summed over the group
+inside autograd, so the backward sums their gradient terms too.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,14 +87,25 @@ def pool(x: torch.Tensor, window: Tuple[int, int], impl: str) -> torch.Tensor:
 BN_MOMENTUM = 0.9  # flax convention: running = m * running + (1 - m) * batch
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     group=None) -> torch.Tensor:
     """flax ``BatchNorm(use_running_average=False)`` on NCHW ``x``:
     statistics in f32 over (N, H, W), ``y = (x - mean) * (scale *
     rsqrt(var + eps)) + bias`` in f32, cast back to x's dtype; the running
-    statistics of ``bn`` are updated in place (outside autograd)."""
+    statistics of ``bn`` are updated in place (outside autograd). With a
+    ``group``, N runs over every rank's rows (each rank holds as many)."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    if group is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        sq = (xf * xf).mean(dim=(0, 2, 3))
+    else:
+        sums = all_reduce_sum(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                           (xf * xf).sum(dim=(0, 2, 3))]),
+                              group)
+        count = xf.numel() // xf.shape[1] * torch.distributed.get_world_size(
+            group)
+        mean, sq = sums[0] / count, sums[1] / count
+    var = torch.clamp(sq - mean * mean, min=0.0)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
     with torch.no_grad():
@@ -130,10 +147,12 @@ class ConvStack(nn.Module):
                         stage.channels, eps=1e-5)
                 c_in = stage.channels
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                group=None) -> torch.Tensor:
         """[B, C_in, H, W] -> [B, C_out, H', W'] in x's dtype;
         W' = ceil(W / width_stride). ``train`` normalises with the batch
-        statistics and updates the running ones in place."""
+        statistics (of every rank of ``group``, when there is one) and
+        updates the running ones in place."""
         dt = x.dtype
         for si, stage in enumerate(self.stages):
             for ci in range(stage.num_convs):
@@ -143,7 +162,7 @@ class ConvStack(nn.Module):
                 bn = (self.bns[f"bn{si}_{ci}"] if self.norm == "batch"
                       else None)
                 if bn is not None and train:
-                    x = batch_norm_train(x, bn)
+                    x = batch_norm_train(x, bn, group)
                 elif bn is not None:
                     x = F.batch_norm(
                         x, bn.running_mean.to(dt), bn.running_var.to(dt),

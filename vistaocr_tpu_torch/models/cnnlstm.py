@@ -116,9 +116,12 @@ class CnnLstmOcr(nn.Module):
         widths: torch.Tensor,  # [B] int32
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``train=True`` needs ``generator`` (on the images' device) when
-        ``dropout`` or ``augment`` is non-zero."""
+        ``dropout`` or ``augment`` is non-zero; under data parallelism
+        ``group`` is the data axis's process group (BatchNorm's statistics
+        over the global batch)."""
         cfg = self.config
         dt = cfg.dtype
         x = preprocess_images(images, widths, standardize=cfg.standardize_input,
@@ -127,7 +130,7 @@ class CnnLstmOcr(nn.Module):
             x = augment_images(x, widths, generator, strength=cfg.augment)
         x = x.permute(0, 3, 1, 2)  # [B, 1, H, W]
         x = F.conv2d(x, self.stem_kernel.to(dt), padding=1)
-        x = self.cnn(x, train=train)  # [B, C, H', T]
+        x = self.cnn(x, train=train, group=group)  # [B, C, H', T]
 
         b, c, hp, t = x.shape
         x = x.permute(0, 3, 2, 1).reshape(b, t, hp * c)  # C fastest

@@ -25,6 +25,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import all_reduce_sum
+
 NEG_INF = -1.0e30
 IMPLS = ("auto", "scan", "pallas", "pallas_interpret")
 
@@ -114,10 +116,17 @@ def mean_ctc_loss(
     sample_weights: Optional[torch.Tensor] = None,
     label_average: bool = False,
     impl: str = "auto",
+    group=None,
 ) -> torch.Tensor:
     """Batch-reduced CTC loss for training (``ops/ctc.py:122-157``):
     per-sample losses, optionally divided by their label lengths, averaged
-    with ``sample_weights`` (which mask padding duplicates)."""
+    with ``sample_weights`` (which mask padding duplicates). Under data
+    parallelism (``group``: the ranks, each with its rows of the global
+    batch) the denominator is the global weight sum, summed over the group
+    without a gradient, so this rank's share of the global mean comes
+    back and the SUM of the ranks' gradients is the single-device one.
+    The ranks' weight sums differ (padding rows weigh 0), so averaging
+    each rank's own mean would be wrong."""
     if impl not in IMPLS:
         raise ValueError(f"unknown ctc_impl {impl!r}; one of {IMPLS}")
     if impl == "scan":
@@ -135,7 +144,13 @@ def mean_ctc_loss(
                               plain=impl == "pallas_interpret")
     if label_average:
         per = per / torch.clamp(label_lengths.to(torch.float32), min=1.0)
-    if sample_weights is None:
-        return per.mean()
-    w = sample_weights.to(torch.float32)
-    return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if group is None:
+        if sample_weights is None:
+            return per.mean()
+        w = sample_weights.to(torch.float32)
+        return (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+    w = (torch.ones_like(per) if sample_weights is None
+         else sample_weights.to(torch.float32))
+    with torch.no_grad():
+        den = all_reduce_sum(w.sum(), group)
+    return (per * w).sum() / torch.clamp(den, min=1.0)

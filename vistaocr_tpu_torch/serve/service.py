@@ -1,4 +1,4 @@
-"""Batched inference service on one CUDA device.
+"""Batched inference service on one CUDA device, or a data mesh of them.
 
 Counterpart of ``vistaocr_tpu/serve/service.py:50-916``:
 
@@ -26,13 +26,22 @@ ladder bound the shapes the device sees (and the padding each batch
 carries), and ``warmup`` captures the device beam's graph of each. With
 ``quantize="int8"`` the conv stack of every route is the snapshot's
 stored int8 stack (``models/quant.py``: the int8 conv kernel on the card),
-and the bridge, BLSTM and head stay in the model's type. A data mesh is
-not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item; no option is ignored.
+and the bridge, BLSTM and head stay in the model's type.
+
+``mesh_data`` (JAX ``service.py:78-85``) serves data-parallel: 0 or 1 is
+one device, -1 every local device of the service's type, n the first n
+(more than there are raises ``ValueError``). Each device holds its own
+shard: the model, the int8 stack, the decode tables and the device
+beam's program with its graphs. The batch ladder is rounded up to
+multiples of n; each batch is split into n contiguous shards, each
+launched on its own device (its current stream), and the outputs are
+joined in order on the host. No option is ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import queue
@@ -58,6 +67,7 @@ from ..decode.device_beam import (
 from ..decode.greedy import SCORE_SCALE, greedy_frames_packed
 from ..ops.deskew import device_deskew
 from ..ops.resize import MAX_SCALE, host_pool, resize_lines, resized_to_uint8
+from ..parallel import mesh as pmesh
 from ..runtime import HostCopy, disable_tf32, resolve_device
 from ..text import uxxxx_to_utf8
 
@@ -65,8 +75,7 @@ from ..text import uxxxx_to_utf8
 @dataclasses.dataclass
 class ServiceConfig:
     """The JAX ``ServiceConfig`` fields and defaults (see the JAX module
-    for each knob's rationale). A data mesh is not ported and raises when
-    set."""
+    for each knob's rationale)."""
 
     max_batch: int = 32
     max_wait_ms: float = 5.0
@@ -82,6 +91,8 @@ class ServiceConfig:
     # Batch sizes per bucket; () derives the x4 ladder 8, 32, 128, ...
     # capped at max_batch.
     batch_sizes: Sequence[int] = ()
+    # Data-parallel serving: 0/1 one device, -1 every local device, n the
+    # first n; each batch splits into n contiguous shards.
     mesh_data: int = 0
     lm_path: Optional[str] = None
     # The char LM fused inside the device beam (order 2-3 dense, 4
@@ -108,8 +119,7 @@ class ServiceConfig:
 
 
 def _check_supported(config: ServiceConfig) -> None:
-    """Raise on every option whose module is not ported yet."""
-    todo = []
+    """Raise on every option the service does not take."""
     if config.decoder not in ("greedy", "beam"):
         raise ValueError(f"unknown decoder {config.decoder!r}")
     if config.beam_impl not in ("device", "host"):
@@ -122,12 +132,6 @@ def _check_supported(config: ServiceConfig) -> None:
                          "lives in the beam search)")
     if config.quantize not in ("none", "int8"):
         raise ValueError(f"unknown quantize mode {config.quantize!r}")
-    if config.mesh_data not in (0, 1):
-        todo.append(f"mesh_data={config.mesh_data} (ROADMAP Queue 1: "
-                    "multi-GPU)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to vistaocr_tpu_torch yet: " + "; ".join(todo))
 
 
 @dataclasses.dataclass
@@ -165,16 +169,34 @@ _RAW_SLACK = 8
 
 @dataclasses.dataclass
 class _Handle:
-    """One dispatched batch: its kind and results on the device (greedy,
-    and the device beam with a fused LM or lexicon: the packed [B, T+1]
-    int32 rows; the device beam otherwise: totals and the best [B, T] or
-    every beam's [B, W, T] rows; host beam: log-probs, frame mask and the
-    per-frame top-k values and ids) and, once prefetched, their host
-    copy."""
+    """One dispatched batch: its kind and results on the device, one tuple
+    a shard in row order (greedy, and the device beam with a fused LM or
+    lexicon: the packed [B, T+1] int32 rows; the device beam otherwise:
+    totals and the best [B, T] or every beam's [B, W, T] rows; host beam:
+    log-probs, frame mask and the per-frame top-k values and ids) and,
+    once prefetched, their host copies."""
 
     kind: str  # greedy | beam_fused | beam_dev | beam_host
-    tensors: tuple
-    copy: Optional[HostCopy] = None
+    parts: list
+    copies: Optional[List[HostCopy]] = None
+
+
+@dataclasses.dataclass
+class _Shard:
+    """What one data shard's forward and decode tail read, on its
+    device."""
+
+    device: torch.device
+    model: torch.nn.Module
+    qstack: Optional[object]  # models.quant.QuantizedStack
+    beam_kw: dict
+    beam_prog: Optional[BeamProgram]
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for launches (CUDA), or nothing."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 class OcrService:
@@ -190,13 +212,21 @@ class OcrService:
         self.config = config
         self.device = resolve_device(device)
         disable_tf32()
+        devices = self._mesh_devices(config.mesh_data)
+        self.device = devices[0]
         self.model, self.alphabet, self.contract = load_model(
             snapshot, self.device)
-        self._qstack = self._load_qstack(snapshot, config)
+        qstack = self._load_qstack(snapshot, config)
         self._lm = (load_lm(config.lm_path, self.alphabet)
                     if config.lm_path else None)
         _t_tables = time.time()
-        self._build_decode_tables(config)
+        tables, beam_fn = self._build_decode_tables(config)
+        self._shards = [self._make_shard(i, d, qstack, tables, beam_fn)
+                        for i, d in enumerate(devices)]
+        # the first shard's, for callers that drive one shard's pieces
+        self._qstack = self._shards[0].qstack
+        self._beam_kw = self._shards[0].beam_kw
+        self._beam_prog = self._shards[0].beam_prog
         _tables_s = time.time() - _t_tables
         if config.serve_align:
             a = config.serve_align
@@ -218,7 +248,9 @@ class OcrService:
                 sizes.append(s)
                 s *= 4
             sizes.append(config.max_batch)
-        self._batch_sizes = tuple(sorted(set(sizes)))
+        # every batch size must divide over the shards
+        ns = len(self._shards)
+        self._batch_sizes = tuple(sorted({-(-s // ns) * ns for s in sizes}))
         self._queues: List[queue.Queue] = [
             queue.Queue() for _ in self.contract.bucket_widths
         ]
@@ -243,12 +275,40 @@ class OcrService:
                               * len(self._batch_sizes)),
         }
 
+    def _mesh_devices(self, mesh_data: int) -> List[torch.device]:
+        """The service's devices: its own for 0 or 1, else a data mesh
+        over the local devices of its type (``ValueError`` when there are
+        fewer than ``mesh_data``)."""
+        if mesh_data in (0, 1):
+            return [self.device]
+        local = pmesh.local_devices(self.device.type)
+        mesh = pmesh.make_mesh(pmesh.MeshConfig(data=mesh_data, model=1),
+                               devices=local if mesh_data < 0
+                               else local[:mesh_data])
+        return list(mesh.devices)
+
+    def _make_shard(self, index: int, device: torch.device, qstack,
+                    tables: dict, beam_fn) -> _Shard:
+        """A shard's copies of the model, the int8 stack, the decode
+        tables and the device beam's program on ``device``."""
+        model = (self.model if index == 0
+                 else copy.deepcopy(self.model).to(device))
+        qs = None
+        if qstack is not None:
+            from ..models.quant import QuantizedStack
+
+            qs = QuantizedStack(qstack, device, self.model.config.dtype)
+            qs.check_float_prefix(self.config.quantize_float_prefix,
+                                  "quantize_float_prefix")
+        return _Shard(device, model, qs, device_tables(tables, device),
+                      BeamProgram(beam_fn) if beam_fn is not None else None)
+
     def _load_qstack(self, snapshot: str, config: ServiceConfig):
-        """int8 serving: the snapshot's stored qstack packed on the device
-        (serving never calibrates), or None."""
+        """int8 serving: the snapshot's stored qstack (serving never
+        calibrates), or None."""
         if config.quantize != "int8":
             return None
-        from ..models.quant import QuantizedStack, load_qstack
+        from ..models.quant import load_qstack
 
         qs = load_qstack(snapshot)
         if qs is None:
@@ -257,20 +317,19 @@ class OcrService:
                 "dir; create it once with `python -m "
                 "vistaocr_tpu_torch.models.quant --snapshot ... --data ...`"
             )
-        qs = QuantizedStack(qs, self.device, self.model.config.dtype)
-        qs.check_float_prefix(config.quantize_float_prefix,
-                              "quantize_float_prefix")
         return qs
 
-    def _build_decode_tables(self, config: ServiceConfig) -> None:
+    def _build_decode_tables(self, config: ServiceConfig):
         """The beam's lexicon and word LM (both engines), and for the
         device beam its tables on the device, as the JAX service builds
         them: the trie (``Lexicon.dense_tables``, with the unk row under
         ``lex_unk_logp``), the word LM (``device_word_tables``: dense or
         hashed bigram, hashed trigram), and under ``device_lm`` the char
-        LM (dense order 2-3, hashed order 4); then the search program
+        LM (dense order 2-3, hashed order 4); then the search function
         (``_beam_all``: every beam's finals leave the device for two-pass
-        LM rescoring)."""
+        LM rescoring). Returns the host tables and the search function
+        (None without the device beam); each shard moves them to its
+        device."""
         bc = config.beam
         device_beam = config.decoder == "beam" and config.beam_impl == "device"
         want_lm = bool(config.lm_path) and bc.lm_alpha != 0.0
@@ -327,13 +386,13 @@ class OcrService:
             raise ValueError(
                 "device lexicon serving with an LM needs order <= 4 "
                 "(fused); use beam_impl='host' for higher orders")
-        self._beam_kw = device_tables(tables, self.device)
         fuse = (dict(lm_alpha=float(bc.lm_alpha), lm_beta=float(bc.lm_beta))
                 if lm_fused else {})
-        self._beam_prog = BeamProgram(functools.partial(
+        beam_fn = functools.partial(
             beam_scan_collapsed, beam_width=bc.beam_width, topk=bc.topk,
             prune_logp=float(bc.prune_logp), all_beams=self._beam_all,
-            **fuse)) if device_beam else None
+            **fuse) if device_beam else None
+        return tables, beam_fn
 
     # ---- client API ---------------------------------------------------------
     def _prep(self, image) -> _Pending:
@@ -406,59 +465,85 @@ class OcrService:
             t.join(timeout=2.0)
 
     # ---- internals ----------------------------------------------------------
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device, non_blocking=True)
+    def _to_device(self, arr: np.ndarray,
+                   shard: Optional[_Shard] = None) -> torch.Tensor:
+        dev = self.device if shard is None else shard.device
+        return torch.from_numpy(arr).to(dev, non_blocking=True)
 
-    def _decode_tail(self, lp, fm) -> _Handle:
+    def _decode_tail(self, lp, fm, shard: Optional[_Shard] = None) -> _Handle:
         """The device work after the forward: the greedy collapse and
         packed score; the device beam (with a fused LM or lexicon only
         the packed winner rows leave the device, as in JAX); or the host
         beam's per-frame top-k."""
+        shard = shard or self._shards[0]
         if self.config.decoder == "beam":
             if self.config.beam_impl == "host":
                 k = min(self.config.beam.topk, lp.shape[-1])
-                return _Handle("beam_host", (lp, fm, *beam_topk(lp, k)))
-            out = self._beam_prog(lp, fm, **self._beam_kw)
+                return _Handle("beam_host", [(lp, fm, *beam_topk(lp, k))])
+            out = shard.beam_prog(lp, fm, **shard.beam_kw)
             if self._beam_fused:
-                return _Handle("beam_fused", (out[1],))
-            return _Handle("beam_dev", out)
-        return _Handle("greedy", (greedy_frames_packed(lp, fm),))
+                return _Handle("beam_fused", [(out[1],)])
+            return _Handle("beam_dev", [out])
+        return _Handle("greedy", [(greedy_frames_packed(lp, fm),)])
 
-    def _forward(self, images, widths) -> _Handle:
+    def _forward(self, images, widths,
+                 shard: Optional[_Shard] = None) -> _Handle:
         """(Deskew +) the model (its conv stack int8 under quantize) + the
-        decode tail on device tensors."""
+        decode tail on one shard's device tensors."""
+        shard = shard or self._shards[0]
         if self.config.device_deskew:
             images = device_deskew(images, widths)[0]
-        if self._qstack is None:
-            lp, fm = self.model(images, widths)
+        if shard.qstack is None:
+            lp, fm = shard.model(images, widths)
         else:
             from ..models.quant import quantized_forward
 
             lp, fm = quantized_forward(
-                self.model, self._qstack, images, widths,
+                shard.model, shard.qstack, images, widths,
                 float_prefix=self.config.quantize_float_prefix)
-        return self._decode_tail(lp, fm)
+        return self._decode_tail(lp, fm, shard)
+
+    def _sharded(self, batch: int, fn) -> _Handle:
+        """``fn(shard, rows)`` on each shard's contiguous rows of a batch
+        of ``batch``, launched in turn with the shard's device current;
+        one handle with the shards' outputs in row order."""
+        n = len(self._shards)
+        handles = []
+        for i, shard in enumerate(self._shards):
+            with _on(shard.device):
+                handles.append(fn(shard, pmesh.shard_rows(batch, i, n)))
+        return _Handle(handles[0].kind, [p for h in handles for p in h.parts])
 
     def _dispatch(self, images_np, widths_np) -> _Handle:
         """Device work for one assembled contract-height batch (call under
         the dispatch lock)."""
+        def run(shard, rows):
+            return self._forward(self._to_device(images_np[rows], shard),
+                                 self._to_device(widths_np[rows], shard),
+                                 shard)
+
         with torch.inference_mode():
-            return self._forward(self._to_device(images_np),
-                                 self._to_device(widths_np))
+            return self._sharded(images_np.shape[0], run)
 
     def _dispatch_raw(self, raw, heights, widths, new_widths) -> _Handle:
         """Device work for a raw batch: on-device resize in front of the
         model (call under the dispatch lock)."""
         H = self.contract.height
-        with torch.inference_mode():
-            raw_d = self._to_device(raw)
-            new_w = self._to_device(new_widths)
-            out_w = (raw.shape[2] - _RAW_SLACK) // MAX_SCALE
+        out_w = (raw.shape[2] - _RAW_SLACK) // MAX_SCALE
+
+        def run(shard, rows):
+            def put(a):
+                return self._to_device(a[rows], shard)
+
+            new_w = put(new_widths)
             img = resized_to_uint8(resize_lines(
-                raw_d, self._to_device(heights), self._to_device(widths),
-                new_w, out_h=H, out_w=out_w,
+                put(raw), put(heights), put(widths), new_w, out_h=H,
+                out_w=out_w,
             ))
-            return self._forward(img, new_w)
+            return self._forward(img, new_w, shard)
+
+        with torch.inference_mode():
+            return self._sharded(raw.shape[0], run)
 
     def _assemble_chunk(self, bucket_idx: int, chunk: List[_Pending],
                         raw: bool):
@@ -472,16 +557,23 @@ class OcrService:
                 else self._dispatch(*assembled))
 
     def _prefetch_handle(self, handle: _Handle) -> None:
-        """Start the batch's device->host copies into pinned memory."""
-        if handle.copy is None:
-            handle.copy = HostCopy(handle.tensors)
+        """Start the batch's device->host copies into pinned memory, each
+        shard's with its device current."""
+        if handle.copies is None:
+            copies = []
+            for part in handle.parts:
+                with _on(part[0].device):
+                    copies.append(HostCopy(part))
+            handle.copies = copies
 
     def _finalize(self, handle: _Handle, n: int):
         """Host side of a dispatched batch -> n (id row, log-prob) pairs
         (greedy, fused device beam), n (uxxxx, CTC log-prob) pairs
         (device beam), or n uxxxx hypotheses (host beam)."""
         self._prefetch_handle(handle)
-        arrays = handle.copy.get()
+        parts = [c.get() for c in handle.copies]
+        arrays = (parts[0] if len(parts) == 1
+                  else [np.concatenate(a) for a in zip(*parts)])
         valid = np.arange(arrays[0].shape[0]) < n
         if handle.kind == "beam_host":
             lp, fm, vals, ids = arrays

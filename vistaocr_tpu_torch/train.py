@@ -1,4 +1,4 @@
-"""Training entry point on one CUDA device.
+"""Training entry point: one CUDA device, or one process a GPU.
 
 Counterpart of ``vistaocr_tpu/train.py:66-967``: the same ``TrainConfig``
 fields and ``PRESETS``, the same CLI flags (``--device`` in place of
@@ -12,21 +12,40 @@ a greedy validation with CER/WER and a snapshot (``last/``, promoted to
 ``best/`` on a new best CER, plateau LR decay); metrics as JSONL;
 divergence checks; resume from ``last/`` with the optimizer state.
 
-Not ported yet: the mesh, multi-host launch and data parallelism
-(ROADMAP Queue 1, item 7), the device-resident dataset cache and the
-epoch-fused trainer (``train.py:303-377``; ROADMAP Queue 1, item 5):
-``device_cache`` and ``fused_epochs`` stay in ``TrainConfig`` with
-``"auto"`` meaning off here, and ``"on"`` raises.
+Data parallelism (the mesh's ``data`` axis, ``train.py:471-473``) is one
+process a GPU joined by ``torch.distributed`` (``parallel/mesh.py``):
+every rank derives the same global batches (``batch_multiple`` = the rank
+count) and takes its contiguous rows of each; BatchNorm takes its
+statistics over the global batch, the CTC mean divides by the global
+weight sum, and the gradients are summed over the ranks in one flat
+buffer before the norm, the clip and the update, so every rank holds the
+same parameters. Before the first step the ranks compare their epoch-plan
+fingerprints; validation gathers the greedy frames of every rank's rows on
+the host, so every rank computes the same CER; only rank 0 writes
+snapshots and ``metrics.jsonl``. ``--coordinator-address``,
+``--num-processes`` and ``--process-id`` start the group
+(``maybe_init_distributed``), and each process trains on
+``cuda:<rank % device_count>`` unless ``--device`` names an index.
+
+Not ported yet: tensor parallelism, ``mesh_model != 1`` (ROADMAP Queue
+1, item 7b), the device-resident dataset cache and the epoch-fused
+trainer (``train.py:303-377``; ROADMAP Queue 1, item 5): ``device_cache``
+and ``fused_epochs`` stay in ``TrainConfig`` with ``"auto"`` meaning off
+here, and ``"on"`` raises.
 
 Usage:
     python -m vistaocr_tpu_torch.train --preset full --data-dir D \\
         --snapshot-dir S --device cuda
+    # N ranks, one a GPU (run once for each r in 0..N-1):
+    python -m vistaocr_tpu_torch.train ... --coordinator-address \\
+        HOST:PORT --num-processes N --process-id r
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
 import time
@@ -34,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import (
     has_opt_state,
@@ -49,7 +69,10 @@ from .data.shards import open_dataset
 from .decode.greedy import collapse_frames, greedy_frames
 from .models import CnnLstmOcr, ConvStageSpec, ModelConfig, init_parameters
 from .ops.ctc import mean_ctc_loss
-from .runtime import disable_tf32, resolve_device
+from .parallel.mesh import (TP_ITEM, Mesh, MeshConfig, all_gather_host,
+                            all_reduce_grads, all_reduce_sum, barrier,
+                            make_mesh, shard_rows)
+from .runtime import disable_tf32
 from .text import Alphabet, cer_wer
 
 
@@ -264,27 +287,33 @@ class TrainState:
     step: int = 0
 
 
-def step_generator(seed: int, step: int,
-                   device: torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: torch.device,
+                   rank: int = 0) -> torch.Generator:
     """The dropout/augment generator of one step, seeded from (seed, step)
-    so a resumed run draws the same masks."""
-    s = int(np.random.SeedSequence([seed + 1, step]).generate_state(1)[0])
+    so a resumed run draws the same masks; a data-parallel rank above 0
+    adds its rank, so the ranks draw different masks for their rows."""
+    entropy = [seed + 1, step] + ([rank] if rank else [])
+    s = int(np.random.SeedSequence(entropy).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(s)
 
 
 def loss_and_grads(model: CnnLstmOcr, images, widths, labels, label_lengths,
                    weights, *, label_average: bool = False,
                    ctc_impl: str = "auto",
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   group=None):
     """The ``loss_fn`` of ``train.py:262-282`` and its gradients: the
     forward in train mode (which updates the BatchNorm running statistics
-    in place), the mean CTC loss, and d loss / d parameter by name."""
+    in place), the mean CTC loss, and d loss / d parameter by name. Under
+    data parallelism (``group``, this rank's rows) the loss is this rank's
+    share of the global mean, and the gradients are its share of the
+    global gradients."""
     log_probs, frame_mask = model(images, widths, train=True,
-                                  generator=generator)
+                                  generator=generator, group=group)
     frames = frame_mask.sum(dim=1).to(torch.int32)
     loss = mean_ctc_loss(log_probs, frames, labels, label_lengths,
                          sample_weights=weights, label_average=label_average,
-                         impl=ctc_impl)
+                         impl=ctc_impl, group=group)
     params = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
@@ -292,21 +321,29 @@ def loss_and_grads(model: CnnLstmOcr, images, widths, labels, label_lengths,
 
 def make_train_step(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
                     ctc_impl: str = "auto", grad_clip: Optional[float] = None,
-                    seed: int = 0):
+                    seed: int = 0, mesh: Optional[Mesh] = None):
     """``train_step(state, images, widths, labels, label_lengths, weights,
     lr) -> {"loss", "gnorm"}`` (device tensors; nothing synchronises):
     ``loss_and_grads``, the clip, the optimizer update and
-    ``p -= lr * update``. ``state`` is updated in place."""
+    ``p -= lr * update``. ``state`` is updated in place. Under a ``mesh``
+    with several ranks the batch is this rank's rows; the gradients and
+    the loss are summed over the ranks before the norm, so every rank
+    reports the global loss and applies the same update."""
     cfg = model.config
     needs_rng = cfg.dropout > 0 or cfg.augment > 0
+    group = mesh.group if mesh is not None else None
+    rank = mesh.rank if mesh is not None else 0
 
     def train_step(state: TrainState, images, widths, labels, label_lengths,
                    weights, lr: float):
-        gen = (step_generator(seed, state.step, images.device)
+        gen = (step_generator(seed, state.step, images.device, rank)
                if needs_rng else None)
         loss, grads = loss_and_grads(
             model, images, widths, labels, label_lengths, weights,
-            label_average=label_average, ctc_impl=ctc_impl, generator=gen)
+            label_average=label_average, ctc_impl=ctc_impl, generator=gen,
+            group=group)
+        grads = all_reduce_grads(grads, group)
+        loss = all_reduce_sum(loss, group)
         gnorm = global_norm(grads)
         if grad_clip is not None:
             grads = _clip_by_known_norm(grads, gnorm, grad_clip)
@@ -332,17 +369,23 @@ def make_eval_step(model: CnnLstmOcr):
 # Validation
 # --------------------------------------------------------------------------
 def evaluate(eval_step, pipe: BatchPipeline, alphabet: Alphabet,
-             device) -> Tuple[float, float, float]:
-    """Greedy-decode the whole split; returns (CER, WER, lines/sec)."""
+             device, mesh: Optional[Mesh] = None) -> Tuple[float, float, float]:
+    """Greedy-decode the whole split; returns (CER, WER, lines/sec). Under
+    a ``mesh`` with several ranks each rank decodes its rows of every
+    batch and the frames of all rows are gathered on the host
+    (``train.py:413-418``), so every rank computes the same CER."""
+    group = mesh.group if mesh is not None else None
+    shard = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
     hyps: List[str] = []
     refs: List[str] = []
     t0 = time.time()
     n = 0
-    for batch in pipe.device_epoch(0, device=device):
+    for batch in pipe.device_epoch(0, device=device, shard=shard):
         log_probs, frame_mask = eval_step(batch.images, batch.widths)
-        frames = greedy_frames(log_probs, frame_mask).cpu().numpy()
+        frames = all_gather_host(
+            greedy_frames(log_probs, frame_mask).cpu().numpy(), group)
         hyps.extend(collapse_frames(frames[i], alphabet)
-                    for i in range(batch.size) if batch.valid[i])
+                    for i in range(len(batch.valid)) if batch.valid[i])
         refs.extend(pipe.dataset.transcript(int(i))
                     for i, v in zip(batch.indices, batch.valid) if v)
         n += int(batch.valid.sum())
@@ -386,8 +429,8 @@ def _check_unported(cfg: TrainConfig) -> None:
             "(ROADMAP Queue 1, item 5)")
     if cfg.mesh_model != 1:
         raise NotImplementedError(
-            "mesh_model != 1: multi-GPU training is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
+            f"mesh_model != 1: tensor parallelism is not ported yet "
+            f"({TP_ITEM})")
 
 
 def device_time_summary(events, top: int = 25) -> str:
@@ -423,10 +466,19 @@ def device_time_summary(events, top: int = 25) -> str:
     return "\n".join(lines) + "\n"
 
 
-def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
-    """Run training on one device; returns a summary dict."""
+def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
+        log=print) -> dict:
+    """Run training; returns a summary dict. ``mesh`` defaults to the
+    ranks of the default process group (one rank when there is none) on
+    ``device``."""
     _check_unported(cfg)
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(MeshConfig(model=cfg.mesh_model), device=device)
+    dev = mesh.device
+    group = mesh.group
+    shard = (mesh.rank, mesh.world_size)
+    if group is not None and dev.type == "cuda":
+        torch.cuda.set_device(dev)  # NCCL's device for this rank
     disable_tf32()
     t_setup = time.time()
 
@@ -472,46 +524,69 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
     if resuming and has_opt_state(resume_dir):
         tx.load_numpy(state.opt_state, load_opt_state(resume_dir))
     train_step = make_train_step(model, tx, cfg.label_average, cfg.ctc_impl,
-                                 grad_clip=cfg.grad_clip, seed=cfg.seed)
+                                 grad_clip=cfg.grad_clip, seed=cfg.seed,
+                                 mesh=mesh)
     eval_step = make_eval_step(model)
 
     train_pipe = BatchPipeline(train_ds, alphabet, contract,
                                batch_pixels=cfg.batch_pixels,
+                               batch_multiple=mesh.data,
                                drop_remainder=True, shuffle=True,
                                seed=cfg.seed)
     if train_pipe.dropped:
         log(f"warning: {train_pipe.dropped} train lines fit no bucket; dropped")
+    # every rank must derive the same epoch plan (same corpus, same seed),
+    # or the ranks would sum gradients of different batches
+    if group is not None:
+        fps = all_gather_host(
+            np.asarray([train_pipe.plan_fingerprint(start_epoch)], np.int64),
+            group)
+        if not (fps == fps[0]).all():
+            raise RuntimeError(
+                f"epoch-plan fingerprint differs across processes: "
+                f"{fps.tolist()} — all processes must see the same dataset "
+                "and seed")
     val_pipe = (
         BatchPipeline(val_ds, alphabet, contract,
-                      batch_pixels=cfg.batch_pixels, drop_remainder=False,
+                      batch_pixels=cfg.batch_pixels,
+                      batch_multiple=mesh.data, drop_remainder=False,
                       shuffle=False)
         if val_ds is not None and len(val_ds) else None
     )
     plateau = PlateauController(cfg.lr, cfg.plateau_patience,
                                 cfg.plateau_decay, cfg.min_lr)
 
-    os.makedirs(cfg.snapshot_dir or ".", exist_ok=True)
+    # Only rank 0 touches the (possibly shared) file system; every rank
+    # computes the same validation and plateau, and waits after each write.
+    is_primary = mesh.rank == 0
+    if is_primary:
+        os.makedirs(cfg.snapshot_dir or ".", exist_ok=True)
     metrics_f = (open(os.path.join(cfg.snapshot_dir, "metrics.jsonl"), "a")
-                 if cfg.snapshot_dir else None)
+                 if cfg.snapshot_dir and is_primary else None)
 
     def emit(rec: dict):
         if metrics_f:
             metrics_f.write(json.dumps(rec) + "\n")
             metrics_f.flush()
+        barrier(group)
 
     def snapshot(tag: str, step: int, epoch: int, extra: dict):
         path = os.path.join(cfg.snapshot_dir, tag)
-        save_snapshot(
-            path, state_dict=model.state_dict(), model_config=model_config,
-            alphabet=alphabet, contract=contract, step=step,
-            opt_state=Optimizer.state_numpy(state.opt_state),
-            extra={"epoch": epoch, "train_config": dataclasses.asdict(cfg),
-                   **extra},
-        )
+        if is_primary:
+            save_snapshot(
+                path, state_dict=model.state_dict(),
+                model_config=model_config, alphabet=alphabet,
+                contract=contract, step=step,
+                opt_state=Optimizer.state_numpy(state.opt_state),
+                extra={"epoch": epoch,
+                       "train_config": dataclasses.asdict(cfg), **extra},
+            )
+        barrier(group)
         return path
 
     log(f"training: {len(train_ds)} lines, alphabet={alphabet.num_classes}, "
-        f"device={dev}, setup {time.time() - t_setup:.1f}s")
+        f"device={dev}, mesh=data:{mesh.data}xmodel:{mesh.model} "
+        f"(rank {mesh.rank}), setup {time.time() - t_setup:.1f}s")
 
     step = start_step
     best_cer = plateau.best
@@ -522,7 +597,7 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
 
     def profile_tick():
         nonlocal profiler
-        if cfg.profile_stop <= 0:
+        if cfg.profile_stop <= 0 or not is_primary:
             return
         if cfg.profile_start <= step < cfg.profile_stop and profiler is None:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -578,7 +653,7 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
 
     def run_validation(epoch: int):
         nonlocal best_cer, last_val
-        c, w, v_lps = evaluate(eval_step, val_pipe, alphabet, dev)
+        c, w, v_lps = evaluate(eval_step, val_pipe, alphabet, dev, mesh)
         last_val = (c, w)
         is_best = plateau.update(c)
         rec = {"step": step, "val_cer": round(c, 5), "val_wer": round(w, 5),
@@ -589,8 +664,10 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
         snapshot("last", step, epoch, {"val_cer": c, "val_wer": w})
         if is_best:
             best_cer = c
-            promote(os.path.join(cfg.snapshot_dir, "last"),
-                    os.path.join(cfg.snapshot_dir, "best"))
+            if is_primary:
+                promote(os.path.join(cfg.snapshot_dir, "last"),
+                        os.path.join(cfg.snapshot_dir, "best"))
+            barrier(group)
 
     end_epoch = cfg.epochs if not cfg.max_steps else 10**9
     cur_epoch = start_epoch
@@ -598,13 +675,15 @@ def fit(cfg: TrainConfig, *, device="cuda", log=print) -> dict:
     stop = False
     while epoch < end_epoch and not stop:
         cur_epoch = epoch
-        for batch in train_pipe.device_epoch(epoch, device=dev):
+        for batch in train_pipe.device_epoch(epoch, device=dev, shard=shard):
             profile_tick()
-            weights = torch.from_numpy(batch.valid.astype(np.float32)).to(dev)
+            rows = shard_rows(len(batch.valid), *shard)
+            weights = torch.from_numpy(
+                batch.valid[rows].astype(np.float32)).to(dev)
             m = train_step(state, batch.images, batch.widths, batch.labels,
                            batch.label_lengths, weights, plateau.lr)
             step += 1
-            window_lines += batch.size
+            window_lines += len(batch.valid)
             if step % cfg.log_interval == 0:
                 loss_now, gnorm_now = check_divergence(m, epoch)
                 log_window(epoch, loss_now, gnorm_now)
@@ -642,7 +721,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", choices=sorted(PRESETS), default=None)
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; raises without a card)")
+                   help="torch device (default cuda, the rank's local GPU; "
+                        "raises without a card)")
+    # one process a GPU: init_process_group over tcp:// before fit
+    p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
+                   help="data parallelism: rank 0's address (starts "
+                        "torch.distributed)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="data parallelism: the rank count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="data parallelism: this process's rank")
     for f in dataclasses.fields(TrainConfig):
         name = "--" + f.name.replace("_", "-")
         if f.type == "bool" or isinstance(f.default, bool):
@@ -668,6 +756,33 @@ def config_from_args(args) -> TrainConfig:
     return TrainConfig(**base)
 
 
+# a collective (or the group's start) that waits longer raises: a rank that
+# died must not leave its peers waiting for ever
+DIST_TIMEOUT_S = 600
+
+
+def maybe_init_distributed(coordinator_address=None, num_processes=None,
+                           process_id=None, backend=None) -> bool:
+    """``init_process_group`` over ``tcp://coordinator_address`` when one
+    is given (``train.py:935-963``), with a timeout: gloo for host
+    tensors and NCCL for CUDA ones where there is a card, gloo alone on
+    the CPU. ``backend`` names another (gloo alone for two ranks that
+    share one GPU, which NCCL refuses)."""
+    if not coordinator_address:
+        return False
+    if num_processes is None or process_id is None:
+        raise ValueError("--coordinator-address needs --num-processes and "
+                         "--process-id")
+    if backend is None:
+        backend = ("cpu:gloo,cuda:nccl" if torch.cuda.is_available()
+                   else "gloo")
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    return True
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)
@@ -675,7 +790,13 @@ def main(argv=None):
         raise SystemExit("--data-dir is required")
     if not cfg.snapshot_dir:
         raise SystemExit("--snapshot-dir is required")
-    summary = fit(cfg, device=args.device)
+    joined = maybe_init_distributed(args.coordinator_address,
+                                    args.num_processes, args.process_id)
+    try:
+        summary = fit(cfg, device=args.device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     print(json.dumps(summary))
 
 
