@@ -6,7 +6,8 @@ NVIDIA GPU.
     python3 chip_smoke.py --ctc   # phases 1, 2 and the CTC part of 6
     python3 chip_smoke.py --int8  # phases 1, 2, 7 (its snapshot) and int8
     python3 chip_smoke.py --http  # phases 1, 2 and 4b (the HTTP server)
-    python3 chip_smoke.py --dp    # phases 1, 2 and dp (data parallelism)
+    python3 chip_smoke.py --dp    # phases 1, 2 and dp (data and tensor
+                                  # parallelism)
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -234,6 +235,14 @@ dp         - data parallelism on the one card (``dp_phase``; correctness,
              card) equal to ``mesh_data=0``, and two shards on ``cuda:0``
              (the device list patched) giving, line for line, the texts
              and confidences of one shard, greedy and the device beam.
+             Its ``tp`` check (``tp_train_check``) runs the same job with
+             the model axis: 4 gloo ranks on ``cuda:0`` at data=2,
+             model=2, then 2 at data=1, model=2, each holding its column
+             shard of the bridge and the BLSTM gates, held to the same
+             one process within the same bounds; every rank's gathered
+             state dicts, losses and launch counts bit-equal, its shards
+             gathered back to the initial weights exactly, and each
+             rank's K1, K2/K3 and K4/K5 launched.
 10. profiles - cuDNN's ``nn.LSTM(H, H, bidirectional=True)`` at each
              shape and dtype where phases 3 and 6 timed K1 (with autograd
              recording where K1 ran its save_cell form): a scale reference
@@ -2496,29 +2505,19 @@ def dp_train_job(job: str, font: dict) -> None:
              "lr": 1e-3, "steps": 1}]}, f)
 
 
-def dp_train_check(dev, font: dict, smi: str) -> dict:
-    """Two gloo ranks on ``dev`` against one process: per-step bf16 loss
-    within BF16_STEP_LOSS_REL, the f32 step within JAX's DP tolerances
-    (loss 1e-5 relative, parameters atol 3e-3 / rtol 2e-2), the ranks'
-    state dicts, losses and launch counts bit-equal, and each rank's K1,
-    K2/K3 and K4/K5 launched."""
-    child = _dp_child()
-    with tempfile.TemporaryDirectory() as job:
-        dp_train_job(job, font)
-        t0 = time.time()
-        ranks, outs = child.spawn_ranks(job, 2, str(dev), "gloo",
-                                        DP_TIMEOUT_S)
-        ranks_s = time.time() - t0
-        for out in outs:
-            print(out.strip(), flush=True)
-        t0 = time.time()
-        one = child.run_job(job, device=str(dev))
-        one_s = time.time() - t0
-    r0, r1 = ranks
-    _require(sorted(r0) == sorted(r1) and all(
-        np.array_equal(r0[k], r1[k]) for k in r0),
-        "the two ranks' losses, state dicts and launch counts bit-equal: "
-        f"{[k for k in r0 if not np.array_equal(r0[k], r1[k])][:5]}")
+def _hold_ranks(ranks, one, equal_keys) -> dict:
+    """Spawned ranks against one process on the same job: every rank's
+    ``equal_keys`` bit-equal to rank 0's, each bf16 step's loss within
+    BF16_STEP_LOSS_REL, the f32 step within JAX's parallel tolerances
+    (loss 1e-5 relative, parameters atol 3e-3 / rtol 2e-2), and each
+    rank's K1, K2/K3 and K4/K5 launched in its bf16 steps."""
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        differ = [k for k in r0 if equal_keys(k)
+                  and not np.array_equal(r0[k], res[k])]
+        _require(sorted(res) == sorted(r0) and not differ,
+                  f"rank {r}'s losses, state dicts and launch counts "
+                  f"bit-equal to rank 0's: {differ[:5]}")
     rel = np.abs(r0["0/loss"] - one["0/loss"]) / np.abs(one["0/loss"])
     _require(np.isfinite(r0["0/loss"]).all()
              and (rel <= BF16_STEP_LOSS_REL).all(),
@@ -2530,6 +2529,7 @@ def dp_train_check(dev, font: dict, smi: str) -> dict:
     worst = 0.0
     for k in one:
         if k.startswith("1/sd/") and not k.endswith("num_batches_tracked"):
+            _require(r0[k].shape == one[k].shape, f"{k[5:]} whole")
             diff = np.abs(r0[k] - one[k])
             worst = max(worst, float(diff.max()))
             _require((diff <= 3e-3 + 2e-2 * np.abs(one[k])).all(),
@@ -2542,23 +2542,96 @@ def dp_train_check(dev, font: dict, smi: str) -> dict:
         _require(all(v > 0 for v in c.values()),
                  f"rank {r} launched K1, K2/K3 and K4/K5: {c}")
         counts.append(c)
+    return {"steps": DP_STEPS, "bf16_loss_ranks": r0["0/loss"].tolist(),
+            "bf16_loss_one": one["0/loss"].tolist(),
+            "bf16_loss_rel_max": float(rel.max()),
+            "f32_loss_rel": f32_rel, "f32_param_max_abs_diff": worst,
+            "launches_a_rank": counts,
+            "launches_a_rank_by_counter": {
+                n: int(r0[f"0/count/{n}"]) for names in DP_K.values()
+                for n in names}}
+
+
+def dp_train_check(dev, job: str, one: dict, one_s: float,
+                   smi: str) -> dict:
+    """Two gloo ranks on ``dev`` against one process (``one``, the job of
+    ``dp_train_job`` run whole): ``_hold_ranks``, with every output of the
+    two ranks bit-equal."""
+    child = _dp_child()
+    t0 = time.time()
+    ranks, outs = child.spawn_ranks(job, 2, str(dev), "gloo", DP_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    for out in outs:
+        print(out.strip(), flush=True)
     out = {"ranks": 2, "backend": "gloo", "device": str(dev),
            "rows_a_rank": DP_BATCH // 2, "width": DP_WIDTH,
-           "steps": DP_STEPS, "bf16_loss_ranks": r0["0/loss"].tolist(),
-           "bf16_loss_one": one["0/loss"].tolist(),
-           "bf16_loss_rel_max": float(rel.max()),
-           "f32_loss_rel": f32_rel, "f32_param_max_abs_diff": worst,
-           "launches_a_rank": counts,
-           "launches_a_rank_by_counter": {
-               n: int(r0[f"0/count/{n}"]) for names in DP_K.values()
-               for n in names},
+           **_hold_ranks(ranks, one, lambda k: True),
            "ranks_s": ranks_s, "one_process_s": one_s}
     print(f"dp train: 2 gloo ranks x {DP_BATCH // 2} rows on {dev}, "
-          f"{DP_STEPS} bf16 steps: loss {r0['0/loss'].tolist()} against one "
-          f"process {one['0/loss'].tolist()} (worst {rel.max():.2e}); f32 "
-          f"loss rel {f32_rel:.2e}, parameters max |diff| {worst:.2e}; "
-          f"launches a rank {counts}; ranks "
-          f"{ranks_s:.1f} s, one process {one_s:.1f} s ({smi})", flush=True)
+          f"{DP_STEPS} bf16 steps: loss {out['bf16_loss_ranks']} against one "
+          f"process {out['bf16_loss_one']} (worst "
+          f"{out['bf16_loss_rel_max']:.2e}); f32 loss rel "
+          f"{out['f32_loss_rel']:.2e}, parameters max |diff| "
+          f"{out['f32_param_max_abs_diff']:.2e}; launches a rank "
+          f"{out['launches_a_rank']}; ranks {ranks_s:.1f} s, one process "
+          f"{one_s:.1f} s ({smi})", flush=True)
+    return out
+
+
+# the tp check: the mesh's model axis (tensor parallelism) on the one card,
+# gloo ranks on cuda:0 laid out data x model, on the dp job
+TP_MESHES = ((2, 2), (1, 2))  # (data, model)
+
+
+def tp_train_check(dev, job: str, one: dict, smi: str) -> dict:
+    """For each (data, model) of TP_MESHES, data x model gloo ranks on
+    ``dev`` train the dp job with the bridge and BLSTM gates sharded on
+    the model axis, against one process (``_hold_ranks``): every rank's
+    gathered state dicts, losses, norms and launch counts bit-equal, and
+    each rank's shard-and-gather of the initial weights exact."""
+    child = _dp_child()
+    with open(os.path.join(job, "job.json")) as f:
+        spec = json.load(f)
+    with np.load(os.path.join(job, "weights.npz")) as z:
+        weights = {k[3:]: z[k] for k in z.files}
+    out = {}
+    for data, model in TP_MESHES:
+        world = data * model
+        with open(os.path.join(job, "job.json"), "w") as f:
+            json.dump({**spec, "mesh": {"data": data, "model": model}}, f)
+        t0 = time.time()
+        ranks, outs = child.spawn_ranks(job, world, str(dev), "gloo",
+                                        DP_TIMEOUT_S)
+        ranks_s = time.time() - t0
+        for o in outs:
+            print(o.strip(), flush=True)
+        for r, res in enumerate(ranks):
+            _require(res["mesh/index"].tolist() == list(divmod(r, model))
+                     and all(np.array_equal(res[f"roundtrip/{k}"], v)
+                             for k, v in weights.items()),
+                     f"rank {r} at {divmod(r, model)} of {data}x{model}; "
+                     "its shards gather to the initial weights")
+        held = _hold_ranks(ranks, one, lambda k: "/local/" not in k
+                           and k != "mesh/index")
+        sharded = sorted(k[len("0/local/"):] for k in ranks[0]
+                         if k.startswith("0/local/")
+                         and ranks[0][k].shape != one[
+                             k.replace("/local/", "/sd/")].shape)
+        tag = f"data{data}_model{model}"
+        out[tag] = {"ranks": world, "data": data, "model": model,
+                    "backend": "gloo", "device": str(dev),
+                    "rows_a_rank": DP_BATCH // data, "width": DP_WIDTH,
+                    "sharded": sharded, **held, "ranks_s": ranks_s}
+        print(f"tp train: {world} gloo ranks ({data} x {model}) x "
+              f"{DP_BATCH // data} rows on {dev}, {len(sharded)} tensors "
+              f"sharded, {DP_STEPS} bf16 steps: loss "
+              f"{held['bf16_loss_ranks']} against one process "
+              f"{held['bf16_loss_one']} (worst "
+              f"{held['bf16_loss_rel_max']:.2e}); f32 loss rel "
+              f"{held['f32_loss_rel']:.2e}, parameters max |diff| "
+              f"{held['f32_param_max_abs_diff']:.2e}; launches a rank "
+              f"{held['launches_a_rank'][0]}; ranks {ranks_s:.1f} s "
+              f"({smi})", flush=True)
     return out
 
 
@@ -2670,15 +2743,25 @@ def dp_service_check(dev, font: dict, snap: str, smi: str) -> dict:
 
 def dp_phase(dev, font: dict, smi: str) -> dict:
     t0 = time.time()
-    out = {"train": dp_train_check(dev, font, smi)}
+    out = {}
+    with tempfile.TemporaryDirectory() as job:
+        dp_train_job(job, font)
+        t1 = time.time()
+        one = _dp_child().run_job(job, device=str(dev))
+        one_s = time.time() - t1
+        out["train"] = dp_train_check(dev, job, one, one_s, smi)
+        t1 = time.time()
+        out["tp"] = tp_train_check(dev, job, one, smi)
+        out["tp_seconds"] = time.time() - t1
+        print(f"tp check: {out['tp_seconds']:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         out["nccl_cli"] = dp_nccl_cli(tmp, font, smi)
         snap = os.path.join(tmp, "snap")
         flagship_snapshot(snap)
         out["service"] = dp_service_check(dev, font, snap, smi)
     out["seconds"] = time.time() - t0
-    out["note"] = ("correctness on one shared card, not scaling: both "
-                   "ranks and both shards time-slice one GPU")
+    out["note"] = ("correctness on one shared card, not scaling: every "
+                   "rank and both shards time-slice one GPU")
     print(f"dp phase: {out['seconds']:.1f} s", flush=True)
     return out
 
@@ -3904,8 +3987,10 @@ def main(argv) -> int:
                         **with_f32(table[(*shape, "bfloat16")][name],
                                    table[(*shape, "float32")][name])})
     kernels.append(int8_row(int8_out))
-    # the dp phase's launches on each of its two ranks (bf16 steps)
+    # the dp phase's launches on each of its two ranks, and on each rank of
+    # the tp check's 2 x 2 mesh (bf16 steps)
     dp_counts = dp_out["train"]["launches_a_rank_by_counter"]
+    tp_counts = dp_out["tp"]["data2_model2"]["launches_a_rank_by_counter"]
     for row in kernels:
         counter = {"lstm_fwd_save_cell": "SAVE_CELL_LAUNCHES",
                    "lstm_dwh": "DWH_LAUNCHES",
@@ -3915,6 +4000,7 @@ def main(argv) -> int:
                    "ctc_beta": "BETA_LAUNCHES"}.get(row["name"])
         if counter:
             row["launches_dp_a_rank"] = dp_counts[counter]
+            row["launches_tp_a_rank"] = tp_counts[counter]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

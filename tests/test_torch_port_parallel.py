@@ -392,10 +392,21 @@ def test_mesh_shapes_and_refusals():
         pmesh.make_mesh(pmesh.MeshConfig(data=3), devices=[cpu, cpu])
     tp = pmesh.make_mesh(pmesh.MeshConfig(model=2), devices=[cpu, cpu])
     assert (tp.data, tp.model) == (1, 2)
-    params = {"a": torch.zeros(2)}
-    assert pmesh.param_shardings(params, two) == {"a": "replicated"}
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        pmesh.param_shardings(params, tp)
+    params = {"a": torch.zeros(2), "bridge.weight": torch.zeros(4, 3),
+              "bridge.bias": torch.zeros(4), "head.weight": torch.zeros(5, 4),
+              "blstm.l1_bwd_wx": torch.zeros(4, 8),
+              "blstm.l1_bwd_wh": torch.zeros(2, 8),
+              "blstm.l1_bwd_b": torch.zeros(8),
+              "nu/blstm.l0_fwd_wh": torch.zeros(2, 8)}
+    assert pmesh.param_shardings(params, two) == {
+        k: "replicated" for k in params}
+    assert pmesh.param_shardings(params, tp) == {
+        "a": "replicated", "bridge.weight": ("model", None),
+        "bridge.bias": ("model",), "head.weight": "replicated",
+        "blstm.l1_bwd_wx": (None, "model"), "blstm.l1_bwd_wh": (None, "model"),
+        "blstm.l1_bwd_b": ("model",), "nu/blstm.l0_fwd_wh": (None, "model")}
+    with pytest.raises(ValueError, match="no model group"):
+        pmesh.shard_model(torch.nn.Linear(2, 2), tp)
     assert pmesh.shard_rows(8, 1, 2) == slice(4, 8)
     with pytest.raises(ValueError):
         pmesh.shard_rows(9, 0, 2)
@@ -405,8 +416,12 @@ def test_mesh_shapes_and_refusals():
 def test_trainer_refusals(synth_dir, tmp_path):
     cfg = port_train.TrainConfig(
         **{**port_train.PRESETS["synth-tiny"], "data_dir": synth_dir,
-           "snapshot_dir": str(tmp_path), "mesh_model": 2})
-    with pytest.raises(NotImplementedError, match="item 7b"):
+           "snapshot_dir": str(tmp_path), "device_cache": "on"})
+    with pytest.raises(NotImplementedError, match="item 5"):
+        port_train.fit(cfg, device="cpu")
+    # the model axis needs its ranks: one process never runs it replicated
+    cfg = dataclasses.replace(cfg, device_cache="auto", mesh_model=2)
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
         port_train.fit(cfg, device="cpu")
     assert not port_train.maybe_init_distributed(None)
     with pytest.raises(ValueError, match="--num-processes"):

@@ -1,5 +1,6 @@
-"""One rank of a data-parallel run of the port, and the one-process run it
-is held against. Imports nothing of JAX, so the card machine runs it too.
+"""One rank of a data- or tensor-parallel run of the port, and the
+one-process run it is held against. Imports nothing of JAX, so the card
+machine runs it too.
 
     python tests/torch_port_dp_child.py JOB_DIR RANK WORLD PORT DEVICE BACKEND
 
@@ -11,11 +12,18 @@ state dict (``sd/<name>``) and ``batches.npz`` the global batches
 train steps (clip 5, ``ctc_impl="auto"``) on this rank's rows of batches
 0..steps-1; an optional ``"bn"`` entry runs a small ``ConvStack`` in
 train mode on this rank's rows of ``bn.npz`` and takes the gradient of
-``sum(y * g)``. The rank writes ``JOB_DIR/rank<r>.npz``: per run
-``<i>/loss`` and ``<i>/gnorm`` (one a step), ``<i>/sd/<name>`` (the state
-dict after the steps) and ``<i>/count/<counter>`` (the kernels' launches
-in the steps); for ``bn`` ``bn/y``, ``bn/dx``, ``bn/d/<param>`` and
-``bn/sd/<name>``.
+``sum(y * g)``. An optional ``"mesh": {"data": D, "model": M}`` lays the
+``D * M`` ranks out as ``parallel.make_mesh`` does (the default: every
+rank on the data axis): a rank takes the rows of its data index, and
+with ``M > 1`` trains its shard of the model (``shard_model``). The rank
+writes ``JOB_DIR/rank<r>.npz``: per run ``<i>/loss`` and ``<i>/gnorm``
+(one a step), ``<i>/sd/<name>`` (the state dict after the steps, gathered
+over the model group) and ``<i>/count/<counter>`` (the kernels' launches
+in the steps), with ``M > 1`` also ``<i>/local/<name>`` (this rank's own
+state dict: its shards and its replicated tensors),
+``roundtrip/<name>`` (the initial state dict sharded and gathered) and
+``mesh/index`` (its data and model index); for
+``bn`` ``bn/y``, ``bn/dx``, ``bn/d/<param>`` and ``bn/sd/<name>``.
 
 ``run_job(job_dir, mesh=None)`` is the same work in the calling process
 on whole batches; ``spawn_ranks`` starts ``WORLD`` ranks with a free port
@@ -51,8 +59,8 @@ def _counter_modules():
 def _rows(n, mesh):
     from vistaocr_tpu_torch.parallel import shard_rows
 
-    return slice(None) if mesh is None else shard_rows(n, mesh.rank,
-                                                       mesh.world_size)
+    return slice(None) if mesh is None else shard_rows(n, mesh.data_index,
+                                                       mesh.data)
 
 
 def _load_model(config_json, sd, dev):
@@ -67,8 +75,11 @@ def run_steps(run: dict, sd: dict, batches, mesh, dev) -> dict:
     """One run's train steps on this rank's rows (all rows without a
     mesh)."""
     from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.parallel import gather_state_dict, shard_model
 
     model = _load_model(run["config"], sd, dev)
+    if mesh is not None:
+        shard_model(model, mesh)
     tx = T.Optimizer(run["optimizer"])
     state = T.TrainState(model=model,
                          opt_state=tx.init(dict(model.named_parameters())))
@@ -92,9 +103,23 @@ def run_steps(run: dict, sd: dict, batches, mesh, dev) -> dict:
     for mod, names in COUNTERS:
         for name in names:
             out[f"count/{name}"] = np.asarray(getattr(mods[mod], name))
-    for k, v in model.state_dict().items():
+    local = model.state_dict()
+    whole = local if mesh is None else gather_state_dict(local, mesh)
+    for k, v in whole.items():
         out[f"sd/{k}"] = v.detach().cpu().numpy()
+    if mesh is not None and mesh.model > 1:
+        for k, v in local.items():
+            out[f"local/{k}"] = v.detach().cpu().numpy()
     return out
+
+
+def run_roundtrip(sd: dict, mesh, dev) -> dict:
+    """The initial state dict cut to this rank's shard and gathered."""
+    from vistaocr_tpu_torch.parallel import gather_state_dict, shard_state_dict
+
+    whole = {k: torch.from_numpy(v).to(dev) for k, v in sd.items()}
+    back = gather_state_dict(shard_state_dict(whole, mesh), mesh)
+    return {k: v.cpu().numpy() for k, v in back.items()}
 
 
 def run_bn(spec: dict, arrays, mesh, dev) -> dict:
@@ -136,6 +161,11 @@ def run_job(job_dir: str, mesh=None, device="cpu") -> dict:
         for i, run in enumerate(job["runs"]):
             for k, v in run_steps(run, sd, batches, mesh, dev).items():
                 out[f"{i}/{k}"] = v
+        if mesh is not None and mesh.model > 1:
+            for k, v in run_roundtrip(sd, mesh, dev).items():
+                out[f"roundtrip/{k}"] = v
+            out["mesh/index"] = np.asarray([mesh.data_index,
+                                            mesh.model_index])
     if job.get("bn"):
         with np.load(os.path.join(job_dir, "bn.npz")) as z:
             arrays = {k: z[k] for k in z.files}
@@ -203,7 +233,7 @@ def spawn_ranks(job_dir: str, world: int, device: str, backend: str,
 
 def main(argv) -> int:
     job_dir, rank, world, port, device, backend = argv
-    from vistaocr_tpu_torch.parallel import make_mesh
+    from vistaocr_tpu_torch.parallel import MeshConfig, make_mesh
     from vistaocr_tpu_torch.runtime import disable_tf32
     from vistaocr_tpu_torch.train import maybe_init_distributed
 
@@ -211,8 +241,10 @@ def main(argv) -> int:
     disable_tf32()
     maybe_init_distributed(f"127.0.0.1:{port}", int(world), int(rank),
                            backend=backend)
+    with open(os.path.join(job_dir, "job.json")) as f:
+        shape = json.load(f).get("mesh", {})
     try:
-        mesh = make_mesh(device=device)
+        mesh = make_mesh(MeshConfig(**shape), device=device)
         out = run_job(job_dir, mesh)
         for k in sorted(out):
             if "/count/" in k and int(out[k]):

@@ -26,6 +26,13 @@ snapshot loads without reshaping.
 
 In train mode, dropout (``rate``, drawn from an explicit generator) runs
 between layers, never after the last (``blstm.py:188-189``).
+
+Under tensor parallelism (``parallel.mesh.shard_model`` sets
+``model_group``) each rank holds the column shard of every ``wx``, ``wh``
+and ``b`` (gates ``[4H / model]``): it projects its gate columns and
+gathers them to ``[T, B, 4H]``, gathers ``wh`` whole, and runs the
+recurrence kernels whole-H on its rows, as GSPMD does around JAX's
+Pallas calls (``lstm_pallas.py:180,189`` pin every non-batch dimension).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from torch import nn
 
 from ..ops import lstm_cuda
+from ..parallel.mesh import copy_to_model, gather_columns
 
 IMPLS = ("auto", "scan", "pallas", "pallas_interpret")
 
@@ -68,6 +76,8 @@ class BLSTMStack(nn.Module):
     """[B, T, D] -> [B, T, 2H] (forward ++ backward states) in the
     compute dtype."""
 
+    model_group = None  # the model axis's process group (shard_model)
+
     def __init__(self, d_in: int, hidden: int = 512, layers: int = 2,
                  *, impl: str = "auto"):
         super().__init__()
@@ -95,22 +105,24 @@ class BLSTMStack(nn.Module):
         x = x.transpose(0, 1)  # [T, B, D]
         mask = frame_mask.transpose(0, 1).to(torch.float32)[:, None, :]
         mask = mask.contiguous()  # [T, 1, B]
+        tp = self.model_group  # None: the whole gates on this rank
         for layer in range(self.layers):
             p = {d: tuple(getattr(self, f"l{layer}_{d}_{n}")
                           for n in ("wx", "wh", "b"))
                  for d in ("fwd", "bwd")}
-            xw_f = lstm_cuda.input_projection(x, p["fwd"][0], p["fwd"][2],
-                                              dtype)
-            xw_b = lstm_cuda.input_projection(x, p["bwd"][0], p["bwd"][2],
-                                              dtype)
+            # column-parallel gate inputs, then the whole gates and wh
+            xin = copy_to_model(x, tp)
+            xw_f, xw_b = (gather_columns(lstm_cuda.input_projection(
+                xin, p[d][0], p[d][2], dtype), tp) for d in ("fwd", "bwd"))
+            wh_f, wh_b = (gather_columns(p[d][1], tp) for d in ("fwd", "bwd"))
             if self.impl == "scan":
                 ys_f = lstm_cuda.lstm_recurrence_ref(
-                    xw_f, mask, p["fwd"][1], reverse=False, dtype=dtype)
+                    xw_f, mask, wh_f, reverse=False, dtype=dtype)
                 ys_b = lstm_cuda.lstm_recurrence_ref(
-                    xw_b, mask, p["bwd"][1], reverse=True, dtype=dtype)
+                    xw_b, mask, wh_b, reverse=True, dtype=dtype)
             else:
                 ys_f, ys_b = lstm_cuda.blstm_recurrence(
-                    xw_f, xw_b, mask, p["fwd"][1], p["bwd"][1], dtype=dtype,
+                    xw_f, xw_b, mask, wh_f, wh_b, dtype=dtype,
                     plain=not use_kernel)
             x = torch.cat([ys_f, ys_b], dim=-1)  # [T, B, 2H]
             if rate > 0 and layer < self.layers - 1:

@@ -15,6 +15,12 @@ Counterpart of ``vistaocr_tpu/models/cnnlstm.py:36-171``:
 on batch statistics (running statistics updated in place), on-device
 augmentation when ``augment > 0``, and dropout after the bridge ReLU and
 between BLSTM layers, every random draw from the ``generator`` passed in.
+
+Under tensor parallelism (``parallel.mesh.shard_model``) the bridge is
+column-parallel: each rank holds its rows of ``bridge.weight`` (JAX's
+kernel columns) and of ``bridge.bias``, computes those output columns and
+gathers them before the ReLU; dropout then draws over the full width, as
+with one rank. The head runs replicated.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.preprocess import augment_images, preprocess_images
+from ..parallel.mesh import copy_to_model, gather_columns
 from .blstm import BLSTMStack, dropout
 from .cnn import DEFAULT_STAGES, ConvStack, ConvStageSpec, width_stride_of
 
@@ -87,6 +94,8 @@ class ModelConfig:
 
 
 class CnnLstmOcr(nn.Module):
+    model_group = None  # the model axis's process group (shard_model)
+
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = config
@@ -153,8 +162,10 @@ class CnnLstmOcr(nn.Module):
         tpos = torch.arange(t, device=x.device)
         frame_mask = tpos[None, :] < frames[:, None]
 
-        x = F.relu(F.linear(x, self.bridge.weight.to(dt),
-                            self.bridge.bias.to(dt)))
+        tp = self.model_group  # column-parallel bridge; None: one rank
+        x = F.relu(gather_columns(F.linear(
+            copy_to_model(x, tp), self.bridge.weight.to(dt),
+            self.bridge.bias.to(dt)), tp))
         rate = cfg.dropout if train else 0.0
         if rate > 0:
             x = dropout(x, rate, generator)

@@ -27,8 +27,21 @@ snapshots and ``metrics.jsonl``. ``--coordinator-address``,
 (``maybe_init_distributed``), and each process trains on
 ``cuda:<rank % device_count>`` unless ``--device`` names an index.
 
-Not ported yet: tensor parallelism, ``mesh_model != 1`` (ROADMAP Queue
-1, item 7b), the device-resident dataset cache and the epoch-fused
+Tensor parallelism (the mesh's ``model`` axis, ``mesh_model``,
+``train.py:532-537``) lays the ranks out as ``data x model``: the ranks
+of one ``data_index`` form a model group and take the same rows. Each
+holds its column shard of the bridge and of every BLSTM ``wx``, ``wh``
+and ``b`` (JAX's ``_TP_RULES``), with Adam's moments of a shard sharded
+alike, and gathers the columns of those GEMMs over the group
+(``parallel/mesh.py``); the LSTM and CTC kernels run whole on its rows.
+Every gradient is summed over the data axis only (the replicated ones
+then taken from model index 0, so the group's copies stay bit-equal),
+and the norm for the clip is that of the whole gradients. A fresh run initialises the whole
+model from the seed and then shards it; a resume shards the whole
+snapshot; a snapshot gathers the shards, so its files are those of one
+rank and any mesh resumes them.
+
+Not ported yet: the device-resident dataset cache and the epoch-fused
 trainer (``train.py:303-377``; ROADMAP Queue 1, item 5): ``device_cache``
 and ``fused_epochs`` stay in ``TrainConfig`` with ``"auto"`` meaning off
 here, and ``"on"`` raises.
@@ -39,6 +52,7 @@ Usage:
     # N ranks, one a GPU (run once for each r in 0..N-1):
     python -m vistaocr_tpu_torch.train ... --coordinator-address \\
         HOST:PORT --num-processes N --process-id r
+    # data x model ranks, N = data * model: add --mesh-model M
 """
 
 from __future__ import annotations
@@ -69,9 +83,11 @@ from .data.shards import open_dataset
 from .decode.greedy import collapse_frames, greedy_frames
 from .models import CnnLstmOcr, ConvStageSpec, ModelConfig, init_parameters
 from .ops.ctc import mean_ctc_loss
-from .parallel.mesh import (TP_ITEM, Mesh, MeshConfig, all_gather_host,
-                            all_reduce_grads, all_reduce_sum, barrier,
-                            make_mesh, shard_rows)
+from .parallel.mesh import (DIST_TIMEOUT_S, Mesh, MeshConfig,
+                            all_gather_host, all_reduce_grads,
+                            all_reduce_sum, barrier, broadcast_model,
+                            gather_state_dict, make_mesh, shard_model,
+                            shard_rows, shard_state_dict, sharded_dim)
 from .runtime import disable_tf32
 from .text import Alphabet, cer_wer
 
@@ -265,10 +281,23 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(cfg.optimizer, momentum=cfg.momentum)
 
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of squares of every leaf."""
-    return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                          for g in grads.values()))
+def global_norm(grads: Dict[str, torch.Tensor], model_group=None,
+                sharded=()) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every leaf.
+    Under tensor parallelism, the norm of the whole gradients: the
+    squares of the ``sharded`` leaves (this rank's columns) are summed
+    over ``model_group`` and added to those of the replicated ones, so
+    every rank clips alike."""
+    def squares(names):
+        zero = torch.zeros((), device=next(iter(grads.values())).device)
+        return sum((torch.sum(grads[k].to(torch.float32) ** 2)
+                    for k in names), zero)
+
+    if model_group is None:
+        return torch.sqrt(squares(grads))
+    part = squares([k for k in grads if k in sharded])
+    dist.all_reduce(part, group=model_group)
+    return torch.sqrt(squares([k for k in grads if k not in sharded]) + part)
 
 
 def _clip_by_known_norm(grads, gnorm, max_norm):
@@ -288,11 +317,12 @@ class TrainState:
 
 
 def step_generator(seed: int, step: int, device: torch.device,
-                   rank: int = 0) -> torch.Generator:
+                   data_index: int = 0) -> torch.Generator:
     """The dropout/augment generator of one step, seeded from (seed, step)
-    so a resumed run draws the same masks; a data-parallel rank above 0
-    adds its rank, so the ranks draw different masks for their rows."""
-    entropy = [seed + 1, step] + ([rank] if rank else [])
+    so a resumed run draws the same masks; a data index above 0 adds
+    itself, so the data ranks draw different masks for their rows and the
+    model ranks of one data index draw the same."""
+    entropy = [seed + 1, step] + ([data_index] if data_index else [])
     s = int(np.random.SeedSequence(entropy).generate_state(1)[0])
     return torch.Generator(device=device).manual_seed(s)
 
@@ -327,24 +357,32 @@ def make_train_step(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
     ``loss_and_grads``, the clip, the optimizer update and
     ``p -= lr * update``. ``state`` is updated in place. Under a ``mesh``
     with several ranks the batch is this rank's rows; the gradients and
-    the loss are summed over the ranks before the norm, so every rank
-    reports the global loss and applies the same update."""
+    the loss are summed over the data axis before the norm, so every rank
+    reports the global loss and applies the same update (to its shards
+    under tensor parallelism: ``model`` is then ``shard_model``'s)."""
     cfg = model.config
     needs_rng = cfg.dropout > 0 or cfg.augment > 0
     group = mesh.group if mesh is not None else None
-    rank = mesh.rank if mesh is not None else 0
+    data_index = mesh.data_index if mesh is not None else 0
+    model_group = mesh.model_group if mesh is not None else None
+    sharded = ({k for k, _ in model.named_parameters()
+                if sharded_dim(k, mesh) is not None}
+               if model_group is not None else set())
 
     def train_step(state: TrainState, images, widths, labels, label_lengths,
                    weights, lr: float):
-        gen = (step_generator(seed, state.step, images.device, rank)
+        gen = (step_generator(seed, state.step, images.device, data_index)
                if needs_rng else None)
         loss, grads = loss_and_grads(
             model, images, widths, labels, label_lengths, weights,
             label_average=label_average, ctc_impl=ctc_impl, generator=gen,
             group=group)
         grads = all_reduce_grads(grads, group)
+        if model_group is not None:  # replicated: model index 0's, bit-equal
+            grads.update(broadcast_model(
+                {k: g for k, g in grads.items() if k not in sharded}, mesh))
         loss = all_reduce_sum(loss, group)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, model_group, sharded)
         if grad_clip is not None:
             grads = _clip_by_known_norm(grads, gnorm, grad_clip)
         updates = tx.update(grads, state.opt_state)
@@ -371,11 +409,11 @@ def make_eval_step(model: CnnLstmOcr):
 def evaluate(eval_step, pipe: BatchPipeline, alphabet: Alphabet,
              device, mesh: Optional[Mesh] = None) -> Tuple[float, float, float]:
     """Greedy-decode the whole split; returns (CER, WER, lines/sec). Under
-    a ``mesh`` with several ranks each rank decodes its rows of every
+    a ``mesh`` with several ranks each data rank decodes its rows of every
     batch and the frames of all rows are gathered on the host
     (``train.py:413-418``), so every rank computes the same CER."""
     group = mesh.group if mesh is not None else None
-    shard = (mesh.rank, mesh.world_size) if mesh is not None else (0, 1)
+    shard = (mesh.data_index, mesh.data) if mesh is not None else (0, 1)
     hyps: List[str] = []
     refs: List[str] = []
     t0 = time.time()
@@ -427,10 +465,6 @@ def _check_unported(cfg: TrainConfig) -> None:
             "device_cache='on' / fused_epochs='on': the device-resident "
             "dataset cache and the epoch-fused trainer are not ported yet "
             "(ROADMAP Queue 1, item 5)")
-    if cfg.mesh_model != 1:
-        raise NotImplementedError(
-            f"mesh_model != 1: tensor parallelism is not ported yet "
-            f"({TP_ITEM})")
 
 
 def device_time_summary(events, top: int = 25) -> str:
@@ -475,9 +509,9 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
     if mesh is None:
         mesh = make_mesh(MeshConfig(model=cfg.mesh_model), device=device)
     dev = mesh.device
-    group = mesh.group
-    shard = (mesh.rank, mesh.world_size)
-    if group is not None and dev.type == "cuda":
+    every = mesh.world_group  # barriers and the plan fingerprints
+    shard = (mesh.data_index, mesh.data)
+    if every is not None and dev.type == "cuda":
         torch.cuda.set_device(dev)  # NCCL's device for this rank
     disable_tf32()
     t_setup = time.time()
@@ -515,6 +549,8 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
         model.load_state_dict(variables_to_state_dict(variables), strict=True)
     else:
         init_parameters(model, torch.Generator().manual_seed(cfg.seed))
+    # the whole model (the seed's or the snapshot's), then this rank's shard
+    shard_model(model, mesh)
     model.to(dev)
 
     tx = make_optimizer(cfg)
@@ -522,7 +558,8 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
                        opt_state=tx.init(dict(model.named_parameters())),
                        step=start_step)
     if resuming and has_opt_state(resume_dir):
-        tx.load_numpy(state.opt_state, load_opt_state(resume_dir))
+        tx.load_numpy(state.opt_state,
+                      shard_state_dict(load_opt_state(resume_dir), mesh))
     train_step = make_train_step(model, tx, cfg.label_average, cfg.ctc_impl,
                                  grad_clip=cfg.grad_clip, seed=cfg.seed,
                                  mesh=mesh)
@@ -537,10 +574,10 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
         log(f"warning: {train_pipe.dropped} train lines fit no bucket; dropped")
     # every rank must derive the same epoch plan (same corpus, same seed),
     # or the ranks would sum gradients of different batches
-    if group is not None:
+    if every is not None:
         fps = all_gather_host(
             np.asarray([train_pipe.plan_fingerprint(start_epoch)], np.int64),
-            group)
+            every)
         if not (fps == fps[0]).all():
             raise RuntimeError(
                 f"epoch-plan fingerprint differs across processes: "
@@ -568,25 +605,30 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
         if metrics_f:
             metrics_f.write(json.dumps(rec) + "\n")
             metrics_f.flush()
-        barrier(group)
+        barrier(every)
 
     def snapshot(tag: str, step: int, epoch: int, extra: dict):
         path = os.path.join(cfg.snapshot_dir, tag)
+        # the whole model from the model group's shards, on every rank
+        sd = gather_state_dict(model.state_dict(), mesh)
+        opt = gather_state_dict(state.opt_state, mesh)
         if is_primary:
             save_snapshot(
-                path, state_dict=model.state_dict(),
+                path, state_dict=sd,
                 model_config=model_config, alphabet=alphabet,
                 contract=contract, step=step,
-                opt_state=Optimizer.state_numpy(state.opt_state),
+                opt_state=Optimizer.state_numpy(opt),
                 extra={"epoch": epoch,
                        "train_config": dataclasses.asdict(cfg), **extra},
             )
-        barrier(group)
+        barrier(every)
         return path
 
     log(f"training: {len(train_ds)} lines, alphabet={alphabet.num_classes}, "
         f"device={dev}, mesh=data:{mesh.data}xmodel:{mesh.model} "
-        f"(rank {mesh.rank}), setup {time.time() - t_setup:.1f}s")
+        f"(rank {mesh.rank}) data_index={mesh.data_index} "
+        f"model_index={mesh.model_index}, setup "
+        f"{time.time() - t_setup:.1f}s")
 
     step = start_step
     best_cer = plateau.best
@@ -667,7 +709,7 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
             if is_primary:
                 promote(os.path.join(cfg.snapshot_dir, "last"),
                         os.path.join(cfg.snapshot_dir, "best"))
-            barrier(group)
+            barrier(every)
 
     end_epoch = cfg.epochs if not cfg.max_steps else 10**9
     cur_epoch = start_epoch
@@ -725,12 +767,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "raises without a card)")
     # one process a GPU: init_process_group over tcp:// before fit
     p.add_argument("--coordinator-address", default=None, metavar="HOST:PORT",
-                   help="data parallelism: rank 0's address (starts "
+                   help="several ranks: rank 0's address (starts "
                         "torch.distributed)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="data parallelism: the rank count")
+                   help="several ranks: the rank count (data x "
+                        "--mesh-model)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="data parallelism: this process's rank")
+                   help="several ranks: this process's rank")
     for f in dataclasses.fields(TrainConfig):
         name = "--" + f.name.replace("_", "-")
         if f.type == "bool" or isinstance(f.default, bool):
@@ -754,11 +797,6 @@ def config_from_args(args) -> TrainConfig:
                 v = tuple(int(x) for x in v.split(","))
             base[f.name] = v
     return TrainConfig(**base)
-
-
-# a collective (or the group's start) that waits longer raises: a rank that
-# died must not leave its peers waiting for ever
-DIST_TIMEOUT_S = 600
 
 
 def maybe_init_distributed(coordinator_address=None, num_processes=None,
