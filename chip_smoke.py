@@ -8,6 +8,9 @@ NVIDIA GPU.
     python3 chip_smoke.py --http  # phases 1, 2 and 4b (the HTTP server)
     python3 chip_smoke.py --dp    # phases 1, 2 and dp (data and tensor
                                   # parallelism)
+    python3 chip_smoke.py --fused # phases 1, 2 and fused (the device
+                                  # cache and the epoch-fused trainer),
+                                  # with dp's NCCL CLI run fused
 
 Phases (each prints one line before it starts; any failure raises, so
 the exit code is non-zero and no ``ok`` line is printed):
@@ -108,6 +111,28 @@ the exit code is non-zero and no ``ok`` line is printed):
              40 steps and one validation; the loss must be finite and its
              last-10 mean below its first-10 mean, and every training
              kernel's launch counter must grow.
+   fused   - the device-resident dataset cache and the epoch-fused
+             trainer (``fused_phase``): (a) ``train.fit`` on phase 7's
+             glyph data and ``TrainConfig`` with ``device_cache="on"``,
+             ``fused_epochs="on"``, 40 steps, validation at 40: exactly
+             40 steps, every segment loss finite and below 1e20, a
+             capture per batch shape the steps reached (from the
+             segments' ``batch_shape``), 40 replays and no eager step, the
+             validation's snapshot holding ``stack_rows_done`` /
+             ``stack_epochs``, every training kernel's wrapper called in
+             the warm-ups and captures; train lines/s after the captures
+             beside phase 7's per-step figure, capture seconds and peak
+             memory. (b) One bucket of the same data (the stacked plan's
+             with the most rows: B=32, W=1760), the flagship from one
+             seeded init with dropout 0.1: 8 bf16 graph replays against 8
+             eager ``train_step`` calls on the same rows (each loss within
+             2**-8 relative), then 4 in f32 (losses within 1e-5,
+             parameters within atol 3e-3 / rtol 2e-2), every replay's
+             dropout masks equal to the eager step's; each path timed
+             (CUDA events) and profiled over 4 steps (the device-busy
+             share; K1, K2/K3 and K4/K5 on the device during replays, no
+             capture in the window). The JSON line ``{"fused": ...}``
+             holds the readings.
    infer   - on phase 7's snapshot and glyph validation split (128
              lines): ``run_inference`` greedy with a posterior dump that
              ``decode.offline`` decodes to the same strings (a line may
@@ -231,7 +256,9 @@ dp         - data parallelism on the one card (``dp_phase``; correctness,
              bit-equal, and each rank's K1, K2/K3 and K4/K5 launched. Then
              one rank over NCCL through the trainer's CLI
              (``--num-processes 1``), 4 steps and a validation on a small
-             glyph set. Then the service: ``mesh_data=-1`` (a shard a
+             glyph set, then the same with ``--device-cache on
+             --fused-epochs on`` (the log must show the cache and the
+             graphs). Then the service: ``mesh_data=-1`` (a shard a
              card) equal to ``mesh_data=0``, and two shards on ``cuda:0``
              (the device list patched) giving, line for line, the texts
              and confidences of one shard, greedy and the device beam.
@@ -2425,7 +2452,7 @@ def train_phase(tmp: str, font: dict, smi: str) -> dict:
              f"every training kernel launched: {counts}")
     _require(os.path.exists(os.path.join(run, "last", "meta.json")),
              "snapshot written")
-    return counts
+    return counts, lps
 
 
 def _glyph_batch(font: dict, seed: int, B: int, W: int, wmin: int,
@@ -2635,13 +2662,16 @@ def tp_train_check(dev, job: str, one: dict, smi: str) -> dict:
     return out
 
 
-def dp_nccl_cli(tmp: str, font: dict, smi: str) -> dict:
+def dp_nccl_cli(tmp: str, font: dict, smi: str, fused: bool = False) -> dict:
     """One rank over NCCL through the trainer's CLI: a few steps and a
-    validation on a small glyph data set."""
+    validation on a small glyph data set; with ``fused`` the same with
+    ``--device-cache on --fused-epochs on``, every step a graph replay."""
     child = _dp_child()
-    data, run = os.path.join(tmp, "dp_glyphs"), os.path.join(tmp, "dp_run")
-    write_glyph_dataset(data, font, seed=23, n_train=256, n_val=32,
-                        widths=(200, 512))
+    tag = "dp_fused" if fused else "dp"
+    data, run = os.path.join(tmp, "dp_glyphs"), os.path.join(tmp, f"{tag}_run")
+    if not os.path.exists(data):
+        write_glyph_dataset(data, font, seed=23, n_train=256, n_val=32,
+                            widths=(200, 512))
     env = dict(os.environ)
     root = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -2652,6 +2682,8 @@ def dp_nccl_cli(tmp: str, font: dict, smi: str) -> dict:
            "--log-interval", "1", "--coordinator-address",
            f"127.0.0.1:{child.free_port()}", "--num-processes", "1",
            "--process-id", "0"]
+    if fused:
+        cmd += ["--device-cache", "on", "--fused-epochs", "on"]
     t0 = time.time()
     proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
                           text=True, timeout=DP_TIMEOUT_S)
@@ -2660,18 +2692,24 @@ def dp_nccl_cli(tmp: str, font: dict, smi: str) -> dict:
              f"NCCL CLI run exited {proc.returncode}: {proc.stderr[-3000:]}")
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
     with open(os.path.join(run, "metrics.jsonl")) as f:
-        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
-    _require(summary["steps"] == 4 and len(losses) == 4
+        recs = [r for r in map(json.loads, f) if "loss" in r]
+    losses = [r["loss"] for r in recs]  # a step's, or a fused segment's
+    logged = sum(r.get("steps", 1) for r in recs)
+    _require(summary["steps"] == 4 and logged == 4
              and all(np.isfinite(losses)),
-             f"4 NCCL CLI steps with finite losses: {summary} {losses}")
+             f"4 NCCL CLI steps with finite losses: {summary} {recs}")
     _require("mesh=data:1xmodel:1 (rank 0)" in proc.stdout,
              "the CLI run joined its one-rank group")
-    print(f"dp nccl: one rank (cpu:gloo,cuda:nccl) through the CLI, 4 steps "
-          f"in {wall:.1f} s of command time: losses {losses}, val CER "
+    _require(not fused or (
+        "device cache: dataset resident on device" in proc.stdout
+        and "each step one CUDA graph replay" in proc.stdout),
+        f"the fused CLI run took the cache and the graphs: {proc.stdout}")
+    print(f"{tag} nccl: one rank (cpu:gloo,cuda:nccl) through the CLI, 4 "
+          f"steps in {wall:.1f} s of command time: losses {losses}, val CER "
           f"{summary['last_val_cer']} ({smi})", flush=True)
     return {"backend": "cpu:gloo,cuda:nccl", "ranks": 1, "steps": 4,
-            "losses": losses, "val_cer": summary["last_val_cer"],
-            "wall_s": wall}
+            "fused": fused, "losses": losses,
+            "val_cer": summary["last_val_cer"], "wall_s": wall}
 
 
 def dp_service_check(dev, font: dict, snap: str, smi: str) -> dict:
@@ -2756,6 +2794,7 @@ def dp_phase(dev, font: dict, smi: str) -> dict:
         print(f"tp check: {out['tp_seconds']:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         out["nccl_cli"] = dp_nccl_cli(tmp, font, smi)
+        out["nccl_cli_fused"] = dp_nccl_cli(tmp, font, smi, fused=True)
         snap = os.path.join(tmp, "snap")
         flagship_snapshot(snap)
         out["service"] = dp_service_check(dev, font, snap, smi)
@@ -2763,6 +2802,325 @@ def dp_phase(dev, font: dict, smi: str) -> dict:
     out["note"] = ("correctness on one shared card, not scaling: every "
                    "rank and both shards time-slice one GPU")
     print(f"dp phase: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# --- the fused phase: the device cache and the epoch-fused trainer -----------
+FUSED_STEPS = 40  # fit's steps, each one CUDA graph replay
+FUSED_PARITY_STEPS = 8  # bf16 replays against as many eager steps
+FUSED_F32_STEPS = 4
+FUSED_WINDOW = 4  # steps in each profiler window
+# the kernels each step must run on the device (name fragments): every one
+# with bf16 weights; with f32 weights one of each group
+FUSED_KERNELS = {
+    "bfloat16": {"K1": ("lstm_fwd_persistent",),
+                 "K2/K3": ("bptt_gates_gemm",), "K2/K3 frames": (
+                     "lstm_bwd_persistent",), "K2/K3 dwh": ("lstm_dwh",),
+                 "K4": ("ctc_alpha_kernel",), "K5": ("ctc_beta_kernel",)},
+    "float32": {"K1": ("lstm_fwd_grid", "lstm_step"),
+                "K2/K3": ("bptt_gates_gemm",), "K2/K3 frames": (
+                    "bptt_frame", "bptt_cell"), "K2/K3 dwh": ("lstm_dwh",),
+                "K4": ("ctc_alpha_kernel",), "K5": ("ctc_beta_kernel",)},
+}
+
+
+class _MaskRecorder:
+    """Within the block, every dropout mask the model draws
+    (``models.blstm.dropout_mask``) is also kept in ``masks``."""
+
+    def __enter__(self):
+        from vistaocr_tpu_torch.models import blstm
+
+        self.mod, self.real, self.masks = blstm, blstm.dropout_mask, []
+
+        def record(x, rate, generator):
+            mask = self.real(x, rate, generator)
+            self.masks.append(mask)
+            return mask
+
+        blstm.dropout_mask = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dropout_mask = self.real
+
+
+def _busy_share(summary: str) -> float:
+    """The device-busy percentage of a ``device_time_summary``."""
+    import re
+
+    return float(re.search(r"device busy [\d.]+ ms \(([\d.]+)%\)",
+                           summary).group(1))
+
+
+def _window(fn):
+    """``torch.profiler``'s device events over one call of ``fn`` (CUDA
+    activity only): (every event, {kernel name: launches})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return events, names
+
+
+def _seen(names: dict, groups: dict) -> dict:
+    """Launches of each group's kernels in a window's ``names``."""
+    return {g: sum(n for name, n in names.items()
+                   if any(f in name for f in frags))
+            for g, frags in groups.items()}
+
+
+def fused_fit(data: str, run: str, smi: str, per_step_lps) -> dict:
+    """Part (a): ``fit`` on the glyph data with the flagship
+    ``TrainConfig``, ``device_cache="on"``, ``fused_epochs="on"``,
+    FUSED_STEPS steps and one validation."""
+    import torch
+    from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.ops import ctc_cuda, lstm_cuda
+
+    mods = {"lstm_cuda": lstm_cuda, "ctc_cuda": ctc_cuda}
+    cfg = T.TrainConfig(**{**T.PRESETS["full"], "data_dir": data,
+                           "snapshot_dir": run, "max_steps": FUSED_STEPS,
+                           "val_interval_steps": FUSED_STEPS, "seed": 0,
+                           "device_cache": "on", "fused_epochs": "on"})
+    T.GRAPH_CAPTURES = T.GRAPH_REPLAYS = T.FUSED_EAGER_STEPS = 0
+    T.CAPTURE_SECONDS = 0.0
+    for mod, name in TRAIN_COUNTERS:
+        setattr(mods[mod], name, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+
+    def log(m):
+        logs.append(m)
+        if not m.startswith("step "):
+            print(m, flush=True)
+
+    t0 = time.time()
+    summary = T.fit(cfg, device="cuda", log=log)
+    wall = time.time() - t0
+    counts = {name: getattr(mods[mod], name) for mod, name in TRAIN_COUNTERS}
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    segs = [r for r in recs if "loss" in r]
+    shapes = sorted({tuple(r["batch_shape"]) for r in segs})
+    losses = [r["loss"] for r in segs]
+    _require(summary["steps"] == FUSED_STEPS
+             and sum(r["steps"] for r in segs) == FUSED_STEPS,
+             f"{FUSED_STEPS} fused steps: {summary} {segs}")
+    _require(all(np.isfinite(losses)) and max(losses) < 1e20,
+             f"finite segment losses: {losses}")
+    _require(any("each step one CUDA graph replay" in m for m in logs)
+             and "device cache: dataset resident on device" in logs,
+             "fit ran the cache and the graphs")
+    _require(T.GRAPH_CAPTURES == len(shapes)
+             and T.GRAPH_REPLAYS == FUSED_STEPS
+             and T.FUSED_EAGER_STEPS == 0,
+             f"a capture a batch shape ({len(shapes)}: {shapes}), a replay "
+             f"a step: captures {T.GRAPH_CAPTURES}, replays "
+             f"{T.GRAPH_REPLAYS}, eager {T.FUSED_EAGER_STEPS}")
+    vals = [r for r in recs if "val_cer" in r]
+    with open(os.path.join(run, "best", "meta.json")) as f:
+        extra = json.load(f)["extra"]  # validation's copy of last/
+    _require(len(vals) == 1 and vals[0]["step"] == FUSED_STEPS
+             and extra["stack_rows_done"] == FUSED_STEPS
+             and extra["stack_epochs"] == T.TrainConfig().epoch_stack
+             and os.path.exists(os.path.join(run, "last", "meta.json")),
+             f"one validation at step {FUSED_STEPS} and its snapshot with "
+             f"the stack position: {vals} {extra}")
+    _require(all(v > 0 for v in counts.values()),
+             f"every training kernel captured: {counts}")
+    lines = sum(r["lines"] for r in segs)
+    seconds = sum(r["seconds"] for r in segs)
+    lps = lines / (seconds - T.CAPTURE_SECONDS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fused fit: {FUSED_STEPS} steps as {T.GRAPH_REPLAYS} graph "
+          f"replays over {len(segs)} segments, {T.GRAPH_CAPTURES} captures "
+          f"(shapes {shapes}) in {T.CAPTURE_SECONDS:.2f} s with their "
+          f"warm-ups; {wall:.1f} s in all (setup and validation included); "
+          f"segment losses {losses}; val CER {summary['last_val_cer']:.4f}; "
+          f"wrapper calls (warm-ups and captures) {counts}; peak memory "
+          f"{peak:.2f} GiB ({smi})", flush=True)
+    print(f"fused fit: {lines} lines at {lps:.1f} train lines/s after the "
+          f"captures (the per-step path, phase 7, steps 11-40: "
+          f"{'not run' if per_step_lps is None else f'{per_step_lps:.1f}'}"
+          f" lines/s) ({smi})", flush=True)
+    return {"steps": FUSED_STEPS, "segments": len(segs),
+            "captures": T.GRAPH_CAPTURES, "replays": T.GRAPH_REPLAYS,
+            "batch_shapes": shapes, "capture_s": T.CAPTURE_SECONDS,
+            "wall_s": wall, "losses": losses,
+            "val_cer": summary["last_val_cer"], "lines": lines,
+            "lines_per_s_after_captures": lps,
+            "per_step_lines_per_s_phase7": per_step_lps,
+            "peak_memory_gib": peak, "wrapper_calls": counts}
+
+
+def _graph_against_eager(model, arrays, idx, w, steps: int) -> dict:
+    """``steps`` graph replays of ``make_train_epoch`` (one a call, so
+    each step's loss and dropout masks are read) and as many eager
+    ``train_step`` calls over the same rows, each from its own copy of
+    ``model``: {mode: (losses, masks a step, model, state, trainer)}."""
+    import copy
+    from vistaocr_tpu_torch import train as T
+
+    out = {}
+    for mode in ("graph", "eager"):
+        m = copy.deepcopy(model)
+        tx = T.Optimizer("adam")
+        state = T.TrainState(model=m,
+                             opt_state=tx.init(dict(m.named_parameters())))
+        losses, masks = [], []
+        with _MaskRecorder() as rec:
+            if mode == "graph":
+                fn = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0)
+                _require(fn.graphs, "the fused steps run as graphs")
+                for k in range(steps):
+                    n0 = len(rec.masks)
+                    losses.append(float(fn(state, arrays, idx[k:k + 1],
+                                           w[k:k + 1], 1e-3)["loss"]))
+                    if k == 0:  # the warm-up's masks, then the graph's
+                        live = rec.masks[n0 + (len(rec.masks) - n0) // 2:]
+                    masks.append([t.clone() for t in live])
+            else:
+                fn = T.make_train_step(m, tx, False, "auto", grad_clip=5.0)
+                for k in range(steps):
+                    n0 = len(rec.masks)
+                    losses.append(float(fn(
+                        state, *(a.index_select(0, idx[k]) for a in arrays),
+                        w[k], 1e-3)["loss"]))
+                    masks.append(rec.masks[n0:])
+        out[mode] = (losses, masks, m, state, fn)
+    return out
+
+
+def fused_parity(dev, data: str, smi: str) -> dict:
+    """Part (b): one bucket of the glyph data (the plan's with the most
+    rows), the flagship from one seeded init: bf16 graph replays against
+    eager steps (losses within 2**-8, masks equal), their times and
+    profiler windows, then f32 (losses within 1e-5, parameters within
+    atol 3e-3 / rtol 2e-2, masks equal)."""
+    import torch
+    from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.data import (BatchPipeline, make_ladder,
+                                         open_dataset)
+    from vistaocr_tpu_torch.data.device_cache import DeviceCache
+    from vistaocr_tpu_torch.models import CnnLstmOcr, init_parameters
+    from vistaocr_tpu_torch.text import Alphabet
+
+    cfg = T.TrainConfig(**T.PRESETS["full"])
+    ds = open_dataset(data, "train")
+    contract = cfg.contract()
+    contract = dataclasses.replace(contract, bucket_widths=make_ladder(
+        ds.widths, stride=contract.width_stride, align=32, max_waste=0.03,
+        max_width=max(cfg.bucket_widths)))
+    alphabet = Alphabet.build(ds.transcripts())
+    pipe = BatchPipeline(ds, alphabet, contract, batch_pixels=cfg.batch_pixels,
+                         drop_remainder=True, shuffle=True, seed=0)
+    b, arrays, idx, w = max(DeviceCache(pipe, device=dev).epoch_plan(
+        0, stack=cfg.epoch_stack), key=lambda p: p[2].shape[0])
+    rows = torch.arange(FUSED_PARITY_STEPS, device=dev) % idx.shape[0]
+    idx, w = idx[rows], w[rows]
+    B, W = idx.shape[1], pipe.spec_for(b).width
+    out = {"B": B, "W": W, "T": W // 4}
+    for dtype, steps, tol in (("bfloat16", FUSED_PARITY_STEPS,
+                               BF16_STEP_LOSS_REL),
+                              ("float32", FUSED_F32_STEPS, 1e-5)):
+        model = CnnLstmOcr(dataclasses.replace(
+            cfg.model_config(alphabet.num_classes), compute_dtype=dtype))
+        init_parameters(model, torch.Generator().manual_seed(3))
+        model.to(dev)
+        captures = T.GRAPH_CAPTURES
+        runs = _graph_against_eager(model, arrays, idx, w, steps)
+        (g_loss, g_masks, g_model, g_state, epoch), \
+            (e_loss, e_masks, e_model, e_state, step) = runs["graph"], \
+            runs["eager"]
+        rel = [abs(a - e) / abs(e) for a, e in zip(g_loss, e_loss)]
+        _require(T.GRAPH_CAPTURES == captures + 1
+                 and all(np.isfinite(g_loss)) and max(rel) <= tol,
+                 f"{dtype}: one capture, each replay's loss within {tol} of "
+                 f"the eager step's: {g_loss} {e_loss}")
+        same = [len(a) == len(e) > 0 and all(torch.equal(x, y)
+                                             for x, y in zip(a, e))
+                for a, e in zip(g_masks, e_masks)]
+        _require(all(same) and not torch.equal(g_masks[0][0],
+                                               g_masks[1][0]),
+                 f"{dtype}: every replay draws the eager step's dropout "
+                 f"masks, and steps draw anew: {same}")
+        worst = 0.0  # held to JAX's bound in f32, read in bf16
+        for (k, a), e in zip(g_model.state_dict().items(),
+                             e_model.state_dict().values()):
+            if a.is_floating_point():
+                diff = (a - e).abs()
+                worst = max(worst, float(diff.max()))
+                _require(dtype != "float32"
+                         or bool((diff <= 3e-3 + 2e-2 * e.abs()).all()),
+                         f"f32 {k} within atol 3e-3 / rtol 2e-2")
+        row = {"steps": steps, "loss_graph": g_loss, "loss_eager": e_loss,
+               "loss_rel_max": max(rel), "masks_equal": len(same),
+               "masks_a_step": len(g_masks[0]), "param_max_abs_diff": worst}
+        # the two paths' times and device windows at this bucket
+        ms = {}
+        for mode, fn in (("graph", lambda: epoch(g_state, arrays, idx, w,
+                                                 1e-3)),
+                         ("eager", lambda: [step(
+                             e_state, *(a.index_select(0, idx[k])
+                                        for a in arrays), w[k], 1e-3)
+                             for k in range(FUSED_PARITY_STEPS)])):
+            ms[mode] = _cuda_ms(fn, 1) / FUSED_PARITY_STEPS
+        part = slice(0, FUSED_WINDOW)
+        captures = T.GRAPH_CAPTURES
+        windows = {
+            "graph": _window(lambda: epoch(g_state, arrays, idx[part],
+                                           w[part], 1e-3)),
+            "eager": _window(lambda: [step(
+                e_state, *(a.index_select(0, idx[k]) for a in arrays),
+                w[k], 1e-3) for k in range(FUSED_WINDOW)])}
+        _require(T.GRAPH_CAPTURES == captures, "the window only replays")
+        for mode, (events, names) in windows.items():
+            seen = _seen(names, FUSED_KERNELS[dtype])
+            _require(all(v > 0 for v in seen.values()),
+                     f"{dtype} {mode}: K1-K5 on the device in the window: "
+                     f"{seen}; {sorted(names)[:30]}")
+            summary = T.device_time_summary(events, top=8)
+            row[f"{mode}_ms_a_step"] = ms[mode]
+            row[f"{mode}_lines_per_s"] = 1e3 * B / ms[mode]
+            row[f"{mode}_busy_pct"] = _busy_share(summary)
+            row[f"{mode}_window_kernels"] = seen
+            print(f"fused parity {dtype} {mode}, B={B} W={W}: "
+                  f"{ms[mode]:.3f} ms a step, {1e3 * B / ms[mode]:.1f} "
+                  f"train lines/s; window of {FUSED_WINDOW} steps: "
+                  f"{summary.splitlines()[0]}; kernels {seen} ({smi})",
+                  flush=True)
+        print(f"fused parity {dtype}: {steps} graph replays against eager "
+              f"steps, losses {g_loss} / {e_loss} (worst {max(rel):.2e}), "
+              f"masks equal in {len(same)} steps ({len(g_masks[0])} a "
+              f"step), parameters {worst:.2e} ({smi})", flush=True)
+        out[dtype] = row
+    return out
+
+
+def fused_phase(dev, tmp: str, font: dict, smi: str,
+                per_step_lps=None) -> dict:
+    """The device cache and the epoch-fused trainer: ``fused_fit`` on
+    phase 7's glyph data (written here when phase 7 did not run), then
+    ``fused_parity``."""
+    t0 = time.time()
+    data = os.path.join(tmp, "glyphs")
+    if not os.path.exists(data):
+        write_glyph_dataset(data, font, seed=21, n_train=3000, n_val=128)
+    out = {"fit": fused_fit(data, os.path.join(tmp, "fused_run"), smi,
+                            per_step_lps),
+           "parity": fused_parity(dev, data, smi)}
+    out["seconds"] = time.time() - t0
+    print(f"fused phase: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -3711,9 +4069,11 @@ def main(argv) -> int:
     int8_only = argv == ["--int8"]
     http_only = argv == ["--http"]
     dp_only = argv == ["--dp"]
-    if argv and not (ctc_only or int8_only or http_only or dp_only):
-        print("usage: chip_smoke.py [--ctc | --int8 | --http | --dp]",
-              file=sys.stderr)
+    fused_only = argv == ["--fused"]
+    if argv and not (ctc_only or int8_only or http_only or dp_only
+                     or fused_only):
+        print("usage: chip_smoke.py [--ctc | --int8 | --http | --dp | "
+              "--fused]", file=sys.stderr)
         return 2
     _phase("device")
     import torch
@@ -3759,6 +4119,15 @@ def main(argv) -> int:
         print(json.dumps({"dp": dp_out}))
         print(smi)
         return 0
+    if fused_only:
+        font = glyph_font(17)
+        with tempfile.TemporaryDirectory() as tmp:
+            _phase("fused")
+            fused_out = fused_phase(dev, tmp, font, smi)
+            fused_out["nccl_cli"] = dp_nccl_cli(tmp, font, smi, fused=True)
+        print(json.dumps({"fused": fused_out}))
+        print(smi)
+        return 0
     if int8_only:
         font = glyph_font(17)
         with tempfile.TemporaryDirectory() as tmp:
@@ -3791,7 +4160,10 @@ def main(argv) -> int:
     font = glyph_font(17)
     with tempfile.TemporaryDirectory() as tmp:
         _phase("train")
-        counts = train_phase(tmp, font, smi)
+        counts, per_step_lps = train_phase(tmp, font, smi)
+        _phase("fused")
+        fused_out = fused_phase(dev, tmp, font, smi, per_step_lps)
+        print(json.dumps({"fused": fused_out}), flush=True)
         _phase("infer")
         infer_out = infer_phase(dev, os.path.join(tmp, "run", "last"),
                                 os.path.join(tmp, "glyphs"), font, smi)
@@ -3987,6 +4359,26 @@ def main(argv) -> int:
                         **with_f32(table[(*shape, "bfloat16")][name],
                                    table[(*shape, "float32")][name])})
     kernels.append(int8_row(int8_out))
+    # the fused path (phase fused): each kernel's wrapper calls in fit's
+    # warm-ups and captures, and its device launches in a profiler window
+    # over FUSED_WINDOW replays at B=32, W=1760 (bf16; f32 for the f32
+    # forms)
+    fused_calls = fused_out["fit"]["wrapper_calls"]
+    for name, counter, group, dtype in (
+            ("lstm_fwd_save_cell", "SAVE_CELL_LAUNCHES", "K1", "bfloat16"),
+            ("bptt_gates_gemm", "GATES_GEMM_LAUNCHES", "K2/K3", "bfloat16"),
+            ("lstm_bwd_persistent", "BWD_PERSISTENT_LAUNCHES",
+             "K2/K3 frames", "bfloat16"),
+            ("lstm_dwh", "DWH_LAUNCHES", "K2/K3 dwh", "bfloat16"),
+            ("ctc_alpha", "ALPHA_LAUNCHES", "K4", "bfloat16"),
+            ("ctc_beta", "BETA_LAUNCHES", "K5", "bfloat16"),
+            ("lstm_fwd_grid", None, "K1", "float32"),
+            ("bptt_frame", None, "K2/K3 frames", "float32")):
+        row = next(r for r in kernels if r["name"] == name)
+        if counter:
+            row["launches_fused_captured"] = fused_calls[counter]
+        row["launches_fused_replay_window"] = fused_out["parity"][dtype][
+            "graph_window_kernels"][group]
     # the dp phase's launches on each of its two ranks, and on each rank of
     # the tp check's 2 x 2 mesh (bf16 steps)
     dp_counts = dp_out["train"]["launches_a_rank_by_counter"]

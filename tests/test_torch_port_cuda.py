@@ -1747,3 +1747,194 @@ def test_int8_service_launches_the_kernel(dev):
                 assert k1 == model.config.lstm_layers * batches * on_card
             same = np.mean([a == b for a, b in zip(*texts.values())])
             assert same >= 0.9, texts
+
+
+# --- the epoch-fused trainer's CUDA graphs (-k fused) -------------------------
+FUSED_B, FUSED_W, FUSED_H = 8, 128, 64  # T = 32 frames
+
+
+def _fused_case(dev, compute_dtype, dropout=0.1, n=40, nb=4, seed=0):
+    """A small model (H=64, 2 BLSTM layers) from a seeded init, n seeded
+    lines of one bucket resident on the card, and nb rows of B indices."""
+    from vistaocr_tpu_torch.models import (CnnLstmOcr, ConvStageSpec,
+                                           ModelConfig, init_parameters)
+
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, 32, FUSED_W), np.uint8)
+    widths = rng.integers(FUSED_W // 2, FUSED_W + 1, n).astype(np.int32)
+    lls = rng.integers(1, 9, n).astype(np.int32)
+    labels = np.zeros((n, 15), np.int32)
+    for i in range(n):
+        labels[i, :lls[i]] = rng.integers(1, 11, lls[i])
+    arrays = [torch.from_numpy(a).to(dev)
+              for a in (images, widths, labels, lls)]
+    idx = np.stack([rng.permutation(n)[:FUSED_B] for _ in range(nb)])
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    cfg = ModelConfig(
+        num_classes=11,
+        stages=(ConvStageSpec(8, 2, (2, 2)), ConvStageSpec(16, 2, (2, 2)),
+                ConvStageSpec(16, 2, (2, 1))),
+        bridge_dim=32, lstm_hidden=FUSED_H, dropout=dropout,
+        compute_dtype=compute_dtype)
+    model = CnnLstmOcr(cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev), arrays, idx, torch.ones(idx.shape, device=dev)
+
+
+def _fresh(model):
+    import copy
+
+    from vistaocr_tpu_torch import train as T
+
+    m = copy.deepcopy(model)
+    tx = T.Optimizer("adam")
+    return m, tx, T.TrainState(model=m,
+                               opt_state=tx.init(dict(m.named_parameters())))
+
+
+def _eager_steps(model, arrays, idx, w):
+    """train_step over the rows of idx on a copy of model: (losses,
+    model)."""
+    from vistaocr_tpu_torch import train as T
+
+    m, tx, state = _fresh(model)
+    step = T.make_train_step(m, tx, False, "auto", grad_clip=5.0, seed=3)
+    losses = []
+    for k in range(idx.shape[0]):
+        losses.append(step(state, *(a.index_select(0, idx[k])
+                                    for a in arrays), w[k], 1e-3)["loss"])
+    return torch.stack(losses).cpu(), m
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2.0 ** -8),
+                                       ("float32", 1e-5)])
+def test_fused_graph_segment_matches_eager_steps(dev, dtype, tol):
+    """One segment of nb rows: one capture, nb replays, the mean and last
+    loss and the norm against nb eager train_steps on the same rows
+    (bf16 within 2**-8 relative, f32 within 1e-5; gnorm within 10x
+    that), parameters within atol 3e-3 / rtol 2e-2. With f32 weights at
+    B=8, H=64 the forward is lstm_fwd_grid's cooperative launch."""
+    from vistaocr_tpu_torch import train as T
+
+    model, arrays, idx, w = _fused_case(dev, dtype)
+    if dtype == "float32":
+        assert lstm_cuda.f32_forward_grid(FUSED_B, FUSED_H)
+    m, tx, state = _fresh(model)
+    epoch = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0, seed=3)
+    assert epoch.graphs
+    before = (T.GRAPH_CAPTURES, T.GRAPH_REPLAYS, T.FUSED_EAGER_STEPS)
+    out = epoch(state, arrays, idx, w, 1e-3)
+    assert (T.GRAPH_CAPTURES - before[0], T.GRAPH_REPLAYS - before[1],
+            T.FUSED_EAGER_STEPS - before[2]) == (1, idx.shape[0], 0)
+    assert state.step == idx.shape[0]
+    losses, eager = _eager_steps(model, arrays, idx, w)
+    for key, ref, bound in (("loss", losses.mean(), tol),
+                            ("last_loss", losses[-1], tol)):
+        got = out[key].item()
+        assert np.isfinite(got) and abs(got - ref.item()) <= bound * abs(
+            ref.item()), (key, got, ref.item())
+    for (k, a), e in zip(m.state_dict().items(),
+                         eager.state_dict().values()):
+        if a.is_floating_point():
+            assert bool(((a - e).abs() <= 3e-3 + 2e-2 * e.abs()).all()), k
+    # a second call of the same shape replays the same graph
+    epoch(state, arrays, idx[:2], w[:2], 1e-3)
+    assert T.GRAPH_CAPTURES - before[0] == 1
+    assert T.GRAPH_REPLAYS - before[1] == idx.shape[0] + 2
+
+
+def test_fused_replays_draw_the_per_step_masks(dev):
+    """dropout 0.1, bf16: replay s draws the masks of step_generator(seed,
+    s), those of the eager train_step s, and steps draw anew."""
+    from vistaocr_tpu_torch import train as T
+    from vistaocr_tpu_torch.models import blstm
+
+    model, arrays, idx, w = _fused_case(dev, "bfloat16")
+    real = blstm.dropout_mask
+    rec = []
+
+    def record(x, rate, generator):
+        mask = real(x, rate, generator)
+        rec.append(mask)
+        return mask
+
+    blstm.dropout_mask = record
+    try:
+        m, tx, state = _fresh(model)
+        epoch = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0,
+                                   seed=3)
+        replayed = []
+        for k in range(idx.shape[0]):  # one replay a call
+            epoch(state, arrays, idx[k:k + 1], w[k:k + 1], 1e-3)
+            if k == 0:  # the warm-up's masks, then the graph's own
+                live = rec[len(rec) // 2:]
+            replayed.append([t.clone() for t in live])
+        n0 = len(rec)
+        _eager_steps(model, arrays, idx, w)
+        eager = rec[n0:]
+    finally:
+        blstm.dropout_mask = real
+    assert len(live) == 2  # after the bridge and between the layers
+    assert len(eager) == 2 * idx.shape[0]
+    per_step = [eager[2 * s:2 * s + 2] for s in range(idx.shape[0])]
+    for s, (a, b) in enumerate(zip(replayed, per_step)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), s
+    assert not torch.equal(replayed[0][0], replayed[1][0])
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    ("bfloat16", ("lstm_fwd_persistent", "bptt_gates_gemm",
+                  "lstm_bwd_persistent", "lstm_dwh", "ctc_alpha_kernel",
+                  "ctc_beta_kernel")),
+    ("float32", ("lstm_fwd_grid", "bptt_gates_gemm", "bptt_frame",
+                 "lstm_dwh", "ctc_alpha_kernel", "ctc_beta_kernel"))])
+def test_fused_replays_run_the_kernels(dev, dtype, kernels):
+    """In a profiler window over replays only (no capture in it), each
+    step runs K1 (f32: lstm_fwd_grid's cooperative launch), K2/K3 and
+    K4/K5 on the device, two layers' worth of the LSTM kernels."""
+    from vistaocr_tpu_torch import train as T
+
+    model, arrays, idx, w = _fused_case(dev, dtype, dropout=0.0)
+    m, tx, state = _fresh(model)
+    epoch = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0)
+    epoch(state, arrays, idx[:1], w[:1], 1e-3)  # captures
+    captures = T.GRAPH_CAPTURES
+    counts = _profiled_counts(
+        lambda: epoch(state, arrays, idx, w, 1e-3), kernels)
+    assert T.GRAPH_CAPTURES == captures
+    nb = idx.shape[0]
+    assert all(counts[k] >= nb for k in kernels), counts
+    assert counts[kernels[0]] == 2 * nb, counts  # one a layer, both ways
+
+
+def test_fused_capture_failure_raises(dev, monkeypatch):
+    """A step that fails while its graph is captured raises from the
+    trainer; nothing runs eagerly in its place, the warm-up's writes are
+    undone, and the same trainer captures a sound step afterwards."""
+    from vistaocr_tpu_torch import train as T
+
+    model, arrays, idx, w = _fused_case(dev, "float32", dropout=0.0)
+    m, tx, state = _fresh(model)
+    epoch = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0)
+    real = T.global_norm
+
+    def failing_norm(*a):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("not capturable")
+        return real(*a)
+
+    monkeypatch.setattr(T, "global_norm", failing_norm)
+    before = (T.GRAPH_CAPTURES, T.GRAPH_REPLAYS, T.FUSED_EAGER_STEPS)
+    with pytest.raises(RuntimeError, match="not capturable"):
+        epoch(state, arrays, idx, w, 1e-3)
+    assert (T.GRAPH_CAPTURES, T.GRAPH_REPLAYS,
+            T.FUSED_EAGER_STEPS) == before
+    assert state.step == 0
+    for (k, a), b in zip(m.state_dict().items(),
+                         model.state_dict().values()):
+        assert torch.equal(a, b), k
+    monkeypatch.setattr(T, "global_norm", real)
+    out = epoch(state, arrays, idx[:1], w[:1], 1e-3)
+    losses, _ = _eager_steps(model, arrays, idx[:1], w[:1])
+    assert abs(out["loss"].item() - losses[0].item()) <= 1e-5 * abs(
+        losses[0].item())

@@ -414,13 +414,26 @@ def test_mesh_shapes_and_refusals():
 
 
 def test_trainer_refusals(synth_dir, tmp_path):
+    # JAX's refusal: the fused trainer needs the device cache
     cfg = port_train.TrainConfig(
         **{**port_train.PRESETS["synth-tiny"], "data_dir": synth_dir,
-           "snapshot_dir": str(tmp_path), "device_cache": "on"})
-    with pytest.raises(NotImplementedError, match="item 5"):
+           "snapshot_dir": str(tmp_path), "device_cache": "off",
+           "fused_epochs": "on"})
+    with pytest.raises(ValueError, match="requires the device cache"):
         port_train.fit(cfg, device="cpu")
+    # a split over the cap streams, as JAX's does
+    logs = []
+    capped = dataclasses.replace(cfg, device_cache="on", fused_epochs="auto",
+                                 device_cache_bytes=1024, max_steps=2,
+                                 log_interval=1)
+    assert port_train.fit(capped, device="cpu", log=logs.append)[
+        "steps"] == 2
+    assert any(m.startswith("device cache disabled (dataset needs ")
+               and m.endswith("; streaming") for m in logs), logs
+    assert not any(m.startswith("fused epochs") for m in logs)
     # the model axis needs its ranks: one process never runs it replicated
-    cfg = dataclasses.replace(cfg, device_cache="auto", mesh_model=2)
+    cfg = dataclasses.replace(cfg, device_cache="auto", fused_epochs="auto",
+                              mesh_model=2)
     with pytest.raises(ValueError, match="mesh 0x2 != 1 ranks"):
         port_train.fit(cfg, device="cpu")
     assert not port_train.maybe_init_distributed(None)

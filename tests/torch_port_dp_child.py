@@ -10,7 +10,11 @@ state dict (``sd/<name>``) and ``batches.npz`` the global batches
 ``valid_k``). Each run ``{"config": ModelConfig JSON, "optimizer",
 "lr", "steps"}`` starts from the initial weights and takes ``steps``
 train steps (clip 5, ``ctc_impl="auto"``) on this rank's rows of batches
-0..steps-1; an optional ``"bn"`` entry runs a small ``ConvStack`` in
+0..steps-1; with ``"fused": true`` the steps are one segment of the
+epoch-fused trainer (``make_train_epoch``) over batches 0..steps-1 held
+whole on every rank as resident arrays, each rank gathering its rows,
+and ``loss`` holds the segment's mean and last loss, ``gnorm`` its last
+norm. An optional ``"bn"`` entry runs a small ``ConvStack`` in
 train mode on this rank's rows of ``bn.npz`` and takes the gradient of
 ``sum(y * g)``. An optional ``"mesh": {"data": D, "model": M}`` lays the
 ``D * M`` ranks out as ``parallel.make_mesh`` does (the default: every
@@ -83,14 +87,28 @@ def run_steps(run: dict, sd: dict, batches, mesh, dev) -> dict:
     tx = T.Optimizer(run["optimizer"])
     state = T.TrainState(model=model,
                          opt_state=tx.init(dict(model.named_parameters())))
-    step = T.make_train_step(model, tx, False, "auto", grad_clip=5.0,
-                             mesh=mesh)
     mods = _counter_modules()
     for mod, names in COUNTERS:
         for name in names:
             setattr(mods[mod], name, 0)
     losses, gnorms = [], []
-    for k in range(run["steps"]):
+    if run.get("fused"):
+        epoch = T.make_train_epoch(model, tx, False, "auto", grad_clip=5.0,
+                                   mesh=mesh)
+        steps = range(run["steps"])
+        arrays = [torch.from_numpy(np.concatenate(
+            [batches[f"{f}_{k}"] for k in steps])).to(dev)
+            for f in ("images", "widths", "labels", "label_lengths")]
+        bsz = len(batches["valid_0"])
+        idx = torch.arange(len(steps) * bsz, dtype=torch.int32).view(-1, bsz)
+        w = torch.from_numpy(np.stack([batches[f"valid_{k}"] for k in steps])
+                             .astype(np.float32))
+        m = epoch(state, arrays, idx.to(dev), w.to(dev), run["lr"])
+        losses += [float(m["loss"]), float(m["last_loss"])]
+        gnorms.append(float(m["gnorm"]))
+    step = T.make_train_step(model, tx, False, "auto", grad_clip=5.0,
+                             mesh=mesh)
+    for k in range(0 if run.get("fused") else run["steps"]):
         rows = _rows(len(batches[f"valid_{k}"]), mesh)
         args = [torch.from_numpy(batches[f"{f}_{k}"][rows]).to(dev)
                 for f in ("images", "widths", "labels", "label_lengths")]

@@ -147,6 +147,19 @@ class BatchPipeline:
                 total += -(-len(members) // bsz) if members else 0
         return total
 
+    def batch_shapes(self) -> List[tuple]:
+        """Every (B, H, W, L) this pipeline can emit: the trainer's capture
+        set (``pipeline.py:168-178``). With ``drop_remainder`` a bucket
+        with fewer members than its batch size emits nothing."""
+        shapes = []
+        for b, (members, bsz) in enumerate(zip(self.bucket_members,
+                                               self.batch_sizes)):
+            n = len(members)
+            if n and (not self.drop_remainder or n >= bsz):
+                spec = self.spec_for(b)
+                shapes.append((bsz, spec.height, spec.width, spec.label_len))
+        return shapes
+
     def _assemble(self, bucket_idx: int, idxs: Sequence[int], bsz: int,
                   rows: slice = slice(None)) -> Batch:
         """The batch's ``rows`` (all by default); ``valid`` and ``indices``

@@ -68,8 +68,16 @@ def dropout(x: torch.Tensor, rate: float,
     ``generator`` (on x's device), so a resumed run draws the same masks;
     it cannot match JAX's."""
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    kept = dropout_mask(x, rate, generator)
     return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+def dropout_mask(x: torch.Tensor, rate: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """``dropout``'s keep mask over x's shape: one uniform draw from
+    ``generator`` a value."""
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return u < 1.0 - rate
 
 
 class BLSTMStack(nn.Module):

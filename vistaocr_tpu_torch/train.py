@@ -41,10 +41,22 @@ model from the seed and then shards it; a resume shards the whole
 snapshot; a snapshot gathers the shards, so its files are those of one
 rank and any mesh resumes them.
 
-Not ported yet: the device-resident dataset cache and the epoch-fused
-trainer (``train.py:303-377``; ROADMAP Queue 1, item 5): ``device_cache``
-and ``fused_epochs`` stay in ``TrainConfig`` with ``"auto"`` meaning off
-here, and ``"on"`` raises.
+The device-resident dataset cache (``device_cache="on"``,
+``data/device_cache.py``) keeps every bucket's lines on the device and
+draws each epoch's batches by an on-device gather; ``"auto"`` leaves it
+off on the card and the CPU, as the reference does on every backend but
+a TPU, and a split over ``device_cache_bytes`` streams. With the cache, the
+epoch-fused trainer (``fused_epochs`` ``"on"``, or ``"auto"``, which
+follows the cache; ``make_train_epoch``, ``train.py:303-377``) runs the
+reference's segments: each bucket's rows of ``epoch_stack`` epochs form
+one index matrix, run as segments of at most ``val_interval_steps``
+steps with no host synchronisation and no batch copied from the host
+inside a segment. On the card each step of a segment is one replay of a
+CUDA graph, captured once for each batch shape (the counterpart of
+XLA's compiled ``lax.scan`` body); on the CPU, and under a gloo group
+(whose collectives run on the host and cannot be captured), the steps
+of a segment run eagerly. Every step draws the dropout masks of the
+per-step path.
 
 Usage:
     python -m vistaocr_tpu_torch.train --preset full --data-dir D \\
@@ -78,6 +90,7 @@ from .checkpoint import (
     variables_to_state_dict,
 )
 from .data.buckets import ShapeContract, make_ladder
+from .data.device_cache import DeviceCache
 from .data.pipeline import BatchPipeline
 from .data.shards import open_dataset
 from .decode.greedy import collapse_frames, greedy_frames
@@ -132,10 +145,19 @@ class TrainConfig:
     mesh_model: int = 1
     resume: bool = False
     log_interval: int = 50
-    # JAX-path knobs kept so configs load unchanged; "auto" is off here
+    # Device-resident dataset cache (data/device_cache.py): every epoch's
+    # batches gathered on the device. "auto" is off here (the reference
+    # turns it on only on a TPU); a split over device_cache_bytes streams.
     device_cache: str = "auto"  # auto | on | off
     device_cache_bytes: int = 4 * 2**30
+    # Epoch-fused trainer (make_train_epoch): segments of steps over the
+    # resident data, a CUDA graph replay a step on the card. Needs the
+    # cache; "auto" follows it. A segment's batches share one bucket.
     fused_epochs: str = "auto"  # auto | on | off
+    # Fused path: this many epochs' index rows per bucket in one plan
+    # (DeviceCache.epoch_plan). A snapshot taken mid-stack records the
+    # stack's start epoch, so a resume replays up to epoch_stack epochs of
+    # data; "stack_rows_done"/"stack_epochs" in its meta say where it was.
     epoch_stack: int = 4
     # torch.profiler trace of steps [profile_start, profile_stop) into
     # <snapshot_dir>/profile (trace.json, ops.txt: time by op, device.txt:
@@ -316,15 +338,20 @@ class TrainState:
     step: int = 0
 
 
+def step_seed(seed: int, step: int, data_index: int = 0) -> int:
+    """The seed of one step's dropout/augment draws, from (seed, step), so
+    a resumed run draws the same masks; a data index above 0 adds itself,
+    so the data ranks draw different masks for their rows and the model
+    ranks of one data index draw the same."""
+    entropy = [seed + 1, step] + ([data_index] if data_index else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
+
+
 def step_generator(seed: int, step: int, device: torch.device,
                    data_index: int = 0) -> torch.Generator:
-    """The dropout/augment generator of one step, seeded from (seed, step)
-    so a resumed run draws the same masks; a data index above 0 adds
-    itself, so the data ranks draw different masks for their rows and the
-    model ranks of one data index draw the same."""
-    entropy = [seed + 1, step] + ([data_index] if data_index else [])
-    s = int(np.random.SeedSequence(entropy).generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(s)
+    """A generator on ``device`` seeded with ``step_seed``."""
+    return torch.Generator(device=device).manual_seed(
+        step_seed(seed, step, data_index))
 
 
 def loss_and_grads(model: CnnLstmOcr, images, widths, labels, label_lengths,
@@ -349,6 +376,43 @@ def loss_and_grads(model: CnnLstmOcr, images, widths, labels, label_lengths,
     return loss.detach(), dict(zip(params, grads))
 
 
+def _step_body(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
+               ctc_impl: str, grad_clip: Optional[float],
+               mesh: Optional[Mesh]):
+    """One train step on this rank's rows, shared by the per-step and the
+    epoch-fused trainers: ``body(opt_state, images, widths, labels,
+    label_lengths, weights, lr, generator) -> (loss, gnorm)``, device
+    tensors, with the model and ``opt_state`` updated in place. ``lr`` is
+    a float or a 0-dim f32 tensor (a graph's, filled between replays)."""
+    group = mesh.group if mesh is not None else None
+    model_group = mesh.model_group if mesh is not None else None
+    sharded = ({k for k, _ in model.named_parameters()
+                if sharded_dim(k, mesh) is not None}
+               if model_group is not None else set())
+
+    def body(opt_state, images, widths, labels, label_lengths, weights, lr,
+             generator):
+        loss, grads = loss_and_grads(
+            model, images, widths, labels, label_lengths, weights,
+            label_average=label_average, ctc_impl=ctc_impl,
+            generator=generator, group=group)
+        grads = all_reduce_grads(grads, group)
+        if model_group is not None:  # replicated: model index 0's, bit-equal
+            grads.update(broadcast_model(
+                {k: g for k, g in grads.items() if k not in sharded}, mesh))
+        loss = all_reduce_sum(loss, group)
+        gnorm = global_norm(grads, model_group, sharded)
+        if grad_clip is not None:
+            grads = _clip_by_known_norm(grads, gnorm, grad_clip)
+        updates = tx.update(grads, opt_state)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.sub_((lr * updates[name]).to(p.dtype))
+        return loss, gnorm.detach()
+
+    return body
+
+
 def make_train_step(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
                     ctc_impl: str = "auto", grad_clip: Optional[float] = None,
                     seed: int = 0, mesh: Optional[Mesh] = None):
@@ -362,37 +426,177 @@ def make_train_step(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
     under tensor parallelism: ``model`` is then ``shard_model``'s)."""
     cfg = model.config
     needs_rng = cfg.dropout > 0 or cfg.augment > 0
-    group = mesh.group if mesh is not None else None
     data_index = mesh.data_index if mesh is not None else 0
-    model_group = mesh.model_group if mesh is not None else None
-    sharded = ({k for k, _ in model.named_parameters()
-                if sharded_dim(k, mesh) is not None}
-               if model_group is not None else set())
+    body = _step_body(model, tx, label_average, ctc_impl, grad_clip, mesh)
 
     def train_step(state: TrainState, images, widths, labels, label_lengths,
                    weights, lr: float):
         gen = (step_generator(seed, state.step, images.device, data_index)
                if needs_rng else None)
-        loss, grads = loss_and_grads(
-            model, images, widths, labels, label_lengths, weights,
-            label_average=label_average, ctc_impl=ctc_impl, generator=gen,
-            group=group)
-        grads = all_reduce_grads(grads, group)
-        if model_group is not None:  # replicated: model index 0's, bit-equal
-            grads.update(broadcast_model(
-                {k: g for k, g in grads.items() if k not in sharded}, mesh))
-        loss = all_reduce_sum(loss, group)
-        gnorm = global_norm(grads, model_group, sharded)
-        if grad_clip is not None:
-            grads = _clip_by_known_norm(grads, gnorm, grad_clip)
-        updates = tx.update(grads, state.opt_state)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.sub_((lr * updates[name]).to(p.dtype))
+        loss, gnorm = body(state.opt_state, images, widths, labels,
+                           label_lengths, weights, lr, gen)
         state.step += 1
-        return {"loss": loss, "gnorm": gnorm.detach()}
+        return {"loss": loss, "gnorm": gnorm}
 
     return train_step
+
+
+# The epoch-fused trainer's CUDA graphs: a capture for each step shape, a
+# replay for each step. FUSED_EAGER_STEPS counts the fused steps that ran
+# eagerly (on the CPU, or under a gloo group); CAPTURE_SECONDS is the host
+# time of the warm-ups and captures.
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+FUSED_EAGER_STEPS = 0
+CAPTURE_SECONDS = 0.0
+
+
+def _cuda_backend(group) -> str:
+    """The backend of ``group``'s CUDA collectives (``nccl``, ``gloo``)."""
+    config = dist.get_backend_config(group)  # e.g. "cpu:gloo,cuda:nccl"
+    return dict(part.split(":") for part in config.split(",")).get("cuda", "")
+
+
+def steps_as_graphs(device, mesh: Optional[Mesh]) -> bool:
+    """Whether the fused trainer captures its steps: on a CUDA device with
+    no group or with NCCL groups. gloo runs its collectives on the host,
+    which a graph cannot hold, so a segment's steps then run eagerly."""
+    groups = ([] if mesh is None else
+              [g for g in (mesh.group, mesh.model_group) if g is not None])
+    return (torch.device(device).type == "cuda"
+            and all(_cuda_backend(g) == "nccl" for g in groups))
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    graph: "torch.cuda.CUDAGraph"
+    idx: torch.Tensor  # [rows] int32, static input
+    weights: torch.Tensor  # [rows] f32, static input
+    loss: torch.Tensor  # static outputs, valid until the next replay of
+    gnorm: torch.Tensor  # any graph of the trainer (one memory pool)
+
+
+def make_train_epoch(model: CnnLstmOcr, tx: Optimizer, label_average: bool,
+                     ctc_impl: str = "auto",
+                     grad_clip: Optional[float] = None, seed: int = 0,
+                     mesh: Optional[Mesh] = None):
+    """The epoch-fused trainer (``train.py:303-377``): ``train_epoch(state,
+    arrays, idx, weights, lr) -> {"loss": the mean of the steps' losses,
+    "last_loss", "gnorm": the last step's}`` (device tensors). ``arrays``
+    are one bucket's resident (images, widths, labels, label lengths);
+    row k of ``idx`` / ``weights`` ([nb, B] on the device) is step k's
+    global batch, of which each step gathers this rank's rows on the
+    device and runs ``make_train_step``'s body on them. Nothing in a
+    segment synchronises with the host or copies a batch from it.
+
+    On the card (with no group or NCCL groups: ``steps_as_graphs``) each
+    step is one replay of a CUDA graph, captured the first time its shape
+    and arrays are met, after a warm-up step on a side stream whose
+    writes to the model and optimizer state are undone. Between replays
+    the host copies the row's indices and weights into the graph's static
+    inputs and reseeds one generator, registered with every graph, with
+    the step's ``step_seed``: replay s draws the masks of
+    ``step_generator(seed, s, data_index)``, as the per-step path does.
+    The graphs share one memory pool (a replay's temporaries are dead
+    when it ends, and its two outputs are copied out at once), and
+    ``lr`` is a device scalar filled once a call. A capture or replay
+    that fails raises. Elsewhere the steps run eagerly, each the per-step
+    path's ``train_step``."""
+    cfg = model.config
+    needs_rng = cfg.dropout > 0 or cfg.augment > 0
+    data_index = mesh.data_index if mesh is not None else 0
+    shard = (data_index, mesh.data) if mesh is not None else (0, 1)
+    device = next(model.parameters()).device
+    body = _step_body(model, tx, label_average, ctc_impl, grad_clip, mesh)
+    graphs: Dict[tuple, _StepGraph] = {}
+    shared = {}  # the pool, the generator and lr, made at the first capture
+
+    def capture(state: TrainState, arrays, idx_row, w_row) -> _StepGraph:
+        global GRAPH_CAPTURES, CAPTURE_SECONDS
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        if not shared:
+            shared["pool"] = torch.cuda.graph_pool_handle()
+            shared["gen"] = torch.Generator(device=device)
+            shared["lr"] = torch.zeros((), dtype=torch.float32, device=device)
+        gen = shared["gen"] if needs_rng else None
+        sidx, sw = idx_row.clone(), w_row.clone()
+
+        def step(generator):
+            return body(state.opt_state,
+                        *(a.index_select(0, sidx) for a in arrays), sw,
+                        shared["lr"], generator)
+
+        # Warm-up (library handles, workspaces, communicators) on a side
+        # stream, then every tensor the step wrote is put back.
+        written = ([p.data for p in model.parameters()] + list(
+            model.buffers()) + list(state.opt_state.values()))
+        saved = [t.clone() for t in written]
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device=device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            step(step_generator(seed, state.step, device, data_index)
+                 if needs_rng else None)
+            for t, s in zip(written, saved):
+                t.copy_(s)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        if needs_rng:
+            graph.register_generator_state(gen)
+        # thread_local: another thread's host copies (the validation
+        # pipeline's) must not invalidate the capture
+        with torch.cuda.graph(graph, pool=shared["pool"],
+                              capture_error_mode="thread_local"):
+            loss, gnorm = step(gen)
+        torch.cuda.synchronize(device)
+        del saved
+        CAPTURE_SECONDS += time.perf_counter() - t0
+        GRAPH_CAPTURES += 1
+        return _StepGraph(graph, sidx, sw, loss, gnorm)
+
+    def train_epoch(state: TrainState, arrays, idx: torch.Tensor,
+                    weights: torch.Tensor, lr: float) -> dict:
+        global GRAPH_REPLAYS, FUSED_EAGER_STEPS
+        nb, bsz = idx.shape
+        rows = shard_rows(bsz, *shard)
+        losses = torch.empty(nb, dtype=torch.float32, device=device)
+        gnorms = torch.empty(nb, dtype=torch.float32, device=device)
+        g = None
+        if train_epoch.graphs:
+            key = (tuple((a.data_ptr(), tuple(a.shape), a.dtype)
+                         for a in arrays), bsz, rows.start, rows.stop)
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = capture(state, arrays, idx[0, rows],
+                                          weights[0, rows])
+            shared["lr"].fill_(lr)
+        for k in range(nb):
+            if g is not None:
+                g.idx.copy_(idx[k, rows])
+                g.weights.copy_(weights[k, rows])
+                if needs_rng:
+                    shared["gen"].manual_seed(
+                        step_seed(seed, state.step, data_index))
+                g.graph.replay()
+                GRAPH_REPLAYS += 1
+                loss, gnorm = g.loss, g.gnorm
+            else:
+                gen = (step_generator(seed, state.step, device, data_index)
+                       if needs_rng else None)
+                loss, gnorm = body(
+                    state.opt_state,
+                    *(a.index_select(0, idx[k, rows]) for a in arrays),
+                    weights[k, rows], lr, gen)
+                FUSED_EAGER_STEPS += 1
+            losses[k] = loss
+            gnorms[k] = gnorm
+            state.step += 1
+        return {"loss": losses.mean(), "last_loss": losses[-1],
+                "gnorm": gnorms[-1]}
+
+    train_epoch.graphs = steps_as_graphs(device, mesh)
+    return train_epoch
 
 
 def make_eval_step(model: CnnLstmOcr):
@@ -459,14 +663,6 @@ class PlateauController:
 # --------------------------------------------------------------------------
 # Fit
 # --------------------------------------------------------------------------
-def _check_unported(cfg: TrainConfig) -> None:
-    if cfg.device_cache == "on" or cfg.fused_epochs == "on":
-        raise NotImplementedError(
-            "device_cache='on' / fused_epochs='on': the device-resident "
-            "dataset cache and the epoch-fused trainer are not ported yet "
-            "(ROADMAP Queue 1, item 5)")
-
-
 def device_time_summary(events, top: int = 25) -> str:
     """Device time of a profiler window (``torch.profiler``'s events): the
     window's span, the time the device was busy (the union of its
@@ -505,7 +701,6 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
     """Run training; returns a summary dict. ``mesh`` defaults to the
     ranks of the default process group (one rank when there is none) on
     ``device``."""
-    _check_unported(cfg)
     if mesh is None:
         mesh = make_mesh(MeshConfig(model=cfg.mesh_model), device=device)
     dev = mesh.device
@@ -590,6 +785,34 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
                       shuffle=False)
         if val_ds is not None and len(val_ds) else None
     )
+    # "auto" turns the cache on only on a TPU in the reference: off here
+    if cfg.device_cache == "on" and cfg.device_cache_bytes:
+        try:
+            # every rank holds the whole split and gathers its own rows
+            train_pipe = DeviceCache(train_pipe, device=dev,
+                                     max_bytes=cfg.device_cache_bytes)
+            if val_pipe is not None:
+                val_pipe = DeviceCache(val_pipe, device=dev,
+                                       max_bytes=cfg.device_cache_bytes)
+            log("device cache: dataset resident on device")
+        except MemoryError as e:
+            log(f"device cache disabled ({e}); streaming")
+    # the fused trainer needs the cache's epoch_plan; "auto" rides the cache
+    use_fused = cfg.fused_epochs == "on" or (
+        cfg.fused_epochs == "auto" and hasattr(train_pipe, "epoch_plan"))
+    if cfg.fused_epochs == "on" and not hasattr(train_pipe, "epoch_plan"):
+        raise ValueError(
+            "fused_epochs='on' requires the device cache (device_cache='on' "
+            "with a sufficient device_cache_bytes cap)")
+    train_epoch = None
+    if use_fused:
+        train_epoch = make_train_epoch(model, tx, cfg.label_average,
+                                       cfg.ctc_impl, grad_clip=cfg.grad_clip,
+                                       seed=cfg.seed, mesh=mesh)
+        log("fused epochs: training runs as per-bucket segments, "
+            + ("each step one CUDA graph replay" if train_epoch.graphs else
+               "each step eager (no CUDA device, or gloo collectives, "
+               "which a CUDA graph cannot hold)"))
     plateau = PlateauController(cfg.lr, cfg.plateau_patience,
                                 cfg.plateau_decay, cfg.min_lr)
 
@@ -680,7 +903,8 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
                 f"snapshot with a lower lr)")
         return loss_now, gnorm_now
 
-    def log_window(epoch: int, loss_now: float, gnorm_now: float):
+    def log_window(epoch: int, loss_now: float, gnorm_now: float,
+                   **extra):
         nonlocal window_lines, window_t0, summary_lines_per_sec
         dt = max(time.time() - window_t0, 1e-9)
         lps = window_lines / dt
@@ -688,10 +912,15 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
         rec = {"step": step, "epoch": epoch, "loss": round(loss_now, 4),
                "gnorm": round(gnorm_now, 3), "lr": plateau.lr,
                "lines": window_lines, "seconds": round(dt, 6),
-               "lines_per_sec": round(lps, 1)}
+               "lines_per_sec": round(lps, 1), **extra}
         log(f"step {step}: {rec}")
         emit(rec)
         window_lines, window_t0 = 0, time.time()
+
+    # where validation fell inside the current stacked plan, in the
+    # snapshot's meta: a resume of a fused run replays the stack from its
+    # start epoch (TrainConfig.epoch_stack)
+    stack_progress = {"stack_rows_done": 0, "stack_epochs": 1}
 
     def run_validation(epoch: int):
         nonlocal best_cer, last_val
@@ -703,7 +932,8 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
                "best": is_best}
         log(f"val @ {step}: {rec}")
         emit(rec)
-        snapshot("last", step, epoch, {"val_cer": c, "val_wer": w})
+        snapshot("last", step, epoch,
+                 {"val_cer": c, "val_wer": w, **stack_progress})
         if is_best:
             best_cer = c
             if is_primary:
@@ -717,24 +947,66 @@ def fit(cfg: TrainConfig, *, mesh: Optional[Mesh] = None, device="cuda",
     stop = False
     while epoch < end_epoch and not stop:
         cur_epoch = epoch
-        for batch in train_pipe.device_epoch(epoch, device=dev, shard=shard):
-            profile_tick()
-            rows = shard_rows(len(batch.valid), *shard)
-            weights = torch.from_numpy(
-                batch.valid[rows].astype(np.float32)).to(dev)
-            m = train_step(state, batch.images, batch.widths, batch.labels,
-                           batch.label_lengths, weights, plateau.lr)
-            step += 1
-            window_lines += len(batch.valid)
-            if step % cfg.log_interval == 0:
-                loss_now, gnorm_now = check_divergence(m, epoch)
-                log_window(epoch, loss_now, gnorm_now)
-            if step % cfg.val_interval_steps == 0 and val_pipe is not None:
-                run_validation(epoch)
-            if cfg.max_steps and step >= start_step + cfg.max_steps:
-                stop = True
-                break
-        epoch += 1
+        # the fused path stacks epoch_stack epochs' rows per bucket into one
+        # plan; segments still end at val_interval_steps, so only the data
+        # order coarsens (bucket-major over the stacked epochs)
+        stride = (max(1, min(cfg.epoch_stack, end_epoch - epoch))
+                  if use_fused else 1)
+        stack_progress["stack_rows_done"] = 0
+        stack_progress["stack_epochs"] = stride
+        if use_fused:
+            seg = max(1, cfg.val_interval_steps)
+            for b, arrays, idx, w in train_pipe.epoch_plan(epoch,
+                                                           stack=stride):
+                if stop:
+                    break
+                for k0 in range(0, idx.shape[0], seg):
+                    profile_tick()
+                    idx_k, w_k = idx[k0:k0 + seg], w[k0:k0 + seg]
+                    if cfg.max_steps:
+                        remaining = start_step + cfg.max_steps - step
+                        if remaining <= 0:
+                            stop = True
+                            break
+                        idx_k, w_k = idx_k[:remaining], w_k[:remaining]
+                    m = train_epoch(state, arrays, idx_k, w_k, plateau.lr)
+                    n = idx_k.shape[0]
+                    step += n
+                    stack_progress["stack_rows_done"] += n
+                    window_lines += n * idx_k.shape[1]
+                    loss_now, gnorm_now = check_divergence(m, epoch)
+                    spec = train_pipe.pipe.spec_for(b)
+                    log_window(epoch, loss_now, gnorm_now, steps=n,
+                               batch_shape=[idx_k.shape[1], spec.height,
+                                            spec.width, spec.label_len])
+                    if (val_pipe is not None
+                            and step // cfg.val_interval_steps
+                            > (step - n) // cfg.val_interval_steps):
+                        run_validation(epoch)
+                    if cfg.max_steps and step >= start_step + cfg.max_steps:
+                        stop = True
+                        break
+        else:
+            for batch in train_pipe.device_epoch(epoch, device=dev,
+                                                 shard=shard):
+                profile_tick()
+                rows = shard_rows(len(batch.valid), *shard)
+                weights = torch.from_numpy(
+                    batch.valid[rows].astype(np.float32)).to(dev)
+                m = train_step(state, batch.images, batch.widths,
+                               batch.labels, batch.label_lengths, weights,
+                               plateau.lr)
+                step += 1
+                window_lines += len(batch.valid)
+                if step % cfg.log_interval == 0:
+                    loss_now, gnorm_now = check_divergence(m, epoch)
+                    log_window(epoch, loss_now, gnorm_now)
+                if step % cfg.val_interval_steps == 0 and val_pipe is not None:
+                    run_validation(epoch)
+                if cfg.max_steps and step >= start_step + cfg.max_steps:
+                    stop = True
+                    break
+        epoch += stride
         if not stop:
             cur_epoch = epoch
             snapshot("last", step, cur_epoch, {})
