@@ -76,17 +76,23 @@ the exit code is non-zero and no ``ok`` line is printed):
              ``ctc_loss_kernel`` forward+backward (with its torch
              assembly) timed beside ``F.ctc_loss``. F2's shapes: bf16
              weights above H=512 (B=32, T=512, H=520 and 1000; type
-             codes 1 and 2), which run on the f32-weight kernels with wh
-             widened and the products' operands rounded to bf16: each
-             kernel held to its plain version (forwards 3e-2, gate GEMM
-             1e-5 relative, frame loop, BPTT and dwh 2e-2 relative), run
-             twice bit-equal, its launches counted by the f32 shape
-             rules, and at H=1000 (bf16 streams) each timed beside its
-             bound, plain version, library call and the f32 route at the
-             same shape. The BPTT frames
-             are ``bptt_gates_gemm`` (every frame's gate recompute as one
-             GEMM: bf16 weights on the tensor cores, f32 on the FMA
-             units), then the frame loop: ``lstm_bwd_persistent`` (bf16
+             codes 1 and 2), whose forward and frame loop run on the
+             f32-weight kernels with wh widened and the products'
+             operands rounded to bf16, and whose gate GEMM and dwh run
+             on the wide wgmma kernels: each kernel held to its plain
+             version (forwards 3e-2, gate GEMM 1e-5 relative, also of the
+             parent FMA design, frame loop, BPTT and dwh 2e-2 relative,
+             dwh also to the exact f64 sum as closely as one
+             ``torch.mm``), run twice bit-equal, its launches counted,
+             and at H=1000 (bf16 streams) each timed beside its bound,
+             plain version, library call, the f32 route and, in turns,
+             the parent design (the FMA gate GEMM; dwh's 128 x 128
+             tiles); at the flagship's H=512 both gate GEMM and dwh
+             designs checked and timed in turns. The BPTT frames
+             are the gate GEMM (every frame's gate recompute as one
+             GEMM: bf16 weights ``bptt_gates_gemm_wide`` on the tensor
+             cores, f32 ``bptt_gates_gemm`` on the FMA units), then the
+             frame loop: ``lstm_bwd_persistent`` (bf16
              weights, one launch) or, with f32 weights, both designs side
              by side: folded, ``bptt_frame`` (one launch a frame: the cell
              backward and the dh product), and split, ``bptt_cell`` and
@@ -214,7 +220,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              step and one inference forward each at B=32, W=2048 and
              B=128, W=512, the LSTM counters set to 0 before and read
              after: every f32-weight kernel launched as its shape rule
-             says, no persistent kernel.
+             says, the wide gate GEMM and dwh, no persistent kernel; and
+             one train step at H=1000, B=32, W=2048 timed with the
+             library's designs and with the parent gate GEMM and dwh, in
+             turns.
 9. experiments - the experiments' kernels (``vistaocr_tpu_torch/
              experiments``) against their plain versions, TF32 off, f32
              within 1e-4 (dK, dxw and dwh relative to their tensor's
@@ -1383,6 +1392,9 @@ LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512),
 # side by side: folded, one launch a frame (True), and split, a cell
 # launch and a dh launch a frame (False); the library chooses by B
 F32_DESIGNS = (True, False)
+# the gate GEMM the library runs, by weight type (f32: its FMA form; bf16:
+# the wide wgmma design), as torch.profiler names it
+GATES_KERNEL = {True: "bptt_gates_gemm<", False: "bptt_gates_gemm_wide<"}
 LOOP_KERNELS = {None: ("lstm_bwd_persistent",), True: ("bptt_frame",),
                 False: ("bptt_cell", "bptt_dh")}
 DESIGN_NAMES = {None: "persistent", True: "fold", False: "split"}
@@ -1719,12 +1731,13 @@ def lstm_train_kernels(dev, card: str) -> dict:
                     dg = [g[T // 2] for g, _ in ref_b]  # one frame's dgates
                     t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w
                                                     in zip(dg, whq)], 50)
+                gk = GATES_KERNEL[f32]
                 per = {fd: _kernel_us(
                     lambda fd=fd: L.lstm_bptt_frames(kdirs, mask, dtype,
                                                      fold=fd),
-                    ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])),
-                    {"bptt_gates_gemm<": 1, **{k + "<": T if f32 else 1
-                                               for k in LOOP_KERNELS[fd]}})
+                    (gk, *(k + "<" for k in LOOP_KERNELS[fd])),
+                    {gk: 1, **{k + "<": T if f32 else 1
+                               for k in LOOP_KERNELS[fd]}})
                     for fd in runs}
             # bounds: each input read once, each output written once; the
             # products this run needs (no h_prev at the edge frame, no dh
@@ -1751,7 +1764,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
             loop_in = _nbytes(mask, *whq, *(a for d in kdirs for a in d[3:5]))
             cell_in = _nbytes(mask, *(a for d in kdirs for a in d[3:5]))
             dh_in = _nbytes(mask, *whq, *(d[4] for d in kdirs))
-            gp = per[chosen]["bptt_gates_gemm<"]
+            gp = per[chosen][gk]
             gemm = {"max_abs_err": e_pre, "ms": gp[0] / 1e3,
                     "plain_ms": t["gates_plain"],
                     "library_ms": t["gates_lib"],
@@ -1777,7 +1790,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
                        "chosen": fd == chosen, "per_frame_us": 0.0}
                 for k in LOOP_KERNELS[fd]:
                     us, n = per[fd][k + "<"]
-                    _require(per[fd]["bptt_gates_gemm<"][1] == 1
+                    _require(per[fd][gk][1] == 1
                              and n == n_want,
                              f"one gate GEMM and {n_want} {k} launch(es) a "
                              f"call: {tag}, {per[fd]}")
@@ -1806,7 +1819,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 bwd["frame_loop_designs"] = designs
                 bwd["dh_product_library_us"] = t["dh_lib"] * 1e3
             detail = (
-                f"per launch (torch.profiler): bptt_gates_gemm "
+                f"per launch (torch.profiler): {gk[:-1]} "
                 f"{gemm['ms'] * 1e3:.2f} us (bound "
                 f"{gemm['bound_ms'] * 1e3:.2f}; plain "
                 f"{t['gates_plain']:.3f} ms; torch.mm + xw "
@@ -1907,15 +1920,59 @@ def f32_forward_rule_times(dev, card: str) -> list:
     return out
 
 
-# bf16 weights above H=512 (type codes 1 and 2): the f32-weight kernels with
-# wh widened to f32 and the products' operands rounded to bf16; (B, T, H)
-# checked in both codes, the last one also timed (code 1, the model's) and
-# beside it the f32 route (code 0) at the same shape
+# bf16 weights above H=512 (type codes 1 and 2): the forward and the frame
+# loop on the f32-weight kernels with wh widened to f32 and the products'
+# operands rounded to bf16, the gate GEMM and dwh on the wide wgmma
+# kernels; (B, T, H) checked in both codes, the last one also timed (code
+# 1, the model's) beside the parent designs (the FMA gate GEMM, dwh's
+# 128 x 128 tiles) and the f32 route (code 0) at the same shape
 F2_SHAPES = ((32, 512, 520), (32, 512, 1000))
 F2_TIMED = F2_SHAPES[-1]
 F2_COUNTERS = ("FWD_GRID_LAUNCHES", "STEP_LAUNCHES", "GATES_GEMM_LAUNCHES",
-               "FRAME_LAUNCHES", "CELL_LAUNCHES", "DH_LAUNCHES",
-               "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+               "GATES_WIDE_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
+               "DH_LAUNCHES", "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+# the designs F2's route ran before its wide tiles, timed beside them: the
+# FMA gate GEMM, and dwh's 128 x 128 tiles (with the L2 promotion that the
+# maps now take by H)
+F2_PARENT = {"gemm": "fma", "dwh": "tiles"}
+# the flagship's bf16 gate GEMM (the 128 x 128 wgmma tiles that
+# bptt_gates_gemm_wide replaced) and dwh at B=32, T=512, H=512 as an H100
+# (700 W) ran them before (ms; PERF.md's kernel table): printed beside
+# this run's times there, and nowhere else
+FLAGSHIP_EARLIER_MS = {"bptt_gates_gemm": 0.399, "lstm_dwh": 0.1093}
+
+
+# dwh and one torch.mm of the same bf16 operands sum the same products
+# over (T-1)*B = 16352 rows in f32 in two orders, and at F2_SHAPES those
+# part by more than the 1e-5 that holds at the card tests' small shapes
+# (this phase prints each one's distance to the exact sum: cuBLAS's is
+# itself 1e-5 to 3e-5 of the largest magnitude on an NVIDIA H100 80GB
+# HBM3 at 700 W). So each dwh design is held to the exact sum (f64
+# products of the bf16 values): within 1e-5 of it, or no further from it
+# than DWH_LIBRARY_FACTOR times the library call; the designs' gap to each
+# other and to torch.mm is reported.
+DWH_LIBRARY_FACTOR = 1.0
+
+
+def _dwh_accurate(err: float, library_err: float) -> bool:
+    return err <= max(1e-5, DWH_LIBRARY_FACTOR * library_err)
+
+
+def dwh_exact(ys, dxw, reverse: bool, dtype):
+    """dwh's function in float64: the products of the operands rounded to
+    ``dtype`` are exact there, and the sum's error is negligible."""
+    H = ys.shape[2]
+    a = (ys[1:] if reverse else ys[:-1]).reshape(-1, H).to(dtype).double()
+    c = (dxw[:-1] if reverse else dxw[1:]).reshape(-1, 4 * H).to(
+        dtype).double()
+    return a.T @ c
+
+
+def _normal(rng, shape, scale, dev, dtype):
+    import torch
+
+    return torch.from_numpy(rng.normal(0, scale, shape).astype(
+        np.float32)).to(dev, dtype)
 
 
 def _counter_deltas(mod, names, before) -> dict:
@@ -1925,14 +1982,20 @@ def _counter_deltas(mod, names, before) -> dict:
 def f2_train_kernels(dev, card: str) -> dict:
     """bf16 weights at ``F2_SHAPES``, type codes 1 and 2, both directions,
     ragged mask: the save_cell and inference forwards (3e-2 of the plain
-    version), the gate GEMM (1e-5 relative), the frame loop on the
-    kernel's gates and the whole BPTT (2e-2 relative), dwh from the plain
-    dxw (2e-2 relative), each run twice (bit-equal), with the launches of
-    each call counted (the library's route: the f32 shape rules). At
-    ``F2_TIMED`` with bf16 streams each kernel is timed beside its bound
-    (operations at the bf16 peak: the products are of bf16 values), its
-    plain version, the library call where there is one and the f32 route
-    (f32 weights and streams) at the same shape. Returns kernel rows."""
+    version), the wide gate GEMM (1e-5 relative of ``bptt_gates_ref`` and
+    of the parent FMA design), the frame loop on the kernel's gates and
+    the whole BPTT (2e-2 relative), the wide dwh from the plain dxw (2e-2
+    relative of the plain version; as ``_dwh_accurate`` says against the
+    exact sum, on the BPTT's operands and normal ones, its gaps to one
+    ``torch.mm`` of the same bf16 operands and to the parent 128 x 128
+    design shown), each run twice
+    (bit-equal), with the launches of each call counted (the library's
+    route: the f32 shape rules for the forward and the frame loop, the
+    wide kernels for the gate GEMM and dwh). At ``F2_TIMED`` with bf16
+    streams each kernel is timed beside its bound (operations at the bf16
+    peak: the products are of bf16 values), its plain version, the library
+    call where there is one, the parent design and the f32 route (f32
+    weights and streams) at the same shape. Returns kernel rows."""
     import torch
     from vistaocr_tpu_torch.ops import _build, lstm_cuda as L
 
@@ -1976,19 +2039,53 @@ def f2_train_kernels(dev, card: str) -> dict:
                 loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
                                             dtype=bf16)
                           for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
+                # the parent designs on the same inputs, and dwh's library
+                # call (one cuBLAS bf16 GEMM, f32 out) on the same operands:
+                # the BPTT's, and seeded normal ones of the same shapes
+                pre_p = L.lstm_bptt_frames(bdirs, mask, bf16,
+                                           return_gates=True,
+                                           gemm=F2_PARENT["gemm"])[1]
+                dwh_p = L.lstm_dwh(ddirs, bf16, design=F2_PARENT["dwh"])
+                dwh_mm = [dwh_one_product(y, g, r, bf16)
+                          for y, g, r in ddirs]
+                ndirs = [(_normal(rng, (T, B, H), 0.5, dev, stream),
+                          _normal(rng, (T, B, 4 * H), 0.1, dev, stream), r)
+                         for r in (False, True)]
+                dwh_n = L.lstm_dwh(ndirs, bf16)
+                dwh_n_mm = [dwh_one_product(y, g, r, bf16)
+                            for y, g, r in ndirs]
+                exact = [dwh_exact(y, g, r, bf16) for y, g, r in ddirs]
+                exact_n = [dwh_exact(y, g, r, bf16) for y, g, r in ndirs]
             want = {"FWD_GRID_LAUNCHES": 4 if grid else 0,
                     "STEP_LAUNCHES": 0 if grid else 4 * T,
-                    "GATES_GEMM_LAUNCHES": 2,
+                    "GATES_GEMM_LAUNCHES": 2, "GATES_WIDE_LAUNCHES": 2,
                     "FRAME_LAUNCHES": 2 * T if folds else 0,
                     "CELL_LAUNCHES": 0 if folds else 2 * T,
                     "DH_LAUNCHES": 0 if folds else 2 * T,
                     "DWH_LAUNCHES": 2, "BWD_PERSISTENT_LAUNCHES": 0}
+            wide_dwh = L.DWH_DESIGNS[lib.vo_lstm_dwh_design(1, H)] == "wide"
             err = {
                 "save_cell": max(max(_abs(y, ry), _abs(c, rc)) for (y, c), (
                     ry, rc) in zip(cells[0], ref)),
                 "inference": max(_abs(y, ry) for y, (ry, _) in zip(
                     inf[0], ref)),
                 "gates_rel": max(_rel(a, b) for a, b in zip(pre_k, pre_r)),
+                "gates_parent_rel": max(_rel(a, b) for a, b in zip(pre_k,
+                                                                   pre_p)),
+                "dwh_mm_rel": max(_rel(a, b) for a, b in zip(dwh_n,
+                                                             dwh_n_mm)),
+                "dwh_mm_rel_bptt": max(_rel(a, b) for a, b in zip(dwhs[0],
+                                                                  dwh_mm)),
+                "dwh_exact_rel": max(_rel(a, b) for a, b in zip(dwh_n,
+                                                                exact_n)),
+                "dwh_mm_exact_rel": max(_rel(a, b) for a, b in zip(
+                    dwh_n_mm, exact_n)),
+                "dwh_exact_rel_bptt": max(_rel(a, b) for a, b in zip(
+                    dwhs[0], exact)),
+                "dwh_mm_exact_rel_bptt": max(_rel(a, b) for a, b in zip(
+                    dwh_mm, exact)),
+                "dwh_parent_rel": max(_rel(a, b) for a, b in zip(dwhs[0],
+                                                                 dwh_p)),
                 "loop_rel": max(_rel(a, b) for a, b in zip(dxw_k, loop_r)),
                 "dxw_rel": max(_rel(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
                 "dxw_abs": max(_abs(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
@@ -2006,16 +2103,22 @@ def f2_train_kernels(dev, card: str) -> dict:
                     and all(torch.equal(a, b) for a, b in zip(*dwhs)))
             ok = (err["save_cell"] <= 3e-2 and err["inference"] <= 3e-2
                   and err["gates_rel"] <= 1e-5 and err["loop_rel"] <= 2e-2
+                  and err["gates_parent_rel"] <= 1e-5
+                  and all(_dwh_accurate(err[f"dwh_exact_rel{o}"],
+                                        err[f"dwh_mm_exact_rel{o}"])
+                          for o in ("", "_bptt"))
                   and err["dxw_rel"] <= 2e-2 and err["dwh_rel"] <= 2e-2
-                  and same and got == want)
+                  and same and got == want and wide_dwh)
             print(f"F2 kernels vs plain {tag}: " + "; ".join(
                 f"{k} {v:.3e}" for k, v in err.items()) + f"; bit-equal "
                 f"twice {same}; launches {got} ("
                 f"{'lstm_fwd_grid' if grid else 'lstm_step'}, "
-                f"{'fold' if folds else 'split'}) "
+                f"bptt_gates_gemm_wide, {'fold' if folds else 'split'}, "
+                f"lstm_dwh_tc {'128 x 256' if wide_dwh else '128 x 128'}) "
                 f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"F2 kernels agree with plain, bit-equal, launches "
-                         f"{got} == {want}: {tag}")
+                         f"{got} == {want}, dwh's wide tiles {wide_dwh}: "
+                         f"{tag}")
             checked.append({"B": B, "T": T, "H": H,
                             "streams": _dtname(stream), **err,
                             "bit_equal_twice": same, "launches": got})
@@ -2028,10 +2131,45 @@ def f2_train_kernels(dev, card: str) -> dict:
     return rows
 
 
+def _turns_ms(fns: dict, reps: int) -> dict:
+    """Two calls timed in turns, a b b a (CUDA events over ``reps`` calls
+    each time), so that a drift of the card between them falls on both;
+    returns each one's mean time a call (ms)."""
+    (a, fa), (b, fb) = fns.items()
+    t = [_cuda_ms(f, reps) for f in (fa, fb, fb, fa)]
+    return {a: (t[0] + t[3]) / 2, b: (t[1] + t[2]) / 2}
+
+
+def dwh_rates(H: int, R: int, ms: dict) -> dict:
+    """dwh's achieved rate for each design (ms: design -> time of a
+    two-direction call): TFLOP/s in all and an SM that the grid keeps
+    busy, the grid's CTAs and its waves on the card (one CTA an SM)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flops = 2 * 2 * R * H * 4 * H
+    out = {}
+    for design, t in ms.items():
+        tn = 256 if design == "wide" else 128
+        ctas = 2 * -(-4 * H // tn) * -(-H // 128)
+        tflops = flops / (t * 1e-3) / 1e12
+        out[design] = {"ms": t, "tflops": tflops, "ctas": ctas,
+                       "waves": ctas / sms,
+                       "tflops_per_busy_sm": tflops / min(ctas, sms)}
+    return out
+
+
+GATES_WIDE = GATES_KERNEL[False]
+
+
 def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                ref) -> dict:
     """Each F2 kernel timed at F2_TIMED (bf16 streams and weights) beside
-    its bound, plain version, library call and the f32 route."""
+    its bound, plain version, library call and the f32 route; the wide
+    gate GEMM (the profiler's device time a launch inside
+    ``lstm_bptt_frames``), dwh and the frames behind the gate GEMM (CUDA
+    events) in turns with the parent designs (``F2_PARENT``); dwh's
+    achieved rate an SM in both designs."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -2054,11 +2192,8 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                                 5),
             "fwd_plain": _cuda_ms(lambda: L.lstm_forward_cells(
                 dirs, mask, bf16, plain=True), 1),
-            "frames": _cuda_ms(lambda: L.lstm_bptt_frames(bdirs, mask, bf16),
-                               5),
             "frames_f32": _cuda_ms(lambda: L.lstm_bptt_frames(b32, mask, f32),
                                    5),
-            "dwh": _cuda_ms(lambda: L.lstm_dwh(ddirs, bf16), 20),
             "dwh_f32": _cuda_ms(lambda: L.lstm_dwh(dd32, f32), 5),
             "dwh_plain": _cuda_ms(lambda: [L.lstm_dwh_ref(
                 y, g, reverse=r, dtype=bf16) for y, g, r in ddirs], 1),
@@ -2073,14 +2208,33 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                 p, mask, w, cs, dy, reverse=r, dtype=bf16)
                 for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1),
         }
+        # the gate GEMM's device time a launch, parent design and the
+        # library's in turns (parent, library, library, parent)
+        g_us = {"gates_parent": [], "gates": []}
+        for key in ("gates_parent", "gates", "gates", "gates_parent"):
+            gemm = F2_PARENT["gemm"] if key == "gates_parent" else None
+            kname = GATES_KERNEL[gemm == "fma"]
+            g_us[key].append(_kernel_us(
+                lambda gemm=gemm: L.lstm_bptt_frames(bdirs, mask, bf16,
+                                                     gemm=gemm),
+                (kname,), {kname: 1})[kname][0])
+        t.update({k: sum(v) / len(v) / 1e3 for k, v in g_us.items()})
+        t.update(_turns_ms({
+            "dwh_parent": lambda: L.lstm_dwh(ddirs, bf16,
+                                             design=F2_PARENT["dwh"]),
+            "dwh": lambda: L.lstm_dwh(ddirs, bf16)}, 20))
+        t.update(_turns_ms({
+            "frames_parent": lambda: L.lstm_bptt_frames(
+                bdirs, mask, bf16, gemm=F2_PARENT["gemm"]),
+            "frames": lambda: L.lstm_bptt_frames(bdirs, mask, bf16)}, 3))
         dg = [g[T // 2].to(bf16).float() for _, g, _ in ddirs]
         wq = [w.float() for _, w, _ in dirs]
         t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w in
                                         zip(dg, wq)], 50)
         per = {fd: _kernel_us(
             lambda fd=fd: L.lstm_bptt_frames(bdirs, mask, bf16, fold=fd),
-            ("bptt_gates_gemm<", *(k + "<" for k in LOOP_KERNELS[fd])),
-            {"bptt_gates_gemm<": 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
+            (GATES_WIDE, *(k + "<" for k in LOOP_KERNELS[fd])),
+            {GATES_WIDE: 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
             for fd in F32_DESIGNS}
         fwd_us = {g: _kernel_us(lambda g=g: L.lstm_fwd(
             dirs, mask, bf16, save_cell=True, grid=g), (n + "<",),
@@ -2110,11 +2264,13 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                       "kernel_us_per_launch": us,
                       "library_route_ms": t["fwd"],
                       "f32_route_ms": t["fwd_f32"]}
-    gp = per[True]["bptt_gates_gemm<"]
-    rows["bptt_gates_gemm"] = {
-        "max_abs_err": err["gates_abs"], "ms": gp[0] / 1e3,
+    rows["bptt_gates_gemm_wide"] = {
+        "max_abs_err": err["gates_abs"], "ms": t["gates"],
         "plain_ms": t["gates_plain"], "library_ms": t["gates_lib"],
-        **_bound(gemm_in + pre_bytes, flops, bf16), "launches_per_call": 1}
+        **_bound(gemm_in + pre_bytes, flops, bf16), "launches_per_call": 1,
+        "ms_source": "profiler, device time a launch in lstm_bptt_frames",
+        "parent_ms": t["gates_parent"],
+        "parent": "bptt_gates_gemm, f32 FMA form (wh widened)"}
     bounds = {"bptt_frame": (pre_bytes + loop_in + dxw_bytes, flops),
               "bptt_cell": (pre_bytes + cell_in + dxw_bytes,
                             2 * 40 * T * B * H),
@@ -2127,12 +2283,17 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                        "library_ms": t["dh_lib"] * T if k == "bptt_dh"
                        else None, **_bound(*bounds[k], bf16),
                        "launches_per_call": n, "per_frame_us": us}
-    rows["lstm_dwh"] = {"max_abs_err": err["dwh_abs"], "ms": t["dwh"],
-                        "plain_ms": t["dwh_plain"], "library_ms": t["dwh_lib"],
-                        **_bound(dwh_in + dwh_out, flops, bf16),
-                        "f32_route_ms": t["dwh_f32"]}
-    for k in ("bptt_gates_gemm", "bptt_frame", "bptt_cell", "bptt_dh"):
+    rates = dwh_rates(H, R, {"tiles": t["dwh_parent"], "wide": t["dwh"]})
+    rows["lstm_dwh"] = {
+        "max_abs_err": err["dwh_abs"], "ms": t["dwh"],
+        "plain_ms": t["dwh_plain"], "library_ms": t["dwh_lib"],
+        **_bound(dwh_in + dwh_out, flops, bf16),
+        "ms_source": "CUDA events, one lstm_dwh call",
+        "f32_route_ms": t["dwh_f32"], "parent_ms": t["dwh_parent"],
+        "parent": "lstm_dwh_tc in 128 x 128 tiles", "rates": rates}
+    for k in ("bptt_gates_gemm_wide", "bptt_frame", "bptt_cell", "bptt_dh"):
         rows[k]["frames_ms"] = t["frames"]
+        rows[k]["parent_frames_ms"] = t["frames_parent"]
         rows[k]["f32_route_frames_ms"] = t["frames_f32"]
     print(f"F2 times B={B} T={T} H={H}, bf16 weights and streams, both "
           f"directions: save_cell lstm_fwd_grid {t['fwd_grid']:.3f} ms "
@@ -2140,15 +2301,103 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
           f"{t['fwd_step']:.3f} ms, the library's {t['fwd']:.3f} ms, f32 "
           f"route {t['fwd_f32']:.3f} ms, bound {fwd_bound['bound_ms']:.3f} "
           f"ms, plain {t['fwd_plain']:.3f} ms; BPTT frames "
-          f"{t['frames']:.3f} ms (f32 route {t['frames_f32']:.3f}; gate "
-          f"GEMM {gp[0]:.2f} us, bptt_frame "
+          f"{t['frames']:.3f} ms (parent {t['frames_parent']:.3f}, f32 route "
+          f"{t['frames_f32']:.3f}; bptt_frame "
           f"{per[True]['bptt_frame<'][0]:.2f} us x T, bptt_cell "
           f"{per[False]['bptt_cell<'][0]:.2f} + bptt_dh "
           f"{per[False]['bptt_dh<'][0]:.2f} us x T; plain loop "
-          f"{t['loop_plain']:.3f} ms); dwh {t['dwh']:.4f} ms (f32 route "
-          f"{t['dwh_f32']:.4f}, torch.mm {t['dwh_lib']:.4f}) ({card})",
-          flush=True)
+          f"{t['loop_plain']:.3f} ms); gate GEMM bptt_gates_gemm_wide "
+          f"{t['gates']:.4f} ms a launch (profiler; parent FMA form "
+          f"{t['gates_parent']:.4f}; events: torch.mm + xw "
+          f"{t['gates_lib']:.4f}, plain {t['gates_plain']:.3f}; bound "
+          f"{rows['bptt_gates_gemm_wide']['bound_ms']:.4f}); dwh lstm_dwh_tc "
+          f"128 x 256 {t['dwh']:.4f} ms (events; 128 x 128 tiles "
+          f"{t['dwh_parent']:.4f}, torch.mm {t['dwh_lib']:.4f}, bound "
+          f"{rows['lstm_dwh']['bound_ms']:.4f}, f32 route "
+          f"{t['dwh_f32']:.4f}); dwh an SM: " + "; ".join(
+              f"{d} {r['tflops_per_busy_sm']:.2f} TFLOP/s over "
+              f"{r['ctas']} CTAs ({r['waves']:.2f} waves)"
+              for d, r in rates.items()) + f" ({card})", flush=True)
     return rows
+
+
+# the flagship's bf16 BPTT shape (the W=2048 bucket, H=512), where the
+# library keeps dwh's 128 x 128 tiles; the gate GEMM and both dwh designs
+# checked and timed there
+F2_FLAGSHIP = (32, 512, 512)
+
+
+def flagship_designs(dev, card: str) -> dict:
+    """At ``F2_FLAGSHIP``, bf16, both directions: the gate GEMM
+    (``bptt_gates_gemm_wide``, through ``lstm_bptt_frames``) against
+    ``bptt_gates_ref`` (1e-5 relative) and its device time a launch (the
+    profiler); dwh's two designs against the exact sum as
+    ``_dwh_accurate`` says (their gaps to each other and to one
+    ``torch.mm`` shown), timed in turns (tiles, wide, wide, tiles), with
+    dwh's rate an SM; every call's two runs bit-equal. The human-readable
+    line prints each time beside the earlier one there
+    (``FLAGSHIP_EARLIER_MS``)."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    bf16 = torch.bfloat16
+    B, T, H = F2_FLAGSHIP
+    rng = np.random.default_rng(T + H)
+    bdirs = [(_normal(rng, (T, B, 4 * H), 1.0, dev, bf16),
+              _normal(rng, (H, 4 * H), H ** -0.5, dev, bf16),
+              _normal(rng, (T, B, H), 0.5, dev, bf16),
+              _normal(rng, (T, B, H), 1.0, dev, bf16),
+              _normal(rng, (T, B, H), 1.0, dev, bf16), r)
+             for r in (False, True)]
+    mask = torch.ones(T, 1, B, device=dev)
+    ddirs = [(ys, _normal(rng, (T, B, 4 * H), 0.1, dev, bf16), r)
+             for _, _, ys, _, _, r in bdirs]
+    with torch.no_grad():
+        pre = [L.lstm_bptt_frames(bdirs, mask, bf16, return_gates=True)[1]
+               for _ in range(2)]
+        dwh = {d: [L.lstm_dwh(ddirs, bf16, design=d) for _ in range(2)]
+               for d in L.DWH_DESIGNS}
+        pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r, dtype=bf16)
+                 for x, w, ys, *_, r in bdirs]
+        dwh_mm = [dwh_one_product(y, g, r, bf16) for y, g, r in ddirs]
+        exact = [dwh_exact(y, g, r, bf16) for y, g, r in ddirs]
+        # the events first: timed after a profiler window, this 0.1 ms
+        # kernel's back-to-back calls read slower
+        t = _turns_ms({
+            "dwh_tiles": lambda: L.lstm_dwh(ddirs, bf16, design="tiles"),
+            "dwh_wide": lambda: L.lstm_dwh(ddirs, bf16, design="wide")}, 20)
+        t["gates"] = _kernel_us(
+            lambda: L.lstm_bptt_frames(bdirs, mask, bf16), (GATES_WIDE,),
+            {GATES_WIDE: 1})[GATES_WIDE][0] / 1e3
+    err = {"gates_rel": max(_rel(a, b) for a, b in zip(pre[0], pre_r))}
+    err.update({f"dwh_{d}_exact_rel": max(_rel(a, b) for a, b in zip(
+        v[0], exact)) for d, v in dwh.items()})
+    err["dwh_mm_exact_rel"] = max(_rel(a, b) for a, b in zip(dwh_mm, exact))
+    shown = {f"dwh_{d}_mm_rel": max(_rel(a, b) for a, b in zip(v[0], dwh_mm))
+             for d, v in dwh.items()}
+    shown["dwh_designs_rel"] = max(_rel(a, b) for a, b in zip(
+        dwh["wide"][0], dwh["tiles"][0]))
+    same = all(torch.equal(a, b) for runs in (pre, *dwh.values())
+               for a, b in zip(*runs))
+    ok = same and err["gates_rel"] <= 1e-5 and all(
+        _dwh_accurate(err[f"dwh_{d}_exact_rel"], err["dwh_mm_exact_rel"])
+        for d in dwh)
+    err.update(shown)
+    rates = dwh_rates(H, (T - 1) * B, {"tiles": t["dwh_tiles"],
+                                       "wide": t["dwh_wide"]})
+    print(f"flagship B={B} T={T} H={H} bf16, both directions: gate GEMM "
+          f"bptt_gates_gemm_wide {t['gates']:.4f} ms a launch (profiler; "
+          f"earlier 128 x 128 tiles "
+          f"{FLAGSHIP_EARLIER_MS['bptt_gates_gemm']}, PERF.md); dwh 128 x "
+          f"128 tiles {t['dwh_tiles']:.4f} ms (events; earlier "
+          f"{FLAGSHIP_EARLIER_MS['lstm_dwh']}, PERF.md), 128 x 256 "
+          f"{t['dwh_wide']:.4f} ms; dwh an SM: " + "; ".join(
+              f"{d} {r['tflops_per_busy_sm']:.2f} TFLOP/s over {r['ctas']} "
+              f"CTAs" for d, r in rates.items()) + "; " + "; ".join(
+              f"{k} {v:.2e}" for k, v in err.items()) + f"; bit-equal twice "
+          f"{same} {'ok' if ok else 'FAIL'} ({card})", flush=True)
+    _require(ok, f"flagship gate GEMM and dwh designs agree: {err}, {same}")
+    return {**t, **err, "bit_equal_twice": same, "dwh_rates": rates}
 
 
 # F2's main path: a bf16 flagship at lstm_hidden 520 and 1000, one train
@@ -2162,7 +2411,7 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
     """F2's main path with the LSTM counters set to 0 before the first step
     and read after the last: what each call's route launches, by the f32
     shape rules (lstm_fwd_grid or lstm_step; bptt_frame, or bptt_cell and
-    bptt_dh), and never a persistent kernel."""
+    bptt_dh), the wide gate GEMM and dwh, and never a persistent kernel."""
     import torch
     from vistaocr_tpu_torch import train as TR
     from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
@@ -2203,8 +2452,9 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
             want["FWD_GRID_LAUNCHES"] += fwd
         else:
             want["STEP_LAUNCHES"] += fwd * T
-        want["GATES_GEMM_LAUNCHES"] += bwd
-        want["DWH_LAUNCHES"] += bwd
+        for name in ("GATES_GEMM_LAUNCHES", "GATES_WIDE_LAUNCHES",
+                     "DWH_LAUNCHES"):
+            want[name] += bwd
         if lib.vo_lstm_bwd_f32_folds(B):
             want["FRAME_LAUNCHES"] += bwd * T
         else:
@@ -2214,10 +2464,76 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
     print(f"F2 path (bf16 flagship at H=520 and 1000, a train step and an "
           f"inference forward at B=32 W=2048 and B=128 W=512) in "
           f"{time.time() - t0:.2f} s: launches {counts} ({card})", flush=True)
+    wide = all(lstm_cuda.DWH_DESIGNS[lib.vo_lstm_dwh_design(1, H)] == "wide"
+               for H, _, _ in F2_PATH)
     _require(counts == want and counts["BWD_PERSISTENT_LAUNCHES"] == 0 and all(
-        v > 0 for k, v in counts.items() if k != "BWD_PERSISTENT_LAUNCHES"),
-        f"F2 path launches {counts}, want {want}")
+        v > 0 for k, v in counts.items() if k != "BWD_PERSISTENT_LAUNCHES")
+        and wide, f"F2 path launches {counts}, want {want}; dwh's wide "
+                  f"tiles {wide}")
     return counts
+
+
+# one F2 train step timed with the library's route and with the parent
+# designs of the gate GEMM and dwh: lstm_hidden 1000 at the W=2048 bucket
+F2_STEP = (1000, 32, 2048)  # (H, B, W)
+
+
+def f2_step_timing(dev, font: dict, card: str) -> dict:
+    """One bf16 train step (``loss_and_grads``) at ``F2_STEP`` on the
+    library's route, and on the same route with the parent designs
+    (``F2_PARENT``) named in its two BPTT wrappers (only here, to time
+    them), in turns (parent, library, library, parent), 3 steps each
+    time; both losses and gradients finite, and equal between the routes
+    within the products' summation order (bf16 dxw may round an ulp
+    apart)."""
+    import functools
+
+    import torch
+    from vistaocr_tpu_torch import train as TR
+    from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    H, B, W = F2_STEP
+    alphabet, batch = _glyph_batch(font, H + B + 1, B, W, W // 2,
+                                   min(256, W // 4), dev)
+    model = CnnLstmOcr(ModelConfig(num_classes=alphabet.num_classes,
+                                   compute_dtype="bfloat16", lstm_hidden=H,
+                                   dropout=0.0))
+    init_parameters(model, torch.Generator().manual_seed(H))
+    model.to(dev)
+    weights = torch.ones(B, device=dev)
+    frames, dwh = L.lstm_bptt_frames, L.lstm_dwh
+
+    def step():
+        return TR.loss_and_grads(model, *batch, weights)
+
+    def parent():
+        L.lstm_bptt_frames = functools.partial(frames,
+                                               gemm=F2_PARENT["gemm"])
+        L.lstm_dwh = functools.partial(dwh, design=F2_PARENT["dwh"])
+        try:
+            return step()
+        finally:
+            L.lstm_bptt_frames, L.lstm_dwh = frames, dwh
+
+    (loss_a, g_a), (loss_b, g_b) = step(), parent()
+    torch.cuda.synchronize()
+    gap = max(_rel(g_a[k], g_b[k]) for k in g_a)
+    ok = (np.isfinite(loss_a.item()) and np.isfinite(loss_b.item())
+          and all(torch.isfinite(g).all().item() for g in g_a.values())
+          and abs(loss_a.item() - loss_b.item()) <= 1e-6 * abs(loss_a.item())
+          and gap <= 2e-2)
+    t = _turns_ms({"parent": parent, "library": step}, 3)
+    print(f"F2 train step H={H} B={B} W={W} bf16: library route "
+          f"{t['library']:.3f} ms, parent gate GEMM and dwh "
+          f"{t['parent']:.3f} ms (saved {t['parent'] - t['library']:.3f}); "
+          f"losses {loss_a.item():.6f} / {loss_b.item():.6f}, gradients "
+          f"within {gap:.2e} relative {'ok' if ok else 'FAIL'} ({card})",
+          flush=True)
+    _require(ok, f"F2 step on both routes: losses {loss_a.item()}, "
+                 f"{loss_b.item()}, gradient gap {gap}")
+    return {"H": H, "B": B, "W": W, "library_ms": t["library"],
+            "parent_ms": t["parent"], "gradient_rel_gap": gap}
 
 
 def _ctc_inputs(B, T, K, L, dev):
@@ -2405,6 +2721,7 @@ def write_glyph_dataset(path: str, font: dict, seed: int, n_train: int,
 TRAIN_COUNTERS = (("lstm_cuda", "SAVE_CELL_LAUNCHES"),
                   ("lstm_cuda", "BWD_LAUNCHES"),
                   ("lstm_cuda", "GATES_GEMM_LAUNCHES"),
+                  ("lstm_cuda", "GATES_WIDE_LAUNCHES"),
                   ("lstm_cuda", "BWD_PERSISTENT_LAUNCHES"),
                   ("lstm_cuda", "DWH_LAUNCHES"),
                   ("ctc_cuda", "ALPHA_LAUNCHES"),
@@ -4156,6 +4473,7 @@ def main(argv) -> int:
     lstm_rows = lstm_train_kernels(dev, f"{card}, {smi}")
     rule_rows = f32_forward_rule_times(dev, f"{card}, {smi}")
     f2_rows = f2_train_kernels(dev, f"{card}, {smi}")
+    flagship_f2 = flagship_designs(dev, f"{card}, {smi}")
     ctc_rows = ctc_train_kernels(dev, f"{card}, {smi}")
     font = glyph_font(17)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4188,6 +4506,7 @@ def main(argv) -> int:
     _phase("train-parity")
     f32_path = train_parity_phase(dev, font, f"{card}, {smi}")
     f2_counts = f2_path_phase(dev, font, f"{card}, {smi}")
+    f2_step = f2_step_timing(dev, font, f"{card}, {smi}")
     _phase("experiments")
     stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
     bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
@@ -4278,8 +4597,8 @@ def main(argv) -> int:
     # each weight type's two BPTT kernels: bf16 launches counted on the
     # train path (phase 7), f32 on the f32 path (phase 8)
     for name, key, dtype, launches in (
-            ("bptt_gates_gemm", "bptt_gates_gemm", torch.bfloat16,
-             counts["GATES_GEMM_LAUNCHES"]),
+            ("bptt_gates_gemm_wide", "bptt_gates_gemm", torch.bfloat16,
+             counts["GATES_WIDE_LAUNCHES"]),
             ("lstm_bwd_persistent", "lstm_bwd_persistent", torch.bfloat16,
              counts["BWD_PERSISTENT_LAUNCHES"]),
             ("bptt_gates_gemm_f32", "bptt_gates_gemm", torch.float32,
@@ -4302,29 +4621,39 @@ def main(argv) -> int:
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]
         kernels.append(row)
-    # F2's route: bf16 weights above H=512 on the f32-weight kernels, with
-    # launches counted on F2's main path (phase 8) and times at F2_TIMED
-    for name, src, rep, counter in (
+    # F2's route: bf16 weights above H=512, the forward and the frame loop
+    # on the f32-weight kernels, the gate GEMM and dwh on the wide wgmma
+    # kernels, with launches counted on F2's main path (phase 8) and times
+    # at F2_TIMED
+    for name, src, rep, counter, form in (
             ("lstm_fwd_grid", "lstm_fwd.cu", "lstm_pallas.py:51",
-             "FWD_GRID_LAUNCHES"),
+             "FWD_GRID_LAUNCHES", "f32"),
             ("lstm_step", "lstm_fwd.cu", "lstm_pallas.py:51",
-             "STEP_LAUNCHES"),
-            ("bptt_gates_gemm", "lstm_bwd.cu", "lstm_pallas.py:281",
-             "GATES_GEMM_LAUNCHES"),
+             "STEP_LAUNCHES", "f32"),
+            ("bptt_gates_gemm_wide", "lstm_bwd.cu", "lstm_pallas.py:281",
+             "GATES_WIDE_LAUNCHES", "wide"),
             ("bptt_frame", "lstm_bwd.cu", "lstm_pallas.py:281",
-             "FRAME_LAUNCHES"),
+             "FRAME_LAUNCHES", "f32"),
             ("bptt_cell", "lstm_bwd.cu", "lstm_pallas.py:281",
-             "CELL_LAUNCHES"),
-            ("bptt_dh", "lstm_bwd.cu", "lstm_pallas.py:281", "DH_LAUNCHES"),
+             "CELL_LAUNCHES", "f32"),
+            ("bptt_dh", "lstm_bwd.cu", "lstm_pallas.py:281", "DH_LAUNCHES",
+             "f32"),
             ("lstm_dwh", "lstm_bwd.cu", "lstm_pallas.py:264",
-             "DWH_LAUNCHES")):
+             "DWH_LAUNCHES", "wide")):
         kernels.append({
             "name": f"{name}_bf16w_f2", "route": "cuda",
             "source": f"vistaocr_tpu_torch/csrc/{src}",
             "replaces": f"vistaocr_tpu/ops/{rep}",
             "launches": f2_counts[counter],
-            "form": "bf16 weights above H=512 on the f32-weight kernels",
+            "form": ("bf16 weights above H=512 on the f32-weight kernels"
+                     if form == "f32" else "bf16 weights above H=512, "
+                     "wgmma in 128 x 256 tiles"),
             "at": "B{}_T{}_H{}".format(*F2_TIMED), **f2_rows[name]})
+        if name == "bptt_gates_gemm_wide":
+            kernels[-1]["f2_train_step"] = f2_step
+    for row in kernels:  # the flagship's two designs, H=512
+        if row["name"] in ("bptt_gates_gemm_wide", "lstm_dwh"):
+            row["designs_at_B32_T512_H512"] = flagship_f2
     for name, rep, counter in (("ctc_alpha", "ctc_pallas.py:74",
                                 "ALPHA_LAUNCHES"),
                                ("ctc_beta", "ctc_pallas.py:157",
@@ -4366,7 +4695,8 @@ def main(argv) -> int:
     fused_calls = fused_out["fit"]["wrapper_calls"]
     for name, counter, group, dtype in (
             ("lstm_fwd_save_cell", "SAVE_CELL_LAUNCHES", "K1", "bfloat16"),
-            ("bptt_gates_gemm", "GATES_GEMM_LAUNCHES", "K2/K3", "bfloat16"),
+            ("bptt_gates_gemm_wide", "GATES_WIDE_LAUNCHES", "K2/K3",
+             "bfloat16"),
             ("lstm_bwd_persistent", "BWD_PERSISTENT_LAUNCHES",
              "K2/K3 frames", "bfloat16"),
             ("lstm_dwh", "DWH_LAUNCHES", "K2/K3 dwh", "bfloat16"),
@@ -4380,13 +4710,14 @@ def main(argv) -> int:
         row["launches_fused_replay_window"] = fused_out["parity"][dtype][
             "graph_window_kernels"][group]
     # the dp phase's launches on each of its two ranks, and on each rank of
-    # the tp check's 2 x 2 mesh (bf16 steps)
+    # the tp check's 2 x 2 mesh (bf16 steps, whose every gate GEMM is the
+    # wide one)
     dp_counts = dp_out["train"]["launches_a_rank_by_counter"]
     tp_counts = dp_out["tp"]["data2_model2"]["launches_a_rank_by_counter"]
     for row in kernels:
         counter = {"lstm_fwd_save_cell": "SAVE_CELL_LAUNCHES",
                    "lstm_dwh": "DWH_LAUNCHES",
-                   "bptt_gates_gemm": "GATES_GEMM_LAUNCHES",
+                   "bptt_gates_gemm_wide": "GATES_GEMM_LAUNCHES",
                    "lstm_bwd_persistent": "BWD_PERSISTENT_LAUNCHES",
                    "ctc_alpha": "ALPHA_LAUNCHES",
                    "ctc_beta": "BETA_LAUNCHES"}.get(row["name"])

@@ -10,11 +10,14 @@ GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
 f32 weights the f32 gate GEMM and the per-frame kernel at the GEMM's
 tile edges, several clusters and H > 512, their determinism and their
-1 + T launches; bf16 weights above H=512 (type codes 1 and 2) on the
-f32-weight kernels: the forward in both forms and designs, the gate
-GEMM, both frame loops and dwh at H=520 and 1000 on both sides of a
+1 + T launches; bf16 weights above H=512 (type codes 1 and 2): the
+forward and both frame loops on the f32-weight kernels, the gate GEMM
+and dwh on the wide wgmma kernels, at H=520 and 1000 on both sides of a
 32-row tile, their determinism, their launches (counters and profiler)
-and autograd; csrc/ctc.cu's alpha/beta at the
+and autograd, and the wide kernels alone (``-k f2``: the persistent gate
+GEMM and dwh's 128 x 256 tiles at ragged shapes, one or two directions,
+against the plain version, the other designs, one torch.mm and the
+exact sum); csrc/ctc.cu's alpha/beta at the
 three train buckets, S > 1024 and T below its ring depth, their
 determinism and their one launch each a call) against their plain
 PyTorch versions, including ragged B/H edges and the tile edges, T = 1,
@@ -950,6 +953,7 @@ def _masked_row_operands(dev, B, T, H, stream, compute, seed):
 
 _F32_COUNTERS = ("GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
                  "DH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+_WIDE_COUNTERS = ("GATES_WIDE_LAUNCHES", "DWH_LAUNCHES")
 
 
 @pytest.mark.parametrize("shape", F32_GEMM_SHAPES + F32_FRAME_SHAPES)
@@ -1041,8 +1045,12 @@ def test_bf16_weight_bptt_is_deterministic(dev):
 
 def _profiled_counts(call, names):
     """Launches of each kernel name in a torch.profiler window over one
-    call; the window opens with small launches and a synchronise (the
-    profiler misses kernels launched just after it starts)."""
+    call; the window opens with small launches, a synchronise and a 20 ms
+    pause, and closes after a synchronise and another pause (the profiler
+    drops device events near its edges: a lone launch that ends just
+    before the closing synchronise returns was missed)."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     call()  # built and warm
@@ -1052,8 +1060,10 @@ def _profiled_counts(call, names):
         for _ in range(64):
             pad.add_(1.0)
         torch.cuda.synchronize()
+        time.sleep(0.02)
         call()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     return {n: sum(n in e.name for e in prof.events()) for n in names}
 
 
@@ -1063,17 +1073,21 @@ _BPTT_KERNELS = ("bptt_gates_gemm<", "lstm_bwd_persistent<", "bptt_gates<",
 
 def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
     """B=32, T=512, H=512 (the W=2048 bucket), both directions: one
-    lstm_bptt call makes one bptt_gates_gemm, one lstm_bwd_persistent and
-    one dwh launch, and no per-frame kernel."""
+    lstm_bptt call makes one bptt_gates_gemm_wide (the library's gate GEMM
+    for bf16 weights), one lstm_bwd_persistent and one dwh launch (the
+    128 x 128 lstm_dwh_tc at this H), and no per-frame kernel."""
     dirs, mask = _bf16_bptt_operands(dev, 32, 512, 512, torch.bfloat16,
                                      seed=9)
     with torch.no_grad():
         counts = _profiled_counts(
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
-            _BPTT_KERNELS)
-    assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 1,
+            _BPTT_KERNELS + ("bptt_gates_gemm_wide<",))
+    assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 1,
                       "bptt_gates<": 0, "bptt_frame<": 0, "bptt_cell<": 0,
-                      "bptt_dh<": 0, "lstm_dwh": 1}, counts
+                      "bptt_dh<": 0, "lstm_dwh": 1,
+                      "bptt_gates_gemm_wide<": 1}, counts
+    assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
+        1, 512)] == "tiles"
 
 
 @pytest.mark.parametrize("B", [32, 33, 128])
@@ -1098,8 +1112,9 @@ def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
 
 def test_bf16_weight_bptt_refuses_h_above_512(dev):
     """Above H=512 lstm_bwd_persistent is not launched: bf16 weights take
-    the f32-weight BPTT (B=4: one gate GEMM, then bptt_frame a frame),
-    against bptt_frames_ref within the persistent kernel's bound."""
+    the wide gate GEMM and the f32-weight frame loop (B=4: one gate GEMM,
+    then bptt_frame a frame), against bptt_frames_ref within the
+    persistent kernel's bound."""
     T = 3
     dirs, mask = _typed_bptt_operands(dev, 4, T, 520, torch.bfloat16,
                                       torch.bfloat16, seed=1)
@@ -1120,19 +1135,20 @@ def test_bf16_weight_bptt_refuses_h_above_512(dev):
 @pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("fold", [True, False, None])
 def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
-    """Type codes 1 and 2 above H=512 on the f32-weight BPTT: the gate
-    GEMM against bptt_gates_ref within 1e-5 of the largest magnitude (the
-    same bf16-rounded products in f32), the frame loop of each design (and
-    the library's) on the kernel's own gates against bptt_frames_ref, dwh
-    against lstm_dwh_ref, within the persistent kernels' bound; an invalid
-    row's gradients are zeros; two runs give the same bits; one gate GEMM
-    and T bptt_frame, or T bptt_cell and T bptt_dh, launches a call."""
+    """Type codes 1 and 2 above H=512: the wide gate GEMM against
+    bptt_gates_ref within 1e-5 of the largest magnitude (the same
+    bf16-rounded products in f32), the f32-weight frame loop of each design
+    (and the library's) on the kernel's own gates against bptt_frames_ref,
+    the wide dwh against lstm_dwh_ref, within the persistent kernels'
+    bound; an invalid row's gradients are zeros; two runs give the same
+    bits; one wide gate GEMM and T bptt_frame, or T bptt_cell and T
+    bptt_dh, launches a call, and one dwh (the library's wide tiles)."""
     B, T, H = shape
     dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.bfloat16,
                                       seed=B + T * H)
     kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
              for x, w, y, c, dy, r in dirs]
-    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS + _WIDE_COUNTERS]
     with torch.no_grad():
         (dxw, pre), (dxw2, pre2) = (lstm_cuda.lstm_bptt_frames(
             kdirs, mask, torch.bfloat16, return_gates=True, fold=fold)
@@ -1159,14 +1175,17 @@ def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
         _build.load().vo_lstm_bwd_f32_folds(B))
     frames = (T, 0, 0) if folded else (0, T, T)
     assert [getattr(lstm_cuda, n) - b for n, b in zip(
-        _F32_COUNTERS, before)] == [2, *(2 * f for f in frames), 0]
+        _F32_COUNTERS + _WIDE_COUNTERS, before)] == [
+            2, *(2 * f for f in frames), 0, 2, 2]
 
 
 @pytest.mark.parametrize("H", [520, 1000])
 def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
     """B=32, T=24, bf16 streams and weights, both directions: a forward
-    call is one lstm_fwd_grid launch, a BPTT call one bptt_gates_gemm, T
-    bptt_frame and one dwh launch, and no persistent kernel (profiler)."""
+    call is one lstm_fwd_grid launch, a BPTT call one
+    bptt_gates_gemm_wide, T bptt_frame (the f32-weight frame loop) and one
+    dwh launch (lstm_dwh_tc, the library's wide tiles at these H), and no
+    persistent kernel nor the FMA gate GEMM (profiler)."""
     T = 24
     xw, mask, wh = _device_operands(dev, 32, T, H, torch.bfloat16,
                                     torch.bfloat16, seed=H, ndir=2)
@@ -1181,10 +1200,13 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
     with torch.no_grad():
         counts = _profiled_counts(
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
-            _BPTT_KERNELS)
-    assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 0,
+            _BPTT_KERNELS + ("bptt_gates_gemm_wide<",))
+    assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 0,
                       "bptt_gates<": 0, "bptt_frame<": T, "bptt_cell<": 0,
-                      "bptt_dh<": 0, "lstm_dwh": 1}, counts
+                      "bptt_dh<": 0, "lstm_dwh": 1,
+                      "bptt_gates_gemm_wide<": 1}, counts
+    assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
+        1, H)] == "wide"
 
 
 def test_bf16_weights_above_512_autograd_matches_plain(dev):
@@ -1198,13 +1220,14 @@ def test_bf16_weights_above_512_autograd_matches_plain(dev):
     xb = (xw * 0.5).requires_grad_(True)
     wf = wh.clone().requires_grad_(True)
     wb = (wh * 0.7).requires_grad_(True)
-    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
-              lstm_cuda.BWD_PERSISTENT_LAUNCHES)
+    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
+              lstm_cuda.BWD_PERSISTENT_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
     ys_f, ys_b = lstm_cuda.blstm_recurrence(xf, xb, mask, wf, wb)
     (ys_f * dirs[0][4] + ys_b * dirs[1][4]).sum().backward()
-    assert (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_GEMM_LAUNCHES,
-            lstm_cuda.BWD_PERSISTENT_LAUNCHES) == (before[0] + 1,
-                                                   before[1] + 1, before[2])
+    assert (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
+            lstm_cuda.BWD_PERSISTENT_LAUNCHES,
+            lstm_cuda.DWH_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                             before[2], before[3] + 1)
     with torch.no_grad():
         for x, w, dy, r, g_x, g_w in ((xf, wf, dirs[0][4], False, xf.grad,
                                        wf.grad),
@@ -1237,6 +1260,143 @@ def test_dwh_matches_torch_mm_at_flagship(dev):
         c = (dxw[:-1] if rev else dxw[1:]).reshape(-1, 4 * H)
         ref = torch.mm(a.T, c, out_dtype=torch.float32)
         assert _rel_err(dwh, ref) <= 1e-5
+
+
+# The wide designs (bf16 weights above H=512; any H when named): the gate
+# GEMM's persistent 128 x 256 tiles and dwh's 128 x 256 tiles at H = 520
+# and 1000 (TMA) and 516 (H % 8 != 0: the producer's loads), type codes 1
+# and 2, one direction (either) and two, T = 1 (edge tiles only: no
+# product) and 2, R = T*B not a multiple of 128 and B past a 128-row tile
+# (the forward edge frame spans two tiles), persistent grids of 336
+# and 672 tiles (B=64, T=40, H=1000: not multiples of 132 SMs), and a
+# longer contraction (B=32, T=160: 5088 rows)
+WIDE_SHAPES = [(32, 3, 1000), (5, 7, 520), (33, 2, 516), (7, 1, 1000),
+               (9, 2, 520), (64, 40, 1000), (130, 4, 520), (32, 160, 1000)]
+WIDE_DIRS = {"both": (False, True), "forward": (False,), "reverse": (True,)}
+
+
+def _wide_operands(dev, B, T, H, stream, seed):
+    rng = np.random.default_rng(seed)
+
+    def t_(shape, scale, dtype=stream):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(
+            np.float32)).to(dev, dtype)
+
+    return [(t_((T, B, 4 * H), 1.0), t_((H, 4 * H), H ** -0.5,
+                                        torch.bfloat16),
+             t_((T, B, H), 0.5), t_((T, B, 4 * H), 0.1))
+            for _ in range(2)]
+
+
+def _gates(dev, dirs, B, T, H, stream, gemm=None):
+    """The gate GEMM's pre per direction of ``dirs`` (xw, wh, ys,
+    reverse), through lstm_bptt_frames (random cell states and dys, every
+    row valid) by the library's design or the one ``gemm`` names."""
+    rng = np.random.default_rng(B + T + H)
+    bdirs = [(x, w, ys, torch.from_numpy(rng.normal(
+        0, 1, (T, B, H)).astype(np.float32)).to(dev, stream), torch.zeros(
+        T, B, H, device=dev, dtype=stream), r) for x, w, ys, r in dirs]
+    mask = torch.ones(T, 1, B, device=dev)
+    return lstm_cuda.lstm_bptt_frames(bdirs, mask, torch.bfloat16,
+                                      return_gates=True, gemm=gemm)[1]
+
+
+def _dwh_mm(ys, dxw, rev):
+    """One cuBLAS bf16 GEMM with f32 output over the (T-1)*B rows at a
+    one-frame offset: dwh's function on the same bf16 operands."""
+    H = ys.shape[2]
+    a = (ys[1:] if rev else ys[:-1]).reshape(-1, H).to(torch.bfloat16)
+    c = (dxw[:-1] if rev else dxw[1:]).reshape(-1, 4 * H).to(torch.bfloat16)
+    return torch.mm(a.T, c, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", list(WIDE_DIRS))
+def test_f2_wide_gates_gemm_matches_plain(dev, shape, stream, which):
+    """bptt_gates_gemm_wide against bptt_gates_ref within 1e-5 of the
+    largest magnitude (the same bf16 products, f32 sums in another order)
+    and against the FMA form on the same inputs; the edge frame's rows are
+    f32(xw) exactly; two runs, the same bits; one launch a call, counted."""
+    B, T, H = shape
+    ops = _wide_operands(dev, B, T, H, stream, seed=B + T + H)
+    dirs = [(x, w, ys, r) for (x, w, ys, _), r in zip(ops, WIDE_DIRS[which])]
+    before = (lstm_cuda.GATES_GEMM_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES)
+    with torch.no_grad():
+        runs = [_gates(dev, dirs, B, T, H, stream) for _ in range(2)]
+        others = [_gates(dev, dirs, B, T, H, stream, gemm="fma")]
+    torch.cuda.synchronize()
+    assert (lstm_cuda.GATES_GEMM_LAUNCHES,
+            lstm_cuda.GATES_WIDE_LAUNCHES) == (before[0] + 3, before[1] + 2)
+    for k, (x, w, ys, r) in enumerate(dirs):
+        pre = runs[0][k]
+        assert pre.shape == (T, B, 4 * H) and pre.dtype == torch.float32
+        ref = lstm_cuda.bptt_gates_ref(x, ys, w, reverse=r,
+                                       dtype=torch.bfloat16)
+        assert _rel_err(pre, ref) <= 1e-5
+        for other in others:
+            assert _rel_err(pre, other[k]) <= 1e-5
+        edge = T - 1 if r else 0
+        assert torch.equal(pre[edge], x[edge].float())
+        assert torch.equal(pre, runs[1][k])
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", list(WIDE_DIRS))
+def test_f2_wide_dwh_matches_torch_mm(dev, shape, stream, which):
+    """dwh's wide tiles (the library's above H=512) against one torch.mm
+    of the same bf16 operands and against the 128 x 128 tiles within 1e-5
+    relative (f32 sums in another order), zeros at T = 1; two runs, the
+    same bits; one launch a call, counted."""
+    B, T, H = shape
+    ops = _wide_operands(dev, B, T, H, stream, seed=B * T + H)
+    dirs = [(ys, g, r) for (_, _, ys, g), r in zip(ops, WIDE_DIRS[which])]
+    before = lstm_cuda.DWH_LAUNCHES
+    with torch.no_grad():
+        runs = [lstm_cuda.lstm_dwh(dirs, torch.bfloat16) for _ in range(2)]
+        tiles = lstm_cuda.lstm_dwh(dirs, torch.bfloat16, design="tiles")
+    torch.cuda.synchronize()
+    assert lstm_cuda.DWH_LAUNCHES == before + 3
+    assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
+        1, H)] == "wide"
+    for k, (ys, g, r) in enumerate(dirs):
+        got = runs[0][k]
+        assert got.shape == (H, 4 * H) and got.dtype == torch.float32
+        assert torch.equal(got, runs[1][k])
+        if T == 1:
+            assert not got.abs().max().item()
+            assert not tiles[k].abs().max().item()
+            continue
+        assert _rel_err(got, _dwh_mm(ys, g, r)) <= 1e-5
+        assert _rel_err(got, tiles[k]) <= 1e-5
+
+
+def test_f2_wide_designs_named_at_flagship_match(dev):
+    """At the flagship's B=32, T=512, H=512 (where the library keeps dwh's
+    128 x 128 tiles) dwh's designs, named: dwh sums 16352 rows, where f32
+    orders part by about 1e-5, so each design is held to the exact sum
+    (f64 products of the bf16 values): within
+    1e-5 of it, or no further from it than one torch.mm of the same
+    operands; the gate GEMM within 1e-5 relative of bptt_gates_ref."""
+    B, T, H = 32, 512, 512
+    ops = _wide_operands(dev, B, T, H, torch.bfloat16, seed=5)
+    gdirs = [(x, w, ys, r) for (x, w, ys, _), r in zip(ops, (False, True))]
+    ddirs = [(ys, g, r) for (_, _, ys, g), r in zip(ops, (False, True))]
+    with torch.no_grad():
+        pre = _gates(dev, gdirs, B, T, H, torch.bfloat16)
+        dwh = {d: lstm_cuda.lstm_dwh(ddirs, torch.bfloat16, design=d)
+               for d in lstm_cuda.DWH_DESIGNS}
+    for p, (x, w, ys, r) in zip(pre, gdirs):
+        assert _rel_err(p, lstm_cuda.bptt_gates_ref(
+            x, ys, w, reverse=r, dtype=torch.bfloat16)) <= 1e-5
+    for k, (ys, g, r) in enumerate(ddirs):
+        a = (ys[1:] if r else ys[:-1]).reshape(-1, H).double()
+        c = (g[:-1] if r else g[1:]).reshape(-1, 4 * H).double()
+        exact = (a.T @ c).float()
+        library = _rel_err(_dwh_mm(ys, g, r), exact)
+        for design, got in dwh.items():
+            assert _rel_err(got[k], exact) <= max(1e-5, library), design
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

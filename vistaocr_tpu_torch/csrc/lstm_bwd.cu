@@ -37,15 +37,30 @@
 // - The gate recompute is not on the recurrence's chain: its h_prev is
 //   the SAVED ys row of the forward, all known before the backward
 //   starts. Only dgates(t) -> dh -> dgates(t-1) is sequential.
-// - bf16 W (type codes 1 and 2): two launches per call.
-//   bptt_gates_gemm recomputes the gates of every frame as one GEMM, pre
-//   [T*B, 4H] f32 = f32(xw) + round_W(ys shifted one frame) @ wh (the
-//   edge frame's rows read zeros): 128 x 128 tiles, a producer warp
-//   keeping a 4-stage ring full by TMA (bf16 streams; a tile that starts
-//   before the first ys row, and f32 streams, are loaded by the producer
-//   warpgroup and rounded to bf16 at the store), two consumer warpgroups
-//   of wgmma.m64n128k16 (A = ys rows K-major, B = wh rows MN-major), the
-//   epilogue adding f32(xw). Then lstm_bwd_persistent walks all T frames
+// - bf16 W (type codes 1 and 2): the gates of every frame recomputed as
+//   one GEMM on the tensor cores, pre [T*B, 4H] f32 = f32(xw) +
+//   round_W(ys shifted one frame) @ wh (the edge frame's rows read
+//   zeros), by bptt_gates_gemm_wide: its operands are bf16 values (the
+//   TPU kernel's jnp.dot(h.astype(dtype), wh) is a bf16 product with f32
+//   accumulation, which is what wgmma computes). At B=32, T=512 the
+//   product's FLOP bound and its bytes bound (xw, ys, wh in, pre out) are
+//   of one size (0.131 ms of bytes against 0.069 of products at H=512;
+//   0.26 against 0.265 at F2's H=1000), so the stream of pre has to run
+//   under the products: one CTA an SM walks 128 x 256 tiles, columns
+//   fastest; a producer warp's TMA ring (3 stages of 48 KB: A = ys rows
+//   K-major, B = wh rows MN-major) runs across tile boundaries, so the
+//   next tile's first stages land during this tile's epilogue, and it
+//   brings the tile's bf16 xw (64 KB) by TMA during the main loop; two
+//   consumer warpgroups of wgmma.m64n256k16 add xw from shared memory
+//   (128B-swizzled: no bank conflicts in the fragment order) and store pre
+//   from the fragments (whole 32-byte sectors), and those stores drain
+//   under the next tile's wgmma. f32 streams, and rows TMA cannot describe,
+//   are loaded by the producer warpgroup and rounded at the store. The
+//   maps promote L2 fetches to 128 bytes on rows that are not whole
+//   128-byte lines. (It replaced a grid of 128 x 128 tiles, whose epilogue
+//   ran after its products, and, above H=512, the FMA form below: times
+//   on an NVIDIA H100 80GB HBM3 at 700 W in PERF.md.) Then, up to H=512,
+//   lstm_bwd_persistent walks all T frames
 //   in one launch: a thread-block cluster of ceil(H/32) CTAs (16 at
 //   H=512, a non-portable size checked with cudaOccupancyMaxActiveClusters)
 //   per direction and 32 batch rows; CTA r owns units 32r..32r+31 and
@@ -90,27 +105,45 @@
 //     cluster barrier, gather, product) per 32-row batch tile, at two
 //     CTAs an SM; past one batch tile that costs more than a second
 //     launch a frame and bptt_dh's small CTAs.
-//   Any H. Above H=512, bf16 weights (type codes 1 and 2) take this route
-//   too: the caller passes wh widened to f32 (exact), and with f32 streams
-//   (code 2) the products' operands, ys in the gate GEMM and dxw read back
-//   for dh, are rounded to bf16 where they are read (bf16 streams are bf16
-//   values already), so only the summation order differs.
+//   Any H.
+// - bf16 W above H=512 (type codes 1 and 2; F2): no cluster holds wh, so
+//   the frame loop is the f32-weight one above, reading wh widened to f32
+//   (exact; the caller passes both forms), with f32 streams (code 2) the
+//   dxw read back for dh rounded to bf16 (bf16 streams are bf16 values
+//   already), so only the summation order differs; the gate GEMM is
+//   bptt_gates_gemm_wide and dwh lstm_dwh_tc's 128 x 256 tiles (below).
 // - dwh is not summed frame by frame as on the TPU (where the kernel keeps
 //   it in VMEM across the grid): it is one product over K = (T-1)*B rows
 //   after the loop, taking ys and dxw at a one-frame offset (the rows of
 //   the edge frame, whose h_prev is zero, are left out). That is the same
 //   sum in another order, in f32. For a bf16 stream or weight type (where
-//   rounding to W makes both operands bf16 values) it is a warp-specialised
-//   wgmma GEMM: 128 x 128 output tiles (128 CTAs at H=512, both
-//   directions), two consumer warpgroups of wgmma.m64n128k16 reading both
-//   operands MN-major, one producer warp keeping a 4-stage ring of 64-row
-//   K tiles full with TMA (bf16 streams) or with loads rounded to bf16 at
-//   the shared-memory store (f32 streams, or rows TMA cannot describe).
+//   rounding to W makes both operands bf16 values) it is lstm_dwh_tc, a
+//   warp-specialised wgmma GEMM: one producer warp keeps a 4-stage ring of
+//   64-row K tiles full with TMA (bf16 streams) or the producer
+//   warpgroup's loads rounded to bf16 at the shared-memory store (f32
+//   streams, or rows TMA cannot describe), both operands MN-major, a CTA's
+//   rows summed in order in one accumulator chain. Its tiles are
+//   128 x 128 up to H=512 (one wave of 128 CTAs there) and 128 x 256
+//   above (dwh_design). At F2's H=1000 (B=32, T=512: 262 GFLOP for both
+//   directions) what bounds it is the L2: the rows (2000 and 8000 bytes)
+//   are not whole 128-byte lines, so a TMA box row spans two, and the
+//   128 x 128 grid's rate an SM falls as more SMs run, where on whole
+//   lines (H=1024) it holds.
+//   The wide tiles ask the L2 for a third fewer bytes and boxes a
+//   product, the grid runs the M tiles fastest so that the CTAs of a wave
+//   share dxw's columns, and the maps promote L2 fetches to 128 bytes on
+//   such rows, not 256 (times on an H100 in PERF.md). The wide tiles also
+//   split the rows into ranges of at most 4096, each summed by its own
+//   CTA: one accumulator chain over all 16352 rows of B=32, T=512 stood
+//   twice as far from the exact sum as cuBLAS at H=520. Each CTA stores
+//   its partial tile to a workspace and takes a ticket; the tile's last
+//   CTA adds the partials in split order and writes dwh (one launch, a
+//   fixed order).
 //   f32/f32 stays on the f32 FMA units, so that no TF32 rounding changes
 //   its numbers: 128 x 128 tiles, 8 x 8 per thread, double-buffered.
 // Ragged B, H and 4H edges read as zeros, so any B, T >= 1 and H >= 1;
 // every output element is written, and two runs give the same bits. Times
-// on an H100 are in PERF.md.
+// on an H100 (NVIDIA H100 80GB HBM3, 700 W) are in PERF.md.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
@@ -341,36 +374,70 @@ lstm_dwh_f32(DwhDir<float> d0, DwhDir<float> d1, long long R, int H,
   }
 }
 
-// bf16 operands (any stream type with bf16 W, or bf16 streams): 128 x 128
-// tiles of dwh on the tensor cores. A stage holds 64 contraction rows as
-// four [64 rows][64] boxes: a columns m0..m0+63 (warpgroup 0's M half),
-// m0+64..m0+127 (warpgroup 1's), c columns n0..n0+63 and n0+64..n0+127.
-// Both operands are MN-major: a row of a box is 64 M (or N) values.
+// bf16 operands (any stream type with bf16 W, or bf16 streams): tiles of
+// 128 x TN of dwh on the tensor cores (TN = 128 or 256), each consumer
+// warpgroup 64 x TN, one wgmma.m64n{TN}k16 a 16-deep step. A stage holds
+// 64 contraction rows as 64 x 64 boxes: two of a (columns m0..m0+63,
+// warpgroup 0's M half, and m0+64..m0+127, warpgroup 1's) and TN/64 of c
+// (columns n0..n0+TN-1). Both operands are MN-major: a row of a box is 64
+// M (or N) values.
 constexpr int GK = 64;
 constexpr int GSTAGES = 4;
 constexpr int GBOX = 64 * 128;
-constexpr int GSTAGE = 4 * GBOX;
 constexpr int GTHREADS = 384;  // consumer warpgroups 0, 1; producer 2
-constexpr int GSMEM = 1024 + GSTAGES * GSTAGE + 2 * GSTAGES * 8;
+constexpr int WN = 256;        // the wide tiles' N (dwh and the gate GEMM)
+constexpr int WSTAGE = 6 * GBOX;
+constexpr int TILES_MAX_H = 512;  // dwh_design's wide tiles are above it
+// The longest chain of stages one accumulator sums in the wide design
+// (4096 rows): the tensor cores' f32 accumulator loses more on each
+// addition than a round-to-nearest add, and one chain over the 16352 rows
+// of B=32, T=512 stood about twice as far from the exact sum as one
+// cuBLAS call at H=520 (chip_smoke.py's F2 phase, PERF.md).
+constexpr int DWH_CHAIN = 64;
+
+template <int TN>
+__host__ __device__ constexpr int dwh_stage() {
+  return (2 + TN / 64) * GBOX;
+}
+
+template <int TN>
+constexpr int dwh_smem() {
+  return 1024 + GSTAGES * dwh_stage<TN>() + 2 * GSTAGES * 8;
+}
 
 struct DwhMaps {
   CUtensorMap a[2];  // per direction: ys rows [R, H], 64 x 64 boxes
   CUtensorMap c[2];  // dxw rows [R, 4H]
 };
 
-template <typename S, bool kTma>
+// Grid (ceil(H/128), ceil(4H/TN), ndir * splits): the M tiles fastest, so
+// the CTAs that run together read the same columns of c, the larger
+// operand, and each c row is fetched into L2 about once a wave; the
+// contraction's split slowest, so that a wave sums one range of rows. The
+// 128 x 256 tiles split the rows into `splits` ranges (see DWH_CHAIN):
+// each CTA sums its range, stores that partial tile to `ws` and counts
+// itself in the tile's ticket; the tile's last CTA adds the partials in
+// split order (its own from registers) and writes dwh, so the order is
+// fixed whichever CTA ends last, and two runs give the same bits. (A sum
+// that stored its chains from inside the K loop, in one CTA, was slower:
+// an access to the accumulators there costs the wgmma pipeline.)
+template <typename S, bool kTma, int TN>
 __global__ void __launch_bounds__(GTHREADS, 1)
 lstm_dwh_tc(const __grid_constant__ DwhMaps maps, DwhDir<S> d0, DwhDir<S> d1,
-            int R, int H, int vec) {
-  const int dir = blockIdx.z;
+            int R, int H, int vec, int splits, float4* ws, int* tickets) {
+  constexpr int STAGE = dwh_stage<TN>();
+  const int ndir = gridDim.z / splits;
+  const int dir = blockIdx.z % ndir, split = blockIdx.z / ndir;
   const DwhDir<S> d = dir == 0 ? d0 : d1;
   extern __shared__ uint8_t dwh_raw[];
   uint8_t* sm = align1024(dwh_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + GSTAGES * GSTAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + GSTAGES * STAGE);
   uint64_t* empty = full + GSTAGES;
-  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * TN;
   const int G = 4 * H;
   const int nk = (R + GK - 1) / GK;
+  const int per = (nk + splits - 1) / splits;
+  const int k0 = split * per, k1 = min(nk, k0 + per);
   if (threadIdx.x == 0) {
     for (int s = 0; s < GSTAGES; ++s) {
       mbar_init(&full[s], kTma ? 1 : 128);
@@ -383,58 +450,108 @@ lstm_dwh_tc(const __grid_constant__ DwhMaps maps, DwhDir<S> d0, DwhDir<S> d1,
 
   if (wg == 2) {  // producer
     const int tid = threadIdx.x - 256;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % GSTAGES, n = kt / GSTAGES;
-      uint8_t* st = sm + s * GSTAGE;
+    for (int kt = k0; kt < k1; ++kt) {
+      const int s = (kt - k0) % GSTAGES, n = (kt - k0) / GSTAGES;
+      uint8_t* st = sm + s * STAGE;
       const int r0 = kt * GK;
       if constexpr (kTma) {
         if (tid != 0) break;
         if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], GSTAGE);
-        tma_load_2d(st, &maps.a[dir], &full[s], m0, r0);
-        tma_load_2d(st + GBOX, &maps.a[dir], &full[s], m0 + 64, r0);
-        tma_load_2d(st + 2 * GBOX, &maps.c[dir], &full[s], n0, r0);
-        tma_load_2d(st + 3 * GBOX, &maps.c[dir], &full[s], n0 + 64, r0);
+        mbar_arrive_expect_tx(&full[s], STAGE);
+        for (int h = 0; h < 2; ++h) {
+          tma_load_2d(st + h * GBOX, &maps.a[dir], &full[s], m0 + 64 * h, r0);
+        }
+        for (int c = 0; c < TN / 64; ++c) {
+          tma_load_2d(st + (2 + c) * GBOX, &maps.c[dir], &full[s],
+                      n0 + 64 * c, r0);
+        }
       } else {
         if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-        for (int h = 0; h < 2; ++h) {
-          fill_tile<S>(st + h * GBOX, 64, d.a, H, r0, R, m0 + 64 * h, H, 1,
-                       vec, tid, 128);
-          fill_tile<S>(st + (2 + h) * GBOX, 64, d.c, G, r0, R, n0 + 64 * h, G,
-                       1, vec, tid, 128);
-        }
+        fill_tile<S>(st, 64, d.a, H, r0, R, m0, H, 2, vec, tid, 128);
+        fill_tile<S>(st + 2 * GBOX, 64, d.c, G, r0, R, n0, G, TN / 64, vec,
+                     tid, 128);
         cp_async_wait_all();
         fence_proxy_async();
         mbar_arrive(&full[s]);
       }
     }
   } else {  // consumers: rows m0 + 64*wg .. +63 of the tile
-    float acc[64];
+    float acc[TN / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % GSTAGES;
-      mbar_wait(&full[s], (kt / GSTAGES) & 1);
-      const uint32_t a = smem_u32(sm + s * GSTAGE + wg * GBOX);
-      const uint32_t b = smem_u32(sm + s * GSTAGE + 2 * GBOX);
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.0f;
+    for (int kt = k0; kt < k1; ++kt) {
+      const int s = (kt - k0) % GSTAGES;
+      mbar_wait(&full[s], ((kt - k0) / GSTAGES) & 1);
+      const uint32_t a = smem_u32(sm + s * STAGE + wg * GBOX);
+      const uint32_t b = smem_u32(sm + s * STAGE + 2 * GBOX);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < GK / 16; ++j) {  // 16 rows = two 8-row atoms
         // MN-major: LBO steps between 64-wide M/N blocks, SBO between
         // 8-row groups of the contraction
-        wgmma_m64n128<1, 1>(acc, wgmma_desc(a + j * 2048, GBOX, 1024),
-                            wgmma_desc(b + j * 2048, GBOX, 1024));
+        if constexpr (TN == 128) {
+          wgmma_m64n128<1, 1>(acc, wgmma_desc(a + j * 2048, GBOX, 1024),
+                              wgmma_desc(b + j * 2048, GBOX, 1024));
+        } else {
+          wgmma_m64n256<1, 1>(acc, wgmma_desc(a + j * 2048, GBOX, 1024),
+                              wgmma_desc(b + j * 2048, GBOX, 1024), 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous stage's products are done
-      if (kt > 0 && threadIdx.x % 128 == 0) {
-        mbar_arrive(&empty[(kt - 1) % GSTAGES]);
+      if (kt > k0 && threadIdx.x % 128 == 0) {
+        mbar_arrive(&empty[(kt - k0 - 1) % GSTAGES]);
       }
     }
     wgmma_wait<0>();
+    if constexpr (TN == WN) {
+      if (splits > 1) {
+        __shared__ int last;
+        // partial tiles as float4s, a thread's j-th at [j][thread]
+        const long long tile =
+            ((long long)dir * gridDim.y + blockIdx.y) * gridDim.x +
+            blockIdx.x;
+        const int ct = threadIdx.x;  // 0..255, the consumer threads
+        const float4* base = ws + tile * splits * (TN / 8) * 256 + ct;
+        float4* mine = ws + (tile * splits + split) * (TN / 8) * 256 + ct;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          mine[j * 256] = make_float4(acc[4 * j], acc[4 * j + 1],
+                                      acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        __threadfence();
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");  // consumers only
+        if (ct == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (!last) return;
+        __threadfence();
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int q = 0; q < splits; ++q) {
+            const float4 p =
+                q == split ? make_float4(acc[4 * j], acc[4 * j + 1],
+                                         acc[4 * j + 2], acc[4 * j + 3])
+                           : __ldcg(base + (q * (TN / 8) + j) * 256);
+            if (q == 0) {
+              v = p;
+            } else {
+              v.x += p.x;
+              v.y += p.y;
+              v.z += p.z;
+              v.w += p.w;
+            }
+          }
+          acc[4 * j] = v.x;
+          acc[4 * j + 1] = v.y;
+          acc[4 * j + 2] = v.z;
+          acc[4 * j + 3] = v.w;
+        }
+      }
+    }
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
       for (int q = 0; q < 4; q += 2) {
         const int k = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * (q / 2);
@@ -478,7 +595,7 @@ EncodeTiled encode_tiled() {
 // a [rows, cols] row-major bf16 matrix in 64 x 64 boxes, 128B swizzle;
 // boxes past the edges read as zeros
 cudaError_t encode_rows(CUtensorMap* map, const void* base, long long cols,
-                        long long rows) {
+                        long long rows, CUtensorMapL2promotion promotion) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
@@ -489,28 +606,108 @@ cudaError_t encode_rows(CUtensorMap* map, const void* base, long long cols,
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_SWIZZLE_128B, promotion,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename S, bool kTma>
+// the tickets' bytes, rounded up so that the partial tiles behind them
+// are 16-byte aligned
+inline long long dwh_ticket_bytes(long long tiles) {
+  return (tiles * 4 + 15) / 16 * 16;
+}
+
+template <typename S, bool kTma, int TN>
 cudaError_t launch_dwh_tc(const DwhMaps& maps, const DwhDir<S>* d, int R,
-                          int H, int vec, dim3 grid, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      lstm_dwh_tc<S, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GSMEM);
+                          int H, int ndir, int vec, int splits, void* work,
+                          cudaStream_t stream) {
+  constexpr int smem = dwh_smem<TN>();
+  auto kernel = lstm_dwh_tc<S, kTma, TN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  lstm_dwh_tc<S, kTma><<<grid, GTHREADS, GSMEM, stream>>>(maps, d[0], d[1], R,
-                                                         H, vec);
+  const long long nt = (4LL * H + TN - 1) / TN, mt = (H + 127) / 128;
+  if (nt > 65535 || (long long)splits * ndir > 65535 ||
+      (splits > 1 && (TN != WN || work == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  int* tickets = nullptr;
+  float4* ws = nullptr;
+  if (splits > 1) {
+    const long long tiles = ndir * nt * mt;
+    tickets = static_cast<int*>(work);
+    ws = reinterpret_cast<float4*>(static_cast<char*>(work) +
+                                   dwh_ticket_bytes(tiles));
+    err = cudaMemsetAsync(tickets, 0, sizeof(int) * tiles, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>(mt), static_cast<unsigned>(nt),
+                  splits * ndir);
+  kernel<<<grid, GTHREADS, smem, stream>>>(maps, d[0], d[1], R, H, vec,
+                                           splits, ws, tickets);
   return cudaGetLastError();
 }
 
+template <typename S, bool kTma>
+cudaError_t launch_dwh(const DwhMaps& maps, const DwhDir<S>* d, int R, int H,
+                       int ndir, int vec, bool wide, int splits, void* work,
+                       cudaStream_t stream) {
+  return wide ? launch_dwh_tc<S, kTma, WN>(maps, d, R, H, ndir, vec, splits,
+                                           work, stream)
+              : launch_dwh_tc<S, kTma, 128>(maps, d, R, H, ndir, vec, splits,
+                                            work, stream);
+}
+
+// The TMA maps' L2 promotion: 128 bytes where the rows are not whole
+// 128-byte lines (H % 64 != 0), where a box row spans two lines and the
+// wider promotion costs lstm_dwh_tc and bptt_gates_gemm_wide time
+// (profile_lstm_bwd_gemms.py; PERF.md); 256 elsewhere.
+inline CUtensorMapL2promotion l2_promotion(int H) {
+  return H % 64 != 0 ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B
+                     : CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+}
+
+// dwh's designs for bf16 operands: lstm_dwh_tc in 128 x 128 tiles
+// (DWH_TILES) or 128 x 256 (DWH_WIDE). The library's (dwh_design, chosen
+// on an H100: PERF.md): the 128 x 128 tiles up to H=512, where the wide
+// grid would leave half the SMs idle (64 CTAs at H=512); the wide tiles
+// above it, which ask for a third fewer L2 bytes a product.
+constexpr int DWH_TILES = 0;
+constexpr int DWH_WIDE = 1;
+inline int dwh_design(int H) {
+  return H > TILES_MAX_H ? DWH_WIDE : DWH_TILES;
+}
+
+// The wide design splits the contraction of R rows into ranges of at
+// most DWH_CHAIN stages, each summed by its own CTA; the 128 x 128 tiles
+// keep one (at the flagship's H=512 they stand as near the exact sum as
+// cuBLAS, and a split would cost them their one wave).
+inline int dwh_splits(int design, long long R) {
+  const long long nk = (R + GK - 1) / GK;
+  return design == DWH_WIDE && nk > DWH_CHAIN
+             ? static_cast<int>((nk + DWH_CHAIN - 1) / DWH_CHAIN)
+             : 1;
+}
+
+// The workspace a bf16 design needs (bytes; 0 with one split): a ticket a
+// tile, then a partial tile a split.
+long long dwh_workspace(int design, int T, int B, int H, int ndir) {
+  const int splits = dwh_splits(design, (long long)(T - 1) * B);
+  if (splits == 1) return 0;
+  const long long tiles = ndir * ((4LL * H + WN - 1) / WN) * ((H + 127) / 128);
+  return dwh_ticket_bytes(tiles) + tiles * splits * 128LL * WN * 4;
+}
+
 template <typename S, typename W>
-int run_dwh(int T, int B, int H, int ndir, const void* const* ys,
+int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
             const void* const* dxw, void* const* dwh, const int* reverse,
-            cudaStream_t stream) {
+            void* work, cudaStream_t stream) {
+  constexpr bool f32 =
+      std::is_same<S, float>::value && std::is_same<W, float>::value;
+  if (design < -1 || design > DWH_WIDE || (f32 && design != -1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (design == -1) design = dwh_design(H);
   DwhDir<S> d[2];
   const long long BH = (long long)B * H;
   const long long R = (long long)(T - 1) * B;
@@ -537,8 +734,7 @@ int run_dwh(int T, int B, int H, int ndir, const void* const* ys,
   for (int i = 0; i < ndir; ++i) {
     aligned = aligned && aligned16(d[i].a) && aligned16(d[i].c);
   }
-  if constexpr (std::is_same<S, float>::value &&
-                std::is_same<W, float>::value) {
+  if constexpr (f32) {
     const int vec = aligned && H % 4 == 0;  // rows of whole float4s
     const dim3 grid((G + FN - 1) / FN, (H + FM - 1) / FM, ndir);
     lstm_dwh_f32<<<grid, FTHREADS, 0, stream>>>(d[0], d[1], R, H, vec);
@@ -546,30 +742,35 @@ int run_dwh(int T, int B, int H, int ndir, const void* const* ys,
   } else {
     if (R > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const int vec = aligned && H % 8 == 0;  // rows of whole 8-value chunks
-    const dim3 grid((G + 127) / 128, (H + 127) / 128, ndir);
+    const bool wide = design == DWH_WIDE;
+    const int splits = dwh_splits(design, R);
+    const CUtensorMapL2promotion promo = l2_promotion(H);
     DwhMaps maps = {};
     if constexpr (std::is_same<S, bf16>::value) {
       if (vec) {  // TMA: bf16 rows whose strides and bases are 16-byte aligned
         for (int i = 0; i < ndir; ++i) {
-          cudaError_t err = encode_rows(&maps.a[i], d[i].a, H, R);
-          if (err == cudaSuccess) err = encode_rows(&maps.c[i], d[i].c, G, R);
+          cudaError_t err = encode_rows(&maps.a[i], d[i].a, H, R, promo);
+          if (err == cudaSuccess) {
+            err = encode_rows(&maps.c[i], d[i].c, G, R, promo);
+          }
           if (err != cudaSuccess) return static_cast<int>(err);
         }
         if (ndir == 1) {
           maps.a[1] = maps.a[0];
           maps.c[1] = maps.c[0];
         }
-        return static_cast<int>(launch_dwh_tc<S, true>(
-            maps, d, static_cast<int>(R), H, vec, grid, stream));
+        return static_cast<int>(launch_dwh<S, true>(
+            maps, d, static_cast<int>(R), H, ndir, vec, wide, splits, work,
+            stream));
       }
     }
-    return static_cast<int>(launch_dwh_tc<S, false>(
-        maps, d, static_cast<int>(R), H, vec, grid, stream));
+    return static_cast<int>(launch_dwh<S, false>(
+        maps, d, static_cast<int>(R), H, ndir, vec, wide, splits, work,
+        stream));
   }
 }
 
-// --- bf16 weights: the gate recompute as one GEMM, the frames as one
-// persistent launch -----------------------------------------------------------
+// --- bf16 weights: the gate recompute as one persistent GEMM ----------------
 
 // pre[r][n] = f32(xw[r][n]) + sum_k round_W(ys[r + off][k]) * wh[k][n] over
 // the R = T*B rows of one direction; ys rows outside [0, R) read as zeros
@@ -582,37 +783,102 @@ struct GatesDir {
   long long off;   // -B (forward: h_prev = ys[t-1]) or +B (reverse: ys[t+1])
 };
 
-struct GatesMaps {
+// bptt_gates_gemm_wide, for bf16 W at every H. Where the time goes: at
+// B=32, T=512, H=1000 (F2) the product is
+// 262 GFLOP for both directions and pre alone 524 MB of f32, so the bytes
+// bound (xw, ys, wh in, pre out: 0.26 ms) and the FLOP bound (0.265 ms) are
+// about equal, and the epilogue's stream has to run under the next tile's
+// products. So: one CTA an SM walks the tiles (128 rows x 256 columns,
+// columns fastest, so a wave shares its ys rows and all of wh in L2); the
+// producer keeps a 3-stage ring of 48 KB stages full by TMA across tile
+// boundaries, so the next tile's first stages land during this tile's
+// epilogue, and brings this tile's xw (bf16, 64 KB, 128B-swizzled) by TMA
+// during its main loop; the consumers add it from shared memory (bank-
+// conflict free in the fragment order) and store pre straight from the
+// fragments (8 rows x 32 bytes a warp store: whole sectors), and those
+// stores drain under the next tile's wgmma.
+// Tiles never start before the first ys row: a direction's rows are split
+// into its inner rows, which have a predecessor frame (forward: rows
+// B..R-1 read ys row r - B; reverse: rows 0..R-B-1 read row r + B), tiled
+// from the region's first row, and the edge frame's B rows (pre = f32(xw),
+// no product), tiled last.
+struct GatesWideMaps {
   CUtensorMap a[2];  // per direction: ys rows [R, H], 64 x 64 boxes
   CUtensorMap b[2];  // wh rows [H, 4H]
+  CUtensorMap x[2];  // xw rows [R, 4H] (bf16 streams)
 };
 
-// 128 x 128 tiles of pre, the same ring as lstm_dwh_tc: a stage holds 64
-// contraction columns as four 64 x 64 boxes, A (ys rows, K-major: a row of
-// the box is 64 K values) for rows m0..m0+63 and m0+64..m0+127, B (wh
-// rows, MN-major) for columns n0..n0+63 and n0+64..n0+127.
+constexpr int GW_STAGES = 3;
+constexpr int GW_XW = 8 * GBOX;  // xw tile: 2 row halves x 4 column boxes
+
+template <bool kTma>
+constexpr int gates_wide_smem() {
+  return 1024 + GW_STAGES * WSTAGE + (kTma ? GW_XW : 0) +
+         (2 * GW_STAGES + 2) * 8;
+}
+
+struct WideTile {
+  int dir;
+  int nk;   // contraction stages; 0 for an edge tile
+  int m0;   // first pre row
+  int a0;   // first ys row (inner tiles)
+  int end;  // the region's end row: rows from it on are not stored
+  int n0;   // first column
+};
+
+// tile t: the inner tiles of direction 0, then of direction 1, then the
+// edge tiles of each, columns fastest
+__device__ __forceinline__ WideTile wide_tile(int t, int ndir, int R, int B,
+                                              int nk, int nt, int mi, int me,
+                                              const GatesDir& d0,
+                                              const GatesDir& d1) {
+  WideTile w;
+  const int inner = ndir * mi * nt;
+  const bool edge = t >= inner;
+  const int per = edge ? me * nt : mi * nt;
+  const int u = edge ? t - inner : t;
+  w.dir = u / per;
+  const int m = (u % per) / nt;
+  w.n0 = (u % nt) * WN;
+  const bool rev = (w.dir == 0 ? d0 : d1).off > 0;
+  if (!edge) {
+    w.nk = nk;
+    w.m0 = (rev ? 0 : B) + 128 * m;
+    w.a0 = (rev ? B : 0) + 128 * m;
+    w.end = rev ? R - B : R;
+  } else {
+    w.nk = 0;
+    w.m0 = (rev ? R - B : 0) + 128 * m;
+    w.a0 = 0;
+    w.end = rev ? R : B;
+  }
+  return w;
+}
+
 template <typename S, bool kTma>
 __global__ void __launch_bounds__(GTHREADS, 1)
-bptt_gates_gemm(const __grid_constant__ GatesMaps maps, GatesDir d0,
-                GatesDir d1, int R, int H, int vec) {
-  const int dir = blockIdx.z;
-  const GatesDir d = dir == 0 ? d0 : d1;
-  extern __shared__ uint8_t gg_raw[];
-  uint8_t* sm = align1024(gg_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + GSTAGES * GSTAGE);
-  uint64_t* empty = full + GSTAGES;
-  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
+                     GatesDir d1, int R, int B, int H, int ndir, int vec) {
+  extern __shared__ uint8_t gw_raw[];
+  uint8_t* sm = align1024(gw_raw);
+  uint8_t* xs = sm + GW_STAGES * WSTAGE;  // the tile's xw (kTma)
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(xs + (kTma ? GW_XW : 0));
+  uint64_t* empty = full + GW_STAGES;
+  uint64_t* xw_full = empty + GW_STAGES;
+  uint64_t* xw_empty = xw_full + 1;
   const int G = 4 * H;
   const int nk = (H + GK - 1) / GK;
-  const long long a0 = m0 + d.off;  // ys row of the tile's first row
-  // TMA zero-fills rows past the tensor's end; a tile that starts before
-  // its first row (the forward direction's edge frame) is filled by hand
-  const bool tma = kTma && a0 >= 0;
+  const int nt = (G + WN - 1) / WN;
+  const int mi = (R - B + 127) / 128, me = (B + 127) / 128;
+  const int tiles = ndir * (mi + me) * nt;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < GSTAGES; ++s) {
-      mbar_init(&full[s], tma ? 1 : 128);
+    for (int s = 0; s < GW_STAGES; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 128);
       mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
+    mbar_init(xw_full, 1);
+    mbar_init(xw_empty, 256);  // every consumer thread, after its reads
     mbar_fence_init();
   }
   __syncthreads();
@@ -620,95 +886,155 @@ bptt_gates_gemm(const __grid_constant__ GatesMaps maps, GatesDir d0,
 
   if (wg == 2) {  // producer
     const int tid = threadIdx.x - 256;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % GSTAGES, n = kt / GSTAGES;
-      uint8_t* st = sm + s * GSTAGE;
-      const int k0 = kt * GK;
-      if (tma) {
-        if (tid != 0) break;
-        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], GSTAGE);
-        tma_load_2d(st, &maps.a[dir], &full[s], k0, static_cast<int>(a0));
-        tma_load_2d(st + GBOX, &maps.a[dir], &full[s], k0,
-                    static_cast<int>(a0) + 64);
-        tma_load_2d(st + 2 * GBOX, &maps.b[dir], &full[s], n0, k0);
-        tma_load_2d(st + 3 * GBOX, &maps.b[dir], &full[s], n0 + 64, k0);
-      } else {
-        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-        for (int h = 0; h < 2; ++h) {
-          fill_tile<S>(st + h * GBOX, 64, static_cast<const S*>(d.ys), H,
-                       a0 + 64 * h, R, k0, H, 1, vec, tid, 128);
-          fill_tile<bf16>(st + (2 + h) * GBOX, 64, d.wh, G, k0, H,
-                          n0 + 64 * h, G, 1, vec, tid, 128);
+    if (kTma && tid != 0) return;
+    int pc = 0;  // stages produced, over all of this CTA's tiles
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+      const WideTile w = wide_tile(t, ndir, R, B, nk, nt, mi, me, d0, d1);
+      const GatesDir d = w.dir == 0 ? d0 : d1;
+      const int nx = w.nk < GW_STAGES ? w.nk : GW_STAGES;
+      for (int kt = 0; kt <= w.nk; ++kt) {
+        if (kTma && kt == nx) {
+          // this tile's xw, once the consumers have read the last tile's:
+          // after the first ring's worth of stages, which the consumers
+          // take during the last tile's epilogue
+          if (it > 0) mbar_wait(xw_empty, (it - 1) & 1);
+          mbar_arrive_expect_tx(xw_full, GW_XW);
+          for (int h = 0; h < 2; ++h) {
+            for (int c = 0; c < 4; ++c) {
+              tma_load_2d(xs + (4 * h + c) * GBOX, &maps.x[w.dir], xw_full,
+                          w.n0 + 64 * c, w.m0 + 64 * h);
+            }
+          }
         }
-        cp_async_wait_all();
-        fence_proxy_async();
-        mbar_arrive(&full[s]);
+        if (kt == w.nk) break;
+        const int s = pc % GW_STAGES, n = pc / GW_STAGES;
+        ++pc;
+        uint8_t* st = sm + s * WSTAGE;
+        const int k0 = kt * GK;
+        if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
+        if constexpr (kTma) {
+          mbar_arrive_expect_tx(&full[s], WSTAGE);
+          for (int h = 0; h < 2; ++h) {
+            tma_load_2d(st + h * GBOX, &maps.a[w.dir], &full[s], k0,
+                        w.a0 + 64 * h);
+          }
+          for (int c = 0; c < 4; ++c) {
+            tma_load_2d(st + (2 + c) * GBOX, &maps.b[w.dir], &full[s],
+                        w.n0 + 64 * c, k0);
+          }
+        } else {
+          for (int h = 0; h < 2; ++h) {
+            fill_tile<S>(st + h * GBOX, 64, static_cast<const S*>(d.ys), H,
+                         w.a0 + 64 * h, R, k0, H, 1, vec, tid, 128);
+          }
+          fill_tile<bf16>(st + 2 * GBOX, 64, d.wh, G, k0, H, w.n0, G, 4, vec,
+                          tid, 128);
+          cp_async_wait_all();
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
+        }
       }
     }
-  } else {  // consumers: rows m0 + 64*wg .. +63 of the tile
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % GSTAGES;
-      mbar_wait(&full[s], (kt / GSTAGES) & 1);
-      const uint32_t a = smem_u32(sm + s * GSTAGE + wg * GBOX);
-      const uint32_t b = smem_u32(sm + s * GSTAGE + 2 * GBOX);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < GK / 16; ++j) {
-        // A K-major: 16 columns = 32 bytes of each swizzled row; B
-        // MN-major: 16 contraction rows, LBO between the 64-wide N boxes
-        wgmma_m64n128<0, 1>(acc, wgmma_desc(a + j * 32, 16, 1024),
-                            wgmma_desc(b + j * 2048, GBOX, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done
-      if (kt > 0 && threadIdx.x % 128 == 0) {
-        mbar_arrive(&empty[(kt - 1) % GSTAGES]);
-      }
-    }
-    wgmma_wait<0>();
-    const S* xw = static_cast<const S*>(d.xw);
+  } else {  // consumers: rows m0 + 64*wg .. +63 of each tile
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[128];
+    int cc = 0;  // stages consumed
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+      const WideTile w = wide_tile(t, ndir, R, B, nk, nt, mi, me, d0, d1);
+      const GatesDir d = w.dir == 0 ? d0 : d1;
+      for (int kt = 0; kt < w.nk; ++kt, ++cc) {
+        const int s = cc % GW_STAGES;
+        mbar_wait(&full[s], (cc / GW_STAGES) & 1);
+        const uint32_t a = smem_u32(sm + s * WSTAGE + wg * GBOX);
+        const uint32_t b = smem_u32(sm + s * WSTAGE + 2 * GBOX);
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; q += 2) {
-        const long long r = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * (q / 2);
-        const int n = n0 + 8 * j + 2 * (lane % 4);
-        if (r < R && n < G) {  // G and n are even
-          const S* x = xw + r * G + n;
-          *reinterpret_cast<float2*>(&d.pre[r * G + n]) =
-              make_float2(acc[4 * j + q] + to_f32(x[0]),
-                          acc[4 * j + q + 1] + to_f32(x[1]));
+        for (int j = 0; j < GK / 16; ++j) {
+          // A K-major: 16 columns = 32 bytes of each swizzled row; B
+          // MN-major: 16 contraction rows, LBO between the 64-wide N boxes
+          wgmma_m64n256<0, 1>(acc, wgmma_desc(a + j * 32, 16, 1024),
+                              wgmma_desc(b + j * 2048, GBOX, 1024),
+                              kt > 0 || j > 0);  // a tile starts at zero
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kt > 0 && threadIdx.x % 128 == 0) {
+          mbar_arrive(&empty[(cc - 1) % GW_STAGES]);
         }
       }
+      wgmma_wait<0>();
+      if (w.nk > 0 && threadIdx.x % 128 == 0) {
+        mbar_arrive(&empty[(cc - 1) % GW_STAGES]);
+      }
+      if constexpr (kTma) mbar_wait(xw_full, it & 1);
+      const S* xw = static_cast<const S*>(d.xw);
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; q += 2) {
+          const int r = 16 * warp + lane / 4 + 8 * (q / 2);  // in the half
+          const long long row = w.m0 + 64 * wg + r;
+          const int n = w.n0 + 8 * j + 2 * (lane % 4);
+          float x0, x1;
+          if constexpr (kTma) {
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                xs + (4 * wg + j / 8) * GBOX + swz128(r, j % 8) +
+                4 * (lane % 4));
+            x0 = __uint_as_float(v << 16);
+            x1 = __uint_as_float(v & 0xffff0000u);
+          } else {
+            const bool ok = row < w.end && n < G;
+            const S* x = xw + (ok ? row * G + n : 0);
+            x0 = to_f32(x[0]);
+            x1 = to_f32(x[1]);
+          }
+          if (row < w.end && n < G) {  // G and n are even; an edge tile
+            const bool p = w.nk > 0;  // has no product
+            *reinterpret_cast<float2*>(&d.pre[row * G + n]) =
+                make_float2((p ? acc[4 * j + q] : 0.0f) + x0,
+                            (p ? acc[4 * j + q + 1] : 0.0f) + x1);
+          }
+        }
+      if constexpr (kTma) mbar_arrive(xw_empty);
+    }
   }
 }
 
 template <typename S, bool kTma>
-cudaError_t launch_gates_gemm(const GatesMaps& maps, const GatesDir* d, int R,
-                              int H, int vec, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_gates_wide(const GatesWideMaps& maps, const GatesDir* d,
+                              int R, int B, int H, int ndir, int vec,
+                              int tiles, cudaStream_t stream) {
+  constexpr int smem = gates_wide_smem<kTma>();
   const cudaError_t err = cudaFuncSetAttribute(
-      bptt_gates_gemm<S, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      GSMEM);
+      bptt_gates_gemm_wide<S, kTma>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  bptt_gates_gemm<S, kTma><<<grid, GTHREADS, GSMEM, stream>>>(maps, d[0], d[1],
-                                                             R, H, vec);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  const int grid = std::min(tiles, sms);  // one CTA an SM walks the tiles
+  bptt_gates_gemm_wide<S, kTma><<<grid, GTHREADS, smem, stream>>>(
+      maps, d[0], d[1], R, B, H, ndir, vec);
   return cudaGetLastError();
 }
 
 template <typename S>
-cudaError_t run_gates_gemm(int T, int B, int H, int ndir,
+cudaError_t run_gates_wide(int T, int B, int H, int ndir,
                            const void* const* xw, const void* const* wh,
                            const void* const* ys, float* const* pre,
                            const int* reverse, cudaStream_t stream) {
+  const CUtensorMapL2promotion promo = l2_promotion(H);
   const long long R = (long long)T * B;
-  if (R > 0x7fffff00LL || (R + 127) / 128 > 65535) {
-    return cudaErrorInvalidValue;
-  }
+  const int G = 4 * H;
+  const long long nt = (G + WN - 1) / WN;
+  const long long tiles =
+      ndir * ((R - B + 127) / 128 + (B + 127) / 128) * nt;
+  if (R > 0x7fffff00LL || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   GatesDir d[2];
   bool aligned = true;
   for (int i = 0; i < ndir; ++i) {
@@ -717,31 +1043,36 @@ cudaError_t run_gates_gemm(int T, int B, int H, int ndir,
     d[i].wh = static_cast<const bf16*>(wh[i]);
     d[i].pre = pre[i];
     d[i].off = reverse[i] ? B : -B;
-    aligned = aligned && aligned16(ys[i]) && aligned16(wh[i]);
+    aligned = aligned && aligned16(xw[i]) && aligned16(ys[i]) &&
+              aligned16(wh[i]);
   }
   if (ndir == 1) d[1] = d[0];
-  const int G = 4 * H;
   const int vec = aligned && H % 8 == 0;  // rows of whole 16-byte chunks
-  const dim3 grid((G + 127) / 128, static_cast<unsigned>((R + 127) / 128),
-                  ndir);
-  GatesMaps maps = {};
+  GatesWideMaps maps = {};
   if constexpr (std::is_same<S, bf16>::value) {
     if (vec) {
       for (int i = 0; i < ndir; ++i) {
-        cudaError_t err = encode_rows(&maps.a[i], d[i].ys, H, R);
-        if (err == cudaSuccess) err = encode_rows(&maps.b[i], d[i].wh, G, H);
+        cudaError_t err = encode_rows(&maps.a[i], d[i].ys, H, R, promo);
+        if (err == cudaSuccess) {
+          err = encode_rows(&maps.b[i], d[i].wh, G, H, promo);
+        }
+        if (err == cudaSuccess) {
+          err = encode_rows(&maps.x[i], d[i].xw, G, R, promo);
+        }
         if (err != cudaSuccess) return err;
       }
       if (ndir == 1) {
         maps.a[1] = maps.a[0];
         maps.b[1] = maps.b[0];
+        maps.x[1] = maps.x[0];
       }
-      return launch_gates_gemm<S, true>(maps, d, static_cast<int>(R), H, vec,
-                                        grid, stream);
+      return launch_gates_wide<S, true>(maps, d, static_cast<int>(R), B, H,
+                                        ndir, vec, static_cast<int>(tiles),
+                                        stream);
     }
   }
-  return launch_gates_gemm<S, false>(maps, d, static_cast<int>(R), H, vec,
-                                     grid, stream);
+  return launch_gates_wide<S, false>(maps, d, static_cast<int>(R), B, H, ndir,
+                                     vec, static_cast<int>(tiles), stream);
 }
 
 // The frame loop. Grid (C = ceil(H/32), ceil(B/32), ndir), cluster (C, 1,
@@ -752,6 +1083,7 @@ constexpr int BN = 32;           // batch rows per cluster (the wgmma N)
 constexpr int BTHREADS = 256;    // two warpgroups
 constexpr int BMAX_CLUSTER = 16;
 constexpr int BMAX_H = BU * BMAX_CLUSTER;
+static_assert(BMAX_H == TILES_MAX_H, "the wide designs serve F2's H");
 constexpr int BSLOT = BU * BN * 4;  // one sender's partial for one CTA: 4 KB
 
 // dg tile (two 64-column blocks of 32 rows, 128B-swizzled: 8 KB), two
@@ -1048,19 +1380,15 @@ cudaError_t launch_bwd_persistent(const BwdSeqDir<S>* d, const float* mask,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// bf16 W (type codes 1 and 2): bptt_gates_gemm into `pre`, then one
-// lstm_bwd_persistent launch for all T frames
+// bf16 W (type codes 1 and 2) up to H=512: the frame loop behind the gate
+// GEMM as one lstm_bwd_persistent launch for all T frames, on `pre`
 template <typename S>
-int run_bptt_persistent(int T, int B, int H, int ndir, const float* mask,
-                        const void* const* xw, const void* const* wh,
-                        const void* const* ys, const void* const* cs,
-                        const void* const* dys, void* const* dxw,
-                        float* const* pre, const int* reverse,
-                        cudaStream_t stream) {
-  if (H > BMAX_H) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      run_gates_gemm<S>(T, B, H, ndir, xw, wh, ys, pre, reverse, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
+                                const float* mask, const void* const* wh,
+                                const void* const* cs, const void* const* dys,
+                                void* const* dxw, float* const* pre,
+                                const int* reverse, cudaStream_t stream) {
+  if (H > BMAX_H) return cudaErrorInvalidValue;
   BwdSeqDir<S> d[2];
   int vec = H % 8 == 0;  // rows of pre, cs, dys in whole 16-byte chunks
   for (int i = 0; i < ndir; ++i) {
@@ -1075,13 +1403,11 @@ int run_bptt_persistent(int T, int B, int H, int ndir, const float* mask,
   if (ndir == 1) d[1] = d[0];
   const int csize = (H + BU - 1) / BU;
   if (csize <= 4) {
-    err = launch_bwd_persistent<S, 1>(d, mask, T, B, H, ndir, vec, stream);
+    return launch_bwd_persistent<S, 1>(d, mask, T, B, H, ndir, vec, stream);
   } else if (csize <= 8) {
-    err = launch_bwd_persistent<S, 2>(d, mask, T, B, H, ndir, vec, stream);
-  } else {
-    err = launch_bwd_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
+    return launch_bwd_persistent<S, 2>(d, mask, T, B, H, ndir, vec, stream);
   }
-  return static_cast<int>(err);
+  return launch_bwd_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
 }
 
 // --- f32 weights: the gate recompute as one GEMM on the FMA units, then one
@@ -1166,10 +1492,9 @@ __device__ __forceinline__ void gemm_f32_stage(S* as, float* bs,
   }
 }
 
-// An overload of the bf16 form's name, so that one profiler filter,
-// "bptt_gates_gemm<", finds the gate GEMM of either weight type. RT: the
-// type the ys operand is rounded to (float: none; bf16 for f32 streams with
-// bf16 weights widened to f32, type code 2 above H=512).
+// RT: the type the ys operand is rounded to (float: none; bf16 for f32
+// streams with bf16 weights widened to f32: type code 2, as F2 ran it
+// before bptt_gates_gemm_wide and as gemm 0 names it).
 template <typename S, typename RT>
 __global__ void __launch_bounds__(QTHREADS, 2)
 bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
@@ -1801,23 +2126,20 @@ inline void frame_at(int step, int T, int reverse, int* t, int* tp) {
   }
 }
 
-// f32 W (type codes 0 and 3; 1 and 2 above H=512, with wh widened):
-// bptt_gates_gemm into the front of scratch ([T, B, 4H] pre), then the
-// frame loop behind it: folded, one bptt_frame launch a frame with the
-// carries in [2][FR_PARTS + 1][B, H]; or split, bptt_cell and bptt_dh a
-// frame with the carries dh, dc in [2][B, H]. RT: the type the products'
-// operands (ys, and dxw read back) are rounded to: float, or bf16 for f32
-// streams with bf16 weights (bf16 streams are bf16 values already).
+// The f32-weight frame loop behind the gate GEMM, on the pre at the front
+// of scratch ([T, B, 4H]): folded, one bptt_frame launch a frame with the
+// carries in [2][FR_PARTS + 1][B, H] behind it; or split, bptt_cell and
+// bptt_dh a frame with the carries dh, dc in [2][B, H]. wh in f32 (bf16
+// weights widened). RT: the type the dh product's operand (dxw read back)
+// is rounded to: float, or bf16 for f32 streams with bf16 weights (bf16
+// streams are bf16 values already).
 template <typename S, typename RT>
-int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
-                 const void* const* xw, const void* const* wh,
-                 const void* const* ys, const void* const* cs,
+int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
+                 const void* const* wh, const void* const* cs,
                  const void* const* dys, void* const* dxw,
                  float* const* scratch, const int* reverse, int fold,
                  cudaStream_t stream) {
-  cudaError_t err = run_gates_gemm_f32<S, RT>(T, B, H, ndir, xw, wh, ys,
-                                              scratch, reverse, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
   const long long n_pre = (long long)T * B * 4 * H;
   if (!fold) {
     SplitDir<S> d[2];
@@ -1866,24 +2188,89 @@ int run_bptt_f32(int T, int B, int H, int ndir, const float* mask,
   return 0;
 }
 
-}  // namespace
+// The gate GEMM's designs: GEMM_FMA, bptt_gates_gemm's f32 form on the
+// FMA units (wh in f32: f32 weights, or bf16 ones widened); GEMM_WIDE,
+// bptt_gates_gemm_wide (bf16 wh: type codes 1 and 2 only).
+// The frame loop's: LOOP_SPLIT and LOOP_FOLD (wh in f32), LOOP_PERSISTENT
+// (bf16 wh; codes 1 and 2, H <= 512).
+constexpr int GEMM_FMA = 0;
+constexpr int GEMM_WIDE = 1;
+constexpr int LOOP_SPLIT = 0;
+constexpr int LOOP_FOLD = 1;
+constexpr int LOOP_PERSISTENT = 2;
 
-namespace {
+inline bool bf16_weights(int type_code) {
+  return type_code == 1 || type_code == 2;
+}
 
-// vo_lstm_bwd with the f32 frame loop's design named (fold); `persistent`:
-// codes 1 and 2 take the bf16-weight kernels (else the f32-weight route)
-int bwd(int type_code, bool persistent, int fold, int T, int B, int H,
-        int ndir,
-        const void* mask, const void* xw0, const void* wh0, const void* ys0,
-        const void* cs0, const void* dys0, void* dxw0, void* scratch0,
-        int reverse0, const void* xw1, const void* wh1, const void* ys1,
-        const void* cs1, const void* dys1, void* dxw1, void* scratch1,
-        int reverse1, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2) {
+// the library's designs (chosen on an H100, PERF.md): bf16 weights take
+// the wide gate GEMM at every H (at the flagship's H=512 too, where it
+// beats the 128 x 128 tiles: their epilogue does not overlap the products)
+inline int gates_design(int type_code, int H) {
+  return bf16_weights(type_code) ? GEMM_WIDE : GEMM_FMA;
+}
+
+inline int loop_design(int type_code, int B, int H) {
+  if (bf16_weights(type_code) && H <= BMAX_H) return LOOP_PERSISTENT;
+  return f32_folds(B) ? LOOP_FOLD : LOOP_SPLIT;
+}
+
+// pre{0,1} [T*B, 4H] f32 by the named design (wh: bf16 for the wgmma
+// designs, f32 for GEMM_FMA)
+cudaError_t run_gates(int design, int type_code, int T, int B, int H,
+                      int ndir, const void* const* xw, const void* const* wh,
+                      const void* const* ys, float* const* pre,
+                      const int* reverse, cudaStream_t s) {
+  if (design != GEMM_FMA && !bf16_weights(type_code)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (design) {
+    case GEMM_FMA:
+      switch (type_code) {
+        case 0:
+          return run_gates_gemm_f32<float, float>(T, B, H, ndir, xw, wh, ys,
+                                                  pre, reverse, s);
+        case 2:
+          return run_gates_gemm_f32<float, bf16>(T, B, H, ndir, xw, wh, ys,
+                                                 pre, reverse, s);
+        case 1:  // bf16 streams: every operand is a bf16 value, as in code 3
+        case 3:
+          return run_gates_gemm_f32<bf16, float>(T, B, H, ndir, xw, wh, ys,
+                                                 pre, reverse, s);
+      }
+      break;
+    case GEMM_WIDE:
+      return type_code == 1
+                 ? run_gates_wide<bf16>(T, B, H, ndir, xw, wh, ys, pre,
+                                        reverse, s)
+                 : run_gates_wide<float>(T, B, H, ndir, xw, wh, ys, pre,
+                                         reverse, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// vo_lstm_bwd with the designs named (-1: the library's): the gate GEMM
+// into the front of scratch, then the frame loop
+int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
+        const void* mask, const void* xw0, const void* wh0, const void* whf0,
+        const void* ys0, const void* cs0, const void* dys0, void* dxw0,
+        void* scratch0, int reverse0, const void* xw1, const void* wh1,
+        const void* whf1, const void* ys1, const void* cs1, const void* dys1,
+        void* dxw1, void* scratch1, int reverse1, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 || type_code < 0 ||
+      type_code > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (gemm == -1) gemm = gates_design(type_code, H);
+  if (loop == -1) loop = loop_design(type_code, B, H);
+  if (gemm < GEMM_FMA || gemm > GEMM_WIDE || loop < LOOP_SPLIT ||
+      loop > LOOP_PERSISTENT ||
+      (loop == LOOP_PERSISTENT && !bf16_weights(type_code))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* xw[2] = {xw0, xw1};
   const void* wh[2] = {wh0, wh1};
+  const void* whf[2] = {whf0, whf1};
   const void* ys[2] = {ys0, ys1};
   const void* cs[2] = {cs0, cs1};
   const void* dys[2] = {dys0, dys1};
@@ -1893,85 +2280,97 @@ int bwd(int type_code, bool persistent, int fold, int T, int B, int H,
   const int reverse[2] = {reverse0, reverse1};
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (persistent && type_code == 1) {
-    return run_bptt_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                     dxw, scratch, reverse, s);
+  cudaError_t err = run_gates(gemm, type_code, T, B, H, ndir, xw,
+                              gemm == GEMM_FMA ? whf : wh, ys, scratch,
+                              reverse, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (loop == LOOP_PERSISTENT) {
+    return static_cast<int>(
+        type_code == 1
+            ? run_loop_persistent<bf16>(T, B, H, ndir, m, wh, cs, dys, dxw,
+                                        scratch, reverse, s)
+            : run_loop_persistent<float>(T, B, H, ndir, m, wh, cs, dys, dxw,
+                                         scratch, reverse, s));
   }
-  if (persistent && type_code == 2) {
-    return run_bptt_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                      dxw, scratch, reverse, s);
-  }
+  const int fold = loop == LOOP_FOLD;
   switch (type_code) {
     case 0:
-      return run_bptt_f32<float, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                        dxw, scratch, reverse, fold, s);
+      return run_loop_f32<float, float>(T, B, H, ndir, m, whf, cs, dys, dxw,
+                                        scratch, reverse, fold, s);
     case 2:
-      return run_bptt_f32<float, bf16>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                       dxw, scratch, reverse, fold, s);
-    case 1:  // bf16 streams: every operand is a bf16 value, as in code 3
-    case 3:
-      return run_bptt_f32<bf16, float>(T, B, H, ndir, m, xw, wh, ys, cs, dys,
-                                       dxw, scratch, reverse, fold, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return run_loop_f32<float, bf16>(T, B, H, ndir, m, whf, cs, dys, dxw,
+                                       scratch, reverse, fold, s);
+    default:  // 1, 3: bf16 streams, every operand a bf16 value
+      return run_loop_f32<bf16, float>(T, B, H, ndir, m, whf, cs, dys, dxw,
+                                       scratch, reverse, fold, s);
   }
 }
 
 }  // namespace
 
 // The BPTT frames of one or two directions that share T, B, H, the types
-// and the mask. type_code as vo_lstm_fwd. Codes 1 and 2 with H <= 512
-// (wh in bf16) make two launches, bptt_gates_gemm and lstm_bwd_persistent,
-// and take scratch{0,1}: [T, B, 4H] f32 (the recomputed gates; any
-// contents). Every other call takes the f32-weight route (wh in f32; codes
-// 1 and 2 above H=512: the bf16 weights widened, the products' operands
-// rounded to bf16): bptt_gates_gemm, then a frame loop chosen by B
-// (vo_lstm_bwd_f32_folds): T bptt_frame launches (folded) or T bptt_cell
-// and T bptt_dh (split); it takes scratch{0,1}: [T*B*4H + 20*B*H] f32
-// (the gates, then the carries; any contents). Writes dxw{0,1} [T, B, 4H]
-// in S. Returns the first non-zero CUDA error of a launch, or 0.
+// and the mask. type_code as vo_lstm_fwd. Two stages, by the library's
+// designs: the gate GEMM (gates_design: f32 weights bptt_gates_gemm's FMA
+// form; bf16 weights, codes 1 and 2, bptt_gates_gemm_wide), then the
+// frame loop (loop_design:
+// bf16 weights up to H=512 one lstm_bwd_persistent launch; else by B,
+// vo_lstm_bwd_f32_folds: T bptt_frame launches, or T bptt_cell and T
+// bptt_dh). wh{0,1}: [H, 4H] in the weight type; whf{0,1}: the same in f32
+// (bf16 weights widened), which the FMA gate GEMM and the f32 frame loops
+// read (for f32 weights, wh again). scratch{0,1}: [T*B*4H] f32 (the
+// recomputed gates) for the persistent loop, [T*B*4H + 20*B*H] for the
+// f32 loops (the gates, then the carries); any contents. Writes dxw{0,1}
+// [T, B, 4H] in S. Returns the first non-zero CUDA error of a launch, or 0.
 extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
-                           const void* mask,
-                           const void* xw0, const void* wh0, const void* ys0,
-                           const void* cs0, const void* dys0, void* dxw0,
-                           void* scratch0, int reverse0,
-                           const void* xw1, const void* wh1, const void* ys1,
-                           const void* cs1, const void* dys1, void* dxw1,
-                           void* scratch1, int reverse1, void* stream) {
-  return bwd(type_code, H <= BMAX_H, f32_folds(B), T, B, H, ndir, mask, xw0,
-             wh0, ys0, cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1,
-             cs1, dys1, dxw1, scratch1, reverse1, stream);
+                           const void* mask, const void* xw0, const void* wh0,
+                           const void* whf0, const void* ys0, const void* cs0,
+                           const void* dys0, void* dxw0, void* scratch0,
+                           int reverse0, const void* xw1, const void* wh1,
+                           const void* whf1, const void* ys1, const void* cs1,
+                           const void* dys1, void* dxw1, void* scratch1,
+                           int reverse1, void* stream) {
+  return bwd(type_code, -1, -1, T, B, H, ndir, mask, xw0, wh0, whf0, ys0, cs0,
+             dys0, dxw0, scratch0, reverse0, xw1, wh1, whf1, ys1, cs1, dys1,
+             dxw1, scratch1, reverse1, stream);
 }
 
-// 1 when vo_lstm_bwd folds the f32 frame loop at batch size B, else 0.
+// vo_lstm_bwd with the designs named, so that each can be held to the
+// plain version and timed at any shape it takes: gemm 0 (FMA form), 1
+// (wide); loop 0 (bptt_cell + bptt_dh), 1 (bptt_frame), 2
+// (lstm_bwd_persistent); -1 the library's.
+// bf16 weights with gemm 0 and an f32 loop are the route they took above
+// H=512 before the wide GEMM.
+extern "C" int vo_lstm_bwd_named(
+    int gemm, int loop, int type_code, int T, int B, int H, int ndir,
+    const void* mask, const void* xw0, const void* wh0, const void* whf0,
+    const void* ys0, const void* cs0, const void* dys0, void* dxw0,
+    void* scratch0, int reverse0, const void* xw1, const void* wh1,
+    const void* whf1, const void* ys1, const void* cs1, const void* dys1,
+    void* dxw1, void* scratch1, int reverse1, void* stream) {
+  return bwd(type_code, gemm, loop, T, B, H, ndir, mask, xw0, wh0, whf0, ys0,
+             cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1, whf1, ys1, cs1,
+             dys1, dxw1, scratch1, reverse1, stream);
+}
+
+// 1 when the f32 frame loop folds at batch size B, else 0.
 extern "C" int vo_lstm_bwd_f32_folds(int B) { return f32_folds(B) ? 1 : 0; }
 
-// vo_lstm_bwd's f32-weight route with the frame loop's design named (fold
-// 1: bptt_frame; 0: bptt_cell + bptt_dh), so that both designs can be held
-// to the plain version and timed at any shape; any type code at any H
-// (codes 1 and 2: wh widened to f32, as vo_lstm_bwd takes it above H=512).
-extern "C" int vo_lstm_bwd_f32(int fold, int type_code, int T, int B, int H,
-                               int ndir, const void* mask,
-                               const void* xw0, const void* wh0,
-                               const void* ys0, const void* cs0,
-                               const void* dys0, void* dxw0, void* scratch0,
-                               int reverse0,
-                               const void* xw1, const void* wh1,
-                               const void* ys1, const void* cs1,
-                               const void* dys1, void* dxw1, void* scratch1,
-                               int reverse1, void* stream) {
-  return bwd(type_code, false, fold, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
-             dys0, dxw0, scratch0, reverse0, xw1, wh1, ys1, cs1, dys1, dxw1,
-             scratch1, reverse1, stream);
+// The gate GEMM design vo_lstm_bwd runs for type_code at H.
+extern "C" int vo_lstm_bwd_gates_design(int type_code, int H) {
+  return gates_design(type_code, H);
 }
 
 // dwh{0,1} [H, 4H] f32 from the saved ys and the dxw of vo_lstm_bwd, for
 // one or two directions; every element is written (zeros when T = 1).
-extern "C" int vo_lstm_dwh(int type_code, int T, int B, int H, int ndir,
-                           const void* ys0, const void* dxw0, void* dwh0,
-                           int reverse0,
-                           const void* ys1, const void* dxw1, void* dwh1,
-                           int reverse1, void* stream) {
+// design: for bf16 operands (type codes 1-3) 0 (lstm_dwh_tc's 128 x 128
+// tiles) or 1 (its 128 x 256 tiles), -1 the library's (vo_lstm_dwh_design);
+// code 0 takes lstm_dwh_f32 and only -1. workspace: vo_lstm_dwh_workspace
+// bytes, 16-byte aligned, any contents (null when that is 0).
+extern "C" int vo_lstm_dwh(int design, int type_code, int T, int B, int H,
+                           int ndir, const void* ys0, const void* dxw0,
+                           void* dwh0, int reverse0, const void* ys1,
+                           const void* dxw1, void* dwh1, int reverse1,
+                           void* workspace, void* stream) {
   if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1982,14 +2381,31 @@ extern "C" int vo_lstm_dwh(int type_code, int T, int B, int H, int ndir,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (type_code) {
     case 0:
-      return run_dwh<float, float>(T, B, H, ndir, ys, dxw, dwh, reverse, s);
+      return run_dwh<float, float>(design, T, B, H, ndir, ys, dxw, dwh,
+                                   reverse, workspace, s);
     case 1:
-      return run_dwh<bf16, bf16>(T, B, H, ndir, ys, dxw, dwh, reverse, s);
+      return run_dwh<bf16, bf16>(design, T, B, H, ndir, ys, dxw, dwh, reverse,
+                                 workspace, s);
     case 2:
-      return run_dwh<float, bf16>(T, B, H, ndir, ys, dxw, dwh, reverse, s);
+      return run_dwh<float, bf16>(design, T, B, H, ndir, ys, dxw, dwh,
+                                  reverse, workspace, s);
     case 3:
-      return run_dwh<bf16, float>(T, B, H, ndir, ys, dxw, dwh, reverse, s);
+      return run_dwh<bf16, float>(design, T, B, H, ndir, ys, dxw, dwh,
+                                  reverse, workspace, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The workspace (bytes) vo_lstm_dwh needs for the design (-1: the
+// library's) at type_code, T, B, H and ndir.
+extern "C" long long vo_lstm_dwh_workspace(int design, int type_code, int T,
+                                           int B, int H, int ndir) {
+  if (type_code == 0 || T < 1 || B < 1 || H < 1) return 0;
+  return dwh_workspace(design == -1 ? dwh_design(H) : design, T, B, H, ndir);
+}
+
+// The dwh design vo_lstm_dwh runs for type_code at H (-1: lstm_dwh_f32).
+extern "C" int vo_lstm_dwh_design(int type_code, int H) {
+  return type_code == 0 ? -1 : dwh_design(H);
 }

@@ -116,22 +116,29 @@ def _bind(lib) -> None:
     lib.vo_lstm_bwd.argtypes = [
         i, i, i, i, i,  # type_code, T, B, H, ndir
         p,  # mask
-        # direction 0: xw, wh, ys, cs, dys, dxw, scratch, reverse
-        p, p, p, p, p, p, p, i,
-        p, p, p, p, p, p, p, i,  # direction 1
+        # direction 0: xw, wh, wh in f32, ys, cs, dys, dxw, scratch, reverse
+        p, p, p, p, p, p, p, p, i,
+        p, p, p, p, p, p, p, p, i,  # direction 1
         p,  # stream
     ]
-    lib.vo_lstm_bwd_f32.restype = i
-    lib.vo_lstm_bwd_f32.argtypes = [i] + lib.vo_lstm_bwd.argtypes  # fold
+    lib.vo_lstm_bwd_named.restype = i
+    lib.vo_lstm_bwd_named.argtypes = [i, i] + lib.vo_lstm_bwd.argtypes  # gemm, loop
     lib.vo_lstm_bwd_f32_folds.restype = i
     lib.vo_lstm_bwd_f32_folds.argtypes = [i]  # B
+    lib.vo_lstm_bwd_gates_design.restype = i
+    lib.vo_lstm_bwd_gates_design.argtypes = [i, i]  # type_code, H
     lib.vo_lstm_dwh.restype = i
     lib.vo_lstm_dwh.argtypes = [
-        i, i, i, i, i,  # type_code, T, B, H, ndir
+        i, i, i, i, i, i,  # design, type_code, T, B, H, ndir
         p, p, p, i,  # direction 0: ys, dxw, dwh, reverse
         p, p, p, i,  # direction 1
+        p,  # workspace
         p,  # stream
     ]
+    lib.vo_lstm_dwh_workspace.restype = ctypes.c_longlong
+    lib.vo_lstm_dwh_workspace.argtypes = [i, i, i, i, i, i]  # design, type_code, T, B, H, ndir
+    lib.vo_lstm_dwh_design.restype = i
+    lib.vo_lstm_dwh_design.argtypes = [i, i]  # type_code, H
     lib.vo_ctc_alpha.restype = i
     lib.vo_ctc_alpha.argtypes = [
         i, i, i,  # T, B, S

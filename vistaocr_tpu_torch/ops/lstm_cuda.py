@@ -31,24 +31,37 @@ design does about it.
   ``FWD_GRID_LAUNCHES`` (of which f32 weights on ``lstm_fwd_grid``: one
   launch), ``STEP_LAUNCHES`` (f32 weights on ``lstm_step``: T a call),
   ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` (of which the
-  gate GEMM, either weight type: one launch), ``BWD_PERSISTENT_LAUNCHES``
-  (of which bf16 weights: one frame-loop launch), ``FRAME_LAUNCHES``,
-  ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (f32 weights: the per-frame
-  kernels, each counted T a call) and ``DWH_LAUNCHES`` (dwh reduction).
-  With bf16 weights a forward call is one kernel launch for all frames
-  (``lstm_fwd_persistent``) and a BPTT call two (``bptt_gates_gemm``:
-  every frame's gate recompute as one GEMM; ``lstm_bwd_persistent``: the
-  frame loop), H <= ``PERSISTENT_MAX_H``. Above that, bf16 weights take
-  the f32-weight kernels below, with wh widened to f32 (exact) and the
-  products' operands rounded to bf16 where the plain versions round them.
-  With f32 weights the forward is, by shape (``f32_forward_grid``, chosen
-  on an H100), one cooperative ``lstm_fwd_grid`` launch (a direction spread
-  over the card, each CTA's slice of wh on chip, h exchanged through L2
-  behind a frame counter; H=512 up to B=320) or one ``lstm_step`` launch
-  per frame; the BPTT is ``bptt_gates_gemm``'s f32 form on the FMA units,
-  then by B (``vo_lstm_bwd_f32_folds``): ``bptt_frame`` a frame (the cell
-  backward and the dh product in one launch; 1 + T launches, B <= 32) or
-  ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
+  gate GEMM, any design: one launch), ``GATES_WIDE_LAUNCHES`` (of which
+  ``bptt_gates_gemm_wide``),
+  ``BWD_PERSISTENT_LAUNCHES`` (of which the persistent frame loop: one
+  launch), ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
+  f32-weight frame loop's kernels, each counted T a call) and
+  ``DWH_LAUNCHES`` (dwh reduction).
+- Routes. bf16 weights: a BPTT call's gate GEMM (every frame's gate
+  recompute as one GEMM) is ``bptt_gates_gemm_wide``, persistent 128 x
+  256 wgmma tiles whose stores of ``pre`` drain under the next tile's
+  products (its operands are bf16 values, as wgmma takes them). Up to
+  ``PERSISTENT_MAX_H`` a forward call is one kernel launch for all frames
+  (``lstm_fwd_persistent``), the BPTT's frame loop one more
+  (``lstm_bwd_persistent``) and dwh ``lstm_dwh_tc``. Above it (F2) no
+  cluster holds wh, so the forward and the frame loop run on the
+  f32-weight kernels below, wh widened to f32 (exact; the wrapper passes
+  wh in both types) and the products' operands rounded to bf16 where the
+  plain versions round them; dwh is ``lstm_dwh_tc`` in 128 x 256 tiles,
+  which ask the L2 for a third fewer bytes a product than its 128 x 128
+  ones (at F2's H=1000 the rows are not whole 128-byte lines, and the L2
+  is what bounds dwh).
+  f32 weights: the forward by shape
+  (``f32_forward_grid``, chosen on an H100) as one cooperative
+  ``lstm_fwd_grid`` launch (a direction spread over the card, each CTA's
+  slice of wh on chip, h exchanged through L2 behind a frame counter;
+  H=512 up to B=320) or one ``lstm_step`` launch per frame; the BPTT is
+  ``bptt_gates_gemm``'s f32 form on the FMA units (TF32 would change the
+  numbers), then by B (``vo_lstm_bwd_f32_folds``): ``bptt_frame`` a frame
+  (the cell backward and the dh product in one launch; 1 + T launches, B
+  <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
+  ``GEMM_DESIGNS`` and ``DWH_DESIGNS`` name the designs, so that each can
+  be held to the plain version and timed beside the library's choice.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ LAUNCHES = 0
 SAVE_CELL_LAUNCHES = 0
 BWD_LAUNCHES = 0
 GATES_GEMM_LAUNCHES = 0
+GATES_WIDE_LAUNCHES = 0
 BWD_PERSISTENT_LAUNCHES = 0
 FRAME_LAUNCHES = 0
 CELL_LAUNCHES = 0
@@ -75,6 +89,16 @@ _count_lock = threading.Lock()
 # csrc/lstm_fwd.cu, BMAX_H of csrc/lstm_bwd.cu: a 16-CTA cluster holds all
 # of wh); above it bf16 weights run on the f32-weight kernels
 PERSISTENT_MAX_H = 512
+
+# the gate GEMM's designs, by their codes in csrc/lstm_bwd.cu: "fma"
+# (bptt_gates_gemm's f32 form on the FMA units; f32 weights, and the
+# route bf16 weights above PERSISTENT_MAX_H took before "wide") and
+# "wide" (bptt_gates_gemm_wide, persistent 128 x 256 wgmma tiles; bf16
+# weights only). dwh's designs for bf16 operands: lstm_dwh_tc in "tiles"
+# of 128 x 128 (the library's up to PERSISTENT_MAX_H) or "wide" ones of
+# 128 x 256 (above it).
+GEMM_DESIGNS = ("fma", "wide")
+DWH_DESIGNS = ("tiles", "wide")
 
 _TYPE_CODES = {
     (torch.float32, torch.float32): 0,
@@ -280,8 +304,8 @@ def _persistent(dtype: torch.dtype, H: int) -> bool:
 
 
 def _kernel_wh(wh: torch.Tensor, persistent: bool) -> torch.Tensor:
-    """wh as the kernels read it: bf16 for the persistent kernels, f32
-    (bf16 values widened exactly) for the f32-weight ones."""
+    """wh as the forward kernels read it: bf16 for the persistent kernel,
+    f32 (bf16 values widened exactly) for the f32-weight ones."""
     return wh if persistent else wh.to(torch.float32).contiguous()
 
 
@@ -367,22 +391,33 @@ def f32_forward_grid(B: int, H: int, ndir: int = 2) -> bool:
     return bool(_build.load().vo_lstm_fwd_f32_grid(B, H, ndir))
 
 
+def _gemm_code(lib, gemm: Optional[str], code: int, H: int) -> int:
+    if gemm is None:
+        return lib.vo_lstm_bwd_gates_design(code, H)
+    return GEMM_DESIGNS.index(gemm)
+
+
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
                      *, return_gates: bool = False,
-                     fold: Optional[bool] = None):
-    """The BPTT frame kernels over one or two directions (CUDA only):
-    ``bptt_gates_gemm`` (every frame's gate recompute as one GEMM), then
-    with bf16 weights up to ``PERSISTENT_MAX_H`` ``lstm_bwd_persistent``
-    (one launch), else (f32 weights; bf16 weights above it, widened to
+                     fold: Optional[bool] = None, gemm: Optional[str] = None):
+    """The BPTT frame kernels over one or two directions (CUDA only): the
+    gate GEMM (every frame's gate recompute as one GEMM: f32 weights
+    ``bptt_gates_gemm``'s FMA form, bf16 weights
+    ``bptt_gates_gemm_wide``), then with bf16
+    weights up to ``PERSISTENT_MAX_H`` ``lstm_bwd_persistent`` (one
+    launch), else (f32 weights; bf16 weights above it, read widened to
     f32) a frame loop that the library chooses by B: ``bptt_frame`` per
-    frame (folded), or ``bptt_cell`` and ``bptt_dh`` per frame (split). ``dirs``: (xw, wh already in ``dtype``,
-    ys, cs, dys in the stream dtype, reverse). Returns dxw per direction,
-    and with ``return_gates`` also the recomputed gates ``pre`` [T, B, 4H]
-    f32 per direction (what ``bptt_gates_ref`` computes), so that each
-    kernel can be held to its plain version. ``fold`` names the f32 frame
-    loop's design instead of the library's choice, so that both designs
-    can be held to the plain version and timed at any shape (for bf16
-    weights at any H: the f32-weight route)."""
+    frame (folded), or ``bptt_cell`` and ``bptt_dh`` per frame (split).
+    ``dirs``: (xw, wh already in ``dtype``, ys, cs, dys in the stream
+    dtype, reverse). Returns dxw per direction, and with ``return_gates``
+    also the recomputed gates ``pre`` [T, B, 4H] f32 per direction (what
+    ``bptt_gates_ref`` computes), so that each kernel can be held to its
+    plain version. ``fold`` names the f32 frame loop's design and
+    ``gemm`` the gate GEMM's (``GEMM_DESIGNS``) instead of the library's
+    choice, so that each design can be held to the plain version and
+    timed at any shape it takes (with ``fold`` named, bf16 weights run
+    the f32 frame loop at any H; ``gemm="fma"`` with bf16 weights above
+    ``PERSISTENT_MAX_H`` is the route they took before the wide GEMM)."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -397,35 +432,46 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
             raise ValueError("ys, cs and dys must be [T, B, H]")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
-    # bf16 weights up to PERSISTENT_MAX_H: the gate GEMM into scratch, then
-    # one persistent launch, a cluster of ceil(H/32) CTAs holding wh in
-    # registers
-    persistent = _persistent(dtype, H) and fold is None
     lib = _build.load()
+    code = _TYPE_CODES[(xw0.dtype, dtype)]
+    g = _gemm_code(lib, gemm, code, H)
+    if g != 0 and dtype != torch.bfloat16:
+        raise ValueError(f"the {GEMM_DESIGNS[g]} gate GEMM takes bf16 "
+                         f"weights only")
+    # bf16 weights up to PERSISTENT_MAX_H: the frame loop is one persistent
+    # launch, a cluster of ceil(H/32) CTAs holding wh in registers
+    persistent = _persistent(dtype, H) and fold is None
+    if not persistent:
+        fold = bool(lib.vo_lstm_bwd_f32_folds(B)) if fold is None else fold
     dxw = [torch.empty_like(d[0]) for d in dirs]
-    # the recomputed gates [T, B, 4H] f32, and with f32 weights the
-    # carries behind them (folded, per frame parity: 8 slices' partial dh,
-    # the (1-m)*dh term and dc; split: dh and dc; [B, H] each); any
-    # contents, freed after the call on the launch stream
+    # the recomputed gates [T, B, 4H] f32, and behind them the f32 frame
+    # loops' carries (folded, per frame parity: 8 slices' partial dh, the
+    # (1-m)*dh term and dc; split: dh and dc; [B, H] each); any contents,
+    # freed after the call on the launch stream
     n_pre = T * B * G
     scratch = [torch.empty(n_pre + (0 if persistent else 20 * B * H),
                            dtype=torch.float32, device=xw0.device)
                for _ in dirs]
-    whs = [_kernel_wh(d[1], persistent) for d in dirs]
+    # wh in f32 where the FMA gate GEMM or an f32 frame loop reads it (bf16
+    # weights widened, exactly)
+    widen = dtype == torch.bfloat16 and (g == 0 or not persistent)
+    whf = [d[1].to(torch.float32).contiguous() if widen else d[1]
+           for d in dirs]
     args = _dir_args([
-        [xw.data_ptr(), whs[k].data_ptr(), ys.data_ptr(), cs.data_ptr(),
-         dys.data_ptr(), dxw[k].data_ptr(), scratch[k].data_ptr(), int(rev)]
-        for k, (xw, _, ys, cs, dys, rev) in enumerate(dirs)], 8)
-    call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
-            mask.data_ptr(), *args,
+        [xw.data_ptr(), wh.data_ptr(), whf[k].data_ptr(), ys.data_ptr(),
+         cs.data_ptr(), dys.data_ptr(), dxw[k].data_ptr(),
+         scratch[k].data_ptr(), int(rev)]
+        for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 9)
+    call = (code, T, B, H, len(dirs), mask.data_ptr(), *args,
             torch.cuda.current_stream(xw0.device).cuda_stream)
-    if persistent or fold is None:
+    if fold is None and gemm is None:
         _build.check(lib.vo_lstm_bwd(*call), "vo_lstm_bwd")
-        fold = not persistent and bool(lib.vo_lstm_bwd_f32_folds(B))
     else:
-        _build.check(lib.vo_lstm_bwd_f32(int(fold), *call), "vo_lstm_bwd_f32")
+        loop = 2 if persistent else int(fold)
+        _build.check(lib.vo_lstm_bwd_named(g, loop, *call),
+                     "vo_lstm_bwd_named")
     _count("BWD_LAUNCHES")
-    _count("GATES_GEMM_LAUNCHES")
+    _count_gates(g)
     if persistent:
         _count("BWD_PERSISTENT_LAUNCHES")
     elif fold:
@@ -438,10 +484,22 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     return dxw
 
 
-def lstm_dwh(dirs, dtype: torch.dtype) -> List[torch.Tensor]:
+def _count_gates(g: int) -> None:
+    _count("GATES_GEMM_LAUNCHES")
+    if GEMM_DESIGNS[g] == "wide":
+        _count("GATES_WIDE_LAUNCHES")
+
+
+def lstm_dwh(dirs, dtype: torch.dtype, *,
+             design: Optional[str] = None) -> List[torch.Tensor]:
     """The dwh reduction kernel over one or two directions (CUDA only).
     ``dirs``: (ys, dxw, reverse) in the stream dtype. Returns dwh [H, 4H]
-    float32 per direction."""
+    float32 per direction. With bf16 operands (every type pair but f32
+    streams with f32 weights) the library runs ``lstm_dwh_tc`` in 128 x
+    128 tiles up to ``PERSISTENT_MAX_H`` and in 128 x 256 above it (the
+    rows split into ranges of at most 4096, one CTA each, the partial
+    tiles added in order in a workspace allocated here); ``design``
+    (``DWH_DESIGNS``) names one instead."""
     from . import _build
 
     ys0 = dirs[0][0]
@@ -453,13 +511,23 @@ def lstm_dwh(dirs, dtype: torch.dtype) -> List[torch.Tensor]:
             raise ValueError("ys [T, B, H] and dxw [T, B, 4H] must share "
                              "T, B and the stream dtype")
     lib = _build.load()
+    code = _TYPE_CODES[(ys0.dtype, dtype)]
+    if design is not None and code == 0:
+        raise ValueError("f32 streams and weights have one dwh design")
+    d = lib.vo_lstm_dwh_design(code, H) if design is None else (
+        DWH_DESIGNS.index(design))
     dwh = [torch.empty((H, 4 * H), dtype=torch.float32, device=ys0.device)
            for _ in dirs]
+    # the wide tiles' split contraction: tickets and partial tiles
+    nbytes = lib.vo_lstm_dwh_workspace(d, code, T, B, H, len(dirs))
+    work = torch.empty(nbytes, dtype=torch.uint8, device=ys0.device) if (
+        nbytes) else None
     args = _dir_args([
         [ys.data_ptr(), dxw.data_ptr(), dwh[k].data_ptr(), int(rev)]
         for k, (ys, dxw, rev) in enumerate(dirs)], 4)
-    err = lib.vo_lstm_dwh(_TYPE_CODES[(ys0.dtype, dtype)], T, B, H, len(dirs),
-                          *args, torch.cuda.current_stream(ys0.device).cuda_stream)
+    err = lib.vo_lstm_dwh(d, code, T, B, H, len(dirs), *args,
+                          None if work is None else work.data_ptr(),
+                          torch.cuda.current_stream(ys0.device).cuda_stream)
     _build.check(err, "vo_lstm_dwh")
     _count("DWH_LAUNCHES")
     return dwh
