@@ -74,20 +74,30 @@ the exit code is non-zero and no ``ok`` line is printed):
              within 2e-5, and at the buckets two runs bit-equal, one
              launch of each kernel a call, each timed, and the whole
              ``ctc_loss_kernel`` forward+backward (with its torch
-             assembly) timed beside ``F.ctc_loss``. F2's shapes: bf16
-             weights above H=512 (B=32, T=512, H=520 and 1000; type
-             codes 1 and 2), whose forward and frame loop run on the
-             f32-weight kernels with wh widened and the products'
-             operands rounded to bf16, and whose gate GEMM and dwh run
-             on the wide wgmma kernels: each kernel held to its plain
-             version (forwards 3e-2, gate GEMM 1e-5 relative, also of the
-             parent FMA design, frame loop, BPTT and dwh 2e-2 relative,
-             dwh also to the exact f64 sum as closely as one
+             assembly) timed beside ``F.ctc_loss``. The f32 dwh
+             (``lstm_dwh_fma``) at the four train buckets' rows (H=512)
+             and at B=32, T=512, H=1000: within ``lstm_dwh_ref``'s bounds,
+             no farther from the exact f64 sum than one f32 ``torch.mm``
+             of the same operands, two runs bit-equal, one launch a call,
+             timed in turns with that ``torch.mm`` beside its bound and
+             plain version, the earlier design's time (PERF.md) on the
+             printed line only. F2's
+             shapes: bf16 weights above H=512 (B=32, T=512, H=520 and
+             1000; type codes 1 and 2), whose forward runs on
+             ``lstm_fwd_tc`` (the tensor cores, wh in bf16), whose frame
+             loop runs on the f32-weight kernels with wh widened and the
+             products' operands rounded to bf16, and whose gate GEMM and
+             dwh run on the wide wgmma kernels: each kernel held to its
+             plain version (forwards 3e-2, gate GEMM 1e-5 relative, also
+             of the parent FMA design, frame loop, BPTT and dwh 2e-2
+             relative, dwh also to the exact f64 sum as closely as one
              ``torch.mm``), run twice bit-equal, its launches counted,
              and at H=1000 (bf16 streams) each timed beside its bound,
              plain version, library call, the f32 route and, in turns,
-             the parent design (the FMA gate GEMM; dwh's 128 x 128
-             tiles); at the flagship's H=512 both gate GEMM and dwh
+             the earlier design (the forward's ``lstm_fwd_grid``, the FMA
+             gate GEMM, dwh's 128 x 128 tiles), with ``lstm_fwd_tc`` and
+             ``lstm_step`` timed in turns at B = 32, 128, 256 and 512 (T
+             = 16384 / B); at the flagship's H=512 both gate GEMM and dwh
              designs checked and timed in turns. The BPTT frames
              are the gate GEMM (every frame's gate recompute as one
              GEMM: bf16 weights ``bptt_gates_gemm_wide`` on the tensor
@@ -219,10 +229,11 @@ the exit code is non-zero and no ``ok`` line is printed):
              a bf16 flagship at ``lstm_hidden`` 520 and 1000, one train
              step and one inference forward each at B=32, W=2048 and
              B=128, W=512, the LSTM counters set to 0 before and read
-             after: every f32-weight kernel launched as its shape rule
-             says, the wide gate GEMM and dwh, no persistent kernel; and
-             one train step at H=1000, B=32, W=2048 timed with the
-             library's designs and with the parent gate GEMM and dwh, in
+             after: ``lstm_fwd_tc`` a forward call, the f32-weight frame
+             loop as its shape rule says, the wide gate GEMM and dwh, no
+             persistent kernel and no f32-weight forward; and one train
+             step at H=1000, B=32, W=2048 timed with the library's
+             designs and with the forward's earlier ``lstm_fwd_grid``, in
              turns.
 9. experiments - the experiments' kernels (``vistaocr_tpu_torch/
              experiments``) against their plain versions, TF32 off, f32
@@ -361,11 +372,13 @@ F32_FWD_KERNELS = {True: "lstm_fwd_grid", False: "lstm_step"}
 
 def fwd_kernel_name(B: int, H: int, dtype) -> str:
     """The forward kernel the library runs at B, H (both directions)."""
+    import torch
     from vistaocr_tpu_torch.ops import lstm_cuda
 
     if _dtname(dtype) == "bfloat16":
         return "lstm_fwd_persistent"
-    return F32_FWD_KERNELS[lstm_cuda.f32_forward_grid(B, H)]
+    return F32_FWD_KERNELS[
+        lstm_cuda.forward_design(torch.float32, B, H) == "grid"]
 
 
 def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
@@ -382,8 +395,9 @@ def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
     out = {}
     for grid, name in F32_FWD_KERNELS.items():
         def call(grid=grid):
-            ys, cs = lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
-                                        save_cell=save_cell, grid=grid)
+            ys, cs = lstm_cuda.lstm_fwd(
+                dirs, mask, torch.float32, save_cell=save_cell,
+                design="grid" if grid else "step")
             return ys + (cs or [])
 
         a, b = call(), call()
@@ -1879,7 +1893,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
     return rows
 
 
-# where the library's f32 forward rule (vo_lstm_fwd_f32_grid) changes
+# where the library's f32 forward rule (vo_lstm_fwd_design) changes
 # design, (B, H), with T = 16384 / B (a 2**21-pixel train batch): H=512
 # with wh resident (the grid up to B=320), H=256 (4 units a CTA: up to
 # B=128) and H=1000 (wh streamed from L2: B=32)
@@ -1902,16 +1916,18 @@ def f32_forward_rule_times(dev, card: str) -> list:
         dirs = [(fwd[0], fwd[1], False), (bwd[0], bwd[1], True)]
         with torch.no_grad():
             (ya, ca), (yb, cb) = (L.lstm_fwd(dirs, mask, torch.float32,
-                                             save_cell=True, grid=g)
-                                  for g in (True, False))
+                                             save_cell=True, design=g)
+                                  for g in ("grid", "step"))
             err = max(_abs(a, b) for a, b in zip(ya + ca, yb + cb))
             ms = {F32_FWD_KERNELS[g]: _cuda_ms(lambda g=g: L.lstm_fwd(
-                dirs, mask, torch.float32, save_cell=True, grid=g), 5)
+                dirs, mask, torch.float32, save_cell=True,
+                design="grid" if g else "step"), 5)
                 for g in (True, False)}
         _require(err <= 1e-4, f"f32 designs agree at B={B} H={H}: {err}")
         row = {"B": B, "T": T, "H": H, "max_abs_diff": err, **{
             f"{n}_ms": v for n, v in ms.items()},
-            "library_runs": F32_FWD_KERNELS[L.f32_forward_grid(B, H)]}
+            "library_runs": F32_FWD_KERNELS[
+                L.forward_design(torch.float32, B, H) == "grid"]}
         print(f"f32 forward rule B={B} T={T} H={H}, save_cell, both "
               f"directions: lstm_fwd_grid {ms['lstm_fwd_grid']:.3f} ms, "
               f"lstm_step {ms['lstm_step']:.3f} ms; the library runs "
@@ -1920,21 +1936,29 @@ def f32_forward_rule_times(dev, card: str) -> list:
     return out
 
 
-# bf16 weights above H=512 (type codes 1 and 2): the forward and the frame
-# loop on the f32-weight kernels with wh widened to f32 and the products'
-# operands rounded to bf16, the gate GEMM and dwh on the wide wgmma
-# kernels; (B, T, H) checked in both codes, the last one also timed (code
-# 1, the model's) beside the parent designs (the FMA gate GEMM, dwh's
-# 128 x 128 tiles) and the f32 route (code 0) at the same shape
+# bf16 weights above H=512 (type codes 1 and 2): the forward on
+# lstm_fwd_tc (the tensor cores, wh in bf16), the frame loop on the
+# f32-weight kernels with wh widened to f32 and the products' operands
+# rounded to bf16, the gate GEMM and dwh on the wide wgmma kernels;
+# (B, T, H) checked in both codes, the last one also timed (code 1, the
+# model's) beside the earlier designs (the forward's lstm_fwd_grid, the
+# FMA gate GEMM, dwh's 128 x 128 tiles) and the f32 route (code 0) at the
+# same shape
 F2_SHAPES = ((32, 512, 520), (32, 512, 1000))
 F2_TIMED = F2_SHAPES[-1]
-F2_COUNTERS = ("FWD_GRID_LAUNCHES", "STEP_LAUNCHES", "GATES_GEMM_LAUNCHES",
+F2_COUNTERS = ("FWD_TC_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES",
+               "GATES_GEMM_LAUNCHES",
                "GATES_WIDE_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
                "DH_LAUNCHES", "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
-# the designs F2's route ran before its wide tiles, timed beside them: the
-# FMA gate GEMM, and dwh's 128 x 128 tiles (with the L2 promotion that the
-# maps now take by H)
-F2_PARENT = {"gemm": "fma", "dwh": "tiles"}
+# the designs F2's route ran before, timed beside the library's: the
+# forward's lstm_fwd_grid (wh widened to f32), the FMA gate GEMM, and
+# dwh's 128 x 128 tiles (with the L2 promotion that the maps now take by H)
+F2_PARENT = {"fwd": "grid", "gemm": "fma", "dwh": "tiles"}
+# where lstm_fwd_tc and lstm_step are timed side by side at H=1000 (both
+# directions, save_cell, T = 16384 / B), for the library's rule between
+# them
+F2_FWD_RULE_B = (32, 128, 256, 512)
+F2_RULE_ROWS = 16384
 # the flagship's bf16 gate GEMM (the 128 x 128 wgmma tiles that
 # bptt_gates_gemm_wide replaced) and dwh at B=32, T=512, H=512 as an H100
 # (700 W) ran them before (ms; PERF.md's kernel table): printed beside
@@ -1968,6 +1992,83 @@ def dwh_exact(ys, dxw, reverse: bool, dtype):
     return a.T @ c
 
 
+# lstm_dwh_fma (f32 streams and weights: the parity route's dwh) at the
+# train buckets' row counts (H=512; R = (T-1)*B within 3% of 16352) and in
+# f32 at H=1000, both directions, seeded normal operands; the first is the
+# kernels line's shape
+F32_DWH_SHAPES = ((32, 512, 512), (128, 128, 512), (512, 32, 512),
+                  (64, 256, 512), (32, 512, 1000))
+# the parent's f32 dwh (lstm_dwh_f32: one CTA a 128 x 128 tile over all
+# rows) as an NVIDIA H100 80GB HBM3 at 700 W ran it at B=32, T=512 (ms,
+# by H; PERF.md's kernel table): printed on the human line beside this
+# run's times, never in the kernels line; profile_lstm_bwd_gemms.py
+# --root times it in turns
+F32_DWH_EARLIER_MS = {512: 1.692, 1000: 6.3377}
+
+
+def f32_dwh_kernel(dev, card: str) -> dict:
+    """``lstm_dwh_fma`` at ``F32_DWH_SHAPES``: against ``lstm_dwh_ref``
+    (atol 2e-4, rtol 1e-3) and the exact f64 sum, no farther from it than
+    one ``torch.mm`` of the same operands; two runs bit-equal; one launch
+    a call (its counter); timed in turns with that ``torch.mm`` (CUDA
+    events), beside its bound (f32 FMAs at 67 TFLOP/s) and plain
+    version. Returns a row a shape."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    f32 = torch.float32
+    rows = {}
+    for B, T, H in F32_DWH_SHAPES:
+        rng = np.random.default_rng(B + T + H)
+        ddirs = [(_normal(rng, (T, B, H), 0.5, dev, f32),
+                  _normal(rng, (T, B, 4 * H), 0.1, dev, f32), r)
+                 for r in (False, True)]
+        before = L.DWH_LAUNCHES
+        with torch.no_grad():
+            runs = [L.lstm_dwh(ddirs, f32) for _ in range(2)]
+            torch.cuda.synchronize()
+            launches = L.DWH_LAUNCHES - before
+            ref = [L.lstm_dwh_ref(y, g, reverse=r) for y, g, r in ddirs]
+            mm = [dwh_one_product(y, g, r, f32) for y, g, r in ddirs]
+            exact = [dwh_exact(y, g, r, f32) for y, g, r in ddirs]
+            t = _turns_ms({
+                "mm": lambda: [dwh_one_product(y, g, r, f32)
+                               for y, g, r in ddirs],
+                "dwh": lambda: L.lstm_dwh(ddirs, f32)}, 10)
+            plain_ms = _cuda_ms(lambda: [L.lstm_dwh_ref(y, g, reverse=r)
+                                         for y, g, r in ddirs], 1)
+        err = {"max_abs_err": max(_abs(a, b) for a, b in zip(runs[0], ref)),
+               "exact_rel": max(_rel(a, b) for a, b in zip(runs[0], exact)),
+               "mm_exact_rel": max(_rel(a, b) for a, b in zip(mm, exact)),
+               "mm_rel": max(_rel(a, b) for a, b in zip(runs[0], mm))}
+        close = all(torch.allclose(a, b, atol=2e-4, rtol=1e-3)
+                    for a, b in zip(runs[0], ref))
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        R = (T - 1) * B
+        row = {**err, "ms": t["dwh"], "plain_ms": plain_ms,
+               "library_ms": t["mm"],
+               **_bound(_nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
+                        + 2 * H * 4 * H * 4, 2 * 2 * R * H * 4 * H, f32),
+               "launches_per_call": launches // 2, "bit_equal_twice": same,
+               "ms_source": "CUDA events, in turns with torch.mm"}
+        earlier = F32_DWH_EARLIER_MS.get(H) if B == 32 else None
+        ok = (close and same and launches == 2
+              and err["exact_rel"] <= err["mm_exact_rel"])
+        print(f"f32 dwh lstm_dwh_fma B={B} T={T} H={H}, both directions: "
+              f"{t['dwh']:.4f} ms, torch.mm {t['mm']:.4f} ms (in turns), "
+              f"bound {row['bound_ms']:.4f}, plain {plain_ms:.3f}"
+              + (f", earlier design {earlier} (PERF.md)" if earlier
+                 else "")
+              + "; " + "; ".join(f"{k} {v:.3e}" for k, v in err.items())
+              + f"; within lstm_dwh_ref's bounds {close}; bit-equal twice "
+              f"{same}; launches {launches} in 2 calls "
+              f"{'ok' if ok else 'FAIL'} ({card})", flush=True)
+        _require(ok, f"lstm_dwh_fma at B={B} T={T} H={H}: {row}, "
+                     f"ref bounds {close}")
+        rows[(B, T, H)] = row
+    return rows
+
+
 def _normal(rng, shape, scale, dev, dtype):
     import torch
 
@@ -1981,8 +2082,8 @@ def _counter_deltas(mod, names, before) -> dict:
 
 def f2_train_kernels(dev, card: str) -> dict:
     """bf16 weights at ``F2_SHAPES``, type codes 1 and 2, both directions,
-    ragged mask: the save_cell and inference forwards (3e-2 of the plain
-    version), the wide gate GEMM (1e-5 relative of ``bptt_gates_ref`` and
+    ragged mask: the save_cell and inference forwards on ``lstm_fwd_tc``
+    (3e-2 of the plain version), the wide gate GEMM (1e-5 relative of ``bptt_gates_ref`` and
     of the parent FMA design), the frame loop on the kernel's gates and
     the whole BPTT (2e-2 relative), the wide dwh from the plain dxw (2e-2
     relative of the plain version; as ``_dwh_accurate`` says against the
@@ -1991,7 +2092,8 @@ def f2_train_kernels(dev, card: str) -> dict:
     design shown), each run twice
     (bit-equal), with the launches of each call counted (the library's
     route: the f32 shape rules for the forward and the frame loop, the
-    wide kernels for the gate GEMM and dwh). At ``F2_TIMED`` with bf16
+    wide kernels for the gate GEMM and dwh, lstm_fwd_tc for the forward).
+    At ``F2_TIMED`` with bf16
     streams each kernel is timed beside its bound (operations at the bf16
     peak: the products are of bf16 values), its plain version, the library
     call where there is one, the parent design and the f32 route (f32
@@ -2003,7 +2105,8 @@ def f2_train_kernels(dev, card: str) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     checked, rows = [], {}
     for (B, T, H) in F2_SHAPES:
-        grid = L.f32_forward_grid(B, H)
+        _require(L.forward_design(bf16, B, H) == "tc",
+                 f"F2's forward at B={B} H={H} is lstm_fwd_tc")
         folds = bool(lib.vo_lstm_bwd_f32_folds(B))
         for stream in (bf16, f32):
             tag = (f"B={B} T={T} H={H}, bf16 weights, {_dtname(stream)} "
@@ -2056,9 +2159,8 @@ def f2_train_kernels(dev, card: str) -> dict:
                             for y, g, r in ndirs]
                 exact = [dwh_exact(y, g, r, bf16) for y, g, r in ddirs]
                 exact_n = [dwh_exact(y, g, r, bf16) for y, g, r in ndirs]
-            want = {"FWD_GRID_LAUNCHES": 4 if grid else 0,
-                    "STEP_LAUNCHES": 0 if grid else 4 * T,
-                    "GATES_GEMM_LAUNCHES": 2, "GATES_WIDE_LAUNCHES": 2,
+            want = {"FWD_TC_LAUNCHES": 4, "FWD_GRID_LAUNCHES": 0,
+                    "STEP_LAUNCHES": 0, "GATES_GEMM_LAUNCHES": 2, "GATES_WIDE_LAUNCHES": 2,
                     "FRAME_LAUNCHES": 2 * T if folds else 0,
                     "CELL_LAUNCHES": 0 if folds else 2 * T,
                     "DH_LAUNCHES": 0 if folds else 2 * T,
@@ -2111,8 +2213,7 @@ def f2_train_kernels(dev, card: str) -> dict:
                   and same and got == want and wide_dwh)
             print(f"F2 kernels vs plain {tag}: " + "; ".join(
                 f"{k} {v:.3e}" for k, v in err.items()) + f"; bit-equal "
-                f"twice {same}; launches {got} ("
-                f"{'lstm_fwd_grid' if grid else 'lstm_step'}, "
+                f"twice {same}; launches {got} (lstm_fwd_tc, "
                 f"bptt_gates_gemm_wide, {'fold' if folds else 'split'}, "
                 f"lstm_dwh_tc {'128 x 256' if wide_dwh else '128 x 128'}) "
                 f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -2165,11 +2266,13 @@ GATES_WIDE = GATES_KERNEL[False]
 def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
                ref) -> dict:
     """Each F2 kernel timed at F2_TIMED (bf16 streams and weights) beside
-    its bound, plain version, library call and the f32 route; the wide
-    gate GEMM (the profiler's device time a launch inside
+    its bound, plain version, library call and the f32 route; the forward
+    (lstm_fwd_tc, CUDA events and the profiler's device time a launch),
+    the wide gate GEMM (the profiler's device time a launch inside
     ``lstm_bptt_frames``), dwh and the frames behind the gate GEMM (CUDA
-    events) in turns with the parent designs (``F2_PARENT``); dwh's
-    achieved rate an SM in both designs."""
+    events) in turns with the earlier designs (``F2_PARENT``); dwh's
+    achieved rate an SM in both designs; lstm_fwd_tc beside lstm_step at
+    ``F2_FWD_RULE_B`` (``f2_forward_rule``)."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -2181,13 +2284,14 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
            for x, w, ys, cs, dy, r in bdirs]
     dd32 = [(y.float(), g.float(), r) for y, g, r in ddirs]
     with torch.no_grad():
-        t = {
-            "fwd": _cuda_ms(lambda: L.lstm_forward_cells(dirs, mask, bf16),
-                            5),
-            "fwd_grid": _cuda_ms(lambda: L.lstm_fwd(
-                dirs, mask, bf16, save_cell=True, grid=True), 5),
+        # the forward in turns with its earlier design (lstm_fwd_grid)
+        t = _turns_ms({
+            "fwd_grid": lambda: L.lstm_fwd(dirs, mask, bf16, save_cell=True,
+                                           design=F2_PARENT["fwd"]),
+            "fwd": lambda: L.lstm_forward_cells(dirs, mask, bf16)}, 5)
+        t.update({
             "fwd_step": _cuda_ms(lambda: L.lstm_fwd(
-                dirs, mask, bf16, save_cell=True, grid=False), 5),
+                dirs, mask, bf16, save_cell=True, design="step"), 5),
             "fwd_f32": _cuda_ms(lambda: L.lstm_forward_cells(d32, mask, f32),
                                 5),
             "fwd_plain": _cuda_ms(lambda: L.lstm_forward_cells(
@@ -2207,7 +2311,7 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
             "loop_plain": _cuda_ms(lambda: [L.bptt_frames_ref(
                 p, mask, w, cs, dy, reverse=r, dtype=bf16)
                 for p, (_, w, _, cs, dy, r) in zip(pre_r, bdirs)], 1),
-        }
+        })
         # the gate GEMM's device time a launch, parent design and the
         # library's in turns (parent, library, library, parent)
         g_us = {"gates_parent": [], "gates": []}
@@ -2236,10 +2340,10 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
             (GATES_WIDE, *(k + "<" for k in LOOP_KERNELS[fd])),
             {GATES_WIDE: 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
             for fd in F32_DESIGNS}
-        fwd_us = {g: _kernel_us(lambda g=g: L.lstm_fwd(
-            dirs, mask, bf16, save_cell=True, grid=g), (n + "<",),
-            {n + "<": 1 if g else T})[n + "<"]
-            for g, n in F32_FWD_KERNELS.items()}
+        fwd_us = _kernel_us(lambda: L.lstm_fwd(
+            dirs, mask, bf16, save_cell=True, design="tc"),
+            ("lstm_fwd_tc<",), {"lstm_fwd_tc<": 1})["lstm_fwd_tc<"]
+    rule = f2_forward_rule(dev, card, H)
     R = (T - 1) * B
     flops = 2 * 2 * R * H * 4 * H  # one product over every frame, 2 dirs
     whq = [w for _, w, _ in dirs]
@@ -2254,16 +2358,17 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
     dwh_in = _nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
     dwh_out = 2 * H * G * 4
     fwd_bound = _bound(fwd_bytes, 2 * 2 * T * B * H * G, bf16)
-    rows = {}
-    for g, name in F32_FWD_KERNELS.items():
-        us, n = fwd_us[g]
-        rows[name] = {"max_abs_err": err["save_cell"],
-                      "ms": t["fwd_grid" if g else "fwd_step"],
-                      "plain_ms": t["fwd_plain"], "library_ms": None,
-                      **fwd_bound, "launches_per_call": n,
-                      "kernel_us_per_launch": us,
-                      "library_route_ms": t["fwd"],
-                      "f32_route_ms": t["fwd_f32"]}
+    _require(fwd_us[1] == 1, f"lstm_fwd_tc: one launch a call, {fwd_us}")
+    rows = {"lstm_fwd_tc": {
+        "max_abs_err": err["save_cell"], "ms": t["fwd"],
+        "plain_ms": t["fwd_plain"], "library_ms": None, **fwd_bound,
+        "launches_per_call": fwd_us[1], "kernel_us_per_launch": fwd_us[0],
+        "per_frame_us": t["fwd"] / T * 1e3,
+        "inference_max_abs_err": err["inference"],
+        "parent_ms": t["fwd_grid"],
+        "parent": "lstm_fwd_grid, wh widened to f32 (in turns)",
+        "lstm_step_ms": t["fwd_step"], "f32_route_ms": t["fwd_f32"],
+        "rule_times": rule}}
     rows["bptt_gates_gemm_wide"] = {
         "max_abs_err": err["gates_abs"], "ms": t["gates"],
         "plain_ms": t["gates_plain"], "library_ms": t["gates_lib"],
@@ -2296,9 +2401,10 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
         rows[k]["parent_frames_ms"] = t["frames_parent"]
         rows[k]["f32_route_frames_ms"] = t["frames_f32"]
     print(f"F2 times B={B} T={T} H={H}, bf16 weights and streams, both "
-          f"directions: save_cell lstm_fwd_grid {t['fwd_grid']:.3f} ms "
-          f"({t['fwd_grid'] / T * 1e3:.2f} us a frame), lstm_step "
-          f"{t['fwd_step']:.3f} ms, the library's {t['fwd']:.3f} ms, f32 "
+          f"directions: save_cell lstm_fwd_tc {t['fwd']:.3f} ms "
+          f"({t['fwd'] / T * 1e3:.2f} us a frame; profiler "
+          f"{fwd_us[0] / 1e3:.3f} ms a launch), in turns with lstm_fwd_grid "
+          f"{t['fwd_grid']:.3f} ms, lstm_step {t['fwd_step']:.3f} ms, f32 "
           f"route {t['fwd_f32']:.3f} ms, bound {fwd_bound['bound_ms']:.3f} "
           f"ms, plain {t['fwd_plain']:.3f} ms; BPTT frames "
           f"{t['frames']:.3f} ms (parent {t['frames_parent']:.3f}, f32 route "
@@ -2319,6 +2425,44 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
               f"{r['ctas']} CTAs ({r['waves']:.2f} waves)"
               for d, r in rates.items()) + f" ({card})", flush=True)
     return rows
+
+
+def f2_forward_rule(dev, card: str, H: int) -> list:
+    """lstm_fwd_tc and lstm_step (save_cell, bf16 streams and weights, both
+    directions, every row valid) timed in turns at H and each B of
+    ``F2_FWD_RULE_B`` with T = 16384 / B, each held to the other (3e-2),
+    beside the design the library runs there."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    bf16 = torch.bfloat16
+    out = []
+    for B in F2_FWD_RULE_B:
+        T = F2_RULE_ROWS // B
+        rng = np.random.default_rng(B + H)
+        dirs = [(_normal(rng, (T, B, 4 * H), 1.0, dev, bf16),
+                 _normal(rng, (H, 4 * H), H ** -0.5, dev, bf16), r)
+                for r in (False, True)]
+        mask = torch.ones(T, 1, B, device=dev)
+        with torch.no_grad():
+            (ya, ca), (yb, cb) = (L.lstm_fwd(dirs, mask, bf16,
+                                             save_cell=True, design=d)
+                                  for d in ("tc", "step"))
+            err = max(_abs(a, b) for a, b in zip(ya + ca, yb + cb))
+            ms = _turns_ms({d: lambda d=d: L.lstm_fwd(
+                dirs, mask, bf16, save_cell=True, design=d)
+                for d in ("step", "tc")}, 3)
+        _require(err <= 3e-2, f"lstm_fwd_tc and lstm_step agree at B={B} "
+                              f"H={H}: {err}")
+        row = {"B": B, "T": T, "H": H, "max_abs_diff": err,
+               "lstm_fwd_tc_ms": ms["tc"], "lstm_step_ms": ms["step"],
+               "library_runs": L.forward_design(bf16, B, H)}
+        print(f"F2 forward rule B={B} T={T} H={H}, save_cell, both "
+              f"directions: lstm_fwd_tc {ms['tc']:.3f} ms, lstm_step "
+              f"{ms['step']:.3f} ms (in turns), max|d| {err:.2e}; the "
+              f"library runs {row['library_runs']} ({card})", flush=True)
+        out.append(row)
+    return out
 
 
 # the flagship's bf16 BPTT shape (the W=2048 bucket, H=512), where the
@@ -2409,9 +2553,10 @@ F2_PATH = tuple((H, B, W) for H in (520, 1000)
 
 def f2_path_phase(dev, font: dict, card: str) -> dict:
     """F2's main path with the LSTM counters set to 0 before the first step
-    and read after the last: what each call's route launches, by the f32
-    shape rules (lstm_fwd_grid or lstm_step; bptt_frame, or bptt_cell and
-    bptt_dh), the wide gate GEMM and dwh, and never a persistent kernel."""
+    and read after the last: what each call's route launches (lstm_fwd_tc;
+    by the f32 shape rule bptt_frame, or bptt_cell and bptt_dh; the wide
+    gate GEMM and dwh), and never a persistent kernel nor an f32-weight
+    forward."""
     import torch
     from vistaocr_tpu_torch import train as TR
     from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
@@ -2448,7 +2593,10 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
         T = W // 4
         want["LAUNCHES"] += fwd
         want["BWD_LAUNCHES"] += bwd
-        if lstm_cuda.f32_forward_grid(B, H):
+        design = lstm_cuda.forward_design(torch.bfloat16, B, H)
+        if design == "tc":
+            want["FWD_TC_LAUNCHES"] += fwd
+        elif design == "grid":
             want["FWD_GRID_LAUNCHES"] += fwd
         else:
             want["STEP_LAUNCHES"] += fwd * T
@@ -2466,26 +2614,29 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
           f"{time.time() - t0:.2f} s: launches {counts} ({card})", flush=True)
     wide = all(lstm_cuda.DWH_DESIGNS[lib.vo_lstm_dwh_design(1, H)] == "wide"
                for H, _, _ in F2_PATH)
-    _require(counts == want and counts["BWD_PERSISTENT_LAUNCHES"] == 0 and all(
-        v > 0 for k, v in counts.items() if k != "BWD_PERSISTENT_LAUNCHES")
+    idle = ("BWD_PERSISTENT_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES")
+    _require(counts == want and all(
+        (v == 0) == (k in idle) for k, v in counts.items())
         and wide, f"F2 path launches {counts}, want {want}; dwh's wide "
                   f"tiles {wide}")
     return counts
 
 
-# one F2 train step timed with the library's route and with the parent
-# designs of the gate GEMM and dwh: lstm_hidden 1000 at the W=2048 bucket
+# one F2 train step timed with the library's route and with the forward's
+# earlier design (lstm_fwd_grid): lstm_hidden 1000 at the W=2048 bucket
 F2_STEP = (1000, 32, 2048)  # (H, B, W)
 
 
 def f2_step_timing(dev, font: dict, card: str) -> dict:
     """One bf16 train step (``loss_and_grads``) at ``F2_STEP`` on the
-    library's route, and on the same route with the parent designs
-    (``F2_PARENT``) named in its two BPTT wrappers (only here, to time
-    them), in turns (parent, library, library, parent), 3 steps each
-    time; both losses and gradients finite, and equal between the routes
-    within the products' summation order (bf16 dxw may round an ulp
-    apart)."""
+    library's route, and on the same route with the forward's earlier
+    design (``F2_PARENT["fwd"]``, lstm_fwd_grid) named in the forward
+    wrapper (only here, to time it), in turns (parent, library, library,
+    parent), 3 steps each time; both losses and gradients finite, the
+    losses within 1e-6 relative (the runs on the card so far read them
+    equal to the printed digits) and the gradients within 2e-2 relative
+    (the two forwards sum the products in other orders, which moves the
+    saved cells by bf16 roundings)."""
     import functools
 
     import torch
@@ -2502,38 +2653,38 @@ def f2_step_timing(dev, font: dict, card: str) -> dict:
     init_parameters(model, torch.Generator().manual_seed(H))
     model.to(dev)
     weights = torch.ones(B, device=dev)
-    frames, dwh = L.lstm_bptt_frames, L.lstm_dwh
+    fwd = L.lstm_fwd
 
     def step():
         return TR.loss_and_grads(model, *batch, weights)
 
     def parent():
-        L.lstm_bptt_frames = functools.partial(frames,
-                                               gemm=F2_PARENT["gemm"])
-        L.lstm_dwh = functools.partial(dwh, design=F2_PARENT["dwh"])
+        L.lstm_fwd = functools.partial(fwd, design=F2_PARENT["fwd"])
         try:
             return step()
         finally:
-            L.lstm_bptt_frames, L.lstm_dwh = frames, dwh
+            L.lstm_fwd = fwd
 
     (loss_a, g_a), (loss_b, g_b) = step(), parent()
     torch.cuda.synchronize()
     gap = max(_rel(g_a[k], g_b[k]) for k in g_a)
+    loss_gap = abs(loss_a.item() - loss_b.item()) / abs(loss_a.item())
     ok = (np.isfinite(loss_a.item()) and np.isfinite(loss_b.item())
           and all(torch.isfinite(g).all().item() for g in g_a.values())
-          and abs(loss_a.item() - loss_b.item()) <= 1e-6 * abs(loss_a.item())
-          and gap <= 2e-2)
+          and loss_gap <= 1e-6 and gap <= 2e-2)
     t = _turns_ms({"parent": parent, "library": step}, 3)
     print(f"F2 train step H={H} B={B} W={W} bf16: library route "
-          f"{t['library']:.3f} ms, parent gate GEMM and dwh "
+          f"{t['library']:.3f} ms, parent forward (lstm_fwd_grid) "
           f"{t['parent']:.3f} ms (saved {t['parent'] - t['library']:.3f}); "
-          f"losses {loss_a.item():.6f} / {loss_b.item():.6f}, gradients "
-          f"within {gap:.2e} relative {'ok' if ok else 'FAIL'} ({card})",
+          f"losses {loss_a.item():.6f} / {loss_b.item():.6f} (relative "
+          f"gap {loss_gap:.2e}), gradients within {gap:.2e} relative "
+          f"{'ok' if ok else 'FAIL'} ({card})",
           flush=True)
     _require(ok, f"F2 step on both routes: losses {loss_a.item()}, "
                  f"{loss_b.item()}, gradient gap {gap}")
     return {"H": H, "B": B, "W": W, "library_ms": t["library"],
-            "parent_ms": t["parent"], "gradient_rel_gap": gap}
+            "parent_ms": t["parent"], "loss_rel_gap": loss_gap,
+            "gradient_rel_gap": gap}
 
 
 def _ctc_inputs(B, T, K, L, dev):
@@ -3542,7 +3693,7 @@ def train_parity_phase(dev, font: dict, card: str) -> dict:
                        lstm_cuda.BWD_LAUNCHES - before[1], W // 4)
         _require(fwd > 0 and bwd > 0, f"B={B}: LSTM forward and BPTT calls")
         want["SAVE_CELL_LAUNCHES"] += fwd
-        if lstm_cuda.f32_forward_grid(B, 512):
+        if lstm_cuda.forward_design(torch.float32, B, 512) == "grid":
             want["FWD_GRID_LAUNCHES"] += fwd
         else:
             want["STEP_LAUNCHES"] += fwd * T
@@ -4471,6 +4622,7 @@ def main(argv) -> int:
 
     _phase("train-kernels")
     lstm_rows = lstm_train_kernels(dev, f"{card}, {smi}")
+    dwh_f32_rows = f32_dwh_kernel(dev, f"{card}, {smi}")
     rule_rows = f32_forward_rule_times(dev, f"{card}, {smi}")
     f2_rows = f2_train_kernels(dev, f"{card}, {smi}")
     flagship_f2 = flagship_designs(dev, f"{card}, {smi}")
@@ -4621,15 +4773,13 @@ def main(argv) -> int:
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]
         kernels.append(row)
-    # F2's route: bf16 weights above H=512, the forward and the frame loop
-    # on the f32-weight kernels, the gate GEMM and dwh on the wide wgmma
-    # kernels, with launches counted on F2's main path (phase 8) and times
-    # at F2_TIMED
+    # F2's route: bf16 weights above H=512, the forward on lstm_fwd_tc, the
+    # frame loop on the f32-weight kernels, the gate GEMM and dwh on the
+    # wide wgmma kernels, with launches counted on F2's main path (phase 8)
+    # and times at F2_TIMED
     for name, src, rep, counter, form in (
-            ("lstm_fwd_grid", "lstm_fwd.cu", "lstm_pallas.py:51",
-             "FWD_GRID_LAUNCHES", "f32"),
-            ("lstm_step", "lstm_fwd.cu", "lstm_pallas.py:51",
-             "STEP_LAUNCHES", "f32"),
+            ("lstm_fwd_tc", "lstm_fwd.cu", "lstm_pallas.py:51",
+             "FWD_TC_LAUNCHES", "tc"),
             ("bptt_gates_gemm_wide", "lstm_bwd.cu", "lstm_pallas.py:281",
              "GATES_WIDE_LAUNCHES", "wide"),
             ("bptt_frame", "lstm_bwd.cu", "lstm_pallas.py:281",
@@ -4645,12 +4795,27 @@ def main(argv) -> int:
             "source": f"vistaocr_tpu_torch/csrc/{src}",
             "replaces": f"vistaocr_tpu/ops/{rep}",
             "launches": f2_counts[counter],
-            "form": ("bf16 weights above H=512 on the f32-weight kernels"
-                     if form == "f32" else "bf16 weights above H=512, "
-                     "wgmma in 128 x 256 tiles"),
+            "form": {"f32": "bf16 weights above H=512 on the f32-weight "
+                            "kernels",
+                     "wide": "bf16 weights above H=512, wgmma in 128 x 256 "
+                             "tiles",
+                     "tc": "bf16 weights above H=512, mma.sync with wh in "
+                           "registers"}[form],
             "at": "B{}_T{}_H{}".format(*F2_TIMED), **f2_rows[name]})
-        if name == "bptt_gates_gemm_wide":
+        if name == "lstm_fwd_tc":
             kernels[-1]["f2_train_step"] = f2_step
+    # the f32 dwh: launches on the f32 path (phase 8), numbers at each of
+    # F32_DWH_SHAPES
+    kernels.append({
+        "name": "lstm_dwh_fma", "route": "cuda",
+        "source": "vistaocr_tpu_torch/csrc/lstm_bwd.cu",
+        "replaces": "vistaocr_tpu/ops/lstm_pallas.py:264",
+        "launches": f32_path["counts"]["DWH_LAUNCHES"],
+        "form": "f32 streams and weights", "at": "B{}_T{}_H{}".format(
+            *F32_DWH_SHAPES[0]),
+        **dwh_f32_rows[F32_DWH_SHAPES[0]],
+        **{"at_B{}_T{}_H{}".format(*k): v for k, v in dwh_f32_rows.items()
+           if k != F32_DWH_SHAPES[0]}})
     for row in kernels:  # the flagship's two designs, H=512
         if row["name"] in ("bptt_gates_gemm_wide", "lstm_dwh"):
             row["designs_at_B32_T512_H512"] = flagship_f2

@@ -12,13 +12,17 @@ H in HS: the flagship's 512, F2's 1000, and 1024, whose rows are whole
 - the gate GEMM: its device time a launch inside ``lstm_bptt_frames``
   (torch.profiler), by the library's design and each one the tree names
   (``GEMM_DESIGNS``).
+- dwh in f32 (f32 streams and weights, the parity route's kernel: in
+  this tree ``lstm_dwh_fma``) over both directions, beside one f32
+  torch.mm a direction (TF32 off); CUDA events, two runs each.
 
 ``--root DIR`` profiles the package of another checkout (an earlier
 commit unpacked with ``git archive``), so that two trees can be timed in
 one run on one card; designs are named only where that tree names them.
+``--kinds`` picks what is timed (default all: dwh,gates,dwh_f32).
 Prints a line a case and a JSON line; needs one CUDA card:
 
-    python3 profile_lstm_bwd_gemms.py [--root DIR]
+    python3 profile_lstm_bwd_gemms.py [--root DIR] [--kinds dwh_f32]
 """
 
 import argparse
@@ -95,7 +99,10 @@ def main() -> int:
     ap.add_argument("--root", default=None,
                     help="profile the package of this checkout")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--kinds", default="dwh,gates,dwh_f32",
+                    help="comma-separated: dwh, gates, dwh_f32")
     args = ap.parse_args()
+    kinds = set(args.kinds.split(","))
     if args.root:
         sys.path.insert(0, args.root)
     import torch
@@ -103,6 +110,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_lstm_bwd_gemms: no CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
     smi = subprocess.run(
@@ -136,7 +144,7 @@ def main() -> int:
         flops = 2 * 2 * R * H * G
         with torch.no_grad():
             mm = []
-            for design in dwh_designs:
+            for design in (dwh_designs if "dwh" in kinds else ()):
                 name = design or "library"
                 kw = {} if design is None else {"design": design}
                 if design is None:
@@ -155,11 +163,25 @@ def main() -> int:
                                     name, ms, flops * nd // 2, ctas * nd,
                                     (2 + tn // 64) * 8192, -(-R // 64), sms,
                                     smi))
-            out.append({"kind": "dwh", "H": H, "design": "torch.mm",
-                        "ms": sum(mm) / len(mm)})
-            print(f"dwh H={H} torch.mm: {out[-1]['ms']:.4f} ms ({smi})",
-                  flush=True)
-            for design in gemm_designs:
+            if mm:
+                out.append({"kind": "dwh", "H": H, "design": "torch.mm",
+                            "ms": sum(mm) / len(mm)})
+                print(f"dwh H={H} torch.mm: {out[-1]['ms']:.4f} ms ({smi})",
+                      flush=True)
+            if "dwh_f32" in kinds:
+                f32d = [(ys.float(), g.float(), r) for ys, g, r in ddirs]
+                p32 = [(a.float(), c.float()) for a, c in pairs]
+                mm32 = _ms(lambda: [torch.mm(a.T, c) for a, c in p32])
+                ms = sum(_ms(lambda: L.lstm_dwh(f32d, torch.float32))
+                         for _ in range(2)) / 2
+                out.append({"kind": "dwh_f32", "H": H, "design": "library",
+                            "ms": ms, "tflops": flops / ms / 1e9,
+                            "torch_mm_ms": mm32,
+                            "bound_ms": flops / 67e12 * 1e3})
+                print(f"dwh_f32 H={H}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                      f"TFLOP/s), torch.mm {mm32:.4f} ms, bound "
+                      f"{out[-1]['bound_ms']:.4f} ms ({smi})", flush=True)
+            for design in (gemm_designs if "gates" in kinds else ()):
                 kw = {} if design is None else {"gemm": design}
                 us = _gates_us(lambda: L.lstm_bptt_frames(bdirs, mask, bf16,
                                                           **kw))

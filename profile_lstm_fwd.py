@@ -146,9 +146,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     lib = build()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vo_lstm_fwd_f32.restype = i
-    lib.vo_lstm_fwd_f32.argtypes = ([i] * 6 + [p] + [p, p, p, p, p, i] * 2
-                                    + [p])
+    lib.vo_lstm_fwd_named.restype = i
+    lib.vo_lstm_fwd_named.argtypes = ([i] * 6 + [p] + [p, p, p, p, p, i] * 2
+                                      + [p])
     lib.vo_lstm_fwd_scratch.restype = ctypes.c_longlong
     lib.vo_lstm_fwd_scratch.argtypes = [i, i]
     lib.vo_prof_read.argtypes = [p]
@@ -169,7 +169,7 @@ def main() -> int:
             args = [a for k in range(2) for a in (
                 xw[k].data_ptr(), wh[k].data_ptr(), ys[k].data_ptr(),
                 cs[k].data_ptr(), sc[k].data_ptr(), k)]
-            _build.check(lib.vo_lstm_fwd_f32(
+            _build.check(lib.vo_lstm_fwd_named(  # 1: lstm_fwd_grid
                 1, 0, T, B, H, 2, mask.data_ptr(), *args,
                 torch.cuda.current_stream().cuda_stream), "instrumented")
 
@@ -187,7 +187,7 @@ def main() -> int:
 
         plain = ms(lambda: lstm_cuda.lstm_fwd(
             [(xw[0], wh[0], False), (xw[1], wh[1], True)], mask,
-            torch.float32, save_cell=True, grid=True))
+            torch.float32, save_cell=True, design="grid"))
         stamped = ms(call)
         out = (ctypes.c_ulonglong * 16)()
         _build.check(lib.vo_prof_read(ctypes.addressof(out)), "read")

@@ -10,11 +10,17 @@ GEMM and the persistent frame loop at ragged B, T and H, their
 determinism, their two launches per layer call and their H limit, with
 f32 weights the f32 gate GEMM and the per-frame kernel at the GEMM's
 tile edges, several clusters and H > 512, their determinism and their
-1 + T launches; bf16 weights above H=512 (type codes 1 and 2): the
-forward and both frame loops on the f32-weight kernels, the gate GEMM
-and dwh on the wide wgmma kernels, at H=520 and 1000 on both sides of a
-32-row tile, their determinism, their launches (counters and profiler)
-and autograd, and the wide kernels alone (``-k f2``: the persistent gate
+1 + T launches; the f32 dwh (``lstm_dwh_fma``, ``-k f32_dwh``) at an
+odd shape, H % 4 != 0, misaligned views, T = 1 and 2 and R on both sides
+of a 4096-row chain, one or two directions, against the plain version
+and the exact sum (no farther than one torch.mm), its reruns and its one
+launch; bf16 weights above H=512 (type codes 1 and 2): the forward on
+``lstm_fwd_tc`` (``-k f2``: H 520, 1000 and 1056, B 1 to 129, both forms,
+reverse, reruns, one launch, the library's rule) and, named, on the
+f32-weight kernels, both frame loops on the f32-weight kernels, the gate
+GEMM and dwh on the wide wgmma kernels, at H=520 and 1000 on both sides
+of a 32-row tile, their determinism, their launches (counters and
+profiler) and autograd, and the wide kernels alone (the persistent gate
 GEMM and dwh's 128 x 256 tiles at ragged shapes, one or two directions,
 against the plain version, the other designs, one torch.mm and the
 exact sum); csrc/ctc.cu's alpha/beta at the
@@ -231,7 +237,7 @@ def test_f32_grid_kernel_matches_plain(dev, shape, stream, tol):
                 for x, w, r in dirs]
         for save_cell in (False, True):
             runs = [lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
-                                       save_cell=save_cell, grid=True)
+                                       save_cell=save_cell, design="grid")
                     for _ in range(2)]
             torch.cuda.synchronize()
             (ys, cs), (ys2, cs2) = runs
@@ -258,7 +264,8 @@ def test_f32_grid_kernel_one_direction_and_mixed_types(dev):
             with torch.no_grad():
                 for reverse in (False, True):
                     (ys,), _ = lstm_cuda.lstm_fwd([(xw, wh, reverse)], mask,
-                                                  torch.float32, grid=True)
+                                                  torch.float32,
+                                                  design="grid")
                     ref = lstm_cuda.lstm_recurrence_ref(xw, mask, wh,
                                                         reverse=reverse)
                     assert (ys.float() - ref.float()).abs().max() <= tol
@@ -293,11 +300,11 @@ def test_f32_grid_one_forward_launch_per_layer_call(dev, save_cell):
                                  (384, 512), (512, 512), (128, 256),
                                  (256, 256), (32, 1000), (128, 1000)])
 def test_f32_grid_route_follows_the_library_rule(dev, B, H):
-    """Each shape takes the route the library names (f32_forward_grid:
+    """Each shape takes the route the library names (forward_design:
     lstm_fwd_grid, one launch, or lstm_step, T launches), and the launch
     counters say the same."""
     T = 3
-    grid = lstm_cuda.f32_forward_grid(B, H)
+    grid = lstm_cuda.forward_design(torch.float32, B, H) == "grid"
     assert grid == (B <= (32 if H == 1000 else 128 if H == 256 else 320))
     before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
     counts = _forward_kernel_counts(dev, B, T, H, save_cell=False)
@@ -310,28 +317,30 @@ def test_f32_grid_route_follows_the_library_rule(dev, B, H):
 
 def test_persistent_kernel_refuses_h_above_512(dev):
     """Above H=512 the persistent kernel is not launched: bf16 weights
-    take the f32-weight kernels (B=4 at H=520: lstm_fwd_grid, one launch)
-    and agree with the plain version as the persistent kernel does."""
+    take lstm_fwd_tc (B=4 at H=520: one launch) and agree with the plain
+    version as the persistent kernel does."""
     xw, mask, wh = _device_operands(dev, 4, 3, 520, torch.bfloat16,
                                     torch.bfloat16, seed=1)
-    before = (lstm_cuda.LAUNCHES, lstm_cuda.FWD_GRID_LAUNCHES,
-              lstm_cuda.STEP_LAUNCHES)
+    before = (lstm_cuda.LAUNCHES, lstm_cuda.FWD_TC_LAUNCHES,
+              lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
     with torch.no_grad():
         ys = lstm_cuda.lstm_recurrence(xw[0], mask, wh[0])
         ref = lstm_cuda.lstm_recurrence_ref(xw[0], mask, wh[0])
     torch.cuda.synchronize()
-    assert (lstm_cuda.LAUNCHES, lstm_cuda.FWD_GRID_LAUNCHES,
-            lstm_cuda.STEP_LAUNCHES) == (before[0] + 1, before[1] + 1,
-                                         before[2])
+    assert (lstm_cuda.LAUNCHES, lstm_cuda.FWD_TC_LAUNCHES,
+            lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
     assert ys.dtype == torch.bfloat16
     assert (ys.float() - ref.float()).abs().max().item() <= 3e-2
 
 
-# bf16 weights above H=512 (type codes 1 and 2: the f32-weight kernels with
-# wh widened to f32 and h rounded to bf16 where the product reads it): H on
-# both sides of the grid kernel's resident-weight limit, B on both sides of
-# a 32-row tile, a ragged mask; each design named and the library's choice
+# bf16 weights above H=512 (type codes 1 and 2): the library's
+# lstm_fwd_tc, and the f32-weight kernels named (wh widened to f32 and h
+# rounded to bf16 where the product reads it): H on both sides of the grid
+# kernel's resident-weight limit, B on both sides of a 32-row tile, a
+# ragged mask
 F2_SHAPES = [(B, 7, H) for B in (5, 33) for H in (520, 1000)]
+_FWD_COUNTERS = ("FWD_GRID_LAUNCHES", "STEP_LAUNCHES", "FWD_TC_LAUNCHES")
 
 
 @pytest.mark.parametrize("shape", F2_SHAPES)
@@ -340,28 +349,28 @@ def test_bf16_weights_above_512_forward_matches_plain(dev, shape, stream,
                                                       compute, tol):
     """Both forms and both directions against lstm_recurrence_ref within
     the persistent kernel's bound, through lstm_fwd_grid, lstm_step and the
-    library's choice (one grid launch, or T step launches, a call); a
-    second run gives the same bits."""
+    library's choice (lstm_fwd_tc: one launch a call); a second run gives
+    the same bits."""
     B, T, H = shape
     xw, mask, wh = _device_operands(dev, B, T, H, stream, compute,
                                     seed=B * T + H, ndir=2)
     dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    assert lstm_cuda.forward_design(compute, B, H) == "tc"
     with torch.no_grad():
         refs = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
                                               save_cell=True)
                 for x, w, r in dirs]
-        library = lstm_cuda.f32_forward_grid(B, H)
-        for grid in (True, False, None):
+        for design in ("grid", "step", None):
             for save_cell in (False, True):
-                before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
+                before = [getattr(lstm_cuda, n) for n in _FWD_COUNTERS]
                 runs = [lstm_cuda.lstm_fwd(dirs, mask, compute,
-                                           save_cell=save_cell, grid=grid)
+                                           save_cell=save_cell, design=design)
                         for _ in range(2)]
                 torch.cuda.synchronize()
-                on_grid = library if grid is None else grid
-                assert (lstm_cuda.FWD_GRID_LAUNCHES - before[0],
-                        lstm_cuda.STEP_LAUNCHES - before[1]) == (
-                    (2, 0) if on_grid else (0, 2 * T))
+                assert [getattr(lstm_cuda, n) - b for n, b in zip(
+                    _FWD_COUNTERS, before)] == {
+                    None: [0, 0, 2], "grid": [2, 0, 0],
+                    "step": [0, 2 * T, 0]}[design]
                 (ys, cs), (ys2, cs2) = runs
                 for k, (rys, rcs) in enumerate(refs):
                     assert ys[k].dtype == stream
@@ -1182,7 +1191,7 @@ def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
 @pytest.mark.parametrize("H", [520, 1000])
 def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
     """B=32, T=24, bf16 streams and weights, both directions: a forward
-    call is one lstm_fwd_grid launch, a BPTT call one
+    call is one lstm_fwd_tc launch (no f32-weight forward), a BPTT call one
     bptt_gates_gemm_wide, T bptt_frame (the f32-weight frame loop) and one
     dwh launch (lstm_dwh_tc, the library's wide tiles at these H), and no
     persistent kernel nor the FMA gate GEMM (profiler)."""
@@ -1193,8 +1202,9 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
         fwd = _profiled_counts(
             lambda: lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
                                                wh[1]),
-            ("lstm_fwd_grid<", "lstm_step<", "lstm_fwd_persistent<"))
-    assert fwd == {"lstm_fwd_grid<": 1, "lstm_step<": 0,
+            ("lstm_fwd_tc<", "lstm_fwd_grid<", "lstm_step<",
+             "lstm_fwd_persistent<"))
+    assert fwd == {"lstm_fwd_tc<": 1, "lstm_fwd_grid<": 0, "lstm_step<": 0,
                    "lstm_fwd_persistent<": 0}, fwd
     dirs, mask = _bf16_bptt_operands(dev, 32, T, H, torch.bfloat16, seed=H)
     with torch.no_grad():
@@ -1211,8 +1221,9 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
 
 def test_bf16_weights_above_512_autograd_matches_plain(dev):
     """BLstmRecurrence at H=520 with bf16 weights (the model's route
-    through lstm_impl="auto"): the forward on lstm_fwd_grid and the
-    backward on the f32-weight BPTT against the plain forward and BPTT."""
+    through lstm_impl="auto"): the forward on lstm_fwd_tc and the
+    backward on the wide gate GEMM and the f32-weight frame loop against
+    the plain forward and BPTT."""
     B, T, H = 6, 5, 520
     dirs, mask = _bptt_operands(dev, B, T, H, torch.bfloat16, seed=12)
     xw, wh = dirs[0][0], dirs[0][1]
@@ -1220,11 +1231,11 @@ def test_bf16_weights_above_512_autograd_matches_plain(dev):
     xb = (xw * 0.5).requires_grad_(True)
     wf = wh.clone().requires_grad_(True)
     wb = (wh * 0.7).requires_grad_(True)
-    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
+    before = (lstm_cuda.FWD_TC_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
               lstm_cuda.BWD_PERSISTENT_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
     ys_f, ys_b = lstm_cuda.blstm_recurrence(xf, xb, mask, wf, wb)
     (ys_f * dirs[0][4] + ys_b * dirs[1][4]).sum().backward()
-    assert (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
+    assert (lstm_cuda.FWD_TC_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
             lstm_cuda.BWD_PERSISTENT_LAUNCHES,
             lstm_cuda.DWH_LAUNCHES) == (before[0] + 1, before[1] + 1,
                                              before[2], before[3] + 1)
@@ -1397,6 +1408,190 @@ def test_f2_wide_designs_named_at_flagship_match(dev):
         library = _rel_err(_dwh_mm(ys, g, r), exact)
         for design, got in dwh.items():
             assert _rel_err(got[k], exact) <= max(1e-5, library), design
+
+
+# lstm_fwd_tc (bf16 weights above H=512, the library's up to H=1056 for
+# two directions): H at F2's 520 and 1000 and at the largest H it takes
+# (1056: 132 CTAs, 17 k16 steps a slice), B on both sides of a 32-row tile
+# and of four (one tile to five), T = 1 and 7, a ragged mask
+TC_SHAPES = [(B, T, H) for B in (1, 5, 33, 129) for H in (520, 1000, 1056)
+             for T in (1, 7)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+@pytest.mark.parametrize("stream,compute,tol", BF16_WEIGHT_TYPES)
+def test_f2_tc_forward_matches_plain(dev, shape, stream, compute, tol):
+    """lstm_fwd_tc in both forms, both directions in one launch and each
+    direction alone (the library's route through lstm_recurrence),
+    against lstm_recurrence_ref with bf16 rounding within the persistent
+    kernel's bound; two runs give the same bits; one launch a call."""
+    B, T, H = shape
+    xw, mask, wh = _device_operands(dev, B, T, H, stream, compute,
+                                    seed=B * T + H, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    before = lstm_cuda.FWD_TC_LAUNCHES
+    with torch.no_grad():
+        refs = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                              save_cell=True)
+                for x, w, r in dirs]
+        for save_cell in (False, True):
+            (ys, cs), (ys2, cs2) = (lstm_cuda.lstm_fwd(
+                dirs, mask, compute, save_cell=save_cell, design="tc")
+                for _ in range(2))
+            torch.cuda.synchronize()
+            assert (cs is None) == (not save_cell)
+            for k, (rys, rcs) in enumerate(refs):
+                assert ys[k].dtype == stream and ys[k].shape == (T, B, H)
+                assert (ys[k].float() - rys.float()).abs().max() <= tol
+                assert torch.equal(ys[k], ys2[k])
+                if save_cell:
+                    assert (cs[k].float() - rcs.float()).abs().max() <= tol
+                    assert torch.equal(cs[k], cs2[k])
+        for (x, w, r), (rys, _) in zip(dirs, refs):
+            ys = lstm_cuda.lstm_recurrence(x, mask, w, reverse=r)
+            assert (ys.float() - rys.float()).abs().max() <= tol
+    assert lstm_cuda.FWD_TC_LAUNCHES == before + 6
+
+
+@pytest.mark.parametrize("B,H,ndir,design", [
+    (32, 520, 2, "tc"), (512, 1000, 2, "tc"), (32, 1056, 2, "tc"),
+    (32, 1088, 1, "tc"), (32, 1100, 1, "grid"), (128, 1100, 1, "step"),
+    (32, 1100, 2, "step"), (32, 512, 2, "persistent")])
+def test_f2_forward_design_follows_the_library_rule(dev, B, H, ndir, design):
+    """bf16 weights: lstm_fwd_persistent up to H=512, lstm_fwd_tc above it
+    while its slice of wh fits in registers and its CTAs on the card (H <=
+    1056 for two directions, 1088 for one), the f32-weight route's shape
+    rule beyond; the f32 route names lstm_fwd_tc only for bf16 weights."""
+    assert lstm_cuda.forward_design(torch.bfloat16, B, H, ndir) == design
+    assert lstm_cuda.forward_design(torch.float32, B, H, ndir) != "tc"
+    (xw,), mask, (wh,) = _device_operands(dev, 2, 2, 40, torch.float32,
+                                          torch.float32, seed=1)
+    with torch.no_grad(), pytest.raises(ValueError):
+        lstm_cuda.lstm_fwd([(xw, wh, False)], mask, torch.float32,
+                           design="tc")
+
+
+def test_f2_tc_forward_is_one_launch_and_deterministic_at_b32_t512(dev):
+    """F2's train shape (B=32, T=512, H=1000, bf16, both directions,
+    save_cell): one lstm_fwd_tc launch (profiler), two runs the same bits,
+    within 3e-2 of the plain version."""
+    B, T, H = 32, 512, 1000
+    xw, mask, wh = _device_operands(dev, B, T, H, torch.bfloat16,
+                                    torch.bfloat16, seed=3, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_forward_cells(dirs, mask, torch.bfloat16),
+            ("lstm_fwd_tc<", "lstm_fwd_grid<", "lstm_step<"))
+        runs = [lstm_cuda.lstm_forward_cells(dirs, mask, torch.bfloat16)
+                for _ in range(2)]
+        refs = lstm_cuda.lstm_forward_cells(dirs, mask, torch.bfloat16,
+                                            plain=True)
+    assert counts == {"lstm_fwd_tc<": 1, "lstm_fwd_grid<": 0,
+                      "lstm_step<": 0}, counts
+    for (ys, cs), (ys2, cs2), (rys, rcs) in zip(*runs, refs):
+        assert torch.equal(ys, ys2) and torch.equal(cs, cs2)
+        assert (ys.float() - rys.float()).abs().max() <= 3e-2
+        assert (cs.float() - rcs.float()).abs().max() <= 3e-2
+
+
+# lstm_dwh_fma (f32 streams and weights): an odd shape, H % 4 != 0 (rows
+# of partial float4s, loaded value by value), T = 1 (no rows) and 2, and
+# R = (T-1)*B = 4095, 4096, 4097 (either side of two 2048-row chains) and
+# 16352 (B=32, T=512: eight chains)
+F32_DWH_SHAPES = [(5, 7, 40), (3, 9, 42), (7, 1, 40), (9, 2, 36),
+                  (63, 66, 40), (64, 65, 40), (4097, 2, 36), (32, 512, 40)]
+
+
+def _f32_dwh_dirs(dev, B, T, H, which, seed, offset=0):
+    """(ys, dxw, reverse) per direction of ``which``, seeded normal values;
+    with ``offset`` each tensor is a contiguous view that many floats into
+    its buffer (rows not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+
+    def t_(shape, scale):
+        n = int(np.prod(shape))
+        buf = torch.empty(n + offset, device=dev)
+        buf[offset:] = torch.from_numpy(
+            rng.normal(0, scale, n).astype(np.float32)).to(dev)
+        return buf[offset:].view(shape)
+
+    return [(t_((T, B, H), 0.5), t_((T, B, 4 * H), 0.1), r)
+            for r in WIDE_DIRS[which]]
+
+
+def _exact_distances(got, ys, dxw, rev):
+    """The distances of ``got`` and of one torch.mm of the same f32
+    operands to the exact (f64) sum, relative to its largest magnitude."""
+    H = ys.shape[2]
+    a = (ys[1:] if rev else ys[:-1]).reshape(-1, H)
+    c = (dxw[:-1] if rev else dxw[1:]).reshape(-1, 4 * H)
+    exact = a.double().T @ c.double()
+    return _rel_err(got, exact), _rel_err(torch.mm(a.T, c), exact)
+
+
+@pytest.mark.parametrize("shape", F32_DWH_SHAPES)
+@pytest.mark.parametrize("which", list(WIDE_DIRS))
+def test_f32_dwh_matches_plain_and_the_exact_sum(dev, shape, which):
+    """lstm_dwh_fma against lstm_dwh_ref (atol 2e-4, rtol 1e-3: f32 sums
+    in another order) and against the exact sum: no farther from it than
+    one torch.mm of the same operands, or within 1e-6 of it (a few rows
+    leave both a rounding or two away); zeros at T = 1; two runs give the
+    same bits; one launch a call, counted."""
+    B, T, H = shape
+    dirs = _f32_dwh_dirs(dev, B, T, H, which, seed=B + T + H)
+    before = lstm_cuda.DWH_LAUNCHES
+    with torch.no_grad():
+        runs = [lstm_cuda.lstm_dwh(dirs, torch.float32) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert lstm_cuda.DWH_LAUNCHES == before + 2
+    for k, (ys, g, r) in enumerate(dirs):
+        got = runs[0][k]
+        assert got.shape == (H, 4 * H) and got.dtype == torch.float32
+        assert torch.equal(got, runs[1][k])
+        if T == 1:
+            assert not got.abs().max().item()
+            continue
+        torch.testing.assert_close(got, lstm_cuda.lstm_dwh_ref(
+            ys, g, reverse=r), atol=2e-4, rtol=1e-3)
+        err, mm = _exact_distances(got, ys, g, r)
+        assert err <= max(1e-6, mm), (err, mm)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_f32_dwh_misaligned_views(dev, offset):
+    """Rows that do not start on 16 bytes (views 4 or 8 bytes into their
+    buffers; H=40, so the row length alone would allow float4s) take the
+    value-by-value loads and give what aligned copies of the same values
+    give, bit for bit."""
+    B, T, H = 33, 9, 40
+    dirs = _f32_dwh_dirs(dev, B, T, H, "both", seed=4, offset=offset)
+    assert all(ys.data_ptr() % 16 for ys, _, _ in dirs)
+    copies = [(ys.clone(), g.clone(), r) for ys, g, r in dirs]
+    with torch.no_grad():
+        got = lstm_cuda.lstm_dwh(dirs, torch.float32)
+        want = lstm_cuda.lstm_dwh(copies, torch.float32)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_f32_dwh_one_launch_at_the_main_shape(dev):
+    """B=32, T=512, H=512, both directions (the rows split over eight
+    ranges): one lstm_dwh_fma launch a call (profiler), no farther from
+    the exact sum than one torch.mm, within lstm_dwh_ref's bounds."""
+    B, T, H = 32, 512, 512
+    dirs = _f32_dwh_dirs(dev, B, T, H, "both", seed=6)
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_dwh(dirs, torch.float32),
+            ("lstm_dwh_fma", "lstm_dwh_tc"))
+        got = lstm_cuda.lstm_dwh(dirs, torch.float32)
+    assert counts == {"lstm_dwh_fma": 1, "lstm_dwh_tc": 0}, counts
+    for dwh, (ys, g, r) in zip(got, dirs):
+        torch.testing.assert_close(dwh, lstm_cuda.lstm_dwh_ref(
+            ys, g, reverse=r), atol=2e-4, rtol=1e-3)
+        err, mm = _exact_distances(dwh, ys, g, r)
+        assert err <= mm, (err, mm)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1978,7 +2173,8 @@ def test_fused_graph_segment_matches_eager_steps(dev, dtype, tol):
 
     model, arrays, idx, w = _fused_case(dev, dtype)
     if dtype == "float32":
-        assert lstm_cuda.f32_forward_grid(FUSED_B, FUSED_H)
+        assert lstm_cuda.forward_design(torch.float32, FUSED_B,
+                                        FUSED_H) == "grid"
     m, tx, state = _fresh(model)
     epoch = T.make_train_epoch(m, tx, False, "auto", grad_clip=5.0, seed=3)
     assert epoch.graphs

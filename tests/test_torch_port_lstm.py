@@ -265,3 +265,21 @@ def test_profile_script_finds_its_anchors_in_the_kernel():
         src = profile_lstm_fwd.instrumented_source(f.read())
     assert src.count("P[") >= len(profile_lstm_fwd.PHASES)
     assert "vo_prof_read" in src
+
+
+@pytest.mark.parametrize("variant", ["lds_once", "fma_eighth", "neither"])
+def test_dwh_profile_script_finds_its_anchors_in_the_kernel(variant):
+    """profile_lstm_dwh_fma.py cuts work out of copies of csrc/lstm_bwd.cu
+    by text anchors: each must be found exactly once in the kernel as it
+    stands, and each copy must differ from it."""
+    import os
+
+    import profile_lstm_dwh_fma
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_bwd.cu")
+    with open(path) as f:
+        src = f.read()
+    cut = profile_lstm_dwh_fma.variant_source(src, variant)
+    assert cut != src
+    assert profile_lstm_dwh_fma.variant_source(src, "full") == src

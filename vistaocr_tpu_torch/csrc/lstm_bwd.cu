@@ -139,8 +139,17 @@
 //   its partial tile to a workspace and takes a ticket; the tile's last
 //   CTA adds the partials in split order and writes dwh (one launch, a
 //   fixed order).
-//   f32/f32 stays on the f32 FMA units, so that no TF32 rounding changes
-//   its numbers: 128 x 128 tiles, 8 x 8 per thread, double-buffered.
+//   f32/f32 (type code 0, the parity route) stays on the f32 FMA units, so
+//   that no TF32 rounding changes its numbers: lstm_dwh_fma, 69 GFLOP at
+//   B=32, T=512, H=512 against 67 TFLOP/s (1.02 ms). One CTA a 128 x 128
+//   tile over all rows (the design before it) was 128 CTAs on 132 SMs,
+//   two warps a scheduler, one 16352-row chain an element. So the rows
+//   are split into ranges of at most 2048 (8 at the train buckets: 1024
+//   CTAs, two an SM), each summed by its own CTA and folded like the wide
+//   tiles' splits (a ticket a tile, the last CTA adds the partials in
+//   split order: one launch, a fixed order), with a 3-stage ring of 32-row
+//   stages by 16-byte cp.async (one barrier a 32 rows) and 8 x 8 a
+//   thread. It runs near 69% of the FMA peak (below).
 // Ragged B, H and 4H edges read as zeros, so any B, T >= 1 and H >= 1;
 // every output element is written, and two runs give the same bits. Times
 // on an H100 (NVIDIA H100 80GB HBM3, 700 W) are in PERF.md.
@@ -286,85 +295,196 @@ struct DwhDir {
   float* out;   // [H, 4H]
 };
 
-// f32/f32: block tile 128 x 128 of dwh, 256 threads of 8 x 8 (rows
-// 4*tm + {0..3, 64..67}, columns 4*tn + {0..3, 64..67}), contraction in
-// chunks of 8 rows, the next chunk loaded into registers during the FMAs
-// and stored to the other of two shared-memory buffers.
-constexpr int FM = 128;
-constexpr int FN = 128;
-constexpr int FK = 8;
-constexpr int FTHREADS = 256;
+// f32/f32 (type code 0, the parity route): exact f32 FMAs on the FMA units
+// (TF32 would change the numbers). Tiles of 128 x 128 of dwh, 256 threads
+// of 8 x 8 (rows 4*tm + {0..3, 64..67}, columns 4*tn + {0..3, 64..67}); a
+// warp's lanes are 4 tm by 8 tn. The contraction runs in stages of DQ rows
+// through a DSTAGES-deep ring filled by 16-byte cp.async (one running
+// pointer an operand: per-copy addresses, which the compiler hoisted out
+// of the loop, cost registers and about 7%), one barrier a stage. The rows
+// are split into ranges (dwh_f32_splits) so that the card holds a wave of
+// DLB CTAs an SM and no accumulator chain sums more than DWH_F32_CHAIN
+// stages (at 4096 rows it stood as far from the exact sum as one cuBLAS
+// call, at 2048 about 0.6 of it); the ranges' partial tiles are folded by
+// dwh_fold, as lstm_dwh_tc's splits are: one launch, a fixed order. Near
+// 69% of the FMA peak: cut-down copies (profile_lstm_dwh_fma.py) show the
+// fragment reads from shared memory cost about 6%, and the copies,
+// barriers and fold alone take 59% of the FMA bound (each 128 columns
+// of a are read by 4H/128 CTAs, of c by H/128) without fully hiding under
+// the FMAs. 8 x 16 a thread took 255 registers in CUDA C, spilled and ran
+// slower, as did 64-row tiles, 16-row stages, register double-buffering
+// and other unrollings (times on an H100 in PERF.md).
+constexpr int DQ = 32;
+constexpr int DSTAGES = 3;
+constexpr int DLB = 2;  // CTAs an SM (the launch bounds)
+constexpr int DTHREADS = 256;
+constexpr int DWH_F32_CHAIN = 2048 / DQ;  // stages: chains of <= 2048 rows
+constexpr int DWH_F32_MIN = 8;  // the fewest stages a split made to fill
+                                // the card takes
 
-__device__ __forceinline__ float4 load4(const float* row, long long col,
-                                        long long end, bool ok, bool vec) {
-  if (!ok || col >= end) return make_float4(0.f, 0.f, 0.f, 0.f);
-  if (vec) return *reinterpret_cast<const float4*>(row + col);
-  float v[4];
+constexpr int dwh_f32_smem() { return DSTAGES * DQ * 256 * 4; }
+
+// The fold of a dwh tile whose rows were split over `splits` CTAs
+// (lstm_dwh_fma, lstm_dwh_tc's wide tiles): each of the `nt` threads
+// taking part (thread t) holds NV float4s of the partial tile, acc[4j ..
+// 4j + 3], and stores them to ws at [tile][split][j][t]; once the CTA's
+// stores are visible it takes the tile's ticket, and the tile's last CTA
+// adds the partials in split order (its own from registers) into acc.
+// Returns whether this CTA is that last one (the others are done). The
+// threads taking part meet at named barrier 1.
+template <int NV>
+__device__ __forceinline__ bool dwh_fold(float* acc, float4* ws, int* tickets,
+                                         long long tile, int split,
+                                         int splits, int t, int nt) {
+  __shared__ int last;
+  float4* mine = ws + (tile * splits + split) * NV * nt + t;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = col + j < end ? row[col + j] : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
+  for (int j = 0; j < NV; ++j) {
+    mine[j * nt] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                               acc[4 * j + 3]);
+  }
+  __threadfence();
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+  if (t == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+  if (!last) return false;
+  __threadfence();
+  const float4* base = ws + tile * splits * NV * nt + t;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < splits; ++q) {
+      const float4 p =
+          q == split ? make_float4(acc[4 * j], acc[4 * j + 1],
+                                   acc[4 * j + 2], acc[4 * j + 3])
+                     : __ldcg(base + (q * NV + j) * nt);
+      if (q == 0) {
+        v = p;
+      } else {
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+    }
+    acc[4 * j] = v.x;
+    acc[4 * j + 1] = v.y;
+    acc[4 * j + 2] = v.z;
+    acc[4 * j + 3] = v.w;
+  }
+  return true;
 }
 
-__global__ void __launch_bounds__(FTHREADS)
-lstm_dwh_f32(DwhDir<float> d0, DwhDir<float> d1, long long R, int H,
-             int vec) {
-  const DwhDir<float> d = blockIdx.z == 0 ? d0 : d1;
-  __shared__ __align__(16) float as[2][FK][FM];  // as[k][m] = a[r0 + k][m]
-  __shared__ __align__(16) float cs[2][FK][FN];
-
-  const int tid = threadIdx.x;
-  const int tm = tid / 16, tn = tid % 16;
-  const int m0 = blockIdx.y * FM;
-  const int n0 = blockIdx.x * FN;
-  const int G = 4 * H;
-  // load mapping: row lr of the chunk, columns lc .. lc+3
-  const int lr = tid / 32, lc = (tid % 32) * 4;
+// Grid (ceil(4H/128), ceil(H/128), ndir * splits), the split slowest, as
+// lstm_dwh_tc's. Each CTA sums its range of stages; with splits > 1 it
+// stores its partial tile to `ws`, takes the tile's ticket, and the
+// tile's last CTA adds the partials in split order (its own from
+// registers) and writes dwh. `vec`: rows of whole, aligned float4s (16-byte
+// copies); else value by value.
+__global__ void __launch_bounds__(DTHREADS, DLB)
+lstm_dwh_fma(DwhDir<float> d0, DwhDir<float> d1, long long R, int H, int vec,
+             int splits, float4* ws, int* tickets) {
+  const int ndir = gridDim.z / splits;
+  const int dir = blockIdx.z % ndir, split = blockIdx.z / ndir;
+  const DwhDir<float> d = dir == 0 ? d0 : d1;
+  extern __shared__ __align__(16) float dwh_f32_raw[];
+  float* as = dwh_f32_raw;               // [DSTAGES][DQ][128]
+  float* cs = as + DSTAGES * DQ * 128;   // [DSTAGES][DQ][128]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tm = 4 * (warp / 2) + lane / 8;  // 0 .. 15
+  const int tn = 8 * (warp % 2) + lane % 8;  // 0 .. 15
+  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
+  const long long G = 4LL * H;
+  const long long nk = (R + DQ - 1) / DQ;
+  const long long per = (nk + splits - 1) / splits;
+  const long long k0 = split * per;
+  const int n = static_cast<int>(max(0LL, min(nk, k0 + per) - k0));
+  // a stage's copies: this thread's float4 at column lc of rows lr +
+  // RSTEP * j of a's and of c's 128-value rows (the same place in both)
+  constexpr int RSTEP = DTHREADS / 32;
+  const int lr = tid / 32, lc = 4 * (tid % 32);
+  const bool oka = m0 + lc < H, okc = n0 + lc < G;  // whole float4s (vec)
+  const float* pa0 = d.a + (oka ? m0 + lc : 0);
+  const float* pc0 = d.c + (okc ? n0 + lc : 0);
+  auto stage = [&](int i) {
+    const int s = i % DSTAGES;
+    long long r = (k0 + i) * DQ + lr;
+    float* sa = as + s * DQ * 128 + lr * 128 + lc;
+    float* sc = cs + s * DQ * 128 + lr * 128 + lc;
+    if (vec) {  // one running pointer an operand: nothing for the
+                // compiler to hoist into registers a chunk
+      const float* pa = pa0 + r * H;
+      const float* pc = pc0 + r * G;
+#pragma unroll
+      for (int j = 0; j < DQ / RSTEP; ++j) {
+        const bool ok = r < R;
+        cp_async16_zfill(sa + j * RSTEP * 128, ok && oka ? pa : d.a,
+                         ok && oka);
+        cp_async16_zfill(sc + j * RSTEP * 128, ok && okc ? pc : d.c,
+                         ok && okc);
+        r += RSTEP;
+        pa += RSTEP * H;
+        pc += RSTEP * G;
+      }
+    } else {
+      for (int j = 0; j < DQ / RSTEP; ++j, r += RSTEP) {
+        for (int e = 0; e < 4; ++e) {
+          sa[j * RSTEP * 128 + e] =
+              r < R && m0 + lc + e < H ? d.a[r * H + m0 + lc + e] : 0.0f;
+          sc[j * RSTEP * 128 + e] =
+              r < R && n0 + lc + e < G ? d.c[r * G + n0 + lc + e] : 0.0f;
+        }
+      }
+    }
+  };
 
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  auto load = [&](long long r0, float4& a, float4& c) {
-    const long long r = r0 + lr;
-    const bool ok = r < R;
-    a = load4(d.a + (ok ? r : 0) * H, m0 + lc, H, ok, vec);
-    c = load4(d.c + (ok ? r : 0) * G, n0 + lc, G, ok, vec);
-  };
-  float4 a4, c4;
-  load(0, a4, c4);
-  int buf = 0;
-  for (long long r0 = 0; r0 < R; r0 += FK) {
-    *reinterpret_cast<float4*>(&as[buf][lr][lc]) = a4;
-    *reinterpret_cast<float4*>(&cs[buf][lr][lc]) = c4;
-    __syncthreads();
-    if (r0 + FK < R) load(r0 + FK, a4, c4);  // in flight during the FMAs
 #pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][k][4 * tm]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&as[buf][k][64 + 4 * tm]);
-      const float4 c0 = *reinterpret_cast<const float4*>(&cs[buf][k][4 * tn]);
-      const float4 c1 =
-          *reinterpret_cast<const float4*>(&cs[buf][k][64 + 4 * tn]);
+  for (int i = 0; i < DSTAGES - 1; ++i) {
+    if (i < n) stage(i);
+    cp_async_commit();  // one group a stage, empty past n
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_group<DSTAGES - 2>();  // this thread's copies of stage i
+    __syncthreads();  // ... and everyone's; stage i-1's readers are done
+    if (i + DSTAGES - 1 < n) stage(i + DSTAGES - 1);  // into i-1's slot
+    cp_async_commit();
+    const float* a = as + (i % DSTAGES) * DQ * 128 + 4 * tm;
+    const float* c = cs + (i % DSTAGES) * DQ * 128 + 4 * tn;
+#pragma unroll
+    for (int k = 0; k < DQ; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a + k * 128);
+      const float4 a1 = *reinterpret_cast<const float4*>(a + k * 128 + 64);
+      const float4 c0 = *reinterpret_cast<const float4*>(c + k * 128);
+      const float4 c1 = *reinterpret_cast<const float4*>(c + k * 128 + 64);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int ii = 0; ii < 8; ++ii)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[ii][j] = fmaf(av[ii], cv[j], acc[ii][j]);
     }
-    buf ^= 1;  // the other buffer's readers passed this chunk's barrier
   }
 
+  if (splits > 1) {  // a thread's acc[i][4h .. 4h + 3] is float4 2i + h
+    const long long tile =
+        ((long long)dir * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    if (!dwh_fold<16>(&acc[0][0], ws, tickets, tile, split, splits, tid,
+                      DTHREADS)) {
+      return;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int k = m0 + 4 * tm + (i % 4) + 64 * (i / 4);
     if (k >= H) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int g = n0 + 4 * tn + 64 * h;  // G and g are multiples of 4
+      const long long g = n0 + 4 * tn + 64 * h;  // G and g: multiples of 4
       if (g < G) {
         *reinterpret_cast<float4*>(&d.out[(long long)k * G + g]) =
             make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
@@ -505,47 +625,13 @@ lstm_dwh_tc(const __grid_constant__ DwhMaps maps, DwhDir<S> d0, DwhDir<S> d1,
     }
     wgmma_wait<0>();
     if constexpr (TN == WN) {
-      if (splits > 1) {
-        __shared__ int last;
-        // partial tiles as float4s, a thread's j-th at [j][thread]
+      if (splits > 1) {  // the 256 consumer threads take part
         const long long tile =
             ((long long)dir * gridDim.y + blockIdx.y) * gridDim.x +
             blockIdx.x;
-        const int ct = threadIdx.x;  // 0..255, the consumer threads
-        const float4* base = ws + tile * splits * (TN / 8) * 256 + ct;
-        float4* mine = ws + (tile * splits + split) * (TN / 8) * 256 + ct;
-#pragma unroll
-        for (int j = 0; j < TN / 8; ++j) {
-          mine[j * 256] = make_float4(acc[4 * j], acc[4 * j + 1],
-                                      acc[4 * j + 2], acc[4 * j + 3]);
-        }
-        __threadfence();
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");  // consumers only
-        if (ct == 0) last = atomicAdd(&tickets[tile], 1) == splits - 1;
-        asm volatile("bar.sync 1, 256;\n" ::: "memory");
-        if (!last) return;
-        __threadfence();
-#pragma unroll
-        for (int j = 0; j < TN / 8; ++j) {
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int q = 0; q < splits; ++q) {
-            const float4 p =
-                q == split ? make_float4(acc[4 * j], acc[4 * j + 1],
-                                         acc[4 * j + 2], acc[4 * j + 3])
-                           : __ldcg(base + (q * (TN / 8) + j) * 256);
-            if (q == 0) {
-              v = p;
-            } else {
-              v.x += p.x;
-              v.y += p.y;
-              v.z += p.z;
-              v.w += p.w;
-            }
-          }
-          acc[4 * j] = v.x;
-          acc[4 * j + 1] = v.y;
-          acc[4 * j + 2] = v.z;
-          acc[4 * j + 3] = v.w;
+        if (!dwh_fold<TN / 8>(acc, ws, tickets, tile, split, splits,
+                              threadIdx.x, 256)) {
+          return;
         }
       }
     }
@@ -698,6 +784,66 @@ long long dwh_workspace(int design, int T, int B, int H, int ndir) {
   return dwh_ticket_bytes(tiles) + tiles * splits * 128LL * WN * 4;
 }
 
+// lstm_dwh_fma's split of R rows over `tiles` tiles of 128 x 128: ranges
+// of at most DWH_F32_CHAIN stages, and enough of them for a wave of DLB
+// CTAs an SM where each still takes DWH_F32_MIN stages.
+inline int dwh_f32_splits(long long R, long long tiles, int sms) {
+  const long long nk = (R + DQ - 1) / DQ;
+  const long long chains = (nk + DWH_F32_CHAIN - 1) / DWH_F32_CHAIN;
+  const long long fill = std::min((1LL * DLB * sms + tiles - 1) / tiles,
+                                  std::max(1LL, nk / DWH_F32_MIN));
+  return static_cast<int>(std::max({1LL, chains, fill}));
+}
+
+inline long long dwh_f32_tiles(int H, int ndir) {
+  return ndir * ((4LL * H + 127) / 128) * ((H + 127) / 128);
+}
+
+// The workspace lstm_dwh_fma needs (bytes; 0 with one split): a ticket a
+// tile, then a partial tile a split.
+long long dwh_f32_workspace(int T, int B, int H, int ndir) {
+  const long long tiles = dwh_f32_tiles(H, ndir);
+  const int splits =
+      dwh_f32_splits((long long)(T - 1) * B, tiles, device_sms());
+  if (splits == 1) return 0;
+  return dwh_ticket_bytes(tiles) + tiles * splits * 128LL * 128 * 4;
+}
+
+cudaError_t launch_dwh_f32(const DwhDir<float>* d, long long R, int H,
+                           int ndir, int vec, void* work,
+                           cudaStream_t stream) {
+  constexpr int smem = dwh_f32_smem();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lstm_dwh_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const long long nt = (4LL * H + 127) / 128, mt = (H + 127) / 128;
+  const long long tiles = dwh_f32_tiles(H, ndir);
+  const int splits = dwh_f32_splits(R, tiles, device_sms());
+  if (nt > 0x7fffffffLL || mt > 65535 || (long long)splits * ndir > 65535 ||
+      (splits > 1 && work == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  int* tickets = nullptr;
+  float4* ws = nullptr;
+  if (splits > 1) {
+    tickets = static_cast<int*>(work);
+    ws = reinterpret_cast<float4*>(static_cast<char*>(work) +
+                                   dwh_ticket_bytes(tiles));
+    const cudaError_t err =
+        cudaMemsetAsync(tickets, 0, sizeof(int) * tiles, stream);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>(nt), static_cast<unsigned>(mt),
+                  splits * ndir);
+  lstm_dwh_fma<<<grid, DTHREADS, smem, stream>>>(d[0], d[1], R, H, vec,
+                                                 splits, ws, tickets);
+  return cudaGetLastError();
+}
+
 template <typename S, typename W>
 int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
             const void* const* dxw, void* const* dwh, const int* reverse,
@@ -736,9 +882,7 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
   }
   if constexpr (f32) {
     const int vec = aligned && H % 4 == 0;  // rows of whole float4s
-    const dim3 grid((G + FN - 1) / FN, (H + FM - 1) / FM, ndir);
-    lstm_dwh_f32<<<grid, FTHREADS, 0, stream>>>(d[0], d[1], R, H, vec);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_dwh_f32(d, R, H, ndir, vec, work, stream));
   } else {
     if (R > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const int vec = aligned && H % 8 == 0;  // rows of whole 8-value chunks
@@ -1426,7 +1570,7 @@ struct GatesF32Dir {
 };
 
 // 128 x 128 tiles of pre, 256 threads of 8 x 8 (rows 4*tm + {0..3, 64..67},
-// columns 4*tn + {0..3, 64..67}, as lstm_dwh_f32), two CTAs an SM. The
+// columns 4*tn + {0..3, 64..67}), two CTAs an SM. The
 // contraction runs in stages of QK columns, QSTAGES - 1 of them in flight
 // ahead of the FMAs: 16-byte cp.async into a ring in shared memory, one
 // barrier a stage. A stage holds A = ys rows [128][QK] in S (converted to
@@ -2364,7 +2508,7 @@ extern "C" int vo_lstm_bwd_gates_design(int type_code, int H) {
 // one or two directions; every element is written (zeros when T = 1).
 // design: for bf16 operands (type codes 1-3) 0 (lstm_dwh_tc's 128 x 128
 // tiles) or 1 (its 128 x 256 tiles), -1 the library's (vo_lstm_dwh_design);
-// code 0 takes lstm_dwh_f32 and only -1. workspace: vo_lstm_dwh_workspace
+// code 0 takes lstm_dwh_fma and only -1. workspace: vo_lstm_dwh_workspace
 // bytes, 16-byte aligned, any contents (null when that is 0).
 extern "C" int vo_lstm_dwh(int design, int type_code, int T, int B, int H,
                            int ndir, const void* ys0, const void* dxw0,
@@ -2401,11 +2545,12 @@ extern "C" int vo_lstm_dwh(int design, int type_code, int T, int B, int H,
 // library's) at type_code, T, B, H and ndir.
 extern "C" long long vo_lstm_dwh_workspace(int design, int type_code, int T,
                                            int B, int H, int ndir) {
-  if (type_code == 0 || T < 1 || B < 1 || H < 1) return 0;
+  if (T < 1 || B < 1 || H < 1) return 0;
+  if (type_code == 0) return dwh_f32_workspace(T, B, H, ndir);
   return dwh_workspace(design == -1 ? dwh_design(H) : design, T, B, H, ndir);
 }
 
-// The dwh design vo_lstm_dwh runs for type_code at H (-1: lstm_dwh_f32).
+// The dwh design vo_lstm_dwh runs for type_code at H (-1: lstm_dwh_fma).
 extern "C" int vo_lstm_dwh_design(int type_code, int H) {
   return type_code == 0 ? -1 : dwh_design(H);
 }

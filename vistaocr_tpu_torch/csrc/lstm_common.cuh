@@ -67,6 +67,18 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
 }
 
+// the current device's SM count (0 when it cannot be read), cached a
+// device
+inline int device_sms() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (sms[dev] == 0) {
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms[dev];
+}
+
 struct Tiles {
   float hs[TK][HS_LD];   // h tile, transposed
   float ws[TK][4 * TJ];  // wh tile: 4 gates x TJ

@@ -70,10 +70,54 @@
 //   wh), any B (ceil(B/32) clusters per direction; those beyond what the
 //   card holds at once run in later waves), any T. Its times on an H100
 //   are in PERF.md.
-// - Above H=512, bf16 weights take the f32-weight route below: the caller
-//   passes wh widened to f32 (exact), and h is rounded to bf16 where the
-//   product reads it (the f32 carry, the mask freeze and the exchanged h
-//   stay f32), so only the summation order differs from the reference.
+// - Above H=512 (F2) no cluster holds wh: lstm_fwd_tc, below.
+//
+// bf16 weights above H=512 (type codes 1 and 2; F2), up to H=1056 for two
+// directions on 132 SMs: one persistent cooperative launch over the whole
+// card on the tensor cores (lstm_fwd_tc), lstm_fwd_grid's skeleton with
+// bf16 operands. (Before it F2 ran lstm_fwd_grid with wh widened to f32:
+// at H=1000 a CTA's f32 slice, 256 KB, did not fit in shared memory, so
+// every warp streamed it from L2 every frame, on the FMA units: 43.9 us a
+// frame, 85x the bound; times on an H100 in PERF.md.)
+// - A direction is N = ceil(H/16) co-resident CTAs over all batch rows
+//   (63 at H=1000: 126 CTAs); CTA r owns units 16r .. 16r+15 and their
+//   four gate columns, so the cell update is the product's epilogue.
+// - Its bf16 slice of wh (H x 64: 125 KB at H=1000) stays on chip for all
+//   T frames as mma.sync B fragments in registers: 8 warps, each a quarter
+//   of the contraction (16 k16 steps at H=1000) and half of the 64
+//   columns, 128 registers a thread. mma.sync.m16n8k16, not wgmma: wgmma
+//   reads B from shared memory only, so keeping the slice in registers
+//   means taking it as wgmma's A (as lstm_fwd_persistent does), 256
+//   registers a thread for one warpgroup's 64 rows; and the product is
+//   under a microsecond a frame either way (4 MFLOP a CTA at B=32).
+// - The product gates[rows][64] = round_bf16(h) @ wh_slice: A = h rows
+//   by ldmatrix from shared memory, f32 accumulation, as the reference's
+//   bf16 product with f32 accumulation. The four contraction slices'
+//   partial sums meet in shared memory and each (row, unit) cell sums
+//   them in slice order: fixed order, one writer per h, c, ys and cs
+//   element, so two runs give the same bits.
+// - h crosses CTAs through L2 once a frame, in bf16 (only the product
+//   reads another CTA's h; each CTA keeps its cells' f32 h and c for the
+//   freeze and the carry in global memory it alone touches): each CTA
+//   writes its units' h(t) into one of two buffers (by step parity), laid
+//   out as one block a (32-row tile, contraction slice), each row padded
+//   to an odd number of 16-byte words so that ldmatrix reads it without
+//   bank conflicts; then it releases a per-direction frame counter
+//   (red.release.gpu after a CTA barrier). Thread 0 acquires the counter
+//   (ld.acquire.gpu in a spin) and brings a tile's four blocks by bulk
+//   copies (through L2, completing on one mbarrier a slice), two tiles in
+//   flight; each warp waits only for its slice.
+// - The epilogue uses the hardware exp2 and reciprocal (as
+//   lstm_fwd_persistent; the reference's bf16 h is within 3e-2).
+// - Co-residency: one CTA an SM (168 KB of shared memory at
+//   H=1000); cudaLaunchCooperativeKernel refuses a grid the card cannot
+//   hold; a wait that outlives about 10 s traps.
+// - Limits (tc_fits): 17 k16 steps a slice (H <= 1088) and ceil(H/16)
+//   CTAs a direction on the card. Beyond them bf16 weights take the
+//   f32-weight route below with wh widened to f32 (exact) and h rounded
+//   to bf16 where the product reads it. The library runs lstm_fwd_tc at
+//   every B where it fits (fwd_design; lstm_step timed beside it in
+//   PERF.md).
 //
 // f32 weights (type codes 0 and 3, the parity path): wgmma has no exact
 // f32 x f32 product and TF32 would change the numbers, so the product runs
@@ -112,6 +156,7 @@
 // - Limits: U <= 16 (H <= 1056 for two directions on 132 SMs). The library
 //   chooses lstm_fwd_grid or lstm_step by shape (f32_grid: up to B=320 at
 //   H=512, where lstm_step then wins), as measured on an H100 (PERF.md).
+//   vo_lstm_fwd_named names any of the four kernels.
 // lstm_step, one launch a frame, stays for the other shapes:
 // - both directions of a BLSTM layer in the same launch (blockIdx.z), 32
 //   unit tiles x 2 batch tiles x 2 directions = 128 blocks of 128 threads
@@ -128,9 +173,11 @@
 // - h ping-pongs between two f32 buffers in global memory (every block
 //   reads all of h of step t-1 while writing its slice of step t); each
 //   c[b, j] is owned by one thread and updated in place.
-// Ragged B and H edges are masked in all three kernels.
+// Ragged B and H edges are masked in all four kernels.
 
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 #include "lstm_common.cuh"
@@ -610,16 +657,6 @@ inline bool grid_resident(int U, int H) {
   }
 }
 
-inline int device_sms() {
-  static int sms[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
-  if (sms[dev] == 0) {
-    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms[dev];
-}
-
 template <typename S, int U, typename R>
 cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
                         int H, int ndir, cudaStream_t stream) {
@@ -677,6 +714,333 @@ int run_grid(int T, int B, int H, int ndir, const float* mask,
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// --- bf16 weights above H=512 (F2): one persistent launch on the tensor cores
+
+constexpr int TU = 16;            // hidden units a CTA
+constexpr int TC = 4 * TU;        // its gate columns, c = g*TU + u
+constexpr int TROWS = 32;         // batch rows of a tile
+constexpr int TTHREADS = 256;     // 8 warps: 2 column halves x TSL slices
+constexpr int TSL = 4;            // contraction slices
+constexpr int TMAX_KSTEPS = 17;   // k16 steps a slice holds: H <= 1088
+constexpr int TCLD = TC + 8;      // padded row of the partial sums (floats)
+
+// k16 steps of one contraction slice (H padded to a multiple of 64)
+__host__ __device__ constexpr int tc_ksteps(int H) {
+  return (H + 16 * TSL - 1) / (16 * TSL);
+}
+// bytes of a row of an h block: the slice's bf16 columns and 16 bytes of
+// padding, an odd number of 16-byte words, so that the 8 rows of an
+// ldmatrix 8 x 8 matrix fall in 8 distinct bank groups
+__host__ __device__ constexpr int tc_pitch(int H) {
+  return (2 * tc_ksteps(H) + 1) * 16;
+}
+// bytes of an h block: one tile's rows of one slice, one bulk copy
+__host__ __device__ constexpr int tc_block(int H) {
+  return TROWS * tc_pitch(H);
+}
+// shared memory of lstm_fwd_tc: two tile slots of TSL blocks (the wh
+// slice is staged there first: 64 * tc_ksteps(H) rows of TC bf16 fit),
+// the slices' partial sums, and an mbarrier a block of each slot
+__host__ __device__ constexpr int tc_smem(int H) {
+  return 2 * TSL * tc_block(H) + TSL * TROWS * TCLD * 4 + 2 * TSL * 8;
+}
+// bytes of one parity of the h(t) exchange buffer: a block a tile and slice
+inline long long tc_exchange_bytes(int B, int H) {
+  return (long long)(B + TROWS - 1) / TROWS * TSL * tc_block(H);
+}
+
+template <typename S>
+struct TcDir {
+  const S* xw;          // [T, B, 4H]
+  const bf16* wh;       // [H, 4H]
+  S* ys;                // [T, B, H]
+  S* cs;                // [T, B, H] cell states (training form) or nullptr
+  uint8_t* hx;          // 2 parities of tc_exchange_bytes: h(t) in bf16
+  float* h;             // [B, H] the f32 h carry, zeroed
+  float* c;             // [B, H] the f32 c carry, zeroed
+  unsigned int* count;  // frames done x CTAs, zeroed
+  int reverse;
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major), f32
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid (N = ceil(H/TU), ndir), cooperative: CTA (r, dir) owns hidden
+// units TU*r .. TU*r + TU-1 of its direction and their four gate columns,
+// over every batch row, for all T frames. Warp w multiplies gate columns
+// 32*(w / TSL) .. +31 over contraction slice s = w % TSL (columns
+// s*KSL .. +KSL-1 of h), holding those columns' rows of wh as mma B
+// fragments in registers for the whole launch. `vec`: wh rows hold whole,
+// aligned 16-byte runs of 8 units (H % 8 == 0).
+template <typename S>
+__global__ void __launch_bounds__(TTHREADS, 1)
+lstm_fwd_tc(TcDir<S> d0, TcDir<S> d1, const float* __restrict__ mask, int T,
+            int B, int H, int vec) {
+  const TcDir<S> d = blockIdx.y == 0 ? d0 : d1;
+  const unsigned int N = gridDim.x;
+  const int j0 = blockIdx.x * TU;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ks = tc_ksteps(H), KSL = 16 * ks, Hp = TSL * KSL;
+  const int pitch = tc_pitch(H), block = tc_block(H);
+  const int nq = (B + TROWS - 1) / TROWS;
+  const long long G = 4LL * H;
+  const long long hx_bytes = (long long)nq * TSL * block;
+  extern __shared__ __align__(16) uint8_t tc_raw[];
+  uint8_t* slots = tc_raw;  // [2][TSL] blocks
+  float* red = reinterpret_cast<float*>(slots + 2 * TSL * block);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + TSL * TROWS * TCLD);
+
+  // the CTA's slice of wh, ws[k][c] = wh[k][g*H + j0 + u] (c = g*TU + u),
+  // staged in the slots (zeros past H), then each warp's B fragments
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  unsigned short* ws = reinterpret_cast<unsigned short*>(slots);
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(d.wh);
+  if (vec) {  // 8 units of one gate and row a 16-byte load
+    for (int q = tid; q < Hp * TC / 8; q += TTHREADS) {
+      const int k = q / (TC / 8), c = (q % (TC / 8)) * 8;
+      const int g = c / TU, u = c % TU;
+      *reinterpret_cast<uint4*>(ws + k * TC + c) =
+          (k < H && j0 + u < H)
+              ? *reinterpret_cast<const uint4*>(w16 + (long long)k * G +
+                                                (long long)g * H + j0 + u)
+              : zero;
+    }
+  } else {
+    for (int q = tid; q < Hp * TC; q += TTHREADS) {
+      const int k = q / TC, c = q % TC, g = c / TU, u = c % TU;
+      ws[q] = (k < H && j0 + u < H)
+                  ? w16[(long long)k * G + (long long)g * H + j0 + u]
+                  : static_cast<unsigned short>(0);
+    }
+  }
+  __syncthreads();
+  const int sl = warp % TSL, half = warp / TSL;
+  // bw[kk][n][j]: rows s*KSL + 16kk + 2(l%4) + 8j (and the next one, high
+  // half) of column 32*half + 8n + l/4
+  uint32_t bw[TMAX_KSTEPS][4][2];
+#pragma unroll
+  for (int kk = 0; kk < TMAX_KSTEPS; ++kk)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = sl * KSL + 16 * kk + 2 * (lane % 4) + 8 * j;
+        const int c = 32 * half + 8 * n + lane / 4;
+        bw[kk][n][j] =
+            kk < ks ? static_cast<uint32_t>(ws[k * TC + c]) |
+                          (static_cast<uint32_t>(ws[(k + 1) * TC + c]) << 16)
+                    : 0u;
+      }
+  if (tid < 2 * TSL) mbar_init(&full[tid], 1);
+  mbar_fence_init();
+  __syncthreads();  // the slots are free for h
+
+  // the cells of the tile at row b0 of frame t that this thread updates
+  // (cell tid + 256e: row cell / TU, unit cell % TU): xw, mask and its own
+  // f32 h and c, loaded at the tile's start, in flight during the product
+  constexpr int NC = TROWS * TU / TTHREADS;
+  float xv[NC][4], mv[NC], hv[NC], cv[NC];
+  auto load_cells = [&](int t, int b0) {
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int cell = tid + e * TTHREADS;
+      const int b = b0 + cell / TU, j = j0 + cell % TU;
+      if (b < B && j < H) {
+        const S* x = d.xw + ((long long)t * B + b) * G + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xv[e][g] = to_f32(x[g * H]);
+        mv[e] = mask[(long long)t * B + b];
+        hv[e] = d.h[(long long)b * H + j];
+        cv[e] = d.c[(long long)b * H + j];
+      }
+    }
+  };
+
+  long long seq = 0;  // tiles loaded before this frame (mbarrier phases)
+  for (int step = 0; step < T; ++step, seq += nq) {
+    const int t = d.reverse ? T - 1 - step : step;
+    const uint8_t* cur = d.hx + (step & 1) * hx_bytes;
+    uint8_t* nxt = d.hx + ((step + 1) & 1) * hx_bytes;
+    // tile q of h(t-1) into its slot, a bulk copy a slice (through L2: L1
+    // is not coherent, and the buffers are rewritten every other frame)
+    auto issue = [&](int q) {
+      const int slot = (seq + q) & 1;
+      for (int s = 0; s < TSL; ++s) {
+        uint64_t* bar = &full[slot * TSL + s];
+        mbar_arrive_expect_tx(bar, block);
+        bulk_load(slots + (slot * TSL + s) * block,
+                  cur + ((long long)q * TSL + s) * block, block, bar);
+      }
+    };
+    if (tid == 0) {
+      if (step > 0) {
+        // h(t-1) complete: every CTA of the direction has released it
+        // (co-residency makes the wait finite; a fault traps after ~10 s)
+        const long long start = clock64();
+        while (ld_acquire_gpu(d.count) < N * step) {
+          if (clock64() - start > (1LL << 34)) __trap();
+        }
+      }
+      fence_proxy_async_global();  // the copies read other CTAs' stores
+      issue(0);
+      if (nq > 1) issue(1);
+    }
+    for (int q = 0; q < nq; ++q) {
+      const int b0 = q * TROWS;
+      const int slot = (seq + q) & 1;
+      load_cells(t, b0);
+      float acc[2][4][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.0f;
+      grid_wait(&full[slot * TSL + sl], ((seq + q) >> 1) & 1);
+      // A fragments by ldmatrix: lanes 8i..8i+7 address the rows of 8 x 8
+      // matrix i (rows 0-7 / 8-15 of the m16 tile, k words 0 / 1)
+      const uint32_t a0 = smem_u32(slots + (slot * TSL + sl) * block) +
+                          ((lane % 8) + 8 * ((lane / 8) % 2)) * pitch +
+                          (lane / 16) * 16;
+#pragma unroll
+      for (int kk = 0; kk < TMAX_KSTEPS; ++kk) {
+        if (kk >= ks) break;
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a0 + 16 * m * pitch + 32 * kk);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            mma_16816(acc[m][n], a, bw[kk][n][0], bw[kk][n][1]);
+          }
+        }
+      }
+      // the slice's partial sums: c0,c1 at (row l/4, columns 2(l%4)+0,1),
+      // c2,c3 eight rows below
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 16 * m + lane / 4 + 8 * h;
+            const int col = 32 * half + 8 * n + 2 * (lane % 4);
+            *reinterpret_cast<float2*>(red + (sl * TROWS + row) * TCLD + col) =
+                make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+          }
+      __syncthreads();  // every product read its slot; the partials are in
+      if (tid == 0 && q + 2 < nq) issue(q + 2);  // into the freed slot
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        const int cell = tid + e * TTHREADS;
+        const int rr = cell / TU, u = cell % TU;
+        const int b = b0 + rr, j = j0 + u;
+        if (b >= B || j >= H) continue;
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float sum = red[rr * TCLD + g * TU + u];
+#pragma unroll
+          for (int s = 1; s < TSL; ++s) {
+            sum += red[(s * TROWS + rr) * TCLD + g * TU + u];
+          }
+          pre[g] = xv[e][g] + sum;
+        }
+        const float i = sigmoid_fast(pre[0]);
+        const float f = sigmoid_fast(pre[1]);
+        const float g = tanh_fast(pre[2]);
+        const float o = sigmoid_fast(pre[3]);
+        const float m = mv[e];
+        const float c_new = f * cv[e] + i * g;
+        const float h_new = o * tanh_fast(c_new);
+        const float h = m * h_new + (1.0f - m) * hv[e];
+        const float c = m * c_new + (1.0f - m) * cv[e];
+        const long long own = (long long)b * H + j;
+        d.h[own] = h;
+        d.c[own] = c;
+        // h(t) rounded to bf16 where the next frame's product reads it
+        const int sx = j / KSL, kx = j % KSL;
+        *reinterpret_cast<bf16*>(
+            nxt + ((long long)q * TSL + sx) * block + rr * pitch + 2 * kx) =
+            __float2bfloat16(h);
+        const long long out = ((long long)t * B + b) * H + j;
+        d.ys[out] = from_f32<S>(h);
+        if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
+      }
+      if (q == nq - 1) fence_proxy_async_global();  // h(t): bulk copies
+      __syncthreads();  // the partials are read (the next tile rewrites
+                        // them) and every h(t) is stored
+    }
+    if (tid == 0 && step + 1 < T) {  // release h(t): one count a CTA
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                   :: "l"(d.count) : "memory");
+    }
+  }
+}
+
+// whether lstm_fwd_tc takes ndir directions at H: a slice's wh rows in
+// registers (TMAX_KSTEPS) and ceil(H/TU) CTAs a direction co-resident, one
+// an SM (H <= 1056 for two directions on 132 SMs)
+inline bool tc_fits(int H, int ndir) {
+  return tc_ksteps(H) <= TMAX_KSTEPS && tc_smem(H) <= GSMEM_MAX &&
+         (long long)ndir * ((H + TU - 1) / TU) <= device_sms();
+}
+
+template <typename S>
+int run_tc(int T, int B, int H, int ndir, const float* mask,
+           const void* const* xw, const void* const* wh, void* const* ys,
+           void* const* cs, float* const* scratch, const int* reverse,
+           cudaStream_t stream) {
+  if (!tc_fits(H, ndir)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = lstm_fwd_tc<S>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM_MAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const long long hx = 2 * tc_exchange_bytes(B, H) / 4;  // floats
+  TcDir<S> d[2];
+  int vec = H % 8 == 0;
+  for (int i = 0; i < ndir; ++i) {
+    d[i].xw = static_cast<const S*>(xw[i]);
+    d[i].wh = static_cast<const bf16*>(wh[i]);
+    d[i].ys = static_cast<S*>(ys[i]);
+    d[i].cs = static_cast<S*>(cs[i]);
+    d[i].hx = reinterpret_cast<uint8_t*>(scratch[i]);
+    d[i].h = scratch[i] + hx;
+    d[i].c = scratch[i] + hx + (long long)B * H;
+    d[i].count = reinterpret_cast<unsigned int*>(scratch[i] + hx +
+                                                 2LL * B * H);
+    d[i].reverse = reverse[i];
+    vec = vec && aligned16(wh[i]);
+  }
+  if (ndir == 1) d[1] = d[0];
+  TcDir<S> d0 = d[0], d1 = d[1];
+  int T_ = T, B_ = B, H_ = H;
+  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &vec};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel), dim3((H + TU - 1) / TU, ndir),
+      dim3(TTHREADS), args, tc_smem(H), stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // --- bf16 weights: one persistent launch for all frames -----------------------
@@ -1112,29 +1476,41 @@ int run_f32(bool grid, int type_code, int T, int B, int H, int ndir,
   }
 }
 
-}  // namespace
+// The forward's designs (vo_lstm_fwd_named): FWD_STEP (lstm_step a
+// frame) and FWD_GRID (lstm_fwd_grid), the f32-weight route, wh in f32;
+// FWD_TC (lstm_fwd_tc: bf16 weights above MAX_H) and FWD_PERSISTENT
+// (lstm_fwd_persistent: bf16 weights up to MAX_H), wh in bf16.
+constexpr int FWD_STEP = 0;
+constexpr int FWD_GRID = 1;
+constexpr int FWD_TC = 2;
+constexpr int FWD_PERSISTENT = 3;
 
-// One call runs the whole recurrence of one or two directions that share
-// T, B, H, the types and the mask (the two directions of a BLSTM layer).
-// type_code: 0 = S f32 / W f32, 1 = S bf16 / W bf16, 2 = S f32 / W bf16,
-// 3 = S bf16 / W f32. Codes 1 and 2 with H <= 512 make one persistent
-// launch (wh in bf16; scratch ignored). Every other call takes the f32
-// weight route: one lstm_fwd_grid launch (vo_lstm_fwd_f32_grid), else one
-// lstm_step launch per frame, with wh in f32 (codes 1 and 2 above H=512:
-// the bf16 weights widened, h rounded to bf16 before each product) and
-// scratch{0,1}: vo_lstm_fwd_scratch floats each, zeroed by the caller.
-// cs{0,1}: [T, B, H] in S for the training form, or null for the inference
-// form. Returns the first non-zero CUDA error of a launch, or 0.
-extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
-                           const void* mask,
-                           const void* xw0, const void* wh0, void* ys0,
-                           void* cs0, void* scratch0, int reverse0,
-                           const void* xw1, const void* wh1, void* ys1,
-                           void* cs1, void* scratch1, int reverse1,
-                           void* stream) {
-  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2) {
+inline bool bf16_weights(int type_code) {
+  return type_code == 1 || type_code == 2;
+}
+
+// The library's design (chosen on an H100: PERF.md): bf16 weights take
+// the persistent kernel up to MAX_H and lstm_fwd_tc above it where it
+// fits (tc_fits: H <= 1056 for two directions), at every B; every other
+// call the f32-weight route, by shape (f32_grid).
+inline int fwd_design(int type_code, int B, int H, int ndir) {
+  if (bf16_weights(type_code)) {
+    if (H <= MAX_H) return FWD_PERSISTENT;
+    if (tc_fits(H, ndir)) return FWD_TC;
+  }
+  return f32_grid(B, H, ndir) ? FWD_GRID : FWD_STEP;
+}
+
+int fwd(int design, int type_code, int T, int B, int H, int ndir,
+        const void* mask, const void* xw0, const void* wh0, void* ys0,
+        void* cs0, void* scratch0, int reverse0, const void* xw1,
+        const void* wh1, void* ys1, void* cs1, void* scratch1, int reverse1,
+        void* stream) {
+  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 || type_code < 0 ||
+      type_code > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (design == -1) design = fwd_design(type_code, B, H, ndir);
   const void* xw[2] = {xw0, xw1};
   const void* wh[2] = {wh0, wh1};
   void* ys[2] = {ys0, ys1};
@@ -1144,58 +1520,86 @@ extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
   const int reverse[2] = {reverse0, reverse1};
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (type_code == 1 && H <= MAX_H) {
-    return run_persistent<bf16>(T, B, H, ndir, m, xw, wh, ys, cs, reverse, s);
+  switch (design) {
+    case FWD_PERSISTENT:
+      if (!bf16_weights(type_code)) break;
+      return type_code == 1 ? run_persistent<bf16>(T, B, H, ndir, m, xw, wh,
+                                                   ys, cs, reverse, s)
+                            : run_persistent<float>(T, B, H, ndir, m, xw, wh,
+                                                    ys, cs, reverse, s);
+    case FWD_TC:
+      if (!bf16_weights(type_code)) break;
+      return type_code == 1 ? run_tc<bf16>(T, B, H, ndir, m, xw, wh, ys, cs,
+                                           scratch, reverse, s)
+                            : run_tc<float>(T, B, H, ndir, m, xw, wh, ys, cs,
+                                            scratch, reverse, s);
+    case FWD_GRID:
+      if (grid_units(H, ndir, device_sms()) == 0) break;
+      return run_f32(true, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
+                     scratch, reverse, s);
+    case FWD_STEP:
+      return run_f32(false, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
+                     scratch, reverse, s);
   }
-  if (type_code == 2 && H <= MAX_H) {
-    return run_persistent<float>(T, B, H, ndir, m, xw, wh, ys, cs, reverse,
-                                 s);
-  }
-  return run_f32(f32_grid(B, H, ndir), type_code, T, B, H, ndir, m, xw, wh,
-                 ys, cs, scratch, reverse, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// 1 when vo_lstm_fwd's f32-weight route (type codes 0 and 3, and 1 and 2
-// above H=512) runs ndir directions at batch size B and hidden size H as
-// one lstm_fwd_grid launch, 0 when it runs lstm_step a frame.
-extern "C" int vo_lstm_fwd_f32_grid(int B, int H, int ndir) {
-  return B >= 1 && f32_grid(B, H, ndir) ? 1 : 0;
+}  // namespace
+
+// One call runs the whole recurrence of one or two directions that share
+// T, B, H, the types and the mask (the two directions of a BLSTM layer),
+// by the library's design (vo_lstm_fwd_design).
+// type_code: 0 = S f32 / W f32, 1 = S bf16 / W bf16, 2 = S f32 / W bf16,
+// 3 = S bf16 / W f32. wh{0,1}: [H, 4H] in bf16 for the bf16-weight
+// kernels (lstm_fwd_persistent, lstm_fwd_tc), else in f32 (codes 1 and 2
+// on the f32-weight route: the bf16 weights widened, h rounded to bf16
+// before each product). scratch{0,1}: vo_lstm_fwd_scratch floats each,
+// zeroed by the caller (lstm_fwd_persistent ignores it). cs{0,1}: [T, B,
+// H] in S for the training form, or null for the inference form. Returns
+// the first non-zero CUDA error of a launch, or 0.
+extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
+                           const void* mask,
+                           const void* xw0, const void* wh0, void* ys0,
+                           void* cs0, void* scratch0, int reverse0,
+                           const void* xw1, const void* wh1, void* ys1,
+                           void* cs1, void* scratch1, int reverse1,
+                           void* stream) {
+  return fwd(-1, type_code, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
+             scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1, reverse1,
+             stream);
+}
+
+// vo_lstm_fwd with the design named, so that each can be held to the
+// plain version and timed at any shape it takes: 0 lstm_step a frame, 1
+// lstm_fwd_grid (both any type code at any H, wh in f32), 2 lstm_fwd_tc
+// (codes 1 and 2 where tc_fits), 3 lstm_fwd_persistent (codes 1 and 2, H
+// <= 512), -1 the library's.
+extern "C" int vo_lstm_fwd_named(int design, int type_code, int T, int B,
+                                 int H, int ndir, const void* mask,
+                                 const void* xw0, const void* wh0, void* ys0,
+                                 void* cs0, void* scratch0, int reverse0,
+                                 const void* xw1, const void* wh1, void* ys1,
+                                 void* cs1, void* scratch1, int reverse1,
+                                 void* stream) {
+  return fwd(design, type_code, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
+             scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1, reverse1,
+             stream);
+}
+
+// The design vo_lstm_fwd runs (vo_lstm_fwd_named's codes) for ndir
+// directions of type_code at batch size B and hidden size H.
+extern "C" int vo_lstm_fwd_design(int type_code, int B, int H, int ndir) {
+  return fwd_design(type_code, B, H, ndir);
 }
 
 // The f32 scratch of one direction, in floats: lstm_fwd_grid's h(t) by
-// step parity [2][B][Hp], c [B][H] and its frame counter, or lstm_step's
-// h ping, h pong and c [3][B][H], whichever is larger.
+// step parity [2][B][Hp], c [B][H] and its frame counter; lstm_step's h
+// ping, h pong and c [3][B][H]; or lstm_fwd_tc's bf16 h(t) exchange by
+// step parity, h and c [2][B][H] and its frame counter: the largest.
 extern "C" long long vo_lstm_fwd_scratch(int B, int H) {
   const long long grid =
       2LL * (B + GROWS - 1) / GROWS * GROWS * grid_hp(H) + (long long)B * H + 4;
   const long long step = 3LL * B * H;
-  return grid > step ? grid : step;
-}
-
-// vo_lstm_fwd's f32-weight route with the design named (grid 1:
-// lstm_fwd_grid; 0: lstm_step a frame), so that both designs can be held
-// to the plain version and timed at any shape the grid kernel takes; any
-// type code at any H (codes 1 and 2: wh widened to f32, as vo_lstm_fwd
-// takes it above H=512).
-extern "C" int vo_lstm_fwd_f32(int grid, int type_code, int T, int B, int H,
-                               int ndir, const void* mask,
-                               const void* xw0, const void* wh0, void* ys0,
-                               void* cs0, void* scratch0, int reverse0,
-                               const void* xw1, const void* wh1, void* ys1,
-                               void* cs1, void* scratch1, int reverse1,
-                               void* stream) {
-  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 ||
-      (grid && grid_units(H, ndir, device_sms()) == 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const void* xw[2] = {xw0, xw1};
-  const void* wh[2] = {wh0, wh1};
-  void* ys[2] = {ys0, ys1};
-  void* cs[2] = {cs0, cs1};
-  float* scratch[2] = {static_cast<float*>(scratch0),
-                       static_cast<float*>(scratch1)};
-  const int reverse[2] = {reverse0, reverse1};
-  return run_f32(grid != 0, type_code, T, B, H, ndir,
-                 static_cast<const float*>(mask), xw, wh, ys, cs, scratch,
-                 reverse, static_cast<cudaStream_t>(stream));
+  const long long tc = 2 * tc_exchange_bytes(B, H) / 4 + 2LL * B * H + 4;
+  return std::max({grid, step, tc});
 }

@@ -106,10 +106,10 @@ def _bind(lib) -> None:
         p, p, p, p, p, i,  # direction 1
         p,  # stream
     ]
-    lib.vo_lstm_fwd_f32.restype = i
-    lib.vo_lstm_fwd_f32.argtypes = [i] + lib.vo_lstm_fwd.argtypes  # grid
-    lib.vo_lstm_fwd_f32_grid.restype = i
-    lib.vo_lstm_fwd_f32_grid.argtypes = [i, i, i]  # B, H, ndir
+    lib.vo_lstm_fwd_named.restype = i
+    lib.vo_lstm_fwd_named.argtypes = [i] + lib.vo_lstm_fwd.argtypes  # design
+    lib.vo_lstm_fwd_design.restype = i
+    lib.vo_lstm_fwd_design.argtypes = [i, i, i, i]  # type_code, B, H, ndir
     lib.vo_lstm_fwd_scratch.restype = ctypes.c_longlong
     lib.vo_lstm_fwd_scratch.argtypes = [i, i]  # B, H
     lib.vo_lstm_bwd.restype = i

@@ -29,14 +29,16 @@ design does about it.
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
   ``FWD_GRID_LAUNCHES`` (of which f32 weights on ``lstm_fwd_grid``: one
-  launch), ``STEP_LAUNCHES`` (f32 weights on ``lstm_step``: T a call),
+  launch), ``FWD_TC_LAUNCHES`` (of which bf16 weights above
+  ``PERSISTENT_MAX_H`` on ``lstm_fwd_tc``: one launch),
+  ``STEP_LAUNCHES`` (f32 weights on ``lstm_step``: T a call),
   ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` (of which the
   gate GEMM, any design: one launch), ``GATES_WIDE_LAUNCHES`` (of which
   ``bptt_gates_gemm_wide``),
   ``BWD_PERSISTENT_LAUNCHES`` (of which the persistent frame loop: one
   launch), ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
   f32-weight frame loop's kernels, each counted T a call) and
-  ``DWH_LAUNCHES`` (dwh reduction).
+  ``DWH_LAUNCHES`` (dwh reduction: one launch).
 - Routes. bf16 weights: a BPTT call's gate GEMM (every frame's gate
   recompute as one GEMM) is ``bptt_gates_gemm_wide``, persistent 128 x
   256 wgmma tiles whose stores of ``pre`` drain under the next tile's
@@ -44,24 +46,31 @@ design does about it.
   ``PERSISTENT_MAX_H`` a forward call is one kernel launch for all frames
   (``lstm_fwd_persistent``), the BPTT's frame loop one more
   (``lstm_bwd_persistent``) and dwh ``lstm_dwh_tc``. Above it (F2) no
-  cluster holds wh, so the forward and the frame loop run on the
-  f32-weight kernels below, wh widened to f32 (exact; the wrapper passes
-  wh in both types) and the products' operands rounded to bf16 where the
-  plain versions round them; dwh is ``lstm_dwh_tc`` in 128 x 256 tiles,
-  which ask the L2 for a third fewer bytes a product than its 128 x 128
-  ones (at F2's H=1000 the rows are not whole 128-byte lines, and the L2
-  is what bounds dwh).
+  cluster holds wh: the forward is ``lstm_fwd_tc`` (one cooperative
+  launch over the card, each CTA's bf16 slice of wh in registers as
+  ``mma.sync`` fragments, h exchanged in bf16 through L2 behind a frame
+  counter) up to H=1056 for two directions, the f32-weight forward
+  beyond; the frame loop runs on the f32-weight kernels below, wh
+  widened to f32 (exact; the wrapper passes wh in both types) and the
+  products' operands rounded to bf16 where the plain versions round them;
+  dwh is ``lstm_dwh_tc`` in 128 x 256 tiles, which ask the L2 for a third
+  fewer bytes a product than its 128 x 128 ones (at F2's H=1000 the rows
+  are not whole 128-byte lines, and the L2 is what bounds dwh).
   f32 weights: the forward by shape
-  (``f32_forward_grid``, chosen on an H100) as one cooperative
+  (``forward_design``, chosen on an H100) as one cooperative
   ``lstm_fwd_grid`` launch (a direction spread over the card, each CTA's
   slice of wh on chip, h exchanged through L2 behind a frame counter;
   H=512 up to B=320) or one ``lstm_step`` launch per frame; the BPTT is
   ``bptt_gates_gemm``'s f32 form on the FMA units (TF32 would change the
   numbers), then by B (``vo_lstm_bwd_f32_folds``): ``bptt_frame`` a frame
   (the cell backward and the dh product in one launch; 1 + T launches, B
-  <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches).
-  ``GEMM_DESIGNS`` and ``DWH_DESIGNS`` name the designs, so that each can
-  be held to the plain version and timed beside the library's choice.
+  <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches); dwh
+  is ``lstm_dwh_fma``, exact f32 FMAs with the rows split into ranges of
+  at most 2048 (and enough ranges for two CTAs an SM), the partial tiles
+  added in split order inside the launch.
+  ``FWD_DESIGNS``, ``GEMM_DESIGNS`` and ``DWH_DESIGNS`` name the designs,
+  so that each can be held to the plain version and timed beside the
+  library's choice.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ CELL_LAUNCHES = 0
 DH_LAUNCHES = 0
 DWH_LAUNCHES = 0
 FWD_GRID_LAUNCHES = 0
+FWD_TC_LAUNCHES = 0
 STEP_LAUNCHES = 0
 _count_lock = threading.Lock()
 
@@ -99,6 +109,12 @@ PERSISTENT_MAX_H = 512
 # 128 x 256 (above it).
 GEMM_DESIGNS = ("fma", "wide")
 DWH_DESIGNS = ("tiles", "wide")
+# the forward's designs, by their codes in csrc/lstm_fwd.cu
+# (vo_lstm_fwd_named): the f32-weight route's "step" (lstm_step a frame)
+# and "grid" (lstm_fwd_grid), wh in f32; "tc" (lstm_fwd_tc, bf16 weights
+# above PERSISTENT_MAX_H) and "persistent" (lstm_fwd_persistent, bf16
+# weights up to it), wh in bf16
+FWD_DESIGNS = ("step", "grid", "tc", "persistent")
 
 _TYPE_CODES = {
     (torch.float32, torch.float32): 0,
@@ -303,12 +319,6 @@ def _persistent(dtype: torch.dtype, H: int) -> bool:
     return dtype == torch.bfloat16 and H <= PERSISTENT_MAX_H
 
 
-def _kernel_wh(wh: torch.Tensor, persistent: bool) -> torch.Tensor:
-    """wh as the forward kernels read it: bf16 for the persistent kernel,
-    f32 (bf16 values widened exactly) for the f32-weight ones."""
-    return wh if persistent else wh.to(torch.float32).contiguous()
-
-
 def _dir_args(per_dir: List[list], n_fields: int) -> list:
     """Flatten per-direction C arguments; with one direction the second
     direction's slots repeat the first (the kernel does not read them)."""
@@ -321,16 +331,14 @@ def _dir_args(per_dir: List[list], n_fields: int) -> list:
 
 def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
              mask: torch.Tensor, dtype: torch.dtype, *,
-             save_cell: bool = False, grid: Optional[bool] = None):
+             save_cell: bool = False, design: Optional[str] = None):
     """The forward kernel over one or two directions that share T, B, H,
     the dtypes and the mask (CUDA only). ``dirs``: (xw, wh already in
-    ``dtype``, reverse). Returns (ys list, cs list or None). On the
-    f32-weight route (f32 weights; bf16 weights above
-    ``PERSISTENT_MAX_H``) the library chooses the design by shape
-    (``f32_forward_grid``); ``grid`` names one instead (True:
-    ``lstm_fwd_grid``, False: ``lstm_step`` a frame), also for bf16
-    weights at any H, so that both can be held to the plain version and
-    timed at any shape the grid kernel takes."""
+    ``dtype``, reverse). Returns (ys list, cs list or None). The library
+    chooses the design by weight type and shape (``forward_design``);
+    ``design`` (``FWD_DESIGNS``) names one instead (the f32-weight route's
+    "grid" and "step" take any weight type at any H), so that each can be
+    held to the plain version and timed at any shape it takes."""
     from . import _build
 
     xw0 = dirs[0][0]
@@ -342,53 +350,60 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
             raise ValueError("both directions must share shape and dtype")
         if wh.dtype != dtype:
             raise TypeError(f"wh must be {dtype}, got {wh.dtype}")
-    # bf16 weights up to PERSISTENT_MAX_H: one persistent launch, a cluster
-    # of ceil(H/32) CTAs holding wh in shared memory
-    persistent = _persistent(dtype, H) and grid is None
     lib = _build.load()
-    # Outputs (and the f32 kernels' zeroed scratch: h(t) by step parity, c
-    # and lstm_fwd_grid's frame counter) are allocated on the launch
-    # stream; the caching allocator reuses a freed block only for work
-    # queued after the kernel on that stream.
+    code = _TYPE_CODES[(xw0.dtype, dtype)]
+    d = (lib.vo_lstm_fwd_design(code, B, H, len(dirs)) if design is None
+         else FWD_DESIGNS.index(design))
+    name = FWD_DESIGNS[d]
+    # the bf16-weight kernels read wh in bf16, the f32-weight route in f32
+    # (bf16 weights widened, exactly)
+    bf16_wh = name in ("tc", "persistent")
+    if bf16_wh and dtype != torch.bfloat16:
+        raise ValueError(f"the {name} forward takes bf16 weights only")
+    # Outputs (and the zeroed scratch: lstm_fwd_grid's and lstm_fwd_tc's
+    # h(t) by step parity, their carries and frame counter; lstm_step's h
+    # and c) are allocated on the launch stream; the caching allocator
+    # reuses a freed block only for work queued after the kernel on that
+    # stream.
     new = dict(dtype=xw0.dtype, device=xw0.device)
     ys = [torch.empty((T, B, H), **new) for _ in dirs]
     cs = [torch.empty((T, B, H), **new) for _ in dirs] if save_cell else None
-    scratch = [None if persistent else torch.zeros(
+    scratch = [None if name == "persistent" else torch.zeros(
         lib.vo_lstm_fwd_scratch(B, H), dtype=torch.float32,
         device=xw0.device) for _ in dirs]
-    whs = [_kernel_wh(wh, persistent) for _, wh, _ in dirs]
+    whs = [wh if bf16_wh else wh.to(torch.float32).contiguous()
+           for _, wh, _ in dirs]
     args = _dir_args([
         [xw.data_ptr(), whs[k].data_ptr(), ys[k].data_ptr(),
          cs[k].data_ptr() if save_cell else None,
-         None if persistent else scratch[k].data_ptr(), int(rev)]
+         None if scratch[k] is None else scratch[k].data_ptr(), int(rev)]
         for k, (xw, _, rev) in enumerate(dirs)], 6)
-    call = (_TYPE_CODES[(xw0.dtype, dtype)], T, B, H, len(dirs),
-            mask.data_ptr(), *args,
+    call = (code, T, B, H, len(dirs), mask.data_ptr(), *args,
             torch.cuda.current_stream(xw0.device).cuda_stream)
-    if persistent or grid is None:
+    if design is None:
         _build.check(lib.vo_lstm_fwd(*call), "vo_lstm_fwd")
-        grid = not persistent and bool(
-            lib.vo_lstm_fwd_f32_grid(B, H, len(dirs)))
     else:
-        _build.check(lib.vo_lstm_fwd_f32(int(grid), *call), "vo_lstm_fwd_f32")
+        _build.check(lib.vo_lstm_fwd_named(d, *call), "vo_lstm_fwd_named")
     _count("LAUNCHES")
     if save_cell:
         _count("SAVE_CELL_LAUNCHES")
-    if grid:
+    if name == "grid":
         _count("FWD_GRID_LAUNCHES")
-    elif not persistent:
+    elif name == "step":
         _count("STEP_LAUNCHES", T)
+    elif name == "tc":
+        _count("FWD_TC_LAUNCHES")
     return ys, cs
 
 
-def f32_forward_grid(B: int, H: int, ndir: int = 2) -> bool:
-    """Whether the library runs the f32-weight forward (type codes 0 and
-    3; 1 and 2 above ``PERSISTENT_MAX_H``) of ``ndir`` directions at B, H
-    as one ``lstm_fwd_grid`` launch (else ``lstm_step`` a frame); builds
-    the kernels on first use."""
+def forward_design(dtype: torch.dtype, B: int, H: int, ndir: int = 2) -> str:
+    """The forward design (``FWD_DESIGNS``) the library runs for ``ndir``
+    directions with weights in ``dtype`` at B, H; builds the kernels on
+    first use."""
     from . import _build
 
-    return bool(_build.load().vo_lstm_fwd_f32_grid(B, H, ndir))
+    code = 1 if dtype == torch.bfloat16 else 0
+    return FWD_DESIGNS[_build.load().vo_lstm_fwd_design(code, B, H, ndir)]
 
 
 def _gemm_code(lib, gemm: Optional[str], code: int, H: int) -> int:
@@ -499,7 +514,8 @@ def lstm_dwh(dirs, dtype: torch.dtype, *,
     128 tiles up to ``PERSISTENT_MAX_H`` and in 128 x 256 above it (the
     rows split into ranges of at most 4096, one CTA each, the partial
     tiles added in order in a workspace allocated here); ``design``
-    (``DWH_DESIGNS``) names one instead."""
+    (``DWH_DESIGNS``) names one instead. f32 operands take
+    ``lstm_dwh_fma`` (its split's workspace allocated here as well)."""
     from . import _build
 
     ys0 = dirs[0][0]
