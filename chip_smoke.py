@@ -1937,26 +1937,28 @@ def f32_forward_rule_times(dev, card: str) -> list:
 
 
 # bf16 weights above H=512 (type codes 1 and 2): the forward on
-# lstm_fwd_tc (the tensor cores, wh in bf16), the frame loop on the
-# f32-weight kernels with wh widened to f32 and the products' operands
-# rounded to bf16, the gate GEMM and dwh on the wide wgmma kernels;
-# (B, T, H) checked in both codes, the last one also timed (code 1, the
-# model's) beside the earlier designs (the forward's lstm_fwd_grid, the
-# FMA gate GEMM, dwh's 128 x 128 tiles) and the f32 route (code 0) at the
-# same shape
+# lstm_fwd_tc and the frame loop on lstm_bwd_tc (the tensor cores, wh in
+# bf16), the gate GEMM and dwh on the wide wgmma kernels; (B, T, H)
+# checked in both codes, the last one also timed (code 1, the model's)
+# beside the earlier designs (the forward's lstm_fwd_grid, the FMA gate
+# GEMM, the f32-weight frame loop, dwh's 128 x 128 tiles) and the f32
+# route (code 0) at the same shape
 F2_SHAPES = ((32, 512, 520), (32, 512, 1000))
 F2_TIMED = F2_SHAPES[-1]
 F2_COUNTERS = ("FWD_TC_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES",
                "GATES_GEMM_LAUNCHES",
                "GATES_WIDE_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
-               "DH_LAUNCHES", "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
+               "DH_LAUNCHES", "DWH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES",
+               "BWD_TC_LAUNCHES")
 # the designs F2's route ran before, timed beside the library's: the
-# forward's lstm_fwd_grid (wh widened to f32), the FMA gate GEMM, and
+# forward's lstm_fwd_grid (wh widened to f32), the FMA gate GEMM, the
+# frame loop on the f32-weight kernels ("f32": bptt_frame a frame up to
+# B=32, bptt_cell and bptt_dh beyond, wh widened; f2_parent_loop), and
 # dwh's 128 x 128 tiles (with the L2 promotion that the maps now take by H)
-F2_PARENT = {"fwd": "grid", "gemm": "fma", "dwh": "tiles"}
-# where lstm_fwd_tc and lstm_step are timed side by side at H=1000 (both
-# directions, save_cell, T = 16384 / B), for the library's rule between
-# them
+F2_PARENT = {"fwd": "grid", "gemm": "fma", "loop": "f32", "dwh": "tiles"}
+# where lstm_fwd_tc and lstm_step, and lstm_bwd_tc and the parent's frame
+# loop, are timed side by side at H=1000 (both directions, T = 16384 / B),
+# for the library's rules between them
 F2_FWD_RULE_B = (32, 128, 256, 512)
 F2_RULE_ROWS = 16384
 # the flagship's bf16 gate GEMM (the 128 x 128 wgmma tiles that
@@ -2080,19 +2082,30 @@ def _counter_deltas(mod, names, before) -> dict:
     return {n: getattr(mod, n) - b for n, b in zip(names, before)}
 
 
+def f2_parent_loop(B: int) -> str:
+    """The frame loop F2's route ran at batch size B before lstm_bwd_tc
+    (``F2_PARENT["loop"]``): the f32-weight loop the library picks by B
+    (``LOOP_DESIGNS`` "fold" up to B=32, "split" beyond)."""
+    from vistaocr_tpu_torch.ops import _build
+
+    return "fold" if _build.load().vo_lstm_bwd_f32_folds(B) else "split"
+
+
 def f2_train_kernels(dev, card: str) -> dict:
     """bf16 weights at ``F2_SHAPES``, type codes 1 and 2, both directions,
     ragged mask: the save_cell and inference forwards on ``lstm_fwd_tc``
-    (3e-2 of the plain version), the wide gate GEMM (1e-5 relative of ``bptt_gates_ref`` and
-    of the parent FMA design), the frame loop on the kernel's gates and
-    the whole BPTT (2e-2 relative), the wide dwh from the plain dxw (2e-2
+    (3e-2 of the plain version), the wide gate GEMM (1e-5 relative of
+    ``bptt_gates_ref`` and of the parent FMA design), the frame loop
+    (``lstm_bwd_tc``) on the kernel's gates and the whole BPTT (2e-2
+    relative; the parent's f32-weight loop held to the same bound on the
+    same gates), the wide dwh from the plain dxw (2e-2
     relative of the plain version; as ``_dwh_accurate`` says against the
     exact sum, on the BPTT's operands and normal ones, its gaps to one
     ``torch.mm`` of the same bf16 operands and to the parent 128 x 128
     design shown), each run twice
     (bit-equal), with the launches of each call counted (the library's
-    route: the f32 shape rules for the forward and the frame loop, the
-    wide kernels for the gate GEMM and dwh, lstm_fwd_tc for the forward).
+    route: lstm_fwd_tc for the forward, lstm_bwd_tc for the frame loop,
+    one launch a call each, the wide kernels for the gate GEMM and dwh).
     At ``F2_TIMED`` with bf16
     streams each kernel is timed beside its bound (operations at the bf16
     peak: the products are of bf16 values), its plain version, the library
@@ -2105,9 +2118,10 @@ def f2_train_kernels(dev, card: str) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     checked, rows = [], {}
     for (B, T, H) in F2_SHAPES:
-        _require(L.forward_design(bf16, B, H) == "tc",
-                 f"F2's forward at B={B} H={H} is lstm_fwd_tc")
-        folds = bool(lib.vo_lstm_bwd_f32_folds(B))
+        _require(L.forward_design(bf16, B, H) == "tc"
+                 and L.loop_design(bf16, B, H) == "tc",
+                 f"F2's forward and frame loop at B={B} H={H} are "
+                 f"lstm_fwd_tc and lstm_bwd_tc")
         for stream in (bf16, f32):
             tag = (f"B={B} T={T} H={H}, bf16 weights, {_dtname(stream)} "
                    f"streams")
@@ -2142,6 +2156,8 @@ def f2_train_kernels(dev, card: str) -> dict:
                 loop_r = [L.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
                                             dtype=bf16)
                           for p, (_, w, _, cs, dy, r) in zip(pre_k, bdirs)]
+                dxw_p = L.lstm_bptt_frames(bdirs, mask, bf16,
+                                           loop=f2_parent_loop(B))
                 # the parent designs on the same inputs, and dwh's library
                 # call (one cuBLAS bf16 GEMM, f32 out) on the same operands:
                 # the BPTT's, and seeded normal ones of the same shapes
@@ -2160,11 +2176,10 @@ def f2_train_kernels(dev, card: str) -> dict:
                 exact = [dwh_exact(y, g, r, bf16) for y, g, r in ddirs]
                 exact_n = [dwh_exact(y, g, r, bf16) for y, g, r in ndirs]
             want = {"FWD_TC_LAUNCHES": 4, "FWD_GRID_LAUNCHES": 0,
-                    "STEP_LAUNCHES": 0, "GATES_GEMM_LAUNCHES": 2, "GATES_WIDE_LAUNCHES": 2,
-                    "FRAME_LAUNCHES": 2 * T if folds else 0,
-                    "CELL_LAUNCHES": 0 if folds else 2 * T,
-                    "DH_LAUNCHES": 0 if folds else 2 * T,
-                    "DWH_LAUNCHES": 2, "BWD_PERSISTENT_LAUNCHES": 0}
+                    "STEP_LAUNCHES": 0, "GATES_GEMM_LAUNCHES": 2,
+                    "GATES_WIDE_LAUNCHES": 2, "FRAME_LAUNCHES": 0,
+                    "CELL_LAUNCHES": 0, "DH_LAUNCHES": 0, "DWH_LAUNCHES": 2,
+                    "BWD_PERSISTENT_LAUNCHES": 0, "BWD_TC_LAUNCHES": 2}
             wide_dwh = L.DWH_DESIGNS[lib.vo_lstm_dwh_design(1, H)] == "wide"
             err = {
                 "save_cell": max(max(_abs(y, ry), _abs(c, rc)) for (y, c), (
@@ -2189,6 +2204,8 @@ def f2_train_kernels(dev, card: str) -> dict:
                 "dwh_parent_rel": max(_rel(a, b) for a, b in zip(dwhs[0],
                                                                  dwh_p)),
                 "loop_rel": max(_rel(a, b) for a, b in zip(dxw_k, loop_r)),
+                "parent_loop_rel": max(_rel(a, b) for a, b in zip(dxw_p,
+                                                                  loop_r)),
                 "dxw_rel": max(_rel(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
                 "dxw_abs": max(_abs(a, b) for a, (b, _) in zip(dxw_k, ref_b)),
                 "dwh_rel": max(_rel(a, b) for a, (_, b) in zip(dwhs[0],
@@ -2205,6 +2222,7 @@ def f2_train_kernels(dev, card: str) -> dict:
                     and all(torch.equal(a, b) for a, b in zip(*dwhs)))
             ok = (err["save_cell"] <= 3e-2 and err["inference"] <= 3e-2
                   and err["gates_rel"] <= 1e-5 and err["loop_rel"] <= 2e-2
+                  and err["parent_loop_rel"] <= 2e-2
                   and err["gates_parent_rel"] <= 1e-5
                   and all(_dwh_accurate(err[f"dwh_exact_rel{o}"],
                                         err[f"dwh_mm_exact_rel{o}"])
@@ -2214,7 +2232,7 @@ def f2_train_kernels(dev, card: str) -> dict:
             print(f"F2 kernels vs plain {tag}: " + "; ".join(
                 f"{k} {v:.3e}" for k, v in err.items()) + f"; bit-equal "
                 f"twice {same}; launches {got} (lstm_fwd_tc, "
-                f"bptt_gates_gemm_wide, {'fold' if folds else 'split'}, "
+                f"bptt_gates_gemm_wide, lstm_bwd_tc, "
                 f"lstm_dwh_tc {'128 x 256' if wide_dwh else '128 x 128'}) "
                 f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"F2 kernels agree with plain, bit-equal, launches "
@@ -2268,11 +2286,14 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
     """Each F2 kernel timed at F2_TIMED (bf16 streams and weights) beside
     its bound, plain version, library call and the f32 route; the forward
     (lstm_fwd_tc, CUDA events and the profiler's device time a launch),
-    the wide gate GEMM (the profiler's device time a launch inside
-    ``lstm_bptt_frames``), dwh and the frames behind the gate GEMM (CUDA
-    events) in turns with the earlier designs (``F2_PARENT``); dwh's
-    achieved rate an SM in both designs; lstm_fwd_tc beside lstm_step at
-    ``F2_FWD_RULE_B`` (``f2_forward_rule``)."""
+    the wide gate GEMM and lstm_bwd_tc (the profiler's device time a
+    launch inside ``lstm_bptt_frames``), dwh and the BPTT frames (the gate
+    GEMM and the frame loop; CUDA events) in turns with the earlier
+    designs (``F2_PARENT``), the parent's frame-loop kernels (bptt_frame,
+    bptt_cell and bptt_dh) a frame; dwh's achieved rate an SM in both
+    designs; lstm_fwd_tc beside lstm_step and lstm_bwd_tc beside the
+    parent's frame loop at ``F2_FWD_RULE_B`` (``f2_forward_rule``,
+    ``f2_loop_rule``)."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -2327,9 +2348,11 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
             "dwh_parent": lambda: L.lstm_dwh(ddirs, bf16,
                                              design=F2_PARENT["dwh"]),
             "dwh": lambda: L.lstm_dwh(ddirs, bf16)}, 20))
+        # the frames (gate GEMM and frame loop) in turns with the parent's
+        # frame loop
         t.update(_turns_ms({
             "frames_parent": lambda: L.lstm_bptt_frames(
-                bdirs, mask, bf16, gemm=F2_PARENT["gemm"]),
+                bdirs, mask, bf16, loop=f2_parent_loop(B)),
             "frames": lambda: L.lstm_bptt_frames(bdirs, mask, bf16)}, 3))
         dg = [g[T // 2].to(bf16).float() for _, g, _ in ddirs]
         wq = [w.float() for _, w, _ in dirs]
@@ -2340,10 +2363,14 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
             (GATES_WIDE, *(k + "<" for k in LOOP_KERNELS[fd])),
             {GATES_WIDE: 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
             for fd in F32_DESIGNS}
+        tc_us = _kernel_us(lambda: L.lstm_bptt_frames(bdirs, mask, bf16),
+                           ("lstm_bwd_tc<",), {"lstm_bwd_tc<": 1})[
+                               "lstm_bwd_tc<"]
         fwd_us = _kernel_us(lambda: L.lstm_fwd(
             dirs, mask, bf16, save_cell=True, design="tc"),
             ("lstm_fwd_tc<",), {"lstm_fwd_tc<": 1})["lstm_fwd_tc<"]
     rule = f2_forward_rule(dev, card, H)
+    loop_rule = f2_loop_rule(dev, card, H)
     R = (T - 1) * B
     flops = 2 * 2 * R * H * 4 * H  # one product over every frame, 2 dirs
     whq = [w for _, w, _ in dirs]
@@ -2358,7 +2385,9 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
     dwh_in = _nbytes(*(a for y, g, _ in ddirs for a in (y, g)))
     dwh_out = 2 * H * G * 4
     fwd_bound = _bound(fwd_bytes, 2 * 2 * T * B * H * G, bf16)
-    _require(fwd_us[1] == 1, f"lstm_fwd_tc: one launch a call, {fwd_us}")
+    _require(fwd_us[1] == 1 and tc_us[1] == 1,
+             f"lstm_fwd_tc and lstm_bwd_tc: one launch a call, {fwd_us}, "
+             f"{tc_us}")
     rows = {"lstm_fwd_tc": {
         "max_abs_err": err["save_cell"], "ms": t["fwd"],
         "plain_ms": t["fwd_plain"], "library_ms": None, **fwd_bound,
@@ -2380,14 +2409,25 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
               "bptt_cell": (pre_bytes + cell_in + dxw_bytes,
                             2 * 40 * T * B * H),
               "bptt_dh": (dxw_bytes + dh_in, flops)}
+    # the parent's frame-loop kernels (the f32-weight designs), a frame
+    parent_kernels = {}
     for fd in F32_DESIGNS:
         for k in LOOP_KERNELS[fd]:
             us, n = per[fd][k + "<"]
-            rows[k] = {"max_abs_err": err["loop_abs"], "ms": us * n / 1e3,
-                       "plain_ms": t["loop_plain"],
-                       "library_ms": t["dh_lib"] * T if k == "bptt_dh"
-                       else None, **_bound(*bounds[k], bf16),
-                       "launches_per_call": n, "per_frame_us": us}
+            parent_kernels[k] = {
+                "ms": us * n / 1e3, "library_ms": t["dh_lib"] * T
+                if k == "bptt_dh" else None, **_bound(*bounds[k], bf16),
+                "launches_per_call": n, "per_frame_us": us}
+    rows["lstm_bwd_tc"] = {
+        "max_abs_err": err["loop_abs"], "ms": tc_us[0] / 1e3,
+        "plain_ms": t["loop_plain"], "library_ms": t["dh_lib"] * T,
+        "library_call": "the dh product alone, torch.mm a frame, x T",
+        **_bound(*bounds["bptt_frame"], bf16), "launches_per_call": tc_us[1],
+        "ms_source": "profiler, device time a launch in lstm_bptt_frames",
+        "per_frame_us": tc_us[0] / T, "parent_loop_rel": err[
+            "parent_loop_rel"], "parent_kernels": parent_kernels,
+        "parent": f"{f2_parent_loop(B)} (the {F2_PARENT['loop']}-weight "
+                  f"frame loop, wh widened)", "rule_times": loop_rule}
     rates = dwh_rates(H, R, {"tiles": t["dwh_parent"], "wide": t["dwh"]})
     rows["lstm_dwh"] = {
         "max_abs_err": err["dwh_abs"], "ms": t["dwh"],
@@ -2396,7 +2436,7 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
         "ms_source": "CUDA events, one lstm_dwh call",
         "f32_route_ms": t["dwh_f32"], "parent_ms": t["dwh_parent"],
         "parent": "lstm_dwh_tc in 128 x 128 tiles", "rates": rates}
-    for k in ("bptt_gates_gemm_wide", "bptt_frame", "bptt_cell", "bptt_dh"):
+    for k in ("bptt_gates_gemm_wide", "lstm_bwd_tc"):
         rows[k]["frames_ms"] = t["frames"]
         rows[k]["parent_frames_ms"] = t["frames_parent"]
         rows[k]["f32_route_frames_ms"] = t["frames_f32"]
@@ -2407,11 +2447,15 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
           f"{t['fwd_grid']:.3f} ms, lstm_step {t['fwd_step']:.3f} ms, f32 "
           f"route {t['fwd_f32']:.3f} ms, bound {fwd_bound['bound_ms']:.3f} "
           f"ms, plain {t['fwd_plain']:.3f} ms; BPTT frames "
-          f"{t['frames']:.3f} ms (parent {t['frames_parent']:.3f}, f32 route "
-          f"{t['frames_f32']:.3f}; bptt_frame "
+          f"{t['frames']:.3f} ms (in turns with the parent's frame loop "
+          f"{t['frames_parent']:.3f}; f32 route {t['frames_f32']:.3f}); "
+          f"lstm_bwd_tc {tc_us[0] / 1e3:.3f} ms a launch, "
+          f"{tc_us[0] / T:.2f} us a frame (profiler; bound "
+          f"{rows['lstm_bwd_tc']['bound_ms']:.3f} ms; parent bptt_frame "
           f"{per[True]['bptt_frame<'][0]:.2f} us x T, bptt_cell "
           f"{per[False]['bptt_cell<'][0]:.2f} + bptt_dh "
-          f"{per[False]['bptt_dh<'][0]:.2f} us x T; plain loop "
+          f"{per[False]['bptt_dh<'][0]:.2f} us x T; dh alone torch.mm x T "
+          f"{t['dh_lib'] * T:.3f} ms; plain loop "
           f"{t['loop_plain']:.3f} ms); gate GEMM bptt_gates_gemm_wide "
           f"{t['gates']:.4f} ms a launch (profiler; parent FMA form "
           f"{t['gates_parent']:.4f}; events: torch.mm + xw "
@@ -2461,6 +2505,51 @@ def f2_forward_rule(dev, card: str, H: int) -> list:
               f"directions: lstm_fwd_tc {ms['tc']:.3f} ms, lstm_step "
               f"{ms['step']:.3f} ms (in turns), max|d| {err:.2e}; the "
               f"library runs {row['library_runs']} ({card})", flush=True)
+        out.append(row)
+    return out
+
+
+def f2_loop_rule(dev, card: str, H: int) -> list:
+    """The BPTT frames (the wide gate GEMM and the frame loop; bf16 streams
+    and weights, both directions, every row valid) with lstm_bwd_tc and
+    with the parent's frame loop (``f2_parent_loop``) timed in turns at H
+    and each B of ``F2_FWD_RULE_B`` with T = 16384 / B, each held to the
+    other (2e-2 relative), beside the design the library runs there,
+    which must be the one that won."""
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    bf16 = torch.bfloat16
+    out = []
+    for B in F2_FWD_RULE_B:
+        T = F2_RULE_ROWS // B
+        rng = np.random.default_rng(B + H + 1)
+        bdirs = [(_normal(rng, (T, B, 4 * H), 1.0, dev, bf16),
+                  _normal(rng, (H, 4 * H), H ** -0.5, dev, bf16),
+                  _normal(rng, (T, B, H), 0.5, dev, bf16),
+                  _normal(rng, (T, B, H), 1.0, dev, bf16),
+                  _normal(rng, (T, B, H), 1.0, dev, bf16), r)
+                 for r in (False, True)]
+        mask = torch.ones(T, 1, B, device=dev)
+        parent = f2_parent_loop(B)
+        with torch.no_grad():
+            got = {d: L.lstm_bptt_frames(bdirs, mask, bf16, loop=d)
+                   for d in ("tc", parent)}
+            err = max(_rel(a, b) for a, b in zip(got["tc"], got[parent]))
+            ms = _turns_ms({d: lambda d=d: L.lstm_bptt_frames(
+                bdirs, mask, bf16, loop=d) for d in (parent, "tc")}, 3)
+        runs = L.loop_design(bf16, B, H)
+        won = "tc" if ms["tc"] <= ms[parent] else parent
+        _require(err <= 2e-2 and runs == won,
+                 f"lstm_bwd_tc and {parent} agree at B={B} H={H} ({err}) "
+                 f"and the library runs the faster one ({runs}, {ms})")
+        row = {"B": B, "T": T, "H": H, "max_rel_diff": err,
+               "frames_tc_ms": ms["tc"], "parent": parent,
+               "frames_parent_ms": ms[parent], "library_runs": runs}
+        print(f"F2 frame loop rule B={B} T={T} H={H}, both directions, "
+              f"gate GEMM + loop: lstm_bwd_tc {ms['tc']:.3f} ms, {parent} "
+              f"{ms[parent]:.3f} ms (in turns), rel diff {err:.2e}; the "
+              f"library runs {runs} ({card})", flush=True)
         out.append(row)
     return out
 
@@ -2554,9 +2643,10 @@ F2_PATH = tuple((H, B, W) for H in (520, 1000)
 def f2_path_phase(dev, font: dict, card: str) -> dict:
     """F2's main path with the LSTM counters set to 0 before the first step
     and read after the last: what each call's route launches (lstm_fwd_tc;
-    by the f32 shape rule bptt_frame, or bptt_cell and bptt_dh; the wide
-    gate GEMM and dwh), and never a persistent kernel nor an f32-weight
-    forward."""
+    the wide gate GEMM, the frame loop the library's rule picks by B
+    (lstm_bwd_tc where it won, else the f32-weight loop) and dwh), and
+    never a persistent kernel nor an f32-weight forward; lstm_bwd_tc
+    launched at least once."""
     import torch
     from vistaocr_tpu_torch import train as TR
     from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
@@ -2603,7 +2693,10 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
         for name in ("GATES_GEMM_LAUNCHES", "GATES_WIDE_LAUNCHES",
                      "DWH_LAUNCHES"):
             want[name] += bwd
-        if lib.vo_lstm_bwd_f32_folds(B):
+        loop = lstm_cuda.loop_design(torch.bfloat16, B, H)
+        if loop == "tc":
+            want["BWD_TC_LAUNCHES"] += bwd
+        elif loop == "fold":
             want["FRAME_LAUNCHES"] += bwd * T
         else:
             want["CELL_LAUNCHES"] += bwd * T
@@ -2615,28 +2708,30 @@ def f2_path_phase(dev, font: dict, card: str) -> dict:
     wide = all(lstm_cuda.DWH_DESIGNS[lib.vo_lstm_dwh_design(1, H)] == "wide"
                for H, _, _ in F2_PATH)
     idle = ("BWD_PERSISTENT_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES")
-    _require(counts == want and all(
-        (v == 0) == (k in idle) for k, v in counts.items())
-        and wide, f"F2 path launches {counts}, want {want}; dwh's wide "
-                  f"tiles {wide}")
+    _require(counts == want and all(counts[k] == 0 for k in idle)
+             and all(counts[k] > 0 for k in (
+                 "FWD_TC_LAUNCHES", "GATES_WIDE_LAUNCHES", "BWD_TC_LAUNCHES",
+                 "DWH_LAUNCHES")) and wide,
+             f"F2 path launches {counts}, want {want}; dwh's wide tiles "
+             f"{wide}")
     return counts
 
 
-# one F2 train step timed with the library's route and with the forward's
-# earlier design (lstm_fwd_grid): lstm_hidden 1000 at the W=2048 bucket
+# one F2 train step timed with the library's route and with the frame
+# loop's earlier design (the f32-weight loop, F2_PARENT["loop"]):
+# lstm_hidden 1000 at the W=2048 bucket
 F2_STEP = (1000, 32, 2048)  # (H, B, W)
 
 
 def f2_step_timing(dev, font: dict, card: str) -> dict:
     """One bf16 train step (``loss_and_grads``) at ``F2_STEP`` on the
-    library's route, and on the same route with the forward's earlier
-    design (``F2_PARENT["fwd"]``, lstm_fwd_grid) named in the forward
+    library's route, and on the same route with the frame loop's earlier
+    design (``F2_PARENT["loop"]``, the f32-weight loop) named in the BPTT
     wrapper (only here, to time it), in turns (parent, library, library,
     parent), 3 steps each time; both losses and gradients finite, the
-    losses within 1e-6 relative (the runs on the card so far read them
-    equal to the printed digits) and the gradients within 2e-2 relative
-    (the two forwards sum the products in other orders, which moves the
-    saved cells by bf16 roundings)."""
+    losses within 1e-6 relative (both routes run the same forward) and the
+    gradients within 2e-2 relative (the two frame loops sum the dh
+    products in other orders, which moves dxw by bf16 roundings)."""
     import functools
 
     import torch
@@ -2653,17 +2748,18 @@ def f2_step_timing(dev, font: dict, card: str) -> dict:
     init_parameters(model, torch.Generator().manual_seed(H))
     model.to(dev)
     weights = torch.ones(B, device=dev)
-    fwd = L.lstm_fwd
+    frames = L.lstm_bptt_frames
 
     def step():
         return TR.loss_and_grads(model, *batch, weights)
 
     def parent():
-        L.lstm_fwd = functools.partial(fwd, design=F2_PARENT["fwd"])
+        L.lstm_bptt_frames = functools.partial(frames,
+                                               loop=f2_parent_loop(B))
         try:
             return step()
         finally:
-            L.lstm_fwd = fwd
+            L.lstm_bptt_frames = frames
 
     (loss_a, g_a), (loss_b, g_b) = step(), parent()
     torch.cuda.synchronize()
@@ -2674,7 +2770,7 @@ def f2_step_timing(dev, font: dict, card: str) -> dict:
           and loss_gap <= 1e-6 and gap <= 2e-2)
     t = _turns_ms({"parent": parent, "library": step}, 3)
     print(f"F2 train step H={H} B={B} W={W} bf16: library route "
-          f"{t['library']:.3f} ms, parent forward (lstm_fwd_grid) "
+          f"{t['library']:.3f} ms, parent frame loop ({f2_parent_loop(B)}) "
           f"{t['parent']:.3f} ms (saved {t['parent'] - t['library']:.3f}); "
           f"losses {loss_a.item():.6f} / {loss_b.item():.6f} (relative "
           f"gap {loss_gap:.2e}), gradients within {gap:.2e} relative "
@@ -2683,8 +2779,9 @@ def f2_step_timing(dev, font: dict, card: str) -> dict:
     _require(ok, f"F2 step on both routes: losses {loss_a.item()}, "
                  f"{loss_b.item()}, gradient gap {gap}")
     return {"H": H, "B": B, "W": W, "library_ms": t["library"],
-            "parent_ms": t["parent"], "loss_rel_gap": loss_gap,
-            "gradient_rel_gap": gap}
+            "parent_ms": t["parent"], "parent": f"frame loop "
+            f"{f2_parent_loop(B)} (the f32-weight kernels)",
+            "loss_rel_gap": loss_gap, "gradient_rel_gap": gap}
 
 
 def _ctc_inputs(B, T, K, L, dev):
@@ -4773,21 +4870,18 @@ def main(argv) -> int:
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]
         kernels.append(row)
-    # F2's route: bf16 weights above H=512, the forward on lstm_fwd_tc, the
-    # frame loop on the f32-weight kernels, the gate GEMM and dwh on the
-    # wide wgmma kernels, with launches counted on F2's main path (phase 8)
-    # and times at F2_TIMED
+    # F2's route: bf16 weights above H=512, the forward on lstm_fwd_tc and
+    # the frame loop on lstm_bwd_tc, the gate GEMM and dwh on the wide
+    # wgmma kernels, with launches counted on F2's main path (phase 8) and
+    # times at F2_TIMED (the parent's frame-loop kernels, the f32-weight
+    # ones, in lstm_bwd_tc's row)
     for name, src, rep, counter, form in (
             ("lstm_fwd_tc", "lstm_fwd.cu", "lstm_pallas.py:51",
              "FWD_TC_LAUNCHES", "tc"),
             ("bptt_gates_gemm_wide", "lstm_bwd.cu", "lstm_pallas.py:281",
              "GATES_WIDE_LAUNCHES", "wide"),
-            ("bptt_frame", "lstm_bwd.cu", "lstm_pallas.py:281",
-             "FRAME_LAUNCHES", "f32"),
-            ("bptt_cell", "lstm_bwd.cu", "lstm_pallas.py:281",
-             "CELL_LAUNCHES", "f32"),
-            ("bptt_dh", "lstm_bwd.cu", "lstm_pallas.py:281", "DH_LAUNCHES",
-             "f32"),
+            ("lstm_bwd_tc", "lstm_bwd.cu", "lstm_pallas.py:281",
+             "BWD_TC_LAUNCHES", "tc"),
             ("lstm_dwh", "lstm_bwd.cu", "lstm_pallas.py:264",
              "DWH_LAUNCHES", "wide")):
         kernels.append({
@@ -4795,14 +4889,15 @@ def main(argv) -> int:
             "source": f"vistaocr_tpu_torch/csrc/{src}",
             "replaces": f"vistaocr_tpu/ops/{rep}",
             "launches": f2_counts[counter],
-            "form": {"f32": "bf16 weights above H=512 on the f32-weight "
-                            "kernels",
-                     "wide": "bf16 weights above H=512, wgmma in 128 x 256 "
+            "form": {"wide": "bf16 weights above H=512, wgmma in 128 x 256 "
                              "tiles",
                      "tc": "bf16 weights above H=512, mma.sync with wh in "
                            "registers"}[form],
             "at": "B{}_T{}_H{}".format(*F2_TIMED), **f2_rows[name]})
-        if name == "lstm_fwd_tc":
+        if name == "lstm_bwd_tc":
+            kernels[-1]["also_replaces"] = (
+                "vistaocr_tpu/ops/lstm_pallas.py:334")
+        if name in ("lstm_fwd_tc", "lstm_bwd_tc"):
             kernels[-1]["f2_train_step"] = f2_step
     # the f32 dwh: launches on the f32 path (phase 8), numbers at each of
     # F32_DWH_SHAPES

@@ -40,9 +40,9 @@ SHAPES = ((32, 512), (64, 256), (128, 128), (512, 32))  # (B, T), H=512
 
 # (anchor, text put in its place): the stamps, P[i] += cycles of PHASES[i]
 STAMPS = (
-    ("__device__ __forceinline__ unsigned int ld_acquire_gpu(",
+    ("constexpr int GTHREADS = 256;",
      "__device__ unsigned long long vo_prof[16];\n"
-     "__device__ __forceinline__ unsigned int ld_acquire_gpu("),
+     "constexpr int GTHREADS = 256;"),
     ("  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;\n"
      "  const int Hp",
      "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;\n"

@@ -17,8 +17,11 @@ and the exact sum (no farther than one torch.mm), its reruns and its one
 launch; bf16 weights above H=512 (type codes 1 and 2): the forward on
 ``lstm_fwd_tc`` (``-k f2``: H 520, 1000 and 1056, B 1 to 129, both forms,
 reverse, reruns, one launch, the library's rule) and, named, on the
-f32-weight kernels, both frame loops on the f32-weight kernels, the gate
-GEMM and dwh on the wide wgmma kernels, at H=520 and 1000 on both sides
+f32-weight kernels, the frame loop on ``lstm_bwd_tc`` (``-k
+f2_tc_bptt``: H 520, 1000 and 1056, B 5 to 128, T 1 to 24, one
+direction or two, reruns, one launch, H=1064 on the f32-weight loop)
+and, named, on the f32-weight kernels, the gate GEMM and dwh on the
+wide wgmma kernels, at H=520 and 1000 on both sides
 of a 32-row tile, their determinism, their launches (counters and
 profiler) and autograd, and the wide kernels alone (the persistent gate
 GEMM and dwh's 128 x 256 tiles at ragged shapes, one or two directions,
@@ -963,6 +966,7 @@ def _masked_row_operands(dev, B, T, H, stream, compute, seed):
 _F32_COUNTERS = ("GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
                  "DH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
 _WIDE_COUNTERS = ("GATES_WIDE_LAUNCHES", "DWH_LAUNCHES")
+_TC_COUNTERS = ("BWD_TC_LAUNCHES",)
 
 
 @pytest.mark.parametrize("shape", F32_GEMM_SHAPES + F32_FRAME_SHAPES)
@@ -1121,21 +1125,20 @@ def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
 
 def test_bf16_weight_bptt_refuses_h_above_512(dev):
     """Above H=512 lstm_bwd_persistent is not launched: bf16 weights take
-    the wide gate GEMM and the f32-weight frame loop (B=4: one gate GEMM,
-    then bptt_frame a frame), against bptt_frames_ref within the
-    persistent kernel's bound."""
+    the wide gate GEMM and lstm_bwd_tc (B=4: one launch of each), against
+    bptt_frames_ref within the persistent kernel's bound."""
     T = 3
     dirs, mask = _typed_bptt_operands(dev, 4, T, 520, torch.bfloat16,
                                       torch.bfloat16, seed=1)
     kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
              for x, w, y, c, dy, r in dirs]
-    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS + _TC_COUNTERS]
     with torch.no_grad():
         got = lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
         ref = lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16, plain=True)
     torch.cuda.synchronize()
     assert [getattr(lstm_cuda, n) - b for n, b in zip(
-        _F32_COUNTERS, before)] == [1, T, 0, 0, 0]
+        _F32_COUNTERS + _TC_COUNTERS, before)] == [1, 0, 0, 0, 0, 1]
     for dxw, (rdxw, _) in zip(got, ref):
         assert _rel_err(dxw, rdxw) <= _BF16_REL
 
@@ -1147,17 +1150,19 @@ def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
     """Type codes 1 and 2 above H=512: the wide gate GEMM against
     bptt_gates_ref within 1e-5 of the largest magnitude (the same
     bf16-rounded products in f32), the f32-weight frame loop of each design
-    (and the library's) on the kernel's own gates against bptt_frames_ref,
-    the wide dwh against lstm_dwh_ref, within the persistent kernels'
-    bound; an invalid row's gradients are zeros; two runs give the same
-    bits; one wide gate GEMM and T bptt_frame, or T bptt_cell and T
-    bptt_dh, launches a call, and one dwh (the library's wide tiles)."""
+    and the library's (lstm_bwd_tc) on the kernel's own gates against
+    bptt_frames_ref, the wide dwh against lstm_dwh_ref, within the
+    persistent kernels' bound; an invalid row's gradients are zeros; two
+    runs give the same bits; one wide gate GEMM and T bptt_frame, or T
+    bptt_cell and T bptt_dh, or one lstm_bwd_tc launch a call, and one dwh
+    (the library's wide tiles)."""
     B, T, H = shape
     dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.bfloat16,
                                       seed=B + T * H)
     kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
              for x, w, y, c, dy, r in dirs]
-    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS + _WIDE_COUNTERS]
+    counters = _F32_COUNTERS + _WIDE_COUNTERS + _TC_COUNTERS
+    before = [getattr(lstm_cuda, n) for n in counters]
     with torch.no_grad():
         (dxw, pre), (dxw2, pre2) = (lstm_cuda.lstm_bptt_frames(
             kdirs, mask, torch.bfloat16, return_gates=True, fold=fold)
@@ -1180,21 +1185,19 @@ def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
             if B > 3:
                 assert not dxw[k][:, 3].float().abs().max().item()
     torch.cuda.synchronize()
-    folded = fold if fold is not None else bool(
-        _build.load().vo_lstm_bwd_f32_folds(B))
-    frames = (T, 0, 0) if folded else (0, T, T)
-    assert [getattr(lstm_cuda, n) - b for n, b in zip(
-        _F32_COUNTERS + _WIDE_COUNTERS, before)] == [
-            2, *(2 * f for f in frames), 0, 2, 2]
+    assert lstm_cuda.loop_design(torch.bfloat16, B, H) == "tc"
+    frames = {True: (T, 0, 0), False: (0, T, T), None: (0, 0, 0)}[fold]
+    assert [getattr(lstm_cuda, n) - b for n, b in zip(counters, before)] == [
+        2, *(2 * f for f in frames), 0, 2, 2, 2 if fold is None else 0]
 
 
 @pytest.mark.parametrize("H", [520, 1000])
 def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
     """B=32, T=24, bf16 streams and weights, both directions: a forward
     call is one lstm_fwd_tc launch (no f32-weight forward), a BPTT call one
-    bptt_gates_gemm_wide, T bptt_frame (the f32-weight frame loop) and one
-    dwh launch (lstm_dwh_tc, the library's wide tiles at these H), and no
-    persistent kernel nor the FMA gate GEMM (profiler)."""
+    bptt_gates_gemm_wide, one lstm_bwd_tc and one dwh launch (lstm_dwh_tc,
+    the library's wide tiles at these H), and no persistent kernel, no
+    f32-weight frame loop nor the FMA gate GEMM (profiler)."""
     T = 24
     xw, mask, wh = _device_operands(dev, 32, T, H, torch.bfloat16,
                                     torch.bfloat16, seed=H, ndir=2)
@@ -1210,11 +1213,11 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
     with torch.no_grad():
         counts = _profiled_counts(
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.bfloat16),
-            _BPTT_KERNELS + ("bptt_gates_gemm_wide<",))
+            _BPTT_KERNELS + ("bptt_gates_gemm_wide<", "lstm_bwd_tc<"))
     assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 0,
-                      "bptt_gates<": 0, "bptt_frame<": T, "bptt_cell<": 0,
+                      "bptt_gates<": 0, "bptt_frame<": 0, "bptt_cell<": 0,
                       "bptt_dh<": 0, "lstm_dwh": 1,
-                      "bptt_gates_gemm_wide<": 1}, counts
+                      "bptt_gates_gemm_wide<": 1, "lstm_bwd_tc<": 1}, counts
     assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
         1, H)] == "wide"
 
@@ -1222,8 +1225,8 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
 def test_bf16_weights_above_512_autograd_matches_plain(dev):
     """BLstmRecurrence at H=520 with bf16 weights (the model's route
     through lstm_impl="auto"): the forward on lstm_fwd_tc and the
-    backward on the wide gate GEMM and the f32-weight frame loop against
-    the plain forward and BPTT."""
+    backward on the wide gate GEMM and lstm_bwd_tc against the plain
+    forward and BPTT."""
     B, T, H = 6, 5, 520
     dirs, mask = _bptt_operands(dev, B, T, H, torch.bfloat16, seed=12)
     xw, wh = dirs[0][0], dirs[0][1]
@@ -1232,13 +1235,15 @@ def test_bf16_weights_above_512_autograd_matches_plain(dev):
     wf = wh.clone().requires_grad_(True)
     wb = (wh * 0.7).requires_grad_(True)
     before = (lstm_cuda.FWD_TC_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
-              lstm_cuda.BWD_PERSISTENT_LAUNCHES, lstm_cuda.DWH_LAUNCHES)
+              lstm_cuda.BWD_PERSISTENT_LAUNCHES, lstm_cuda.DWH_LAUNCHES,
+              lstm_cuda.BWD_TC_LAUNCHES)
     ys_f, ys_b = lstm_cuda.blstm_recurrence(xf, xb, mask, wf, wb)
     (ys_f * dirs[0][4] + ys_b * dirs[1][4]).sum().backward()
     assert (lstm_cuda.FWD_TC_LAUNCHES, lstm_cuda.GATES_WIDE_LAUNCHES,
-            lstm_cuda.BWD_PERSISTENT_LAUNCHES,
-            lstm_cuda.DWH_LAUNCHES) == (before[0] + 1, before[1] + 1,
-                                             before[2], before[3] + 1)
+            lstm_cuda.BWD_PERSISTENT_LAUNCHES, lstm_cuda.DWH_LAUNCHES,
+            lstm_cuda.BWD_TC_LAUNCHES) == (before[0] + 1, before[1] + 1,
+                                           before[2], before[3] + 1,
+                                           before[4] + 1)
     with torch.no_grad():
         for x, w, dy, r, g_x, g_w in ((xf, wf, dirs[0][4], False, xf.grad,
                                        wf.grad),
@@ -1251,6 +1256,121 @@ def test_bf16_weights_above_512_autograd_matches_plain(dev):
             assert g_x.dtype == g_w.dtype == torch.bfloat16
             assert _rel_err(g_x, rdx) <= _BF16_REL
             assert _rel_err(g_w, rdw) <= _BF16_REL
+
+
+# lstm_bwd_tc (bf16 weights above H=512: one cooperative launch, each CTA's
+# 16 units of wh in registers, the dgates exchanged through L2) at H 520
+# (33 CTAs, the last owning 8 units), 1000 and 1056 (the most it takes for
+# two directions), B below, across and beyond a 32-row tile, T = 1 (no
+# product), 2 and 24, both type codes, one direction (either) and two, row
+# 3 invalid throughout
+TC_BWD_SHAPES = [(B, T, H) for H in (520, 1000, 1056) for B in (5, 33, 128)
+                 for T in (1, 2, 24)]
+TC_BWD_DIRS = {"both": (0, 1), "reverse": (1,)}
+
+
+@pytest.mark.parametrize("shape", TC_BWD_SHAPES)
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", list(TC_BWD_DIRS))
+def test_f2_tc_bptt_matches_plain(dev, shape, stream, which):
+    """lstm_bwd_tc on the wide gate GEMM's gates against bptt_frames_ref
+    within the persistent kernels' bound (the dh products summed in
+    another order, the dxw elements rounding a bf16 ulp apart); the invalid
+    row's dxw all zeros; two runs the same bits; one launch a call."""
+    B, T, H = shape
+    dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.bfloat16,
+                                      seed=B + T * H)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for k, (x, w, y, c, dy, r) in enumerate(dirs)
+             if k in TC_BWD_DIRS[which]]
+    before = lstm_cuda.BWD_TC_LAUNCHES
+    with torch.no_grad():
+        (dxw, pre), (dxw2, _) = (lstm_cuda.lstm_bptt_frames(
+            kdirs, mask, torch.bfloat16, return_gates=True, loop="tc")
+            for _ in range(2))
+        for k, (_, w, _, cs, dy, r) in enumerate(kdirs):
+            ref = lstm_cuda.bptt_frames_ref(pre[k], mask, w, cs, dy,
+                                            reverse=r, dtype=torch.bfloat16)
+            assert dxw[k].dtype == stream and dxw[k].shape == (T, B, 4 * H)
+            assert _rel_err(dxw[k], ref) <= _BF16_REL
+            assert torch.equal(dxw[k], dxw2[k])
+            assert not dxw[k][:, 3].float().abs().max().item()
+    torch.cuda.synchronize()
+    assert lstm_cuda.BWD_TC_LAUNCHES == before + 2
+
+
+def test_f2_tc_bptt_one_direction_is_the_both_directions_result(dev):
+    """A direction's dxw is the same bits alone as beside the other one
+    (each direction's CTAs, counter and exchange are their own)."""
+    B, T, H = 33, 5, 1000
+    dirs, mask = _masked_row_operands(dev, B, T, H, torch.bfloat16,
+                                      torch.bfloat16, seed=4)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    with torch.no_grad():
+        both = lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16,
+                                          loop="tc")
+        alone = [lstm_cuda.lstm_bptt_frames([d], mask, torch.bfloat16,
+                                            loop="tc")[0] for d in kdirs]
+    for a, b in zip(both, alone):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stream", [torch.bfloat16, torch.float32])
+def test_f2_tc_bptt_is_one_launch_and_deterministic_at_b32_t512(dev, stream):
+    """The main path's shape (B=32, T=512, H=1000, both directions): one
+    lstm_bwd_tc launch behind one gate GEMM (profiler), no f32-weight
+    frame kernel, and two calls the same bits."""
+    B, T, H = 32, 512, 1000
+    dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.bfloat16,
+                                      seed=5)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16),
+            ("bptt_gates_gemm_wide<", "lstm_bwd_tc<", "bptt_frame<",
+             "bptt_cell<", "bptt_dh<"))
+        runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
+                for _ in range(2)]
+    assert counts == {"bptt_gates_gemm_wide<": 1, "lstm_bwd_tc<": 1,
+                      "bptt_frame<": 0, "bptt_cell<": 0, "bptt_dh<": 0}, counts
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_f2_tc_bptt_limits(dev):
+    """H=1064 is past what lstm_bwd_tc takes for two directions (67 CTAs
+    a direction, 34 k16 steps a slice): the library runs the f32-weight
+    loop there, and naming the kernel raises; loop="tc" and "persistent"
+    refuse f32 weights before any launch."""
+    B, T, H = 33, 2, 1064
+    assert lstm_cuda.loop_design(torch.bfloat16, B, H) == "split"
+    assert lstm_cuda.loop_design(torch.bfloat16, 32, H) == "fold"
+    dirs, mask = _masked_row_operands(dev, B, T, H, torch.bfloat16,
+                                      torch.bfloat16, seed=6)
+    kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+             for x, w, y, c, dy, r in dirs]
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS + _TC_COUNTERS]
+    with torch.no_grad():
+        got, pre = lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16,
+                                              return_gates=True)
+        for k, (_, w, _, cs, dy, r) in enumerate(kdirs):
+            ref = lstm_cuda.bptt_frames_ref(pre[k], mask, w, cs, dy,
+                                            reverse=r, dtype=torch.bfloat16)
+            assert _rel_err(got[k], ref) <= _BF16_REL
+        torch.cuda.synchronize()
+        assert [getattr(lstm_cuda, n) - b for n, b in zip(
+            _F32_COUNTERS + _TC_COUNTERS, before)] == [1, 0, T, T, 0, 0]
+        with pytest.raises(RuntimeError, match="vo_lstm_bwd_named"):
+            lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16,
+                                       loop="tc")
+        fdirs = [(x.float(), w.float(), y.float(), c.float(), dy.float(), r)
+                 for x, w, y, c, dy, r in kdirs]
+        for name in ("tc", "persistent"):
+            with pytest.raises(ValueError, match="bf16 weights only"):
+                lstm_cuda.lstm_bptt_frames(fdirs, mask, torch.float32,
+                                           loop=name)
 
 
 def test_dwh_matches_torch_mm_at_flagship(dev):

@@ -283,3 +283,22 @@ def test_dwh_profile_script_finds_its_anchors_in_the_kernel(variant):
     cut = profile_lstm_dwh_fma.variant_source(src, variant)
     assert cut != src
     assert profile_lstm_dwh_fma.variant_source(src, "full") == src
+
+
+@pytest.mark.parametrize("variant", ["no_multicast", "release_cluster",
+                                     "tiny_dg_copies", "half_dg_copies",
+                                     "clusters_of_four", "stamps"])
+def test_bwd_tc_profile_script_finds_its_anchors_in_the_kernel(variant):
+    """profile_lstm_bwd_tc.py edits copies of csrc/lstm_bwd.cu by text
+    anchors: each must be found exactly once in the kernel as it stands,
+    and each copy must differ from it."""
+    import os
+
+    import profile_lstm_bwd_tc
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_bwd.cu")
+    with open(path) as f:
+        src = f.read()
+    assert profile_lstm_bwd_tc.variant_source(src, variant) != src
+    assert profile_lstm_bwd_tc.variant_source(src, "full") == src

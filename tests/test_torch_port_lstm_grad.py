@@ -221,8 +221,9 @@ _PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 # pairs at the shapes only their kernels served until bf16 weights above
 # H=512 went to them too, H above 512 and T = 1 (no frame has a
 # predecessor), and the bf16-weight pairs above H=512 (on the card the
-# wide gate GEMM and dwh around the f32-weight frame loop), at H=520 and
-# at H=1000, the H of F2's timed shape
+# wide gate GEMM and dwh around lstm_bwd_tc), at H=520 and at H=1000, the
+# H of F2's timed shape, and at B=33, one row past lstm_bwd_tc's 32-row
+# tile
 _BPTT_CASES = [pytest.param(s, c, None, id=f"stream{i}-compute{i}")
                for i, (s, c) in enumerate(_PAIRS)] + [
     pytest.param(s, c, shape, id=f"{name}-T{shape[0]}-B{shape[1]}-H{shape[2]}")
@@ -232,7 +233,7 @@ _BPTT_CASES = [pytest.param(s, c, None, id=f"stream{i}-compute{i}")
     pytest.param(s, c, shape, id=f"{name}-T{shape[0]}-B{shape[1]}-H{shape[2]}")
     for s, c, name in ((torch.bfloat16, torch.bfloat16, "bf16-bf16"),
                        (torch.float32, torch.bfloat16, "f32-bf16"))
-    for shape in ((4, 3, 520), (3, 2, 1000))]
+    for shape in ((4, 3, 520), (3, 2, 1000), (2, 33, 520))]
 
 
 # Shapes whose dwh is held to JAX's through dxw: at T=3, B=2, H=1000 a
@@ -313,3 +314,45 @@ def test_gates_yardstick_is_the_kernels_function(stream, compute, shape,
     assert got.dtype == torch.float32 and got.shape == pre.shape
     # the same products, summed in another order
     torch.testing.assert_close(got, pre, atol=1e-5, rtol=1e-5)
+
+
+def test_loop_designs_follow_the_kernels_codes():
+    """``LOOP_DESIGNS`` names the frame loops in the order of their codes
+    in csrc/lstm_bwd.cu (``vo_lstm_bwd_named``'s ``loop``)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_bwd.cu")
+    with open(path) as f:
+        codes = re.findall(r"constexpr int LOOP_([A-Z]+) = (\d+);", f.read())
+    assert [n.lower() for n, _ in sorted(codes, key=lambda c: int(c[1]))] == (
+        list(lstm_cuda.LOOP_DESIGNS))
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"loop": "frames"}, "unknown frame loop"),
+    ({"loop": "fold", "fold": True}, "not both"),
+    ({"fold": "split"}, "fold must be"),
+    ({"loop": "tc", "dtype": torch.float32}, "bf16 weights only"),
+    ({"loop": "persistent", "dtype": torch.float32}, "bf16 weights only"),
+])
+def test_bptt_frames_refuses_a_bad_loop_before_building(kw, match,
+                                                        monkeypatch):
+    """``lstm_bptt_frames`` refuses a frame loop it cannot name (or one
+    named twice, or one that takes bf16 weights only, named for f32
+    weights) before it builds or loads a kernel."""
+    from vistaocr_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the kernels were built")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    kw = dict(kw)
+    dtype = kw.pop("dtype", torch.bfloat16)
+    T, B, H = 2, 3, 8
+    dirs = [(torch.zeros(T, B, 4 * H), torch.zeros(H, 4 * H, dtype=dtype),
+             torch.zeros(T, B, H), torch.zeros(T, B, H), torch.zeros(T, B, H),
+             False)]
+    with pytest.raises(ValueError, match=match):
+        lstm_cuda.lstm_bptt_frames(dirs, torch.ones(T, 1, B), dtype, **kw)

@@ -5,7 +5,9 @@
 // barrier, 128- and 64-byte-swizzled wgmma operand layouts and their
 // descriptors, and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions
 // (N = 128 and 256 with A from shared memory, N = 32 with A from
-// registers). Used by lstm_bwd.cu and lstm_fwd.cu;
+// registers); the frame counter and trapping mbarrier wait of the
+// cooperative kernels, ldmatrix and mma.sync.m16n8k16. Used by lstm_bwd.cu
+// and lstm_fwd.cu;
 // ctc.cu takes its cp.async groups. Plain PTX, no CUTLASS.
 #pragma once
 
@@ -136,6 +138,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// bulk_load into the same offset of the shared memory of every CTA of the
+// cluster in `cta_mask`, each copy completing the transaction count of the
+// mbarrier at `bar`'s offset in that CTA
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)),
+         "h"(cta_mask)
+      : "memory");
+}
+
 // --- distributed shared memory -------------------------------------------------
 // the shared::cluster address of `addr` (a shared::cta address) in CTA
 // `rank` of the cluster
@@ -177,6 +194,14 @@ __device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
       " [%0], {%1, %2, %3, %4}, [%5];\n"
       :: "r"(dst), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
+}
+
+// arrive on the mbarrier at a shared::cluster address (cluster_addr: a
+// peer's, or this CTA's own), with the instruction's default semantics
+// (release at CTA scope: no wait for this thread's global accesses)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
 // --- cluster barrier ---------------------------------------------------------
@@ -353,6 +378,52 @@ __device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// --- grid-wide exchange (cooperative kernels) -------------------------------
+// an mbarrier wait that traps (an error at the next synchronise) instead of
+// hanging if the awaited copy never lands
+__device__ __forceinline__ void grid_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ unsigned int ld_acquire_gpu(
+    const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// --- mma.sync -----------------------------------------------------------------
+// four 8 x 8 b16 matrices from shared memory, lanes 8i..8i+7 addressing
+// the rows of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major), f32
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace vo_sm90

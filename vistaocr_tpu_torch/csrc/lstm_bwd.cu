@@ -107,10 +107,36 @@
 //     launch a frame and bptt_dh's small CTAs.
 //   Any H.
 // - bf16 W above H=512 (type codes 1 and 2; F2): no cluster holds wh, so
-//   the frame loop is the f32-weight one above, reading wh widened to f32
-//   (exact; the caller passes both forms), with f32 streams (code 2) the
-//   dxw read back for dh rounded to bf16 (bf16 streams are bf16 values
-//   already), so only the summation order differs; the gate GEMM is
+//   the frame loop is one cooperative launch over the whole card on the
+//   tensor cores (lstm_bwd_tc), lstm_fwd.cu's lstm_fwd_tc skeleton turned
+//   around: a direction is N = ceil(H/16) co-resident CTAs (63 at H=1000,
+//   126 for two directions), CTA r owning units 16r..16r+15, their four
+//   gate columns' cell backward over every batch row in 32-row tiles (its
+//   epilogue) and their f32 dh and dc carries (one owner an element). Its
+//   bf16 rows of wh, wh[16r..16r+15, 0:4H] (125 KB at H=1000), stay in
+//   registers for all T frames as mma.sync.m16n8k16 B fragments (8 warps,
+//   one a contraction slice: a gate and half of H; 128 registers a
+//   thread). The product is dh[rows, own units] = dg[rows, 0:4H] @ wh[own
+//   units, :]^T, f32 accumulation, the slices' partials summed in slice
+//   order: a fixed order, no atomics, bit-equal reruns. dg = round_bf16(
+//   dxw[t]), exactly what the product reads (code 2 stores dxw in f32 and
+//   exchanges its rounding), crosses CTAs through L2 once a frame: each
+//   CTA writes its 64 columns into one of two parity buffers laid out as
+//   the chunks the readers copy (rows padded to an odd number of 16-byte
+//   words, so that ldmatrix reads them without bank conflicts), then
+//   releases a per-direction frame counter (red.release.gpu after a CTA
+//   barrier); a reader acquires it (ld.acquire.gpu) and each warp brings
+//   its slice by bulk copies through a private 3-stage ring. Every CTA
+//   reads all B x 4H of dg a frame (256 KB at B=32, H=1000; 32 MB across
+//   the card), which made that stream about half of the frame; so CTAs
+//   run as clusters of two, and each chunk comes once a pair, by one
+//   multicast bulk copy issued by rank 0 once both CTAs have read the
+//   stage's last chunk (an empty mbarrier of two arrivals). dxw[t] and
+//   the carries of a frame's last tile are stored after its release,
+//   off the next frame's path. Up to H=1056 for two directions on 132 SMs
+//   (bwd_tc_fits); beyond, the frame loop is the f32-weight one above,
+//   reading wh widened to f32 (exact; the caller passes both forms), with
+//   f32 streams the dxw read back for dh rounded to bf16. The gate GEMM is
 //   bptt_gates_gemm_wide and dwh lstm_dwh_tc's 128 x 256 tiles (below).
 // - dwh is not summed frame by frame as on the TPU (where the kernel keeps
 //   it in VMEM across the grid): it is one product over K = (T-1)*B rows
@@ -1554,6 +1580,455 @@ cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
   return launch_bwd_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
 }
 
+// --- bf16 weights above H=512 (F2): the frame loop on the tensor cores -------
+
+// One cooperative launch for all T frames and both directions
+// (lstm_bwd_tc): a direction is N = ceil(H/XU) co-resident CTAs over every
+// batch row (rounded up to whole clusters of XCL). CTA r owns units XU*r
+// .. XU*r + XU-1: their four gate columns of the cell backward (the
+// epilogue) and their dh, the product
+//   dh[b][own units] = dg[b][0:4H] @ wh[own units][0:4H]^T   (f32 acc)
+// with dg = round_bf16(dxw[t]) of every unit, which crosses CTAs through
+// L2 once a frame.
+constexpr int XU = 16;              // hidden units a CTA
+constexpr int XCL = 2;              // CTAs a cluster: they share dg copies
+constexpr int XROWS = 32;           // batch rows of a tile (two m16 tiles)
+constexpr int XSL = 8;              // contraction slices: 4 gates x 2 halves
+constexpr int XTHREADS = 32 * XSL;  // a warp a slice
+constexpr int XKC = 8;              // k16 steps of a chunk (one bulk copy)
+constexpr int XSTAGES = 3;          // a warp's ring of chunks
+constexpr int XMAX_KSTEPS = 33;     // k16 steps a slice holds: H <= 1056
+constexpr int XRLD = XU + 4;        // padded row of the partial sums (floats)
+// bytes of a chunk row: XKC k16 steps of bf16 and 16 bytes of padding, an
+// odd number of 16-byte words, so that the 8 rows of an ldmatrix 8 x 8
+// matrix fall in 8 distinct bank groups
+constexpr int XPITCH = (2 * XKC + 1) * 16;
+constexpr int XCHUNK = XROWS * XPITCH;  // a ring stage
+
+// k16 steps of a slice: the half of H it covers, padded to 16 (Hh = 16 *
+// xks, so that a CTA's 16 units lie in one half)
+__host__ __device__ constexpr int xks(int H) { return (H + 31) / 32; }
+__host__ __device__ constexpr int xnch(int H) {  // chunks of a slice
+  return (xks(H) + XKC - 1) / XKC;
+}
+// the row pitch of a slice's last chunk (its k16 steps and 16 bytes)
+__host__ __device__ constexpr int xpitch_last(int H) {
+  return (2 * (xks(H) - XKC * (xnch(H) - 1)) + 1) * 16;
+}
+// bytes of a (tile, slice) block of the exchange: its chunks one after the
+// other, each XROWS rows at its pitch
+__host__ __device__ constexpr int xslice_bytes(int H) {
+  return XROWS * (XPITCH * (xnch(H) - 1) + xpitch_last(H));
+}
+// CTAs of a direction: whole clusters
+inline int bwd_tc_ctas(int H) {
+  return ((H + XU - 1) / XU + XCL - 1) / XCL * XCL;
+}
+// the rings, the slices' partial sums, two mbarriers a stage (full: the
+// chunk landed; empty: both CTAs of the cluster read it)
+constexpr int bwd_tc_smem() {
+  return XSL * XSTAGES * XCHUNK + XSL * XROWS * XRLD * 4 +
+         2 * XSL * XSTAGES * 8;
+}
+static_assert(bwd_tc_smem() <= 232448, "one CTA an SM");
+// bytes of one parity of the dg exchange: a block a tile and slice
+inline long long bwd_tc_exchange(int B, int H) {
+  return (long long)((B + XROWS - 1) / XROWS) * XSL * xslice_bytes(H);
+}
+// lstm_bwd_tc's scratch behind pre: the frame counter (16 bytes), two
+// parities of the exchange (both zeroed before the launch), the f32 dc
+// and (1-m)*dh_t carries [B, H]
+inline long long bwd_tc_scratch(int B, int H) {
+  return 16 + 2 * bwd_tc_exchange(B, H) + 2LL * B * H * 4;
+}
+
+template <typename S>
+struct TcBwdDir {
+  const float* pre;     // [T, B, 4H] from the gate GEMM
+  const bf16* wh;       // [H, 4H]
+  const S* cs;          // [T, B, H]
+  const S* dys;         // [T, B, H]
+  S* dxw;               // [T, B, 4H]
+  unsigned int* count;  // frames released x CTAs, zeroed
+  uint8_t* dgx;         // 2 parities of bwd_tc_exchange, zeroed
+  float* dc;            // [B, H] dc carry
+  float* keep;          // [B, H] (1-m)*dh_t carry
+  int reverse;
+};
+
+// Grid (N, ndir), clusters (XCL, 1), cooperative. Warp w multiplies
+// contraction slice w: gate w/2, columns (w%2)*Hh .. +Hh-1 of it (Hh = 16
+// * xks(H)), for all 16 units of the CTA, holding those wh rows and
+// columns as mma B fragments in registers for the whole launch; it
+// streams its slice of dg through a private ring of XSTAGES chunks of XKC
+// k16 steps (chunk c of tile q, the rows that exist), which cluster rank
+// 0's warp brings into both CTAs of the cluster by one multicast bulk
+// copy once both have read the stage's last chunk; so no warp waits for
+// another's data. The slices' partial sums meet in shared memory and each
+// (row, unit) cell sums them in slice order: fixed order, one writer per
+// dxw, dh and dc element, so two runs give the same bits.
+template <typename S>
+__global__ void __launch_bounds__(XTHREADS, 1)
+lstm_bwd_tc(TcBwdDir<S> d0, TcBwdDir<S> d1, const float* __restrict__ mask,
+            int T, int B, int H) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool issuer = cluster.block_rank() == 0;
+  const TcBwdDir<S> d = blockIdx.y == 0 ? d0 : d1;
+  const unsigned int N = gridDim.x;
+  const int j0 = blockIdx.x * XU;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ks = xks(H), Hh = 16 * ks, nch = xnch(H), plast = xpitch_last(H);
+  const int sbytes = xslice_bytes(H);
+  const int nq = (B + XROWS - 1) / XROWS;
+  const int per_step = nq * nch;  // chunks a warp brings a frame
+  const long long G = 4LL * H;
+  const long long xbytes = (long long)nq * XSL * sbytes;  // one parity
+  extern __shared__ __align__(16) uint8_t xtc_raw[];
+  uint8_t* ring = xtc_raw;  // [XSL][XSTAGES] chunks
+  float* red = reinterpret_cast<float*>(ring + XSL * XSTAGES * XCHUNK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + XSL * XROWS * XRLD);
+  uint64_t* empty = full + XSL * XSTAGES;  // rank 0's are the ones used
+
+  // bw[kk][n][j]: rows k, k + 1 of B = wh[own units][slice columns]^T with
+  // k = 16kk + 2(l%4) + 8j in the slice (column g*H + half*Hh + k of wh)
+  // and column n*8 + l/4 (unit j0 + 8n + l/4); zeros past H
+  const int sl = warp, g = sl / 2, half = sl % 2;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(d.wh);
+  uint32_t bw[XMAX_KSTEPS][2][2];
+#pragma unroll
+  for (int kk = 0; kk < XMAX_KSTEPS; ++kk)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = half * Hh + 16 * kk + 2 * (lane % 4) + 8 * j;
+        const int u = j0 + 8 * n + lane / 4;
+        uint32_t v = 0;
+        if (kk < ks && u < H && k < H) {
+          const unsigned short* w = w16 + (long long)u * G + (long long)g * H + k;
+          v = static_cast<uint32_t>(w[0]) |
+              (k + 1 < H ? static_cast<uint32_t>(w[1]) << 16 : 0u);
+        }
+        bw[kk][n][j] = v;
+      }
+  if (lane == 0) {
+    for (int s = 0; s < XSTAGES; ++s) {
+      mbar_init(&full[sl * XSTAGES + s], 1);
+      mbar_init(&empty[sl * XSTAGES + s], XCL);
+    }
+    mbar_fence_init();
+  }
+  // every CTA's barriers are in place before a peer copies or arrives
+  cluster_arrive_release();
+  cluster_wait_acquire();
+  const uint32_t empty0 = cluster_addr(smem_u32(&empty[sl * XSTAGES]), 0);
+
+  // the cells of the tile at row b0 this thread updates (cell tid + 256e:
+  // row cell / XU, unit cell % XU): pre, cs[t], cs[tp], dys, the mask and
+  // its carries, loaded at the tile's start, in flight during the product
+  constexpr int NC = XROWS * XU / XTHREADS;
+  float pv[NC][4], tv[NC], cpv[NC], dyv[NC], mv[NC], dcv[NC], kv[NC];
+  auto load_cells = [&](int t, int tp, int b0, bool carry) {
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int cell = tid + e * XTHREADS;
+      const int b = b0 + cell / XU, j = j0 + cell % XU;
+      if (b < B && j < H) {
+        const float* p = d.pre + ((long long)t * B + b) * G + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pv[e][q] = p[q * H];
+        const long long own = (long long)b * H + j;
+        tv[e] = to_f32(d.cs[(long long)t * B * H + own]);
+        cpv[e] = tp >= 0 ? to_f32(d.cs[(long long)tp * B * H + own]) : 0.0f;
+        dyv[e] = to_f32(d.dys[(long long)t * B * H + own]);
+        mv[e] = mask[(long long)t * B + b];
+        dcv[e] = carry ? d.dc[own] : 0.0f;
+        kv[e] = carry ? d.keep[own] : 0.0f;
+      }
+    }
+  };
+
+  int used = 0;  // chunks this warp took before this frame (ring phases)
+  for (int step = 0; step < T; ++step) {  // the scan order, backwards
+    const int t = d.reverse ? step : T - 1 - step;
+    const int tp = d.reverse ? (t + 1 < T ? t + 1 : -1) : t - 1;
+    // dg of the previous frame, and this frame's
+    const uint8_t* cur = d.dgx + ((step + 1) & 1) * xbytes;
+    uint8_t* nxt = d.dgx + (step & 1) * xbytes;
+    // lane 0: chunk i of the frame (tile i / nch, chunk i % nch of the
+    // warp's slice) into its ring stage in both CTAs of the cluster: each
+    // expects its bytes; rank 0, once both have read the stage's last
+    // chunk (its empty barrier), brings it by one multicast bulk copy of
+    // the tile's rows (through L2: L1 is not coherent, and the buffers are
+    // rewritten every other frame)
+    auto post = [&](int i) {
+      const int q = i / nch, c = i % nch, seq = used + i;
+      const int st = seq % XSTAGES;
+      const uint32_t bytes =
+          min(XROWS, B - q * XROWS) * (c == nch - 1 ? plast : XPITCH);
+      uint64_t* bar = &full[sl * XSTAGES + st];
+      mbar_arrive_expect_tx(bar, bytes);
+      if (!issuer) return;
+      if (seq >= XSTAGES) {
+        grid_wait(&empty[sl * XSTAGES + st], (seq / XSTAGES - 1) & 1);
+      }
+      bulk_load_multicast(ring + (sl * XSTAGES + st) * XCHUNK,
+                          cur + ((long long)q * XSL + sl) * sbytes +
+                              (long long)c * XROWS * XPITCH,
+                          bytes, bar, (1u << XCL) - 1);
+    };
+    if (step > 0) {
+      if (tid == 0) {
+        // dg of the previous frame complete: every CTA of the direction
+        // has released it (co-residency makes the wait finite; a fault
+        // traps after ~10 s)
+        const long long start = clock64();
+        while (ld_acquire_gpu(d.count) < N * step) {
+          if (clock64() - start > (1LL << 34)) __trap();
+        }
+      }
+      __syncthreads();
+      if (lane == 0) {
+        fence_proxy_async_global();  // the copies read other CTAs' stores
+        for (int i = 0; i < XSTAGES && i < per_step; ++i) post(i);
+      }
+      __syncwarp();
+    }
+    for (int q = 0; q < nq; ++q) {
+      const int b0 = q * XROWS;
+      const bool last = q == nq - 1;
+      load_cells(t, tp, b0, step > 0);
+      float dhp[NC] = {};  // the product's dh of the cells
+      if (step > 0) {
+        float acc[2][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.0f;
+        uint32_t a0 = 0;
+        int pitch = XPITCH, st = 0;
+#pragma unroll
+        for (int kk = 0; kk < XMAX_KSTEPS; ++kk) {
+          if (kk >= ks) break;
+          const int i = q * nch + kk / XKC;  // the chunk's index in the frame
+          if (kk % XKC == 0) {
+            const int seq = used + i;
+            st = seq % XSTAGES;
+            grid_wait(&full[sl * XSTAGES + st], (seq / XSTAGES) & 1);
+            pitch = kk / XKC == nch - 1 ? plast : XPITCH;
+            // A fragments by ldmatrix: lanes 8i..8i+7 address the rows of
+            // 8 x 8 matrix i (rows 0-7 / 8-15 of the m16 tile, k words 0 / 1)
+            a0 = smem_u32(ring + (sl * XSTAGES + st) * XCHUNK) +
+                 ((lane % 8) + 8 * ((lane / 8) % 2)) * pitch + (lane / 16) * 16;
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            uint32_t a[4];
+            ldmatrix_x4(a, a0 + 16 * m * pitch + 32 * (kk % XKC));
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              mma_16816(acc[m][n], a, bw[kk][n][0], bw[kk][n][1]);
+            }
+          }
+          if (kk % XKC == XKC - 1 || kk == ks - 1) {
+            __syncwarp();  // every lane read the chunk: free its stage
+            if (lane == 0) {
+              mbar_arrive_cluster(empty0 + 8 * st);
+              if (i + XSTAGES < per_step) post(i + XSTAGES);
+            }
+            __syncwarp();
+          }
+        }
+        // the slice's partial sums: c0,c1 at (row l/4, units 2(l%4)+0,1 of
+        // the n8 tile), c2,c3 eight rows below
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = 16 * m + lane / 4 + 8 * h;
+              const int col = 8 * n + 2 * (lane % 4);
+              *reinterpret_cast<float2*>(red + (sl * XROWS + row) * XRLD +
+                                         col) =
+                  make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+            }
+        __syncthreads();  // the partials are in
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          const int cell = tid + e * XTHREADS;
+          const int rr = cell / XU, u = cell % XU;
+          float sum = red[rr * XRLD + u];
+#pragma unroll
+          for (int s = 1; s < XSL; ++s) sum += red[(s * XROWS + rr) * XRLD + u];
+          dhp[e] = sum;
+        }
+      }
+      // the cell backward; dg(t) goes to the exchange at once, dxw[t] and
+      // the carries of the frame's last tile only after its release (they
+      // are not on the next frame's path)
+      S v[NC][4];
+      float dc_n[NC], keep_n[NC];
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        const int cell = tid + e * XTHREADS;
+        const int rr = cell / XU, u = cell % XU;
+        const int b = b0 + rr, j = j0 + u;
+        const float gi = sigmoid_fast(pv[e][0]);
+        const float gf = sigmoid_fast(pv[e][1]);
+        const float gg = tanh_fast(pv[e][2]);
+        const float go = sigmoid_fast(pv[e][3]);
+        const float tc = tanh_fast(tv[e]);
+        const float m = mv[e];
+        const float dh_t = (dhp[e] + kv[e]) + dyv[e];
+        const float dc_t = dcv[e] + dh_t * go * (1.0f - tc * tc);
+        v[e][0] = from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m);
+        v[e][1] = from_f32<S>((dc_t * cpv[e]) * gf * (1.0f - gf) * m);
+        v[e][2] = from_f32<S>((dc_t * gi) * (1.0f - gg * gg) * m);
+        v[e][3] = from_f32<S>((dh_t * tc) * go * (1.0f - go) * m);
+        dc_n[e] = m * (dc_t * gf) + (1.0f - m) * dcv[e];
+        keep_n[e] = (1.0f - m) * dh_t;
+        if (b >= B || j >= H || step + 1 == T) continue;
+        // round_bf16(dxw[t]) where the next frame's product reads it:
+        // column g*H + j is in slice 2g + j / Hh, at k = j % Hh of it
+        const int k = j % Hh, c = k / (16 * XKC), kc = k % (16 * XKC);
+        uint8_t* at = nxt + (long long)q * XSL * sbytes +
+                      (long long)c * XROWS * XPITCH +
+                      rr * (c == nch - 1 ? plast : XPITCH) + 2 * kc +
+                      (long long)(j / Hh) * sbytes;
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          *reinterpret_cast<bf16*>(at + (long long)(2 * q4) * sbytes) =
+              __float2bfloat16(to_f32(v[e][q4]));
+        }
+      }
+      auto store = [&]() {  // dxw[t] and the carries of the tile's cells
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          const int cell = tid + e * XTHREADS;
+          const int b = b0 + cell / XU, j = j0 + cell % XU;
+          if (b >= B || j >= H) continue;
+          S* dx = d.dxw + ((long long)t * B + b) * G + j;
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) dx[q4 * H] = v[e][q4];
+          if (step + 1 == T) continue;  // nobody reads the last carries
+          const long long own = (long long)b * H + j;
+          d.dc[own] = dc_n[e];
+          d.keep[own] = keep_n[e];
+        }
+      };
+      if (!last) store();
+      if (last && step + 1 < T) fence_proxy_async_global();
+      __syncthreads();  // the partials are read (the next tile rewrites
+                        // them) and every dg of the frame is stored
+      if (last && tid == 0 && step + 1 < T) {  // release dg(t): one count
+        asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                     :: "l"(d.count) : "memory");
+      }
+      if (last) store();
+    }
+    if (step > 0) used += per_step;
+  }
+  // no CTA leaves while its peer may still arrive on its barriers
+  cluster_arrive_release();
+  cluster_wait_acquire();
+}
+
+// whether lstm_bwd_tc takes ndir directions at H: a slice's wh rows in
+// registers (XMAX_KSTEPS) and every cluster co-resident, one CTA an SM
+// (H <= 1056 for two directions on 132 SMs)
+template <typename S>
+cudaError_t bwd_tc_config(int H, int ndir, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr) {
+  auto kernel = lstm_bwd_tc<S>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_tc_smem());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  *cfg = {};
+  cfg->gridDim = dim3(bwd_tc_ctas(H), ndir);
+  cfg->blockDim = dim3(XTHREADS);
+  cfg->dynamicSmemBytes = bwd_tc_smem();
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = XCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 2;
+  return cudaSuccess;
+}
+
+// the clusters of lstm_bwd_tc the card holds at once (0 when it cannot
+// say), asked once
+inline int bwd_tc_max_clusters() {
+  static int clusters = -1;
+  if (clusters < 0) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[2];
+    int n = 0;
+    const bool ok = bwd_tc_config<bf16>(16 * XCL, 1, &cfg, attr) ==
+                    cudaSuccess;
+    cfg.numAttrs = 1;  // the cluster shape alone
+    if (!ok || cudaOccupancyMaxActiveClusters(&n, lstm_bwd_tc<bf16>, &cfg) !=
+                   cudaSuccess) {
+      cudaGetLastError();
+      n = 0;
+    }
+    clusters = n;
+  }
+  return clusters;
+}
+
+inline bool bwd_tc_fits(int H, int ndir) {
+  return xks(H) <= XMAX_KSTEPS &&
+         (long long)ndir * bwd_tc_ctas(H) <= (long long)XCL *
+                                                 bwd_tc_max_clusters();
+}
+
+template <typename S>
+cudaError_t run_loop_tc(int T, int B, int H, int ndir, const float* mask,
+                        const void* const* wh, const void* const* cs,
+                        const void* const* dys, void* const* dxw,
+                        float* const* scratch, const int* reverse,
+                        cudaStream_t stream) {
+  if (!bwd_tc_fits(H, ndir)) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  cudaError_t err = bwd_tc_config<S>(H, ndir, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  cfg.stream = stream;
+  const long long n_pre = (long long)T * B * 4 * H;
+  const long long xb = bwd_tc_exchange(B, H);
+  TcBwdDir<S> d[2];
+  for (int i = 0; i < ndir; ++i) {
+    uint8_t* tail = reinterpret_cast<uint8_t*>(scratch[i] + n_pre);
+    // the counter and the exchange start at zero: columns no CTA owns
+    // (past H) are read by the product as zeros
+    err = cudaMemsetAsync(tail, 0, 16 + 2 * xb, stream);
+    if (err != cudaSuccess) return err;
+    d[i].pre = scratch[i];
+    d[i].wh = static_cast<const bf16*>(wh[i]);
+    d[i].cs = static_cast<const S*>(cs[i]);
+    d[i].dys = static_cast<const S*>(dys[i]);
+    d[i].dxw = static_cast<S*>(dxw[i]);
+    d[i].count = reinterpret_cast<unsigned int*>(tail);
+    d[i].dgx = tail + 16;
+    d[i].dc = reinterpret_cast<float*>(tail + 16 + 2 * xb);
+    d[i].keep = d[i].dc + (long long)B * H;
+    d[i].reverse = reverse[i];
+  }
+  if (ndir == 1) d[1] = d[0];
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_tc<S>, d[0], d[1], mask, T, B, H);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // --- f32 weights: the gate recompute as one GEMM on the FMA units, then one
 // launch a frame ---------------------------------------------------------------
 
@@ -2336,12 +2811,14 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
 // FMA units (wh in f32: f32 weights, or bf16 ones widened); GEMM_WIDE,
 // bptt_gates_gemm_wide (bf16 wh: type codes 1 and 2 only).
 // The frame loop's: LOOP_SPLIT and LOOP_FOLD (wh in f32), LOOP_PERSISTENT
-// (bf16 wh; codes 1 and 2, H <= 512).
+// (bf16 wh; codes 1 and 2, H <= 512), LOOP_TC (bf16 wh; codes 1 and 2,
+// where bwd_tc_fits).
 constexpr int GEMM_FMA = 0;
 constexpr int GEMM_WIDE = 1;
 constexpr int LOOP_SPLIT = 0;
 constexpr int LOOP_FOLD = 1;
 constexpr int LOOP_PERSISTENT = 2;
+constexpr int LOOP_TC = 3;
 
 inline bool bf16_weights(int type_code) {
   return type_code == 1 || type_code == 2;
@@ -2354,9 +2831,33 @@ inline int gates_design(int type_code, int H) {
   return bf16_weights(type_code) ? GEMM_WIDE : GEMM_FMA;
 }
 
-inline int loop_design(int type_code, int B, int H) {
-  if (bf16_weights(type_code) && H <= BMAX_H) return LOOP_PERSISTENT;
+// The frame loop: bf16 weights up to BMAX_H on lstm_bwd_persistent, above
+// it on lstm_bwd_tc where it fits (H <= 1056 for two directions) at every
+// B (timed in turns against the f32-weight loops on an H100 at H=1000,
+// PERF.md); else the f32-weight loop by B (f32_folds), bf16 weights
+// widened.
+inline int loop_design(int type_code, int B, int H, int ndir) {
+  if (bf16_weights(type_code)) {
+    if (H <= BMAX_H) return LOOP_PERSISTENT;
+    if (bwd_tc_fits(H, ndir)) return LOOP_TC;
+  }
   return f32_folds(B) ? LOOP_FOLD : LOOP_SPLIT;
+}
+
+// bytes of a direction's scratch for the frame loop's design: the
+// recomputed gates [T, B, 4H] f32 at the front, then the loop's own
+inline long long bwd_scratch(int loop, int T, int B, int H) {
+  const long long pre = (long long)T * B * 4 * H * 4;
+  switch (loop) {
+    case LOOP_SPLIT:
+    case LOOP_FOLD:  // the carries [2][FR_PARTS + 1][B, H] (split: 2 of them)
+      return pre + 20LL * B * H * 4;
+    case LOOP_PERSISTENT:
+      return pre;
+    case LOOP_TC:
+      return pre + bwd_tc_scratch(B, H);
+  }
+  return -1;
 }
 
 // pre{0,1} [T*B, 4H] f32 by the named design (wh: bf16 for the wgmma
@@ -2393,7 +2894,7 @@ cudaError_t run_gates(int design, int type_code, int T, int B, int H,
   return cudaErrorInvalidValue;
 }
 
-// vo_lstm_bwd with the designs named (-1: the library's): the gate GEMM
+// vo_lstm_bwd_named's work (-1: the library's design): the gate GEMM
 // into the front of scratch, then the frame loop
 int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
         const void* mask, const void* xw0, const void* wh0, const void* whf0,
@@ -2406,10 +2907,10 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (gemm == -1) gemm = gates_design(type_code, H);
-  if (loop == -1) loop = loop_design(type_code, B, H);
+  if (loop == -1) loop = loop_design(type_code, B, H, ndir);
   if (gemm < GEMM_FMA || gemm > GEMM_WIDE || loop < LOOP_SPLIT ||
-      loop > LOOP_PERSISTENT ||
-      (loop == LOOP_PERSISTENT && !bf16_weights(type_code))) {
+      loop > LOOP_TC ||
+      (loop >= LOOP_PERSISTENT && !bf16_weights(type_code))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* xw[2] = {xw0, xw1};
@@ -2436,6 +2937,14 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
             : run_loop_persistent<float>(T, B, H, ndir, m, wh, cs, dys, dxw,
                                          scratch, reverse, s));
   }
+  if (loop == LOOP_TC) {
+    return static_cast<int>(
+        type_code == 1
+            ? run_loop_tc<bf16>(T, B, H, ndir, m, wh, cs, dys, dxw, scratch,
+                                reverse, s)
+            : run_loop_tc<float>(T, B, H, ndir, m, wh, cs, dys, dxw, scratch,
+                                 reverse, s));
+  }
   const int fold = loop == LOOP_FOLD;
   switch (type_code) {
     case 0:
@@ -2453,37 +2962,20 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
 }  // namespace
 
 // The BPTT frames of one or two directions that share T, B, H, the types
-// and the mask. type_code as vo_lstm_fwd. Two stages, by the library's
-// designs: the gate GEMM (gates_design: f32 weights bptt_gates_gemm's FMA
-// form; bf16 weights, codes 1 and 2, bptt_gates_gemm_wide), then the
-// frame loop (loop_design:
-// bf16 weights up to H=512 one lstm_bwd_persistent launch; else by B,
-// vo_lstm_bwd_f32_folds: T bptt_frame launches, or T bptt_cell and T
-// bptt_dh). wh{0,1}: [H, 4H] in the weight type; whf{0,1}: the same in f32
-// (bf16 weights widened), which the FMA gate GEMM and the f32 frame loops
-// read (for f32 weights, wh again). scratch{0,1}: [T*B*4H] f32 (the
-// recomputed gates) for the persistent loop, [T*B*4H + 20*B*H] for the
-// f32 loops (the gates, then the carries); any contents. Writes dxw{0,1}
-// [T, B, 4H] in S. Returns the first non-zero CUDA error of a launch, or 0.
-extern "C" int vo_lstm_bwd(int type_code, int T, int B, int H, int ndir,
-                           const void* mask, const void* xw0, const void* wh0,
-                           const void* whf0, const void* ys0, const void* cs0,
-                           const void* dys0, void* dxw0, void* scratch0,
-                           int reverse0, const void* xw1, const void* wh1,
-                           const void* whf1, const void* ys1, const void* cs1,
-                           const void* dys1, void* dxw1, void* scratch1,
-                           int reverse1, void* stream) {
-  return bwd(type_code, -1, -1, T, B, H, ndir, mask, xw0, wh0, whf0, ys0, cs0,
-             dys0, dxw0, scratch0, reverse0, xw1, wh1, whf1, ys1, cs1, dys1,
-             dxw1, scratch1, reverse1, stream);
-}
-
-// vo_lstm_bwd with the designs named, so that each can be held to the
-// plain version and timed at any shape it takes: gemm 0 (FMA form), 1
-// (wide); loop 0 (bptt_cell + bptt_dh), 1 (bptt_frame), 2
-// (lstm_bwd_persistent); -1 the library's.
-// bf16 weights with gemm 0 and an f32 loop are the route they took above
-// H=512 before the wide GEMM.
+// and the mask, type_code as vo_lstm_fwd's, in two stages by the designs
+// named (-1: the library's): the gate GEMM, gemm 0 (bptt_gates_gemm's FMA
+// form) or 1 (bptt_gates_gemm_wide; the library's for bf16 weights, codes
+// 1 and 2), then the frame loop, loop 0 (T bptt_cell and T bptt_dh
+// launches), 1 (T bptt_frame launches), 2 (one lstm_bwd_persistent
+// launch; codes 1 and 2) or 3 (one lstm_bwd_tc launch; codes 1 and 2;
+// vo_lstm_bwd_loop_design says which the library runs). wh{0,1}: [H, 4H]
+// in the weight type; whf{0,1}: the same in f32 (bf16 weights widened),
+// which the FMA gate GEMM and the f32 frame loops read (for f32 weights,
+// wh again). scratch{0,1}: vo_lstm_bwd_scratch bytes for the loop, 16-byte
+// aligned, any contents. Writes dxw{0,1} [T, B, 4H] in S. Returns the
+// first non-zero CUDA error of a launch, or 0. bf16 weights with gemm 0
+// and an f32 loop are the route they took above H=512 before the wide
+// GEMM and lstm_bwd_tc.
 extern "C" int vo_lstm_bwd_named(
     int gemm, int loop, int type_code, int T, int B, int H, int ndir,
     const void* mask, const void* xw0, const void* wh0, const void* whf0,
@@ -2496,15 +2988,30 @@ extern "C" int vo_lstm_bwd_named(
              dys1, dxw1, scratch1, reverse1, stream);
 }
 
+// The frame loop design vo_lstm_bwd_named runs for loop -1 at type_code,
+// B, H and ndir.
+extern "C" int vo_lstm_bwd_loop_design(int type_code, int B, int H,
+                                       int ndir) {
+  return loop_design(type_code, B, H, ndir);
+}
+
+// The scratch (bytes) a direction needs for the frame loop design `loop`
+// (0-3) at T, B, H: the recomputed gates, then the loop's carries (and
+// lstm_bwd_tc's dg exchange and frame counter); -1 for another loop.
+extern "C" long long vo_lstm_bwd_scratch(int loop, int T, int B, int H) {
+  return bwd_scratch(loop, T, B, H);
+}
+
 // 1 when the f32 frame loop folds at batch size B, else 0.
 extern "C" int vo_lstm_bwd_f32_folds(int B) { return f32_folds(B) ? 1 : 0; }
 
-// The gate GEMM design vo_lstm_bwd runs for type_code at H.
+// The gate GEMM design vo_lstm_bwd_named runs for gemm -1 at type_code
+// and H.
 extern "C" int vo_lstm_bwd_gates_design(int type_code, int H) {
   return gates_design(type_code, H);
 }
 
-// dwh{0,1} [H, 4H] f32 from the saved ys and the dxw of vo_lstm_bwd, for
+// dwh{0,1} [H, 4H] f32 from the saved ys and the BPTT's dxw, for
 // one or two directions; every element is written (zeros when T = 1).
 // design: for bf16 operands (type codes 1-3) 0 (lstm_dwh_tc's 128 x 128
 // tiles) or 1 (its 128 x 256 tiles), -1 the library's (vo_lstm_dwh_design);

@@ -360,30 +360,6 @@ __device__ __forceinline__ long long grid_h_at(int b, int k, int kper, int nsc,
           b % GROWS) * GKD + r % GKD;
 }
 
-// an mbarrier wait that traps (an error at the next synchronise) instead of
-// hanging if the awaited copy never lands
-__device__ __forceinline__ void grid_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1LL << 34)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ unsigned int ld_acquire_gpu(
-    const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
 // Grid (N = ceil(H/U), ndir): CTA (r, dir) owns hidden units U*r ..
 // U*r + U-1 of its direction and all four gate columns of each, over every
 // batch row, for all T frames. `resident`: the CTA's [Hp, 4U] slice of wh
@@ -763,24 +739,6 @@ struct TcDir {
   unsigned int* count;  // frames done x CTAs, zeroed
   int reverse;
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major), f32
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Grid (N = ceil(H/TU), ndir), cooperative: CTA (r, dir) owns hidden
 // units TU*r .. TU*r + TU-1 of its direction and their four gate columns,

@@ -112,8 +112,9 @@ def _bind(lib) -> None:
     lib.vo_lstm_fwd_design.argtypes = [i, i, i, i]  # type_code, B, H, ndir
     lib.vo_lstm_fwd_scratch.restype = ctypes.c_longlong
     lib.vo_lstm_fwd_scratch.argtypes = [i, i]  # B, H
-    lib.vo_lstm_bwd.restype = i
-    lib.vo_lstm_bwd.argtypes = [
+    lib.vo_lstm_bwd_named.restype = i
+    lib.vo_lstm_bwd_named.argtypes = [
+        i, i,  # gemm, loop
         i, i, i, i, i,  # type_code, T, B, H, ndir
         p,  # mask
         # direction 0: xw, wh, wh in f32, ys, cs, dys, dxw, scratch, reverse
@@ -121,8 +122,10 @@ def _bind(lib) -> None:
         p, p, p, p, p, p, p, p, i,  # direction 1
         p,  # stream
     ]
-    lib.vo_lstm_bwd_named.restype = i
-    lib.vo_lstm_bwd_named.argtypes = [i, i] + lib.vo_lstm_bwd.argtypes  # gemm, loop
+    lib.vo_lstm_bwd_loop_design.restype = i
+    lib.vo_lstm_bwd_loop_design.argtypes = [i, i, i, i]  # type_code, B, H, ndir
+    lib.vo_lstm_bwd_scratch.restype = ctypes.c_longlong
+    lib.vo_lstm_bwd_scratch.argtypes = [i, i, i, i]  # loop, T, B, H
     lib.vo_lstm_bwd_f32_folds.restype = i
     lib.vo_lstm_bwd_f32_folds.argtypes = [i]  # B
     lib.vo_lstm_bwd_gates_design.restype = i

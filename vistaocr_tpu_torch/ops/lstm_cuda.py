@@ -36,7 +36,8 @@ design does about it.
   gate GEMM, any design: one launch), ``GATES_WIDE_LAUNCHES`` (of which
   ``bptt_gates_gemm_wide``),
   ``BWD_PERSISTENT_LAUNCHES`` (of which the persistent frame loop: one
-  launch), ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
+  launch), ``BWD_TC_LAUNCHES`` (of which ``lstm_bwd_tc``: one launch),
+  ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
   f32-weight frame loop's kernels, each counted T a call) and
   ``DWH_LAUNCHES`` (dwh reduction: one launch).
 - Routes. bf16 weights: a BPTT call's gate GEMM (every frame's gate
@@ -49,13 +50,18 @@ design does about it.
   cluster holds wh: the forward is ``lstm_fwd_tc`` (one cooperative
   launch over the card, each CTA's bf16 slice of wh in registers as
   ``mma.sync`` fragments, h exchanged in bf16 through L2 behind a frame
-  counter) up to H=1056 for two directions, the f32-weight forward
-  beyond; the frame loop runs on the f32-weight kernels below, wh
-  widened to f32 (exact; the wrapper passes wh in both types) and the
-  products' operands rounded to bf16 where the plain versions round them;
-  dwh is ``lstm_dwh_tc`` in 128 x 256 tiles, which ask the L2 for a third
-  fewer bytes a product than its 128 x 128 ones (at F2's H=1000 the rows
-  are not whole 128-byte lines, and the L2 is what bounds dwh).
+  counter) and the frame loop ``lstm_bwd_tc`` (the same skeleton: one
+  cooperative launch, each CTA's bf16 rows of wh in registers, the
+  dgates of every unit exchanged in bf16 through L2 a frame, CTA pairs
+  sharing each copy by multicast), both up to
+  H=1056 for two directions; beyond it both run on the f32-weight kernels
+  below, wh widened to f32 (exact; the wrapper passes wh in both types)
+  and the products' operands rounded to bf16 where the plain versions
+  round them; dwh is ``lstm_dwh_tc`` in 128 x 256 tiles, which ask the L2
+  for a third fewer bytes a product than its 128 x 128 ones (at F2's
+  H=1000 the rows are not whole 128-byte lines, and the L2 is what bounds
+  dwh). The frame loop's design is the library's choice by weight type,
+  B and H (``loop_design``, chosen on an H100).
   f32 weights: the forward by shape
   (``forward_design``, chosen on an H100) as one cooperative
   ``lstm_fwd_grid`` launch (a direction spread over the card, each CTA's
@@ -68,9 +74,9 @@ design does about it.
   is ``lstm_dwh_fma``, exact f32 FMAs with the rows split into ranges of
   at most 2048 (and enough ranges for two CTAs an SM), the partial tiles
   added in split order inside the launch.
-  ``FWD_DESIGNS``, ``GEMM_DESIGNS`` and ``DWH_DESIGNS`` name the designs,
-  so that each can be held to the plain version and timed beside the
-  library's choice.
+  ``FWD_DESIGNS``, ``GEMM_DESIGNS``, ``LOOP_DESIGNS`` and ``DWH_DESIGNS``
+  name the designs, so that each can be held to the plain version and
+  timed beside the library's choice.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ BWD_LAUNCHES = 0
 GATES_GEMM_LAUNCHES = 0
 GATES_WIDE_LAUNCHES = 0
 BWD_PERSISTENT_LAUNCHES = 0
+BWD_TC_LAUNCHES = 0
 FRAME_LAUNCHES = 0
 CELL_LAUNCHES = 0
 DH_LAUNCHES = 0
@@ -109,6 +116,12 @@ PERSISTENT_MAX_H = 512
 # 128 x 256 (above it).
 GEMM_DESIGNS = ("fma", "wide")
 DWH_DESIGNS = ("tiles", "wide")
+# the BPTT frame loop's designs, by their codes in csrc/lstm_bwd.cu
+# (vo_lstm_bwd_named's loop): the f32-weight loops "split" (bptt_cell and
+# bptt_dh a frame) and "fold" (bptt_frame a frame), wh in f32; bf16
+# weights' "persistent" (lstm_bwd_persistent, up to PERSISTENT_MAX_H) and
+# "tc" (lstm_bwd_tc, above it up to H=1056 for two directions), wh in bf16
+LOOP_DESIGNS = ("split", "fold", "persistent", "tc")
 # the forward's designs, by their codes in csrc/lstm_fwd.cu
 # (vo_lstm_fwd_named): the f32-weight route's "step" (lstm_step a frame)
 # and "grid" (lstm_fwd_grid), wh in f32; "tc" (lstm_fwd_tc, bf16 weights
@@ -313,12 +326,6 @@ def _check_launch(tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError("the LSTM kernels take contiguous tensors only")
 
 
-def _persistent(dtype: torch.dtype, H: int) -> bool:
-    """Whether bf16 weights at H run on the persistent kernels (else every
-    weight type takes the f32-weight kernels, bf16 wh widened to f32)."""
-    return dtype == torch.bfloat16 and H <= PERSISTENT_MAX_H
-
-
 def _dir_args(per_dir: List[list], n_fields: int) -> list:
     """Flatten per-direction C arguments; with one direction the second
     direction's slots repeat the first (the kernel does not read them)."""
@@ -412,29 +419,62 @@ def _gemm_code(lib, gemm: Optional[str], code: int, H: int) -> int:
     return GEMM_DESIGNS.index(gemm)
 
 
+def _loop_name(loop: Optional[str], fold: Optional[bool],
+               dtype: torch.dtype) -> Optional[str]:
+    """The frame loop design named by ``loop`` (``LOOP_DESIGNS``) or by
+    ``fold`` (True: "fold", False: "split"), or None for the library's;
+    raises on a bad or doubled name, before any kernel is built."""
+    if fold is not None:
+        if loop is not None:
+            raise ValueError("name the frame loop by loop= or fold=, not both")
+        if not isinstance(fold, bool):
+            raise ValueError(f"fold must be True, False or None, got {fold!r}")
+        return "fold" if fold else "split"
+    if loop is not None and loop not in LOOP_DESIGNS:
+        raise ValueError(f"unknown frame loop {loop!r}; one of {LOOP_DESIGNS}")
+    if loop in ("persistent", "tc") and dtype != torch.bfloat16:
+        raise ValueError(f"the {loop} frame loop takes bf16 weights only")
+    return loop
+
+
+def loop_design(dtype: torch.dtype, B: int, H: int, ndir: int = 2) -> str:
+    """The frame loop design (``LOOP_DESIGNS``) the library runs for
+    ``ndir`` directions with weights in ``dtype`` at B, H; builds the
+    kernels on first use."""
+    from . import _build
+
+    code = 1 if dtype == torch.bfloat16 else 0
+    return LOOP_DESIGNS[_build.load().vo_lstm_bwd_loop_design(code, B, H,
+                                                              ndir)]
+
+
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
                      *, return_gates: bool = False,
-                     fold: Optional[bool] = None, gemm: Optional[str] = None):
+                     fold: Optional[bool] = None, gemm: Optional[str] = None,
+                     loop: Optional[str] = None):
     """The BPTT frame kernels over one or two directions (CUDA only): the
     gate GEMM (every frame's gate recompute as one GEMM: f32 weights
     ``bptt_gates_gemm``'s FMA form, bf16 weights
-    ``bptt_gates_gemm_wide``), then with bf16
-    weights up to ``PERSISTENT_MAX_H`` ``lstm_bwd_persistent`` (one
-    launch), else (f32 weights; bf16 weights above it, read widened to
-    f32) a frame loop that the library chooses by B: ``bptt_frame`` per
-    frame (folded), or ``bptt_cell`` and ``bptt_dh`` per frame (split).
-    ``dirs``: (xw, wh already in ``dtype``, ys, cs, dys in the stream
-    dtype, reverse). Returns dxw per direction, and with ``return_gates``
-    also the recomputed gates ``pre`` [T, B, 4H] f32 per direction (what
+    ``bptt_gates_gemm_wide``), then the frame loop, by the library's
+    choice (``loop_design``): with bf16 weights ``lstm_bwd_persistent`` up
+    to ``PERSISTENT_MAX_H`` and ``lstm_bwd_tc`` above it where it fits
+    (one launch each), else (f32 weights; bf16 weights beyond, read
+    widened to f32) by B ``bptt_frame`` per frame (folded), or
+    ``bptt_cell`` and ``bptt_dh`` per frame (split). ``dirs``: (xw, wh
+    already in ``dtype``, ys, cs, dys in the stream dtype, reverse).
+    Returns dxw per direction, and with ``return_gates`` also the
+    recomputed gates ``pre`` [T, B, 4H] f32 per direction (what
     ``bptt_gates_ref`` computes), so that each kernel can be held to its
-    plain version. ``fold`` names the f32 frame loop's design and
-    ``gemm`` the gate GEMM's (``GEMM_DESIGNS``) instead of the library's
-    choice, so that each design can be held to the plain version and
-    timed at any shape it takes (with ``fold`` named, bf16 weights run
-    the f32 frame loop at any H; ``gemm="fma"`` with bf16 weights above
-    ``PERSISTENT_MAX_H`` is the route they took before the wide GEMM)."""
+    plain version. ``loop`` (``LOOP_DESIGNS``; or ``fold``: True "fold",
+    False "split") names the frame loop's design and ``gemm`` the gate
+    GEMM's (``GEMM_DESIGNS``) instead of the library's choice, so that
+    each design can be held to the plain version and timed at any shape
+    it takes (the f32-weight loops take bf16 weights at any H;
+    ``gemm="fma"`` with bf16 weights above ``PERSISTENT_MAX_H`` is the
+    route they took before the wide GEMM)."""
     from . import _build
 
+    name = _loop_name(loop, fold, dtype)
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
@@ -453,23 +493,21 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     if g != 0 and dtype != torch.bfloat16:
         raise ValueError(f"the {GEMM_DESIGNS[g]} gate GEMM takes bf16 "
                          f"weights only")
-    # bf16 weights up to PERSISTENT_MAX_H: the frame loop is one persistent
-    # launch, a cluster of ceil(H/32) CTAs holding wh in registers
-    persistent = _persistent(dtype, H) and fold is None
-    if not persistent:
-        fold = bool(lib.vo_lstm_bwd_f32_folds(B)) if fold is None else fold
+    lp = (lib.vo_lstm_bwd_loop_design(code, B, H, len(dirs)) if name is None
+          else LOOP_DESIGNS.index(name))
+    name = LOOP_DESIGNS[lp]
     dxw = [torch.empty_like(d[0]) for d in dirs]
-    # the recomputed gates [T, B, 4H] f32, and behind them the f32 frame
-    # loops' carries (folded, per frame parity: 8 slices' partial dh, the
-    # (1-m)*dh term and dc; split: dh and dc; [B, H] each); any contents,
-    # freed after the call on the launch stream
+    # the recomputed gates [T, B, 4H] f32, and behind them the frame loop's
+    # own (the f32 loops' carries; lstm_bwd_tc's frame counter, dgates
+    # exchange and carries, which the library zeroes where it must); freed
+    # after the call on the launch stream
     n_pre = T * B * G
-    scratch = [torch.empty(n_pre + (0 if persistent else 20 * B * H),
+    scratch = [torch.empty(lib.vo_lstm_bwd_scratch(lp, T, B, H) // 4,
                            dtype=torch.float32, device=xw0.device)
                for _ in dirs]
     # wh in f32 where the FMA gate GEMM or an f32 frame loop reads it (bf16
     # weights widened, exactly)
-    widen = dtype == torch.bfloat16 and (g == 0 or not persistent)
+    widen = dtype == torch.bfloat16 and (g == 0 or name in ("split", "fold"))
     whf = [d[1].to(torch.float32).contiguous() if widen else d[1]
            for d in dirs]
     args = _dir_args([
@@ -477,19 +515,17 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
          cs.data_ptr(), dys.data_ptr(), dxw[k].data_ptr(),
          scratch[k].data_ptr(), int(rev)]
         for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 9)
-    call = (code, T, B, H, len(dirs), mask.data_ptr(), *args,
-            torch.cuda.current_stream(xw0.device).cuda_stream)
-    if fold is None and gemm is None:
-        _build.check(lib.vo_lstm_bwd(*call), "vo_lstm_bwd")
-    else:
-        loop = 2 if persistent else int(fold)
-        _build.check(lib.vo_lstm_bwd_named(g, loop, *call),
-                     "vo_lstm_bwd_named")
+    _build.check(lib.vo_lstm_bwd_named(
+        g, lp, code, T, B, H, len(dirs), mask.data_ptr(), *args,
+        torch.cuda.current_stream(xw0.device).cuda_stream),
+        "vo_lstm_bwd_named")
     _count("BWD_LAUNCHES")
     _count_gates(g)
-    if persistent:
+    if name == "persistent":
         _count("BWD_PERSISTENT_LAUNCHES")
-    elif fold:
+    elif name == "tc":
+        _count("BWD_TC_LAUNCHES")
+    elif name == "fold":
         _count("FRAME_LAUNCHES", T)
     else:
         _count("CELL_LAUNCHES", T)
