@@ -1626,9 +1626,8 @@ def lstm_train_kernels(dev, card: str) -> dict:
     another order), ``lstm_bwd_persistent``'s dxw, from the kernel's own
     gates, against ``bptt_frames_ref`` within 2e-2."""
     import torch
-    from vistaocr_tpu_torch.ops import _build, lstm_cuda as L
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
 
-    lib = _build.load()
     rows = {}
     for (B, T, H) in LSTM_TRAIN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1652,7 +1651,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 runs = {fd: L.lstm_bptt_frames(kdirs, mask, dtype,
                                                return_gates=True, fold=fd)
                         for fd in (F32_DESIGNS if f32 else (None,))}
-                chosen = bool(lib.vo_lstm_bwd_f32_folds(B)) if f32 else None
+                chosen = L.loop_design(dtype, B, H) == "fold" if f32 else None
                 dxw_k, pre_k = runs[chosen]
                 pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r, dtype=dtype)
                          for x, w, ys, _, _, r in bdirs]
@@ -1816,6 +1815,12 @@ def lstm_train_kernels(dev, card: str) -> dict:
                     row["bound_per_frame_us"] = row["bound_ms"] / T * 1e3
                     if k == "bptt_dh":  # the product alone, one frame
                         row["library_ms"] = t["dh_lib"] * T
+                    if k == "lstm_bwd_persistent":  # its rows a cluster
+                        plan = L.persistent_plan(B, H, stream=dtype)
+                        row.update(rows_a_cluster=plan["rows"],
+                                   clusters=plan["clusters"],
+                                   co_resident_clusters=plan["resident"],
+                                   waves=plan["waves"])
                     rows[(B, T, dtype)][k] = row
                     dsg["per_frame_us"] += row["per_frame_us"]
                 designs[DESIGN_NAMES[fd]] = dsg
@@ -1848,6 +1853,12 @@ def lstm_train_kernels(dev, card: str) -> dict:
                         f"{per[fd][k + '<'][1]} (bound "
                         f"{rows[(B, T, dtype)][k]['bound_per_frame_us']:.3f})"
                         for k in ks) + f", frames {dsg['frames_ms']:.3f} ms")
+            if not f32:
+                pr = rows[(B, T, dtype)]["lstm_bwd_persistent"]
+                detail += (f"; lstm_bwd_persistent at {pr['rows_a_cluster']}"
+                           f" rows a cluster: {pr['clusters']} clusters, "
+                           f"{pr['co_resident_clusters']} co-resident, "
+                           f"{pr['waves']} wave(s)")
             detail += f"; plain frame loop {t['loop_plain']:.3f} ms"
             if f32:
                 detail += (f"; torch.mm per frame, the dh product alone, "
@@ -2086,9 +2097,10 @@ def f2_parent_loop(B: int) -> str:
     """The frame loop F2's route ran at batch size B before lstm_bwd_tc
     (``F2_PARENT["loop"]``): the f32-weight loop the library picks by B
     (``LOOP_DESIGNS`` "fold" up to B=32, "split" beyond)."""
-    from vistaocr_tpu_torch.ops import _build
+    import torch
+    from vistaocr_tpu_torch.ops import lstm_cuda
 
-    return "fold" if _build.load().vo_lstm_bwd_f32_folds(B) else "split"
+    return lstm_cuda.loop_design(torch.float32, B, 512)
 
 
 def f2_train_kernels(dev, card: str) -> dict:
@@ -3701,11 +3713,13 @@ F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES",
 F32_STEPS = ((32, 2048), (128, 512), (512, 128))
 
 
-def f32_step(dev, font: dict, B: int, W: int):
-    """One f32 train-mode forward+backward (``loss_and_grads``, dropout
-    off) of the flagship model on the kernels, from seeded parameters and
-    B glyph lines of W/2..W px, as a function of no arguments. Entry
-    points only, so it also runs in an earlier tree of the port."""
+def f32_step(dev, font: dict, B: int, W: int,
+             compute_dtype: str = "float32"):
+    """One train-mode forward+backward (``loss_and_grads``, dropout off)
+    of the flagship model on the kernels in ``compute_dtype`` (f32, or the
+    flagship's "bfloat16"), from seeded parameters and B glyph lines of
+    W/2..W px, as a function of no arguments. Entry points only, so it
+    also runs in an earlier tree of the port."""
     import torch
     from vistaocr_tpu_torch import train as T
     from vistaocr_tpu_torch.models import CnnLstmOcr, ModelConfig, init_parameters
@@ -3713,14 +3727,15 @@ def f32_step(dev, font: dict, B: int, W: int):
     alphabet, batch = _glyph_batch(font, 10, B, W, W // 2, min(256, W // 4),
                                    dev)
     model = CnnLstmOcr(ModelConfig(num_classes=alphabet.num_classes,
-                                   compute_dtype="float32", dropout=0.0))
+                                   compute_dtype=compute_dtype, dropout=0.0))
     init_parameters(model, torch.Generator().manual_seed(5))
     model.to(dev)
     weights = torch.ones(B, device=dev)
     return lambda: T.loss_and_grads(model, *batch, weights)
 
 
-def f32_step_timing(step, card: str, B: int, W: int) -> dict:
+def f32_step_timing(step, card: str, B: int, W: int,
+                    label: str = "f32") -> dict:
     """CUDA-event ms of ``step`` (an ``f32_step``) after a warm-up, and its
     device time: the sum of the device operations' durations in a
     ``torch.profiler`` window over one step."""
@@ -3734,7 +3749,7 @@ def f32_step_timing(step, card: str, B: int, W: int) -> dict:
         torch.cuda.synchronize()
     device_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    print(f"f32 forward+backward of the flagship on the kernels, B={B} "
+    print(f"{label} forward+backward of the flagship on the kernels, B={B} "
           f"W={W}: {ms:.3f} ms a step (CUDA events), device time "
           f"{device_ms:.3f} ms ({card})", flush=True)
     return {"B": B, "W": W, "ms": ms, "device_ms": device_ms}
@@ -3774,9 +3789,8 @@ def train_parity_phase(dev, font: dict, card: str) -> dict:
     _require(np.isfinite(l_k) and rel_loss <= 1e-5, "loss parity")
     _require(worst[0] <= 2e-3, f"gradient parity {worst}")
 
-    from vistaocr_tpu_torch.ops import _build, lstm_cuda
+    from vistaocr_tpu_torch.ops import lstm_cuda
 
-    lib = _build.load()
     steps = [f32_step(dev, font, B, W) for B, W in F32_STEPS]
     for name in F32_COUNTERS:
         setattr(lstm_cuda, name, 0)
@@ -3796,7 +3810,7 @@ def train_parity_phase(dev, font: dict, card: str) -> dict:
             want["STEP_LAUNCHES"] += fwd * T
         for name in ("BWD_LAUNCHES", "GATES_GEMM_LAUNCHES", "DWH_LAUNCHES"):
             want[name] += bwd
-        if lib.vo_lstm_bwd_f32_folds(B):
+        if lstm_cuda.loop_design(torch.float32, B, 512) == "fold":
             want["FRAME_LAUNCHES"] += bwd * T
         else:
             want["CELL_LAUNCHES"] += bwd * T
@@ -4728,6 +4742,11 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _phase("train")
         counts, per_step_lps = train_phase(tmp, font, smi)
+        # the flagship's bf16 step at the W=2048 bucket (B=32), whose BPTT
+        # runs lstm_bwd_persistent twice
+        bf16_step = f32_step_timing(f32_step(dev, font, 32, 2048,
+                                             "bfloat16"),
+                                    f"{card}, {smi}", 32, 2048, "bf16")
         _phase("fused")
         fused_out = fused_phase(dev, tmp, font, smi, per_step_lps)
         print(json.dumps({"fused": fused_out}), flush=True)
@@ -4869,6 +4888,8 @@ def main(argv) -> int:
                 row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, dtype)][key]
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]
+        if name == "lstm_bwd_persistent":
+            row["bf16_step"] = bf16_step
         kernels.append(row)
     # F2's route: bf16 weights above H=512, the forward on lstm_fwd_tc and
     # the frame loop on lstm_bwd_tc, the gate GEMM and dwh on the wide

@@ -1011,10 +1011,16 @@ def test_f32_weight_gates_gemm_and_frames_match_plain(dev, shape, stream,
 # lstm_bwd_persistent launch) at ragged shapes: H not a multiple of 32 or 8
 # and H < 64 (one or two CTAs a cluster), B > 32 (several clusters), B=512
 # (16 clusters a direction, in waves), T = 1 (no product), and a row that
-# is invalid throughout (row 3; row 0 is full).
+# is invalid throughout (row 3; row 0 is full). The library takes 32, 16
+# or 8 batch rows a cluster by B (lstm_cuda.persistent_plan); at H=512, two
+# directions, on an H100 its choice changes between B = 24 and 25, 48 and
+# 49, 56 and 57, 96 and 97: each pair is here, and every row count the
+# rule takes (test_bf16_bptt_shapes_run_every_row_count).
 BF16_BPTT_SHAPES = [(5, 7, 17), (6, 9, 40), (33, 5, 100), (70, 4, 72),
                     (129, 3, 512), (512, 3, 40), (512, 2, 512), (4, 1, 512),
-                    (40, 1, 36), (32, 64, 512)]
+                    (40, 1, 36), (32, 64, 512), (24, 3, 512), (25, 2, 512),
+                    (48, 2, 512), (49, 3, 512), (56, 1, 512), (57, 3, 512),
+                    (96, 2, 512), (97, 1, 512), (9, 1, 60), (17, 4, 48)]
 
 
 def _bf16_bptt_operands(dev, B, T, H, stream, seed):
@@ -1054,6 +1060,51 @@ def test_bf16_weight_bptt_is_deterministic(dev):
                     for _ in range(2)]
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [20, 32, 96])
+def test_bf16_weight_bptt_is_deterministic_at_each_row_count(dev, B):
+    """lstm_bwd_persistent at 8, 16 and 32 batch rows a cluster (the
+    library's choice at B = 20, 32 and 96, H=512): two runs, the same bits,
+    in both type codes."""
+    for stream in (torch.bfloat16, torch.float32):
+        dirs, mask = _bf16_bptt_operands(dev, B, 12, 512, stream, seed=B)
+        kdirs = [(x, w.to(torch.bfloat16).contiguous(), y, c, dy, r)
+                 for x, w, y, c, dy, r in dirs]
+        with torch.no_grad():
+            runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, torch.bfloat16)
+                    for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+    assert {20: 8, 32: 16, 96: 32}[B] == lstm_cuda.persistent_plan(
+        B, 512)["rows"]
+
+
+def test_bf16_bptt_shapes_run_every_row_count(dev):
+    """Every row count the library takes for lstm_bwd_persistent at the
+    flagship's H=512 (B from 1 to 1024, one or two directions) is the
+    choice at one of BF16_BPTT_SHAPES at least."""
+    chosen = {lstm_cuda.persistent_plan(B, 512, ndir)["rows"]
+              for B in range(1, 1025) for ndir in (1, 2)}
+    tested = {lstm_cuda.persistent_plan(B, H)["rows"]
+              for B, _, H in BF16_BPTT_SHAPES if H <= 512}
+    assert chosen <= tested, (chosen, tested)
+    assert chosen == {8, 16, 32}
+
+
+# the library's rows a cluster at the flagship's train buckets (B, T) at
+# H=512, as PERF.md records them (an H100 holds 7 clusters of 16 CTAs)
+PERSISTENT_ROWS = {(32, 512): 16, (64, 256): 32, (128, 128): 16,
+                   (512, 32): 32}
+
+
+@pytest.mark.parametrize("bucket", sorted(PERSISTENT_ROWS))
+def test_bf16_bptt_rows_at_each_train_bucket(dev, bucket):
+    B, _ = bucket
+    plan = lstm_cuda.persistent_plan(B, 512)
+    assert plan["rows"] == PERSISTENT_ROWS[bucket], plan
+    assert plan["clusters"] == 2 * -(-B // plan["rows"])
+    assert plan["waves"] == -(-plan["clusters"] // plan["resident"])
 
 
 def _profiled_counts(call, names):

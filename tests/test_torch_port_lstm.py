@@ -302,3 +302,25 @@ def test_bwd_tc_profile_script_finds_its_anchors_in_the_kernel(variant):
         src = f.read()
     assert profile_lstm_bwd_tc.variant_source(src, variant) != src
     assert profile_lstm_bwd_tc.variant_source(src, "full") == src
+
+
+@pytest.mark.parametrize("variant", ["no_exchange", "no_sum", "no_product",
+                                     "no_epilogue", "stamps", "rows_32",
+                                     "rows_16", "rows_8"])
+def test_bwd_persistent_profile_script_finds_its_anchors_in_the_kernel(
+        variant):
+    """profile_lstm_bwd_persistent.py edits copies of csrc/lstm_bwd.cu by
+    text anchors: one of each variant's recipes must find its anchors
+    exactly once in the kernel as it stands, and each copy must differ from
+    the kernel with the profile's plan query alone (the ``full`` copy)."""
+    import os
+
+    import profile_lstm_bwd_persistent as prof
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_bwd.cu")
+    with open(path) as f:
+        src = f.read()
+    full = prof.variant_source(src, "full")
+    assert full != src and "vo_prof_plan" in full
+    assert prof.variant_source(src, variant) != full

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks for the hand-written tensor-core
 // kernels: shared-memory addresses, mbarriers, TMA and cp.async copies,
 // bulk copies from global memory and between the CTAs of a cluster,
-// st.async, proxy fences, the cluster
-// barrier, 128- and 64-byte-swizzled wgmma operand layouts and their
+// st.async, proxy fences, named and cluster
+// barriers, 128- and 64-byte-swizzled wgmma operand layouts and their
 // descriptors, and the bf16 x bf16 -> f32 wgmma.m64nNk16 instructions
-// (N = 128 and 256 with A from shared memory, N = 32 with A from
-// registers); the frame counter and trapping mbarrier wait of the
+// (N = 128 and 256 with A from shared memory, N = 8, 16 and 32 with A
+// from registers); the frame counter and trapping mbarrier wait of the
 // cooperative kernels, ldmatrix and mma.sync.m16n8k16. Used by lstm_bwd.cu
 // and lstm_fwd.cu;
 // ctc.cu takes its cp.async groups. Plain PTX, no CUTLASS.
@@ -204,6 +204,12 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
                :: "r"(bar) : "memory");
 }
 
+// a barrier of `count` threads (whole warps) under the named barrier `id`
+// (0 is __syncthreads')
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // --- cluster barrier ---------------------------------------------------------
 // arrive releases this thread's earlier writes (local and distributed shared
 // memory) at cluster scope; wait returns once every thread of every CTA of
@@ -361,11 +367,13 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
 
 // wgmma.m64n32k16 with A from registers: thread t of the warpgroup holds
 // a[j] = A[16*(t/32) + (t%32)/4 + 8*(j%2)][2*(t%4) + 8*(j/2) + {0, 1}]
-// (two bf16, the lower column in the low half), d as above
+// (two bf16, the lower column in the low half), d as above; accumulate = 0
+// overwrites D
 template <int TB>
 __device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
                                                 const uint32_t (&a)[4],
-                                                uint64_t db) {
+                                                uint64_t db,
+                                                int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -376,8 +384,55 @@ __device__ __forceinline__ void wgmma_m64n32_rs(float (&d)[16],
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
         "n"(TB));
+}
+
+// wgmma.m64n16k16 and m64n8k16 with A from registers, as wgmma_m64n32_rs
+// with N/8 column groups: d[4*j + q], j < N/8
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n16_rs(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n8_rs(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+        "n"(TB));
+}
+
+// D[64 x N] (+)= A (registers) * B (K-major), N = 8, 16 or 32 (d: N/2
+// floats); accumulate = 0 overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 32) {
+    wgmma_m64n32_rs<0>(d, a, db, accumulate);
+  } else if constexpr (N == 16) {
+    wgmma_m64n16_rs<0>(d, a, db, accumulate);
+  } else {
+    static_assert(N == 8, "wgmma_rs takes N = 8, 16 or 32");
+    wgmma_m64n8_rs<0>(d, a, db, accumulate);
+  }
 }
 
 // --- grid-wide exchange (cooperative kernels) -------------------------------

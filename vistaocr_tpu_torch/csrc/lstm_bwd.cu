@@ -63,20 +63,29 @@
 //   lstm_bwd_persistent walks all T frames
 //   in one launch: a thread-block cluster of ceil(H/32) CTAs (16 at
 //   H=512, a non-portable size checked with cudaOccupancyMaxActiveClusters)
-//   per direction and 32 batch rows; CTA r owns units 32r..32r+31 and
+//   per direction and BN batch rows; CTA r owns units 32r..32r+31 and
 //   their 128 gate columns, so a unit's dgates are its own CTA's
 //   epilogue (pre, cs, dys and the mask arrive by cp.async during the
 //   previous frame's product; the f32 dh and dc carries stay in
-//   registers). Its dh product is split over the cluster by those
+//   registers; dxw[t] is staged in shared memory and stored under the
+//   product). Its dh product is split over the cluster by those
 //   columns: P_r[k][b] = sum over own columns g of wh[k][g] * dg[b][g],
-//   M = every unit, K = 128, N = 32, with A (wh[:, own columns]) held in
+//   M = every unit, K = 128, N = BN, with A (wh[:, own columns]) held in
 //   registers for all T frames, as lstm_fwd_persistent holds its slice of
 //   wh, and B the round_W(dgates) tile in shared memory. Rows 32p..32p+31
-//   of P_r go to CTA p as 16-byte st.async stores that complete on p's
-//   mbarrier (double-buffered receive slots: arrival alone orders the
-//   frames, as in lstm_fwd.cu); CTA p sums the C partials of its units in
-//   rank order, so each dh element has one owner and a fixed order, no
-//   atomics, and two runs give the same bits. H <= 512.
+//   of P_r are staged in shared memory and go to CTA p as one bulk copy
+//   that completes on p's mbarrier (double-buffered receive slots: arrival
+//   alone orders the frames, as in lstm_fwd.cu; a sender stages in the
+//   buffer it has just summed, which no peer writes before it has received
+//   the copy); CTA p sums the C partials of its units in rank order, so
+//   each dh element has one owner and a fixed order, no atomics, and two
+//   runs give the same bits. At H=512 an H100 holds 7 such clusters at
+//   once, and a cluster's frame is one dependent chain (cell backward,
+//   product, copies, the peers' copies, the sum), so the rows a cluster
+//   take, BN = 32, 16 or 8 (the wgmma N), are chosen by B: the fewest
+//   waves of clusters times a frame's time on the card (BWD_ROWS). The
+//   partials went as 16-byte st.async stores before, 4096 a CTA and frame
+//   at BN = 32, whose issue took 40% of the frame (PERF.md). H <= 512.
 // - f32 W (type codes 0 and 3, the parity route): wgmma has no exact f32
 //   product (TF32 would change the numbers), so both stages stay on the
 //   FMA units, 1 + T or 1 + 2T launches a call. bptt_gates_gemm (the f32 form)
@@ -1245,25 +1254,27 @@ cudaError_t run_gates_wide(int T, int B, int H, int ndir,
                                      vec, static_cast<int>(tiles), stream);
 }
 
-// The frame loop. Grid (C = ceil(H/32), ceil(B/32), ndir), cluster (C, 1,
-// 1): CTA r owns hidden units 32r..32r+31 and their 128 gate columns
-// {g*H + 32r + u}, ordered kc = 32g + u, for 32 batch rows.
+// The frame loop (lstm_bwd_persistent). Grid (C = ceil(H/32), ceil(B/BN),
+// ndir), cluster (C, 1, 1): CTA r owns hidden units 32r..32r+31 and their
+// 128 gate columns {g*H + 32r + u}, ordered kc = 32g + u, for the BN batch
+// rows of its cluster (the wgmma N: 32, 16 or 8, the library's choice by
+// B, bwd_persistent_rows).
 constexpr int BU = 32;           // hidden units per CTA
-constexpr int BN = 32;           // batch rows per cluster (the wgmma N)
 constexpr int BTHREADS = 256;    // two warpgroups
 constexpr int BMAX_CLUSTER = 16;
 constexpr int BMAX_H = BU * BMAX_CLUSTER;
 static_assert(BMAX_H == TILES_MAX_H, "the wide designs serve F2's H");
-constexpr int BSLOT = BU * BN * 4;  // one sender's partial for one CTA: 4 KB
 
-// dg tile (two 64-column blocks of 32 rows, 128B-swizzled: 8 KB), two
-// receive buffers of 16 slots (128 KB), the frame's pre tile [4][BN][BU]
-// f32 (16 KB), cs[t], cs[tp] and dys[t] tiles [BN][BU] in S, the mask,
-// two mbarriers
-template <typename S>
+// the dg tile (two 64-column blocks of BN rows, 128B-swizzled), two
+// receive buffers of 16 slots (a slot: one sender's partial for this CTA's
+// units, [BU][BN] f32), the frame's pre tile [4][BN][BU] f32, the cs[t],
+// cs[tp] and dys[t] tiles and the dxw[t] tile by gate, [3 + 4][BN][BU] in
+// S, the mask [BN] and two mbarriers
+template <typename S, int BN>
 constexpr int bwd_persistent_smem() {
-  return 1024 + 2 * BN * 128 + 2 * BMAX_CLUSTER * BSLOT + 4 * BN * BU * 4 +
-         3 * BN * BU * static_cast<int>(sizeof(S)) + BN * 4 + 16;
+  return 1024 + 2 * BN * 128 + 2 * BMAX_CLUSTER * BU * BN * 4 +
+         4 * BN * BU * 4 + 7 * BN * BU * static_cast<int>(sizeof(S)) +
+         BN * 4 + 16;
 }
 
 template <typename S>
@@ -1276,15 +1287,32 @@ struct BwdSeqDir {
   int reverse;
 };
 
+// the group (RPT = BN/8 consecutive batch rows) c of unit uu's row in a
+// partial slot lies at group c ^ (uu / (32/BN)) % 8, so that the sum (a
+// warp reads one group of 32 units) and the staging run without bank
+// conflicts
+template <int BN>
+__device__ __forceinline__ int bwd_group(int c, int uu) {
+  return c ^ ((uu / (32 / BN)) % 8);
+}
+
 // MT: m64 tiles of the product per warpgroup (2*MT*64 >= 32*C rows). A
-// thread (warp w of 8, lane l) runs the epilogue of unit 32r + l and batch
-// rows 32*blockIdx.y + 4w .. +3, keeping their f32 dh and dc carries in
-// registers. `vec`: rows of pre, cs, dys are whole, aligned 16-byte chunks.
-template <typename S, int MT>
+// thread (warp w of 8, lane l) runs the cell backward of unit 32r + l and
+// rows RPT*w .. RPT*w + RPT-1 (RPT = BN/8), keeping their f32 dh and dc
+// carries in registers. `vec`: rows of pre, cs, dys and dxw are whole,
+// aligned 16-byte chunks.
+template <typename S, int MT, int BN>
 __global__ void __launch_bounds__(BTHREADS, 1)
 lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
                     const float* __restrict__ mask, int T, int B, int H,
                     int vec) {
+  constexpr int RPT = BN / 8;                // rows of a thread
+  constexpr int SLOT = BU * BN * 4;          // a sender's partial block
+  constexpr int RXB = BMAX_CLUSTER * SLOT;   // a receive buffer
+  constexpr int ES = static_cast<int>(sizeof(S));
+  constexpr int CH = 16 / ES;                // elements of a 16-byte chunk
+  constexpr int NCH = BU / CH;               // chunks of a 32-unit row
+  constexpr int NACC = BN <= 16 ? 2 : 1;     // tiles of the product in flight
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int nrank = static_cast<int>(cluster.num_blocks());
@@ -1293,15 +1321,13 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
   const int j0 = rank * BU;
   const long long G = 4LL * H;
   const int tid = threadIdx.x;
-  constexpr int ES = static_cast<int>(sizeof(S));
   extern __shared__ uint8_t bwd_raw[];
   uint8_t* dg_s = align1024(bwd_raw);  // [2][BN][64] bf16, 128B swizzle
-  uint8_t* rx_s = dg_s + 2 * BN * 128;  // [2][16][BU][BN] f32, swizzled
-  float* pre_s = reinterpret_cast<float*>(rx_s + 2 * BMAX_CLUSTER * BSLOT);
-  S* cs_s = reinterpret_cast<S*>(pre_s + 4 * BN * BU);  // cs[t], cs[tp], dys
-  S* dy_s = cs_s + 2 * BN * BU;
-  float* m_s = reinterpret_cast<float*>(dy_s + BN * BU);
-  uint64_t* full = reinterpret_cast<uint64_t*>(m_s + BN);
+  uint8_t* rx_s = dg_s + 2 * BN * 128;  // [2][16] slots
+  float* pre_s = reinterpret_cast<float*>(rx_s + 2 * RXB);  // [4][BN][BU]
+  S* io_s = reinterpret_cast<S*>(pre_s + 4 * BN * BU);  // [7][BN][BU]
+  float* m_s = reinterpret_cast<float*>(io_s + 7 * BN * BU);  // [BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(m_s + BN);  // [2]
 
   // this thread's fragments of A = wh[:, own columns] for all T frames:
   // tile mt covers units 64*(MT*wg + mt) .., register j of k-step kk holds
@@ -1341,8 +1367,6 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
                         : 0);
         cp_async16_zfill(pre_s + (g * BN + r) * BU + 4 * c, src, ok);
       }
-      constexpr int CH = 16 / ES;  // elements per 16-byte chunk
-      constexpr int NCH = BU / CH;
       for (int q = tid; q < 3 * BN * NCH; q += BTHREADS) {
         const int which = q / (BN * NCH), r = (q / NCH) % BN, c = q % NCH;
         const int tt = which == 1 ? tp : t;
@@ -1350,7 +1374,7 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
         const S* src = (which == 2 ? d.dys : d.cs) +
                        (ok ? ((long long)tt * B + b0 + r) * H + j0 + c * CH
                            : 0);
-        cp_async16_zfill(cs_s + (which * BN + r) * BU + c * CH, src, ok);
+        cp_async16_zfill(io_s + (which * BN + r) * BU + c * CH, src, ok);
       }
     } else {  // synchronous: shapes outside the main path
       for (int q = tid; q < 4 * BN * BU; q += BTHREADS) {
@@ -1364,8 +1388,8 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
         const int which = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
         const int tt = which == 1 ? tp : t;
         const bool ok = tt >= 0 && b0 + r < B && j0 + uu < H;
-        cs_s[q] = ok ? (which == 2 ? d.dys : d.cs)[((long long)tt * B + b0 +
-                                                     r) * H + j0 + uu]
+        io_s[q] = ok ? (which == 2 ? d.dys : d.cs)[((long long)tt * B + b0 +
+                                                    r) * H + j0 + uu]
                      : from_f32<S>(0.0f);
       }
     }
@@ -1376,21 +1400,44 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
     }
   };
 
+  // the staged dxw[t] to global memory
+  auto store_dxw = [&](int t) {
+    const S* x_s = io_s + 3 * BN * BU;  // [4][BN][BU]
+    if (vec) {
+      for (int q = tid; q < 4 * BN * NCH; q += BTHREADS) {
+        const int g = q / (BN * NCH), r = (q / NCH) % BN, c = q % NCH;
+        if (b0 + r < B && j0 + c * CH < H) {
+          *reinterpret_cast<uint4*>(d.dxw + ((long long)t * B + b0 + r) * G +
+                                    (long long)g * H + j0 + c * CH) =
+              *reinterpret_cast<const uint4*>(x_s + (g * BN + r) * BU +
+                                              c * CH);
+        }
+      }
+    } else {
+      for (int q = tid; q < 4 * BN * BU; q += BTHREADS) {
+        const int g = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
+        if (b0 + r < B && j0 + uu < H) {
+          d.dxw[((long long)t * B + b0 + r) * G + (long long)g * H + j0 +
+                uu] = x_s[q];
+        }
+      }
+    }
+  };
+
   if (tid == 0) {  // full[b]: the C partial blocks in receive buffer b
     mbar_init(&full[0], 1);
     mbar_init(&full[1], 1);
     mbar_fence_init();
   }
-  // every CTA's barriers are in place before any peer stores into it
+  // every CTA's barriers are in place before any peer copies into it
   cluster_arrive_release();
   cluster_wait_acquire();
 
   const int u = lane;        // this thread's unit in the CTA
-  const int w8 = tid / 32;   // and its batch rows 4*w8 .. 4*w8 + 3
-  const bool u_ok = j0 + u < H;
-  float dh[4], dc[4], keep[4];
+  const int w8 = tid / 32;   // and its rows RPT*w8 .. RPT*w8 + RPT-1
+  float dh[RPT], dc[RPT], keep[RPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dh[i] = dc[i] = keep[i] = 0.0f;
+  for (int i = 0; i < RPT; ++i) dh[i] = dc[i] = keep[i] = 0.0f;
   auto frame = [&](int step, int& t, int& tp) {  // the scan order, backwards
     t = d.reverse ? step : T - 1 - step;
     tp = d.reverse ? (t + 1 < T ? t + 1 : -1) : t - 1;
@@ -1401,20 +1448,52 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
   const uint32_t dg_a = smem_u32(dg_s);
   for (int step = 0; step < T; ++step) {
     frame(step, t, tp);
-    cp_async_wait_all();
-    __syncthreads();  // the inputs arrived; the last product read dg_s
+    const int buf = step & 1;
+    if (step > 0) {
+      // dh of this frame: the C partials of the last one summed in rank
+      // order 0..C-1, plus (1-m)*dh_t
+      mbar_wait(&full[buf ^ 1], ((step - 1) >> 1) & 1);
+      const float* rx = reinterpret_cast<const float*>(
+                            rx_s + (buf ^ 1) * RXB + u * BN * 4) +
+                        bwd_group<BN>(w8, u) * RPT;
+      float sum[RPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = 4 * w8 + i;
+      for (int i = 0; i < RPT; ++i) sum[i] = 0.0f;
+      for (int q = 0; q < nrank; ++q) {
+        const float* v = rx + q * (SLOT / 4);
+        if constexpr (RPT == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(v);
+          sum[0] += x.x;
+          sum[1] += x.y;
+          sum[2] += x.z;
+          sum[3] += x.w;
+        } else if constexpr (RPT == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(v);
+          sum[0] += x.x;
+          sum[1] += x.y;
+        } else {
+          sum[0] += v[0];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) dh[i] = sum[i] + keep[i];
+    }
+    cp_async_wait_all();
+    // the inputs arrived; the last product read dg_s, and the buffer the
+    // partials are staged in below was summed
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int b = RPT * w8 + i;
       const float m = m_s[b];
       const float* p = pre_s + b * BU + u;
       const float gi = sigmoid_fast(p[0]);
       const float gf = sigmoid_fast(p[BN * BU]);
       const float gg = tanh_fast(p[2 * BN * BU]);
       const float go = sigmoid_fast(p[3 * BN * BU]);
-      const float tc = tanh_fast(to_f32(cs_s[b * BU + u]));
-      const float c_prev = to_f32(cs_s[(BN + b) * BU + u]);
-      const float dh_t = dh[i] + to_f32(dy_s[b * BU + u]);
+      const float tc = tanh_fast(to_f32(io_s[b * BU + u]));
+      const float c_prev = to_f32(io_s[(BN + b) * BU + u]);
+      const float dh_t = dh[i] + to_f32(io_s[(2 * BN + b) * BU + u]);
       const float dc_t = dc[i] + dh_t * go * (1.0f - tc * tc);
       const S v[4] = {from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m),
                       from_f32<S>((dc_t * c_prev) * gf * (1.0f - gf) * m),
@@ -1422,14 +1501,10 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
                       from_f32<S>((dh_t * tc) * go * (1.0f - go) * m)};
       dc[i] = m * (dc_t * gf) + (1.0f - m) * dc[i];
       keep[i] = (1.0f - m) * dh_t;
-      if (u_ok && b0 + b < B) {  // a warp stores 32 consecutive units
-        S* dx = d.dxw + ((long long)t * B + b0 + b) * G + j0 + u;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) dx[(long long)g * H] = v[g];
-      }
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {  // round_W(dgates): the product's B
-        const int kc = 32 * g + u;
+      for (int g = 0; g < 4; ++g) {  // dxw[t], and round_W(dgates): the
+        const int kc = 32 * g + u;   // product's B
+        io_s[((3 + g) * BN + b) * BU + u] = v[g];
         *reinterpret_cast<bf16*>(dg_s + (kc / 64) * BN * 128 +
                                  swz128(b, (kc % 64) / 8) + (kc % 8) * 2) =
             __float2bfloat16(to_f32(v[g]));
@@ -1437,85 +1512,109 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
     }
     fence_proxy_async();  // dg_s is read by the tensor cores
     __syncthreads();      // ... and the input tiles are free again
-    if (step + 1 == T) break;  // nobody reads the last frame's dh
+    if (step + 1 == T) {  // nobody reads the last frame's dh
+      store_dxw(t);
+      break;
+    }
     {
       int tn, tpn;
       frame(step + 1, tn, tpn);
       load_inputs(tn, tpn);  // lands during the product and the exchange
     }
-    const int buf = step & 1;
-    if (tid == 0) mbar_arrive_expect_tx(&full[buf], nrank * BSLOT);
-    const uint32_t slot = smem_u32(rx_s + buf * BMAX_CLUSTER * BSLOT +
-                                   rank * BSLOT);
-    const uint32_t bar = smem_u32(&full[buf]);
-    const bool odd = lane & 1;
+    if (tid == 0) mbar_arrive_expect_tx(&full[buf], nrank * SLOT);
     // P[k][b] = sum over own columns kc of wh[k][kc] * dg[b][kc]: M = all
-    // units (MT tiles a warpgroup, one at a time: with the accumulators of
-    // two tiles live beside the held A, ptxas spilled and serialised the
-    // wgmma), N = 32 rows, K = 128
+    // units (MT tiles a warpgroup, NACC of them in flight), N = BN rows,
+    // K = 128. Tile rows 32p..32p+31 (warps 2i, 2i+1 of a warpgroup) are
+    // peer p's block: staged in the buffer summed above, slot p, then one
+    // bulk copy into slot `rank` of p's buffer buf
+    uint8_t* out = rx_s + (buf ^ 1) * RXB;
+    const uint32_t dst = smem_u32(rx_s + buf * RXB + rank * SLOT);
+    const uint32_t bar = smem_u32(&full[buf]);
+    float acc[NACC][BN / 2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float acc[16];
+    for (int mt = 0; mt < MT + NACC - 1; ++mt) {
+      if (mt < MT) {
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        wgmma_m64n32_rs<0>(acc, af[mt][kk],
-                           wgmma_desc(dg_a + (kk / 4) * BN * 128 +
-                                          (kk % 4) * 32, 16, 1024));
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_rs<BN>(acc[mt % NACC], af[mt][kk],
+                       wgmma_desc(dg_a + (kk / 4) * BN * 128 + (kk % 4) * 32,
+                                  16, 1024),
+                       kk > 0 ? 1 : 0);
+        }
+        wgmma_commit();
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      // rows 32p..32p+31 of P to CTA p, into slot `rank` of its buffer
-      // buf: lanes l, l^1 swap halves so that each holds 4 consecutive rows
-      // b of one unit, stored as one 16-byte st.async (chunk c of a slot
-      // row at c ^ (row % 8), so the reduce below reads without bank
-      // conflicts)
-      const int m0 = 64 * (MT * wg + mt) + 16 * warp + lane / 4;
+      if (mt == 0) store_dxw(t);  // under the first tile's product
+      const int done = mt - (NACC - 1);
+      if (done < 0) continue;
+      if (mt < MT) {
+        wgmma_wait<NACC - 1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      const float(&a)[BN / 2] = acc[done % NACC];
+      const int p = 2 * (MT * wg + done) + warp / 2;
+      const int uu0 = 16 * (warp % 2) + lane / 4;  // units uu0, uu0 + 8
+      if (p < nrank) {
+        float* blk = reinterpret_cast<float*>(out + p * SLOT);
+        if constexpr (RPT == 4) {
+          // lanes l, l^1 swap halves so that each holds 4 consecutive rows
+          // of one unit
+          const bool odd = lane & 1;
+          const int uu = uu0 + 8 * odd;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float a[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
-                            acc[4 * j + 3]};
-        const float y0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
-        const float y1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
-        const int m = m0 + 8 * odd;
-        const int p = m / BU, uu = m % BU;
-        const int c = 2 * j + (lane % 4) / 2;  // batch rows 4c .. 4c+3
-        if (p < nrank) {
-          st_async_v4(cluster_addr(slot + uu * 128 + ((c ^ (uu % 8)) << 4), p),
-                      odd ? y0 : a[0], odd ? y1 : a[1], odd ? a[2] : y0,
-                      odd ? a[3] : y1, cluster_addr(bar, p));
+          for (int j = 0; j < 4; ++j) {
+            const float y0 = __shfl_xor_sync(
+                0xffffffffu, odd ? a[4 * j] : a[4 * j + 2], 1);
+            const float y1 = __shfl_xor_sync(
+                0xffffffffu, odd ? a[4 * j + 1] : a[4 * j + 3], 1);
+            const int c = 2 * j + (lane % 4) / 2;  // rows 4c .. 4c+3
+            *reinterpret_cast<float4*>(blk + uu * BN +
+                                       bwd_group<BN>(c, uu) * 4) =
+                make_float4(odd ? y0 : a[4 * j], odd ? y1 : a[4 * j + 1],
+                            odd ? a[4 * j + 2] : y0, odd ? a[4 * j + 3] : y1);
+          }
+        } else if constexpr (RPT == 2) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {  // rows 2c, 2c+1 of unit uu
+              const int uu = uu0 + 8 * e, c = 4 * j + lane % 4;
+              *reinterpret_cast<float2*>(blk + uu * BN +
+                                         bwd_group<BN>(c, uu) * 2) =
+                  make_float2(a[4 * j + 2 * e], a[4 * j + 2 * e + 1]);
+            }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int uu = uu0 + 8 * (q / 2), b = 2 * (lane % 4) + q % 2;
+            blk[uu * BN + bwd_group<BN>(b, uu)] = a[q];
+          }
         }
       }
+      fence_proxy_async();  // the block is read by the bulk copy
+      named_barrier_sync(1 + tid / 64, 64);
+      if (tid % 64 == 0 && p < nrank) {
+        bulk_copy_to_peer(cluster_addr(dst, p), out + p * SLOT, SLOT,
+                          cluster_addr(bar, p));
+        bulk_commit();
+      }
     }
-    mbar_wait(&full[buf], (step >> 1) & 1);
-    // dh of the next frame: the C partials of this thread's elements
-    // summed in rank order 0..C-1, plus (1-m)*dh_t
-    const uint8_t* rx = rx_s + buf * BMAX_CLUSTER * BSLOT + u * 128 +
-                        ((w8 ^ (u % 8)) << 4);
-    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int q = 0; q < nrank; ++q) {
-      const float4 v = *reinterpret_cast<const float4*>(rx + q * BSLOT);
-      sum[0] += v.x;
-      sum[1] += v.y;
-      sum[2] += v.z;
-      sum[3] += v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dh[i] = sum[i] + keep[i];
   }
-  // no CTA leaves while a peer may still store into its shared memory
+  // no CTA leaves while a copy from or to its shared memory is in flight
+  bulk_wait_read();
   cluster_arrive_release();
   cluster_wait_acquire();
 }
 
-template <typename S, int MT>
-cudaError_t launch_bwd_persistent(const BwdSeqDir<S>* d, const float* mask,
-                                  int T, int B, int H, int ndir, int vec,
-                                  cudaStream_t stream) {
-  constexpr int smem = bwd_persistent_smem<S>();
-  auto kernel = lstm_bwd_persistent<S, MT>;
+// lstm_bwd_persistent<S, MT, BN>'s launch configuration at B, H, ndir (its
+// attributes set once)
+template <typename S, int MT, int BN>
+cudaError_t bwd_persistent_cfg(int B, int H, int ndir, cudaStream_t stream,
+                               cudaLaunchConfig_t* cfg,
+                               cudaLaunchAttribute* attr) {
+  constexpr int smem = bwd_persistent_smem<S, BN>();
+  auto kernel = lstm_bwd_persistent<S, MT, BN>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1530,28 +1629,114 @@ cudaError_t launch_bwd_persistent(const BwdSeqDir<S>* d, const float* mask,
   const int csize = (H + BU - 1) / BU;
   const int nbt = (B + BN - 1) / BN;
   if (nbt > 65535) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize, nbt, ndir);
-  cfg.blockDim = dim3(BTHREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  *cfg = {};
+  cfg->gridDim = dim3(csize, nbt, ndir);
+  cfg->blockDim = dim3(BTHREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = csize;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// the clusters of lstm_bwd_persistent<S, MT, BN> at H the current card
+// holds at once (cudaOccupancyMaxActiveClusters), asked once a device and
+// cluster size
+template <typename S, int MT, int BN>
+cudaError_t bwd_persistent_resident(int H, int* clusters) {
+  static int known[64][BMAX_CLUSTER + 1] = {};  // the count + 1; 0: not asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, d[0], d[1], mask, T, B, H, vec);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const int csize = (H + BU - 1) / BU;
+  if (dev < 64 && known[dev][csize] > 0) {
+    *clusters = known[dev][csize] - 1;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = bwd_persistent_cfg<S, MT, BN>(1, H, 1, nullptr, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, lstm_bwd_persistent<S, MT, BN>,
+                                       &cfg);
+  if (err != cudaSuccess) return err;
+  if (dev < 64) known[dev][csize] = n + 1;
+  *clusters = n;
+  return cudaSuccess;
+}
+
+// The batch rows a cluster takes (BN, the wgmma N), and a frame's time of
+// each at H=512 on a wave of clusters: the frame at B=32, T=512 over the
+// waves it takes there (ns; NVIDIA H100 80GB HBM3 at 700 W,
+// profile_lstm_bwd_persistent.py, PERF.md). The library takes the rows
+// whose waves (the clusters of both directions over those the card holds
+// at once) times that frame is least, the first of equals.
+struct BwdRows {
+  int bn, frame_ns;
+};
+constexpr BwdRows BWD_ROWS[] = {{32, 5360}, {16, 3070}, {8, 1920}};
+constexpr int BWD_NROWS = sizeof(BWD_ROWS) / sizeof(BWD_ROWS[0]);
+
+// f(std::integral_constant MT) for the tiles a warpgroup takes at H
+template <typename F>
+cudaError_t with_bwd_tiles(int H, F&& f) {
+  const int csize = (H + BU - 1) / BU;
+  if (csize <= 4) return f(std::integral_constant<int, 1>());
+  if (csize <= 8) return f(std::integral_constant<int, 2>());
+  return f(std::integral_constant<int, 4>());
+}
+
+// f(std::integral_constant BN) for BWD_ROWS[k]
+template <typename F>
+cudaError_t with_bwd_rows(int k, F&& f) {
+  static_assert(BWD_NROWS == 3, "one case a row count");
+  switch (k) {
+    case 0:
+      return f(std::integral_constant<int, BWD_ROWS[0].bn>());
+    case 1:
+      return f(std::integral_constant<int, BWD_ROWS[1].bn>());
+    case 2:
+      return f(std::integral_constant<int, BWD_ROWS[2].bn>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// the library's rows a cluster at B, H, ndir (an index of BWD_ROWS), and
+// the clusters the card holds at once for it
+template <typename S>
+cudaError_t bwd_persistent_rows(int B, int H, int ndir, int* rows,
+                                int* resident) {
+  long long best = -1;
+  for (int k = 0; k < BWD_NROWS; ++k) {
+    int res = 0;
+    const cudaError_t err = with_bwd_tiles(H, [&](auto mt) {
+      return with_bwd_rows(k, [&](auto bn) {
+        return bwd_persistent_resident<S, decltype(mt)::value,
+                                       decltype(bn)::value>(H, &res);
+      });
+    });
+    if (err != cudaSuccess) return err;
+    if (res < 1) continue;
+    const long long clusters =
+        ndir * ((B + BWD_ROWS[k].bn - 1) / BWD_ROWS[k].bn);
+    const long long cost = (clusters + res - 1) / res * BWD_ROWS[k].frame_ns;
+    if (best < 0 || cost < best) {
+      best = cost;
+      *rows = k;
+      *resident = res;
+    }
+  }
+  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 // bf16 W (type codes 1 and 2) up to H=512: the frame loop behind the gate
-// GEMM as one lstm_bwd_persistent launch for all T frames, on `pre`
+// GEMM as one lstm_bwd_persistent launch for all T frames, on `pre`, at the
+// library's rows a cluster
 template <typename S>
 cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
                                 const float* mask, const void* const* wh,
@@ -1560,7 +1745,7 @@ cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
                                 const int* reverse, cudaStream_t stream) {
   if (H > BMAX_H) return cudaErrorInvalidValue;
   BwdSeqDir<S> d[2];
-  int vec = H % 8 == 0;  // rows of pre, cs, dys in whole 16-byte chunks
+  int vec = H % 8 == 0;  // rows of pre, cs, dys, dxw in whole 16-byte chunks
   for (int i = 0; i < ndir; ++i) {
     d[i].pre = pre[i];
     d[i].wh = static_cast<const bf16*>(wh[i]);
@@ -1568,16 +1753,26 @@ cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
     d[i].dys = static_cast<const S*>(dys[i]);
     d[i].dxw = static_cast<S*>(dxw[i]);
     d[i].reverse = reverse[i];
-    vec = vec && aligned16(pre[i]) && aligned16(cs[i]) && aligned16(dys[i]);
+    vec = vec && aligned16(pre[i]) && aligned16(cs[i]) && aligned16(dys[i]) &&
+          aligned16(dxw[i]);
   }
   if (ndir == 1) d[1] = d[0];
-  const int csize = (H + BU - 1) / BU;
-  if (csize <= 4) {
-    return launch_bwd_persistent<S, 1>(d, mask, T, B, H, ndir, vec, stream);
-  } else if (csize <= 8) {
-    return launch_bwd_persistent<S, 2>(d, mask, T, B, H, ndir, vec, stream);
-  }
-  return launch_bwd_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
+  int rows = 0, resident = 0;
+  cudaError_t err = bwd_persistent_rows<S>(B, H, ndir, &rows, &resident);
+  if (err != cudaSuccess) return err;
+  return with_bwd_tiles(H, [&](auto mt) {
+    return with_bwd_rows(rows, [&](auto bn) {
+      constexpr int MT = decltype(mt)::value, BN = decltype(bn)::value;
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr[1];
+      cudaError_t e =
+          bwd_persistent_cfg<S, MT, BN>(B, H, ndir, stream, &cfg, attr);
+      if (e != cudaSuccess) return e;
+      e = cudaLaunchKernelEx(&cfg, lstm_bwd_persistent<S, MT, BN>, d[0], d[1],
+                             mask, T, B, H, vec);
+      return e != cudaSuccess ? e : cudaGetLastError();
+    });
+  });
 }
 
 // --- bf16 weights above H=512 (F2): the frame loop on the tensor cores -------
@@ -2995,15 +3190,35 @@ extern "C" int vo_lstm_bwd_loop_design(int type_code, int B, int H,
   return loop_design(type_code, B, H, ndir);
 }
 
+// The plan lstm_bwd_persistent (loop 2) runs at type_code (1 or 2), B, H
+// (up to 512) and ndir: out[0] batch rows a cluster (the wgmma N), out[1]
+// the clusters it launches, out[2] the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters). Returns the CUDA error of the query,
+// or 0.
+extern "C" int vo_lstm_bwd_persistent_plan(int type_code, int B, int H,
+                                           int ndir, int* out) {
+  if (B < 1 || H < 1 || H > BMAX_H || ndir < 1 || ndir > 2 ||
+      !bf16_weights(type_code)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int rows = 0, resident = 0;
+  const cudaError_t err =
+      type_code == 1
+          ? bwd_persistent_rows<bf16>(B, H, ndir, &rows, &resident)
+          : bwd_persistent_rows<float>(B, H, ndir, &rows, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = BWD_ROWS[rows].bn;
+  out[1] = ndir * ((B + out[0] - 1) / out[0]);
+  out[2] = resident;
+  return 0;
+}
+
 // The scratch (bytes) a direction needs for the frame loop design `loop`
 // (0-3) at T, B, H: the recomputed gates, then the loop's carries (and
 // lstm_bwd_tc's dg exchange and frame counter); -1 for another loop.
 extern "C" long long vo_lstm_bwd_scratch(int loop, int T, int B, int H) {
   return bwd_scratch(loop, T, B, H);
 }
-
-// 1 when the f32 frame loop folds at batch size B, else 0.
-extern "C" int vo_lstm_bwd_f32_folds(int B) { return f32_folds(B) ? 1 : 0; }
 
 // The gate GEMM design vo_lstm_bwd_named runs for gemm -1 at type_code
 // and H.

@@ -124,10 +124,10 @@ def _bind(lib) -> None:
     ]
     lib.vo_lstm_bwd_loop_design.restype = i
     lib.vo_lstm_bwd_loop_design.argtypes = [i, i, i, i]  # type_code, B, H, ndir
+    lib.vo_lstm_bwd_persistent_plan.restype = i
+    lib.vo_lstm_bwd_persistent_plan.argtypes = [i, i, i, i, p]  # type_code, B, H, ndir, out[3]
     lib.vo_lstm_bwd_scratch.restype = ctypes.c_longlong
     lib.vo_lstm_bwd_scratch.argtypes = [i, i, i, i]  # loop, T, B, H
-    lib.vo_lstm_bwd_f32_folds.restype = i
-    lib.vo_lstm_bwd_f32_folds.argtypes = [i]  # B
     lib.vo_lstm_bwd_gates_design.restype = i
     lib.vo_lstm_bwd_gates_design.argtypes = [i, i]  # type_code, H
     lib.vo_lstm_dwh.restype = i

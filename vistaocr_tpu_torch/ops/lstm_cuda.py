@@ -46,7 +46,8 @@ design does about it.
   products (its operands are bf16 values, as wgmma takes them). Up to
   ``PERSISTENT_MAX_H`` a forward call is one kernel launch for all frames
   (``lstm_fwd_persistent``), the BPTT's frame loop one more
-  (``lstm_bwd_persistent``) and dwh ``lstm_dwh_tc``. Above it (F2) no
+  (``lstm_bwd_persistent``, a cluster taking 32, 16 or 8 batch rows by B:
+  ``persistent_plan``) and dwh ``lstm_dwh_tc``. Above it (F2) no
   cluster holds wh: the forward is ``lstm_fwd_tc`` (one cooperative
   launch over the card, each CTA's bf16 slice of wh in registers as
   ``mma.sync`` fragments, h exchanged in bf16 through L2 behind a frame
@@ -68,7 +69,7 @@ design does about it.
   slice of wh on chip, h exchanged through L2 behind a frame counter;
   H=512 up to B=320) or one ``lstm_step`` launch per frame; the BPTT is
   ``bptt_gates_gemm``'s f32 form on the FMA units (TF32 would change the
-  numbers), then by B (``vo_lstm_bwd_f32_folds``): ``bptt_frame`` a frame
+  numbers), then by B (``loop_design``): ``bptt_frame`` a frame
   (the cell backward and the dh product in one launch; 1 + T launches, B
   <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches); dwh
   is ``lstm_dwh_fma``, exact f32 FMAs with the rows split into ranges of
@@ -446,6 +447,27 @@ def loop_design(dtype: torch.dtype, B: int, H: int, ndir: int = 2) -> str:
     code = 1 if dtype == torch.bfloat16 else 0
     return LOOP_DESIGNS[_build.load().vo_lstm_bwd_loop_design(code, B, H,
                                                               ndir)]
+
+
+def persistent_plan(B: int, H: int, ndir: int = 2,
+                    stream: torch.dtype = torch.bfloat16) -> dict:
+    """The plan ``lstm_bwd_persistent`` runs for ``ndir`` directions with
+    bf16 weights, streams in ``stream``, at B and H (up to
+    ``PERSISTENT_MAX_H``): the batch ``rows`` a cluster takes (the wgmma N:
+    32, 16 or 8, chosen by B), the ``clusters`` it launches, how many the
+    card holds at once (``resident``) and the ``waves`` that makes. Builds
+    the kernels on first use; CUDA only."""
+    import ctypes
+
+    from . import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.load().vo_lstm_bwd_persistent_plan(
+        _TYPE_CODES[(stream, torch.bfloat16)], B, H, ndir, out),
+        "vo_lstm_bwd_persistent_plan")
+    rows, clusters, resident = out
+    return {"rows": rows, "clusters": clusters, "resident": resident,
+            "waves": -(-clusters // resident)}
 
 
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
