@@ -183,20 +183,23 @@ the exit code is non-zero and no ``ok`` line is printed):
              JSON line holds these readings.
    int8    - on phase 7's snapshot (``int8_phase``): (a) the port's
              writer calibrates 4 glyph train batches and writes
-             ``qstack.msgpack``, read back; (b) each of the six convs on
-             ``csrc/int8_conv.cu`` bit-equal to its plain version (and
-             two runs bit-equal) at B=32 of the W=2048 bucket and an odd
-             shape (B=3, W=37, CI=5), each timed at B=128, W=512 and
-             B=32, W=2048 beside its bound (int8 operations at 1,979
-             TOP/s or bytes at 3.35 TB/s), its plain version, the same
-             function from ``F.unfold`` + ``torch._int_mm`` (checked
-             equal) and the float path's cuDNN bf16 conv; (c)
+             ``qstack.msgpack``, read back; (b) each of the six fused
+             convs on ``csrc/int8_conv.cu`` (each with its pool and the
+             next conv's quantize) bit-equal to its plain version (and
+             two runs bit-equal) at B=128, W=512, at B=32, W=2048 and at
+             B=3, W=37, ``int8_conv`` at an odd shape (CI=5), each conv
+             timed at the first two beside its bound (int8 operations
+             at 1,979 TOP/s or bytes at 3.35 TB/s), its plain version,
+             the same function from ``F.unfold`` + ``torch._int_mm``
+             (checked equal) and the float path's cuDNN bf16 conv, and
+             the whole stack beside the float path's cuDNN stack; (c)
              ``OcrService(max_batch=128, quantize="int8")`` on 128 glyph
              lines, float prefix 0 and 2, greedy and the device beam,
              beside the bf16 service, each on phase 7's snapshot and on
              the seeded random-init flagship (phase 4's, calibrated on
              the glyph train split): int8 launches (six a batch, fewer
-             under a prefix) and K1 launches (``lstm_fwd_persistent``,
+             under a prefix), quantize passes (one a batch under a
+             prefix) and K1 launches (``lstm_fwd_persistent``,
              one a BLSTM layer and batch) counted in the timed call, warm
              lines/s, each batch's posteriors from the service bit-equal
              to ``quantized_forward`` on the same batch and held to the
@@ -4215,57 +4218,198 @@ def _padded_batch(lines, dev):
     return torch.from_numpy(images).to(dev), torch.from_numpy(widths).to(dev)
 
 
-def int8_conv_inputs(qs, images, widths, cfg):
-    """Each conv's input on the int8 path (NHWC), in application order."""
+def int8_stack_steps(qs, images, widths, cfg, prefix: int = 0):
+    """The int8 stack's convs as ``quantized_conv_features`` runs them
+    (``quant.conv_plan`` with ``prefix`` float convs): [(name, x, ws,
+    kwargs)], x each int8 conv's input (the preprocess output or the
+    float prefix's activation, then the int8 activation the conv before
+    wrote), ws its weights, scale and bias, and kwargs the rest of its
+    ``int8_conv_fused`` call."""
     from vistaocr_tpu_torch.models import quant
-    from vistaocr_tpu_torch.ops.int8_conv import int8_conv
+    from vistaocr_tpu_torch.ops import int8_conv as ic
     from vistaocr_tpu_torch.ops.preprocess import preprocess_images
 
     x = preprocess_images(images, widths, standardize=cfg.standardize_input,
                           dtype=cfg.dtype)
-    inputs, i = [], 0
-    for st in cfg.stages:
-        for _ in range(st.num_convs):
-            inputs.append(x)
-            c = qs.convs[i]
-            x = int8_conv(x, c.weight, c.scale, c.bias, c.inv_s)
-            i += 1
-        x = quant._nhwc_pool(x, st.pool, cfg.conv_pool)
-    return inputs
+    steps = []
+    for step in quant.conv_plan(cfg, prefix):
+        if step[0] == "pool":
+            x = quant._nhwc_pool(x, step[1], cfg.conv_pool)
+            continue
+        c = qs.convs[step[1]]
+        if step[0] == "float":
+            x = quant._float_conv(x, qs.fkernels[step[1]], c.bias, cfg.dtype)
+            continue
+        kw = dict(inv_s=c.inv_s, dtype=cfg.dtype, window=step[2],
+                  pool_impl=cfg.conv_pool,
+                  inv_s_next=qs.convs[step[1] + 1].inv_s if step[3] else None)
+        steps.append((f"conv{step[1]}", x, (c.weight, c.scale, c.bias), kw))
+        x = ic.int8_conv_fused(x, c.weight, c.scale, c.bias, **kw)
+    return steps
 
 
-def int_mm_conv(x, wp, scale, bias, inv_s: float):
-    """The int8 conv from library calls: the quantize, ``F.unfold``
-    columns, ``torch._int_mm`` (exact int32 sums, K zero-padded to a
-    multiple of 8) and the epilogue. A yardstick; the port never calls
-    it."""
+def float_conv_inputs(qs, images, widths, cfg) -> list:
+    """Each conv's input on the float path (folded kernels, the stage's
+    pool), NCHW: the real activations the cuDNN yardstick convolves."""
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops.preprocess import preprocess_images
+
+    x = preprocess_images(images, widths, standardize=cfg.standardize_input,
+                          dtype=cfg.dtype)
+    ins = []
+    for step in quant.conv_plan(cfg, len(qs.convs)):
+        if step[0] == "pool":
+            x = quant._nhwc_pool(x, step[1], cfg.conv_pool)
+            continue
+        ins.append(x.permute(0, 3, 1, 2).contiguous())
+        x = quant._float_conv(x, qs.fkernels[step[1]], qs.convs[step[1]].bias,
+                              cfg.dtype)
+    return ins
+
+
+def int_mm_conv(x, wp, scale, bias, *, inv_s=None, dtype=None,
+                window=(1, 1), pool_impl="max", inv_s_next=None):
+    """A fused int8 conv from library calls: the quantize (a float x),
+    ``F.unfold`` columns, ``torch._int_mm`` (exact int32 sums, K
+    zero-padded to a multiple of 8), the epilogue, the pool and the next
+    quantize. A yardstick; the port never calls it."""
     import torch
     import torch.nn.functional as F
     from vistaocr_tpu_torch.ops import int8_conv as ic
 
     B, H, W, ci = x.shape
     co = wp.shape[0]
-    xq = torch.round(x.to(torch.float32) * inv_s).clamp_(-127, 127)
-    cols = F.unfold(xq.permute(0, 3, 1, 2), 3, padding=1)  # k = (c, kh, kw)
+    xq = x if x.dtype == torch.int8 else ic.quantize_ref(x, inv_s)
+    cols = F.unfold(xq.permute(0, 3, 1, 2).to(torch.float32), 3,
+                    padding=1)  # k = (c, kh, kw)
     k8 = -(-9 * ci // 8) * 8
     a = torch.zeros((B * H * W, k8), dtype=torch.int8, device=x.device)
     a[:, : 9 * ci] = cols.transpose(1, 2).reshape(B * H * W, 9 * ci)
     w = torch.zeros((k8, co), dtype=torch.int8, device=x.device)
     w[: 9 * ci] = ic._unpack(wp, ci).reshape(co, 9 * ci).t()
     acc = torch._int_mm(a, w).reshape(B, H, W, co)
-    return ic.epilogue_ref(acc, scale, bias, x.dtype)
+    y = ic.pool_ref(ic.epilogue_ref(acc, scale, bias, dtype or x.dtype),
+                    window, pool_impl)
+    return y if inv_s_next is None else ic.quantize_ref(y, inv_s_next)
 
 
-def int8_kernel_rows(dev, qs, fkernels, cfg, font, smi: str) -> dict:
-    """Each of the six convs, kernel against plain version (bit-equal, and
-    two runs bit-equal) at B=32 of the W=2048 bucket on glyph lines, and
-    at an odd shape; at ``INT8_TIMED`` each timed beside its bound, the
-    plain version, ``int_mm_conv`` (checked equal) and the cuDNN bf16
-    conv of the float path. Returns {(B, W): {conv: row}}."""
+def _int8_bound(x, y, ws) -> dict:
+    """A fused conv's least time: the bytes of its input, packed weights,
+    scale, bias and output at 3.35 TB/s against its int8 operations at
+    1,979 TOP/s, the larger."""
+    ops = 2.0 * x.shape[0] * x.shape[1] * x.shape[2] * ws[0].shape[0] \
+        * 9 * x.shape[3]
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_bytes = _nbytes(x, y, *ws) / HBM_BYTES_PER_S * 1e3
+    return {"ops": ops, "bytes": _nbytes(x, y, *ws),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _check_int8_steps(steps, where: str) -> dict:
+    """Each step of ``int8_stack_steps``: the kernel bit-equal to its
+    plain version and across two runs. Returns {name: (y, max |err|)}."""
+    import torch
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    out = {}
+    for name, x, ws, kw in steps:
+        y = ic.int8_conv_fused(x, *ws, **kw)
+        ref = ic.int8_conv_fused_ref(x, *ws, **kw)
+        err = (y.float() - ref.float()).abs().max().item()
+        _require(torch.equal(y, ref) and torch.equal(
+            y, ic.int8_conv_fused(x, *ws, **kw)),
+            f"int8 conv {name} {where} ({x.dtype} in, {y.dtype} out): "
+            f"bit-equal to its plain version and across runs (max |err| "
+            f"{err})")
+        out[name] = (y, err)
+    return out
+
+
+def _int8_conv_row(x, y, ws, kw, err, fk) -> dict:
+    """A fused conv timed beside its bound, its plain version,
+    ``int_mm_conv`` (checked equal) and cuDNN's bf16 conv with the folded
+    float kernel ``fk`` on the float path's input to the same conv."""
     import torch
     import torch.nn.functional as F
     from vistaocr_tpu_torch.ops import int8_conv as ic
 
+    _require(torch.equal(int_mm_conv(x[0], *ws, **kw), y),
+             "_int_mm + unfold equal to the kernel")
+    return {
+        "shape": [*x[0].shape, ws[0].shape[0]], "in": str(x[0].dtype),
+        "out": str(y.dtype), "window": list(kw["window"]),
+        "design": ic.conv_design(x[0].shape[-1], ws[0].shape[0], y.dtype,
+                                 kw["window"]),
+        "max_abs_err": err,
+        "ms": _cuda_ms(lambda: ic.int8_conv_fused(x[0], *ws, **kw), 10),
+        "plain_ms": _cuda_ms(lambda: ic.int8_conv_fused_ref(x[0], *ws, **kw),
+                             1),
+        **_int8_bound(x[0], y, ws),
+        "library_ms": _cuda_ms(lambda: int_mm_conv(x[0], *ws, **kw), 3),
+        "library_call": "quantize + F.unfold + torch._int_mm + epilogue + "
+                        "pool + quantize",
+        "cudnn_bf16_ms": _cuda_ms(lambda: F.conv2d(x[1], fk, padding=1), 10)}
+
+
+def _quantize_row(x, inv_s: float) -> dict:
+    """The quantize pass (``ic.quantize``) on a float prefix's real
+    activation: bit-equal to ``quantize_ref``, to one library expression
+    and across runs, timed beside them and its bound (each input byte
+    read once, each int8 written once, at 3.35 TB/s)."""
+    import torch
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    q = ic.quantize(x, inv_s)
+    ref = ic.quantize_ref(x, inv_s)
+
+    def library():
+        return torch.round(x.float() * inv_s).clamp(-127, 127).to(torch.int8)
+
+    err = (q.float() - ref.float()).abs().max().item()
+    _require(torch.equal(q, ref) and torch.equal(q, library())
+             and torch.equal(q, ic.quantize(x, inv_s)),
+             f"int8 quantize of {x.dtype} {tuple(x.shape)}: bit-equal to "
+             f"quantize_ref, to the library expression and across runs "
+             f"(max |err| {err})")
+    nbytes = _nbytes(x, q)
+    return {"shape": list(x.shape), "in": str(x.dtype), "max_abs_err": err,
+            "ms": _cuda_ms(lambda: ic.quantize(x, inv_s), 20),
+            "plain_ms": _cuda_ms(lambda: ic.quantize_ref(x, inv_s), 10),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": _cuda_ms(library, 10),
+            "library_call": "torch.round(x.float() * inv_s).clamp(-127, "
+                            "127).to(torch.int8)"}
+
+
+def int8_kernel_rows(dev, raw: dict, cfg, font, smi: str) -> dict:
+    """The int8 stack's kernels on glyph lines, each kernel against its
+    plain version (bit-equal, and two runs bit-equal, ``_check_int8_steps``):
+    - ``int8_conv`` itself at the whole ``INT8_ODD`` shape (CI=5: the
+      direct kernel), and each conv of the stack (``int8_stack_steps``)
+      at B=3, W=37 (odd W past every tile edge);
+    - at both ``INT8_TIMED`` shapes, each conv of the stack with no float
+      prefix (``convs``: timed by ``_int8_conv_row``), and the whole stack
+      (``quantized_conv_features``: preprocess and the six launches)
+      beside the float path's folded cuDNN stack and the stack's bound
+      (its convs' bytes, each int8 activation written once and read once,
+      against its operations);
+    - at both, each conv of the stack under ``float_prefix=2``
+      (``prefix2``): the quantize pass on the prefix's real activation
+      (``_quantize_row``) and the first int8 conv, fed that float
+      activation (quantize pass + tc kernel), timed as above;
+    - in float32 at the first timed shape, every conv at prefixes 0 and 2
+      and the quantize pass (``f32``: max |err| a conv).
+    Returns {"convs": {(B, W): {conv: row, "stack": row}}, "prefix2":
+    {(B, W): {"quantize": row, conv: row}}, "f32": {name: err}}."""
+    import dataclasses
+
+    import torch
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    qs = quant.QuantizedStack(raw, dev, cfg.dtype)
     rng = np.random.default_rng(5)
     B, H, W, ci, co = INT8_ODD
     odd = (torch.from_numpy(rng.normal(0, 1, (B, H, W, ci)).astype(
@@ -4280,51 +4424,90 @@ def int8_kernel_rows(dev, qs, fkernels, cfg, font, smi: str) -> dict:
              and torch.equal(got, ic.int8_conv(*odd)),
              f"int8 conv bit-equal at the odd shape {INT8_ODD}")
     rows: dict = {}
-    names = [f"conv{si}_{c}" for si, st in enumerate(cfg.stages)
-             for c in range(st.num_convs)]
-    for B, W in INT8_TIMED:
+    pre2: dict = {}
+    f32: dict = {}
+    for B, W in ((INT8_ODD[0], INT8_ODD[2]),) + INT8_TIMED:
+        timed = (B, W) in INT8_TIMED
         lines = [img for img, _ in glyph_lines(
             font, np.random.default_rng(B + W), B, W // 2, W)]
         images, widths = _padded_batch(lines, dev)
-        xs = int8_conv_inputs(qs, images, widths, cfg)
+        if not timed:  # W exactly, not rounded up to the bucket
+            images = images[:, :, :W].contiguous()
+            widths = widths.clamp(max=W)
+        where = f"at B={B} W={W}"
+        steps = int8_stack_steps(qs, images, widths, cfg)
+        checked = _check_int8_steps(steps, where)
+        if not timed:
+            rows[(B, W)] = {n: {"shape": list(steps[k][1].shape),
+                                "max_abs_err": checked[n][1]}
+                            for k, n in enumerate(checked)}
+            continue
+        fins = float_conv_inputs(qs, images, widths, cfg)
         rows[(B, W)] = {}
-        for name, x, c, fk in zip(names, xs, qs.convs, fkernels):
-            args = (x, c.weight, c.scale, c.bias, c.inv_s)
-            y = ic.int8_conv(*args)
-            ref = ic.int8_conv_ref(*args)
-            err = (y.float() - ref.float()).abs().max().item()
-            _require(torch.equal(y, ref) and torch.equal(
-                y, ic.int8_conv(*args)),
-                f"int8 conv {name} at B={B} W={W}: bit-equal to its plain "
-                f"version and across runs (max |err| {err})")
-            _require(torch.equal(int_mm_conv(*args), y),
-                     f"{name}: _int_mm + unfold equal to the kernel")
-            Bx, Hx, Wx, cix = x.shape
-            cox = c.weight.shape[0]
-            ops = 2.0 * Bx * Hx * Wx * cox * 9 * cix
-            nbytes = _nbytes(x, y, c.weight, c.scale, c.bias)
-            t_ops = ops / INT8_OPS_PER_S * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            xn = x.permute(0, 3, 1, 2).contiguous()
-            rows[(B, W)][name] = {
-                "shape": [Bx, Hx, Wx, cix, cox], "max_abs_err": err,
-                "ms": _cuda_ms(lambda: ic.int8_conv(*args), 10),
-                "plain_ms": _cuda_ms(lambda: ic.int8_conv_ref(*args), 1),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": _cuda_ms(lambda: int_mm_conv(*args), 3),
-                "library_call": "quantize + F.unfold + torch._int_mm + "
-                                "epilogue",
-                "cudnn_bf16_ms": _cuda_ms(
-                    lambda: F.conv2d(xn, fk, padding=1), 10)}
-            del xn
+        for name, x, ws, kw in steps:
+            k = int(name[4:])
+            y, err = checked[name]
+            rows[(B, W)][name] = _int8_conv_row((x, fins[k]), y, ws, kw, err,
+                                                qs.fkernels[k])
+        del steps, checked
+        convs = list(rows[(B, W)].values())
+        t_ops = sum(r["ops"] for r in convs) / INT8_OPS_PER_S * 1e3
+        t_bytes = sum(r["bytes"] for r in convs) / HBM_BYTES_PER_S * 1e3
+        rows[(B, W)]["stack"] = {
+            "ms": _cuda_ms(lambda: quant.quantized_conv_features(
+                qs, images, widths, cfg), 10),
+            "float_stack_ms": _cuda_ms(lambda: quant.folded_conv_features(
+                qs.fkernels, [c.bias for c in qs.convs], images, widths, cfg),
+                10),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        # float_prefix=2: the quantize pass and the float-fed first int8 conv
+        steps = int8_stack_steps(qs, images, widths, cfg, 2)
+        checked = _check_int8_steps(steps, where + " under float_prefix=2")
+        name, x, ws, kw = steps[0]
+        k = int(name[4:])
+        pre2[(B, W)] = {
+            "quantize": _quantize_row(x, kw["inv_s"]),
+            name: _int8_conv_row((x, fins[k]), checked[name][0], ws, kw,
+                                 checked[name][1], qs.fkernels[k]),
+            "checked": {n: e for n, (_, e) in checked.items()}}
+        _require(pre2[(B, W)][name]["design"] == "tc",
+                 f"the first int8 conv under float_prefix=2 ({name}) takes "
+                 f"the tc kernel behind the quantize pass")
+        del steps, checked, fins
+        st, qr, c2 = (rows[(B, W)]["stack"], pre2[(B, W)]["quantize"],
+                      pre2[(B, W)][name])
         print(f"int8 convs at B={B} W={W} ({smi}): " + "; ".join(
-                f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
-                f"_int_mm {r['library_ms']:.4f}, cuDNN bf16 "
-                f"{r['cudnn_bf16_ms']:.4f})" for n, r in rows[(B, W)].items()),
-            flush=True)
-        del xs
-    return rows
+                f"{n} {r['ms']:.4f} ms ({r['design']}, bound "
+                f"{r['bound_ms']:.4f}, _int_mm {r['library_ms']:.4f}, "
+                f"cuDNN bf16 on the float path's input "
+                f"{r['cudnn_bf16_ms']:.4f})"
+                for n, r in rows[(B, W)].items() if n != "stack")
+              + f"; the stack {st['ms']:.4f} ms (bound {st['bound_ms']:.4f},"
+              f" the float path's cuDNN stack {st['float_stack_ms']:.4f}); "
+              f"float_prefix=2: quantize pass {qr['ms']:.4f} ms (bound "
+              f"{qr['bound_ms']:.4f}, plain {qr['plain_ms']:.4f}, library "
+              f"{qr['library_ms']:.4f}), {name} fed the float activation "
+              f"{c2['ms']:.4f} ms (bound {c2['bound_ms']:.4f}, cuDNN bf16 "
+              f"{c2['cudnn_bf16_ms']:.4f})", flush=True)
+        if (B, W) == INT8_TIMED[0]:  # float32, checked only
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            qs32 = quant.QuantizedStack(raw, dev, torch.float32)
+            for prefix in (0, 2):
+                steps = int8_stack_steps(qs32, images, widths, cfg32, prefix)
+                checked = _check_int8_steps(
+                    steps, f"{where} in float32, float_prefix={prefix}")
+                f32.update({f"{n}_prefix{prefix}": e
+                            for n, (_, e) in checked.items()})
+                if prefix:
+                    f32["quantize"] = _quantize_row(
+                        steps[0][1], steps[0][3]["inv_s"])["max_abs_err"]
+                del steps, checked
+            del qs32
+            print(f"int8 float32 at B={B} W={W}: every conv at prefixes 0 "
+                  f"and 2 and the quantize pass bit-equal ({f32})",
+                  flush=True)
+    return {"convs": rows, "prefix2": pre2, "f32": f32}
 
 
 def _margin_gate(ref_lp, lp, fm) -> dict:
@@ -4423,10 +4606,13 @@ def int8_service_run(snap: str, kw: dict, lines, dev, n_convs: int,
     quantize_float_prefix`` launches a batch (none in float), K1
     (``lstm_fwd_persistent``) one a BLSTM layer and batch, and no other
     form of the forward recurrence. Returns (row, texts)."""
+    import torch
+    from vistaocr_tpu_torch.models import quant
     from vistaocr_tpu_torch.ops import int8_conv as ic, lstm_cuda
     from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
 
     int8 = kw.get("quantize") == "int8"
+    prefix = kw.get("quantize_float_prefix", 0)
     svc = OcrService(snap, ServiceConfig(max_batch=128, max_wait_ms=2.0,
                                          **kw), device=dev)
     try:
@@ -4434,7 +4620,7 @@ def int8_service_run(snap: str, kw: dict, lines, dev, n_convs: int,
         svc.ocr_lines(lines)  # warm (the beam: captures its graphs)
         if int8:
             del svc._assemble_chunk, svc._forward, svc._decode_tail
-        ic.LAUNCHES = 0
+        ic.LAUNCHES = ic.QUANTIZE_LAUNCHES = 0
         for name in ("LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES"):
             setattr(lstm_cuda, name, 0)
         b0 = svc.stats["batches"]
@@ -4442,22 +4628,35 @@ def int8_service_run(snap: str, kw: dict, lines, dev, n_convs: int,
         res = svc.ocr_lines(lines)
         dt = time.time() - t0
         launches, k1 = ic.LAUNCHES, lstm_cuda.LAUNCHES
+        passes = ic.QUANTIZE_LAUNCHES
         other_forms = lstm_cuda.FWD_GRID_LAUNCHES + lstm_cuda.STEP_LAUNCHES
         batches = svc.stats["batches"] - b0
-        gate = (_service_gate(svc, seen, kw.get("quantize_float_prefix", 0))
-                if int8 else None)
+        gate = _service_gate(svc, seen, prefix) if int8 else None
+        # one quantize pass a batch where the first int8 conv after a
+        # float prefix takes the tc kernel (it quantizes no input itself)
+        expect_q = 0
+        if int8 and prefix:
+            cfg = svc.model.config
+            step = [t for t in quant.conv_plan(cfg, prefix)
+                    if t[0] == "int8"][0]
+            ci, co = svc._qstack.fkernels[step[1]].shape[:2][::-1]
+            expect_q = batches * (ic.conv_design(
+                ci, co, torch.int8 if step[3] else cfg.dtype,
+                step[2]) == "tc")
     finally:
         svc.close()
     _require(len(res) == len(lines) and all(
         0 < r.confidence <= 1 for r in res), f"{kw}: every line scored")
-    expect = (n_convs - kw.get("quantize_float_prefix", 0)) * batches * int8
-    _require(launches == expect and batches > 0,
-             f"{kw}: {launches} int8 launches, {expect} expected")
+    expect = (n_convs - prefix) * batches * int8
+    _require(launches == expect and batches > 0 and passes == expect_q,
+             f"{kw}: {launches} int8 conv launches, {expect} expected; "
+             f"{passes} quantize passes, {expect_q} expected")
     _require(k1 == layers * batches and other_forms == 0,
              f"{kw}: {k1} K1 launches ({other_forms} not persistent), "
              f"{layers * batches} persistent expected")
     row = {"lines_per_s": len(lines) / dt, "seconds": dt, "batches": batches,
            "int8_launches": launches, "launches_per_batch": launches / batches,
+           "quantize_passes": passes,
            "k1_launches": k1, "k1_launches_per_batch": k1 / batches}
     if gate is not None:
         _require(gate["confident_flips"] == 0
@@ -4466,6 +4665,46 @@ def int8_service_run(snap: str, kw: dict, lines, dev, n_convs: int,
                  f"{gate}")
         row["margin_gate"] = gate
     return row, [r.text for r in res]
+
+
+INT8_TURNS = 10  # timed calls of each service in int8_service_turns
+
+
+def int8_service_turns(snap: str, lines, dev, reps: int = INT8_TURNS) -> dict:
+    """Warm lines/s of the bf16 and the int8 greedy ``OcrService`` on the
+    same lines, in turns: both open at once and warmed, then ``reps``
+    calls of each, alternating, each call timed on the host clock from a
+    synchronized card to its results. Returns each route's calls and
+    their median, least and most lines/s, and the int8/bf16 ratio of
+    each turn's pair."""
+    import torch
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    svcs = {tag: OcrService(snap, ServiceConfig(max_batch=128,
+                                                max_wait_ms=2.0, **kw),
+                            device=dev)
+            for tag, kw in (("bf16", {}), ("int8", dict(quantize="int8")))}
+    rates: dict = {tag: [] for tag in svcs}
+    try:
+        for svc in svcs.values():
+            svc.ocr_lines(lines)  # warm
+        for _ in range(reps):
+            for tag, svc in svcs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc.ocr_lines(lines)
+                rates[tag].append(len(lines) / (time.perf_counter() - t0))
+    finally:
+        for svc in svcs.values():
+            svc.close()
+    out = {tag: {"lines_per_s": r, "median": float(np.median(r)),
+                 "min": min(r), "max": max(r)} for tag, r in rates.items()}
+    ratio = [a / b for a, b in zip(rates["int8"], rates["bf16"])]
+    out["int8_over_bf16"] = {"per_turn": ratio,
+                             "median": float(np.median(ratio)),
+                             "min": min(ratio), "max": max(ratio)}
+    out["lines"], out["calls_each"] = len(lines), reps
+    return out
 
 
 def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
@@ -4477,7 +4716,9 @@ def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
     on 128 glyph lines, for phase 7's snapshot and for the seeded
     random-init flagship: both kernels' launches counted, warm lines/s,
     the service's own posteriors held to ``quantized_forward`` and to the
-    margin gate, and the greedy strings' edits from bf16's bounded; (d)
+    margin gate, and the greedy strings' edits from bf16's bounded, then
+    the bf16 and int8 greedy services in turns on the random-init
+    flagship (``int8_service_turns``: lines/s and its spread); (d)
     ``run_inference`` greedy, int8 and bf16: lines/s, CER and both
     kernels' launches; (e) ``normalize_line(do_deskew=True)`` on
     glyph lines rotated by known angles (host deskew without PIL)."""
@@ -4509,9 +4750,8 @@ def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
                      "in_scales": [float(s) for s in raw["in_scales"]]}
     print(f"int8 (a): qstack written and read back {out['qstack']}",
           flush=True)
-    qs = quant.QuantizedStack(raw, dev, cfg.dtype)
-    # (b) each conv against its plain version, timed
-    out["convs"] = int8_kernel_rows(dev, qs, qs.fkernels, cfg, font, smi)
+    # (b) each kernel against its plain version, timed
+    out.update(int8_kernel_rows(dev, raw, cfg, font, smi))
     # (c) the service, on phase 7's snapshot (40 steps: its frames may be
     # all blank) and on the seeded random-init flagship (phase 4's
     # snapshot: no frame is blank-bound), its qstack calibrated here
@@ -4553,10 +4793,16 @@ def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
                 _require(edits <= 2 * MAX_FLIP_SHARE * frames,
                          f"{tag}{snap_tag}: {edits} edits from bf16's greedy "
                          f"strings over {frames} frames")
+        turns = int8_service_turns(tmp, lines, dev)
     out["launches"] = svc_out["int8"]["int8_launches"]
+    out["quantize_launches"] = svc_out["int8_prefix2_random_init"][
+        "quantize_passes"]
     out["service"] = svc_out
+    out["service_turns"] = turns
     print(f"int8 (c) service, 128 glyph lines ({smi}): "
           + json.dumps(svc_out), flush=True)
+    print(f"int8 (c) greedy service in turns on the random-init flagship "
+          f"({smi}): " + json.dumps(turns), flush=True)
     # (d) offline inference on the glyph validation split, both kernels'
     # counters set to 0 around the timed run
     inf: dict = {}
@@ -4618,8 +4864,10 @@ def int8_phase(dev, snap: str, data: str, font: dict, smi: str) -> dict:
 
 def int8_row(int8_out: dict) -> dict:
     """The kernels line's row: one service batch's six launches at
-    B=128, W=512 summed (each conv at both timed shapes beside it)."""
-    per = int8_out["convs"][INT8_TIMED[0]]
+    B=128, W=512 summed (each conv and the whole stack at both timed
+    shapes beside it)."""
+    per = {n: r for n, r in int8_out["convs"][INT8_TIMED[0]].items()
+           if n != "stack"}
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "cudnn_bf16_ms")
     total = {k: sum(r[k] for r in per.values()) for k in keys}
     return {
@@ -4628,19 +4876,54 @@ def int8_row(int8_out: dict) -> dict:
         "replaces": "vistaocr_tpu/models/quant.py:214 (XLA int8 conv in "
                     "JAX; not a TPU kernel)",
         "launches": int8_out["launches"],
-        "max_abs_err": max(r["max_abs_err"] for rows in
-                           int8_out["convs"].values() for r in rows.values()),
+        "max_abs_err": max(
+            [r["max_abs_err"] for rows in int8_out["convs"].values()
+             for n, r in rows.items() if n != "stack"]
+            + [e for rows in int8_out["prefix2"].values()
+               for e in rows["checked"].values()]
+            + list(int8_out["f32"].values())),
         **total,
         "bound_by": ("bytes" if sum(r["bound_by"] == "bytes"
                                     for r in per.values()) * 2 >= len(per)
                      else "operations"),
-        "library_call": "quantize + F.unfold + torch._int_mm + epilogue",
-        "form": "the six convs of one batch at B=128, W=512, summed",
+        "library_call": "quantize + F.unfold + torch._int_mm + epilogue + "
+                        "pool + quantize",
+        "form": "the six fused convs of one batch at B=128, W=512, summed",
+        "stack": {f"B{B}_W{W}": rows["stack"]
+                  for (B, W), rows in int8_out["convs"].items()
+                  if "stack" in rows},
         "convs": {f"B{B}_W{W}": rows
                   for (B, W), rows in int8_out["convs"].items()},
-        "service": int8_out["service"], "infer": int8_out["infer"],
+        "prefix2": {f"B{B}_W{W}": rows
+                    for (B, W), rows in int8_out["prefix2"].items()},
+        "f32_max_abs_err": int8_out["f32"],
+        "service": int8_out["service"],
+        "service_turns": int8_out["service_turns"],
+        "infer": int8_out["infer"],
         "qstack": int8_out["qstack"], "deskew": int8_out["deskew"],
         "phase_seconds": int8_out["seconds"]}
+
+
+def int8_quantize_row(int8_out: dict) -> dict:
+    """The kernels line's row of the quantize pass: its launches in the
+    ``float_prefix=2`` service run (one a batch, in front of the first
+    int8 conv), timed at B=128, W=512 (the other timed shape beside
+    it)."""
+    row = int8_out["prefix2"][INT8_TIMED[0]]["quantize"]
+    _require(int8_out["quantize_launches"] > 0,
+             "the float_prefix=2 service launched the quantize pass")
+    return {
+        "name": "int8_quantize", "route": "cuda",
+        "source": "vistaocr_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "vistaocr_tpu/models/quant.py:210 (the activation "
+                    "quantize, XLA in JAX; not a TPU kernel)",
+        "launches": int8_out["quantize_launches"],
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_call")},
+        "form": "the first int8 conv's input under float_prefix=2, B=128, "
+                "W=512",
+        "shapes": {f"B{B}_W{W}": rows["quantize"]
+                   for (B, W), rows in int8_out["prefix2"].items()}}
 
 
 def main(argv) -> int:
@@ -4715,7 +4998,8 @@ def main(argv) -> int:
             _phase("int8")
             int8_out = int8_phase(dev, os.path.join(tmp, "run", "last"),
                                   os.path.join(tmp, "glyphs"), font, smi)
-        print(json.dumps({"kernels": [int8_row(int8_out)]}))
+        print(json.dumps({"kernels": [int8_row(int8_out),
+                                      int8_quantize_row(int8_out)]}))
         print(smi)
         return 0
 
@@ -4968,7 +5252,7 @@ def main(argv) -> int:
                         "launches": exp_counts[counter],
                         **with_f32(table[(*shape, "bfloat16")][name],
                                    table[(*shape, "float32")][name])})
-    kernels.append(int8_row(int8_out))
+    kernels += [int8_row(int8_out), int8_quantize_row(int8_out)]
     # the fused path (phase fused): each kernel's wrapper calls in fit's
     # warm-ups and captures, and its device launches in a profiler window
     # over FUSED_WINDOW replays at B=32, W=1760 (bf16; f32 for the f32

@@ -2275,6 +2275,244 @@ def test_int8_service_launches_the_kernel(dev):
             assert same >= 0.9, texts
 
 
+# the fused entry points (int8_conv_fused): TMA box edges (W below, and
+# not a multiple of, the 16-column tile; W = 1; odd H), every CI and CO
+# the stack can meet, both designs (the tc kernel at CI % 64 == 0 with CO
+# 64, 128 or 256 where its plan fits, the direct one elsewhere)
+INT8_FUSED_SHAPES = [
+    (2, 5, 1, 64, 64), (1, 7, 5, 64, 64), (3, 9, 17, 64, 128),
+    (2, 8, 16, 128, 128), (1, 5, 37, 128, 256), (2, 4, 9, 256, 256),
+    (1, 3, 7, 256, 64), (2, 6, 33, 32, 128), (1, 5, 23, 5, 24),
+    (2, 9, 11, 1, 64), (1, 4, 13, 32, 8), (1, 5, 21, 128, 24)]
+INT8_POOLS = [((1, 1), "max"), ((2, 2), "max"), ((2, 1), "max"),
+              ((2, 2), "stride"), ((2, 1), "stride")]
+
+
+def _int8_fused_operands(dev, B, H, W, ci, co, dtype, seed):
+    """(xq int8, x float, weights, scale, bias, inv_s, inv_next): x's
+    quantize spans the clamp, the outputs' quantize lands on both sides of
+    the rounding."""
+    from vistaocr_tpu_torch.ops import int8_conv
+
+    x, wp, scale, bias, inv_s = _int8_operands(dev, B, H, W, ci, co, dtype,
+                                                seed)
+    xq = int8_conv.quantize_ref(x, inv_s)
+    inv_next = float(np.float32(1.0 / (0.02 * np.sqrt(ci))))
+    return xq, x, wp, scale, bias, inv_s, inv_next
+
+
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", INT8_POOLS)
+@pytest.mark.parametrize("shape", INT8_FUSED_SHAPES)
+def test_int8_fused_matches_plain(dev, shape, pool, dtype, out_int8):
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    xq, x, wp, scale, bias, inv_s, inv_next = _int8_fused_operands(
+        dev, *shape, dtype, seed=sum(shape))
+    kw = dict(dtype=dtype, window=pool[0], pool_impl=pool[1],
+              inv_s_next=inv_next if out_int8 else None)
+    want = ic.int8_conv_fused_ref(xq, wp, scale, bias, **kw)
+    B, H, W, ci, co = shape
+    assert want.shape == (B, -(-H // pool[0][0]), -(-W // pool[0][1]), co)
+    assert want.dtype == (torch.int8 if out_int8 else dtype)
+    design = ic.conv_design(ci, co, want.dtype, pool[0])
+    got = ic.int8_conv_fused(xq, wp, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, design
+    assert torch.equal(got, want), design
+    # a float x: quantized by the direct kernel's load, or by one pass
+    # before the tc kernel
+    got = ic.int8_conv_fused(x, wp, scale, bias, inv_s=inv_s, **kw)
+    assert torch.equal(got, want)
+    cpu = ic.int8_conv_fused_ref(xq.cpu(), wp.cpu(), scale.cpu(), bias.cpu(),
+                                 **kw)
+    assert torch.equal(want.cpu(), cpu)
+
+
+@pytest.mark.parametrize("out_int8", [True, False])
+@pytest.mark.parametrize("chans", [(64, 64), (64, 128), (128, 128),
+                                   (128, 256), (256, 256)])
+def test_int8_fused_walks_many_tiles(dev, chans, out_int8):
+    """608 tiles: every CTA of the persistent grid walks several, so both
+    warpgroups' rings (ping-pong at CO = 64) and the staging buffer's
+    reuse behind the TMA store are exercised."""
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    xq, _, wp, scale, bias, _, inv_next = _int8_fused_operands(
+        dev, 4, 32, 600, *chans, torch.bfloat16, seed=sum(chans))
+    kw = dict(dtype=torch.bfloat16, window=(2, 2),
+              inv_s_next=inv_next if out_int8 else None)
+    out = torch.int8 if out_int8 else torch.bfloat16
+    assert ic.conv_design(*chans, out, (2, 2)) == "tc"
+    got = ic.int8_conv_fused(xq, wp, scale, bias, **kw)
+    assert torch.equal(got, ic.int8_conv_fused_ref(xq, wp, scale, bias, **kw))
+    assert torch.equal(got, ic.int8_conv_fused(xq, wp, scale, bias, **kw))
+
+
+def test_int8_first_conv_after_a_float_prefix(dev):
+    """A float x into the tc kernel: one quantize pass, one conv launch,
+    bit-equal to the plain version; into the direct kernel: one launch."""
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    for shape, passes in (((2, 16, 37, 64, 128), 1), ((2, 32, 37, 1, 64), 0)):
+        _, x, wp, scale, bias, inv_s, inv_next = _int8_fused_operands(
+            dev, *shape, torch.bfloat16, seed=7)
+        before = (ic.LAUNCHES, ic.QUANTIZE_LAUNCHES)
+        got = ic.int8_conv_fused(x, wp, scale, bias, inv_s=inv_s,
+                                 window=(2, 2), inv_s_next=inv_next)
+        assert (ic.LAUNCHES, ic.QUANTIZE_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + passes)
+        assert torch.equal(got, ic.int8_conv_fused_ref(
+            x, wp, scale, bias, inv_s=inv_s, window=(2, 2),
+            inv_s_next=inv_next))
+        assert torch.equal(ic.quantize(x, inv_s), ic.quantize_ref(x, inv_s))
+
+
+def test_int8_fused_reruns_bit_equal_and_counts(dev):
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    xq, _, wp, scale, bias, _, inv_next = _int8_fused_operands(
+        dev, 8, 16, 200, 128, 256, torch.bfloat16, seed=3)
+    kw = dict(dtype=torch.bfloat16, window=(2, 2), inv_s_next=inv_next)
+    before = (ic.LAUNCHES, ic.QUANTIZE_LAUNCHES)
+    a = ic.int8_conv_fused(xq, wp, scale, bias, **kw)
+    b = ic.int8_conv_fused(xq, wp, scale, bias, **kw)
+    ic.int8_conv_fused_ref(xq, wp, scale, bias, **kw)
+    assert (ic.LAUNCHES, ic.QUANTIZE_LAUNCHES) == (before[0] + 2, before[1])
+    assert torch.equal(a, b)
+
+
+def test_int8_fused_refuses_what_it_does_not_take(dev):
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    xq, x, wp, scale, bias, inv_s, _ = _int8_fused_operands(
+        dev, 2, 5, 9, 5, 8, torch.float32, seed=1)
+    for bad in (dict(dtype=torch.float32, window=(3, 3)),
+                dict(dtype=torch.float32, pool_impl="avg"),
+                dict(dtype=torch.float16),
+                dict()):  # an int8 x names its compute type
+        with pytest.raises(ValueError):
+            ic.int8_conv_fused(xq, wp, scale, bias, **bad)
+    with pytest.raises(ValueError):  # a float x needs its inv_s
+        ic.int8_conv_fused(x, wp, scale, bias)
+    with pytest.raises(ValueError):
+        ic.int8_conv(xq, wp, scale, bias, inv_s)
+    with pytest.raises(ValueError):
+        ic.quantize(xq, inv_s)
+
+
+def test_int8_design_rule(dev):
+    """The tc kernel takes 64-byte channel chunks and a wgmma N of all of
+    CO, and needs a ring of two stages (four in ping-pong) beside its
+    output's staging buffers; the rule is the launcher's own."""
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    assert ic.conv_design(1, 64) == "direct"
+    assert ic.conv_design(32, 64) == "direct"
+    assert ic.conv_design(64, 24) == "direct"
+    for ci, co in ((64, 64), (64, 128), (128, 128), (128, 256), (256, 256)):
+        assert ic.conv_design(ci, co) == "tc"
+    assert ic.conv_design(256, 256, torch.float32, (2, 1)) == "tc"
+    assert ic.conv_design(128, 256, torch.float32, (1, 1)) == "direct"
+    with pytest.raises(ValueError):
+        ic.conv_design(64, 64, torch.int8, (3, 3))
+
+
+def _int8_stack(dev, dtype, conv_pool, seed=0):
+    """The flagship's conv widths (64/128/256 x 2), its qstack from seeded
+    folded kernels and a calibration on the batch, on ``dev``."""
+    from vistaocr_tpu_torch.models import ModelConfig, quant
+
+    cfg = ModelConfig(num_classes=11, compute_dtype=dtype,
+                      conv_pool=conv_pool)
+    rng = np.random.default_rng(seed)
+    chans = [1] + [st.channels for st in cfg.stages
+                   for _ in range(st.num_convs)]
+    ks = [rng.normal(0, np.sqrt(2 / (9 * chans[i])),
+                     (chans[i + 1], chans[i], 3, 3)).astype(np.float32)
+          for i in range(len(chans) - 1)]
+    bs = [rng.normal(0, 0.1, c).astype(np.float32) for c in chans[1:]]
+    images = torch.from_numpy(rng.integers(0, 256, (3, 32, 75), np.uint8))
+    widths = torch.tensor([75, 61, 9], dtype=torch.int32)
+    scales = quant.calibrate_in_scales(ks, bs, cfg, [(images, widths)],
+                                       device="cpu")
+    qstack = quant.quantize_conv_stack(ks, bs, scales)
+    return cfg, qstack, images, widths
+
+
+@pytest.mark.parametrize("prefix", [0, 1, 2, 3, 6])
+@pytest.mark.parametrize("conv_pool", ["max", "stride"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_stack_matches_the_cpu(dev, dtype, conv_pool, prefix):
+    """quantized_conv_features at the flagship's widths on odd W: bit-equal
+    to its plan run with the plain int8 steps on the card (and, with every
+    conv int8, to the plain stack on the CPU), six minus the prefix conv
+    launches, and a quantize pass only in front of a tc conv after a float
+    prefix."""
+    from vistaocr_tpu_torch.models import quant
+    from vistaocr_tpu_torch.ops import int8_conv as ic
+
+    from vistaocr_tpu_torch.ops.preprocess import preprocess_images
+
+    cfg, qstack, images, widths = _int8_stack(dev, dtype, conv_pool)
+    qs = quant.QuantizedStack(qstack, dev, cfg.dtype)
+    img, wid = images.to(dev), widths.to(dev)
+    before = (ic.LAUNCHES, ic.QUANTIZE_LAUNCHES)
+    got = quant.quantized_conv_features(qs, img, wid, cfg,
+                                        float_prefix=prefix)
+    torch.cuda.synchronize()
+    assert (ic.LAUNCHES - before[0], ic.QUANTIZE_LAUNCHES - before[1]) == (
+        6 - prefix, int(0 < prefix < 6))
+    # the same plan with every int8 step's plain version, on the card
+    x = preprocess_images(img, wid, standardize=cfg.standardize_input,
+                          dtype=cfg.dtype)
+    for step in quant.conv_plan(cfg, prefix):
+        if step[0] == "pool":
+            x = quant._nhwc_pool(x, step[1], conv_pool)
+            continue
+        c = qs.convs[step[1]]
+        if step[0] == "float":
+            x = quant._float_conv(x, qs.fkernels[step[1]], c.bias, cfg.dtype)
+        else:
+            x = ic.int8_conv_fused_ref(
+                x, c.weight, c.scale, c.bias, inv_s=c.inv_s,
+                dtype=cfg.dtype, window=step[2], pool_impl=conv_pool,
+                inv_s_next=qs.convs[step[1] + 1].inv_s if step[3] else None)
+    assert got.dtype == x.dtype and torch.equal(got, x)
+    if prefix == 0:  # every conv int8: the CPU's plain stack too
+        cpu = quant.quantized_conv_features(
+            quant.QuantizedStack(qstack, "cpu", cfg.dtype), images, widths,
+            cfg)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_int8_stack_replays_in_a_cuda_graph(dev):
+    from vistaocr_tpu_torch.models import quant
+
+    cfg, qstack, images, widths = _int8_stack(dev, "bfloat16", "max", seed=1)
+    qs = quant.QuantizedStack(qstack, dev, cfg.dtype)
+    img, wid = images.to(dev), widths.to(dev)
+    eager = quant.quantized_conv_features(qs, img, wid, cfg)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        quant.quantized_conv_features(qs, img, wid, cfg)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = quant.quantized_conv_features(qs, img, wid, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    img.copy_(255 - images.to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), quant.quantized_conv_features(
+        quant.QuantizedStack(qstack, "cpu", cfg.dtype), 255 - images,
+        widths, cfg))
+
+
 # --- the epoch-fused trainer's CUDA graphs (-k fused) -------------------------
 FUSED_B, FUSED_W, FUSED_H = 8, 128, 64  # T = 32 frames
 

@@ -4,8 +4,9 @@ Counterpart of ``vistaocr_tpu/models/quant.py``, function for function:
 BatchNorm (inference statistics) folded into per-output-channel symmetric
 int8 weights, per-conv input scales frozen from a few calibration
 batches, an int8 x int8 -> int32 conv with a dequantize + bias + ReLU
-epilogue (``ops/int8_conv.py``: the hand-written kernel on the card, its
-plain version on the CPU), and the bridge, BLSTM and head kept in the
+epilogue that also pools and quantizes for the next conv
+(``ops/int8_conv.py``: the hand-written kernels on the card, their plain
+versions on the CPU), and the bridge, BLSTM and head kept in the
 model's compute type with f32 logits. ``float_prefix`` runs the first N
 convs with the folded float kernels.
 
@@ -38,10 +39,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.int8_conv import int8_conv, pack_weights
+from ..ops.int8_conv import fusable_window, int8_conv_fused, pack_weights
+from ..ops.int8_conv import pool_ref as _nhwc_pool
 from ..ops.preprocess import preprocess_images
 from ..runtime import resolve_device
-from .cnn import pool
 from .cnnlstm import CnnLstmOcr, ModelConfig
 
 _BN_EPS = 1e-5  # flax.linen.BatchNorm's default, as ConvStack uses
@@ -92,11 +93,6 @@ def fold_conv_params(
             kernels.append(w)
             biases.append(torch.zeros((w.shape[0],), dtype=torch.float32))
     return tuple(kernels), tuple(biases)
-
-
-def _nhwc_pool(x: torch.Tensor, window, impl: str) -> torch.Tensor:
-    return pool(x.permute(0, 3, 1, 2), window, impl).permute(
-        0, 2, 3, 1).contiguous()
 
 
 def _float_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -221,28 +217,56 @@ class QuantizedStack:
             )
 
 
+def conv_plan(config: ModelConfig, float_prefix: int = 0):
+    """The conv stack as steps in order: ``("float", i, window)``, ``("int8",
+    i, window, next_inv)`` or ``("pool", window)``. A stage's pool rides in
+    its last conv's epilogue (``window``) where the kernels take it (1 or 2
+    each way), else it is a step of its own; an int8 conv that another
+    int8 conv follows directly quantizes its output for it (``next_inv``:
+    True), so that activation travels as int8."""
+    steps = []
+    i = 0
+    for st in config.stages:
+        fused = False
+        for c in range(st.num_convs):
+            last = c == st.num_convs - 1
+            kind = "float" if i < float_prefix else "int8"
+            fused = last and kind == "int8" and fusable_window(st.pool)
+            steps.append((kind, i, tuple(st.pool) if fused else (1, 1)))
+            i += 1
+        if not fused and tuple(st.pool) != (1, 1):
+            steps.append(("pool", tuple(st.pool)))
+    return [s + (k + 1 < len(steps) and steps[k + 1][0] == "int8",)
+            if s[0] == "int8" else s for k, s in enumerate(steps)]
+
+
 def quantized_conv_features(qstack: QuantizedStack, images, widths,
                             config: ModelConfig, *,
                             float_prefix: int = 0) -> torch.Tensor:
     """The int8 conv feature extractor, NHWC [B, H', T, C]: each conv
     quantizes its input with its frozen scale, convolves int8 x int8 into
-    int32 and dequantizes + adds the bias + ReLU in the compute type (one
-    ``int8_conv`` call). ``float_prefix``: the first N convs run with the
-    folded float kernels instead (needs ``fkernels``)."""
+    int32 and dequantizes + adds the bias + ReLU in the compute type, then
+    pools (one ``int8_conv_fused`` call, ``conv_plan``): an int8 conv
+    that another follows writes its pooled output quantized with that
+    conv's scale, which is the same int8 tensor as quantizing after the
+    pool. ``float_prefix``: the first N convs run with the folded float
+    kernels instead (needs ``fkernels``)."""
     qstack.check_float_prefix(float_prefix)
     dtype = config.dtype
     x = preprocess_images(images, widths, standardize=config.standardize_input,
                           dtype=dtype)
-    i = 0
-    for st in config.stages:
-        for _ in range(st.num_convs):
-            c = qstack.convs[i]
-            if i < float_prefix:
-                x = _float_conv(x, qstack.fkernels[i], c.bias, dtype)
-            else:
-                x = int8_conv(x, c.weight, c.scale, c.bias, c.inv_s)
-            i += 1
-        x = _nhwc_pool(x, st.pool, config.conv_pool)
+    for step in conv_plan(config, float_prefix):
+        if step[0] == "pool":
+            x = _nhwc_pool(x, step[1], config.conv_pool)
+            continue
+        c = qstack.convs[step[1]]
+        if step[0] == "float":
+            x = _float_conv(x, qstack.fkernels[step[1]], c.bias, dtype)
+            continue
+        nxt = qstack.convs[step[1] + 1].inv_s if step[3] else None
+        x = int8_conv_fused(x, c.weight, c.scale, c.bias, inv_s=c.inv_s,
+                            dtype=dtype, window=step[2],
+                            pool_impl=config.conv_pool, inv_s_next=nxt)
     return x
 
 

@@ -168,11 +168,22 @@ def _bind(lib) -> None:
         p, p, p,  # dxw, dwh, scratch
         p,  # stream
     ]
-    lib.vo_int8_conv.restype = i
-    lib.vo_int8_conv.argtypes = [
-        i, i, i, i, i, i, i,  # type_code, B, H, W, CI, CO, KP
+    f = ctypes.c_float
+    lib.vo_int8_quantize.restype = i
+    lib.vo_int8_quantize.argtypes = [
+        i, ctypes.c_longlong,  # type_code, n
+        p, f, p,  # x, inv_s, y
+        p,  # stream
+    ]
+    lib.vo_int8_conv_design.restype = i
+    lib.vo_int8_conv_design.argtypes = [i, i, i, i, i]  # CI, CO, out_code, ph, pw
+    lib.vo_int8_conv_fused.restype = i
+    lib.vo_int8_conv_fused.argtypes = [
+        i, i, i, i,  # design, in_code, round_bf, out_code
+        i, i, i, i, i, i,  # B, H, W, CI, CO, KP
+        i, i, i,  # ph, pw, pool_stride
         p, p, p, p,  # x, wq, scale, bias
-        ctypes.c_float,  # inv_s
+        f, f,  # inv_s, inv_next
         p,  # y
         p,  # stream
     ]
