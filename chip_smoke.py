@@ -103,15 +103,19 @@ the exit code is non-zero and no ``ok`` line is printed):
              GEMM: bf16 weights ``bptt_gates_gemm_wide`` on the tensor
              cores, f32 ``bptt_gates_gemm`` on the FMA units), then the
              frame loop: ``lstm_bwd_persistent`` (bf16
-             weights, one launch) or, with f32 weights, both designs side
-             by side: folded, ``bptt_frame`` (one launch a frame: the cell
-             backward and the dh product), and split, ``bptt_cell`` and
+             weights, one launch) or, with f32 weights, three designs
+             side by side: folded, ``bptt_frame`` (one launch a frame: the
+             cell backward and the dh product), ``lstm_bwd_rows`` (one
+             cooperative launch a call) and split, ``bptt_cell`` and
              ``bptt_dh`` a frame (the library runs the first up to B=32,
-             the second beyond), each also held to its own plain version
-             (``bptt_gates_ref`` within 1e-5 relative, ``bptt_frames_ref``
-             on the kernel's gates within 2e-2 with bf16 weights, 1e-4
-             with f32), with one GEMM and one (bf16) or T (f32, each
-             kernel) frame-loop launches a call. Times from CUDA events after warm-up, the BPTT
+             the second beyond where it fits, else the third), each also
+             held to its own plain version (``bptt_gates_ref`` within
+             1e-5 relative, ``bptt_frames_ref`` on the kernel's gates
+             within 2e-2 with bf16 weights, 1e-4 with f32), with one GEMM
+             and one or T (each per-frame kernel) frame-loop launches a
+             call. The f32 forward's three designs (``lstm_fwd_grid``,
+             ``lstm_fwd_rows``, ``lstm_step``) likewise, and timed at the
+             library rule's edge shapes (``F32_RULE_SHAPES``). Times from CUDA events after warm-up, the BPTT
              kernels per launch (and launches per call) from
              ``torch.profiler`` over one ``lstm_bptt_frames`` call, beside
              each kernel's bound and the library call that computes the
@@ -224,10 +228,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              B=128, W=512 and one at B=512, W=128 (seeded glyph lines of
              W/2..W px), the LSTM launch counters set to 0 just before the
              first and read after the last (a forward call is one
-             ``lstm_fwd_grid`` launch at B=32 and 128, T ``lstm_step``
-             launches at B=512; a BPTT call one f32 gate GEMM, then T
-             ``bptt_frame`` launches at B=32, T ``bptt_cell`` and T
-             ``bptt_dh`` beyond), then each timed: CUDA-event ms a step
+             ``lstm_fwd_grid`` launch at B=32 and 128, one
+             ``lstm_fwd_rows`` at B=512; a BPTT call one f32 gate GEMM,
+             then T ``bptt_frame`` launches at B=32, one
+             ``lstm_bwd_rows`` beyond), then each timed: CUDA-event ms a step
              and its device time from ``torch.profiler``. Then F2's path:
              a bf16 flagship at ``lstm_hidden`` 520 and 1000, one train
              step and one inference forward each at B=32, W=2048 and
@@ -369,8 +373,12 @@ def _recurrence_case(B, T, H, dtype, dev, seed):
 FLAGSHIP_SHAPE = (128, 512, 512)  # (B, T, H): max_batch, 2048 px / 4, hidden
 ODD_SHAPE = (5, 7, 40)
 SMALL_BUCKET_SHAPE = (512, 32, 512)  # the W=128 train bucket: 2**21 / (32 W)
-# the f32-weight forward's two designs (the library chooses by shape)
-F32_FWD_KERNELS = {True: "lstm_fwd_grid", False: "lstm_step"}
+# the f32-weight forward's designs by name (FWD_DESIGNS) and kernel; the
+# library chooses by shape: lstm_fwd_grid, one launch, up to B=320 at
+# H=512; lstm_fwd_rows, one launch, beyond it where it fits; lstm_step, a
+# launch a frame, elsewhere
+F32_FWD_KERNELS = {"grid": "lstm_fwd_grid", "rows": "lstm_fwd_rows",
+                   "step": "lstm_step"}
 
 
 def fwd_kernel_name(B: int, H: int, dtype) -> str:
@@ -380,15 +388,15 @@ def fwd_kernel_name(B: int, H: int, dtype) -> str:
 
     if _dtname(dtype) == "bfloat16":
         return "lstm_fwd_persistent"
-    return F32_FWD_KERNELS[
-        lstm_cuda.forward_design(torch.float32, B, H) == "grid"]
+    return F32_FWD_KERNELS[lstm_cuda.forward_design(torch.float32, B, H)]
 
 
 def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
                     bound_ms=None) -> dict:
-    """Both f32-weight forward designs named (``lstm_fwd_grid``, one
-    launch; ``lstm_step``, one a frame) over ``dirs`` = (xw, wh f32,
-    reverse) per direction: each held to the plain outputs ``refs`` (ys per
+    """The f32-weight forward designs named (``lstm_fwd_grid`` and
+    ``lstm_fwd_rows``, one launch; ``lstm_step``, one a frame) over
+    ``dirs`` = (xw, wh f32, reverse) per direction: each held to the plain
+    outputs ``refs`` (ys per
     direction, then cs with ``save_cell``) within 1e-4 and run twice
     (bit-equal); with ``bound_ms`` also timed (CUDA events) and its
     launches a call counted (torch.profiler)."""
@@ -396,11 +404,13 @@ def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
     from vistaocr_tpu_torch.ops import lstm_cuda
 
     out = {}
-    for grid, name in F32_FWD_KERNELS.items():
-        def call(grid=grid):
+    for design, name in F32_FWD_KERNELS.items():
+        one = design != "step"  # one launch a call, else one a frame
+
+        def call(design=design):
             ys, cs = lstm_cuda.lstm_fwd(
                 dirs, mask, torch.float32, save_cell=save_cell,
-                design="grid" if grid else "step")
+                design=design)
             return ys + (cs or [])
 
         a, b = call(), call()
@@ -415,9 +425,9 @@ def f32_fwd_designs(dirs, mask, refs, save_cell: bool, T: int,
         if bound_ms is not None:
             ms = _cuda_ms(call, 5)
             us, n = _kernel_us(call, (name + "<",),
-                               {name + "<": 1 if grid else T})[name + "<"]
-            _require(n == (1 if grid else T),
-                     f"{name}: {1 if grid else T} launch(es) a call, got {n}")
+                               {name + "<": 1 if one else T})[name + "<"]
+            _require(n == (1 if one else T),
+                     f"{name}: {1 if one else T} launch(es) a call, got {n}")
             row.update({"ms": ms, "per_frame_us": ms / T * 1e3,
                         "launches_per_call": n, "kernel_us": us,
                         "bound_ms": bound_ms})
@@ -1405,16 +1415,32 @@ def parity_phase(snap: str, dev) -> None:
 LSTM_TRAIN_SHAPES = ((5, 7, 40), (128, 128, 512), (32, 512, 512),
                      (512, 32, 512), (64, 256, 512))
 # the BPTT's frame loop after the gate GEMM: with bf16 weights one
-# persistent launch (None); with f32 weights two designs, timed and checked
-# side by side: folded, one launch a frame (True), and split, a cell
-# launch and a dh launch a frame (False); the library chooses by B
-F32_DESIGNS = (True, False)
+# persistent launch (None); with f32 weights three designs (LOOP_DESIGNS),
+# timed and checked side by side: "fold", one launch a frame; "split", a
+# cell launch and a dh launch a frame; "rows" (lstm_bwd_rows), one launch
+# a call; the library chooses by B (fold up to B=32)
+F32_DESIGNS = ("fold", "split", "rows")
+# the f32-weight loops a frame, which F2's route ran before lstm_bwd_tc
+F32_PER_FRAME = ("fold", "split")
 # the gate GEMM the library runs, by weight type (f32: its FMA form; bf16:
 # the wide wgmma design), as torch.profiler names it
 GATES_KERNEL = {True: "bptt_gates_gemm<", False: "bptt_gates_gemm_wide<"}
-LOOP_KERNELS = {None: ("lstm_bwd_persistent",), True: ("bptt_frame",),
-                False: ("bptt_cell", "bptt_dh")}
-DESIGN_NAMES = {None: "persistent", True: "fold", False: "split"}
+LOOP_KERNELS = {None: ("lstm_bwd_persistent",), "fold": ("bptt_frame",),
+                "split": ("bptt_cell", "bptt_dh"),
+                "rows": ("lstm_bwd_rows",)}
+# the frame-loop kernels launched once a frame (T a call); the others once
+# a call
+FRAME_KERNELS = ("bptt_frame", "bptt_cell", "bptt_dh")
+
+
+def _per_call(kernel: str, T: int) -> int:
+    """Launches of a frame-loop kernel in one call over T frames."""
+    return T if kernel in FRAME_KERNELS else 1
+
+
+def _loop_key(fd) -> str:
+    """A frame loop's name: the f32-weight design's, or bf16's one."""
+    return fd or "persistent"
 # (B, T, K, L): an odd shape (empty label, infeasible sample), then the
 # three train buckets at K=96 with the ladder's label cap min(256, T):
 # W=2048 (S=513), W=512 and W=128; the first bucket is the kernels' row
@@ -1649,12 +1675,12 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 whq = [w.to(dtype).contiguous() for _, w, _ in dirs]
                 kdirs = [(x, w, ys, cs, dy, r) for (x, _, ys, cs, dy, r), w
                          in zip(bdirs, whq)]
-                # f32 weights: both frame-loop designs, each held to its
+                # f32 weights: every frame-loop design, each held to its
                 # plain version; lstm_bptt runs the library's choice by B
                 runs = {fd: L.lstm_bptt_frames(kdirs, mask, dtype,
-                                               return_gates=True, fold=fd)
+                                               return_gates=True, loop=fd)
                         for fd in (F32_DESIGNS if f32 else (None,))}
-                chosen = L.loop_design(dtype, B, H) == "fold" if f32 else None
+                chosen = L.loop_design(dtype, B, H) if f32 else None
                 dxw_k, pre_k = runs[chosen]
                 pre_r = [L.bptt_gates_ref(x, ys, w, reverse=r, dtype=dtype)
                          for x, w, ys, _, _, r in bdirs]
@@ -1700,7 +1726,7 @@ def lstm_train_kernels(dev, card: str) -> dict:
             with torch.no_grad():  # the BPTT kernels, run twice
                 same = all(torch.equal(a, b) for fd, (g, _) in runs.items()
                            for a, b in zip(g, L.lstm_bptt_frames(
-                               kdirs, mask, dtype, fold=fd))) and all(
+                               kdirs, mask, dtype, loop=fd))) and all(
                     torch.equal(a, b) for a, b in zip(
                         dwh_k, L.lstm_dwh(ddirs, dtype)))
             print(f"BPTT frames and dwh twice on the same inputs {tag}: "
@@ -1724,9 +1750,9 @@ def lstm_train_kernels(dev, card: str) -> dict:
                         bdirs, mask, dtype, plain=True), 1),
                     "frames": _cuda_ms(lambda: L.lstm_bptt_frames(
                         kdirs, mask, dtype), 5),
-                    **{f"frames_{DESIGN_NAMES[fd]}": _cuda_ms(
+                    **{f"frames_{fd}": _cuda_ms(
                         lambda fd=fd: L.lstm_bptt_frames(
-                            kdirs, mask, dtype, fold=fd), 5)
+                            kdirs, mask, dtype, loop=fd), 5)
                        for fd in runs if fd is not None},
                     "dwh": _cuda_ms(lambda: L.lstm_dwh(ddirs, dtype), 20),
                     "dwh_plain": _cuda_ms(lambda: [L.lstm_dwh_ref(
@@ -1750,9 +1776,9 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 gk = GATES_KERNEL[f32]
                 per = {fd: _kernel_us(
                     lambda fd=fd: L.lstm_bptt_frames(kdirs, mask, dtype,
-                                                     fold=fd),
+                                                     loop=fd),
                     (gk, *(k + "<" for k in LOOP_KERNELS[fd])),
-                    {gk: 1, **{k + "<": T if f32 else 1
+                    {gk: 1, **{k + "<": _per_call(k, T)
                                for k in LOOP_KERNELS[fd]}})
                     for fd in runs}
             # bounds: each input read once, each output written once; the
@@ -1794,18 +1820,19 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 "lstm_bwd_persistent": (pre_bytes + loop_in + dxw_bytes,
                                         gemm_flops),
                 "bptt_frame": (pre_bytes + loop_in + dxw_bytes, gemm_flops),
+                "lstm_bwd_rows": (pre_bytes + loop_in + dxw_bytes,
+                                  gemm_flops),
                 "bptt_cell": (pre_bytes + cell_in + dxw_bytes,
                               2 * 40 * T * B * H),
                 "bptt_dh": (dxw_bytes + dh_in, gemm_flops)}
-            n_want = T if f32 else 1
             designs = {}
             for fd in runs:
                 e_loop = loop_err[fd][0]
-                dsg = {"frames_ms": t.get(f"frames_{DESIGN_NAMES[fd]}",
-                                          t["frames"]),
+                dsg = {"frames_ms": t.get(f"frames_{fd}", t["frames"]),
                        "chosen": fd == chosen, "per_frame_us": 0.0}
                 for k in LOOP_KERNELS[fd]:
                     us, n = per[fd][k + "<"]
+                    n_want = _per_call(k, T)
                     _require(per[fd][gk][1] == 1
                              and n == n_want,
                              f"one gate GEMM and {n_want} {k} launch(es) a "
@@ -1826,12 +1853,13 @@ def lstm_train_kernels(dev, card: str) -> dict:
                                    waves=plan["waves"])
                     rows[(B, T, dtype)][k] = row
                     dsg["per_frame_us"] += row["per_frame_us"]
-                designs[DESIGN_NAMES[fd]] = dsg
+                designs[_loop_key(fd)] = dsg
             loop_names = LOOP_KERNELS[chosen]
             bwd.update({
                 "launches_per_call": {"bptt_gates_gemm": 1,
-                                      **{k: n_want for k in loop_names}},
-                "per_frame_us": designs[DESIGN_NAMES[chosen]]["per_frame_us"],
+                                      **{k: _per_call(k, T)
+                                         for k in loop_names}},
+                "per_frame_us": designs[_loop_key(chosen)]["per_frame_us"],
                 "per_frame_bound_us": _bound(*bounds["bptt_frame"], dtype)[
                     "bound_ms"] / T * 1e3,
                 "bptt_gates_gemm_us": gemm["ms"] * 1e3,
@@ -1848,9 +1876,9 @@ def lstm_train_kernels(dev, card: str) -> dict:
                 f"{t['gates_lib'] * 1e3:.2f} us)")
             for fd in runs:
                 ks = LOOP_KERNELS[fd]
-                dsg = designs[DESIGN_NAMES[fd]]
+                dsg = designs[_loop_key(fd)]
                 detail += (
-                    f"; {DESIGN_NAMES[fd]}{' (chosen)' if dsg['chosen'] else ''}"
+                    f"; {_loop_key(fd)}{' (chosen)' if dsg['chosen'] else ''}"
                     f" {dsg['per_frame_us']:.3f} us a frame = " + " + ".join(
                         f"{k} {per[fd][k + '<'][0]:.2f} us x "
                         f"{per[fd][k + '<'][1]} (bound "
@@ -1909,16 +1937,25 @@ def lstm_train_kernels(dev, card: str) -> dict:
 
 # where the library's f32 forward rule (vo_lstm_fwd_design) changes
 # design, (B, H), with T = 16384 / B (a 2**21-pixel train batch): H=512
-# with wh resident (the grid up to B=320), H=256 (4 units a CTA: up to
-# B=128) and H=1000 (wh streamed from L2: B=32)
+# with wh resident (the grid up to B=320, lstm_step at 384, lstm_fwd_rows
+# from 448 to the W=128 bucket's 512), H=576 (one row group: lstm_step),
+# H=256 (4 units a CTA: the grid up to B=128) and H=1000 (wh streamed from
+# L2: the grid at B=32; lstm_fwd_rows does not fit there)
 F32_RULE_SHAPES = ((256, 512), (320, 512), (384, 512), (448, 512),
-                   (128, 256), (256, 256), (32, 1000), (128, 1000))
+                   (512, 512), (512, 576), (128, 256), (256, 256),
+                   (32, 1000), (128, 1000))
+# lstm_fwd_rows' largest H for two directions (a CTA's f32 slice of wh in
+# shared memory); above it the library refuses the design
+F32_ROWS_MAX_H = 640
 
 
 def f32_forward_rule_times(dev, card: str) -> list:
-    """Both f32 forward designs (save_cell form, both directions) timed
-    side by side at the rule's edge shapes, each held to the other (1e-4),
-    with the design the library runs there."""
+    """The f32 forward designs (save_cell form, both directions) timed
+    side by side at the rule's edge shapes, each held to lstm_step's
+    outputs (1e-4), with the design the library runs there and the
+    fastest; lstm_fwd_rows is refused by the library above
+    F32_ROWS_MAX_H (H=1000), recorded so; any other refusal, or one of
+    the design the library runs, fails."""
     import torch
     from vistaocr_tpu_torch.ops import lstm_cuda as L
 
@@ -1928,24 +1965,39 @@ def f32_forward_rule_times(dev, card: str) -> list:
         (fwd, bwd), mask = _recurrence_case(B, T, H, torch.float32, dev,
                                             seed=B + H)
         dirs = [(fwd[0], fwd[1], False), (bwd[0], bwd[1], True)]
+        outs, ms, refused = {}, {}, []
         with torch.no_grad():
-            (ya, ca), (yb, cb) = (L.lstm_fwd(dirs, mask, torch.float32,
-                                             save_cell=True, design=g)
-                                  for g in ("grid", "step"))
-            err = max(_abs(a, b) for a, b in zip(ya + ca, yb + cb))
-            ms = {F32_FWD_KERNELS[g]: _cuda_ms(lambda g=g: L.lstm_fwd(
-                dirs, mask, torch.float32, save_cell=True,
-                design="grid" if g else "step"), 5)
-                for g in (True, False)}
+            for d, name in F32_FWD_KERNELS.items():
+                try:
+                    ys, cs = L.lstm_fwd(dirs, mask, torch.float32,
+                                        save_cell=True, design=d)
+                except RuntimeError as e:
+                    _require(d == "rows" and H > F32_ROWS_MAX_H,
+                             f"{name} refused at B={B} H={H}: {e}")
+                    refused.append(name)
+                    continue
+                outs[name] = ys + cs
+            err = max(_abs(a, b) for n, o in outs.items()
+                      for a, b in zip(o, outs["lstm_step"]))
+            for d, name in F32_FWD_KERNELS.items():
+                if name in outs:
+                    ms[name] = _cuda_ms(lambda d=d: L.lstm_fwd(
+                        dirs, mask, torch.float32, save_cell=True,
+                        design=d), 5)
         _require(err <= 1e-4, f"f32 designs agree at B={B} H={H}: {err}")
         row = {"B": B, "T": T, "H": H, "max_abs_diff": err, **{
             f"{n}_ms": v for n, v in ms.items()},
-            "library_runs": F32_FWD_KERNELS[
-                L.forward_design(torch.float32, B, H) == "grid"]}
+            "refused": refused, "fastest": min(ms, key=ms.get),
+            "library_runs": fwd_kernel_name(B, H, torch.float32)}
+        _require(row["library_runs"] not in refused,
+                 f"the library runs {row['library_runs']}, refused at "
+                 f"B={B} H={H}")
         print(f"f32 forward rule B={B} T={T} H={H}, save_cell, both "
-              f"directions: lstm_fwd_grid {ms['lstm_fwd_grid']:.3f} ms, "
-              f"lstm_step {ms['lstm_step']:.3f} ms; the library runs "
-              f"{row['library_runs']} ({card})", flush=True)
+              f"directions: " + ", ".join(f"{n} {v:.3f} ms"
+                                          for n, v in ms.items()) +
+              (f" ({', '.join(refused)} does not fit)" if refused else "") +
+              f"; the library runs {row['library_runs']} ({card})",
+              flush=True)
         out.append(row)
     return out
 
@@ -2098,12 +2150,10 @@ def _counter_deltas(mod, names, before) -> dict:
 
 def f2_parent_loop(B: int) -> str:
     """The frame loop F2's route ran at batch size B before lstm_bwd_tc
-    (``F2_PARENT["loop"]``): the f32-weight loop the library picks by B
-    (``LOOP_DESIGNS`` "fold" up to B=32, "split" beyond)."""
-    import torch
-    from vistaocr_tpu_torch.ops import lstm_cuda
-
-    return lstm_cuda.loop_design(torch.float32, B, 512)
+    (``F2_PARENT["loop"]``): the f32-weight loop a frame that the library
+    then picked by B (``LOOP_DESIGNS`` "fold" up to B=32, "split"
+    beyond; lstm_bwd_rows does not fit at H=1000)."""
+    return "fold" if B <= 32 else "split"
 
 
 def f2_train_kernels(dev, card: str) -> dict:
@@ -2374,10 +2424,10 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
         t["dh_lib"] = _cuda_ms(lambda: [torch.mm(x, w.T) for x, w in
                                         zip(dg, wq)], 50)
         per = {fd: _kernel_us(
-            lambda fd=fd: L.lstm_bptt_frames(bdirs, mask, bf16, fold=fd),
+            lambda fd=fd: L.lstm_bptt_frames(bdirs, mask, bf16, loop=fd),
             (GATES_WIDE, *(k + "<" for k in LOOP_KERNELS[fd])),
             {GATES_WIDE: 1, **{k + "<": T for k in LOOP_KERNELS[fd]}})
-            for fd in F32_DESIGNS}
+            for fd in F32_PER_FRAME}
         tc_us = _kernel_us(lambda: L.lstm_bptt_frames(bdirs, mask, bf16),
                            ("lstm_bwd_tc<",), {"lstm_bwd_tc<": 1})[
                                "lstm_bwd_tc<"]
@@ -2426,7 +2476,7 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
               "bptt_dh": (dxw_bytes + dh_in, flops)}
     # the parent's frame-loop kernels (the f32-weight designs), a frame
     parent_kernels = {}
-    for fd in F32_DESIGNS:
+    for fd in F32_PER_FRAME:
         for k in LOOP_KERNELS[fd]:
             us, n = per[fd][k + "<"]
             parent_kernels[k] = {
@@ -2467,9 +2517,9 @@ def f2_timings(dev, card, dirs, bdirs, ddirs, mask, pre_r, err,
           f"lstm_bwd_tc {tc_us[0] / 1e3:.3f} ms a launch, "
           f"{tc_us[0] / T:.2f} us a frame (profiler; bound "
           f"{rows['lstm_bwd_tc']['bound_ms']:.3f} ms; parent bptt_frame "
-          f"{per[True]['bptt_frame<'][0]:.2f} us x T, bptt_cell "
-          f"{per[False]['bptt_cell<'][0]:.2f} + bptt_dh "
-          f"{per[False]['bptt_dh<'][0]:.2f} us x T; dh alone torch.mm x T "
+          f"{per['fold']['bptt_frame<'][0]:.2f} us x T, bptt_cell "
+          f"{per['split']['bptt_cell<'][0]:.2f} + bptt_dh "
+          f"{per['split']['bptt_dh<'][0]:.2f} us x T; dh alone torch.mm x T "
           f"{t['dh_lib'] * T:.3f} ms; plain loop "
           f"{t['loop_plain']:.3f} ms); gate GEMM bptt_gates_gemm_wide "
           f"{t['gates']:.4f} ms a launch (profiler; parent FMA form "
@@ -3397,9 +3447,10 @@ FUSED_KERNELS = {
                  "K2/K3": ("bptt_gates_gemm",), "K2/K3 frames": (
                      "lstm_bwd_persistent",), "K2/K3 dwh": ("lstm_dwh",),
                  "K4": ("ctc_alpha_kernel",), "K5": ("ctc_beta_kernel",)},
-    "float32": {"K1": ("lstm_fwd_grid", "lstm_step"),
+    "float32": {"K1": ("lstm_fwd_grid", "lstm_fwd_rows", "lstm_step"),
                 "K2/K3": ("bptt_gates_gemm",), "K2/K3 frames": (
-                    "bptt_frame", "bptt_cell"), "K2/K3 dwh": ("lstm_dwh",),
+                    "bptt_frame", "lstm_bwd_rows", "bptt_cell"),
+                "K2/K3 dwh": ("lstm_dwh",),
                 "K4": ("ctc_alpha_kernel",), "K5": ("ctc_beta_kernel",)},
 }
 
@@ -3706,12 +3757,21 @@ def fused_phase(dev, tmp: str, font: dict, smi: str,
 
 # the f32 path of phase 8: one f32 forward+backward of the flagship at the
 # W=2048 bucket (lstm_fwd_grid, the folded f32 frame loop), one at the
-# W=512 bucket (lstm_fwd_grid, the split loop) and one at the W=128 bucket
-# (lstm_step, the split loop), on the kernels (the counts of its LSTM
+# W=512 bucket (lstm_fwd_grid, lstm_bwd_rows) and one at the W=128 bucket
+# (lstm_fwd_rows, lstm_bwd_rows), on the kernels (the counts of its LSTM
 # kernels)
-F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "FWD_GRID_LAUNCHES", "STEP_LAUNCHES",
-                "BWD_LAUNCHES", "GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES",
+F32_COUNTERS = ("SAVE_CELL_LAUNCHES", "FWD_GRID_LAUNCHES",
+                "FWD_ROWS_LAUNCHES", "STEP_LAUNCHES", "BWD_LAUNCHES",
+                "GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES", "BWD_ROWS_LAUNCHES",
                 "CELL_LAUNCHES", "DH_LAUNCHES", "DWH_LAUNCHES")
+# the counter of each f32 forward design (T launches a call for "step")
+# and of each f32 frame-loop design (T a call for "fold", T each for
+# "split")
+F32_FWD_COUNTER = {"grid": "FWD_GRID_LAUNCHES", "rows": "FWD_ROWS_LAUNCHES",
+                   "step": "STEP_LAUNCHES"}
+F32_LOOP_COUNTERS = {"fold": ("FRAME_LAUNCHES",),
+                     "rows": ("BWD_ROWS_LAUNCHES",),
+                     "split": ("CELL_LAUNCHES", "DH_LAUNCHES")}
 # (B, W): 2**21-pixel train batches
 F32_STEPS = ((32, 2048), (128, 512), (512, 128))
 
@@ -3807,24 +3867,23 @@ def train_parity_phase(dev, font: dict, card: str) -> dict:
                        lstm_cuda.BWD_LAUNCHES - before[1], W // 4)
         _require(fwd > 0 and bwd > 0, f"B={B}: LSTM forward and BPTT calls")
         want["SAVE_CELL_LAUNCHES"] += fwd
-        if lstm_cuda.forward_design(torch.float32, B, 512) == "grid":
-            want["FWD_GRID_LAUNCHES"] += fwd
-        else:
-            want["STEP_LAUNCHES"] += fwd * T
+        design = lstm_cuda.forward_design(torch.float32, B, 512)
+        want[F32_FWD_COUNTER[design]] += fwd * (T if design == "step" else 1)
         for name in ("BWD_LAUNCHES", "GATES_GEMM_LAUNCHES", "DWH_LAUNCHES"):
             want[name] += bwd
-        if lstm_cuda.loop_design(torch.float32, B, 512) == "fold":
-            want["FRAME_LAUNCHES"] += bwd * T
-        else:
-            want["CELL_LAUNCHES"] += bwd * T
-            want["DH_LAUNCHES"] += bwd * T
+        loop = lstm_cuda.loop_design(torch.float32, B, 512)
+        for name in F32_LOOP_COUNTERS[loop]:
+            want[name] += bwd * (1 if loop == "rows" else T)
     counts = {name: getattr(lstm_cuda, name) for name in F32_COUNTERS}
     print(f"f32 path: launches in its steps {counts}", flush=True)
-    # the forward: lstm_fwd_grid once a layer call (B=32, 128), lstm_step T
-    # times (B=512); the BPTT: one f32 gate GEMM a call, then T bptt_frame
-    # launches (B=32) or T bptt_cell and T bptt_dh (B=128, 512)
-    _require(counts == want and all(v > 0 for v in counts.values()),
-             f"f32 path launches {counts}, want {want}")
+    # the forward: lstm_fwd_grid once a layer call (B=32, 128),
+    # lstm_fwd_rows once (B=512); the BPTT: one f32 gate GEMM a call, then
+    # T bptt_frame launches (B=32) or one lstm_bwd_rows (B=128, 512); every
+    # kernel the rules pick is launched, and no other
+    _require(counts == want and all(counts[n] > 0 for n in (
+        "FWD_ROWS_LAUNCHES", "BWD_ROWS_LAUNCHES"))
+        and all(counts[n] > 0 for n, v in want.items() if v > 0),
+        f"f32 path launches {counts}, want {want}")
     return {"counts": counts,
             "steps": [f32_step_timing(step, card, B, W)
                       for step, (B, W) in zip(steps, F32_STEPS)]}
@@ -5116,12 +5175,14 @@ def main(argv) -> int:
                         lstm_rows[(B, T, torch.bfloat16)][name],
                         lstm_rows[(B, T, torch.float32)][name])
         kernels.append(row)
-    # the f32-weight forward's two designs: launches counted on the f32 path
-    # (phase 8), numbers from phase 6's save_cell form where the library
-    # runs each (lstm_fwd_grid at the W=2048 bucket, lstm_step at W=128),
+    # the f32-weight forward's three designs: launches counted on the f32
+    # path (phase 8), numbers from phase 6's save_cell form where the
+    # library runs each (lstm_fwd_grid at the W=2048 bucket, lstm_fwd_rows
+    # at W=128; lstm_step, off the path since lstm_fwd_rows, at W=128 too),
     # every other bucket and phase 3's inference form beside
     for name, counter, shape in (
             ("lstm_fwd_grid", "FWD_GRID_LAUNCHES", main_shape),
+            ("lstm_fwd_rows", "FWD_ROWS_LAUNCHES", SMALL_BUCKET_SHAPE[:2]),
             ("lstm_step", "STEP_LAUNCHES", SMALL_BUCKET_SHAPE[:2])):
         fwd_row = lstm_rows[(*shape, torch.float32)]["lstm_fwd_save_cell"]
         dsg = fwd_row["designs"][name]
@@ -5143,7 +5204,7 @@ def main(argv) -> int:
         for (B, T), by_dtype in rows.items():
             row[f"inference_at_B{B}_T{T}"] = by_dtype[torch.float32][
                 "designs"][name]
-        if name == "lstm_fwd_grid":
+        if name != "lstm_step":
             row["rule_times"] = rule_rows
         kernels.append(row)
     # each weight type's two BPTT kernels: bf16 launches counted on the
@@ -5157,18 +5218,22 @@ def main(argv) -> int:
              f32_path["counts"]["GATES_GEMM_LAUNCHES"]),
             ("bptt_frame", "bptt_frame", torch.float32,
              f32_path["counts"]["FRAME_LAUNCHES"]),
+            ("lstm_bwd_rows", "lstm_bwd_rows", torch.float32,
+             f32_path["counts"]["BWD_ROWS_LAUNCHES"]),
             ("bptt_cell", "bptt_cell", torch.float32,
              f32_path["counts"]["CELL_LAUNCHES"]),
             ("bptt_dh", "bptt_dh", torch.float32,
              f32_path["counts"]["DH_LAUNCHES"])):
+        # lstm_bwd_rows' own numbers at the W=512 bucket, where it runs
+        at = (128, 128) if name == "lstm_bwd_rows" else main_shape
         row = {"name": name, "route": "cuda",
                "source": "vistaocr_tpu_torch/csrc/lstm_bwd.cu",
                "replaces": "vistaocr_tpu/ops/lstm_pallas.py:281",
                "also_replaces": "vistaocr_tpu/ops/lstm_pallas.py:334",
-               "launches": launches,
-               **lstm_rows[(*main_shape, dtype)][key]}
+               "launches": launches, "at": "B{}_T{}".format(*at),
+               **lstm_rows[(*at, dtype)][key]}
         for B, T, _ in LSTM_TRAIN_SHAPES[1:]:
-            if (B, T) != main_shape:
+            if (B, T) != at:
                 row[f"at_B{B}_T{T}"] = lstm_rows[(B, T, dtype)][key]
         if dtype == torch.float32:
             row["f32_steps"] = f32_path["steps"]

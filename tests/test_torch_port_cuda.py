@@ -274,9 +274,11 @@ def test_f32_grid_kernel_one_direction_and_mixed_types(dev):
                     assert (ys.float() - ref.float()).abs().max() <= tol
 
 
-def _forward_kernel_counts(dev, B, T, H, save_cell):
-    """Launches of lstm_fwd_grid and lstm_step in a profiler window over
-    one f32-weight forward call of both directions (the library's route)."""
+def _forward_kernel_counts(dev, B, T, H, save_cell,
+                           names=("lstm_fwd_grid<", "lstm_step<")):
+    """Launches of the f32-weight forward kernels (``names``) in a
+    profiler window over one f32-weight forward call of both directions
+    (the library's route)."""
     xw, mask, wh = _device_operands(dev, B, T, H, torch.float32,
                                     torch.float32, seed=9, ndir=2)
     dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
@@ -288,7 +290,7 @@ def _forward_kernel_counts(dev, B, T, H, save_cell):
             return lstm_cuda.blstm_recurrence(xw[0], xw[1], mask, wh[0],
                                               wh[1])
     with torch.no_grad():
-        return _profiled_counts(call, ("lstm_fwd_grid<", "lstm_step<"))
+        return _profiled_counts(call, names)
 
 
 @pytest.mark.parametrize("save_cell", [False, True])
@@ -299,23 +301,120 @@ def test_f32_grid_one_forward_launch_per_layer_call(dev, save_cell):
     assert counts == {"lstm_fwd_grid<": 1, "lstm_step<": 0}, counts
 
 
-@pytest.mark.parametrize("B,H", [(32, 512), (128, 512), (320, 512),
-                                 (384, 512), (512, 512), (128, 256),
-                                 (256, 256), (32, 1000), (128, 1000)])
-def test_f32_grid_route_follows_the_library_rule(dev, B, H):
-    """Each shape takes the route the library names (forward_design:
-    lstm_fwd_grid, one launch, or lstm_step, T launches), and the launch
-    counters say the same."""
+@pytest.mark.parametrize("B,H,design", [
+    (32, 512, "grid"), (128, 512, "grid"), (320, 512, "grid"),
+    (384, 512, "step"), (448, 512, "rows"), (512, 512, "rows"),
+    (512, 528, "rows"), (512, 576, "step"), (512, 384, "step"),
+    (128, 256, "grid"), (256, 256, "step"), (32, 1000, "grid"),
+    (128, 1000, "step")])
+def test_f32_grid_route_follows_the_library_rule(dev, B, H, design):
+    """Each shape takes the route the library names (forward_design, as
+    timed in turns on an H100: lstm_fwd_grid or lstm_fwd_rows, one launch,
+    or lstm_step, T launches), and the launch counters say the same."""
     T = 3
-    grid = lstm_cuda.forward_design(torch.float32, B, H) == "grid"
-    assert grid == (B <= (32 if H == 1000 else 128 if H == 256 else 320))
-    before = (lstm_cuda.FWD_GRID_LAUNCHES, lstm_cuda.STEP_LAUNCHES)
-    counts = _forward_kernel_counts(dev, B, T, H, save_cell=False)
-    assert counts == ({"lstm_fwd_grid<": 1, "lstm_step<": 0} if grid else
-                      {"lstm_fwd_grid<": 0, "lstm_step<": T}), counts
+    assert lstm_cuda.forward_design(torch.float32, B, H) == design
+    names = {"grid": "lstm_fwd_grid<", "rows": "lstm_fwd_rows<",
+             "step": "lstm_step<"}
+    counters = {"grid": "FWD_GRID_LAUNCHES", "rows": "FWD_ROWS_LAUNCHES",
+                "step": "STEP_LAUNCHES"}
+    before = {d: getattr(lstm_cuda, c) for d, c in counters.items()}
+    counts = _forward_kernel_counts(dev, B, T, H, save_cell=False,
+                                    names=tuple(names.values()))
+    assert counts == {n: (T if d == "step" else 1) if d == design else 0
+                      for d, n in names.items()}, counts
     # the profiled call and its warm-up
-    assert lstm_cuda.FWD_GRID_LAUNCHES == before[0] + (2 if grid else 0)
-    assert lstm_cuda.STEP_LAUNCHES == before[1] + (0 if grid else 2 * T)
+    assert {d: getattr(lstm_cuda, c) - before[d]
+            for d, c in counters.items()} == {
+        d: (2 * T if d == "step" else 2) if d == design else 0
+        for d in counters}
+
+
+# The f32-weight cooperative forward at large B (lstm_fwd_rows: CTAs over
+# 16-unit slices x row groups, 32-row tiles a warp): B across the tiles
+# and row groups (33, 129, 321, 385, 511, 513), H = 40 and 520, T = 1 and
+# 7, a row masked throughout (row 3), named explicitly; one direction at
+# H=520 and at H=640, the largest slice of wh that fits (H=1000 does not:
+# test_f32_rows_forward_limits).
+F32_ROWS_SHAPES = [(B, T, H) for B in (33, 129, 321, 385, 511, 513)
+                   for H in (40, 520) for T in (1, 7)]
+F32_ROWS_ONE_DIR = [(70, 7, 520), (385, 2, 640)]
+
+
+def _masked_row3(mask):
+    mask = mask.clone()
+    mask[:, 0, 3] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("shape", F32_ROWS_SHAPES + F32_ROWS_ONE_DIR)
+@pytest.mark.parametrize("stream,tol", F32_WEIGHT_TYPES)
+def test_f32_rows_forward_matches_plain(dev, shape, stream, tol):
+    """Both forms against lstm_recurrence_ref (both directions in one
+    launch; one direction alone at F32_ROWS_ONE_DIR), a row invalid
+    throughout (its ys and cs stay zero); a second run gives the same
+    bits; one launch a layer call."""
+    B, T, H = shape
+    ndir = 1 if shape in F32_ROWS_ONE_DIR else 2
+    xw, mask, wh = _device_operands(dev, B, T, H, stream, torch.float32,
+                                    seed=B * T + H, ndir=ndir)
+    mask = _masked_row3(mask)
+    dirs = [(x, w, r) for x, w, r in zip(xw, wh, (False, True))]
+    before = (lstm_cuda.FWD_ROWS_LAUNCHES, lstm_cuda.STEP_LAUNCHES,
+              lstm_cuda.FWD_GRID_LAUNCHES)
+    with torch.no_grad():
+        refs = [lstm_cuda.lstm_recurrence_ref(x, mask, w, reverse=r,
+                                              save_cell=True)
+                for x, w, r in dirs]
+        for save_cell in (False, True):
+            runs = [lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
+                                       save_cell=save_cell, design="rows")
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            (ys, cs), (ys2, cs2) = runs
+            for k, (rys, rcs) in enumerate(refs):
+                assert ys[k].dtype == stream and ys[k].shape == (T, B, H)
+                assert (ys[k].float() - rys.float()).abs().max() <= tol
+                assert torch.equal(ys[k], ys2[k])
+                assert not ys[k][:, 3].float().abs().max().item()
+                if save_cell:
+                    assert (cs[k].float() - rcs.float()).abs().max() <= tol
+                    assert torch.equal(cs[k], cs2[k])
+            assert (cs is None) == (not save_cell)
+    assert (lstm_cuda.FWD_ROWS_LAUNCHES, lstm_cuda.STEP_LAUNCHES,
+            lstm_cuda.FWD_GRID_LAUNCHES) == (before[0] + 4, *before[1:])
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_f32_rows_forward_limits(dev, ndir):
+    """At H=1000 a CTA's [H, 64] f32 slice of wh does not fit in shared
+    memory: naming lstm_fwd_rows raises (no fallback), the launch counter
+    stays, and the library runs lstm_step there."""
+    xw, mask, wh = _device_operands(dev, 5, 2, 1000, torch.float32,
+                                    torch.float32, seed=4, ndir=ndir)
+    dirs = [(x, w, r) for x, w, r in zip(xw, wh, (False, True))]
+    before = lstm_cuda.FWD_ROWS_LAUNCHES
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="vo_lstm_fwd_named"):
+        lstm_cuda.lstm_fwd(dirs, mask, torch.float32, design="rows")
+    assert lstm_cuda.FWD_ROWS_LAUNCHES == before
+    assert lstm_cuda.forward_design(torch.float32, 512, 1000, ndir) == "step"
+
+
+@pytest.mark.parametrize("save_cell", [False, True])
+def test_f32_rows_one_forward_launch_per_layer_call(dev, save_cell):
+    """f32 weights at B=512, T=32, H=512 (the W=128 bucket): one launch of
+    lstm_fwd_rows for the whole layer call, and no lstm_step or
+    lstm_fwd_grid (profiler)."""
+    xw, mask, wh = _device_operands(dev, 512, 32, 512, torch.float32,
+                                    torch.float32, seed=9, ndir=2)
+    dirs = [(xw[0], wh[0], False), (xw[1], wh[1], True)]
+    with torch.no_grad():
+        counts = _profiled_counts(
+            lambda: lstm_cuda.lstm_fwd(dirs, mask, torch.float32,
+                                       save_cell=save_cell),
+            ("lstm_fwd_rows<", "lstm_fwd_grid<", "lstm_step<"))
+    assert counts == {"lstm_fwd_rows<": 1, "lstm_fwd_grid<": 0,
+                      "lstm_step<": 0}, counts
 
 
 def test_persistent_kernel_refuses_h_above_512(dev):
@@ -939,7 +1038,7 @@ def test_bptt_and_dwh_are_deterministic(dev, stream, compute):
         for fold in ((True, False) if f32 else (None,)):
             with torch.no_grad():
                 runs = [lstm_cuda.lstm_bptt_frames(kdirs, mask, compute,
-                                                   fold=fold)
+                                                   loop=_LOOPS[fold])
                         for _ in range(2)]
                 dwhs = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g
                                             in zip(dirs, runs[0])], compute)
@@ -962,6 +1061,10 @@ def _masked_row_operands(dev, B, T, H, stream, compute, seed):
                  dy, r) for x, w, _, _, dy, r in dirs]
     return dirs, mask
 
+
+# the f32-weight frame loop a test's ``fold`` names: the fold, the split,
+# or (None) the library's
+_LOOPS = {True: "fold", False: "split", None: None}
 
 _F32_COUNTERS = ("GATES_GEMM_LAUNCHES", "FRAME_LAUNCHES", "CELL_LAUNCHES",
                  "DH_LAUNCHES", "BWD_PERSISTENT_LAUNCHES")
@@ -986,7 +1089,8 @@ def test_f32_weight_gates_gemm_and_frames_match_plain(dev, shape, stream,
     before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS]
     with torch.no_grad():
         dxw, pre = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32,
-                                              return_gates=True, fold=fold)
+                                              return_gates=True,
+                                              loop=_LOOPS[fold])
         for (x, w, ys, cs, dy, r), g, p in zip(dirs, dxw, pre):
             assert p.shape == (T, B, 4 * H) and p.dtype == torch.float32
             ref = lstm_cuda.bptt_gates_ref(x, ys, w, reverse=r,
@@ -1132,7 +1236,8 @@ def _profiled_counts(call, names):
 
 
 _BPTT_KERNELS = ("bptt_gates_gemm<", "lstm_bwd_persistent<", "bptt_gates<",
-                 "bptt_frame<", "bptt_cell<", "bptt_dh<", "lstm_dwh")
+                 "bptt_frame<", "bptt_cell<", "bptt_dh<", "lstm_bwd_rows<",
+                 "lstm_dwh")
 
 
 def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
@@ -1148,7 +1253,7 @@ def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
             _BPTT_KERNELS + ("bptt_gates_gemm_wide<",))
     assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 1,
                       "bptt_gates<": 0, "bptt_frame<": 0, "bptt_cell<": 0,
-                      "bptt_dh<": 0, "lstm_dwh": 1,
+                      "bptt_dh<": 0, "lstm_bwd_rows<": 0, "lstm_dwh": 1,
                       "bptt_gates_gemm_wide<": 1}, counts
     assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
         1, 512)] == "tiles"
@@ -1158,8 +1263,9 @@ def test_bf16_weight_bptt_launches_two_kernels_per_layer_call(dev):
 def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
     """f32 weights, both directions, T=24: one lstm_bptt call makes one
     bptt_gates_gemm (f32 form), then up to B=32 T bptt_frame launches (the
-    cell backward and the dh product of a frame), beyond T bptt_cell and T
-    bptt_dh launches, and one dwh launch; no per-frame bptt_gates."""
+    cell backward and the dh product of a frame), beyond one lstm_bwd_rows
+    launch for all frames (no bptt_cell or bptt_dh), and one dwh launch;
+    no per-frame bptt_gates."""
     T = 24
     dirs, mask = _typed_bptt_operands(dev, B, T, 64, torch.float32,
                                       torch.float32, seed=10)
@@ -1167,11 +1273,101 @@ def test_f32_weight_bptt_launches_one_gemm_and_a_kernel_a_frame(dev, B):
         counts = _profiled_counts(
             lambda: lstm_cuda.lstm_bptt(dirs, mask, torch.float32),
             _BPTT_KERNELS)
-    frames = (T, 0, 0) if B <= 32 else (0, T, T)
+    frames = (T, 0) if B <= 32 else (0, 1)
     assert counts == {"bptt_gates_gemm<": 1, "lstm_bwd_persistent<": 0,
                       "bptt_gates<": 0, "bptt_frame<": frames[0],
-                      "bptt_cell<": frames[1], "bptt_dh<": frames[2],
-                      "lstm_dwh": 1}, counts
+                      "bptt_cell<": 0, "bptt_dh<": 0,
+                      "lstm_bwd_rows<": frames[1], "lstm_dwh": 1}, counts
+
+
+# The f32-weight cooperative frame loop (lstm_bwd_rows: CTAs over 16-unit
+# slices x row groups, tiles of 32 rows, or 64 where every row group gets
+# one): B across the tiles and row groups, H = 40 and 520, T = 1 (no
+# product) and 7, row 3 invalid throughout, on the kernel's own gates
+# against bptt_frames_ref within the split loop's bounds; one direction at
+# F32_ROWS_ONE_DIR (H=1000 does not fit: test_f32_rows_loop_limits)
+F32_LOOP_ROWS_SHAPES = [(B, T, H) for B in (33, 129, 321, 385, 511, 513)
+                        for H in (40, 520) for T in (1, 7)]
+
+
+@pytest.mark.parametrize("shape", F32_LOOP_ROWS_SHAPES + F32_ROWS_ONE_DIR)
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+def test_f32_rows_loop_matches_plain(dev, shape, stream):
+    """Type codes 0 and 3: lstm_bwd_rows on the f32 gate GEMM's gates
+    against bptt_frames_ref (f32 sums in another order; a bf16 dxw element
+    may round one ulp apart), the invalid row's gradients zeros, a second
+    run the same bits, one launch a layer call."""
+    B, T, H = shape
+    dirs, mask = _masked_row_operands(dev, B, T, H, stream, torch.float32,
+                                      seed=B + T * H)
+    if shape in F32_ROWS_ONE_DIR:
+        dirs = dirs[:1]
+    before = [getattr(lstm_cuda, n) for n in _F32_COUNTERS + (
+        "BWD_ROWS_LAUNCHES",)]
+    with torch.no_grad():
+        dxw, pre = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32,
+                                              return_gates=True, loop="rows")
+        again = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32,
+                                           loop="rows")
+        for (x, w, ys, cs, dy, r), g, p, g2 in zip(dirs, dxw, pre, again):
+            loop = lstm_cuda.bptt_frames_ref(p, mask, w, cs, dy, reverse=r,
+                                             dtype=torch.float32)
+            assert g.dtype == stream and g.shape == (T, B, 4 * H)
+            if stream == torch.float32:
+                torch.testing.assert_close(g, loop, atol=2e-4, rtol=1e-3)
+            else:
+                assert _rel_err(g, loop) <= _BF16_REL
+            assert not g[:, 3].float().abs().max().item()
+            assert torch.equal(g, g2)
+    torch.cuda.synchronize()
+    assert [getattr(lstm_cuda, n) - b for n, b in zip(
+        _F32_COUNTERS + ("BWD_ROWS_LAUNCHES",), before)] == [2, 0, 0, 0, 0, 2]
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_f32_rows_loop_limits(dev, ndir):
+    """At H=1000 a CTA's 16 f32 rows of wh do not fit in shared memory:
+    naming lstm_bwd_rows raises (no fallback), the launch counter stays,
+    and the library runs the split loop beyond B=32 there."""
+    dirs, mask = _typed_bptt_operands(dev, 5, 2, 1000, torch.float32,
+                                      torch.float32, seed=4)
+    dirs = dirs[:ndir]
+    before = lstm_cuda.BWD_ROWS_LAUNCHES
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="vo_lstm_bwd_named"):
+        lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32, loop="rows")
+    assert lstm_cuda.BWD_ROWS_LAUNCHES == before
+    assert lstm_cuda.loop_design(torch.float32, 128, 1000, ndir) == "split"
+
+
+@pytest.mark.parametrize("B,H,ndir,loop", [
+    (32, 512, 2, "fold"), (33, 512, 2, "rows"), (64, 64, 2, "rows"),
+    (512, 384, 2, "rows"), (128, 528, 2, "rows"), (128, 576, 2, "split"),
+    (512, 688, 2, "split"), (128, 512, 1, "split")])
+def test_f32_loop_rule_stays_where_it_was_timed(dev, B, H, ndir, loop):
+    """The library's f32-weight frame loop (loop_design): the fold up to
+    B=32, lstm_bwd_rows beyond it for two directions while the card holds
+    two row groups (H <= 528 on 132 SMs, as timed on an H100), the split
+    above (where it fits but loses) and for one direction (not timed)."""
+    assert lstm_cuda.loop_design(torch.float32, B, H, ndir) == loop
+
+
+@pytest.mark.parametrize("B,T", [(64, 256), (128, 128), (512, 32)])
+def test_f32_rows_loop_is_deterministic_at_the_train_buckets(dev, B, T):
+    """The f32 train buckets' shapes at H=512, both directions: the
+    library's lstm_bwd_rows twice, the same bits, within the split loop's
+    bounds of it."""
+    dirs, mask = _typed_bptt_operands(dev, B, T, 512, torch.float32,
+                                      torch.float32, seed=B)
+    with torch.no_grad():
+        a = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32)
+        b = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32)
+        split = lstm_cuda.lstm_bptt_frames(dirs, mask, torch.float32,
+                                           loop="split")
+    assert lstm_cuda.loop_design(torch.float32, B, 512) == "rows"
+    for x, y, z in zip(a, b, split):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, z, atol=2e-4, rtol=1e-3)
 
 
 def test_bf16_weight_bptt_refuses_h_above_512(dev):
@@ -1216,7 +1412,8 @@ def test_bf16_weights_above_512_bptt_matches_plain(dev, shape, stream, fold):
     before = [getattr(lstm_cuda, n) for n in counters]
     with torch.no_grad():
         (dxw, pre), (dxw2, pre2) = (lstm_cuda.lstm_bptt_frames(
-            kdirs, mask, torch.bfloat16, return_gates=True, fold=fold)
+            kdirs, mask, torch.bfloat16, return_gates=True,
+            loop=_LOOPS[fold])
             for _ in range(2))
         dwh = [lstm_cuda.lstm_dwh([(d[2], g, d[5]) for d, g in zip(dirs, dxw)],
                                   torch.bfloat16) for _ in range(2)]
@@ -1267,7 +1464,7 @@ def test_bf16_weights_above_512_launch_the_f32_kernels(dev, H):
             _BPTT_KERNELS + ("bptt_gates_gemm_wide<", "lstm_bwd_tc<"))
     assert counts == {"bptt_gates_gemm<": 0, "lstm_bwd_persistent<": 0,
                       "bptt_gates<": 0, "bptt_frame<": 0, "bptt_cell<": 0,
-                      "bptt_dh<": 0, "lstm_dwh": 1,
+                      "bptt_dh<": 0, "lstm_bwd_rows<": 0, "lstm_dwh": 1,
                       "bptt_gates_gemm_wide<": 1, "lstm_bwd_tc<": 1}, counts
     assert lstm_cuda.DWH_DESIGNS[_build.load().vo_lstm_dwh_design(
         1, H)] == "wide"

@@ -324,3 +324,21 @@ def test_bwd_persistent_profile_script_finds_its_anchors_in_the_kernel(
     full = prof.variant_source(src, "full")
     assert full != src and "vo_prof_plan" in full
     assert prof.variant_source(src, variant) != full
+
+
+@pytest.mark.parametrize("key", [f"{f}:{v}" for f, v in __import__(
+    "profile_lstm_f32_wide").VARIANTS])
+def test_f32_wide_profile_script_finds_its_anchors_in_the_kernels(key):
+    """profile_lstm_f32_wide.py edits copies of csrc/lstm_fwd.cu and
+    csrc/lstm_bwd.cu by text anchors: each must be found exactly once in
+    the kernel as it stands, and each copy must differ from it."""
+    import os
+
+    import profile_lstm_f32_wide as prof
+
+    name, variant = key.split(":")
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        name)
+    with open(path) as f:
+        src = f.read()
+    assert prof.variant_source(src, prof.VARIANTS[(name, variant)]) != src

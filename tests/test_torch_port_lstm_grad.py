@@ -332,16 +332,15 @@ def test_loop_designs_follow_the_kernels_codes():
 
 @pytest.mark.parametrize("kw,match", [
     ({"loop": "frames"}, "unknown frame loop"),
-    ({"loop": "fold", "fold": True}, "not both"),
-    ({"fold": "split"}, "fold must be"),
+    ({"loop": "Rows"}, "unknown frame loop"),
     ({"loop": "tc", "dtype": torch.float32}, "bf16 weights only"),
     ({"loop": "persistent", "dtype": torch.float32}, "bf16 weights only"),
 ])
 def test_bptt_frames_refuses_a_bad_loop_before_building(kw, match,
                                                         monkeypatch):
     """``lstm_bptt_frames`` refuses a frame loop it cannot name (or one
-    named twice, or one that takes bf16 weights only, named for f32
-    weights) before it builds or loads a kernel."""
+    that takes bf16 weights only, named for f32 weights) before it builds
+    or loads a kernel."""
     from vistaocr_tpu_torch.ops import _build
 
     def no_build():
@@ -356,3 +355,116 @@ def test_bptt_frames_refuses_a_bad_loop_before_building(kw, match,
              False)]
     with pytest.raises(ValueError, match=match):
         lstm_cuda.lstm_bptt_frames(dirs, torch.ones(T, 1, B), dtype, **kw)
+
+
+def test_fwd_designs_follow_the_kernels_codes():
+    """``FWD_DESIGNS`` names the forward designs in the order of their
+    codes in csrc/lstm_fwd.cu (``vo_lstm_fwd_named``'s ``design``)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(lstm_cuda.__file__), "..", "csrc",
+                        "lstm_fwd.cu")
+    with open(path) as f:
+        codes = re.findall(r"constexpr int FWD_([A-Z]+) = (\d+);", f.read())
+    assert [n.lower() for n, _ in sorted(codes, key=lambda c: int(c[1]))] == (
+        list(lstm_cuda.FWD_DESIGNS))
+
+
+def _no_build(monkeypatch):
+    from vistaocr_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the kernels were built")
+
+    monkeypatch.setattr(_build, "load", no_build)
+
+
+@pytest.mark.parametrize("design,match", [
+    ("wide", "unknown forward design"),
+    ("Rows", "unknown forward design"),
+    ("tc", "bf16 weights only"),
+    ("persistent", "bf16 weights only"),
+])
+def test_lstm_fwd_refuses_a_bad_design_before_building(design, match,
+                                                       monkeypatch):
+    """``lstm_fwd`` refuses a design it cannot name, or one that takes
+    bf16 weights only named for f32 weights, before it builds or loads a
+    kernel."""
+    _no_build(monkeypatch)
+    T, B, H = 2, 3, 8
+    dirs = [(torch.zeros(T, B, 4 * H), torch.zeros(H, 4 * H), False)]
+    with pytest.raises(ValueError, match=match):
+        lstm_cuda.lstm_fwd(dirs, torch.ones(T, 1, B), torch.float32,
+                           design=design)
+
+
+@pytest.mark.parametrize("design", ["rows", "grid", "step"])
+def test_lstm_fwd_takes_the_f32_designs_by_name(design, monkeypatch):
+    """The f32-weight designs' names pass ``lstm_fwd``'s check: on CPU
+    tensors the call gets as far as the device check, and builds
+    nothing."""
+    _no_build(monkeypatch)
+    T, B, H = 2, 3, 8
+    dirs = [(torch.zeros(T, B, 4 * H), torch.zeros(H, 4 * H), False)]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        lstm_cuda.lstm_fwd(dirs, torch.ones(T, 1, B), torch.float32,
+                           design=design)
+
+
+@pytest.mark.parametrize("loop", ["rows", "split", "fold"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bptt_frames_takes_the_f32_loops_by_name(loop, dtype, monkeypatch):
+    """The f32-weight frame loops' names (``rows`` too, which bf16
+    weights take widened) pass ``lstm_bptt_frames``' check for either
+    weight type: on CPU tensors the call gets as far as the device check,
+    and builds nothing."""
+    _no_build(monkeypatch)
+    T, B, H = 2, 3, 8
+    dirs = [(torch.zeros(T, B, 4 * H), torch.zeros(H, 4 * H, dtype=dtype),
+             torch.zeros(T, B, H), torch.zeros(T, B, H), torch.zeros(T, B, H),
+             False)]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        lstm_cuda.lstm_bptt_frames(dirs, torch.ones(T, 1, B), dtype,
+                                   loop=loop)
+
+
+# The row counts the f32-weight cooperative designs split on the card
+# (lstm_fwd_rows and lstm_bwd_rows: tiles of 32 or 64 rows, spread over
+# row groups): B = 70 and 130 end two and four 32-row tiles ragged (a
+# 64-row tile too), at a small H and T
+_ROW_TILE_SHAPES = [(3, 70, 24), (3, 130, 24)]
+
+
+@pytest.mark.parametrize("shape", _ROW_TILE_SHAPES,
+                         ids=lambda s: f"T{s[0]}-B{s[1]}-H{s[2]}")
+@pytest.mark.parametrize("stream", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_versions_match_pallas_interpret_across_row_tiles(
+        shape, stream, reverse):
+    """The plain versions the card holds lstm_fwd_rows and lstm_bwd_rows
+    to: ``lstm_recurrence_ref`` (``save_cell``) against JAX's
+    ``_fwd_kernel`` and ``bptt_frames_ref`` (on ``bptt_gates_ref``'s
+    gates, from JAX's saved states) against ``_bwd_kernel`` /
+    ``_bwd_kernel_rev``, both in interpret mode, f32 weights, ragged
+    masks. f32 streams within the bounds above; bf16 streams within one
+    stream ulp of each tensor's largest magnitude."""
+    for seed in (12, 13):
+        (xw, mask, wh, ys_j, cs_j, dys), dxw_j, _ = _jax_bptt(
+            seed, stream, torch.float32, reverse, shape)
+        ys, cs = lstm_cuda.lstm_recurrence_ref(xw, mask, wh, reverse=reverse,
+                                               save_cell=True)
+        pre = lstm_cuda.bptt_gates_ref(xw, ys_j, wh, reverse=reverse)
+        dxw = lstm_cuda.bptt_frames_ref(pre, mask, wh, cs_j, dys,
+                                        reverse=reverse)
+        assert ys.dtype == cs.dtype == dxw.dtype == stream
+        if stream == torch.float32:
+            np.testing.assert_allclose(ys.numpy(), ys_j.numpy(), atol=1e-5)
+            np.testing.assert_allclose(cs.numpy(), cs_j.numpy(), atol=1e-5)
+            np.testing.assert_allclose(dxw.numpy(), dxw_j.numpy(), atol=2e-4,
+                                       rtol=1e-3)
+        else:
+            for got, ref in ((ys, ys_j), (cs, cs_j), (dxw, dxw_j)):
+                ref = ref.float()
+                err = (got.float() - ref).abs().max() / ref.abs().max()
+                assert err.item() <= _BF16_JAX_REL, err.item()

@@ -88,14 +88,13 @@
 //   at BN = 32, whose issue took 40% of the frame (PERF.md). H <= 512.
 // - f32 W (type codes 0 and 3, the parity route): wgmma has no exact f32
 //   product (TF32 would change the numbers), so both stages stay on the
-//   FMA units, 1 + T or 1 + 2T launches a call. bptt_gates_gemm (the f32 form)
+//   FMA units, 2, 1 + T or 1 + 2T launches a call. bptt_gates_gemm (the f32 form)
 //   recomputes every frame's gates as one GEMM into the same pre as the
 //   bf16 form: 128 x 128 tiles, 256 threads of 8 x 8, two CTAs an SM, a
 //   4-stage ring of 16-column stages filled by 16-byte cp.async (bf16 ys
 //   converted to f32 as shared memory is read), the epilogue adding
-//   f32(xw). Then the frame loop, stream order the barrier between
-//   frames, in one of two designs chosen by B (f32_folds; timed side by
-//   side on an H100 in PERF.md):
+//   f32(xw). Then the frame loop, in one of three designs chosen by B and
+//   H (loop_design; timed side by side on an H100 in PERF.md):
 //   - folded, up to 32 rows: bptt_frame, one launch a frame, folds the
 //     cell backward into the dh product. The 4H contraction is split by
 //     unit into 8 slices, and a cluster holds the CTAs of one slice and up
@@ -106,14 +105,30 @@
 //     Each slice's partial dh goes to global memory and the next frame
 //     sums the 8 in slice order: a fixed order, no atomics. The carries
 //     ping-pong by frame parity.
-//   - split, beyond: bptt_cell (the cell backward alone, a thread a unit
-//     and row) then bptt_dh (the dh product, the 4H contraction split 8
-//     ways over a cluster, each rank summing its rows of the 8 partial
-//     tiles in rank order), two launches a frame. The fold's CTAs each
-//     reload their 64 KB wh tile and walk one dependent chain (cell,
-//     cluster barrier, gather, product) per 32-row batch tile, at two
-//     CTAs an SM; past one batch tile that costs more than a second
-//     launch a frame and bptt_dh's small CTAs.
+//   - rows, beyond B=32 for two directions where the card holds two row
+//     groups (H <= 528; it fits up to H=688 and is named there):
+//     lstm_bwd_rows, one cooperative launch a call, lstm_fwd.cu's
+//     lstm_fwd_rows turned around. A direction is A = ceil(H/16) unit
+//     groups x G row groups of co-resident CTAs; CTA (a, g) keeps its 16
+//     rows of wh ([16, 4H] f32, 128 KB at H=512) in shared memory for all
+//     T frames and owns those units' cells over its group's row tiles.
+//     Each frame it multiplies every unit's dgates of its rows (8 warps, a
+//     gate half each: 4H split 8 ways, each lane 8 or 4 rows x 4 units)
+//     into its units' dh, sums the 8 slices' partials in slice order,
+//     runs the cell backward of its cells (dxw[t], the dc and (1-m)*dh_t
+//     carries), and publishes those dgates, rounded as the product reads
+//     them, into an exchange buffer by frame parity, then releases its
+//     row group's frame counter; the next frame's CTAs of that group
+//     stream the rows through per-warp rings (cp.async, 16 bytes a lane).
+//     The exchange is what bounds it: a direction reads A x B x 4H x 4
+//     bytes of dgates a frame (32 MB at B=128 for both directions), and
+//     the product reads 1.5 to 2 floats of shared memory an FMA.
+//   - split, where the rule does not take rows: bptt_cell (the cell
+//     backward alone, a thread a unit and row) then bptt_dh (the dh product, the 4H
+//     contraction split 8 ways over a cluster, each rank summing its rows
+//     of the 8 partial tiles in rank order), two launches a frame, stream
+//     order the barrier between frames. (The fold's CTAs each reload their
+//     64 KB wh tile and walk one dependent chain a 32-row batch tile.)
 //   Any H.
 // - bf16 W above H=512 (type codes 1 and 2; F2): no cluster holds wh, so
 //   the frame loop is one cooperative launch over the whole card on the
@@ -2404,8 +2419,8 @@ cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
   return cudaGetLastError();
 }
 
-// The frame loop with f32 W: one launch a frame, stream order the barrier
-// between frames. The 4H contraction of dh = dgates @ wh^T is split by
+// The folded frame loop with f32 W (the library's up to B=32): one launch
+// a frame, stream order the barrier between frames. The 4H contraction of dh = dgates @ wh^T is split by
 // unit into FR_SLICES slices of `us` units (ceil(H/8) rounded up to 8;
 // each slice's four gate columns a unit), and the dh units into blocks of
 // FR_M. Grid (ceil(Y/CY)*CY, FR_SLICES, ndir * ceil(B/FR_B)), Y =
@@ -2684,7 +2699,9 @@ cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The split f32 frame loop, two launches a frame: bptt_cell, the cell
+// The split f32 frame loop, two launches a frame (the library's beyond
+// B=32 where lstm_bwd_rows does not fit, and before it everywhere beyond
+// B=32): bptt_cell, the cell
 // backward alone (one thread a unit and row: the dgates into dxw[t] and
 // the dc carry, from pre[t], cs, dys, the mask and the dh carry), then
 // bptt_dh, the dh product dh = round_W(dxw[t]) @ wh^T + (1-m)*dh_t with
@@ -2896,8 +2913,9 @@ cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The f32 frame loop's design by batch size, chosen on an H100 at H=512
-// (PERF.md): the fold for one 32-row batch tile, the split beyond.
+// The per-frame f32 loops by batch size, chosen on an H100 at H=512
+// (PERF.md): the fold for one 32-row batch tile; beyond it lstm_bwd_rows
+// where the rule takes it, else the split (loop_design).
 constexpr int F32_FOLD_MAX_B = 32;
 inline bool f32_folds(int B) { return B <= F32_FOLD_MAX_B; }
 
@@ -2974,18 +2992,440 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
   return 0;
 }
 
+// --- f32 weights at B > 32: the frame loop as one cooperative launch --------
+
+// lstm_bwd_rows: a direction is A = ceil(H/U) unit groups x G row groups
+// of co-resident CTAs. CTA (a, g) owns units U*a .. U*a + U-1 over the
+// rows of its row group's tiles (TR rows each): the cell backward of
+// those cells (their four gate columns of dxw[t] and their carries) and
+// their dh, the product
+//   dh[b][own units] = dg[b][0:4H] @ wh[own units][0:4H]^T   (f32 FMAs)
+// with dg = round_RT(S(dgate)) = f32(dxw[t]) of every unit of the rows,
+// which crosses CTAs through L2 once a frame; each row group waits only on
+// the A CTAs that share its rows.
+constexpr int YTHREADS = 256;    // 8 warps: a contraction slice each
+constexpr int YSL = 8;           // slices: 4 gates x 2 halves of H
+constexpr int YKC = 8;           // contraction columns of a chunk
+constexpr int YCOUNT = 1024;     // bytes of the row groups' frame counters
+constexpr int YMAX_GROUPS = YCOUNT / 4;
+
+// How lstm_bwd_rows<RPL> lays out its work: a CTA owns U units; a lane
+// multiplies RPL rows by 4 units over its warp's slice; a warp's lanes are
+// NRG row groups x NUG unit groups, so a tile is TR rows by all U units,
+// and the 8 slices' partial sums meet in shared memory. Each 16-byte
+// shared-memory load feeds 4 rows or 4 units of FMAs, so the product
+// reads (RPL + 4) / (4 * RPL) floats of shared memory an FMA: at 4 rows a
+// lane twice what the SM's shared memory feeds its FMA units, at 8 rows
+// 1.5 times.
+template <int RPL>  // 4 or 8
+struct LoopShape {
+  static constexpr int U = 16;
+  static constexpr int NUG = U / 4;
+  static constexpr int NRG = 32 / NUG;
+  static constexpr int TR = RPL * NRG;                // rows of a tile
+  static constexpr int CHUNK = TR * YKC;              // floats: one copy
+  static constexpr int STAGES = TR == 32 ? 4 : 3;     // a warp's ring
+  static constexpr int RLD = U + 4;                   // padded partial row
+  static constexpr int NC = TR * U / YTHREADS;        // cells a thread
+};
+
+// contraction columns of a slice: half of H, padded to whole chunks
+__host__ __device__ constexpr int yhh(int H) {
+  return ((H + 1) / 2 + YKC - 1) / YKC * YKC;
+}
+
+// shared memory of lstm_bwd_rows<RPL>: the warps' rings, the slices'
+// partial sums and the CTA's rows of wh, [YSL][Hh][U]
+template <int RPL>
+__host__ __device__ constexpr int loop_rows_smem(int H) {
+  using L = LoopShape<RPL>;
+  return 4 * (YSL * L::STAGES * L::CHUNK + YSL * L::TR * L::RLD +
+              YSL * yhh(H) * L::U);
+}
+
+// bytes of one parity of a dg exchange of tiles of TR rows: whole tiles,
+// each row the 8 slices' Hh columns
+inline long long loop_rows_exchange(int TR, int B, int H) {
+  return (long long)(B + TR - 1) / TR * TR * YSL * yhh(H) * 4;
+}
+
+// where dg[b][column k of slice sl] lies in a dg buffer: [tile b / TR]
+// [slice][chunk k / 8][row b % TR][8 columns], so that a warp's ring stage
+// (one chunk of its slice for one tile) is one contiguous block, 16 bytes
+// a lane and copy; rows with bit 2 set hold their two 4-column halves
+// swapped, so that the 8 rows a warp reads at once fall in distinct banks
+template <int TR>
+__device__ __forceinline__ long long loop_dg_at(int b, int sl, int k,
+                                                int nch) {
+  const int r = b % TR;
+  return ((((long long)(b / TR) * YSL + sl) * nch + k / YKC) * TR + r) * YKC +
+         ((k % YKC) ^ (((r >> 2) & 1) << 2));
+}
+
+template <typename S>
+struct RowsBwdDir {
+  const float* pre;     // [T, B, 4H] from the gate GEMM
+  const float* wh;      // [H, 4H]
+  const S* cs;          // [T, B, H]
+  const S* dys;         // [T, B, H]
+  S* dxw;               // [T, B, 4H]
+  unsigned int* count;  // [row groups] frames released x CTAs, zeroed
+  float* dgx;           // 2 parities of loop_rows_exchange, zeroed
+  float* dc;            // [B, H] dc carry
+  float* keep;          // [B, H] (1-m)*dh_t carry
+  int reverse;
+};
+
+// Grid (A, G, ndir), cooperative. Warp w multiplies slice w: gate w/2,
+// columns (w%2)*Hh .. +Hh-1 of it, for all U units of the CTA, reading
+// those rows of wh from shared memory and streaming its slice of dg
+// through a private ring of chunks (chunk c of tile q, one cp.async group
+// of 16 bytes a lane, through L2 alone: L1 is not coherent, and the
+// buffers are rewritten every other frame; one bulk copy a chunk ran 9-11%
+// slower on an H100, and deeper rings did not help: PERF.md).
+// The slices' partial sums meet in shared memory and each (row, unit)
+// cell sums them in slice order: fixed order, one writer per dxw, dh and
+// dc element, so two runs give the same bits. RT: the type the product's
+// dg operand is rounded to (float, or bf16 for f32 streams with bf16
+// weights; bf16 streams are bf16 values already).
+template <typename S, typename RT, int RPL>
+__global__ void __launch_bounds__(YTHREADS, 1)
+lstm_bwd_rows(RowsBwdDir<S> d0, RowsBwdDir<S> d1,
+              const float* __restrict__ mask, int T, int B, int H, int tpg) {
+  using L = LoopShape<RPL>;
+  constexpr int U = L::U, NUG = L::NUG, NRG = L::NRG, TR = L::TR;
+  constexpr int CHUNK = L::CHUNK;
+  constexpr int STAGES = L::STAGES, RLD = L::RLD, NC = L::NC;
+  const RowsBwdDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const unsigned int A = gridDim.x;  // the CTAs of a row group
+  const int j0 = blockIdx.x * U, grp = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Hh = yhh(H), nch = Hh / YKC;
+  const int nt = (B + TR - 1) / TR;
+  const int t_lo = grp * tpg, ntg = min(nt, t_lo + tpg) - t_lo;
+  const int per_step = ntg * nch;  // chunks a warp brings a frame
+  const long long G = 4LL * H;
+  const long long XB = (long long)nt * TR * YSL * Hh;  // floats a parity
+  extern __shared__ __align__(16) uint8_t yrows_raw[];
+  float* ring = reinterpret_cast<float*>(yrows_raw);  // [YSL][STAGES]
+  float* red = ring + YSL * STAGES * CHUNK;  // [YSL][TR][RLD]
+  float* ws = red + YSL * TR * RLD;          // [YSL][Hh][U]
+
+  // ws[sl][k][u] = wh[j0 + u][g*H + half*Hh + k] (sl = 2g + half), zeros
+  // past H
+  for (int q = tid; q < YSL * Hh * U; q += YTHREADS) {
+    const int k = q % Hh, u = (q / Hh) % U, sl = q / (Hh * U);
+    const int col = (sl % 2) * Hh + k;
+    const bool ok = j0 + u < H && col < H;
+    cp_async4_zfill(ws + (sl * Hh + k) * U + u,
+                    d.wh + (ok ? (long long)(j0 + u) * G +
+                                     (long long)(sl / 2) * H + col
+                               : 0),
+                    ok);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int sl = warp, ug = lane % NUG, rg = lane / NUG;
+  float* wring = ring + sl * STAGES * CHUNK;
+
+  // the cells this thread updates (cell tid + 256e: row cell / U, unit
+  // cell % U) of the tile at row b0: pre, cs[t], cs[tp], dys, the mask
+  // and its carries, loaded at the tile's start, in flight during the
+  // product
+  float pv[NC][4], tv[NC], cpv[NC], dyv[NC], mv[NC], dcv[NC], kv[NC];
+  auto load_cells = [&](int t, int tp, int b0, bool carry) {
+#pragma unroll
+    for (int e = 0; e < NC; ++e) {
+      const int cell = tid + e * YTHREADS;
+      const int b = b0 + cell / U, j = j0 + cell % U;
+      if (b < B && j < H) {
+        const float* p = d.pre + ((long long)t * B + b) * G + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) pv[e][g] = p[g * H];
+        const long long own = (long long)b * H + j;
+        tv[e] = to_f32(d.cs[(long long)t * B * H + own]);
+        cpv[e] = tp >= 0 ? to_f32(d.cs[(long long)tp * B * H + own]) : 0.0f;
+        dyv[e] = to_f32(d.dys[(long long)t * B * H + own]);
+        mv[e] = mask[(long long)t * B + b];
+        dcv[e] = carry ? d.dc[own] : 0.0f;
+        kv[e] = carry ? d.keep[own] : 0.0f;
+      }
+    }
+  };
+
+  int used = 0;  // the warp's chunks of earlier frames (ring phases)
+  for (int step = 0; step < T; ++step) {  // the scan order, backwards
+    const int t = d.reverse == 0 ? T - 1 - step : step;
+    const int tp = d.reverse ? (t + 1 < T ? t + 1 : -1) : t - 1;
+    // dg of the previous frame, and this frame's
+    const float* cur = d.dgx + ((step + 1) & 1) * XB;
+    float* nxt = d.dgx + (step & 1) * XB;
+    // chunk i of the frame (tile i / nch, chunk i % nch of the warp's
+    // slice) into its ring stage, one cp.async group (empty past the
+    // frame's chunks)
+    auto post = [&](int i) {
+      if (i < per_step) {
+        const float* src =
+            cur + (((long long)(t_lo + i / nch) * YSL + sl) * nch + i % nch) *
+                      CHUNK;
+        float* dst = wring + (used + i) % STAGES * CHUNK;
+        for (int v = lane; v < CHUNK / 4; v += 32) {
+          cp_async16(dst + 4 * v, src + 4 * v);
+        }
+      }
+      cp_async_commit();
+    };
+    if (step > 0 && lane == 0) {
+      // dg of the previous frame complete for the group's rows: every CTA
+      // of the row group has released it (co-residency makes the wait
+      // finite; a fault traps after about 10 s instead of hanging)
+      const long long start = clock64();
+      while (ld_acquire_gpu(d.count + grp) < A * step) {
+        if (clock64() - start > (1LL << 34)) __trap();
+      }
+    }
+    __syncwarp();  // the lanes' copies follow lane 0's acquire
+    if (step > 0) {
+      for (int i = 0; i < STAGES; ++i) post(i);
+    }
+    for (int q = 0; q < ntg; ++q) {
+      const int b0 = (t_lo + q) * TR;
+      const bool last = q == ntg - 1;
+      load_cells(t, tp, b0, step > 0);
+      float dhp[NC] = {};  // the product's dh of the cells
+      if (step > 0) {
+        float acc[RPL][4];
+#pragma unroll
+        for (int i = 0; i < RPL; ++i)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][v] = 0.0f;
+        for (int c = 0; c < nch; ++c) {
+          const int i = q * nch + c;
+          cp_async_wait_group<STAGES - 1>();  // this lane's copies of i
+          __syncwarp();                       // ... and every lane's
+          const float* dg = wring + (used + i) % STAGES * CHUNK;
+          const float* wk = ws + (sl * Hh + c * YKC) * U + 4 * ug;
+#pragma unroll
+          for (int kq = 0; kq < 2; ++kq) {
+            float4 a4[RPL];
+#pragma unroll
+            for (int r4 = 0; r4 < RPL; ++r4) {
+              const int r = rg + NRG * r4;
+              a4[r4] = *reinterpret_cast<const float4*>(
+                  dg + r * YKC + 4 * (kq ^ ((r >> 2) & 1)));
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 w4 =
+                  *reinterpret_cast<const float4*>(wk + (4 * kq + kk) * U);
+              const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+              for (int r4 = 0; r4 < RPL; ++r4) {
+                const float x = kk == 0   ? a4[r4].x
+                                : kk == 1 ? a4[r4].y
+                                : kk == 2 ? a4[r4].z
+                                          : a4[r4].w;
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  acc[r4][v] = fmaf(x, wv[v], acc[r4][v]);
+                }
+              }
+            }
+          }
+          __syncwarp();  // every lane read the chunk: refill its stage
+          post(i + STAGES);
+        }
+        // the slice's partial sums: rows rg + NRG*r4, units 4ug .. 4ug+3
+#pragma unroll
+        for (int r4 = 0; r4 < RPL; ++r4) {
+          *reinterpret_cast<float4*>(
+              red + (sl * TR + rg + NRG * r4) * RLD + 4 * ug) =
+              make_float4(acc[r4][0], acc[r4][1], acc[r4][2], acc[r4][3]);
+        }
+        __syncthreads();  // the partials are in
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          const int cell = tid + e * YTHREADS;
+          const int rr = cell / U, u = cell % U;
+          float tot = red[rr * RLD + u];
+#pragma unroll
+          for (int s = 1; s < YSL; ++s) tot += red[(s * TR + rr) * RLD + u];
+          dhp[e] = tot;
+        }
+      }
+      // the cell backward (precise expf / tanhf, as bptt_cell); dg(t) goes
+      // to the exchange at once, dxw[t] and the carries of the frame's
+      // last tile only after its release (they are not on the next
+      // frame's path)
+      S v[NC][4];
+      float dc_n[NC], keep_n[NC];
+#pragma unroll
+      for (int e = 0; e < NC; ++e) {
+        const int cell = tid + e * YTHREADS;
+        const int rr = cell / U, u = cell % U;
+        const int b = b0 + rr, j = j0 + u;
+        const float gi = sigmoid_f32(pv[e][0]);
+        const float gf = sigmoid_f32(pv[e][1]);
+        const float gg = tanhf(pv[e][2]);
+        const float go = sigmoid_f32(pv[e][3]);
+        const float tc = tanhf(tv[e]);
+        const float m = mv[e];
+        const float dh_t = (dhp[e] + kv[e]) + dyv[e];
+        const float dc_t = dcv[e] + dh_t * go * (1.0f - tc * tc);
+        v[e][0] = from_f32<S>((dc_t * gg) * gi * (1.0f - gi) * m);
+        v[e][1] = from_f32<S>((dc_t * cpv[e]) * gf * (1.0f - gf) * m);
+        v[e][2] = from_f32<S>((dc_t * gi) * (1.0f - gg * gg) * m);
+        v[e][3] = from_f32<S>((dh_t * tc) * go * (1.0f - go) * m);
+        dc_n[e] = m * (dc_t * gf) + (1.0f - m) * dcv[e];
+        keep_n[e] = (1.0f - m) * dh_t;
+        if (b >= B || j >= H || step + 1 == T) continue;
+        // the dg operand of the next frame's product: column g*H + j is
+        // column j % Hh of slice 2g + j / Hh
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          nxt[loop_dg_at<TR>(b, 2 * g + j / Hh, j % Hh, nch)] =
+              round_to<RT>(to_f32(v[e][g]));
+        }
+      }
+      auto store = [&]() {  // dxw[t] and the carries of the tile's cells
+#pragma unroll
+        for (int e = 0; e < NC; ++e) {
+          const int cell = tid + e * YTHREADS;
+          const int b = b0 + cell / U, j = j0 + cell % U;
+          if (b >= B || j >= H) continue;
+          S* dx = d.dxw + ((long long)t * B + b) * G + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) dx[g * H] = v[e][g];
+          if (step + 1 == T) continue;  // nobody reads the last carries
+          const long long own = (long long)b * H + j;
+          d.dc[own] = dc_n[e];
+          d.keep[own] = keep_n[e];
+        }
+      };
+      if (!last) store();
+      if (last && step + 1 < T) fence_proxy_async_global();
+      __syncthreads();  // the partials are read (the next tile rewrites
+                        // them) and every dg of the frame is stored
+      if (last && tid == 0 && step + 1 < T) {  // release dg(t): one count
+        asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                     :: "l"(d.count + grp) : "memory");
+      }
+      if (last) store();  // behind the release
+    }
+    if (step > 0) used += per_step;
+  }
+}
+
+// How lstm_bwd_rows runs ndir directions at B, H on `sms` SMs: whether it
+// fits (its rows of wh in shared memory, H <= 688, and ceil(H/16) CTAs a
+// direction on the card), RPL rows a lane (8 where every row group the
+// card holds gets a whole 64-row tile, else 4), TR rows a tile, the row
+// groups and the tiles of each (as many groups as fill the card, each
+// holding a tile)
+struct LoopRowsPlan {
+  bool fits;
+  int RPL, TR, groups, tpg;
+};
+
+inline LoopRowsPlan loop_rows_plan(int B, int H, int ndir, int sms) {
+  constexpr int U = LoopShape<4>::U;
+  LoopRowsPlan p = {false, 4, 0, 0, 0};
+  const int A = (H + U - 1) / U;
+  if (loop_rows_smem<4>(H) > 232448 || (long long)ndir * A > sms) return p;
+  p.fits = true;
+  const int gmax = std::max(1, std::min(sms / (ndir * A), YMAX_GROUPS));
+  if (loop_rows_smem<8>(H) <= 232448 && B >= 64 * gmax) p.RPL = 8;
+  p.TR = p.RPL == 8 ? LoopShape<8>::TR : LoopShape<4>::TR;
+  const int nt = (B + p.TR - 1) / p.TR;
+  const int g = std::min(nt, gmax);
+  p.tpg = (nt + g - 1) / g;
+  p.groups = (nt + p.tpg - 1) / p.tpg;
+  return p;
+}
+
+// lstm_bwd_rows' scratch behind pre: the row groups' frame counters, two
+// parities of the exchange (both zeroed before the launch; sized for the
+// larger tile), the f32 dc and (1-m)*dh_t carries [B, H]
+inline long long loop_rows_scratch(int B, int H) {
+  return YCOUNT + 2 * loop_rows_exchange(64, B, H) + 2LL * B * H * 4;
+}
+
+template <typename S, typename RT, int RPL>
+cudaError_t launch_loop_rows(const RowsBwdDir<S>* d, const float* mask,
+                             int T, int B, int H, int ndir,
+                             const LoopRowsPlan& p, cudaStream_t stream) {
+  constexpr int U = LoopShape<RPL>::U;
+  auto kernel = lstm_bwd_rows<S, RT, RPL>;
+  const int smem = loop_rows_smem<RPL>(H);
+  static int configured = 0;  // per instantiation: the largest opt-in yet
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  int T_ = T, B_ = B, H_ = H, tpg = p.tpg;
+  RowsBwdDir<S> d0 = d[0], d1 = d[1];
+  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &tpg};
+  // cooperative: every CTA resident at once (each waits on the others'
+  // frames), or the launch fails with cudaErrorCooperativeLaunchTooLarge
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel),
+      dim3((H + U - 1) / U, p.groups, ndir), dim3(YTHREADS), args, smem,
+      stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename S, typename RT>
+cudaError_t run_loop_rows(int T, int B, int H, int ndir, const float* mask,
+                          const void* const* wh, const void* const* cs,
+                          const void* const* dys, void* const* dxw,
+                          float* const* scratch, const int* reverse,
+                          cudaStream_t stream) {
+  const LoopRowsPlan p = loop_rows_plan(B, H, ndir, device_sms());
+  if (!p.fits) return cudaErrorInvalidValue;
+  const long long n_pre = (long long)T * B * 4 * H;
+  const long long xb = loop_rows_exchange(p.TR, B, H);
+  RowsBwdDir<S> d[2];
+  for (int i = 0; i < ndir; ++i) {
+    uint8_t* tail = reinterpret_cast<uint8_t*>(scratch[i] + n_pre);
+    // the counters and the exchange start at zero: columns and rows no
+    // CTA owns (past H, past B) are read by the product as zeros
+    const cudaError_t err = cudaMemsetAsync(tail, 0, YCOUNT + 2 * xb, stream);
+    if (err != cudaSuccess) return err;
+    d[i].pre = scratch[i];
+    d[i].wh = static_cast<const float*>(wh[i]);
+    d[i].cs = static_cast<const S*>(cs[i]);
+    d[i].dys = static_cast<const S*>(dys[i]);
+    d[i].dxw = static_cast<S*>(dxw[i]);
+    d[i].count = reinterpret_cast<unsigned int*>(tail);
+    d[i].dgx = reinterpret_cast<float*>(tail + YCOUNT);
+    d[i].dc = reinterpret_cast<float*>(tail + YCOUNT + 2 * xb);
+    d[i].keep = d[i].dc + (long long)B * H;
+    d[i].reverse = reverse[i];
+  }
+  if (ndir == 1) d[1] = d[0];
+  return p.RPL == 8
+             ? launch_loop_rows<S, RT, 8>(d, mask, T, B, H, ndir, p, stream)
+             : launch_loop_rows<S, RT, 4>(d, mask, T, B, H, ndir, p, stream);
+}
+
 // The gate GEMM's designs: GEMM_FMA, bptt_gates_gemm's f32 form on the
 // FMA units (wh in f32: f32 weights, or bf16 ones widened); GEMM_WIDE,
 // bptt_gates_gemm_wide (bf16 wh: type codes 1 and 2 only).
-// The frame loop's: LOOP_SPLIT and LOOP_FOLD (wh in f32), LOOP_PERSISTENT
-// (bf16 wh; codes 1 and 2, H <= 512), LOOP_TC (bf16 wh; codes 1 and 2,
-// where bwd_tc_fits).
+// The frame loop's: LOOP_SPLIT, LOOP_FOLD and LOOP_ROWS (wh in f32; any
+// type code, LOOP_ROWS where loop_rows_plan fits), LOOP_PERSISTENT (bf16
+// wh; codes 1 and 2, H <= 512), LOOP_TC (bf16 wh; codes 1 and 2, where
+// bwd_tc_fits).
 constexpr int GEMM_FMA = 0;
 constexpr int GEMM_WIDE = 1;
 constexpr int LOOP_SPLIT = 0;
 constexpr int LOOP_FOLD = 1;
 constexpr int LOOP_PERSISTENT = 2;
 constexpr int LOOP_TC = 3;
+constexpr int LOOP_ROWS = 4;
 
 inline bool bf16_weights(int type_code) {
   return type_code == 1 || type_code == 2;
@@ -3001,14 +3441,24 @@ inline int gates_design(int type_code, int H) {
 // The frame loop: bf16 weights up to BMAX_H on lstm_bwd_persistent, above
 // it on lstm_bwd_tc where it fits (H <= 1056 for two directions) at every
 // B (timed in turns against the f32-weight loops on an H100 at H=1000,
-// PERF.md); else the f32-weight loop by B (f32_folds), bf16 weights
-// widened.
+// PERF.md); else the f32-weight loop, bf16 weights widened: the fold up
+// to B=32, beyond it lstm_bwd_rows for two directions while the card
+// holds two row groups (H <= 528 on 132 SMs), else the split. Timed on an
+// H100 (PERF.md) at B 64-512: lstm_bwd_rows 1.3-2.6x faster than the
+// split at H 64-256, 1.1-1.5x at H 384-512 (at H=384, B=512 within 4%);
+// 2-53% slower at H 576-688, where one row group walks every tile.
 inline int loop_design(int type_code, int B, int H, int ndir) {
   if (bf16_weights(type_code)) {
     if (H <= BMAX_H) return LOOP_PERSISTENT;
     if (bwd_tc_fits(H, ndir)) return LOOP_TC;
   }
-  return f32_folds(B) ? LOOP_FOLD : LOOP_SPLIT;
+  if (f32_folds(B)) return LOOP_FOLD;
+  const int sms = device_sms();
+  const int A = (H + LoopShape<4>::U - 1) / LoopShape<4>::U;
+  return ndir == 2 && loop_rows_plan(B, H, ndir, sms).fits &&
+                 sms / (ndir * A) >= 2
+             ? LOOP_ROWS
+             : LOOP_SPLIT;
 }
 
 // bytes of a direction's scratch for the frame loop's design: the
@@ -3023,6 +3473,8 @@ inline long long bwd_scratch(int loop, int T, int B, int H) {
       return pre;
     case LOOP_TC:
       return pre + bwd_tc_scratch(B, H);
+    case LOOP_ROWS:
+      return pre + loop_rows_scratch(B, H);
   }
   return -1;
 }
@@ -3076,8 +3528,9 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
   if (gemm == -1) gemm = gates_design(type_code, H);
   if (loop == -1) loop = loop_design(type_code, B, H, ndir);
   if (gemm < GEMM_FMA || gemm > GEMM_WIDE || loop < LOOP_SPLIT ||
-      loop > LOOP_TC ||
-      (loop >= LOOP_PERSISTENT && !bf16_weights(type_code))) {
+      loop > LOOP_ROWS ||
+      ((loop == LOOP_PERSISTENT || loop == LOOP_TC) &&
+       !bf16_weights(type_code))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* xw[2] = {xw0, xw1};
@@ -3112,6 +3565,19 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
             : run_loop_tc<float>(T, B, H, ndir, m, wh, cs, dys, dxw, scratch,
                                  reverse, s));
   }
+  if (loop == LOOP_ROWS) {
+    switch (type_code) {
+      case 0:
+        return static_cast<int>(run_loop_rows<float, float>(
+            T, B, H, ndir, m, whf, cs, dys, dxw, scratch, reverse, s));
+      case 2:
+        return static_cast<int>(run_loop_rows<float, bf16>(
+            T, B, H, ndir, m, whf, cs, dys, dxw, scratch, reverse, s));
+      default:  // 1, 3: bf16 streams, every operand a bf16 value
+        return static_cast<int>(run_loop_rows<bf16, float>(
+            T, B, H, ndir, m, whf, cs, dys, dxw, scratch, reverse, s));
+    }
+  }
   const int fold = loop == LOOP_FOLD;
   switch (type_code) {
     case 0:
@@ -3134,10 +3600,11 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
 // form) or 1 (bptt_gates_gemm_wide; the library's for bf16 weights, codes
 // 1 and 2), then the frame loop, loop 0 (T bptt_cell and T bptt_dh
 // launches), 1 (T bptt_frame launches), 2 (one lstm_bwd_persistent
-// launch; codes 1 and 2) or 3 (one lstm_bwd_tc launch; codes 1 and 2;
-// vo_lstm_bwd_loop_design says which the library runs). wh{0,1}: [H, 4H]
+// launch; codes 1 and 2), 3 (one lstm_bwd_tc launch; codes 1 and 2) or 4
+// (one lstm_bwd_rows launch, where it fits; vo_lstm_bwd_loop_design says
+// which the library runs). wh{0,1}: [H, 4H]
 // in the weight type; whf{0,1}: the same in f32 (bf16 weights widened),
-// which the FMA gate GEMM and the f32 frame loops read (for f32 weights,
+// which the FMA gate GEMM and the f32-weight loops read (for f32 weights,
 // wh again). scratch{0,1}: vo_lstm_bwd_scratch bytes for the loop, 16-byte
 // aligned, any contents. Writes dxw{0,1} [T, B, 4H] in S. Returns the
 // first non-zero CUDA error of a launch, or 0. bf16 weights with gemm 0
@@ -3186,8 +3653,9 @@ extern "C" int vo_lstm_bwd_persistent_plan(int type_code, int B, int H,
 }
 
 // The scratch (bytes) a direction needs for the frame loop design `loop`
-// (0-3) at T, B, H: the recomputed gates, then the loop's carries (and
-// lstm_bwd_tc's dg exchange and frame counter); -1 for another loop.
+// (0-4) at T, B, H: the recomputed gates, then the loop's carries (and
+// the cooperative loops' dg exchange and frame counters); -1 for another
+// loop.
 extern "C" long long vo_lstm_bwd_scratch(int loop, int T, int B, int H) {
   return bwd_scratch(loop, T, B, H);
 }

@@ -153,11 +153,47 @@
 // - Co-residency: cudaLaunchCooperativeKernel refuses a grid the card
 //   cannot hold at once (the call returns the error, never deadlocks); a
 //   wait that outlives about 10 s traps.
-// - Limits: U <= 16 (H <= 1056 for two directions on 132 SMs). The library
-//   chooses lstm_fwd_grid or lstm_step by shape (f32_grid: up to B=320 at
-//   H=512, where lstm_step then wins), as measured on an H100 (PERF.md).
-//   vo_lstm_fwd_named names any of the four kernels.
-// lstm_step, one launch a frame, stays for the other shapes:
+// - Limits: U <= 16 (H <= 1056 for two directions on 132 SMs).
+// f32 weights at large B (lstm_fwd_rows): the grid kernel walks a
+// direction's row tiles in series on every CTA, each tile's 16-way
+// contraction split meeting in shared memory behind a barrier, and every
+// CTA reads all of h(t) (1 MB at B=512); there a frame is a real GEMM.
+// So CTAs own a unit slice x a row group instead:
+// - A direction is A = ceil(H/16) unit groups x G row groups (32 x 2 at
+//   H=512, B=512: 128 CTAs); CTA (a, g) owns units 16a .. 16a+15 and
+//   their four gate columns over its group's row tiles. Its [Hp, 64] slice
+//   of wh (128 KB at H=512) stays in shared memory for all T frames.
+// - Warp w owns whole tiles of the group (32 rows): each lane
+//   accumulates 8 rows x 8 columns (two units, four gates) over the whole
+//   contraction, so there is no split, no partial sum and no barrier in
+//   the product, and the cell update is the product's epilogue in the
+//   lane's own registers. The warp streams only its rows of h(t-1) through
+//   a private 4-stage ring (16 bytes a lane and cp.async; per-warp bulk
+//   copies on mbarriers ran 4% slower, deeper rings no faster).
+// - Rows never meet, so each row group has its own frame counter: a CTA
+//   waits only on the A CTAs that share its rows. h(t) crosses CTAs
+//   through L2 in f32, tiled so that a ring stage is one contiguous 2 KB
+//   block; a direction reads A x B x H x 4 bytes of it a frame (32 MB at
+//   B=512), whatever the row split.
+// - The product is bound by shared memory into registers: a 16-byte load
+//   moves 512 bytes a warp (128 a cycle), and 8 x 8 a lane reads one byte
+//   an FMA, as much as the FMA units take. Times on an H100 in PERF.md.
+// - Numerics as lstm_fwd_grid: the reference's expf / tanhf, one writer
+//   for each h, c, ys and cs element, sums in a fixed order: two runs give
+//   the same bits.
+// - Limits (rows_fits): the slice in shared memory (H <= 640) and
+//   ceil(H/16) CTAs a direction on the card; a call it cannot take is
+//   refused.
+// The library's rule (f32_design, times on an H100 in PERF.md):
+// lstm_fwd_grid where its units fit and B is at most 320 at H=512 (128
+// with fewer units, 32 with wh streamed); lstm_fwd_rows beyond B=384 for
+// two directions at H 512-528, where the card holds two row groups (a
+// warp's 32-row tile sets its frame's time, so it wins only where
+// lstm_step's grid needs a second wave and each warp walks one tile);
+// else lstm_step. vo_lstm_fwd_named names any of the five kernels.
+// lstm_step, one launch a frame, stays beyond the grid's B where
+// lstm_fwd_rows does not win or was not timed (B 321-384 at H=512, H
+// below 512 or above 528, one direction):
 // - both directions of a BLSTM layer in the same launch (blockIdx.z), 32
 //   unit tiles x 2 batch tiles x 2 directions = 128 blocks of 128 threads
 //   at the flagship shape;
@@ -690,6 +726,335 @@ int run_grid(int T, int B, int H, int ndir, const float* mask,
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// --- f32 weights at large B: one persistent launch, CTAs over units x rows --
+
+constexpr int RTHREADS = 256;   // 8 warps, each owning whole row tiles
+constexpr int RKC = 8;          // contraction columns of a chunk
+constexpr int RSTAGE = 2048;    // bytes of a ring stage
+constexpr int RSTAGES = 4;      // a warp's ring depth
+constexpr int RK_ALIGN = 16;    // h(t) rows padded to a multiple of this
+
+__host__ __device__ constexpr int rows_hp(int H) {
+  return (H + RK_ALIGN - 1) / RK_ALIGN * RK_ALIGN;
+}
+
+// How lstm_fwd_rows lays out its work: a CTA owns U units; a thread
+// multiplies 8 rows by 8 of their gate columns (two units, four gates
+// each) over the whole contraction; a warp's lanes are NRG row groups x
+// NCG column groups, so a warp owns tiles of WROWS rows and all 4U
+// columns of the CTA.
+struct RowsShape {
+  static constexpr int U = 16;
+  static constexpr int C = 4 * U;           // columns (u%2)*2U + (u/2)*4 + g
+  static constexpr int NCG = U / 2;         // column groups (two units each)
+  static constexpr int NRG = 32 / NCG;      // row groups of a warp
+  static constexpr int WROWS = 8 * NRG;     // rows of a warp's tile
+  static constexpr int CHUNK = WROWS * RKC;        // floats of a chunk
+  static constexpr int SKC = RSTAGE / 4 / CHUNK;   // chunks a ring stage
+};
+
+// shared memory (bytes) of lstm_fwd_rows: the warps' rings, then the
+// CTA's [Hp, 4U] slice of wh
+__host__ __device__ constexpr int rows_smem(int H) {
+  return 8 * RSTAGES * RSTAGE + 4 * rows_hp(H) * RowsShape::C;
+}
+
+// floats of one parity of lstm_fwd_rows' h(t) exchange: whole tiles of
+// WROWS rows, each row Hp columns
+inline long long rows_exchange(int B, int H) {
+  constexpr int W = RowsShape::WROWS;
+  return (long long)(B + W - 1) / W * W * rows_hp(H);
+}
+
+// where h(t)[b][k] lies in a tiled h buffer: [tile b / WROWS][chunk k / 8]
+// [row b % WROWS][8 columns], so that a warp's ring stage (SKC chunks of
+// one tile) is one contiguous block, 16 bytes a lane and copy; rows with
+// bit 2 set hold their two 4-column halves swapped, as the readers do
+// (the 4 rows a warp reads at once fall in distinct banks either way)
+template <int WROWS>
+__device__ __forceinline__ long long rows_h_at(int b, int k, int nck) {
+  const int r = b % WROWS;
+  return (((long long)(b / WROWS) * nck + k / RKC) * WROWS + r) * RKC +
+         ((k % RKC) ^ (((r >> 2) & 1) << 2));
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+template <typename S>
+struct RowsDir {
+  const S* xw;          // [T, B, 4H]
+  const float* wh;      // [H, 4H]
+  S* ys;                // [T, B, H]
+  S* cs;                // [T, B, H] cell states (training form) or nullptr
+  float* hx;            // 2 parities of rows_exchange: h(t) tiled, zeroed
+  float* h;             // [B, H] the f32 h carry, zeroed
+  float* c;             // [B, H] the f32 c carry, zeroed
+  unsigned int* count;  // [row groups] frames done x CTAs, zeroed
+  int reverse;
+};
+
+// Grid (A = ceil(H/U), row groups, ndir), cooperative: CTA (a, g, dir)
+// owns hidden units U*a .. U*a + U-1 of its direction, all four gate
+// columns of each, over the rows of its row group's tiles (tiles tpg*g ..
+// of WROWS rows), for all T frames. Warp w takes the group's tiles w,
+// w + 8, ...; a tile's rows meet no other warp and no other row group, so
+// each warp streams only its rows of h(t-1) through its own ring, and
+// each row group waits only on the A CTAs that share its rows. R: the
+// type h is rounded to as the product reads it (float: none; bf16 for
+// bf16 weights widened to f32).
+template <typename S, typename R>
+__global__ void __launch_bounds__(RTHREADS, 1)
+lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, const float* __restrict__ mask,
+              int T, int B, int H, int tpg) {
+  using Rs = RowsShape;
+  constexpr int U = Rs::U, C = Rs::C, NCG = Rs::NCG, NRG = Rs::NRG;
+  constexpr int WROWS = Rs::WROWS;
+  constexpr int CHUNK = Rs::CHUNK, SKC = Rs::SKC;
+  const RowsDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const unsigned int A = gridDim.x;  // the CTAs of a row group
+  const int j0 = blockIdx.x * U, grp = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int Hp = rows_hp(H), nck = Hp / RKC, nst = nck / SKC;
+  const int nt = (B + WROWS - 1) / WROWS;
+  const int t_lo = grp * tpg, ntg = min(nt, t_lo + tpg) - t_lo;
+  const int nq = (warp < ntg ? (ntg - warp + 7) / 8 : 0) * nst;
+  const long long G = 4LL * H;
+  const long long HX = (long long)nt * WROWS * Hp;
+  extern __shared__ float4 rows_raw[];
+  float* ring = reinterpret_cast<float*>(rows_raw);  // [8][RSTAGES] stages
+  float* w_res = ring + 8 * RSTAGES * (RSTAGE / 4);  // [Hp][C]
+
+  // the CTA's slice of wh, once: column (u%2)*2U + (u/2)*4 + g of row k
+  // is wh[k][g*H + j0 + u] (zeros past H), so that a thread's two units
+  // are two aligned runs of four gates
+  for (int q = tid; q < Hp * C; q += RTHREADS) {
+    const int k = q / C, c = q % C;
+    const int u = (c / (2 * U)) + 2 * ((c % (2 * U)) / 4), g = c % 4;
+    const bool ok = k < H && j0 + u < H;
+    cp_async4_zfill(w_res + q, d.wh + (ok ? k * G + g * H + j0 + u : 0), ok);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this thread's rows rg + NRG*i of a tile and units 2cg, 2cg + 1
+  const int cg = lane % NCG, rg = lane / NCG;
+  float* wring = ring + warp * RSTAGES * (RSTAGE / 4);
+  int done = 0;  // the warp's stages of earlier frames (ring slots)
+
+  for (int step = 0; step < T; ++step, done += nq) {
+    const int t = d.reverse == 0 ? step : T - 1 - step;
+    const float* cur = d.hx + (step & 1) * HX;
+    float* nxt = d.hx + ((step + 1) & 1) * HX;
+    // the warp's stage q: chunks (q % nst)*SKC .. of its tile q / nst of
+    // the tiled h(t-1), 16 bytes a lane and copy, one cp.async group a
+    // stage (through L2 alone: L1 is not coherent and the buffers are
+    // rewritten every other frame); an empty group past the frame's end.
+    // (One bulk copy a stage, completing on an mbarrier, ran 4% slower on
+    // an H100, and deeper rings did not help: the product, not the copies,
+    // bounds the frame; PERF.md.)
+    auto issue = [&](int q) {
+      if (q < nq) {
+        const int slot = (done + q) % RSTAGES;
+        const int tile = t_lo + warp + 8 * (q / nst);
+        const float* src =
+            cur + ((long long)tile * nck + (q % nst) * SKC) * CHUNK;
+        float* dst = wring + slot * (RSTAGE / 4);
+        for (int v = lane; v < RSTAGE / 16; v += 32) {
+          cp_async16(dst + 4 * v, src + 4 * v);
+        }
+      }
+      cp_async_commit();
+    };
+    if (lane == 0 && nq > 0 && step > 0) {
+      // h(t-1) of the group's rows complete: every CTA of the row group
+      // has released it (co-residency makes the wait finite; a fault traps
+      // after about 10 s instead of hanging)
+      const long long start = clock64();
+      while (ld_acquire_gpu(d.count + grp) < A * step) {
+        if (clock64() - start > (1LL << 34)) __trap();
+      }
+    }
+    __syncwarp();  // the lanes' copies follow lane 0's acquire
+    if (nq > 0) {
+      for (int q = 0; q < RSTAGES - 1; ++q) issue(q);
+    }
+
+    float acc[8][8];
+    for (int q = 0; q < nq; ++q) {
+      const int s = q % nst;
+      const int b0 = (t_lo + warp + 8 * (q / nst)) * WROWS;
+      if (s == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+        // the tile's xw rows into L2 for its epilogue, during the product
+        if (cg == 0) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int b = b0 + rg + NRG * i;
+            if (b >= B) continue;
+            const S* x = d.xw + ((long long)t * B + b) * G + j0;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) prefetch_l2(x + g * H);
+          }
+        }
+      }
+      const int slot = (done + q) % RSTAGES;
+      cp_async_wait_group<RSTAGES - 2>();  // this lane's copies of stage q
+      __syncwarp();  // ... and every lane's; the warp is past stage q - 1
+      issue(q + RSTAGES - 1);  // into stage q - 1's slot
+      const float* hs = wring + slot * (RSTAGE / 4);
+#pragma unroll
+      for (int cc = 0; cc < SKC; ++cc) {
+        const int k0 = (s * SKC + cc) * RKC;
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          float4 h4[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = rg + NRG * i;
+            h4[i] = round4<R>(*reinterpret_cast<const float4*>(
+                hs + cc * CHUNK + r * RKC + 4 * (kq ^ ((r >> 2) & 1))));
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float* wr = w_res + (k0 + 4 * kq + kk) * C + 4 * cg;
+            const float4 wa = *reinterpret_cast<const float4*>(wr);
+            const float4 wb = *reinterpret_cast<const float4*>(wr + 2 * U);
+            const float w8[8] = {wa.x, wa.y, wa.z, wa.w,
+                                 wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float hk = kk == 0   ? h4[i].x
+                               : kk == 1 ? h4[i].y
+                               : kk == 2 ? h4[i].z
+                                         : h4[i].w;
+#pragma unroll
+              for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(hk, w8[c], acc[i][c]);
+            }
+          }
+        }
+      }
+      if (s != nst - 1) continue;
+      // the tile's product is done: the thread's cells (8 rows x its two
+      // units) hold all four gates, so the cell update needs no exchange
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int b = b0 + rg + NRG * i;
+        if (b >= B) continue;
+        const float m = mask[(long long)t * B + b];
+        const S* x = d.xw + ((long long)t * B + b) * G;
+#pragma unroll
+        for (int uu = 0; uu < 2; ++uu) {
+          const int j = j0 + 2 * cg + uu;
+          if (j >= H) continue;
+          const float i_ = sigmoid_f32(to_f32(x[j]) + acc[i][4 * uu]);
+          const float f_ = sigmoid_f32(to_f32(x[H + j]) + acc[i][4 * uu + 1]);
+          const float g_ = tanhf(to_f32(x[2 * H + j]) + acc[i][4 * uu + 2]);
+          const float o_ = sigmoid_f32(to_f32(x[3 * H + j]) + acc[i][4 * uu + 3]);
+          const long long own = (long long)b * H + j;
+          const float c_old = d.c[own];
+          const float h_old = d.h[own];
+          const float c_new = f_ * c_old + i_ * g_;
+          const float h_new = o_ * tanhf(c_new);
+          const float h = m * h_new + (1.0f - m) * h_old;
+          const float c = m * c_new + (1.0f - m) * c_old;
+          d.c[own] = c;
+          d.h[own] = h;
+          nxt[rows_h_at<WROWS>(b, j, nck)] = h;
+          const long long out = ((long long)t * B + b) * H + j;
+          d.ys[out] = from_f32<S>(h);
+          if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
+        }
+      }
+    }
+    fence_proxy_async_global();  // h(t) before the release, as the other
+    __syncthreads();             // cooperative kernels order it
+    if (tid == 0 && step + 1 < T) {  // release h(t): one count a CTA
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                   :: "l"(d.count + grp) : "memory");
+    }
+  }
+}
+
+// whether lstm_fwd_rows takes ndir directions at H on `sms` SMs: the
+// CTA's [Hp, 64] slice of wh in shared memory (H <= 640) and ceil(H/16)
+// CTAs a direction on the card
+inline bool rows_fits(int H, int ndir, int sms) {
+  return rows_smem(H) <= GSMEM_MAX &&
+         (long long)ndir * ((H + RowsShape::U - 1) / RowsShape::U) <= sms;
+}
+
+// the row groups lstm_fwd_rows spreads B over (each of A CTAs a direction)
+// and the tiles of each: as many groups as fill the card's SMs, each
+// holding a tile (a warp's tile, not the SM's FMA rate, sets a frame's
+// time: B=384 and 512 take about as long a frame on an H100, PERF.md)
+inline void rows_plan(int B, int H, int ndir, int sms, int* groups,
+                      int* tpg) {
+  const int W = RowsShape::WROWS, U = RowsShape::U;
+  const int nt = (B + W - 1) / W;
+  const int A = (H + U - 1) / U;
+  const int g = std::max(1, std::min(nt, sms / (ndir * A)));
+  *tpg = (nt + g - 1) / g;
+  *groups = (nt + *tpg - 1) / *tpg;  // every group holds a tile
+}
+
+template <typename S, typename R>
+cudaError_t launch_rows(const RowsDir<S>* d, const float* mask, int T, int B,
+                        int H, int ndir, cudaStream_t stream) {
+  auto kernel = lstm_fwd_rows<S, R>;
+  const int smem = rows_smem(H);
+  static int configured = 0;  // per instantiation: the largest opt-in yet
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = smem;
+  }
+  int groups = 0, tpg = 0;
+  rows_plan(B, H, ndir, device_sms(), &groups, &tpg);
+  int T_ = T, B_ = B, H_ = H;
+  RowsDir<S> d0 = d[0], d1 = d[1];
+  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &tpg};
+  // cooperative: every CTA resident at once (each waits on the others'
+  // frames), or the launch fails with cudaErrorCooperativeLaunchTooLarge
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(kernel),
+      dim3((H + RowsShape::U - 1) / RowsShape::U, groups, ndir),
+      dim3(RTHREADS), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename S, typename R>
+int run_rows(int T, int B, int H, int ndir, const float* mask,
+             const void* const* xw, const void* const* wh, void* const* ys,
+             void* const* cs, float* const* scratch, const int* reverse,
+             cudaStream_t stream) {
+  if (!rows_fits(H, ndir, device_sms())) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long HX = rows_exchange(B, H);
+  const long long BH = (long long)B * H;
+  RowsDir<S> d[2];
+  for (int i = 0; i < ndir; ++i) {
+    d[i].xw = static_cast<const S*>(xw[i]);
+    d[i].wh = static_cast<const float*>(wh[i]);
+    d[i].ys = static_cast<S*>(ys[i]);
+    d[i].cs = static_cast<S*>(cs[i]);
+    d[i].hx = scratch[i];
+    d[i].h = scratch[i] + 2 * HX;
+    d[i].c = d[i].h + BH;
+    d[i].count = reinterpret_cast<unsigned int*>(d[i].c + BH);
+    d[i].reverse = reverse[i];
+  }
+  if (ndir == 1) d[1] = d[0];
+  return static_cast<int>(launch_rows<S, R>(d, mask, T, B, H, ndir, stream));
 }
 
 // --- bf16 weights above H=512 (F2): one persistent launch on the tensor cores
@@ -1386,62 +1751,81 @@ int run_persistent(int T, int B, int H, int ndir, const float* mask,
   return static_cast<int>(err);
 }
 
-// f32 weights: lstm_fwd_grid or lstm_step a frame, by shape (both designs'
-// times on an H100 in PERF.md): the grid kernel where its units fit a CTA
-// (grid_units) and B is at most 320 with wh resident and 8 or more units a
-// CTA (H=512: the grid wins up to B=320, lstm_step from B=384), 128 with
-// fewer units (H=256: the grid wins at B=128, not at 256), 32 with wh
-// streamed (H=1000: the grid wins at B=32, not at 128)
-inline bool f32_grid(int B, int H, int ndir) {
-  const int U = grid_units(H, ndir, device_sms());
-  if (U == 0) return false;
-  return B <= (!grid_resident(U, H) ? 32 : U >= 8 ? 320 : 128);
+// The forward's designs (vo_lstm_fwd_named): FWD_STEP (lstm_step a
+// frame), FWD_GRID (lstm_fwd_grid) and FWD_ROWS (lstm_fwd_rows), the
+// f32-weight route, wh in f32; FWD_TC (lstm_fwd_tc: bf16 weights above
+// MAX_H) and FWD_PERSISTENT (lstm_fwd_persistent: bf16 weights up to
+// MAX_H), wh in bf16.
+constexpr int FWD_STEP = 0;
+constexpr int FWD_GRID = 1;
+constexpr int FWD_TC = 2;
+constexpr int FWD_PERSISTENT = 3;
+constexpr int FWD_ROWS = 4;
+
+// f32 weights, by shape (the designs' times on an H100 in PERF.md, two
+// directions): lstm_fwd_grid where its units fit a CTA (grid_units) and B
+// is at most 320 with wh resident and 8 or more units a CTA (H=512), 128
+// with fewer units (H=256), 32 with wh streamed (H=1000); lstm_fwd_rows
+// from B=385 for two directions at H from 512 while the card holds two
+// row groups (H <= 528 on 132 SMs: it wins from B=448, 18% at B=512 and
+// H=512, 17-26% at H=528; it loses at B=384, where lstm_step's grid is
+// one wave, by 11-21% at H 256-384 and by 36-62% at H 576-640, where one
+// row group walks every tile); lstm_step a frame elsewhere
+inline int f32_design(int B, int H, int ndir) {
+  const int sms = device_sms();
+  const int U = grid_units(H, ndir, sms);
+  if (U != 0 && B <= (!grid_resident(U, H) ? 32 : U >= 8 ? 320 : 128)) {
+    return FWD_GRID;
+  }
+  const int A = (H + RowsShape::U - 1) / RowsShape::U;
+  return ndir == 2 && B > 384 && H >= 512 && rows_fits(H, ndir, sms) &&
+                 sms / (ndir * A) >= 2
+             ? FWD_ROWS
+             : FWD_STEP;
 }
 
 template <typename S, typename R>
-int run_f32_as(bool grid, int T, int B, int H, int ndir, const float* mask,
+int run_f32_as(int design, int T, int B, int H, int ndir, const float* mask,
                const void* const* xw, const void* const* wh, void* const* ys,
                void* const* cs, float* const* scratch, const int* reverse,
                cudaStream_t s) {
-  return grid ? run_grid<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
-                               reverse, s)
-              : run_per_frame<S, float, R>(T, B, H, ndir, mask, xw, wh, ys, cs,
-                                           scratch, reverse, s);
+  switch (design) {
+    case FWD_GRID:
+      return run_grid<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+                            reverse, s);
+    case FWD_ROWS:
+      return run_rows<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+                            reverse, s);
+    default:
+      return run_per_frame<S, float, R>(T, B, H, ndir, mask, xw, wh, ys, cs,
+                                        scratch, reverse, s);
+  }
 }
 
 // The f32-weight route of every type code: wh in f32 (for codes 1 and 2
 // the bf16 weights widened, which is exact), h rounded to bf16 before the
 // product for codes 1 and 2, as the reference rounds it.
-int run_f32(bool grid, int type_code, int T, int B, int H, int ndir,
+int run_f32(int design, int type_code, int T, int B, int H, int ndir,
             const float* mask, const void* const* xw, const void* const* wh,
             void* const* ys, void* const* cs, float* const* scratch,
             const int* reverse, cudaStream_t s) {
   switch (type_code) {
     case 0:
-      return run_f32_as<float, float>(grid, T, B, H, ndir, mask, xw, wh, ys,
+      return run_f32_as<float, float>(design, T, B, H, ndir, mask, xw, wh, ys,
                                       cs, scratch, reverse, s);
     case 1:
-      return run_f32_as<bf16, bf16>(grid, T, B, H, ndir, mask, xw, wh, ys, cs,
+      return run_f32_as<bf16, bf16>(design, T, B, H, ndir, mask, xw, wh, ys, cs,
                                     scratch, reverse, s);
     case 2:
-      return run_f32_as<float, bf16>(grid, T, B, H, ndir, mask, xw, wh, ys,
+      return run_f32_as<float, bf16>(design, T, B, H, ndir, mask, xw, wh, ys,
                                      cs, scratch, reverse, s);
     case 3:
-      return run_f32_as<bf16, float>(grid, T, B, H, ndir, mask, xw, wh, ys, cs,
+      return run_f32_as<bf16, float>(design, T, B, H, ndir, mask, xw, wh, ys, cs,
                                      scratch, reverse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-// The forward's designs (vo_lstm_fwd_named): FWD_STEP (lstm_step a
-// frame) and FWD_GRID (lstm_fwd_grid), the f32-weight route, wh in f32;
-// FWD_TC (lstm_fwd_tc: bf16 weights above MAX_H) and FWD_PERSISTENT
-// (lstm_fwd_persistent: bf16 weights up to MAX_H), wh in bf16.
-constexpr int FWD_STEP = 0;
-constexpr int FWD_GRID = 1;
-constexpr int FWD_TC = 2;
-constexpr int FWD_PERSISTENT = 3;
 
 inline bool bf16_weights(int type_code) {
   return type_code == 1 || type_code == 2;
@@ -1450,13 +1834,13 @@ inline bool bf16_weights(int type_code) {
 // The library's design (chosen on an H100: PERF.md): bf16 weights take
 // the persistent kernel up to MAX_H and lstm_fwd_tc above it where it
 // fits (tc_fits: H <= 1056 for two directions), at every B; every other
-// call the f32-weight route, by shape (f32_grid).
+// call the f32-weight route, by shape (f32_design).
 inline int fwd_design(int type_code, int B, int H, int ndir) {
   if (bf16_weights(type_code)) {
     if (H <= MAX_H) return FWD_PERSISTENT;
     if (tc_fits(H, ndir)) return FWD_TC;
   }
-  return f32_grid(B, H, ndir) ? FWD_GRID : FWD_STEP;
+  return f32_design(B, H, ndir);
 }
 
 int fwd(int design, int type_code, int T, int B, int H, int ndir,
@@ -1493,10 +1877,14 @@ int fwd(int design, int type_code, int T, int B, int H, int ndir,
                                             scratch, reverse, s);
     case FWD_GRID:
       if (grid_units(H, ndir, device_sms()) == 0) break;
-      return run_f32(true, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
+      return run_f32(design, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
+                     scratch, reverse, s);
+    case FWD_ROWS:
+      if (!rows_fits(H, ndir, device_sms())) break;
+      return run_f32(design, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
                      scratch, reverse, s);
     case FWD_STEP:
-      return run_f32(false, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
+      return run_f32(design, type_code, T, B, H, ndir, m, xw, wh, ys, cs,
                      scratch, reverse, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1531,7 +1919,8 @@ extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
 // plain version and timed at any shape it takes: 0 lstm_step a frame, 1
 // lstm_fwd_grid (both any type code at any H, wh in f32), 2 lstm_fwd_tc
 // (codes 1 and 2 where tc_fits), 3 lstm_fwd_persistent (codes 1 and 2, H
-// <= 512), -1 the library's.
+// <= 512), 4 lstm_fwd_rows (any type code where rows_fits, wh in f32),
+// -1 the library's.
 extern "C" int vo_lstm_fwd_named(int design, int type_code, int T, int B,
                                  int H, int ndir, const void* mask,
                                  const void* xw0, const void* wh0, void* ys0,
@@ -1552,12 +1941,17 @@ extern "C" int vo_lstm_fwd_design(int type_code, int B, int H, int ndir) {
 
 // The f32 scratch of one direction, in floats: lstm_fwd_grid's h(t) by
 // step parity [2][B][Hp], c [B][H] and its frame counter; lstm_step's h
-// ping, h pong and c [3][B][H]; or lstm_fwd_tc's bf16 h(t) exchange by
-// step parity, h and c [2][B][H] and its frame counter: the largest.
+// ping, h pong and c [3][B][H]; lstm_fwd_tc's bf16 h(t) exchange by step
+// parity, h and c [2][B][H] and its frame counter; or lstm_fwd_rows' h(t)
+// by step parity in whole tiles, h and c [2][B][H] and its row groups'
+// frame counters: the largest.
 extern "C" long long vo_lstm_fwd_scratch(int B, int H) {
   const long long grid =
       2LL * (B + GROWS - 1) / GROWS * GROWS * grid_hp(H) + (long long)B * H + 4;
   const long long step = 3LL * B * H;
   const long long tc = 2 * tc_exchange_bytes(B, H) / 4 + 2LL * B * H + 4;
-  return std::max({grid, step, tc});
+  const long long rows =
+      2 * rows_exchange(B, H) +
+      2LL * B * H + 256;
+  return std::max({grid, step, tc, rows});
 }

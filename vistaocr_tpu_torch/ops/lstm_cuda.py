@@ -29,16 +29,18 @@ design does about it.
   recurrence of one or two directions): ``LAUNCHES`` (forward kernel,
   both forms), ``SAVE_CELL_LAUNCHES`` (of which the ``save_cell`` form),
   ``FWD_GRID_LAUNCHES`` (of which f32 weights on ``lstm_fwd_grid``: one
-  launch), ``FWD_TC_LAUNCHES`` (of which bf16 weights above
-  ``PERSISTENT_MAX_H`` on ``lstm_fwd_tc``: one launch),
+  launch), ``FWD_ROWS_LAUNCHES`` (of which f32 weights on
+  ``lstm_fwd_rows``: one launch), ``FWD_TC_LAUNCHES`` (of which bf16
+  weights above ``PERSISTENT_MAX_H`` on ``lstm_fwd_tc``: one launch),
   ``STEP_LAUNCHES`` (f32 weights on ``lstm_step``: T a call),
   ``BWD_LAUNCHES`` (BPTT frames), ``GATES_GEMM_LAUNCHES`` (of which the
   gate GEMM, any design: one launch), ``GATES_WIDE_LAUNCHES`` (of which
   ``bptt_gates_gemm_wide``),
   ``BWD_PERSISTENT_LAUNCHES`` (of which the persistent frame loop: one
   launch), ``BWD_TC_LAUNCHES`` (of which ``lstm_bwd_tc``: one launch),
-  ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
-  f32-weight frame loop's kernels, each counted T a call) and
+  ``BWD_ROWS_LAUNCHES`` (of which the f32-weight ``lstm_bwd_rows``: one
+  launch), ``FRAME_LAUNCHES``, ``CELL_LAUNCHES`` and ``DH_LAUNCHES`` (the
+  f32-weight per-frame loops' kernels, each counted T a call) and
   ``DWH_LAUNCHES`` (dwh reduction: one launch).
 - Routes. bf16 weights: a BPTT call's gate GEMM (every frame's gate
   recompute as one GEMM) is ``bptt_gates_gemm_wide``, persistent 128 x
@@ -67,11 +69,19 @@ design does about it.
   (``forward_design``, chosen on an H100) as one cooperative
   ``lstm_fwd_grid`` launch (a direction spread over the card, each CTA's
   slice of wh on chip, h exchanged through L2 behind a frame counter;
-  H=512 up to B=320) or one ``lstm_step`` launch per frame; the BPTT is
-  ``bptt_gates_gemm``'s f32 form on the FMA units (TF32 would change the
-  numbers), then by B (``loop_design``): ``bptt_frame`` a frame
-  (the cell backward and the dh product in one launch; 1 + T launches, B
-  <= 32) or ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches); dwh
+  H=512 up to B=320), from B=385 at H=512 to 528 (two directions) one
+  cooperative ``lstm_fwd_rows`` launch (CTAs over unit slices x row
+  groups, each row group waiting only on its own CTAs), else one
+  ``lstm_step`` launch per frame; the BPTT is ``bptt_gates_gemm``'s f32
+  form on the FMA units (TF32 would change the numbers), then by B
+  (``loop_design``):
+  ``bptt_frame`` a frame (the cell backward and the dh product in one
+  launch; 1 + T launches, B <= 32), beyond it one cooperative
+  ``lstm_bwd_rows`` launch (the same skeleton turned around: the cell
+  backward of a CTA's units and rows, then their dh from every unit's
+  dgates, exchanged through L2; 2 launches) for two directions up to
+  H=528, else
+  ``bptt_cell`` and ``bptt_dh`` a frame (1 + 2T launches); dwh
   is ``lstm_dwh_fma``, exact f32 FMAs with the rows split into ranges of
   at most 2048 (and enough ranges for two CTAs an SM), the partial tiles
   added in split order inside the launch.
@@ -94,11 +104,13 @@ GATES_GEMM_LAUNCHES = 0
 GATES_WIDE_LAUNCHES = 0
 BWD_PERSISTENT_LAUNCHES = 0
 BWD_TC_LAUNCHES = 0
+BWD_ROWS_LAUNCHES = 0
 FRAME_LAUNCHES = 0
 CELL_LAUNCHES = 0
 DH_LAUNCHES = 0
 DWH_LAUNCHES = 0
 FWD_GRID_LAUNCHES = 0
+FWD_ROWS_LAUNCHES = 0
 FWD_TC_LAUNCHES = 0
 STEP_LAUNCHES = 0
 _count_lock = threading.Lock()
@@ -119,16 +131,19 @@ GEMM_DESIGNS = ("fma", "wide")
 DWH_DESIGNS = ("tiles", "wide")
 # the BPTT frame loop's designs, by their codes in csrc/lstm_bwd.cu
 # (vo_lstm_bwd_named's loop): the f32-weight loops "split" (bptt_cell and
-# bptt_dh a frame) and "fold" (bptt_frame a frame), wh in f32; bf16
-# weights' "persistent" (lstm_bwd_persistent, up to PERSISTENT_MAX_H) and
-# "tc" (lstm_bwd_tc, above it up to H=1056 for two directions), wh in bf16
-LOOP_DESIGNS = ("split", "fold", "persistent", "tc")
+# bptt_dh a frame), "fold" (bptt_frame a frame) and "rows" (lstm_bwd_rows,
+# one launch), wh in f32; bf16 weights' "persistent" (lstm_bwd_persistent,
+# up to PERSISTENT_MAX_H) and "tc" (lstm_bwd_tc, above it up to H=1056 for
+# two directions), wh in bf16
+LOOP_DESIGNS = ("split", "fold", "persistent", "tc", "rows")
 # the forward's designs, by their codes in csrc/lstm_fwd.cu
-# (vo_lstm_fwd_named): the f32-weight route's "step" (lstm_step a frame)
-# and "grid" (lstm_fwd_grid), wh in f32; "tc" (lstm_fwd_tc, bf16 weights
-# above PERSISTENT_MAX_H) and "persistent" (lstm_fwd_persistent, bf16
-# weights up to it), wh in bf16
-FWD_DESIGNS = ("step", "grid", "tc", "persistent")
+# (vo_lstm_fwd_named): the f32-weight route's "step" (lstm_step a frame),
+# "grid" (lstm_fwd_grid) and "rows" (lstm_fwd_rows), wh in f32; "tc"
+# (lstm_fwd_tc, bf16 weights above PERSISTENT_MAX_H) and "persistent"
+# (lstm_fwd_persistent, bf16 weights up to it), wh in bf16
+FWD_DESIGNS = ("step", "grid", "tc", "persistent", "rows")
+# the designs that read wh in bf16 (bf16 weights only)
+_BF16_WH = ("tc", "persistent")
 
 _TYPE_CODES = {
     (torch.float32, torch.float32): 0,
@@ -345,10 +360,16 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     ``dtype``, reverse). Returns (ys list, cs list or None). The library
     chooses the design by weight type and shape (``forward_design``);
     ``design`` (``FWD_DESIGNS``) names one instead (the f32-weight route's
-    "grid" and "step" take any weight type at any H), so that each can be
-    held to the plain version and timed at any shape it takes."""
+    "grid", "rows" and "step" take any weight type, each at the H it
+    fits), so that each can be held to the plain version and timed at any
+    shape it takes; a bad name raises before anything is built."""
     from . import _build
 
+    if design is not None and design not in FWD_DESIGNS:
+        raise ValueError(f"unknown forward design {design!r}; one of "
+                         f"{FWD_DESIGNS}")
+    if design in _BF16_WH and dtype != torch.bfloat16:
+        raise ValueError(f"the {design} forward takes bf16 weights only")
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
@@ -365,12 +386,10 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     name = FWD_DESIGNS[d]
     # the bf16-weight kernels read wh in bf16, the f32-weight route in f32
     # (bf16 weights widened, exactly)
-    bf16_wh = name in ("tc", "persistent")
-    if bf16_wh and dtype != torch.bfloat16:
-        raise ValueError(f"the {name} forward takes bf16 weights only")
-    # Outputs (and the zeroed scratch: lstm_fwd_grid's and lstm_fwd_tc's
-    # h(t) by step parity, their carries and frame counter; lstm_step's h
-    # and c) are allocated on the launch stream; the caching allocator
+    bf16_wh = name in _BF16_WH
+    # Outputs (and the zeroed scratch: the cooperative designs' h(t) by
+    # step parity, their carries and frame counters; lstm_step's h and c)
+    # are allocated on the launch stream; the caching allocator
     # reuses a freed block only for work queued after the kernel on that
     # stream.
     new = dict(dtype=xw0.dtype, device=xw0.device)
@@ -397,6 +416,8 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
         _count("SAVE_CELL_LAUNCHES")
     if name == "grid":
         _count("FWD_GRID_LAUNCHES")
+    elif name == "rows":
+        _count("FWD_ROWS_LAUNCHES")
     elif name == "step":
         _count("STEP_LAUNCHES", T)
     elif name == "tc":
@@ -420,20 +441,13 @@ def _gemm_code(lib, gemm: Optional[str], code: int, H: int) -> int:
     return GEMM_DESIGNS.index(gemm)
 
 
-def _loop_name(loop: Optional[str], fold: Optional[bool],
-               dtype: torch.dtype) -> Optional[str]:
-    """The frame loop design named by ``loop`` (``LOOP_DESIGNS``) or by
-    ``fold`` (True: "fold", False: "split"), or None for the library's;
-    raises on a bad or doubled name, before any kernel is built."""
-    if fold is not None:
-        if loop is not None:
-            raise ValueError("name the frame loop by loop= or fold=, not both")
-        if not isinstance(fold, bool):
-            raise ValueError(f"fold must be True, False or None, got {fold!r}")
-        return "fold" if fold else "split"
+def _loop_name(loop: Optional[str], dtype: torch.dtype) -> Optional[str]:
+    """The frame loop design named by ``loop`` (``LOOP_DESIGNS``), or None
+    for the library's; raises on a bad name, before any kernel is
+    built."""
     if loop is not None and loop not in LOOP_DESIGNS:
         raise ValueError(f"unknown frame loop {loop!r}; one of {LOOP_DESIGNS}")
-    if loop in ("persistent", "tc") and dtype != torch.bfloat16:
+    if loop in _BF16_WH and dtype != torch.bfloat16:
         raise ValueError(f"the {loop} frame loop takes bf16 weights only")
     return loop
 
@@ -472,7 +486,7 @@ def persistent_plan(B: int, H: int, ndir: int = 2,
 
 def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
                      *, return_gates: bool = False,
-                     fold: Optional[bool] = None, gemm: Optional[str] = None,
+                     gemm: Optional[str] = None,
                      loop: Optional[str] = None):
     """The BPTT frame kernels over one or two directions (CUDA only): the
     gate GEMM (every frame's gate recompute as one GEMM: f32 weights
@@ -481,22 +495,23 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     choice (``loop_design``): with bf16 weights ``lstm_bwd_persistent`` up
     to ``PERSISTENT_MAX_H`` and ``lstm_bwd_tc`` above it where it fits
     (one launch each), else (f32 weights; bf16 weights beyond, read
-    widened to f32) by B ``bptt_frame`` per frame (folded), or
-    ``bptt_cell`` and ``bptt_dh`` per frame (split). ``dirs``: (xw, wh
+    widened to f32) by B ``bptt_frame`` per frame (folded, B <= 32), or
+    ``lstm_bwd_rows`` (one launch) where it fits, or ``bptt_cell`` and
+    ``bptt_dh`` per frame (split). ``dirs``: (xw, wh
     already in ``dtype``, ys, cs, dys in the stream dtype, reverse).
     Returns dxw per direction, and with ``return_gates`` also the
     recomputed gates ``pre`` [T, B, 4H] f32 per direction (what
     ``bptt_gates_ref`` computes), so that each kernel can be held to its
-    plain version. ``loop`` (``LOOP_DESIGNS``; or ``fold``: True "fold",
-    False "split") names the frame loop's design and ``gemm`` the gate
-    GEMM's (``GEMM_DESIGNS``) instead of the library's choice, so that
+    plain version. ``loop`` (``LOOP_DESIGNS``) names the frame loop's
+    design and ``gemm`` the gate GEMM's (``GEMM_DESIGNS``) instead of the
+    library's choice, so that
     each design can be held to the plain version and timed at any shape
     it takes (the f32-weight loops take bf16 weights at any H;
     ``gemm="fma"`` with bf16 weights above ``PERSISTENT_MAX_H`` is the
     route they took before the wide GEMM)."""
     from . import _build
 
-    name = _loop_name(loop, fold, dtype)
+    name = _loop_name(loop, dtype)
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
@@ -520,8 +535,9 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     name = LOOP_DESIGNS[lp]
     dxw = [torch.empty_like(d[0]) for d in dirs]
     # the recomputed gates [T, B, 4H] f32, and behind them the frame loop's
-    # own (the f32 loops' carries; lstm_bwd_tc's frame counter, dgates
-    # exchange and carries, which the library zeroes where it must); freed
+    # own (the per-frame loops' carries; the cooperative loops' frame
+    # counters, dgates exchange and carries, which the library zeroes where
+    # it must); freed
     # after the call on the launch stream
     n_pre = T * B * G
     scratch = [torch.empty(lib.vo_lstm_bwd_scratch(lp, T, B, H) // 4,
@@ -529,7 +545,7 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
                for _ in dirs]
     # wh in f32 where the FMA gate GEMM or an f32 frame loop reads it (bf16
     # weights widened, exactly)
-    widen = dtype == torch.bfloat16 and (g == 0 or name in ("split", "fold"))
+    widen = dtype == torch.bfloat16 and (g == 0 or name not in _BF16_WH)
     whf = [d[1].to(torch.float32).contiguous() if widen else d[1]
            for d in dirs]
     args = _dir_args([
@@ -547,6 +563,8 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
         _count("BWD_PERSISTENT_LAUNCHES")
     elif name == "tc":
         _count("BWD_TC_LAUNCHES")
+    elif name == "rows":
+        _count("BWD_ROWS_LAUNCHES")
     elif name == "fold":
         _count("FRAME_LAUNCHES", T)
     else:
