@@ -1201,7 +1201,52 @@ def _ends_mid_word(uxxxx: str, lexicon: set) -> bool:
     return bool(text) and text[-1] not in lexicon
 
 
-def beam_same_posteriors(svc, lines, words) -> dict:
+# A line where the device beam and the host engine return different
+# strings on the same posteriors, with no LM or lexicon in play, is held
+# to the host's n-best (its Python expansion, float64): the device's
+# string must be one of the host's BEAM_NBEST best, within
+# beam_tie_margin of the host's best score.
+BEAM_NBEST = 4
+
+
+def beam_tie_margin(frames: int, score: float) -> float:
+    """The widest gap that f32 rounding can open between two computations
+    of one prefix's CTC score over ``frames`` frames, ``score`` its
+    magnitude. A frame updates a prefix's log-domain mass by two f32
+    additions of values at most |score| + |lp| (each within u = 2**-24 of
+    its result) and one log-add-exp term in [0, log 2] (within 3u of it,
+    about 2.1u); along the winning prefix the partial scores lie between
+    the final score and 0, and each frame's lp is within it, so a frame
+    adds at most u * (2 |score| + 3) and a line T times that. Both sides
+    may round (the device's search in f32; the host engine in f32 or
+    float64), so the margin is twice the one-sided bound:
+    2 * 2**-24 * T * (2 |score| + 3)."""
+    return 2.0 * 2.0 ** -24 * frames * (2.0 * abs(score) + 3.0)
+
+
+def beam_tie(lp, frames: int, alphabet, config, dev_hyp: str,
+             dev_score: float) -> dict:
+    """The host's ``BEAM_NBEST`` best hypotheses with their scores on one
+    line's posteriors (``lp`` [>= frames, K], no LM or lexicon: the Python
+    expansion, float64), and whether ``dev_hyp`` is among them within
+    ``beam_tie_margin`` of the best: ``tie``, ``margin``, ``gap`` (the
+    host's best score less its score for ``dev_hyp``, or None when it is
+    not in the n-best), ``host`` [(uxxxx, score)] and ``device``
+    (``dev_hyp``, ``dev_score``, the device's own f32 score)."""
+    from vistaocr_tpu_torch.decode import beam_decode
+
+    lp = np.asarray(lp, np.float32)[None, :frames]
+    host = beam_decode(lp, np.ones((1, frames), bool), alphabet, config,
+                       nbest=BEAM_NBEST)[0]
+    best = host[0][1]
+    found = [sc for h, sc in host if h == dev_hyp]
+    gap = best - found[0] if found else None
+    margin = beam_tie_margin(frames, max(abs(best), abs(dev_score)))
+    return {"tie": gap is not None and gap <= margin, "margin": margin,
+            "gap": gap, "host": host, "device": (dev_hyp, dev_score)}
+
+
+def beam_same_posteriors(svc, lines, words, seed: int = 5) -> dict:
     """The device beam's tail (``_decode_tail`` + ``_finalize``, the
     service's own) and the host engine (``beam_decode``: the C++ engine
     with the service's char LM, lexicon and word LM) on the same
@@ -1212,8 +1257,11 @@ def beam_same_posteriors(svc, lines, words) -> dict:
     and eagerly (the same rows). Lines that differ only where no beam
     ends at a word boundary (``decode/device_beam.py``: the documented
     fallback, where the host oracle still word-scores the partial
-    trailing word) are printed with that reason; any other difference
-    fails."""
+    trailing word) are printed with that reason; with no LM or lexicon,
+    lines whose device string is a near tie of the host's (``beam_tie``:
+    in the host's n-best within ``beam_tie_margin`` of its best) are
+    counted as ``tie_within_rounding`` and printed with both strings and
+    scores; any other difference fails. ``seed``: the seeded lines'."""
     import torch
     from vistaocr_tpu_torch.decode import beam_decode
 
@@ -1231,8 +1279,10 @@ def beam_same_posteriors(svc, lines, words) -> dict:
                                            svc._to_device(widths)),
                                 len(chunk)))
     batches.append((*beam_posteriors(64, 256, svc.alphabet.num_classes,
-                                     svc.device, seed=5), 64))
-    tally = {"same": 0, "no_boundary_fallback": 0, "nonempty": 0}
+                                     svc.device, seed=seed), 64))
+    tally = {"same": 0, "no_boundary_fallback": 0, "tie_within_rounding": 0,
+             "nonempty": 0}
+    plain = svc._lm is None and svc._lexicon is None and svc._word_lm is None
     for n, (lp, fm, count) in enumerate(batches):
         with torch.inference_mode():
             dev_hyps = svc._finalize(svc._decode_tail(lp, fm), count)
@@ -1247,11 +1297,26 @@ def beam_same_posteriors(svc, lines, words) -> dict:
         host = beam_decode(lp, fm, svc.alphabet, svc.config.beam,
                            lm=svc._lm, valid=np.arange(lp.shape[0]) < count,
                            lexicon=svc._lexicon, word_lm=svc._word_lm)
-        for d, h in zip(dev_hyps, host):
-            d = _hyp_uxxxx(svc.alphabet, d)
+        for i, (dh, h) in enumerate(zip(dev_hyps, host)):
+            d = _hyp_uxxxx(svc.alphabet, dh)
             tally["nonempty"] += bool(d)
             if d == h:
                 tally["same"] += 1
+                continue
+            tie = None
+            if plain:
+                tie = beam_tie(lp[i].float().cpu().numpy(),
+                               int(fm[i].sum()), svc.alphabet,
+                               svc.config.beam, d, float(dh[1]))
+                print(f"  device {d!r} (device score {dh[1]:.7f}) != host "
+                      f"{h!r}: host {BEAM_NBEST}-best "
+                      f"{[(x, round(v, 7)) for x, v in tie['host']]}; gap "
+                      f"{tie['gap']}, margin {tie['margin']:.3e} "
+                      f"({int(fm[i].sum())} frames): "
+                      f"{'tie within rounding' if tie['tie'] else 'GAP'}",
+                      flush=True)
+            if tie is not None and tie["tie"]:
+                tally["tie_within_rounding"] += 1
             elif words and (_ends_mid_word(d, words)
                             or _ends_mid_word(h, words)):
                 tally["no_boundary_fallback"] += 1
@@ -1372,6 +1437,43 @@ def service_beam_phase(dev, snap: str, data: str, font: dict, card: str,
                   f"{row['lines_per_sec']:.1f} lines/s ({smi}); {row}",
                   flush=True)
     return out, programs
+
+
+BEAM_RERUNS = 20
+
+
+def beam_reruns(dev, snap: str, font: dict, smi: str,
+                runs: int = BEAM_RERUNS) -> dict:
+    """The service-beam phase's plain route (``OcrService`` with
+    ``decoder="beam"``, the device beam) on one snapshot, ``runs`` times:
+    each run ``beam_same_posteriors`` on 128 new glyph lines (seeded 43 +
+    run; run 0 is the phase's own) and 64 seeded lines (seed 5 + run).
+    Returns the tallies summed over the runs and the runs with a line
+    that was not the same string."""
+    from vistaocr_tpu_torch.decode import BeamConfig
+    from vistaocr_tpu_torch.serve import OcrService, ServiceConfig
+
+    beam = BeamConfig(lm_alpha=0.5, word_lm_alpha=0.5)
+    svc = OcrService(snap, ServiceConfig(
+        warmup=True, max_batch=128, max_wait_ms=2.0, beam=beam,
+        decoder="beam"), device=dev)
+    total: dict = {}
+    differed = []
+    try:
+        for k in range(runs):
+            lines = [img for img, _ in glyph_lines(
+                font, np.random.default_rng(43 + k), 128, 40, 2048)]
+            tally = beam_same_posteriors(svc, lines, None, seed=5 + k)
+            print(f"plain device beam rerun {k}: {tally}", flush=True)
+            for key, v in tally.items():
+                total[key] = total.get(key, 0) + v
+            if tally["same"] != 128 + 64:
+                differed.append(k)
+    finally:
+        svc.close()
+    print(f"plain device beam, {runs} reruns on one snapshot ({smi}): "
+          f"{total}; runs with a line that differed: {differed}", flush=True)
+    return {"runs": runs, "tally": total, "differed": differed}
 
 
 def parity_phase(snap: str, dev) -> None:
@@ -4017,10 +4119,52 @@ def stem_experiment_kernels(dev, card: str) -> dict:
     return rows
 
 
+def bi_layer_route(xw, mask, whq, dtype, ys, cs, dys):
+    """The layer route (``lstm_cuda``) on dense copies of the stacked
+    planes as its two directions, each with its plane's mask,
+    ``reverse=False`` and the stacked call's type code (f32 streams):
+    returns (run the forward, run the BPTT frames + dwh), each giving its
+    outputs per plane. The copies are made here, once, outside the
+    calls."""
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as S
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    planes = [{k: v.contiguous() if hasattr(v, "contiguous") else v
+               for k, v in p.items()}
+              for p in S.bi_planes(xw, mask, ys, cs, dys)]
+    masks = [p["mask"] for p in planes]
+
+    def fwd():
+        return L.lstm_fwd([(p["xw"], whq[k], False)
+                           for k, p in enumerate(planes)], masks, dtype,
+                          save_cell=True)
+
+    def bwd():
+        dxw = L.lstm_bptt_frames(
+            [(p["xw"], whq[k], p["ys"], p["cs"], p["dys"], False)
+             for k, p in enumerate(planes)], masks, dtype)
+        return dxw, L.lstm_dwh([(p["ys"], g, False)
+                                for p, g in zip(planes, dxw)], dtype)
+
+    return fwd, bwd
+
+
+def bi_work(B: int, T: int, H: int) -> tuple:
+    """The products K6a and K6b do, both planes (multiply-adds x 2): the
+    forward's T frames of [B, H] x [H, 4H]; the BPTT's gate recompute and
+    dh product of the T - 1 frames that have them (the edge frame's gates
+    are xw alone, the last frame's dh is not read) and dwh over (T-1)*B
+    rows."""
+    frame = 2 * 2 * B * H * 4 * H
+    return T * frame, 3 * (T - 1) * frame
+
+
 def bi_experiment_kernels(dev, card: str) -> dict:
-    """K6a/K6b against their plain versions; at the flagship shapes also
-    timed and compared with the production K1 save_cell + K2/K3 BPTT of
-    one layer on the same inputs."""
+    """K6a/K6b against their plain versions, and bit-equal to the layer
+    route on the same planes (``bi_layer_route``: the same device code and
+    designs, in the same sum order); at the flagship shapes also timed
+    beside that route and beside the production K1 save_cell + K2/K3 BPTT
+    of one layer on the same inputs in natural time order."""
     import torch
     from vistaocr_tpu_torch.experiments import lstm_bi_stacked as S
     from vistaocr_tpu_torch.ops import lstm_cuda as L
@@ -4043,6 +4187,7 @@ def bi_experiment_kernels(dev, card: str) -> dict:
         pmask = torch.from_numpy(m[:, None, :].copy()).to(dev)  # [T, 1, B]
         for dtype in (torch.float32, torch.bfloat16):
             whq = wh.to(dtype).contiguous()
+            design = S.bi_design(dtype, B, H)
             with torch.no_grad():
                 ys, cs = S.bi_lstm_fwd_cuda(xw, mask, whq, dtype)
                 rys, rcs = S.bi_recurrence_ref(xw, mask, wh, dtype,
@@ -4050,6 +4195,12 @@ def bi_experiment_kernels(dev, card: str) -> dict:
                 dxw, dwh = S.bi_lstm_bwd_cuda(xw, mask, whq, rys, rcs, dys,
                                               dtype)
                 rdxw, rdwh = S.bi_bptt_ref(xw, mask, wh, rys, rcs, dys, dtype)
+                route_fwd, _ = bi_layer_route(xw, mask, whq, dtype, ys, cs,
+                                              dys)
+                _, route_bwd = bi_layer_route(xw, mask, whq, dtype, rys, rcs,
+                                              dys)
+                lys, lcs = route_fwd()
+                ldxw, ldwh = route_bwd()
                 dirs = [(xw[:, 0].to(dtype).contiguous(), wh[0], False),
                         (torch.flip(xw[:, 1], [0]).to(dtype).contiguous(),
                          wh[1], True)]
@@ -4065,6 +4216,12 @@ def bi_experiment_kernels(dev, card: str) -> dict:
             e_fwd = max(_abs(ys, rys), _abs(cs, rcs))
             e_dxw, r_dxw = _abs(dxw, rdxw), _rel(dxw, rdxw)
             r_dwh = _rel(dwh, rdwh)
+            # the same device code in the same order as the layer route:
+            # bit-equal, plane by plane
+            same = all(torch.equal(a[:, k], b[k])
+                       for a, b in ((ys, lys), (cs, lcs), (dxw, ldxw))
+                       for k in range(2)) and all(
+                torch.equal(dwh[k], ldwh[k]) for k in range(2))
             e_prod = max(_abs(pys_f, ys[:, 0]),
                          _abs(torch.flip(pys_b, [0]), ys[:, 1]))
             r_prod = max(_rel(pdxw_f, dxw[:, 0]),
@@ -4077,48 +4234,60 @@ def bi_experiment_kernels(dev, card: str) -> dict:
                 ok = (e_fwd <= BF16_YS_ABS and r_dxw <= BF16_BPTT_REL
                       and r_dwh <= BF16_BPTT_REL)
             tag = f"B={B} T={T} H={H} {_dtname(dtype)}"
-            print(f"stacked BLSTM kernels vs plain {tag}: ys/cs max|d|="
-                  f"{e_fwd:.3e}; dxw max|d|={e_dxw:.3e} (rel {r_dxw:.2e}); "
-                  f"dwh rel {r_dwh:.2e}; vs production ys max|d|="
-                  f"{e_prod:.3e}, dxw/dwh rel {r_prod:.2e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            print(f"stacked BLSTM {tag}, designs {design}: vs plain ys/cs "
+                  f"max|d|={e_fwd:.3e}; dxw max|d|={e_dxw:.3e} (rel "
+                  f"{r_dxw:.2e}); dwh rel {r_dwh:.2e}; ys, cs, dxw, dwh "
+                  f"bit-equal to the layer route on the same planes: "
+                  f"{same}; vs production ys max|d|={e_prod:.3e}, dxw/dwh "
+                  f"rel {r_prod:.2e} {'ok' if ok and same else 'FAIL'}",
+                  flush=True)
             _require(ok, f"stacked BLSTM kernels agree with plain: {tag}")
+            _require(same, f"stacked BLSTM bit-equal to the layer route on "
+                           f"the same planes: {tag}")
             if (B, T, H) == BI_SHAPES[0]:
                 continue
             with torch.no_grad():
                 t = {
                     "fwd": _cuda_ms(lambda: S.bi_lstm_fwd_cuda(
                         xw, mask, whq, dtype), 5),
+                    "fwd_route": _cuda_ms(route_fwd, 5),
                     "fwd_plain": _cuda_ms(lambda: S.bi_recurrence_ref(
                         xw, mask, wh, dtype, save_cell=True), 1),
                     "fwd_prod": _cuda_ms(lambda: L.lstm_forward_cells(
                         dirs, pmask, dtype), 5),
                     "bwd": _cuda_ms(lambda: S.bi_lstm_bwd_cuda(
                         xw, mask, whq, rys, rcs, dys, dtype), 5),
+                    "bwd_route": _cuda_ms(route_bwd, 5),
                     "bwd_plain": _cuda_ms(lambda: S.bi_bptt_ref(
                         xw, mask, wh, rys, rcs, dys, dtype), 1),
                     "bwd_prod": _cuda_ms(lambda: L.lstm_bptt(
                         bdirs, pmask, dtype), 5),
                 }
-            print(f"time {tag}, both directions: stacked fwd {t['fwd']:.3f}"
-                  f" ms (plain {t['fwd_plain']:.3f}, production K1 "
+            print(f"time {tag}, both planes: stacked fwd {t['fwd']:.3f} ms "
+                  f"(layer route on the planes {t['fwd_route']:.3f}, ratio "
+                  f"{t['fwd'] / t['fwd_route']:.3f}; plain "
+                  f"{t['fwd_plain']:.3f}; production K1 in time order "
                   f"{t['fwd_prod']:.3f}); stacked BPTT frames+dwh "
-                  f"{t['bwd']:.3f} ms (plain {t['bwd_plain']:.3f}, "
-                  f"production K2/K3 {t['bwd_prod']:.3f}) ({card})",
-                  flush=True)
-            prod = 2 * 2 * T * 2 * B * H * 4 * H  # both planes, all frames
-            R = (T - 1) * B
+                  f"{t['bwd']:.3f} ms (layer route {t['bwd_route']:.3f}, "
+                  f"ratio {t['bwd'] / t['bwd_route']:.3f}; plain "
+                  f"{t['bwd_plain']:.3f}; production K2/K3 "
+                  f"{t['bwd_prod']:.3f}) ({card})", flush=True)
+            fwd_ops, bwd_ops = bi_work(B, T, H)
             rows[(B, T, _dtname(dtype))] = {
                 "bi_lstm_fwd": {
                     "max_abs_err": e_fwd, "ms": t["fwd"],
                     "plain_ms": t["fwd_plain"], "library_ms": None,
-                    **_bound(_nbytes(xw, mask, whq, ys, cs), prod, dtype),
+                    **_bound(_nbytes(xw, mask, whq, ys, cs), fwd_ops, dtype),
+                    "design": design["forward"],
+                    "layer_route_ms": t["fwd_route"],
                     "production_ms": t["fwd_prod"]},
                 "bi_lstm_bwd": {
                     "max_abs_err": e_dxw, "ms": t["bwd"],
                     "plain_ms": t["bwd_plain"], "library_ms": None,
                     **_bound(_nbytes(xw, mask, whq, rys, rcs, dys, dxw, dwh),
-                             2 * prod + 2 * 2 * R * H * 4 * H, dtype),
+                             bwd_ops, dtype),
+                    "design": {k: design[k] for k in ("gemm", "loop", "dwh")},
+                    "layer_route_ms": t["bwd_route"],
                     "production_ms": t["bwd_prod"]},
             }
     return rows
@@ -4991,10 +5160,12 @@ def main(argv) -> int:
     http_only = argv == ["--http"]
     dp_only = argv == ["--dp"]
     fused_only = argv == ["--fused"]
+    beam_only = argv == ["--beam"]
+    experiments_only = argv == ["--experiments"]
     if argv and not (ctc_only or int8_only or http_only or dp_only
-                     or fused_only):
+                     or fused_only or beam_only or experiments_only):
         print("usage: chip_smoke.py [--ctc | --int8 | --http | --dp | "
-              "--fused]", file=sys.stderr)
+              "--fused | --beam | --experiments]", file=sys.stderr)
         return 2
     _phase("device")
     import torch
@@ -5047,6 +5218,26 @@ def main(argv) -> int:
             fused_out = fused_phase(dev, tmp, font, smi)
             fused_out["nccl_cli"] = dp_nccl_cli(tmp, font, smi, fused=True)
         print(json.dumps({"fused": fused_out}))
+        print(smi)
+        return 0
+    if beam_only:
+        font = glyph_font(17)
+        with tempfile.TemporaryDirectory() as tmp:
+            _phase("train")
+            train_phase(tmp, font, smi)
+            _phase("beam reruns")
+            beam_out = beam_reruns(dev, os.path.join(tmp, "run", "last"),
+                                   font, smi)
+        print(json.dumps({"beam_reruns": beam_out}))
+        print(smi)
+        return 0
+    if experiments_only:
+        _phase("experiments")
+        bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
+        exp_counts = experiments_path_phase(dev, glyph_font(17), smi)
+        print(json.dumps({"bi": {"_".join(map(str, k)): v
+                                 for k, v in bi_rows.items()},
+                          "launches": exp_counts}))
         print(smi)
         return 0
     if int8_only:

@@ -2119,6 +2119,20 @@ def test_ctc_loss_kernel_grads_match_plain(dev):
 STEM_SHAPES = [(3, 32, 45, 64), (32, 32, 2048, 64), (128, 32, 512, 64)]
 # (B, T, H): an odd shape with a ragged mask, and the flagship train shapes
 BI_SHAPES = [(5, 7, 40), (32, 512, 512), (128, 128, 512)]
+# (B, T, H, dtype) that select the layer's other designs on the stacked
+# planes, with masks whose planes are independent (not flips of each
+# other): f32 weights lstm_fwd_grid + lstm_bwd_rows (B=33), lstm_fwd_rows +
+# lstm_bwd_rows (B=512), lstm_step + bptt_cell/bptt_dh (H=600), a ragged B
+# and H; bf16 weights lstm_fwd_tc + lstm_bwd_tc + dwh's wide tiles (H=520),
+# and above H=1056 the f32-weight route with wh widened (lstm_step +
+# bptt_frame)
+BI_DESIGN_CASES = [(33, 9, 512, torch.float32), (512, 32, 512, torch.float32),
+                   (40, 5, 600, torch.float32), (37, 6, 45, torch.float32),
+                   (9, 6, 520, torch.bfloat16), (3, 4, 24, torch.bfloat16),
+                   (3, 3, 1100, torch.bfloat16)]
+BI_CASES = ([(s, dt, False) for s in BI_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+            + [(c[:3], c[3], True) for c in BI_DESIGN_CASES])
 # bf16 bounds of kernel against plain, both reading the same bf16 operands
 # (the card's readings are in PERF.md): stored bf16 values one ulp (plus
 # the f32 difference, 2e-6) apart in at most this share of the elements; f32 ys/cs within one bf16 ulp of a
@@ -2188,7 +2202,7 @@ def test_stem_dk_kernel_matches_plain(dev, shape, dtype):
     assert _rel_err(dk, ref) <= 1e-4
 
 
-def _bi_operands(dev, B, T, H, seed):
+def _bi_operands(dev, B, T, H, seed, independent=False):
     rng = np.random.default_rng(seed)
     xw = rng.normal(0, 1, (T, 2, B, 4 * H)).astype(np.float32)
     wh = rng.normal(0, 1 / np.sqrt(H), (2, H, 4 * H)).astype(np.float32)
@@ -2196,17 +2210,19 @@ def _bi_operands(dev, B, T, H, seed):
     lengths[0] = T
     m = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
     mask = np.ascontiguousarray(np.stack([m, m[::-1]], axis=1))  # [T, 2, B]
+    if independent:  # each plane its own frames, holes included
+        mask = (rng.random((T, 2, B)) < 0.75).astype(np.float32)
     dys = rng.normal(0, 1, (T, 2, B, H)).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (xw, mask, wh, dys)]
 
 
-@pytest.mark.parametrize("shape", BI_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bi_lstm_fwd_kernel_matches_plain(dev, shape, dtype):
+@pytest.mark.parametrize("shape,dtype,independent", BI_CASES)
+def test_bi_lstm_fwd_kernel_matches_plain(dev, shape, dtype, independent):
     from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
 
     B, T, H = shape
-    xw, mask, wh, _ = _bi_operands(dev, B, T, H, seed=B + T + H)
+    xw, mask, wh, _ = _bi_operands(dev, B, T, H, seed=B + T + H,
+                                   independent=independent)
     before = bi.BI_FWD_LAUNCHES
     ys, cs = bi.bi_lstm_fwd_cuda(xw, mask, wh.to(dtype), dtype)
     ref_ys, ref_cs = bi.bi_recurrence_ref(xw, mask, wh, dtype, save_cell=True)
@@ -2221,14 +2237,14 @@ def test_bi_lstm_fwd_kernel_matches_plain(dev, shape, dtype):
         assert (cs - ref_cs).abs().max().item() <= BF16_YS_ABS
 
 
-@pytest.mark.parametrize("shape", BI_SHAPES)
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, BF16_BPTT_REL)])
-def test_bi_lstm_bwd_kernel_matches_plain(dev, shape, dtype, tol):
+@pytest.mark.parametrize("shape,dtype,independent", BI_CASES)
+def test_bi_lstm_bwd_kernel_matches_plain(dev, shape, dtype, independent):
     from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
 
+    tol = 1e-4 if dtype == torch.float32 else BF16_BPTT_REL
     B, T, H = shape
-    xw, mask, wh, dys = _bi_operands(dev, B, T, H, seed=B * T + H)
+    xw, mask, wh, dys = _bi_operands(dev, B, T, H, seed=B * T + H,
+                                     independent=independent)
     ys, cs = bi.bi_recurrence_ref(xw, mask, wh, dtype, save_cell=True)
     before = bi.BI_BWD_LAUNCHES
     dxw, dwh = bi.bi_lstm_bwd_cuda(xw, mask, wh.to(dtype), ys, cs, dys, dtype)
@@ -2240,6 +2256,47 @@ def test_bi_lstm_bwd_kernel_matches_plain(dev, shape, dtype, tol):
     # in one product after the loop instead of frame by frame
     assert _rel_err(dxw, ref_dxw) <= tol
     assert _rel_err(dwh, ref_dwh) <= tol
+
+
+@pytest.mark.parametrize("shape,dtype,independent", BI_CASES)
+def test_bi_lstm_bit_equal_to_layer_route(dev, shape, dtype, independent):
+    """The stacked entries run the layer's designs on the planes in place:
+    ys, cs, dxw and dwh are bit-equal to the layer route (lstm_cuda) on
+    dense copies of the planes as its two directions, each with its plane's
+    mask, reverse=False, the same type code and so the same designs; and
+    the stacked calls move only their own counters."""
+    from vistaocr_tpu_torch.experiments import lstm_bi_stacked as bi
+
+    B, T, H = shape
+    xw, mask, wh, dys = _bi_operands(dev, B, T, H, seed=B + 2 * T + H,
+                                     independent=independent)
+    whq = wh.to(dtype).contiguous()
+    names = [n for n in dir(lstm_cuda) if n.endswith("LAUNCHES")]
+    before = {n: getattr(lstm_cuda, n) for n in names}
+    ys, cs = bi.bi_lstm_fwd_cuda(xw, mask, whq, dtype)
+    dxw, dwh = bi.bi_lstm_bwd_cuda(xw, mask, whq, ys, cs, dys, dtype)
+    torch.cuda.synchronize()
+    assert {n: getattr(lstm_cuda, n) for n in names} == before
+    planes = bi.bi_planes(xw, mask, ys, cs, dys)
+    dense = [{k: v.contiguous() if torch.is_tensor(v) else v
+              for k, v in p.items()} for p in planes]
+    masks = [p["mask"] for p in dense]
+    design = bi.bi_design(dtype, B, H)
+    assert design["forward"] == lstm_cuda.forward_design(dtype, B, H)
+    assert design["loop"] == lstm_cuda.loop_design(dtype, B, H)
+    pys, pcs = lstm_cuda.lstm_fwd(
+        [(p["xw"], whq[k], False) for k, p in enumerate(dense)], masks, dtype,
+        save_cell=True)
+    pdxw = lstm_cuda.lstm_bptt_frames(
+        [(p["xw"], whq[k], p["ys"], p["cs"], p["dys"], False)
+         for k, p in enumerate(dense)], masks, dtype)
+    pdwh = lstm_cuda.lstm_dwh([(p["ys"], g, False)
+                               for p, g in zip(dense, pdxw)], dtype)
+    torch.cuda.synchronize()
+    for k in range(2):
+        assert torch.equal(ys[:, k], pys[k]) and torch.equal(cs[:, k], pcs[k])
+        assert torch.equal(dxw[:, k], pdxw[k])
+        assert torch.equal(dwh[k], pdwh[k])
 
 
 def test_experiment_kernels_refuse_cpu_tensors(dev):

@@ -13,7 +13,15 @@ JAX package's quarantined experiments in interpret mode, on the CPU:
   (experiments/test_lstm_bi_stacked.py:79);
 - the plain backward versions against torch autograd through the plain
   forwards, the kernel wrappers' refusal of CPU tensors, and the flagship
-  forward with both experiments against the JAX model and the port's.
+  forward with both experiments against the JAX model and the port's;
+- the stacked layout as the layer's two directions (``bi.bi_planes``:
+  plane views, a mask a plane, ``reverse=False``; what the card's entries
+  run on the layer's kernels) through the layer's plain versions
+  (``lstm_recurrence_ref``, ``lstm_bptt_ref``, ``lstm_dwh_ref``), against
+  the stacked plain versions and the JAX K6 kernels in interpret mode;
+- chip_smoke.py's device-beam tie check (``beam_tie``) on CPU-built
+  posteriors: an exact tie of two one-character prefixes is accepted, a
+  1e-3 gap refused.
 
 ``experiments/lstm_bi_stacked.py`` does not parse as it stands: its line
 25 is a banner fragment without its comment sign. The loader below reads
@@ -439,3 +447,113 @@ def test_flagship_forward_refuses_dropout_in_train_mode():
         forward_with_experiments(model, torch.zeros((1, 32, 8), dtype=torch.uint8),
                                  torch.tensor([8], dtype=torch.int32),
                                  train=True)
+
+
+# --- the stacked layout through the layer's plain versions ----------------
+def _independent_case(seed, T=9, B=5, H=8):
+    """_stacked_case's operands with masks whose planes are independent,
+    holes included (not one plane flipped)."""
+    xw, _, wh, dys = _stacked_case(seed, T=T, B=B, H=H)
+    rng = np.random.default_rng(seed + 50)
+    mask = (rng.random((T, 2, B)) < 0.7).astype(np.float32)
+    return xw, mask, wh, dys
+
+
+def _through_layer_plain(xw, mask, wh, dys, dtype):
+    """ys, cs [T, 2, B, H] and dxw [T, 2, B, 4H], dwh [2, H, 4H] from the
+    layer's plain versions, a plane at a time as ``bi_planes`` maps it."""
+    from vistaocr_tpu_torch.ops import lstm_cuda as L
+
+    planes = bi.bi_planes(xw, mask)
+    fwd = [L.lstm_recurrence_ref(p["xw"], p["mask"], wh[k],
+                                 reverse=p["reverse"], dtype=dtype,
+                                 save_cell=True)
+           for k, p in enumerate(planes)]
+    ys = torch.stack([y for y, _ in fwd], dim=1)
+    cs = torch.stack([c for _, c in fwd], dim=1)
+    planes = bi.bi_planes(xw, mask, ys, cs, dys)
+    bwd = [L.lstm_bptt_ref(p["xw"], p["mask"], wh[k], p["ys"], p["cs"],
+                           p["dys"], reverse=p["reverse"], dtype=dtype)
+           for k, p in enumerate(planes)]
+    dxw = torch.stack([d for d, _ in bwd], dim=1)
+    dwh = torch.stack([w for _, w in bwd])
+    # lstm_bptt_ref's dwh is lstm_dwh_ref on the plane's ys and dxw
+    for k, p in enumerate(planes):
+        assert torch.equal(dwh[k], L.lstm_dwh_ref(
+            p["ys"], dxw[:, k], reverse=p["reverse"], dtype=dtype))
+    return ys, cs, dxw, dwh
+
+
+@pytest.mark.parametrize("independent", [False, True])
+def test_plane_mapping_through_layer_plain_versions_f32(ref_bi, independent):
+    case = (_independent_case if independent else _stacked_case)(3)
+    xw, mask, wh, dys = map(torch.from_numpy, case)
+    ys, cs, dxw, dwh = _through_layer_plain(xw, mask, wh, dys, torch.float32)
+    rys, rcs = bi.bi_recurrence_ref(xw, mask, wh, save_cell=True)
+    rdxw, rdwh = bi.bi_bptt_ref(xw, mask, wh, rys, rcs, dys)
+    for a, b in ((ys, rys), (cs, rcs), (dxw, rdxw), (dwh, rdwh)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+    args_j = [jnp.asarray(a) for a in case[:3]]
+    ys_j, cs_j = ref_bi._bi_lstm_fwd(*args_j, dtype=jnp.float32,
+                                     interpret=True)
+    dxw_j, dwh_j = ref_bi._bi_lstm_bwd(*args_j, ys_j, cs_j,
+                                       jnp.asarray(case[3]),
+                                       dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_j), atol=1e-5)
+    np.testing.assert_allclose(cs.numpy(), np.asarray(cs_j), atol=1e-5)
+    # the BPTT on the plain forward's ys and cs, as the bptt test above
+    _, _, dxw2, dwh2 = _through_layer_plain(xw, mask, wh, dys, torch.float32)
+    np.testing.assert_allclose(dxw2.numpy(), np.asarray(dxw_j), atol=2e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(dwh2.numpy(), np.asarray(dwh_j), atol=2e-5,
+                               rtol=1e-4)
+
+
+def test_plane_mapping_through_layer_plain_versions_bf16():
+    """bf16 weights: the layer's plain versions on the planes against the
+    stacked plain versions (the same rounding points: h and dgates rounded
+    to bf16 where the products read them)."""
+    xw, mask, wh, dys = map(torch.from_numpy, _independent_case(4))
+    ys, cs, dxw, dwh = _through_layer_plain(xw, mask, wh, dys,
+                                            torch.bfloat16)
+    rys, rcs = bi.bi_recurrence_ref(xw, mask, wh, torch.bfloat16,
+                                    save_cell=True)
+    rdxw, rdwh = bi.bi_bptt_ref(xw, mask, wh, rys, rcs, dys, torch.bfloat16)
+    for a, b in ((ys, rys), (cs, rcs), (dxw, rdxw), (dwh, rdwh)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+# --- chip_smoke.py's device-beam tie check --------------------------------
+def _two_prefix_posteriors(gap: float, T: int = 8):
+    """[T, 4] log-probs over (blank, a, b, c): every frame is blank but
+    frame 3, where a and b share the mass, b ``gap`` below a; the one-
+    character prefixes a and b then score lp[3, a] and lp[3, b] plus the
+    blanks, ``gap`` apart."""
+    lp = np.full((T, 4), -30.0)
+    lp[:, 0] = 0.0
+    lp[3] = [-30.0, np.log(0.5), np.log(0.5) - gap, -30.0]
+    return lp.astype(np.float32)
+
+
+@pytest.mark.parametrize("gap,accepted", [(0.0, True), (1e-3, False)])
+def test_device_beam_tie_check(gap, accepted):
+    import chip_smoke
+    from vistaocr_tpu_torch.decode import BeamConfig
+    from vistaocr_tpu_torch.text import Alphabet, utf8_to_uxxxx
+
+    alphabet = Alphabet.build([utf8_to_uxxxx("abc")])
+    lp = _two_prefix_posteriors(gap)
+    b = alphabet.decode([alphabet.index_of(utf8_to_uxxxx("b"))])
+    a = alphabet.decode([alphabet.index_of(utf8_to_uxxxx("a"))])
+    dev_score = float(lp[3, 2])  # the device's f32 score of b
+    out = chip_smoke.beam_tie(lp, lp.shape[0], alphabet, BeamConfig(), b,
+                              dev_score)
+    scores = dict(out["host"])
+    if gap:
+        assert out["host"][0][0] == a
+    assert scores[a] - scores[b] == pytest.approx(gap, abs=1e-6)
+    assert out["margin"] == chip_smoke.beam_tie_margin(
+        8, max(abs(out["host"][0][1]), abs(dev_score)))
+    assert out["margin"] < 1e-4  # far below the refused gap
+    assert out["tie"] is accepted
+

@@ -21,404 +21,273 @@
 //   dh = round_W(dxw[t,p]) @ wh[p]^T + (1-m)*dh_t;  dc = m*dc_t*f + (1-m)*dc
 //   dwh[p] = sum_t round_W(h_prev)^T @ round_W(dxw[t,p])  (float32)
 //
-// What bounds it on an H100: as the single-direction kernels (lstm_fwd.cu,
-// lstm_bwd.cu), T strictly sequential frames of a [B,H] x [H,4H] product
-// each, far too little work per frame to fill the card: each frame is
-// latency-bound (a launch, a pass over wh from L2, a reduction over H or
-// 4H). dwh is the one large product: H x 4H x (T-1)*B per plane.
+// That is exactly what the layer kernels of lstm_fwd.cu and lstm_bwd.cu
+// compute for two directions that share T, B and H, with f32 streams and
+// f32 or bf16 weights (their type codes 0 and 2). The stacked layout
+// differs from theirs in three ways only: a frame's rows of plane p start
+// at row (2t+p)*B, not t*B; each plane has a mask of its own; and plane 1
+// walks forward (its flip is the caller's). So both entries run the
+// layer's designs on the planes in place, as its two directions (Frames,
+// lstm_common.cuh): pointers xw + p*B*4H, ys + p*B*H and so on, a frame
+// pitch of 2B rows, mask + p*B with the same pitch, reverse = 0. No plane
+// is copied to a dense tensor (the stacked xw alone is 268 MB at B=32,
+// T=512, H=512). The designs are the library's for the shape (the forward
+// by vo_lstm_fwd_design; the BPTT's gate GEMM, frame loop and dwh by
+// vo_lstm_bwd_gates_design, vo_lstm_bwd_loop_design and
+// vo_lstm_dwh_design; vo_bi_lstm_design names them), with their numerics:
+// f32 carries, h and dgates rounded to W where the products read them,
+// dxw and dwh in f32, and their sums in the same order as the layer's, so
+// a plane's outputs are bit-equal to the layer's on a dense copy of it.
+// What bounds each design on an H100, and its limits, is in the source
+// notes of lstm_fwd.cu and lstm_bwd.cu. The frame loops and the forwards
+// take the pitch at no measured cost; the two GEMMs over rows (the gate
+// recompute and dwh) map each dense row to its frame's row in their
+// producer warpgroup, which f32 rows keep busy: they read 7% and 22%
+// slower than on dense copies of the planes (PERF.md). TMA tensor maps
+// are not used for the planes (f32 streams never took them).
 //
-// What this design does about it (the simple form; tensor cores and a
-// persistent kernel are later work):
-// - the plane is blockIdx.z, so one launch per frame runs both directions;
-//   each block owns TJ units x TB rows of one plane and all four gate
-//   columns of its units, with the gate product of lstm_common.cuh;
-// - the forward keeps no carry of its own: ys and cs are float32 here, so
-//   frame t reads h and c of frame t-1 straight from ys and cs, and needs
-//   no ping-pong scratch;
-// - the BPTT's dh product needs all 4H gate columns of a row, which other
-//   blocks write, so a frame is two launches on one stream (bi_bwd_gates,
-//   then bi_bwd_dh); the dh and dc carries [2,B,H] are updated in place,
-//   one owner thread per element;
-// - the TPU sums dwh frame by frame inside its loop; here it is one
-//   product over (T-1)*B rows per plane after the loop (bi_dwh), the same
-//   sum in another order.
-// Ragged B and H edges are masked in the kernels, so any B, T, H >= 1.
+// The route's workspace (the forward's zeroed scratch, the BPTT's
+// recomputed gates and loop scratch, dwh's split workspace, wh widened to
+// f32 where an f32-weight design reads bf16 weights) comes from a
+// stream-ordered memory pool of this library's own, which keeps what it
+// has taken (release threshold: all): the entries keep their C ABI, and a
+// call after the first maps no new device memory.
 
-#include <climits>
+#include <cstdint>
+#include <mutex>
 
-#include "lstm_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+extern "C" {
+int vo_lstm_fwd_design(int type_code, int B, int H, int ndir);
+long long vo_lstm_fwd_scratch(int B, int H);
+int vo_lstm_fwd_frames(int design, int type_code, int T, int B, int H,
+                       int ndir, int pitch, const void* mask0,
+                       const void* mask1, const void* xw0, const void* wh0,
+                       void* ys0, void* cs0, void* scratch0, int reverse0,
+                       const void* xw1, const void* wh1, void* ys1, void* cs1,
+                       void* scratch1, int reverse1, void* stream);
+int vo_lstm_bwd_gates_design(int type_code, int H);
+int vo_lstm_bwd_loop_design(int type_code, int B, int H, int ndir);
+long long vo_lstm_bwd_scratch(int loop, int T, int B, int H);
+int vo_lstm_bwd_frames(int gemm, int loop, int type_code, int T, int B, int H,
+                       int ndir, int pitch, const void* mask0,
+                       const void* mask1, const void* xw0, const void* wh0,
+                       const void* whf0, const void* ys0, const void* cs0,
+                       const void* dys0, void* dxw0, void* scratch0,
+                       int reverse0, const void* xw1, const void* wh1,
+                       const void* whf1, const void* ys1, const void* cs1,
+                       const void* dys1, void* dxw1, void* scratch1,
+                       int reverse1, void* stream);
+int vo_lstm_dwh_design(int type_code, int H);
+long long vo_lstm_dwh_workspace(int design, int type_code, int T, int B,
+                                int H, int ndir);
+int vo_lstm_dwh_frames(int design, int type_code, int T, int B, int H,
+                       int ndir, int pitch, const void* ys0, const void* dxw0,
+                       void* dwh0, int reverse0, const void* ys1,
+                       const void* dxw1, void* dwh1, int reverse1,
+                       void* workspace, void* stream);
+}
 
 namespace {
 
-using namespace vo_lstm;
+// the layer's design codes (lstm_fwd.cu's FWD_*, lstm_bwd.cu's GEMM_* and
+// LOOP_*) that read wh in bf16; every other design reads it in f32
+constexpr int FWD_TC = 2;
+constexpr int FWD_PERSISTENT = 3;
+constexpr int GEMM_FMA = 0;
+constexpr int LOOP_PERSISTENT = 2;
+constexpr int LOOP_TC = 3;
 
-// first row of plane p at frame t in a [T, 2, B, *] tensor
-__device__ __forceinline__ long long plane_row(int t, int p, int B) {
-  return ((long long)t * 2 + p) * B;
-}
+// w_type 0 (wh f32) and 1 (wh bf16) as the layer's type codes for f32
+// streams: 0 and 2
+inline int type_code(int w_type) { return w_type == 0 ? 0 : 2; }
 
-template <typename W>
-struct BiArgs {
-  const float* xw;    // [T, 2, B, 4H]
-  const float* mask;  // [T, 2, B]
-  const W* wh;        // [2, H, 4H]
-  const float* dys;   // [T, 2, B, H] (BPTT)
-  float* ys;          // [T, 2, B, H] (written by the forward)
-  float* cs;          // [T, 2, B, H] (written by the forward)
-  float* dxw;         // [T, 2, B, 4H] (BPTT)
-  float* dh;          // [2, B, H] carry (BPTT)
-  float* dc;          // [2, B, H] carry (BPTT)
-};
+inline long long round_up(long long bytes) { return (bytes + 255) / 256 * 256; }
 
-__device__ __forceinline__ void zero(float (&acc)[4][2][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][s][g] = 0.0f;
-}
-
-// K6a, frame t of both planes.
-template <typename W>
-__global__ void __launch_bounds__(THREADS)
-bi_fwd_step(BiArgs<W> a, int t, int B, int H) {
-  __shared__ __align__(16) Tiles sm;
-  const int p = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tu = tid % 8, tr = tid / 8;
-  const int j0 = blockIdx.x * TJ, b0 = blockIdx.y * TB;
-  const long long G = 4LL * H;
-  const long long row = plane_row(t, p, B);
-  const long long prev = t > 0 ? plane_row(t - 1, p, B) : 0;
-
-  float acc[4][2][4];
-  zero(acc);
-  if (t > 0) {  // block-uniform: h0 = 0
-    gate_product<float, W>(acc, a.ys + prev * H, a.wh + p * H * G, B, H, b0,
-                           j0, sm);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int b = b0 + 4 * tr + r;
-    if (b >= B) continue;
-    const float m = a.mask[row + b];
-    const float* x = a.xw + (row + b) * G;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int j = j0 + 2 * tu + s;
-      if (j >= H) continue;
-      const float i = sigmoid_f32(x[j] + acc[r][s][0]);
-      const float f = sigmoid_f32(x[H + j] + acc[r][s][1]);
-      const float g = tanhf(x[2 * H + j] + acc[r][s][2]);
-      const float o = sigmoid_f32(x[3 * H + j] + acc[r][s][3]);
-      const float c_old = t > 0 ? a.cs[(prev + b) * H + j] : 0.0f;
-      const float h_old = t > 0 ? a.ys[(prev + b) * H + j] : 0.0f;
-      const float c_new = f * c_old + i * g;
-      const float h_new = o * tanhf(c_new);
-      a.ys[(row + b) * H + j] = m * h_new + (1.0f - m) * h_old;
-      a.cs[(row + b) * H + j] = m * c_new + (1.0f - m) * c_old;
+// `bytes` from the library's pool on the current device, ordered on s
+cudaError_t pool_alloc(void** p, long long bytes, cudaStream_t s) {
+  static std::mutex mu;
+  static cudaMemPool_t pools[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (pools[dev] == nullptr) {
+      cudaMemPoolProps props = {};
+      props.allocType = cudaMemAllocationTypePinned;
+      props.location.type = cudaMemLocationTypeDevice;
+      props.location.id = dev;
+      err = cudaMemPoolCreate(&pools[dev], &props);
+      if (err != cudaSuccess) return err;
+      uint64_t keep = UINT64_MAX;
+      err = cudaMemPoolSetAttribute(pools[dev],
+                                    cudaMemPoolAttrReleaseThreshold, &keep);
+      if (err != cudaSuccess) return err;
     }
+  }
+  return cudaMallocFromPoolAsync(p, static_cast<size_t>(bytes), pools[dev],
+                                 s);
+}
+
+// dst[i] = f32(src[i]), exact: bf16 weights for an f32-weight design
+__global__ void widen_bf16(const __nv_bfloat16* __restrict__ src,
+                           float* __restrict__ dst, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    dst[i] = __bfloat162float(src[i]);
   }
 }
 
-// K6b phase 1 of frame t: gate recompute, dxw[t], dc carry.
-template <typename W>
-__global__ void __launch_bounds__(THREADS)
-bi_bwd_gates(BiArgs<W> a, int t, int B, int H) {
-  __shared__ __align__(16) Tiles sm;
-  const int p = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tu = tid % 8, tr = tid / 8;
-  const int j0 = blockIdx.x * TJ, b0 = blockIdx.y * TB;
-  const long long G = 4LL * H;
-  const long long row = plane_row(t, p, B);
-  const long long prev = t > 0 ? plane_row(t - 1, p, B) : 0;
-
-  float acc[4][2][4];
-  zero(acc);
-  if (t > 0) {
-    gate_product<float, W>(acc, a.ys + prev * H, a.wh + p * H * G, B, H, b0,
-                           j0, sm);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int b = b0 + 4 * tr + r;
-    if (b >= B) continue;
-    const float m = a.mask[row + b];
-    const float* x = a.xw + (row + b) * G;
-    float* dx = a.dxw + (row + b) * G;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int j = j0 + 2 * tu + s;
-      if (j >= H) continue;
-      const float i = sigmoid_f32(x[j] + acc[r][s][0]);
-      const float f = sigmoid_f32(x[H + j] + acc[r][s][1]);
-      const float g = tanhf(x[2 * H + j] + acc[r][s][2]);
-      const float o = sigmoid_f32(x[3 * H + j] + acc[r][s][3]);
-      const float tc = tanhf(a.cs[(row + b) * H + j]);
-      const float c_prev = t > 0 ? a.cs[(prev + b) * H + j] : 0.0f;
-      const long long idx = ((long long)p * B + b) * H + j;
-      const float dh = a.dh[idx] + a.dys[(row + b) * H + j];
-      const float dc = a.dc[idx];
-      const float dc_t = dc + dh * o * (1.0f - tc * tc);
-      dx[j] = (dc_t * g) * i * (1.0f - i) * m;
-      dx[H + j] = (dc_t * c_prev) * f * (1.0f - f) * m;
-      dx[2 * H + j] = (dc_t * i) * (1.0f - g * g) * m;
-      dx[3 * H + j] = (dh * tc) * o * (1.0f - o) * m;
-      a.dc[idx] = m * (dc_t * f) + (1.0f - m) * dc;
-    }
-  }
+cudaError_t widen(const void* src, float* dst, long long n, cudaStream_t s) {
+  widen_bf16<<<264, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(src), dst,
+                                 n);
+  return cudaGetLastError();
 }
 
-// K6b phase 2 of frame t: dh = round_W(dxw[t]) @ wh^T + (1-m)*(dh + dys[t]).
-// Block tile RB rows x RU units, 128 threads of 2 rows x 4 units each,
-// contraction over the 4H gate columns in chunks of RK.
-constexpr int RB = 32;
-constexpr int RU = 32;
-constexpr int RK = 32;
-constexpr int DS_LD = RB + 2;  // transposed dgates tile row (float2 reads)
-constexpr int WT_LD = RU + 4;  // transposed wh tile row (float4 reads)
-
-template <typename W>
-__global__ void __launch_bounds__(THREADS)
-bi_bwd_dh(BiArgs<W> a, int t, int B, int H) {
-  __shared__ __align__(16) float ds[RK][DS_LD];  // ds[g][b]
-  __shared__ __align__(16) float wt[RK][WT_LD];  // wt[g][k] = wh[p][k][g]
-  const int p = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tu = tid % 8;  // units 4*tu .. 4*tu+3 of the tile
-  const int tr = tid / 8;  // rows 2*tr, 2*tr+1 of the tile
-  const int k0 = blockIdx.x * RU;
-  const int b0 = blockIdx.y * RB;
-  const int G = 4 * H;
-  const long long row = plane_row(t, p, B);
-  const float* dg = a.dxw + row * G;
-  const W* wh = a.wh + (long long)p * H * G;
-  const int lg = tid % RK, lr = tid / RK;  // load mapping
-
-  float acc[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[r][u] = 0.0f;
-
-  for (int g0 = 0; g0 < G; g0 += RK) {
-    const int g = g0 + lg;
-#pragma unroll
-    for (int i = 0; i < RB / (THREADS / RK); ++i) {
-      const int b = b0 + lr + (THREADS / RK) * i;
-      ds[lg][lr + (THREADS / RK) * i] =
-          (b < B && g < G) ? round_to<W>(dg[(long long)b * G + g]) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < RU / (THREADS / RK); ++i) {
-      const int k = k0 + lr + (THREADS / RK) * i;
-      wt[lg][lr + (THREADS / RK) * i] =
-          (k < H && g < G) ? to_f32(wh[(long long)k * G + g]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < RK; ++kk) {
-      const float2 d2 = *reinterpret_cast<const float2*>(&ds[kk][2 * tr]);
-      const float4 w = *reinterpret_cast<const float4*>(&wt[kk][4 * tu]);
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc[0][u] = fmaf(d2.x, wv[u], acc[0][u]);
-        acc[1][u] = fmaf(d2.y, wv[u], acc[1][u]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int b = b0 + 2 * tr + r;
-    if (b >= B) continue;
-    const float m = a.mask[row + b];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = k0 + 4 * tu + u;
-      if (k >= H) continue;
-      const long long idx = ((long long)p * B + b) * H + k;
-      const float dh = a.dh[idx] + a.dys[(row + b) * H + k];
-      a.dh[idx] = acc[r][u] + (1.0f - m) * dh;
-    }
-  }
-}
-
-// dwh[p][k][g] = sum over frames t >= 1 and rows b of
-// round_W(ys[t-1,p,b,k]) * round_W(dxw[t,p,b,g]): R = (T-1)*B rows per
-// plane, row r = (t-1)*B + b. Block tile 64 x 64 of dwh, 256 threads of
-// 4 x 4, chunks of DK rows.
-constexpr int DM = 64;
-constexpr int DN = 64;
-constexpr int DK = 16;
-constexpr int DTHREADS = 256;
-
-template <typename W>
-__global__ void __launch_bounds__(DTHREADS)
-bi_dwh(const float* __restrict__ ys, const float* __restrict__ dxw,
-       float* __restrict__ dwh, int T, int B, int H) {
-  __shared__ __align__(16) float as[DK][DM];
-  __shared__ __align__(16) float cs[DK][DN];
-  const int p = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tm = tid / 16;  // dwh rows 4*tm .. 4*tm+3 of the tile
-  const int tn = tid % 16;  // dwh cols 4*tn .. 4*tn+3 of the tile
-  const int m0 = blockIdx.y * DM;
-  const int n0 = blockIdx.x * DN;
-  const int G = 4 * H;
-  const int R = (T - 1) * B;  // < 2^31, checked by vo_bi_lstm_bwd
-  const int lc = tid % DM, lr = tid / DM;  // load mapping
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int r0 = 0; r0 < R; r0 += DK) {
-#pragma unroll
-    for (int i = 0; i < DK / (DTHREADS / DM); ++i) {
-      const int kr = lr + (DTHREADS / DM) * i;
-      const int r = r0 + kr;
-      const int k = m0 + lc, g = n0 + lc;
-      float av = 0.0f, cv = 0.0f;
-      if (r < R) {  // 32-bit division: a 64-bit one is emulated
-        const int t = r / B + 1;
-        const int b = r - (t - 1) * B;
-        if (k < H) av = round_to<W>(ys[(plane_row(t - 1, p, B) + b) * H + k]);
-        if (g < G) cv = round_to<W>(dxw[(plane_row(t, p, B) + b) * G + g]);
-      }
-      as[kr][lc] = av;
-      cs[kr][lc] = cv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&as[kk][4 * tm]);
-      const float4 c4 = *reinterpret_cast<const float4*>(&cs[kk][4 * tn]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = dwh + (long long)p * H * G;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = m0 + 4 * tm + i;
-    if (k >= H) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int g = n0 + 4 * tn + j;
-      if (g < G) out[(long long)k * G + g] = acc[i][j];
-    }
-  }
-}
-
-template <typename W>
-int run_fwd(int T, int B, int H, const BiArgs<W>& a, cudaStream_t s) {
-  const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB, 2);
-  for (int t = 0; t < T; ++t) {
-    bi_fwd_step<W><<<grid, THREADS, 0, s>>>(a, t, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
-template <typename W>
-int run_bwd(int T, int B, int H, const BiArgs<W>& a, float* dwh,
-            cudaStream_t s) {
-  const dim3 grid_g((H + TJ - 1) / TJ, (B + TB - 1) / TB, 2);
-  const dim3 grid_h((H + RU - 1) / RU, (B + RB - 1) / RB, 2);
-  for (int t = T - 1; t >= 0; --t) {
-    bi_bwd_gates<W><<<grid_g, THREADS, 0, s>>>(a, t, B, H);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (t == 0) break;  // the carry after the first frame is not used
-    bi_bwd_dh<W><<<grid_h, THREADS, 0, s>>>(a, t, B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid_w((4 * H + DN - 1) / DN, (H + DM - 1) / DM, 2);
-  bi_dwh<W><<<grid_w, DTHREADS, 0, s>>>(a.ys, a.dxw, dwh, T, B, H);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename W>
-BiArgs<W> args(const void* xw, const void* mask, const void* wh,
-               const void* dys, void* ys, void* cs, void* dxw, void* scratch,
-               int B, int H) {
-  BiArgs<W> a;
-  a.xw = static_cast<const float*>(xw);
-  a.mask = static_cast<const float*>(mask);
-  a.wh = static_cast<const W*>(wh);
-  a.dys = static_cast<const float*>(dys);
-  a.ys = static_cast<float*>(ys);
-  a.cs = static_cast<float*>(cs);
-  a.dxw = static_cast<float*>(dxw);
-  a.dh = static_cast<float*>(scratch);
-  a.dc = a.dh == nullptr ? nullptr : a.dh + 2LL * B * H;
-  return a;
+// the first error of a call and of freeing its workspace
+int finish(int err, void* work, cudaStream_t s) {
+  const cudaError_t freed =
+      work == nullptr ? cudaSuccess : cudaFreeAsync(work, s);
+  return err != 0 ? err : static_cast<int>(freed);
 }
 
 }  // namespace
 
-// K6a: the recurrence of both planes. w_type: 0 = wh float32, 1 = wh bf16
+// The designs vo_bi_lstm_fwd and vo_bi_lstm_bwd run at w_type, B and H:
+// out[0] the forward's (vo_lstm_fwd_named's codes), out[1] the gate
+// GEMM's and out[2] the frame loop's (vo_lstm_bwd_named's), out[3] dwh's
+// (vo_lstm_dwh's; -1: lstm_dwh_fma). Returns 0, or cudaErrorInvalidValue.
+extern "C" int vo_bi_lstm_design(int w_type, int B, int H, int* out) {
+  if (B < 1 || H < 1 || (w_type != 0 && w_type != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int code = type_code(w_type);
+  out[0] = vo_lstm_fwd_design(code, B, H, 2);
+  out[1] = vo_lstm_bwd_gates_design(code, H);
+  out[2] = vo_lstm_bwd_loop_design(code, B, H, 2);
+  out[3] = vo_lstm_dwh_design(code, H);
+  return 0;
+}
+
+// K6a: the recurrence of both planes, one call of the layer's forward
+// (one launch, or T for lstm_step). w_type: 0 = wh float32, 1 = wh bf16
 // (the compute type h is rounded to). Writes ys, cs [T,2,B,H] float32.
-// Returns the first non-zero cudaGetLastError() after a launch, or 0.
+// Returns the first CUDA error, or 0.
 extern "C" int vo_bi_lstm_fwd(int w_type, int T, int B, int H, const void* xw,
                               const void* mask, const void* wh, void* ys,
                               void* cs, void* stream) {
-  if (T < 1 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (w_type) {
-    case 0:
-      return run_fwd<float>(T, B, H, args<float>(xw, mask, wh, nullptr, ys,
-                                                 cs, nullptr, nullptr, B, H),
-                            s);
-    case 1:
-      return run_fwd<__nv_bfloat16>(
-          T, B, H, args<__nv_bfloat16>(xw, mask, wh, nullptr, ys, cs, nullptr,
-                                       nullptr, B, H), s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  int design[4];
+  if (T < 1 || vo_bi_lstm_design(w_type, B, H, design) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int code = type_code(w_type);
+  const long long G = 4LL * H, HW = H * G;
+  const bool bf16_wh = design[0] == FWD_TC || design[0] == FWD_PERSISTENT;
+  // each plane's zeroed scratch (lstm_fwd_persistent takes none), then wh
+  // widened to f32 for bf16 weights on an f32-weight design
+  const long long sc =
+      design[0] == FWD_PERSISTENT ? 0 : round_up(vo_lstm_fwd_scratch(B, H) * 4);
+  const long long wf = w_type == 1 && !bf16_wh ? 2 * HW * 4 : 0;
+  void* work = nullptr;
+  if (2 * sc + wf > 0) {
+    const cudaError_t err = pool_alloc(&work, 2 * sc + wf, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  char* base = static_cast<char*>(work);
+  const long long esz = w_type == 1 ? 2 : 4;
+  const char* w0 = static_cast<const char*>(wh);
+  const char* w1 = w0 + HW * esz;
+  int err = 0;
+  if (sc > 0) err = static_cast<int>(cudaMemsetAsync(base, 0, 2 * sc, s));
+  if (err == 0 && wf > 0) {
+    float* whf = reinterpret_cast<float*>(base + 2 * sc);
+    err = static_cast<int>(widen(wh, whf, 2 * HW, s));
+    w0 = reinterpret_cast<const char*>(whf);
+    w1 = reinterpret_cast<const char*>(whf + HW);
+  }
+  if (err == 0) {
+    const float* m = static_cast<const float*>(mask);
+    const float* x = static_cast<const float*>(xw);
+    float* y = static_cast<float*>(ys);
+    float* c = static_cast<float*>(cs);
+    const long long BH = (long long)B * H;
+    err = vo_lstm_fwd_frames(design[0], code, T, B, H, 2, 2 * B, m, m + B, x,
+                             w0, y, c, sc > 0 ? base : nullptr, 0, x + B * G,
+                             w1, y + BH, c + BH,
+                             sc > 0 ? base + sc : nullptr, 0, stream);
+  }
+  return finish(err, work, s);
 }
 
-// K6b: the BPTT of both planes from the forward's ys and cs. w_type as
-// vo_bi_lstm_fwd. scratch: [2, 2, B, H] float32, zeroed by the caller (dh,
-// dc carries). Writes dxw [T,2,B,4H] and dwh [2,H,4H] float32 (every
+// K6b: the BPTT of both planes from the forward's ys and cs: the layer's
+// gate GEMM and frame loop (one call), then its dwh (one call). w_type as
+// vo_bi_lstm_fwd. scratch: unused (the workspace is the pool's); callers
+// pass null. Writes dxw [T,2,B,4H] and dwh [2,H,4H] float32 (every
 // element; dwh is zero when T = 1).
 extern "C" int vo_bi_lstm_bwd(int w_type, int T, int B, int H, const void* xw,
                               const void* mask, const void* wh,
                               const void* ys, const void* cs, const void* dys,
                               void* dxw, void* dwh, void* scratch,
                               void* stream) {
-  if (T < 1 || B < 1 || H < 1 || (long long)(T - 1) * B > INT_MAX) {
+  (void)scratch;
+  int design[4];
+  if (T < 1 || vo_bi_lstm_design(w_type, B, H, design) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  void* y = const_cast<void*>(ys);  // read only in the BPTT
-  void* c = const_cast<void*>(cs);
-  float* w = static_cast<float*>(dwh);
-  switch (w_type) {
-    case 0:
-      return run_bwd<float>(T, B, H, args<float>(xw, mask, wh, dys, y, c, dxw,
-                                                 scratch, B, H), w, s);
-    case 1:
-      return run_bwd<__nv_bfloat16>(
-          T, B, H, args<__nv_bfloat16>(xw, mask, wh, dys, y, c, dxw, scratch,
-                                       B, H), w, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int code = type_code(w_type);
+  const int gemm = design[1], loop = design[2];
+  const long long G = 4LL * H, HW = H * G, BH = (long long)B * H;
+  // each plane's scratch (the recomputed gates, then the loop's own),
+  // dwh's workspace, and wh widened to f32 where the FMA gate GEMM or an
+  // f32-weight loop reads bf16 weights
+  const long long sb = vo_lstm_bwd_scratch(loop, T, B, H);
+  if (sb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long sc = round_up(sb);
+  const long long dw =
+      round_up(vo_lstm_dwh_workspace(-1, code, T, B, H, 2));
+  const bool widened = w_type == 1 && (gemm == GEMM_FMA ||
+                                       (loop != LOOP_PERSISTENT &&
+                                        loop != LOOP_TC));
+  const long long wf = widened ? 2 * HW * 4 : 0;
+  void* work = nullptr;
+  cudaError_t e = pool_alloc(&work, 2 * sc + dw + wf, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  char* base = static_cast<char*>(work);
+  const long long esz = w_type == 1 ? 2 : 4;
+  const char* w0 = static_cast<const char*>(wh);
+  const char* w1 = w0 + HW * esz;
+  const char* f0 = w0;  // wh in f32 (f32 weights: wh itself)
+  const char* f1 = w1;
+  int err = 0;
+  if (widened) {
+    float* whf = reinterpret_cast<float*>(base + 2 * sc + dw);
+    err = static_cast<int>(widen(wh, whf, 2 * HW, s));
+    f0 = reinterpret_cast<const char*>(whf);
+    f1 = reinterpret_cast<const char*>(whf + HW);
   }
+  const float* m = static_cast<const float*>(mask);
+  const float* x = static_cast<const float*>(xw);
+  const float* y = static_cast<const float*>(ys);
+  const float* c = static_cast<const float*>(cs);
+  const float* dy = static_cast<const float*>(dys);
+  float* dx = static_cast<float*>(dxw);
+  float* dw_out = static_cast<float*>(dwh);
+  if (err == 0) {
+    err = vo_lstm_bwd_frames(gemm, loop, code, T, B, H, 2, 2 * B, m, m + B, x,
+                             w0, f0, y, c, dy, dx, base, 0, x + B * G, w1, f1,
+                             y + BH, c + BH, dy + BH, dx + B * G, base + sc, 0,
+                             stream);
+  }
+  if (err == 0) {
+    err = vo_lstm_dwh_frames(-1, code, T, B, H, 2, 2 * B, y, dx, dw_out, 0,
+                             y + BH, dx + B * G, dw_out + HW, 0,
+                             dw > 0 ? base + 2 * sc : nullptr, stream);
+  }
+  return finish(err, work, s);
 }

@@ -21,7 +21,18 @@
 // xw, dxw [T,B,4H], ys, cs, dys [T,B,H] are in the stream type S (float or
 // bf16), wh [H,4H] in the weight type W; the carries dh, dc and dwh are
 // float32. h_prev is read from the SAVED stream-type ys row and rounded to
-// W, as the reference does (no f32 carry of h in the backward).
+// W, as the reference does (no f32 carry of h in the backward). Every
+// design reads a direction's frames of xw, ys, cs, dys and dxw `pitch`
+// rows apart with a mask of its own (Frames, lstm_common.cuh): the layer
+// passes pitch = B and one mask; the planes of the direction-stacked
+// layout pass 2B and a mask each (vo_lstm_bwd_frames, vo_lstm_dwh_frames,
+// lstm_bi_stacked.cu). The recomputed gates and the loops' carries and
+// exchanges stay dense; the GEMMs over rows (the gate recompute, dwh) map
+// each dense row to its frame's row (FrameRows / TileRows: the identity
+// at pitch = B, and dense TMA maps only there). lstm_bwd_persistent,
+// lstm_bwd_rows and the f32 GEMMs take the pitch and the masks as a
+// template flag (kP), so the layer's instantiations are the code they
+// were; the other designs read them at run time (PERF.md: their times).
 //
 // What bounds it on an H100: T strictly sequential frames of too little
 // work each ([B,H] x [H,4H] for the gate recompute, [B,4H] x [4H,H] for
@@ -288,8 +299,10 @@ __device__ __forceinline__ uint4 to_bf16x8(const Chunk8<float>& c) {
 }
 
 // Fill `nblk` blocks of `rows` x 64 bf16 (128B-swizzled, block j at
-// dst + j*rows*128) with src[(row0 + r)*ld + col0 + 64j + c], rows
-// row0 + r outside [0, nrows) and columns >= end as zeros. bf16 sources
+// dst + j*rows*128) with src[at(row0 + r - at0)*ld + col0 + 64j + c],
+// rows row0 + r outside [0, nrows) and columns >= end as zeros. at: where
+// a frame-structured source holds its dense rows from row at0 on (a tile
+// of FrameRows; the identity by default). bf16 sources
 // with `vec` go by cp.async (the caller waits); others are loaded a batch
 // of chunks at a time and rounded to bf16 only as they are stored, so the
 // loads of a batch are in flight together.
@@ -298,7 +311,9 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
                                           long long ld, long long row0,
                                           long long nrows, long long col0,
                                           long long end, int nblk, bool vec,
-                                          int tid, int nthreads) {
+                                          int tid, int nthreads,
+                                          const TileRows& at = TileRows(),
+                                          long long at0 = 0) {
   constexpr int BATCH = 8;
   const int per_blk = rows * 8;
   const int total = nblk * per_blk;
@@ -314,7 +329,7 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
       off[i] = j * rows * 128 + swz128(r, c);
       const long long gr = row0 + r, col = col0 + 64 * j + 8 * c;
       const bool ok = gr >= 0 && gr < nrows;
-      const T* row = src + (ok ? gr : 0) * ld;
+      const T* row = src + (ok ? at(static_cast<unsigned>(gr - at0)) : 0) * ld;
       if constexpr (std::is_same<T, bf16>::value) {
         if (vec) {
           if (ok && col < end) {
@@ -340,9 +355,11 @@ __device__ __forceinline__ void fill_tile(uint8_t* dst, int rows, const T* src,
 // a = ys rows of the predecessor frames, c = dxw rows of their successors.
 template <typename S>
 struct DwhDir {
-  const S* a;   // [R, H]
-  const S* c;   // [R, 4H]
+  const S* a;   // [R, H] (dense row r at FrameRows(B, pitch)(r))
+  const S* c;   // [R, 4H] (likewise)
   float* out;   // [H, 4H]
+  int B;        // rows of a frame
+  int pitch;    // rows between frames of a and c
 };
 
 // f32/f32 (type code 0, the parity route): exact f32 FMAs on the FMA units
@@ -430,13 +447,17 @@ __device__ __forceinline__ bool dwh_fold(float* acc, float4* ws, int* tickets,
 // stores its partial tile to `ws`, takes the tile's ticket, and the
 // tile's last CTA adds the partials in split order (its own from
 // registers) and writes dwh. `vec`: rows of whole, aligned float4s (16-byte
-// copies); else value by value.
+// copies); else value by value. kP: the frames of a and c lie d.pitch
+// rows apart (FrameRows), so each copy finds its row's address; without
+// it the rows are dense and one running pointer an operand walks them.
+template <bool kP>
 __global__ void __launch_bounds__(DTHREADS, DLB)
 lstm_dwh_fma(DwhDir<float> d0, DwhDir<float> d1, long long R, int H, int vec,
              int splits, float4* ws, int* tickets) {
   const int ndir = gridDim.z / splits;
   const int dir = blockIdx.z % ndir, split = blockIdx.z / ndir;
   const DwhDir<float> d = dir == 0 ? d0 : d1;
+  const FrameRows rows_at(d.B, d.pitch);
   extern __shared__ __align__(16) float dwh_f32_raw[];
   float* as = dwh_f32_raw;               // [DSTAGES][DQ][128]
   float* cs = as + DSTAGES * DQ * 128;   // [DSTAGES][DQ][128]
@@ -454,6 +475,8 @@ lstm_dwh_fma(DwhDir<float> d0, DwhDir<float> d1, long long R, int H, int vec,
   constexpr int RSTEP = DTHREADS / 32;
   const int lr = tid / 32, lc = 4 * (tid % 32);
   const bool oka = m0 + lc < H, okc = n0 + lc < G;  // whole float4s (vec)
+  // the split's rows (at most DWH_F32_CHAIN stages) from its first
+  const TileRows at_split = rows_at.tile(k0 * DQ);
   const float* pa0 = d.a + (oka ? m0 + lc : 0);
   const float* pc0 = d.c + (okc ? n0 + lc : 0);
   auto stage = [&](int i) {
@@ -461,8 +484,18 @@ lstm_dwh_fma(DwhDir<float> d0, DwhDir<float> d1, long long R, int H, int vec,
     long long r = (k0 + i) * DQ + lr;
     float* sa = as + s * DQ * 128 + lr * 128 + lc;
     float* sc = cs + s * DQ * 128 + lr * 128 + lc;
-    if (vec) {  // one running pointer an operand: nothing for the
-                // compiler to hoist into registers a chunk
+    if (kP && vec) {  // a copy's address a row
+#pragma unroll
+      for (int j = 0; j < DQ / RSTEP; ++j, r += RSTEP) {
+        const bool ok = r < R;
+        const long long fr = at_split(i * DQ + lr + j * RSTEP);
+        cp_async16_zfill(sa + j * RSTEP * 128, ok && oka ? pa0 + fr * H : d.a,
+                         ok && oka);
+        cp_async16_zfill(sc + j * RSTEP * 128, ok && okc ? pc0 + fr * G : d.c,
+                         ok && okc);
+      }
+    } else if (vec) {  // one running pointer an operand: nothing for the
+                       // compiler to hoist into registers a chunk
       const float* pa = pa0 + r * H;
       const float* pc = pc0 + r * G;
 #pragma unroll
@@ -478,11 +511,12 @@ lstm_dwh_fma(DwhDir<float> d0, DwhDir<float> d1, long long R, int H, int vec,
       }
     } else {
       for (int j = 0; j < DQ / RSTEP; ++j, r += RSTEP) {
+        const long long fr = kP ? rows_at(r) : r;
         for (int e = 0; e < 4; ++e) {
           sa[j * RSTEP * 128 + e] =
-              r < R && m0 + lc + e < H ? d.a[r * H + m0 + lc + e] : 0.0f;
+              r < R && m0 + lc + e < H ? d.a[fr * H + m0 + lc + e] : 0.0f;
           sc[j * RSTEP * 128 + e] =
-              r < R && n0 + lc + e < G ? d.c[r * G + n0 + lc + e] : 0.0f;
+              r < R && n0 + lc + e < G ? d.c[fr * G + n0 + lc + e] : 0.0f;
         }
       }
     }
@@ -620,6 +654,9 @@ lstm_dwh_tc(const __grid_constant__ DwhMaps maps, DwhDir<S> d0, DwhDir<S> d1,
 
   if (wg == 2) {  // producer
     const int tid = threadIdx.x - 256;
+    // the split's rows from its first (TMA reads dense rows)
+    const TileRows at =
+        kTma ? TileRows() : FrameRows(d.B, d.pitch).tile((long long)k0 * GK);
     for (int kt = k0; kt < k1; ++kt) {
       const int s = (kt - k0) % GSTAGES, n = (kt - k0) / GSTAGES;
       uint8_t* st = sm + s * STAGE;
@@ -637,9 +674,10 @@ lstm_dwh_tc(const __grid_constant__ DwhMaps maps, DwhDir<S> d0, DwhDir<S> d1,
         }
       } else {
         if (n > 0) mbar_wait(&empty[s], (n - 1) & 1);
-        fill_tile<S>(st, 64, d.a, H, r0, R, m0, H, 2, vec, tid, 128);
+        fill_tile<S>(st, 64, d.a, H, r0, R, m0, H, 2, vec, tid, 128, at,
+                     (long long)k0 * GK);
         fill_tile<S>(st + 2 * GBOX, 64, d.c, G, r0, R, n0, G, TN / 64, vec,
-                     tid, 128);
+                     tid, 128, at, (long long)k0 * GK);
         cp_async_wait_all();
         fence_proxy_async();
         mbar_arrive(&full[s]);
@@ -831,14 +869,15 @@ long long dwh_f32_workspace(int T, int B, int H, int ndir) {
   return dwh_ticket_bytes(tiles) + tiles * splits * 128LL * 128 * 4;
 }
 
+template <bool kP>
 cudaError_t launch_dwh_f32(const DwhDir<float>* d, long long R, int H,
                            int ndir, int vec, void* work,
                            cudaStream_t stream) {
   constexpr int smem = dwh_f32_smem();
-  static bool configured = false;
+  static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lstm_dwh_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lstm_dwh_fma<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -861,15 +900,15 @@ cudaError_t launch_dwh_f32(const DwhDir<float>* d, long long R, int H,
   }
   const dim3 grid(static_cast<unsigned>(nt), static_cast<unsigned>(mt),
                   splits * ndir);
-  lstm_dwh_fma<<<grid, DTHREADS, smem, stream>>>(d[0], d[1], R, H, vec,
-                                                 splits, ws, tickets);
+  lstm_dwh_fma<kP><<<grid, DTHREADS, smem, stream>>>(d[0], d[1], R, H, vec,
+                                                     splits, ws, tickets);
   return cudaGetLastError();
 }
 
 template <typename S, typename W>
-int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
-            const void* const* dxw, void* const* dwh, const int* reverse,
-            void* work, cudaStream_t stream) {
+int run_dwh(int design, int T, int B, int H, int ndir, int pitch,
+            const void* const* ys, const void* const* dxw, void* const* dwh,
+            const int* reverse, void* work, cudaStream_t stream) {
   constexpr bool f32 =
       std::is_same<S, float>::value && std::is_same<W, float>::value;
   if (design < -1 || design > DWH_WIDE || (f32 && design != -1)) {
@@ -877,7 +916,7 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
   }
   if (design == -1) design = dwh_design(H);
   DwhDir<S> d[2];
-  const long long BH = (long long)B * H;
+  const long long PH = (long long)pitch * H;  // a frame of ys
   const long long R = (long long)(T - 1) * B;
   const int G = 4 * H;
   for (int i = 0; i < ndir; ++i) {
@@ -885,9 +924,11 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
     const S* g = static_cast<const S*>(dxw[i]);
     // forward: ys[0..T-2] with dxw[1..T-1]; reverse: ys[1..T-1] with
     // dxw[0..T-2]
-    d[i].a = reverse[i] ? y + BH : y;
-    d[i].c = reverse[i] ? g : g + 4 * BH;
+    d[i].a = reverse[i] ? y + PH : y;
+    d[i].c = reverse[i] ? g : g + 4 * PH;
     d[i].out = static_cast<float*>(dwh[i]);
+    d[i].B = B;
+    d[i].pitch = pitch;
   }
   if (R == 0) {  // T = 1: no frame has a predecessor
     for (int i = 0; i < ndir; ++i) {
@@ -904,7 +945,9 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
   }
   if constexpr (f32) {
     const int vec = aligned && H % 4 == 0;  // rows of whole float4s
-    return static_cast<int>(launch_dwh_f32(d, R, H, ndir, vec, work, stream));
+    return static_cast<int>(
+        pitch == B ? launch_dwh_f32<false>(d, R, H, ndir, vec, work, stream)
+                   : launch_dwh_f32<true>(d, R, H, ndir, vec, work, stream));
   } else {
     if (R > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const int vec = aligned && H % 8 == 0;  // rows of whole 8-value chunks
@@ -913,7 +956,8 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
     const CUtensorMapL2promotion promo = l2_promotion(H);
     DwhMaps maps = {};
     if constexpr (std::is_same<S, bf16>::value) {
-      if (vec) {  // TMA: bf16 rows whose strides and bases are 16-byte aligned
+      // TMA: dense bf16 rows whose strides and bases are 16-byte aligned
+      if (vec && pitch == B) {
         for (int i = 0; i < ndir; ++i) {
           cudaError_t err = encode_rows(&maps.a[i], d[i].a, H, R, promo);
           if (err == cudaSuccess) {
@@ -940,13 +984,16 @@ int run_dwh(int design, int T, int B, int H, int ndir, const void* const* ys,
 
 // pre[r][n] = f32(xw[r][n]) + sum_k round_W(ys[r + off][k]) * wh[k][n] over
 // the R = T*B rows of one direction; ys rows outside [0, R) read as zeros
-// (the edge frame, whose h_prev is zero, gets f32(xw) alone).
+// (the edge frame, whose h_prev is zero, gets f32(xw) alone). Rows are
+// dense frame rows r = t*B + b: xw and ys hold row r at FrameRows(B,
+// pitch)(r) (so off is a frame of pitch rows there), pre is dense.
 struct GatesDir {
   const void* xw;  // [R, 4H] in S
   const void* ys;  // [R, H] in S
   const bf16* wh;  // [H, 4H]
   float* pre;      // [R, 4H]
   long long off;   // -B (forward: h_prev = ys[t-1]) or +B (reverse: ys[t+1])
+  int pitch;       // rows between frames of xw and ys
 };
 
 // bptt_gates_gemm_wide, for bf16 W at every H. Where the time goes: at
@@ -1049,6 +1096,8 @@ bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
   }
   __syncthreads();
   const int wg = threadIdx.x / 128;
+  // both directions' layout (TMA reads dense rows: no map to build)
+  const FrameRows rows_at = kTma ? FrameRows() : FrameRows(B, d0.pitch);
 
   if (wg == 2) {  // producer
     const int tid = threadIdx.x - 256;
@@ -1059,6 +1108,7 @@ bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
       const WideTile w = wide_tile(t, ndir, R, B, nk, nt, mi, me, d0, d1);
       const GatesDir d = w.dir == 0 ? d0 : d1;
       const int nx = w.nk < GW_STAGES ? w.nk : GW_STAGES;
+      const TileRows at = rows_at.tile(w.a0);  // the tile's ys rows
       for (int kt = 0; kt <= w.nk; ++kt) {
         if (kTma && kt == nx) {
           // this tile's xw, once the consumers have read the last tile's:
@@ -1092,7 +1142,7 @@ bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
         } else {
           for (int h = 0; h < 2; ++h) {
             fill_tile<S>(st + h * GBOX, 64, static_cast<const S*>(d.ys), H,
-                         w.a0 + 64 * h, R, k0, H, 1, vec, tid, 128);
+                         w.a0 + 64 * h, R, k0, H, 1, vec, tid, 128, at, w.a0);
           }
           fill_tile<bf16>(st + 2 * GBOX, 64, d.wh, G, k0, H, w.n0, G, 4, vec,
                           tid, 128);
@@ -1136,6 +1186,7 @@ bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
       }
       if constexpr (kTma) mbar_wait(xw_full, it & 1);
       const S* xw = static_cast<const S*>(d.xw);
+      const TileRows at = rows_at.tile(w.m0 + 64 * wg);
 #pragma unroll
       for (int j = 0; j < WN / 8; ++j)
 #pragma unroll
@@ -1152,7 +1203,7 @@ bptt_gates_gemm_wide(const __grid_constant__ GatesWideMaps maps, GatesDir d0,
             x1 = __uint_as_float(v & 0xffff0000u);
           } else {
             const bool ok = row < w.end && n < G;
-            const S* x = xw + (ok ? row * G + n : 0);
+            const S* x = xw + (ok ? at(r) * G + n : 0);
             x0 = to_f32(x[0]);
             x1 = to_f32(x[1]);
           }
@@ -1190,7 +1241,7 @@ cudaError_t launch_gates_wide(const GatesWideMaps& maps, const GatesDir* d,
 }
 
 template <typename S>
-cudaError_t run_gates_wide(int T, int B, int H, int ndir,
+cudaError_t run_gates_wide(int T, int B, int H, int ndir, int pitch,
                            const void* const* xw, const void* const* wh,
                            const void* const* ys, float* const* pre,
                            const int* reverse, cudaStream_t stream) {
@@ -1209,6 +1260,7 @@ cudaError_t run_gates_wide(int T, int B, int H, int ndir,
     d[i].wh = static_cast<const bf16*>(wh[i]);
     d[i].pre = pre[i];
     d[i].off = reverse[i] ? B : -B;
+    d[i].pitch = pitch;
     aligned = aligned && aligned16(xw[i]) && aligned16(ys[i]) &&
               aligned16(wh[i]);
   }
@@ -1216,7 +1268,7 @@ cudaError_t run_gates_wide(int T, int B, int H, int ndir,
   const int vec = aligned && H % 8 == 0;  // rows of whole 16-byte chunks
   GatesWideMaps maps = {};
   if constexpr (std::is_same<S, bf16>::value) {
-    if (vec) {
+    if (vec && pitch == B) {  // TMA: dense bf16 rows
       for (int i = 0; i < ndir; ++i) {
         cudaError_t err = encode_rows(&maps.a[i], d[i].ys, H, R, promo);
         if (err == cudaSuccess) {
@@ -1266,11 +1318,13 @@ constexpr int bwd_persistent_smem() {
 
 template <typename S>
 struct BwdSeqDir {
-  const float* pre;  // [T, B, 4H] from bptt_gates_gemm
-  const bf16* wh;    // [H, 4H]
-  const S* cs;       // [T, B, H]
-  const S* dys;      // [T, B, H]
-  S* dxw;            // [T, B, 4H]
+  const float* pre;   // [T, B, 4H] from bptt_gates_gemm
+  const bf16* wh;     // [H, 4H]
+  const S* cs;        // [T, B, H]
+  const S* dys;       // [T, B, H]
+  S* dxw;             // [T, B, 4H]
+  const float* mask;  // [T, pitch] rows
+  int pitch;          // rows between frames of cs, dys, dxw and the mask
   int reverse;
 };
 
@@ -1287,8 +1341,10 @@ __device__ __forceinline__ int bwd_group(int c, int uu) {
 // thread (warp w of 8, lane l) runs the cell backward of unit 32r + l and
 // rows RPT*w .. RPT*w + RPT-1 (RPT = BN/8), keeping their f32 dh and dc
 // carries in registers. `vec`: rows of pre, cs, dys and dxw are whole,
-// aligned 16-byte chunks.
-template <typename S, int MT, int BN>
+// aligned 16-byte chunks. kP: each direction's frames lie d.pitch rows
+// apart with its own d.mask (Frames); else they are the layer's, B rows
+// apart with `mask` (the kernel as it ran before frames had a pitch).
+template <typename S, int MT, int BN, bool kP = false>
 __global__ void __launch_bounds__(BTHREADS, 1)
 lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
                     const float* __restrict__ mask, int T, int B, int H,
@@ -1304,6 +1360,8 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
   const int rank = static_cast<int>(cluster.block_rank());
   const int nrank = static_cast<int>(cluster.num_blocks());
   const BwdSeqDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const int fpitch = kP ? d.pitch : B;
+  const float* fmask = kP ? d.mask : mask;
   const int b0 = blockIdx.y * BN;
   const int j0 = rank * BU;
   const long long G = 4LL * H;
@@ -1358,9 +1416,9 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
         const int which = q / (BN * NCH), r = (q / NCH) % BN, c = q % NCH;
         const int tt = which == 1 ? tp : t;
         const bool ok = tt >= 0 && b0 + r < B && j0 + c * CH < H;
-        const S* src = (which == 2 ? d.dys : d.cs) +
-                       (ok ? ((long long)tt * B + b0 + r) * H + j0 + c * CH
-                           : 0);
+        const S* src =
+            (which == 2 ? d.dys : d.cs) +
+            (ok ? ((long long)tt * fpitch + b0 + r) * H + j0 + c * CH : 0);
         cp_async16_zfill(io_s + (which * BN + r) * BU + c * CH, src, ok);
       }
     } else {  // synchronous: shapes outside the main path
@@ -1375,14 +1433,15 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
         const int which = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
         const int tt = which == 1 ? tp : t;
         const bool ok = tt >= 0 && b0 + r < B && j0 + uu < H;
-        io_s[q] = ok ? (which == 2 ? d.dys : d.cs)[((long long)tt * B + b0 +
-                                                    r) * H + j0 + uu]
+        io_s[q] = ok ? (which == 2 ? d.dys : d.cs)[((long long)tt * fpitch +
+                                                    b0 + r) * H + j0 + uu]
                      : from_f32<S>(0.0f);
       }
     }
     if (tid < BN) {
       const bool ok = b0 + tid < B;
-      cp_async4_zfill(m_s + tid, mask + (ok ? (long long)t * B + b0 + tid : 0),
+      cp_async4_zfill(m_s + tid,
+                      fmask + (ok ? (long long)t * fpitch + b0 + tid : 0),
                       ok);
     }
   };
@@ -1394,7 +1453,8 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
       for (int q = tid; q < 4 * BN * NCH; q += BTHREADS) {
         const int g = q / (BN * NCH), r = (q / NCH) % BN, c = q % NCH;
         if (b0 + r < B && j0 + c * CH < H) {
-          *reinterpret_cast<uint4*>(d.dxw + ((long long)t * B + b0 + r) * G +
+          *reinterpret_cast<uint4*>(d.dxw +
+                                    ((long long)t * fpitch + b0 + r) * G +
                                     (long long)g * H + j0 + c * CH) =
               *reinterpret_cast<const uint4*>(x_s + (g * BN + r) * BU +
                                               c * CH);
@@ -1404,8 +1464,8 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
       for (int q = tid; q < 4 * BN * BU; q += BTHREADS) {
         const int g = q / (BN * BU), r = (q / BU) % BN, uu = q % BU;
         if (b0 + r < B && j0 + uu < H) {
-          d.dxw[((long long)t * B + b0 + r) * G + (long long)g * H + j0 +
-                uu] = x_s[q];
+          d.dxw[((long long)t * fpitch + b0 + r) * G + (long long)g * H +
+                j0 + uu] = x_s[q];
         }
       }
     }
@@ -1594,14 +1654,14 @@ lstm_bwd_persistent(BwdSeqDir<S> d0, BwdSeqDir<S> d1,
   cluster_wait_acquire();
 }
 
-// lstm_bwd_persistent<S, MT, BN>'s launch configuration at B, H, ndir (its
-// attributes set once)
-template <typename S, int MT, int BN>
+// lstm_bwd_persistent<S, MT, BN, kP>'s launch configuration at B, H, ndir
+// (its attributes set once)
+template <typename S, int MT, int BN, bool kP = false>
 cudaError_t bwd_persistent_cfg(int B, int H, int ndir, cudaStream_t stream,
                                cudaLaunchConfig_t* cfg,
                                cudaLaunchAttribute* attr) {
   constexpr int smem = bwd_persistent_smem<S, BN>();
-  auto kernel = lstm_bwd_persistent<S, MT, BN>;
+  auto kernel = lstm_bwd_persistent<S, MT, BN, kP>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1726,7 +1786,7 @@ cudaError_t bwd_persistent_rows(int B, int H, int ndir, int* rows,
 // library's rows a cluster
 template <typename S>
 cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
-                                const float* mask, const void* const* wh,
+                                const Frames& fr, const void* const* wh,
                                 const void* const* cs, const void* const* dys,
                                 void* const* dxw, float* const* pre,
                                 const int* reverse, cudaStream_t stream) {
@@ -1739,6 +1799,8 @@ cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
     d[i].cs = static_cast<const S*>(cs[i]);
     d[i].dys = static_cast<const S*>(dys[i]);
     d[i].dxw = static_cast<S*>(dxw[i]);
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
     vec = vec && aligned16(pre[i]) && aligned16(cs[i]) && aligned16(dys[i]) &&
           aligned16(dxw[i]);
@@ -1747,19 +1809,26 @@ cudaError_t run_loop_persistent(int T, int B, int H, int ndir,
   int rows = 0, resident = 0;
   cudaError_t err = bwd_persistent_rows<S>(B, H, ndir, &rows, &resident);
   if (err != cudaSuccess) return err;
-  return with_bwd_tiles(H, [&](auto mt) {
-    return with_bwd_rows(rows, [&](auto bn) {
-      constexpr int MT = decltype(mt)::value, BN = decltype(bn)::value;
-      cudaLaunchConfig_t cfg;
-      cudaLaunchAttribute attr[1];
-      cudaError_t e =
-          bwd_persistent_cfg<S, MT, BN>(B, H, ndir, stream, &cfg, attr);
-      if (e != cudaSuccess) return e;
-      e = cudaLaunchKernelEx(&cfg, lstm_bwd_persistent<S, MT, BN>, d[0], d[1],
-                             mask, T, B, H, vec);
-      return e != cudaSuccess ? e : cudaGetLastError();
+  // the layer's frames (one mask, pitch B) on the instantiations without
+  // frames
+  const bool layer = fr.pitch == B && fr.mask[0] == fr.mask[ndir - 1];
+  auto launch = [&](auto kp) {
+    constexpr bool kP = decltype(kp)::value;
+    return with_bwd_tiles(H, [&](auto mt) {
+      return with_bwd_rows(rows, [&](auto bn) {
+        constexpr int MT = decltype(mt)::value, BN = decltype(bn)::value;
+        cudaLaunchConfig_t cfg;
+        cudaLaunchAttribute attr[1];
+        cudaError_t e =
+            bwd_persistent_cfg<S, MT, BN, kP>(B, H, ndir, stream, &cfg, attr);
+        if (e != cudaSuccess) return e;
+        e = cudaLaunchKernelEx(&cfg, lstm_bwd_persistent<S, MT, BN, kP>,
+                               d[0], d[1], fr.mask[0], T, B, H, vec);
+        return e != cudaSuccess ? e : cudaGetLastError();
+      });
     });
-  });
+  };
+  return layer ? launch(std::false_type()) : launch(std::true_type());
 }
 
 // --- bf16 weights above H=512 (F2): the frame loop on the tensor cores -------
@@ -1835,6 +1904,8 @@ struct TcBwdDir {
   uint8_t* dgx;         // 2 parities of bwd_tc_exchange, zeroed
   float* dc;            // [B, H] dc carry
   float* keep;          // [B, H] (1-m)*dh_t carry
+  const float* mask;    // [T, pitch] rows
+  int pitch;            // rows between frames of cs, dys, dxw and the mask
   int reverse;
 };
 
@@ -1851,8 +1922,7 @@ struct TcBwdDir {
 // dxw, dh and dc element, so two runs give the same bits.
 template <typename S>
 __global__ void __launch_bounds__(XTHREADS, 1)
-lstm_bwd_tc(TcBwdDir<S> d0, TcBwdDir<S> d1, const float* __restrict__ mask,
-            int T, int B, int H) {
+lstm_bwd_tc(TcBwdDir<S> d0, TcBwdDir<S> d1, int T, int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const bool issuer = cluster.block_rank() == 0;
   const TcBwdDir<S> d = blockIdx.y == 0 ? d0 : d1;
@@ -1920,10 +1990,12 @@ lstm_bwd_tc(TcBwdDir<S> d0, TcBwdDir<S> d1, const float* __restrict__ mask,
 #pragma unroll
         for (int q = 0; q < 4; ++q) pv[e][q] = p[q * H];
         const long long own = (long long)b * H + j;
-        tv[e] = to_f32(d.cs[(long long)t * B * H + own]);
-        cpv[e] = tp >= 0 ? to_f32(d.cs[(long long)tp * B * H + own]) : 0.0f;
-        dyv[e] = to_f32(d.dys[(long long)t * B * H + own]);
-        mv[e] = mask[(long long)t * B + b];
+        const long long row = (long long)t * d.pitch + b;
+        tv[e] = to_f32(d.cs[row * H + j]);
+        cpv[e] = tp >= 0 ? to_f32(d.cs[((long long)tp * d.pitch + b) * H + j])
+                         : 0.0f;
+        dyv[e] = to_f32(d.dys[row * H + j]);
+        mv[e] = d.mask[row];
         dcv[e] = carry ? d.dc[own] : 0.0f;
         kv[e] = carry ? d.keep[own] : 0.0f;
       }
@@ -2092,7 +2164,7 @@ lstm_bwd_tc(TcBwdDir<S> d0, TcBwdDir<S> d1, const float* __restrict__ mask,
           const int cell = tid + e * XTHREADS;
           const int b = b0 + cell / XU, j = j0 + cell % XU;
           if (b >= B || j >= H) continue;
-          S* dx = d.dxw + ((long long)t * B + b) * G + j;
+          S* dx = d.dxw + ((long long)t * d.pitch + b) * G + j;
 #pragma unroll
           for (int q4 = 0; q4 < 4; ++q4) dx[q4 * H] = v[e][q4];
           if (step + 1 == T) continue;  // nobody reads the last carries
@@ -2175,7 +2247,7 @@ inline bool bwd_tc_fits(int H, int ndir) {
 }
 
 template <typename S>
-cudaError_t run_loop_tc(int T, int B, int H, int ndir, const float* mask,
+cudaError_t run_loop_tc(int T, int B, int H, int ndir, const Frames& fr,
                         const void* const* wh, const void* const* cs,
                         const void* const* dys, void* const* dxw,
                         float* const* scratch, const int* reverse,
@@ -2204,10 +2276,12 @@ cudaError_t run_loop_tc(int T, int B, int H, int ndir, const float* mask,
     d[i].dgx = tail + 16;
     d[i].dc = reinterpret_cast<float*>(tail + 16 + 2 * xb);
     d[i].keep = d[i].dc + (long long)B * H;
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
   }
   if (ndir == 1) d[1] = d[0];
-  err = cudaLaunchKernelEx(&cfg, lstm_bwd_tc<S>, d[0], d[1], mask, T, B, H);
+  err = cudaLaunchKernelEx(&cfg, lstm_bwd_tc<S>, d[0], d[1], T, B, H);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -2217,13 +2291,16 @@ cudaError_t run_loop_tc(int T, int B, int H, int ndir, const float* mask,
 // pre[r][n] = f32(xw[r][n]) + sum_k f32(ys[r + off][k]) * wh[k][n] over the
 // R = T*B rows of one direction, ys rows outside [0, R) read as zeros. With
 // W = f32, round_W is the identity and bf16 -> f32 is exact, so the
-// function is GatesDir's with f32 wh.
+// function is GatesDir's with f32 wh (and its rows: xw and ys hold dense
+// row r at FrameRows(B, pitch)(r), pre is dense).
 struct GatesF32Dir {
   const void* xw;   // [R, 4H] in S
   const void* ys;   // [R, H] in S
   const float* wh;  // [H, 4H]
   float* pre;       // [R, 4H]
   long long off;    // -B (forward: h_prev = ys[t-1]) or +B (reverse: ys[t+1])
+  int B;            // rows of a frame
+  int pitch;        // rows between frames of xw and ys
 };
 
 // 128 x 128 tiles of pre, 256 threads of 8 x 8 (rows 4*tm + {0..3, 64..67},
@@ -2256,27 +2333,32 @@ __device__ __forceinline__ float4 ld4_f32(const bf16* p) {
 // stage k0 .. k0 + QK - 1 of the tile (m0, n0) into as [128][QK] and
 // bs [QK][128], zeros past R, H and 4H. `vec`: 16-byte copies (rows of
 // whole, aligned chunks); else value by value (shapes off the main path).
-template <typename S>
+// kP: ys rows lie at `at` (the tile's rows; else dense).
+template <typename S, bool kP>
 __device__ __forceinline__ void gemm_f32_stage(S* as, float* bs,
                                                const GatesF32Dir& d,
+                                               const TileRows& at,
                                                long long R, int H, int m0,
                                                int n0, int k0, int vec,
                                                int tid) {
   const S* ys = static_cast<const S*>(d.ys);
   const long long G = 4LL * H;
   constexpr int CH = 16 / static_cast<int>(sizeof(S));  // values a chunk
+  // h_prev's row: the tile row's frame moved by one (off = -B or +B)
+  const long long frame = d.off > 0 ? d.pitch : -d.pitch;
   for (int q = tid; q < 128 * (QK / CH); q += QTHREADS) {
     const int r = q / (QK / CH), c = (q % (QK / CH)) * CH;
     const long long gr = m0 + r + d.off;
     const int k = k0 + c;
     const bool rok = gr >= 0 && gr < R;
+    const long long yr = kP && rok ? at(r) + frame : gr;
     S* dst = as + r * QK + c;
     if (vec) {
       const bool ok = rok && k < H;
-      cp_async16_zfill(dst, ys + (ok ? gr * H + k : 0), ok);
+      cp_async16_zfill(dst, ys + (ok ? yr * H + k : 0), ok);
     } else {
       for (int e = 0; e < CH; ++e) {
-        dst[e] = rok && k + e < H ? ys[gr * H + k + e] : from_f32<S>(0.0f);
+        dst[e] = rok && k + e < H ? ys[yr * H + k + e] : from_f32<S>(0.0f);
       }
     }
   }
@@ -2295,8 +2377,9 @@ __device__ __forceinline__ void gemm_f32_stage(S* as, float* bs,
 
 // RT: the type the ys operand is rounded to (float: none; bf16 for f32
 // streams with bf16 weights widened to f32: type code 2, as F2 ran it
-// before bptt_gates_gemm_wide and as gemm 0 names it).
-template <typename S, typename RT>
+// before bptt_gates_gemm_wide and as gemm 0 names it). kP: xw and ys
+// rows lie at FrameRows (frames pitch rows apart), else they are dense.
+template <typename S, typename RT, bool kP>
 __global__ void __launch_bounds__(QTHREADS, 2)
 bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
   const GatesF32Dir d = blockIdx.z == 0 ? d0 : d1;
@@ -2307,10 +2390,11 @@ bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
   const int tm = tid / 16, tn = tid % 16;
   const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128;
   const int nk = (H + QK - 1) / QK;
+  const TileRows at = FrameRows(d.B, d.pitch).tile(m0);  // the tile's rows
   auto stage = [&](int kt) {
     const int s = kt % QSTAGES;
-    gemm_f32_stage<S>(as + s * 128 * QK, bs + s * QK * 128, d, R, H, m0, n0,
-                      kt * QK, vec, tid);
+    gemm_f32_stage<S, kP>(as + s * 128 * QK, bs + s * QK * 128, d, at, R, H,
+                          m0, n0, kt * QK, vec, tid);
   };
 
   float acc[8][8];
@@ -2361,13 +2445,14 @@ bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
   const long long G = 4LL * H;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long r = m0 + 4 * tm + i % 4 + 64 * (i / 4);
+    const int rr = 4 * tm + i % 4 + 64 * (i / 4);
+    const long long r = m0 + rr;
     if (r >= R) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long n = n0 + 4 * tn + 64 * h;  // G and n are multiples of 4
       if (n >= G) continue;
-      const S* x = xw + r * G + n;
+      const S* x = xw + (kP ? at(rr) : r) * G + n;
       const float4 xv =
           vec ? ld4_f32(x)
               : make_float4(to_f32(x[0]), to_f32(x[1]), to_f32(x[2]),
@@ -2380,7 +2465,7 @@ bptt_gates_gemm(GatesF32Dir d0, GatesF32Dir d1, int R, int H, int vec) {
 }
 
 template <typename S, typename RT>
-cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
+cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir, int pitch,
                                const void* const* xw, const void* const* wh,
                                const void* const* ys, float* const* pre,
                                const int* reverse, cudaStream_t stream) {
@@ -2396,6 +2481,8 @@ cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
     d[i].wh = static_cast<const float*>(wh[i]);
     d[i].pre = pre[i];
     d[i].off = reverse[i] ? B : -B;
+    d[i].B = B;
+    d[i].pitch = pitch;
     aligned = aligned && aligned16(xw[i]) && aligned16(ys[i]) &&
               aligned16(wh[i]) && aligned16(pre[i]);
   }
@@ -2404,13 +2491,14 @@ cudaError_t run_gates_gemm_f32(int T, int B, int H, int ndir,
   const int vec = aligned && H % (16 / static_cast<int>(sizeof(S))) == 0;
   constexpr int smem = gemm_f32_smem<S>();
   void (*kernel)(GatesF32Dir, GatesF32Dir, int, int, int) =
-      bptt_gates_gemm<S, RT>;
-  static bool configured = false;  // per instantiation
-  if (!configured) {
+      pitch == B ? bptt_gates_gemm<S, RT, false>
+                 : bptt_gates_gemm<S, RT, true>;
+  static bool configured[2] = {};  // per instantiation
+  if (!configured[pitch != B]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[pitch != B] = true;
   }
   const dim3 grid((4 * H + 127) / 128, static_cast<unsigned>((R + 127) / 128),
                   ndir);
@@ -2470,6 +2558,8 @@ struct FrameDir {
   const S* dys;      // [T, B, H]
   S* dxw;            // [T, B, 4H]
   float* carry;      // [2][FR_PARTS + 1][B, H]
+  const float* mask;  // [T, pitch] rows
+  int pitch;          // rows between frames of cs, dys, dxw and the mask
   int t;             // frame this launch processes
   int tp;            // its scan predecessor, or -1 at the edge
 };
@@ -2484,9 +2574,8 @@ inline int frame_smem(int pw) {
 
 template <typename S, typename RT>
 __global__ void __launch_bounds__(FR_THREADS, 2)
-bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
-           int B, int H, int nbt, int us, int pw, int step, int last,
-           int vec) {
+bptt_frame(FrameDir<S> d0, FrameDir<S> d1, int B, int H, int nbt, int us,
+           int pw, int step, int last, int vec) {
   cg::cluster_group cluster = cg::this_cluster();
   const int ncl = static_cast<int>(cluster.num_blocks());
   const bool writer = blockIdx.x < ncl;
@@ -2499,7 +2588,8 @@ bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
   const int u_lo = blockIdx.y * us, u_hi = min(H, u_lo + us);
   const int nus = max(0, u_hi - u_lo);  // the slice's units
   const long long G = 4LL * H, BH = (long long)B * H;
-  const long long row_t = (long long)d.t * B;  // frame t's first row
+  const long long row_t = (long long)d.t * B;  // frame t's first pre row
+  const long long srow_t = (long long)d.t * d.pitch;  // ... stream row
   const int tid = threadIdx.x;
   const bool first = step == 0;
   const float* in = d.carry + (step & 1) * (FR_PARTS + 1) * BH;
@@ -2549,18 +2639,19 @@ bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
       const int u = p_lo + uu;
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (u < p_hi && b0 + b < B) {
-        const long long row = row_t + b0 + b;
+        const long long row = srow_t + b0 + b;
         const long long idx = (long long)(b0 + b) * H + u;
-        const float* pr = d.pre + row * G + u;
+        const float* pr = d.pre + (row_t + b0 + b) * G + u;
         const float gi = sigmoid_f32(pr[0]);
         const float gf = sigmoid_f32(pr[H]);
         const float gg = tanhf(pr[2LL * H]);
         const float go = sigmoid_f32(pr[3LL * H]);
-        const float m = mask[row];
+        const float m = d.mask[row];
         const float tc = tanhf(to_f32(d.cs[row * H + u]));
         const float c_prev =
-            d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * B + b0 + b) * H + u])
-                      : 0.0f;
+            d.tp >= 0
+                ? to_f32(d.cs[((long long)d.tp * d.pitch + b0 + b) * H + u])
+                : 0.0f;
         float dh = 0.0f, dc = 0.0f;
         if (!first) {
 #pragma unroll
@@ -2664,8 +2755,8 @@ bptt_frame(FrameDir<S> d0, FrameDir<S> d1, const float* __restrict__ mask,
 }
 
 template <typename S, typename RT>
-cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
-                         int H, int ndir, int us, int step, int last, int vec,
+cudaError_t launch_frame(const FrameDir<S>* d, int B, int H, int ndir,
+                         int us, int step, int last, int vec,
                          cudaStream_t stream) {
   const int Y = (H + FR_M - 1) / FR_M;
   const int ncl = std::min(FR_CL, Y);
@@ -2694,8 +2785,8 @@ cudaError_t launch_frame(const FrameDir<S>* d, const float* mask, int B,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, bptt_frame<S, RT>, d[0], d[1], mask, B, H, nbt,
-                         us, pw, step, last, vec);
+      cudaLaunchKernelEx(&cfg, bptt_frame<S, RT>, d[0], d[1], B, H, nbt, us,
+                         pw, step, last, vec);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -2717,6 +2808,8 @@ struct SplitDir {
   S* dxw;            // [T, B, 4H]
   float* dh;         // [B, H] carry
   float* dc;         // [B, H] carry
+  const float* mask;  // [T, pitch] rows
+  int pitch;          // rows between frames of cs, dys, dxw and the mask
   int t;             // frame this launch processes
   int tp;            // its scan predecessor, or -1 at the edge
 };
@@ -2726,22 +2819,22 @@ constexpr int CELL_THREADS = 256;
 // step 0 reads zero carries and zeroes dh for bptt_dh, which reads it
 template <typename S>
 __global__ void __launch_bounds__(CELL_THREADS)
-bptt_cell(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
-          int B, int H, int first) {
+bptt_cell(SplitDir<S> d0, SplitDir<S> d1, int B, int H, int first) {
   const SplitDir<S> d = blockIdx.y == 0 ? d0 : d1;
   const long long idx = (long long)blockIdx.x * CELL_THREADS + threadIdx.x;
   if (idx >= (long long)B * H) return;
   const long long b = idx / H, u = idx % H, G = 4LL * H;
-  const long long row = (long long)d.t * B + b;
-  const float* pr = d.pre + row * G + u;
+  const long long row = (long long)d.t * d.pitch + b;  // of the streams
+  const float* pr = d.pre + ((long long)d.t * B + b) * G + u;
   const float gi = sigmoid_f32(pr[0]);
   const float gf = sigmoid_f32(pr[H]);
   const float gg = tanhf(pr[2LL * H]);
   const float go = sigmoid_f32(pr[3LL * H]);
-  const float m = mask[row];
+  const float m = d.mask[row];
   const float tc = tanhf(to_f32(d.cs[row * H + u]));
   const float c_prev =
-      d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * B + b) * H + u]) : 0.0f;
+      d.tp >= 0 ? to_f32(d.cs[((long long)d.tp * d.pitch + b) * H + u])
+                : 0.0f;
   float dh = 0.0f, dc = 0.0f;
   if (first) {
     d.dh[idx] = 0.0f;
@@ -2775,8 +2868,7 @@ constexpr int DH_SMEM =
 
 template <typename S, typename RT>
 __global__ void __launch_bounds__(DH_THREADS)
-bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
-        int B, int H, int nbt, int ks) {
+bptt_dh(SplitDir<S> d0, SplitDir<S> d1, int B, int H, int nbt, int ks) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const SplitDir<S> d = blockIdx.z / nbt == 0 ? d0 : d1;
@@ -2785,7 +2877,7 @@ bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
   const int G = 4 * H;
   const int k_lo = rank * ks;
   const int k_hi = min(G, k_lo + ks);
-  const S* dg = d.dxw + (long long)d.t * B * G;
+  const S* dg = d.dxw + (long long)d.t * d.pitch * G;
   extern __shared__ uint8_t dh_raw[];
   uint8_t* sm = align1024(dh_raw);
   float* red = reinterpret_cast<float*>(sm);  // [DH_M][DH_LD] partial tile
@@ -2865,9 +2957,10 @@ bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
     }
     const int k = m0 + r, b = n0 + c;
     if (k < H && b < B) {
-      const float m = mask[(long long)d.t * B + b];
+      const long long row = (long long)d.t * d.pitch + b;
       const long long idx = (long long)b * H + k;
-      const float dh = d.dh[idx] + to_f32(d.dys[(long long)d.t * B * H + idx]);
+      const float m = d.mask[row];
+      const float dh = d.dh[idx] + to_f32(d.dys[row * H + k]);
       d.dh[idx] = sum + (1.0f - m) * dh;
     }
   }
@@ -2875,9 +2968,8 @@ bptt_dh(SplitDir<S> d0, SplitDir<S> d1, const float* __restrict__ mask,
 }
 
 template <typename S, typename RT>
-cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
-                         int H, int ndir, int ks, int first,
-                         cudaStream_t stream) {
+cudaError_t launch_split(const SplitDir<S>* d, int B, int H, int ndir,
+                         int ks, int first, cudaStream_t stream) {
   static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -2893,7 +2985,7 @@ cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
     return cudaErrorInvalidValue;
   }
   bptt_cell<S><<<dim3(static_cast<unsigned>(cells), ndir), CELL_THREADS, 0,
-                 stream>>>(d[0], d[1], mask, B, H, first);
+                 stream>>>(d[0], d[1], B, H, first);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -2908,8 +3000,7 @@ cudaError_t launch_split(const SplitDir<S>* d, const float* mask, int B,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bptt_dh<S, RT>, d[0], d[1], mask, B, H, nbt,
-                           ks);
+  err = cudaLaunchKernelEx(&cfg, bptt_dh<S, RT>, d[0], d[1], B, H, nbt, ks);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -2938,7 +3029,7 @@ inline void frame_at(int step, int T, int reverse, int* t, int* tp) {
 // is rounded to: float, or bf16 for f32 streams with bf16 weights (bf16
 // streams are bf16 values already).
 template <typename S, typename RT>
-int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
+int run_loop_f32(int T, int B, int H, int ndir, const Frames& fr,
                  const void* const* wh, const void* const* cs,
                  const void* const* dys, void* const* dxw,
                  float* const* scratch, const int* reverse, int fold,
@@ -2955,6 +3046,8 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
       d[i].dxw = static_cast<S*>(dxw[i]);
       d[i].dh = scratch[i] + n_pre;
       d[i].dc = d[i].dh + (long long)B * H;
+      d[i].mask = fr.mask[i];
+      d[i].pitch = fr.pitch;
     }
     const int G = 4 * H;
     const int ks = ((G + DH_SPLIT - 1) / DH_SPLIT + 63) / 64 * 64;
@@ -2963,7 +3056,7 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
         frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
       }
       if (ndir == 1) d[1] = d[0];
-      err = launch_split<S, RT>(d, mask, B, H, ndir, ks, step == 0, stream);
+      err = launch_split<S, RT>(d, B, H, ndir, ks, step == 0, stream);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     return 0;
@@ -2977,6 +3070,8 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
     d[i].dys = static_cast<const S*>(dys[i]);
     d[i].dxw = static_cast<S*>(dxw[i]);
     d[i].carry = scratch[i] + n_pre;
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     vec = vec && aligned16(wh[i]);
   }
   const int us = ((H + FR_SLICES - 1) / FR_SLICES + 7) / 8 * 8;
@@ -2985,8 +3080,8 @@ int run_loop_f32(int T, int B, int H, int ndir, const float* mask,
       frame_at(step, T, reverse[i], &d[i].t, &d[i].tp);
     }
     if (ndir == 1) d[1] = d[0];
-    err = launch_frame<S, RT>(d, mask, B, H, ndir, us, step, step + 1 == T,
-                              vec, stream);
+    err = launch_frame<S, RT>(d, B, H, ndir, us, step, step + 1 == T, vec,
+                              stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -3073,6 +3168,8 @@ struct RowsBwdDir {
   float* dgx;           // 2 parities of loop_rows_exchange, zeroed
   float* dc;            // [B, H] dc carry
   float* keep;          // [B, H] (1-m)*dh_t carry
+  const float* mask;    // [T, pitch] rows
+  int pitch;            // rows between frames of cs, dys, dxw and the mask
   int reverse;
 };
 
@@ -3087,8 +3184,10 @@ struct RowsBwdDir {
 // cell sums them in slice order: fixed order, one writer per dxw, dh and
 // dc element, so two runs give the same bits. RT: the type the product's
 // dg operand is rounded to (float, or bf16 for f32 streams with bf16
-// weights; bf16 streams are bf16 values already).
-template <typename S, typename RT, int RPL>
+// weights; bf16 streams are bf16 values already). kP: each direction's
+// frames lie d.pitch rows apart with its own d.mask (Frames); else they
+// are the layer's, B rows apart with `mask`.
+template <typename S, typename RT, int RPL, bool kP>
 __global__ void __launch_bounds__(YTHREADS, 1)
 lstm_bwd_rows(RowsBwdDir<S> d0, RowsBwdDir<S> d1,
               const float* __restrict__ mask, int T, int B, int H, int tpg) {
@@ -3097,6 +3196,8 @@ lstm_bwd_rows(RowsBwdDir<S> d0, RowsBwdDir<S> d1,
   constexpr int CHUNK = L::CHUNK;
   constexpr int STAGES = L::STAGES, RLD = L::RLD, NC = L::NC;
   const RowsBwdDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const int fpitch = kP ? d.pitch : B;
+  const float* fmask = kP ? d.mask : mask;
   const unsigned int A = gridDim.x;  // the CTAs of a row group
   const int j0 = blockIdx.x * U, grp = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -3145,10 +3246,15 @@ lstm_bwd_rows(RowsBwdDir<S> d0, RowsBwdDir<S> d1,
 #pragma unroll
         for (int g = 0; g < 4; ++g) pv[e][g] = p[g * H];
         const long long own = (long long)b * H + j;
-        tv[e] = to_f32(d.cs[(long long)t * B * H + own]);
-        cpv[e] = tp >= 0 ? to_f32(d.cs[(long long)tp * B * H + own]) : 0.0f;
-        dyv[e] = to_f32(d.dys[(long long)t * B * H + own]);
-        mv[e] = mask[(long long)t * B + b];
+        const long long row = (long long)t * fpitch + b;
+        const long long at_t = kP ? row * H + j : (long long)t * B * H + own;
+        const long long at_tp =
+            kP ? ((long long)tp * fpitch + b) * H + j
+               : (long long)tp * B * H + own;
+        tv[e] = to_f32(d.cs[at_t]);
+        cpv[e] = tp >= 0 ? to_f32(d.cs[at_tp]) : 0.0f;
+        dyv[e] = to_f32(d.dys[at_t]);
+        mv[e] = fmask[row];
         dcv[e] = carry ? d.dc[own] : 0.0f;
         kv[e] = carry ? d.keep[own] : 0.0f;
       }
@@ -3295,7 +3401,7 @@ lstm_bwd_rows(RowsBwdDir<S> d0, RowsBwdDir<S> d1,
           const int cell = tid + e * YTHREADS;
           const int b = b0 + cell / U, j = j0 + cell % U;
           if (b >= B || j >= H) continue;
-          S* dx = d.dxw + ((long long)t * B + b) * G + j;
+          S* dx = d.dxw + ((long long)t * fpitch + b) * G + j;
 #pragma unroll
           for (int g = 0; g < 4; ++g) dx[g * H] = v[e][g];
           if (step + 1 == T) continue;  // nobody reads the last carries
@@ -3352,12 +3458,12 @@ inline long long loop_rows_scratch(int B, int H) {
   return YCOUNT + 2 * loop_rows_exchange(64, B, H) + 2LL * B * H * 4;
 }
 
-template <typename S, typename RT, int RPL>
+template <typename S, typename RT, int RPL, bool kP>
 cudaError_t launch_loop_rows(const RowsBwdDir<S>* d, const float* mask,
                              int T, int B, int H, int ndir,
                              const LoopRowsPlan& p, cudaStream_t stream) {
   constexpr int U = LoopShape<RPL>::U;
-  auto kernel = lstm_bwd_rows<S, RT, RPL>;
+  auto kernel = lstm_bwd_rows<S, RT, RPL, kP>;
   const int smem = loop_rows_smem<RPL>(H);
   static int configured = 0;  // per instantiation: the largest opt-in yet
   if (smem > configured) {
@@ -3379,7 +3485,7 @@ cudaError_t launch_loop_rows(const RowsBwdDir<S>* d, const float* mask,
 }
 
 template <typename S, typename RT>
-cudaError_t run_loop_rows(int T, int B, int H, int ndir, const float* mask,
+cudaError_t run_loop_rows(int T, int B, int H, int ndir, const Frames& fr,
                           const void* const* wh, const void* const* cs,
                           const void* const* dys, void* const* dxw,
                           float* const* scratch, const int* reverse,
@@ -3404,12 +3510,22 @@ cudaError_t run_loop_rows(int T, int B, int H, int ndir, const float* mask,
     d[i].dgx = reinterpret_cast<float*>(tail + YCOUNT);
     d[i].dc = reinterpret_cast<float*>(tail + YCOUNT + 2 * xb);
     d[i].keep = d[i].dc + (long long)B * H;
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
   }
   if (ndir == 1) d[1] = d[0];
-  return p.RPL == 8
-             ? launch_loop_rows<S, RT, 8>(d, mask, T, B, H, ndir, p, stream)
-             : launch_loop_rows<S, RT, 4>(d, mask, T, B, H, ndir, p, stream);
+  // the layer's frames (one mask, pitch B) on the instantiations without
+  // frames
+  const bool layer = fr.pitch == B && fr.mask[0] == fr.mask[ndir - 1];
+  auto launch = [&](auto kp) {
+    constexpr bool kP = decltype(kp)::value;
+    return p.RPL == 8 ? launch_loop_rows<S, RT, 8, kP>(d, fr.mask[0], T, B, H,
+                                                        ndir, p, stream)
+                      : launch_loop_rows<S, RT, 4, kP>(d, fr.mask[0], T, B, H,
+                                                        ndir, p, stream);
+  };
+  return layer ? launch(std::false_type()) : launch(std::true_type());
 }
 
 // The gate GEMM's designs: GEMM_FMA, bptt_gates_gemm's f32 form on the
@@ -3482,9 +3598,9 @@ inline long long bwd_scratch(int loop, int T, int B, int H) {
 // pre{0,1} [T*B, 4H] f32 by the named design (wh: bf16 for the wgmma
 // designs, f32 for GEMM_FMA)
 cudaError_t run_gates(int design, int type_code, int T, int B, int H,
-                      int ndir, const void* const* xw, const void* const* wh,
-                      const void* const* ys, float* const* pre,
-                      const int* reverse, cudaStream_t s) {
+                      int ndir, int pitch, const void* const* xw,
+                      const void* const* wh, const void* const* ys,
+                      float* const* pre, const int* reverse, cudaStream_t s) {
   if (design != GEMM_FMA && !bf16_weights(type_code)) {
     return cudaErrorInvalidValue;
   }
@@ -3492,37 +3608,39 @@ cudaError_t run_gates(int design, int type_code, int T, int B, int H,
     case GEMM_FMA:
       switch (type_code) {
         case 0:
-          return run_gates_gemm_f32<float, float>(T, B, H, ndir, xw, wh, ys,
-                                                  pre, reverse, s);
+          return run_gates_gemm_f32<float, float>(T, B, H, ndir, pitch, xw, wh,
+                                                  ys, pre, reverse, s);
         case 2:
-          return run_gates_gemm_f32<float, bf16>(T, B, H, ndir, xw, wh, ys,
-                                                 pre, reverse, s);
+          return run_gates_gemm_f32<float, bf16>(T, B, H, ndir, pitch, xw, wh,
+                                                 ys, pre, reverse, s);
         case 1:  // bf16 streams: every operand is a bf16 value, as in code 3
         case 3:
-          return run_gates_gemm_f32<bf16, float>(T, B, H, ndir, xw, wh, ys,
-                                                 pre, reverse, s);
+          return run_gates_gemm_f32<bf16, float>(T, B, H, ndir, pitch, xw, wh,
+                                                 ys, pre, reverse, s);
       }
       break;
     case GEMM_WIDE:
       return type_code == 1
-                 ? run_gates_wide<bf16>(T, B, H, ndir, xw, wh, ys, pre,
-                                        reverse, s)
-                 : run_gates_wide<float>(T, B, H, ndir, xw, wh, ys, pre,
-                                         reverse, s);
+                 ? run_gates_wide<bf16>(T, B, H, ndir, pitch, xw, wh, ys,
+                                        pre, reverse, s)
+                 : run_gates_wide<float>(T, B, H, ndir, pitch, xw, wh, ys,
+                                         pre, reverse, s);
   }
   return cudaErrorInvalidValue;
 }
 
 // vo_lstm_bwd_named's work (-1: the library's design): the gate GEMM
-// into the front of scratch, then the frame loop
+// into the front of scratch, then the frame loop, on frames `pitch` rows
+// apart with a mask each direction (Frames)
 int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
-        const void* mask, const void* xw0, const void* wh0, const void* whf0,
+        int pitch, const void* mask0, const void* mask1, const void* xw0,
+        const void* wh0, const void* whf0,
         const void* ys0, const void* cs0, const void* dys0, void* dxw0,
         void* scratch0, int reverse0, const void* xw1, const void* wh1,
         const void* whf1, const void* ys1, const void* cs1, const void* dys1,
         void* dxw1, void* scratch1, int reverse1, void* stream) {
   if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 || type_code < 0 ||
-      type_code > 3) {
+      type_code > 3 || pitch < B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (gemm == -1) gemm = gates_design(type_code, H);
@@ -3543,9 +3661,11 @@ int bwd(int type_code, int gemm, int loop, int T, int B, int H, int ndir,
   float* scratch[2] = {static_cast<float*>(scratch0),
                        static_cast<float*>(scratch1)};
   const int reverse[2] = {reverse0, reverse1};
-  const float* m = static_cast<const float*>(mask);
+  const Frames m = {{static_cast<const float*>(mask0),
+                     static_cast<const float*>(mask1)},
+                    pitch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = run_gates(gemm, type_code, T, B, H, ndir, xw,
+  cudaError_t err = run_gates(gemm, type_code, T, B, H, ndir, pitch, xw,
                               gemm == GEMM_FMA ? whf : wh, ys, scratch,
                               reverse, s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3617,9 +3737,28 @@ extern "C" int vo_lstm_bwd_named(
     void* scratch0, int reverse0, const void* xw1, const void* wh1,
     const void* whf1, const void* ys1, const void* cs1, const void* dys1,
     void* dxw1, void* scratch1, int reverse1, void* stream) {
-  return bwd(type_code, gemm, loop, T, B, H, ndir, mask, xw0, wh0, whf0, ys0,
-             cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1, whf1, ys1, cs1,
-             dys1, dxw1, scratch1, reverse1, stream);
+  return bwd(type_code, gemm, loop, T, B, H, ndir, B, mask, mask, xw0, wh0,
+             whf0, ys0, cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1, whf1,
+             ys1, cs1, dys1, dxw1, scratch1, reverse1, stream);
+}
+
+// vo_lstm_bwd_named on frames `pitch` rows apart (pitch >= B: frame t's
+// row b of xw, ys, cs, dys and dxw is row t*pitch + b, its mask value
+// mask{0,1}[t*pitch + b]), with a mask of each direction's own; the
+// scratch keeps its dense layout. The layer calls pitch = B and one mask;
+// vo_bi_lstm_bwd (lstm_bi_stacked.cu) calls it on the two planes of the
+// direction-stacked layout.
+extern "C" int vo_lstm_bwd_frames(
+    int gemm, int loop, int type_code, int T, int B, int H, int ndir,
+    int pitch, const void* mask0, const void* mask1, const void* xw0,
+    const void* wh0, const void* whf0, const void* ys0, const void* cs0,
+    const void* dys0, void* dxw0, void* scratch0, int reverse0,
+    const void* xw1, const void* wh1, const void* whf1, const void* ys1,
+    const void* cs1, const void* dys1, void* dxw1, void* scratch1,
+    int reverse1, void* stream) {
+  return bwd(type_code, gemm, loop, T, B, H, ndir, pitch, mask0, mask1, xw0,
+             wh0, whf0, ys0, cs0, dys0, dxw0, scratch0, reverse0, xw1, wh1,
+             whf1, ys1, cs1, dys1, dxw1, scratch1, reverse1, stream);
 }
 
 // The frame loop design vo_lstm_bwd_named runs for loop -1 at type_code,
@@ -3666,6 +3805,41 @@ extern "C" int vo_lstm_bwd_gates_design(int type_code, int H) {
   return gates_design(type_code, H);
 }
 
+// vo_lstm_dwh (below) on frames `pitch` rows apart (pitch >= B: frame t's
+// row b of ys and dxw is row t*pitch + b), as vo_bi_lstm_bwd calls it on
+// the planes of the direction-stacked layout; the workspace is the same.
+extern "C" int vo_lstm_dwh_frames(int design, int type_code, int T, int B,
+                                  int H, int ndir, int pitch, const void* ys0,
+                                  const void* dxw0, void* dwh0, int reverse0,
+                                  const void* ys1, const void* dxw1,
+                                  void* dwh1, int reverse1, void* workspace,
+                                  void* stream) {
+  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 || pitch < B) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ys[2] = {ys0, ys1};
+  const void* dxw[2] = {dxw0, dxw1};
+  void* dwh[2] = {dwh0, dwh1};
+  const int reverse[2] = {reverse0, reverse1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (type_code) {
+    case 0:
+      return run_dwh<float, float>(design, T, B, H, ndir, pitch, ys, dxw, dwh,
+                                   reverse, workspace, s);
+    case 1:
+      return run_dwh<bf16, bf16>(design, T, B, H, ndir, pitch, ys, dxw, dwh,
+                                 reverse, workspace, s);
+    case 2:
+      return run_dwh<float, bf16>(design, T, B, H, ndir, pitch, ys, dxw, dwh,
+                                  reverse, workspace, s);
+    case 3:
+      return run_dwh<bf16, float>(design, T, B, H, ndir, pitch, ys, dxw, dwh,
+                                  reverse, workspace, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dwh{0,1} [H, 4H] f32 from the saved ys and the BPTT's dxw, for
 // one or two directions; every element is written (zeros when T = 1).
 // design: for bf16 operands (type codes 1-3) 0 (lstm_dwh_tc's 128 x 128
@@ -3677,30 +3851,9 @@ extern "C" int vo_lstm_dwh(int design, int type_code, int T, int B, int H,
                            void* dwh0, int reverse0, const void* ys1,
                            const void* dxw1, void* dwh1, int reverse1,
                            void* workspace, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const void* ys[2] = {ys0, ys1};
-  const void* dxw[2] = {dxw0, dxw1};
-  void* dwh[2] = {dwh0, dwh1};
-  const int reverse[2] = {reverse0, reverse1};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (type_code) {
-    case 0:
-      return run_dwh<float, float>(design, T, B, H, ndir, ys, dxw, dwh,
-                                   reverse, workspace, s);
-    case 1:
-      return run_dwh<bf16, bf16>(design, T, B, H, ndir, ys, dxw, dwh, reverse,
-                                 workspace, s);
-    case 2:
-      return run_dwh<float, bf16>(design, T, B, H, ndir, ys, dxw, dwh,
-                                  reverse, workspace, s);
-    case 3:
-      return run_dwh<bf16, float>(design, T, B, H, ndir, ys, dxw, dwh,
-                                  reverse, workspace, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return vo_lstm_dwh_frames(design, type_code, T, B, H, ndir, B, ys0, dxw0,
+                            dwh0, reverse0, ys1, dxw1, dwh1, reverse1,
+                            workspace, stream);
 }
 
 // The workspace (bytes) vo_lstm_dwh needs for the design (-1: the

@@ -1,11 +1,9 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu,
-// lstm_bi_stacked.cu): type conversions and roundings, the gate
-// nonlinearities, and the per-step gate product
+// lstm_bi_stacked.cu): where a direction's frames lie, type conversions
+// and roundings, the gate nonlinearities, and the per-step gate product
 //   acc = round_to_W(h) @ wh          [TB rows x TJ units x 4 gates] per block
-// with f32 accumulation, over shared-memory tiles of h and wh. The f32
-// forward step and the stacked experiment's BPTT gate recompute run the
-// same product; only the source of h differs (the f32 carry in the
-// forward, the saved ys row of the scan predecessor in the backward).
+// with f32 accumulation, over shared-memory tiles of h and wh, which the
+// f32 forward step (lstm_step) runs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,6 +64,75 @@ __device__ __forceinline__ float sigmoid_fast(float x) {
 __device__ __forceinline__ float tanh_fast(float x) {
   return 2.0f * sigmoid_fast(2.0f * x) - 1.0f;
 }
+
+// Where a direction's frames lie in its streams (xw, ys, cs, dys, dxw)
+// and in its mask: frame t's batch row b is row t*pitch + b of each. The
+// layer kernels' [T, B, *] tensors have pitch = B and one mask for both
+// directions; a plane of the direction-stacked [T, 2, B, *] layout
+// (lstm_bi_stacked.cu) has its pointers offset by p*B rows, pitch 2B and
+// a mask plane of its own. The route's own buffers (the recomputed gates
+// `pre`, carries, exchanges) stay dense, B rows a frame.
+struct Frames {
+  const float* mask[2];  // per direction: [T, pitch] rows, float
+  int pitch;             // rows between frames, >= B
+};
+
+// The rows row0 + rr of one tile of a direction's dense frames, in a
+// layout of `pitch` rows a frame (FrameRows::tile, row0 >= 0): row0's
+// frame is found once, and rr's from o = o0 + rr as the high word of
+// o * m with m = ceil(2^64 / B), which is floor(o / B) for every 32-bit o
+// (o * B < 2^64); B = 1 takes o itself (m = 0).
+struct TileRows {
+  long long base = 0;        // the first row of row0's frame in the layout
+  unsigned o0 = 0;           // row0's place in its frame
+  int step = 0;              // pitch - B (0: dense rows)
+  unsigned long long m = 0;  // ceil(2^64 / B), 0 for B = 1
+  __device__ __forceinline__ long long operator()(unsigned rr) const {
+    const unsigned o = o0 + rr;
+    if (step == 0) return base + o;
+    const unsigned long long q = m == 0 ? o : __umul64hi(o, m);
+    return base + o + static_cast<long long>(q) * step;
+  }
+};
+
+// Row r = t*B + b of a direction's dense frames lies at row
+// FrameRows(B, pitch)(r) of a layout of `pitch` rows a frame (the
+// identity at pitch = B). The quotient r / B is a product by 1/B in
+// double, corrected by one either way (a 64-bit integer division is a
+// long software sequence on the card). A kernel builds one FrameRows and
+// maps a tile's rows from its first row (tile), a few instructions a row.
+struct FrameRows {
+  int B, pitch;
+  double inv;            // 1 / B
+  unsigned long long m;  // ceil(2^64 / B), 0 for B = 1
+  __host__ __device__ explicit FrameRows(int B_ = 1, int pitch_ = 1)
+      : B(B_), pitch(pitch_), inv(1.0 / B_),
+        m(B_ == 1 ? 0 : ~0ull / static_cast<unsigned long long>(B_) + 1) {}
+  __host__ __device__ __forceinline__ long long frame(long long r) const {
+    long long q = static_cast<long long>(static_cast<double>(r) * inv);
+    q += (q + 1) * B <= r;
+    q -= q * B > r;
+    return q;
+  }
+  __host__ __device__ __forceinline__ long long operator()(long long r) const {
+    return pitch == B ? r : r + frame(r) * (pitch - B);
+  }
+  // the rows row0 + rr of a tile, row0 >= 0
+  __device__ __forceinline__ TileRows tile(long long row0) const {
+    TileRows t;
+    t.m = m;
+    t.step = pitch - B;
+    if (pitch == B) {
+      t.base = row0;
+      t.o0 = 0;
+    } else {
+      const long long q = frame(row0);
+      t.base = q * pitch;
+      t.o0 = static_cast<unsigned>(row0 - q * B);
+    }
+    return t;
+  }
+};
 
 // the current device's SM count (0 when it cannot be read), cached a
 // device

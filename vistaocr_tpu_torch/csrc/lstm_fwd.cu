@@ -15,7 +15,14 @@
 //   ys[t] = h in the stream type;  cs[t] = c in the stream type (training)
 // xw [T,B,4H], ys and cs [T,B,H] are in the stream type S (float or bf16),
 // wh [H,4H] in the weight type W (float or bf16), mask [T,B] float. The
-// carry (h, c) and all gate math stay float32.
+// carry (h, c) and all gate math stay float32. Every design reads a
+// direction's frames `pitch` rows apart with a mask of its own (Frames,
+// lstm_common.cuh): the layer passes pitch = B and one mask; the planes of
+// the direction-stacked layout pass 2B and a mask each (vo_lstm_fwd_frames,
+// lstm_bi_stacked.cu). The kernels' own buffers stay dense.
+// lstm_fwd_persistent and lstm_fwd_grid take the pitch and the masks as a
+// template flag (kP), so the layer's instantiations are the code they
+// were; the other designs read them at run time (PERF.md: their times).
 //
 // What bounds it on an H100: T strictly sequential frames, each one
 // [B,H] x [H,4H] product (B=32, H=512: 67 MFLOP for both directions, 0.07
@@ -214,6 +221,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "lstm_common.cuh"
@@ -236,6 +244,8 @@ struct Dir {
   const float* h_in;  // [B, H] state after the previous step
   float* h_out;       // [B, H] state after this step
   float* c;           // [B, H] cell state, updated in place
+  const float* mask;  // [T, pitch] rows
+  int pitch;          // rows between frames of xw, ys, cs and the mask
   int t;              // frame index this step processes
 };
 
@@ -243,8 +253,7 @@ struct Dir {
 // weights widened to f32)
 template <typename S, typename W, typename R>
 __global__ void __launch_bounds__(THREADS)
-lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
-          int B, int H) {
+lstm_step(Dir<S, W> d0, Dir<S, W> d1, int B, int H) {
   const Dir<S, W> d = blockIdx.z == 0 ? d0 : d1;
   __shared__ __align__(16) Tiles sm;
 
@@ -268,8 +277,9 @@ lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
   for (int r = 0; r < 4; ++r) {
     const int b = b0 + 4 * tr + r;
     if (b >= B) continue;
-    const float m = mask[(long long)d.t * B + b];
-    const S* x = d.xw + ((long long)d.t * B + b) * G;
+    const long long row = (long long)d.t * d.pitch + b;
+    const float m = d.mask[row];
+    const S* x = d.xw + row * G;
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int j = j0 + 2 * tu + s;
@@ -291,7 +301,7 @@ lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
       const float c = m * c_new + (1.0f - m) * c_old;
       d.c[idx] = c;
       d.h_out[idx] = h;
-      const long long out = ((long long)d.t * B + b) * H + j;
+      const long long out = row * H + j;
       d.ys[out] = from_f32<S>(h);
       if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
     }
@@ -299,7 +309,7 @@ lstm_step(Dir<S, W> d0, Dir<S, W> d1, const float* __restrict__ mask,
 }
 
 template <typename S, typename W, typename R>
-int run_per_frame(int T, int B, int H, int ndir, const float* mask,
+int run_per_frame(int T, int B, int H, int ndir, const Frames& fr,
                   const void* const* xw, const void* const* wh,
                   void* const* ys, void* const* cs, float* const* scratch,
                   const int* reverse, cudaStream_t stream) {
@@ -311,6 +321,8 @@ int run_per_frame(int T, int B, int H, int ndir, const float* mask,
     d[i].ys = static_cast<S*>(ys[i]);
     d[i].cs = static_cast<S*>(cs[i]);
     d[i].c = scratch[i] + 2 * BH;
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
   }
   const dim3 grid((H + TJ - 1) / TJ, (B + TB - 1) / TB, ndir);
   for (int step = 0; step < T; ++step) {
@@ -322,7 +334,7 @@ int run_per_frame(int T, int B, int H, int ndir, const float* mask,
       d[i].t = reverse[i] ? T - 1 - step : step;
     }
     if (ndir == 1) d[1] = d[0];
-    lstm_step<S, W, R><<<grid, THREADS, 0, stream>>>(d[0], d[1], mask, B, H);
+    lstm_step<S, W, R><<<grid, THREADS, 0, stream>>>(d[0], d[1], B, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -352,6 +364,8 @@ struct GridDir {
   float* h;               // 2 x h(t) tiled (grid_h_at) by step parity, zeroed
   float* c;               // [B, H] cell states, zeroed
   unsigned int* count;    // frames done x CTAs, zeroed
+  const float* mask;      // [T, pitch] rows
+  int pitch;              // rows between frames of xw, ys, cs and the mask
   int reverse;
 };
 
@@ -403,8 +417,10 @@ __device__ __forceinline__ long long grid_h_at(int b, int k, int kper, int nsc,
 // wh rows hold whole, aligned 16-byte runs of U units of a gate. R: the
 // type h is rounded to as the product reads it (float: none; bf16 for
 // bf16 weights widened to f32); the f32 h that the freeze and the next
-// frame's exchange carry stays unrounded.
-template <typename S, int U, typename R>
+// frame's exchange carry stays unrounded. kP: each direction's frames lie
+// d.pitch rows apart with its own d.mask (Frames); else they are the
+// layer's, B rows apart with `mask`.
+template <typename S, int U, typename R, bool kP>
 __global__ void __launch_bounds__(GTHREADS, 1)
 lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
               int T, int B, int H, int resident, int vec) {
@@ -412,6 +428,8 @@ lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
   constexpr int C = Gs::C, KS = Gs::KS, CLD = Gs::CLD, NC = Gs::NC;
   constexpr int SPW = Gs::SPW;
   const GridDir<S> d = blockIdx.y == 0 ? d0 : d1;
+  const int fpitch = kP ? d.pitch : B;
+  const float* fmask = kP ? d.mask : mask;
   const unsigned int N = gridDim.x;
   const int j0 = blockIdx.x * U;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -481,10 +499,11 @@ lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
       const int cell = tid + e * GTHREADS;
       const int b = b0 + cell / U, j = j0 + cell % U;
       if (cell < GROWS * U && b < B && j < H) {
-        const S* x = d.xw + ((long long)t * B + b) * G + j;
+        const long long row = (long long)t * fpitch + b;
+        const S* x = d.xw + row * G + j;
 #pragma unroll
         for (int g = 0; g < 4; ++g) xv[e][g] = to_f32(x[g * H]);
-        mv[e] = mask[(long long)t * B + b];
+        mv[e] = fmask[row];
         cv[e] = __ldcg(d.c + (long long)b * H + j);
         hv[e] = __ldcg(h + grid_h_at(b, j, kper, nsc, KS));
       }
@@ -629,7 +648,7 @@ lstm_fwd_grid(GridDir<S> d0, GridDir<S> d1, const float* __restrict__ mask,
         const float c = m * c_new + (1.0f - m) * cv[e];
         d.c[(long long)b * H + j] = c;
         nxt[grid_h_at(b, j, kper, nsc, KS)] = h;
-        const long long out = ((long long)t * B + b) * H + j;
+        const long long out = ((long long)t * fpitch + b) * H + j;
         d.ys[out] = from_f32<S>(h);
         if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
       }
@@ -669,10 +688,10 @@ inline bool grid_resident(int U, int H) {
   }
 }
 
-template <typename S, int U, typename R>
+template <typename S, int U, typename R, bool kP>
 cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
                         int H, int ndir, cudaStream_t stream) {
-  auto kernel = lstm_fwd_grid<S, U, R>;
+  auto kernel = lstm_fwd_grid<S, U, R, kP>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -697,7 +716,7 @@ cudaError_t launch_grid(const GridDir<S>* d, const float* mask, int T, int B,
 }
 
 template <typename S, typename R>
-int run_grid(int T, int B, int H, int ndir, const float* mask,
+int run_grid(int T, int B, int H, int ndir, const Frames& fr,
              const void* const* xw, const void* const* wh, void* const* ys,
              void* const* cs, float* const* scratch, const int* reverse,
              cudaStream_t stream) {
@@ -713,19 +732,28 @@ int run_grid(int T, int B, int H, int ndir, const float* mask,
     d[i].c = scratch[i] + 2 * BHp;
     d[i].count = reinterpret_cast<unsigned int*>(scratch[i] + 2 * BHp +
                                                  (long long)B * H);
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
   }
   if (ndir == 1) d[1] = d[0];
-  cudaError_t err;
-  switch (U) {
-    case 4: err = launch_grid<S, 4, R>(d, mask, T, B, H, ndir, stream); break;
-    case 8: err = launch_grid<S, 8, R>(d, mask, T, B, H, ndir, stream); break;
-    case 16:
-      err = launch_grid<S, 16, R>(d, mask, T, B, H, ndir, stream);
-      break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  // the layer's frames (one mask, pitch B) on the instantiations without
+  // frames
+  const bool layer = fr.pitch == B && fr.mask[0] == fr.mask[ndir - 1];
+  auto launch = [&](auto kp) {
+    constexpr bool kP = decltype(kp)::value;
+    switch (U) {
+      case 4: return launch_grid<S, 4, R, kP>(d, fr.mask[0], T, B, H, ndir,
+                                              stream);
+      case 8: return launch_grid<S, 8, R, kP>(d, fr.mask[0], T, B, H, ndir,
+                                              stream);
+      case 16: return launch_grid<S, 16, R, kP>(d, fr.mask[0], T, B, H, ndir,
+                                                stream);
+    }
+    return cudaErrorInvalidValue;
+  };
+  return static_cast<int>(layer ? launch(std::false_type())
+                                 : launch(std::true_type()));
 }
 
 // --- f32 weights at large B: one persistent launch, CTAs over units x rows --
@@ -794,6 +822,8 @@ struct RowsDir {
   float* h;             // [B, H] the f32 h carry, zeroed
   float* c;             // [B, H] the f32 c carry, zeroed
   unsigned int* count;  // [row groups] frames done x CTAs, zeroed
+  const float* mask;    // [T, pitch] rows
+  int pitch;            // rows between frames of xw, ys, cs and the mask
   int reverse;
 };
 
@@ -808,8 +838,7 @@ struct RowsDir {
 // bf16 weights widened to f32).
 template <typename S, typename R>
 __global__ void __launch_bounds__(RTHREADS, 1)
-lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, const float* __restrict__ mask,
-              int T, int B, int H, int tpg) {
+lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, int T, int B, int H, int tpg) {
   using Rs = RowsShape;
   constexpr int U = Rs::U, C = Rs::C, NCG = Rs::NCG, NRG = Rs::NRG;
   constexpr int WROWS = Rs::WROWS;
@@ -899,7 +928,7 @@ lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, const float* __restrict__ mask,
           for (int i = 0; i < 8; ++i) {
             const int b = b0 + rg + NRG * i;
             if (b >= B) continue;
-            const S* x = d.xw + ((long long)t * B + b) * G + j0;
+            const S* x = d.xw + ((long long)t * d.pitch + b) * G + j0;
 #pragma unroll
             for (int g = 0; g < 4; ++g) prefetch_l2(x + g * H);
           }
@@ -948,8 +977,9 @@ lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, const float* __restrict__ mask,
       for (int i = 0; i < 8; ++i) {
         const int b = b0 + rg + NRG * i;
         if (b >= B) continue;
-        const float m = mask[(long long)t * B + b];
-        const S* x = d.xw + ((long long)t * B + b) * G;
+        const long long row = (long long)t * d.pitch + b;
+        const float m = d.mask[row];
+        const S* x = d.xw + row * G;
 #pragma unroll
         for (int uu = 0; uu < 2; ++uu) {
           const int j = j0 + 2 * cg + uu;
@@ -968,7 +998,7 @@ lstm_fwd_rows(RowsDir<S> d0, RowsDir<S> d1, const float* __restrict__ mask,
           d.c[own] = c;
           d.h[own] = h;
           nxt[rows_h_at<WROWS>(b, j, nck)] = h;
-          const long long out = ((long long)t * B + b) * H + j;
+          const long long out = row * H + j;
           d.ys[out] = from_f32<S>(h);
           if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
         }
@@ -1006,8 +1036,8 @@ inline void rows_plan(int B, int H, int ndir, int sms, int* groups,
 }
 
 template <typename S, typename R>
-cudaError_t launch_rows(const RowsDir<S>* d, const float* mask, int T, int B,
-                        int H, int ndir, cudaStream_t stream) {
+cudaError_t launch_rows(const RowsDir<S>* d, int T, int B, int H, int ndir,
+                        cudaStream_t stream) {
   auto kernel = lstm_fwd_rows<S, R>;
   const int smem = rows_smem(H);
   static int configured = 0;  // per instantiation: the largest opt-in yet
@@ -1021,7 +1051,7 @@ cudaError_t launch_rows(const RowsDir<S>* d, const float* mask, int T, int B,
   rows_plan(B, H, ndir, device_sms(), &groups, &tpg);
   int T_ = T, B_ = B, H_ = H;
   RowsDir<S> d0 = d[0], d1 = d[1];
-  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &tpg};
+  void* args[] = {&d0, &d1, &T_, &B_, &H_, &tpg};
   // cooperative: every CTA resident at once (each waits on the others'
   // frames), or the launch fails with cudaErrorCooperativeLaunchTooLarge
   const cudaError_t err = cudaLaunchCooperativeKernel(
@@ -1032,7 +1062,7 @@ cudaError_t launch_rows(const RowsDir<S>* d, const float* mask, int T, int B,
 }
 
 template <typename S, typename R>
-int run_rows(int T, int B, int H, int ndir, const float* mask,
+int run_rows(int T, int B, int H, int ndir, const Frames& fr,
              const void* const* xw, const void* const* wh, void* const* ys,
              void* const* cs, float* const* scratch, const int* reverse,
              cudaStream_t stream) {
@@ -1051,10 +1081,12 @@ int run_rows(int T, int B, int H, int ndir, const float* mask,
     d[i].h = scratch[i] + 2 * HX;
     d[i].c = d[i].h + BH;
     d[i].count = reinterpret_cast<unsigned int*>(d[i].c + BH);
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
   }
   if (ndir == 1) d[1] = d[0];
-  return static_cast<int>(launch_rows<S, R>(d, mask, T, B, H, ndir, stream));
+  return static_cast<int>(launch_rows<S, R>(d, T, B, H, ndir, stream));
 }
 
 // --- bf16 weights above H=512 (F2): one persistent launch on the tensor cores
@@ -1102,6 +1134,8 @@ struct TcDir {
   float* h;             // [B, H] the f32 h carry, zeroed
   float* c;             // [B, H] the f32 c carry, zeroed
   unsigned int* count;  // frames done x CTAs, zeroed
+  const float* mask;    // [T, pitch] rows
+  int pitch;            // rows between frames of xw, ys, cs and the mask
   int reverse;
 };
 
@@ -1114,8 +1148,7 @@ struct TcDir {
 // aligned 16-byte runs of 8 units (H % 8 == 0).
 template <typename S>
 __global__ void __launch_bounds__(TTHREADS, 1)
-lstm_fwd_tc(TcDir<S> d0, TcDir<S> d1, const float* __restrict__ mask, int T,
-            int B, int H, int vec) {
+lstm_fwd_tc(TcDir<S> d0, TcDir<S> d1, int T, int B, int H, int vec) {
   const TcDir<S> d = blockIdx.y == 0 ? d0 : d1;
   const unsigned int N = gridDim.x;
   const int j0 = blockIdx.x * TU;
@@ -1186,10 +1219,11 @@ lstm_fwd_tc(TcDir<S> d0, TcDir<S> d1, const float* __restrict__ mask, int T,
       const int cell = tid + e * TTHREADS;
       const int b = b0 + cell / TU, j = j0 + cell % TU;
       if (b < B && j < H) {
-        const S* x = d.xw + ((long long)t * B + b) * G + j;
+        const long long row = (long long)t * d.pitch + b;
+        const S* x = d.xw + row * G + j;
 #pragma unroll
         for (int g = 0; g < 4; ++g) xv[e][g] = to_f32(x[g * H]);
-        mv[e] = mask[(long long)t * B + b];
+        mv[e] = d.mask[row];
         hv[e] = d.h[(long long)b * H + j];
         cv[e] = d.c[(long long)b * H + j];
       }
@@ -1303,7 +1337,7 @@ lstm_fwd_tc(TcDir<S> d0, TcDir<S> d1, const float* __restrict__ mask, int T,
         *reinterpret_cast<bf16*>(
             nxt + ((long long)q * TSL + sx) * block + rr * pitch + 2 * kx) =
             __float2bfloat16(h);
-        const long long out = ((long long)t * B + b) * H + j;
+        const long long out = ((long long)t * d.pitch + b) * H + j;
         d.ys[out] = from_f32<S>(h);
         if (d.cs != nullptr) d.cs[out] = from_f32<S>(c);
       }
@@ -1327,7 +1361,7 @@ inline bool tc_fits(int H, int ndir) {
 }
 
 template <typename S>
-int run_tc(int T, int B, int H, int ndir, const float* mask,
+int run_tc(int T, int B, int H, int ndir, const Frames& fr,
            const void* const* xw, const void* const* wh, void* const* ys,
            void* const* cs, float* const* scratch, const int* reverse,
            cudaStream_t stream) {
@@ -1353,13 +1387,15 @@ int run_tc(int T, int B, int H, int ndir, const float* mask,
     d[i].c = scratch[i] + hx + (long long)B * H;
     d[i].count = reinterpret_cast<unsigned int*>(scratch[i] + hx +
                                                  2LL * B * H);
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
     vec = vec && aligned16(wh[i]);
   }
   if (ndir == 1) d[1] = d[0];
   TcDir<S> d0 = d[0], d1 = d[1];
   int T_ = T, B_ = B, H_ = H;
-  void* args[] = {&d0, &d1, &mask, &T_, &B_, &H_, &vec};
+  void* args[] = {&d0, &d1, &T_, &B_, &H_, &vec};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kernel), dim3((H + TU - 1) / TU, ndir),
       dim3(TTHREADS), args, tc_smem(H), stream);
@@ -1401,6 +1437,8 @@ struct SeqDir {
   const bf16* wh;  // [H, 4H]
   S* ys;           // [T, B, H]
   S* cs;           // [T, B, H] cell states (training form) or nullptr
+  const float* mask;  // [T, pitch] rows
+  int pitch;          // rows between frames of xw, ys, cs and the mask
   int reverse;
 };
 
@@ -1408,8 +1446,11 @@ struct SeqDir {
 // Warpgroup v (warps 4v..4v+3) multiplies tile v of A (gates 2v, 2v+1);
 // its thread (warp w, lane l) owns unit 32*rank + 8w + l/4 and batch rows
 // 32*blockIdx.y + 8n + 2(l%4) + v (n < 4) for all T frames. `vec`: rows of
-// wh, xw, ys and cs are whole, aligned 16-byte chunks (H % 8 == 0).
-template <typename S, int KB>
+// wh, xw, ys and cs are whole, aligned 16-byte chunks (H % 8 == 0). kP:
+// each direction's frames lie d.pitch rows apart with its own d.mask
+// (Frames); else they are the layer's, B rows apart with `mask` (the
+// kernel as it ran before frames had a pitch).
+template <typename S, int KB, bool kP>
 __global__ void __launch_bounds__(PTHREADS, 1)
 lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
                     int T, int B, int H, int vec) {
@@ -1417,6 +1458,8 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
   const int rank = static_cast<int>(cluster.block_rank());
   const int nrank = static_cast<int>(cluster.num_blocks());
   const SeqDir<S> d = blockIdx.z == 0 ? d0 : d1;
+  const int fpitch = kP ? d.pitch : B;
+  const float* fmask = kP ? d.mask : mask;
   const int b0 = blockIdx.y * PN;
   const int j0 = rank * PU;
   const long long G = 4LL * H;
@@ -1515,7 +1558,7 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
       for (int q = tid; q < 4 * PN * NCH; q += PTHREADS) {
         const int g = q / (PN * NCH), r = (q / NCH) % PN, c = q % NCH;
         const bool ok = b0 + r < B && j0 + c * CH < H;
-        const S* src = d.xw + (ok ? ((long long)t * B + b0 + r) * G +
+        const S* src = d.xw + (ok ? ((long long)t * fpitch + b0 + r) * G +
                                         (long long)g * H + j0 + c * CH
                                   : 0);
         cp_async16_zfill(x_s + (g * PN + r) * SROW + c * 16, src, ok);
@@ -1525,14 +1568,15 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
         const int g = q / (PN * PU), r = (q / PU) % PN, uu = q % PU;
         const bool ok = b0 + r < B && j0 + uu < H;
         *reinterpret_cast<S*>(x_s + (g * PN + r) * SROW + uu * ES) =
-            ok ? d.xw[((long long)t * B + b0 + r) * G + (long long)g * H +
-                      j0 + uu]
+            ok ? d.xw[((long long)t * fpitch + b0 + r) * G +
+                      (long long)g * H + j0 + uu]
                : from_f32<S>(0.0f);
       }
     }
     if (tid < PN) {
       const bool ok = b0 + tid < B;
-      cp_async4_zfill(m_s + tid, mask + (ok ? (long long)t * B + b0 + tid : 0),
+      cp_async4_zfill(m_s + tid,
+                      fmask + (ok ? (long long)t * fpitch + b0 + tid : 0),
                       ok);
     }
   };
@@ -1547,7 +1591,7 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
         const int which = q / (PN * NCH), r = (q / NCH) % PN, c = q % NCH;
         if (b0 + r >= B || j0 + c * CH >= H) continue;
         S* dst = (which == 0 ? d.ys : d.cs) +
-                 ((long long)t * B + b0 + r) * H + j0 + c * CH;
+                 ((long long)t * fpitch + b0 + r) * H + j0 + c * CH;
         *reinterpret_cast<uint4*>(dst) =
             *reinterpret_cast<const uint4*>(o_at(which, r, c * CH));
       }
@@ -1555,8 +1599,8 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
       for (int q = tid; q < nout * PN * PU; q += PTHREADS) {
         const int which = q / (PN * PU), r = (q / PU) % PN, uu = q % PU;
         if (b0 + r >= B || j0 + uu >= H) continue;
-        (which == 0 ? d.ys : d.cs)[((long long)t * B + b0 + r) * H + j0 + uu] =
-            *o_at(which, r, uu);
+        (which == 0 ? d.ys : d.cs)[((long long)t * fpitch + b0 + r) * H +
+                                   j0 + uu] = *o_at(which, r, uu);
       }
     }
   };
@@ -1675,12 +1719,12 @@ lstm_fwd_persistent(SeqDir<S> d0, SeqDir<S> d1, const float* __restrict__ mask,
   cluster_wait_acquire();
 }
 
-template <typename S, int KB>
+template <typename S, int KB, bool kP>
 cudaError_t launch_persistent(const SeqDir<S>* d, const float* mask, int T,
                               int B, int H, int ndir, int vec,
                               cudaStream_t stream) {
   constexpr int smem = persistent_smem<S, KB>();
-  auto kernel = lstm_fwd_persistent<S, KB>;
+  auto kernel = lstm_fwd_persistent<S, KB, kP>;
   static bool configured = false;  // per instantiation
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1716,7 +1760,7 @@ cudaError_t launch_persistent(const SeqDir<S>* d, const float* mask, int T,
 }
 
 template <typename S>
-int run_persistent(int T, int B, int H, int ndir, const float* mask,
+int run_persistent(int T, int B, int H, int ndir, const Frames& fr,
                    const void* const* xw, const void* const* wh,
                    void* const* ys, void* const* cs, const int* reverse,
                    cudaStream_t stream) {
@@ -1727,6 +1771,8 @@ int run_persistent(int T, int B, int H, int ndir, const float* mask,
     d[i].wh = static_cast<const bf16*>(wh[i]);
     d[i].ys = static_cast<S*>(ys[i]);
     d[i].cs = static_cast<S*>(cs[i]);
+    d[i].mask = fr.mask[i];
+    d[i].pitch = fr.pitch;
     d[i].reverse = reverse[i];
   }
   if (ndir == 1) d[1] = d[0];
@@ -1736,19 +1782,27 @@ int run_persistent(int T, int B, int H, int ndir, const float* mask,
     vec = vec && aligned16(d[i].wh) && aligned16(d[i].xw) &&
           aligned16(d[i].ys) && aligned16(d[i].cs);
   }
-  // K padded to 64, 128, 256 or 512 columns
+  // K padded to 64, 128, 256 or 512 columns; the layer's frames (one
+  // mask, pitch B) on the instantiations without frames
   const int kb = (H + 63) / 64;
-  cudaError_t err;
-  if (kb <= 1) {
-    err = launch_persistent<S, 1>(d, mask, T, B, H, ndir, vec, stream);
-  } else if (kb <= 2) {
-    err = launch_persistent<S, 2>(d, mask, T, B, H, ndir, vec, stream);
-  } else if (kb <= 4) {
-    err = launch_persistent<S, 4>(d, mask, T, B, H, ndir, vec, stream);
-  } else {
-    err = launch_persistent<S, 8>(d, mask, T, B, H, ndir, vec, stream);
-  }
-  return static_cast<int>(err);
+  const bool layer = fr.pitch == B && fr.mask[0] == fr.mask[ndir - 1];
+  auto launch = [&](auto kp) {
+    constexpr bool kP = decltype(kp)::value;
+    if (kb <= 1) {
+      return launch_persistent<S, 1, kP>(d, fr.mask[0], T, B, H, ndir, vec,
+                                         stream);
+    } else if (kb <= 2) {
+      return launch_persistent<S, 2, kP>(d, fr.mask[0], T, B, H, ndir, vec,
+                                         stream);
+    } else if (kb <= 4) {
+      return launch_persistent<S, 4, kP>(d, fr.mask[0], T, B, H, ndir, vec,
+                                         stream);
+    }
+    return launch_persistent<S, 8, kP>(d, fr.mask[0], T, B, H, ndir, vec,
+                                       stream);
+  };
+  return static_cast<int>(layer ? launch(std::false_type())
+                                 : launch(std::true_type()));
 }
 
 // The forward's designs (vo_lstm_fwd_named): FWD_STEP (lstm_step a
@@ -1785,19 +1839,19 @@ inline int f32_design(int B, int H, int ndir) {
 }
 
 template <typename S, typename R>
-int run_f32_as(int design, int T, int B, int H, int ndir, const float* mask,
+int run_f32_as(int design, int T, int B, int H, int ndir, const Frames& fr,
                const void* const* xw, const void* const* wh, void* const* ys,
                void* const* cs, float* const* scratch, const int* reverse,
                cudaStream_t s) {
   switch (design) {
     case FWD_GRID:
-      return run_grid<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+      return run_grid<S, R>(T, B, H, ndir, fr, xw, wh, ys, cs, scratch,
                             reverse, s);
     case FWD_ROWS:
-      return run_rows<S, R>(T, B, H, ndir, mask, xw, wh, ys, cs, scratch,
+      return run_rows<S, R>(T, B, H, ndir, fr, xw, wh, ys, cs, scratch,
                             reverse, s);
     default:
-      return run_per_frame<S, float, R>(T, B, H, ndir, mask, xw, wh, ys, cs,
+      return run_per_frame<S, float, R>(T, B, H, ndir, fr, xw, wh, ys, cs,
                                         scratch, reverse, s);
   }
 }
@@ -1806,21 +1860,21 @@ int run_f32_as(int design, int T, int B, int H, int ndir, const float* mask,
 // the bf16 weights widened, which is exact), h rounded to bf16 before the
 // product for codes 1 and 2, as the reference rounds it.
 int run_f32(int design, int type_code, int T, int B, int H, int ndir,
-            const float* mask, const void* const* xw, const void* const* wh,
+            const Frames& fr, const void* const* xw, const void* const* wh,
             void* const* ys, void* const* cs, float* const* scratch,
             const int* reverse, cudaStream_t s) {
   switch (type_code) {
     case 0:
-      return run_f32_as<float, float>(design, T, B, H, ndir, mask, xw, wh, ys,
+      return run_f32_as<float, float>(design, T, B, H, ndir, fr, xw, wh, ys,
                                       cs, scratch, reverse, s);
     case 1:
-      return run_f32_as<bf16, bf16>(design, T, B, H, ndir, mask, xw, wh, ys, cs,
+      return run_f32_as<bf16, bf16>(design, T, B, H, ndir, fr, xw, wh, ys, cs,
                                     scratch, reverse, s);
     case 2:
-      return run_f32_as<float, bf16>(design, T, B, H, ndir, mask, xw, wh, ys,
+      return run_f32_as<float, bf16>(design, T, B, H, ndir, fr, xw, wh, ys,
                                      cs, scratch, reverse, s);
     case 3:
-      return run_f32_as<bf16, float>(design, T, B, H, ndir, mask, xw, wh, ys, cs,
+      return run_f32_as<bf16, float>(design, T, B, H, ndir, fr, xw, wh, ys, cs,
                                      scratch, reverse, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1843,13 +1897,13 @@ inline int fwd_design(int type_code, int B, int H, int ndir) {
   return f32_design(B, H, ndir);
 }
 
-int fwd(int design, int type_code, int T, int B, int H, int ndir,
-        const void* mask, const void* xw0, const void* wh0, void* ys0,
-        void* cs0, void* scratch0, int reverse0, const void* xw1,
-        const void* wh1, void* ys1, void* cs1, void* scratch1, int reverse1,
-        void* stream) {
+int fwd(int design, int type_code, int T, int B, int H, int ndir, int pitch,
+        const void* mask0, const void* mask1, const void* xw0,
+        const void* wh0, void* ys0, void* cs0, void* scratch0, int reverse0,
+        const void* xw1, const void* wh1, void* ys1, void* cs1,
+        void* scratch1, int reverse1, void* stream) {
   if (T < 1 || B < 1 || H < 1 || ndir < 1 || ndir > 2 || type_code < 0 ||
-      type_code > 3) {
+      type_code > 3 || pitch < B) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (design == -1) design = fwd_design(type_code, B, H, ndir);
@@ -1860,7 +1914,9 @@ int fwd(int design, int type_code, int T, int B, int H, int ndir,
   float* scratch[2] = {static_cast<float*>(scratch0),
                        static_cast<float*>(scratch1)};
   const int reverse[2] = {reverse0, reverse1};
-  const float* m = static_cast<const float*>(mask);
+  const Frames m = {{static_cast<const float*>(mask0),
+                     static_cast<const float*>(mask1)},
+                    pitch};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (design) {
     case FWD_PERSISTENT:
@@ -1910,7 +1966,7 @@ extern "C" int vo_lstm_fwd(int type_code, int T, int B, int H, int ndir,
                            const void* xw1, const void* wh1, void* ys1,
                            void* cs1, void* scratch1, int reverse1,
                            void* stream) {
-  return fwd(-1, type_code, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
+  return fwd(-1, type_code, T, B, H, ndir, B, mask, mask, xw0, wh0, ys0, cs0,
              scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1, reverse1,
              stream);
 }
@@ -1928,9 +1984,27 @@ extern "C" int vo_lstm_fwd_named(int design, int type_code, int T, int B,
                                  const void* xw1, const void* wh1, void* ys1,
                                  void* cs1, void* scratch1, int reverse1,
                                  void* stream) {
-  return fwd(design, type_code, T, B, H, ndir, mask, xw0, wh0, ys0, cs0,
-             scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1, reverse1,
+  return fwd(design, type_code, T, B, H, ndir, B, mask, mask, xw0, wh0, ys0,
+             cs0, scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1, reverse1,
              stream);
+}
+
+// vo_lstm_fwd_named on frames `pitch` rows apart (pitch >= B: frame t's
+// row b of xw, ys and cs is row t*pitch + b, its mask value mask{0,1}[t *
+// pitch + b]), with a mask of each direction's own. The layer calls pitch
+// = B and one mask; vo_bi_lstm_fwd (lstm_bi_stacked.cu) calls it on the
+// two planes of the direction-stacked layout.
+extern "C" int vo_lstm_fwd_frames(int design, int type_code, int T, int B,
+                                  int H, int ndir, int pitch,
+                                  const void* mask0, const void* mask1,
+                                  const void* xw0, const void* wh0, void* ys0,
+                                  void* cs0, void* scratch0, int reverse0,
+                                  const void* xw1, const void* wh1, void* ys1,
+                                  void* cs1, void* scratch1, int reverse1,
+                                  void* stream) {
+  return fwd(design, type_code, T, B, H, ndir, pitch, mask0, mask1, xw0, wh0,
+             ys0, cs0, scratch0, reverse0, xw1, wh1, ys1, cs1, scratch1,
+             reverse1, stream);
 }
 
 // The design vo_lstm_fwd runs (vo_lstm_fwd_named's codes) for ndir

@@ -1,11 +1,13 @@
 """Direction-stacked BLSTM layer: both directions of one layer as the two
-planes of a ``[T, 2, B, *]`` layout, in one CUDA kernel pair.
+planes of a ``[T, 2, B, *]`` layout.
 
-Counterpart of ``experiments/lstm_bi_stacked.py:65-278``. The kernels are
-``csrc/lstm_bi_stacked.cu`` (``bi_fwd_step`` for ``_bi_fwd_kernel``;
-``bi_bwd_gates`` + ``bi_bwd_dh`` per frame and ``bi_dwh`` after the loop
-for ``_bi_bwd_kernel``); its source note says what bounds them on the card
-and what the design does about it.
+Counterpart of ``experiments/lstm_bi_stacked.py:65-278``. The C entries
+are ``csrc/lstm_bi_stacked.cu``'s ``vo_bi_lstm_fwd`` (``_bi_fwd_kernel``)
+and ``vo_bi_lstm_bwd`` (``_bi_bwd_kernel``): they run the layer kernels'
+designs (``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) on the two planes in
+place, as a layer's two directions with a frame pitch of 2B rows and a
+mask each; its source note says how. ``bi_design`` names the designs a
+shape runs.
 
 Contract (the experiment's, not production's ``lstm_cuda``): ``xw``
 ``[T, 2, B, 4H]`` and the outputs ``ys``/``cs`` ``[T, 2, B, H]`` are f32;
@@ -28,7 +30,10 @@ math are f32; ``dwh`` is f32.
 - ``bi_lstm_fwd_cuda`` / ``bi_lstm_bwd_cuda``: the kernel wrappers (CUDA
   tensors only), each adding one to ``BI_FWD_LAUNCHES`` /
   ``BI_BWD_LAUNCHES`` per call of its C entry point (which runs all T
-  frames of both planes).
+  frames of both planes); ``lstm_cuda``'s counters do not move, since
+  the entries call the layer's C route directly.
+- ``bi_planes``: the per-plane mapping the entries run, as the layer's
+  plain versions take it (plane views, a mask each, ``reverse=False``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ BI_BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _W_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the layer's design names (ops/lstm_cuda.py), by the C codes
+# vo_bi_lstm_design returns
+_FWD_DESIGNS = ("step", "grid", "tc", "persistent", "rows")
+_GEMM_DESIGNS = ("fma", "wide")
+_LOOP_DESIGNS = ("split", "fold", "persistent", "tc", "rows")
+_DWH_DESIGNS = ("tiles", "wide")
 
 
 def _count(name: str) -> None:
@@ -142,6 +153,43 @@ def bi_bptt_ref(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return dxw, dwh
 
 
+def bi_planes(xw: torch.Tensor, mask: torch.Tensor, ys=None, cs=None,
+              dys=None):
+    """The stacked layout as the layer's two directions, the mapping
+    ``vo_bi_lstm_fwd`` / ``vo_bi_lstm_bwd`` run on the card: for plane p,
+    views ``xw[:, p]`` (and ``ys``, ``cs``, ``dys``; frames 2B rows apart),
+    its own mask ``mask[:, p:p+1]`` [T, 1, B] and ``reverse=False``.
+    Returns a list of two dicts, one a plane."""
+    out = []
+    for p in range(2):
+        plane = {"xw": xw[:, p], "mask": mask[:, p:p + 1], "reverse": False}
+        for name, t in (("ys", ys), ("cs", cs), ("dys", dys)):
+            if t is not None:
+                plane[name] = t[:, p]
+        out.append(plane)
+    return out
+
+
+def bi_design(dtype: torch.dtype, B: int, H: int) -> dict:
+    """The layer designs the stacked entries run with weights in ``dtype``
+    at B, H (the names of ``lstm_cuda.FWD_DESIGNS``, ``GEMM_DESIGNS``,
+    ``LOOP_DESIGNS`` and ``DWH_DESIGNS``; dwh ``"fma"`` for f32 weights):
+    the forward, the BPTT's gate GEMM and frame loop, and dwh. Builds the
+    kernels on first use; CUDA only."""
+    import ctypes
+
+    from ..ops import _build
+
+    if dtype not in _W_TYPES:
+        raise TypeError(f"unsupported compute dtype {dtype}")
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().vo_bi_lstm_design(_W_TYPES[dtype], B, H, out),
+                 "vo_bi_lstm_design")
+    return {"forward": _FWD_DESIGNS[out[0]], "gemm": _GEMM_DESIGNS[out[1]],
+            "loop": _LOOP_DESIGNS[out[2]],
+            "dwh": "fma" if out[3] < 0 else _DWH_DESIGNS[out[3]]}
+
+
 def _check_launch(*tensors) -> None:
     for t in tensors:
         if not t.is_cuda:
@@ -192,11 +240,10 @@ def bi_lstm_bwd_cuda(xw, mask, wh, ys, cs, dys,
     lib = _build.load()
     dxw = torch.empty_like(xw)
     dwh = torch.empty((2, H, G), dtype=torch.float32, device=xw.device)
-    scratch = torch.zeros((2, 2, B, H), dtype=torch.float32, device=xw.device)
     err = lib.vo_bi_lstm_bwd(_W_TYPES[dtype], T, B, H, xw.data_ptr(),
                              mask.data_ptr(), wh.data_ptr(), ys.data_ptr(),
                              cs.data_ptr(), dys.data_ptr(), dxw.data_ptr(),
-                             dwh.data_ptr(), scratch.data_ptr(),
+                             dwh.data_ptr(), None,
                              torch.cuda.current_stream(xw.device).cuda_stream)
     _build.check(err, "vo_bi_lstm_bwd")
     _count("BI_BWD_LAUNCHES")

@@ -108,6 +108,14 @@ def _bind(lib) -> None:
     ]
     lib.vo_lstm_fwd_named.restype = i
     lib.vo_lstm_fwd_named.argtypes = [i] + lib.vo_lstm_fwd.argtypes  # design
+    lib.vo_lstm_fwd_frames.restype = i
+    lib.vo_lstm_fwd_frames.argtypes = [
+        i, i, i, i, i, i, i,  # design, type_code, T, B, H, ndir, pitch
+        p, p,  # mask0, mask1
+        p, p, p, p, p, i,  # direction 0: xw, wh, ys, cs, scratch, reverse
+        p, p, p, p, p, i,  # direction 1
+        p,  # stream
+    ]
     lib.vo_lstm_fwd_design.restype = i
     lib.vo_lstm_fwd_design.argtypes = [i, i, i, i]  # type_code, B, H, ndir
     lib.vo_lstm_fwd_scratch.restype = ctypes.c_longlong
@@ -117,6 +125,16 @@ def _bind(lib) -> None:
         i, i,  # gemm, loop
         i, i, i, i, i,  # type_code, T, B, H, ndir
         p,  # mask
+        # direction 0: xw, wh, wh in f32, ys, cs, dys, dxw, scratch, reverse
+        p, p, p, p, p, p, p, p, i,
+        p, p, p, p, p, p, p, p, i,  # direction 1
+        p,  # stream
+    ]
+    lib.vo_lstm_bwd_frames.restype = i
+    lib.vo_lstm_bwd_frames.argtypes = [
+        i, i,  # gemm, loop
+        i, i, i, i, i, i,  # type_code, T, B, H, ndir, pitch
+        p, p,  # mask0, mask1
         # direction 0: xw, wh, wh in f32, ys, cs, dys, dxw, scratch, reverse
         p, p, p, p, p, p, p, p, i,
         p, p, p, p, p, p, p, p, i,  # direction 1
@@ -138,6 +156,10 @@ def _bind(lib) -> None:
         p,  # workspace
         p,  # stream
     ]
+    lib.vo_lstm_dwh_frames.restype = i
+    lib.vo_lstm_dwh_frames.argtypes = (
+        lib.vo_lstm_dwh.argtypes[:6] + [i]  # design .. ndir, pitch
+        + lib.vo_lstm_dwh.argtypes[6:])
     lib.vo_lstm_dwh_workspace.restype = ctypes.c_longlong
     lib.vo_lstm_dwh_workspace.argtypes = [i, i, i, i, i, i]  # design, type_code, T, B, H, ndir
     lib.vo_lstm_dwh_design.restype = i
@@ -165,9 +187,11 @@ def _bind(lib) -> None:
     lib.vo_bi_lstm_bwd.argtypes = [
         i, i, i, i,  # w_type, T, B, H
         p, p, p, p, p, p,  # xw, mask, wh, ys, cs, dys
-        p, p, p,  # dxw, dwh, scratch
+        p, p, p,  # dxw, dwh, scratch (unused: null)
         p,  # stream
     ]
+    lib.vo_bi_lstm_design.restype = i
+    lib.vo_bi_lstm_design.argtypes = [i, i, i, p]  # w_type, B, H, out[4]
     f = ctypes.c_float
     lib.vo_int8_quantize.restype = i
     lib.vo_int8_quantize.argtypes = [

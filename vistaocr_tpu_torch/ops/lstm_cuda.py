@@ -342,6 +342,31 @@ def _check_launch(tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError("the LSTM kernels take contiguous tensors only")
 
 
+def _masks(mask, ndir: int) -> List[torch.Tensor]:
+    """The mask of each direction: ``mask`` [T, 1, B] for all of them, or
+    a sequence of one [T, 1, B] mask a direction."""
+    masks = list(mask) if isinstance(mask, (list, tuple)) else [mask] * ndir
+    if len(masks) != ndir:
+        raise ValueError(f"{len(masks)} masks for {ndir} directions")
+    return masks
+
+
+def _mask_ptrs(mask, ndir: int, T: int, B: int) -> list:
+    """The mask pointers of the C entries: [ptr] for one mask shared by
+    the directions (``vo_lstm_fwd`` / ``vo_lstm_bwd_named``), or two, one
+    a direction (the ``*_frames`` entries; the second repeats the first
+    for one direction). Each mask is T x B float32 values on the card."""
+    masks = _masks(mask, ndir)
+    for m in masks:
+        _check_launch((m,))
+        if m.numel() != T * B or m.dtype != torch.float32:
+            raise ValueError(f"each mask must be float32 [{T}, 1, {B}]")
+    if not isinstance(mask, (list, tuple)):
+        return [mask.data_ptr()]
+    ptrs = [m.data_ptr() for m in masks]
+    return ptrs * 2 if len(ptrs) == 1 else ptrs
+
+
 def _dir_args(per_dir: List[list], n_fields: int) -> list:
     """Flatten per-direction C arguments; with one direction the second
     direction's slots repeat the first (the kernel does not read them)."""
@@ -353,11 +378,12 @@ def _dir_args(per_dir: List[list], n_fields: int) -> list:
 
 
 def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
-             mask: torch.Tensor, dtype: torch.dtype, *,
+             mask, dtype: torch.dtype, *,
              save_cell: bool = False, design: Optional[str] = None):
-    """The forward kernel over one or two directions that share T, B, H,
-    the dtypes and the mask (CUDA only). ``dirs``: (xw, wh already in
-    ``dtype``, reverse). Returns (ys list, cs list or None). The library
+    """The forward kernel over one or two directions that share T, B, H
+    and the dtypes (CUDA only). ``dirs``: (xw, wh already in ``dtype``,
+    reverse); ``mask``: [T, 1, B] for both, or one a direction. Returns
+    (ys list, cs list or None). The library
     chooses the design by weight type and shape (``forward_design``);
     ``design`` (``FWD_DESIGNS``) names one instead (the f32-weight route's
     "grid", "rows" and "step" take any weight type, each at the H it
@@ -373,8 +399,9 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
+    masks = _mask_ptrs(mask, len(dirs), T, B)
     for xw, wh, _ in dirs:
-        _check_launch((xw, wh, mask))
+        _check_launch((xw, wh))
         if xw.shape != xw0.shape or xw.dtype != xw0.dtype:
             raise ValueError("both directions must share shape and dtype")
         if wh.dtype != dtype:
@@ -405,12 +432,18 @@ def lstm_fwd(dirs: Sequence[Tuple[torch.Tensor, torch.Tensor, bool]],
          cs[k].data_ptr() if save_cell else None,
          None if scratch[k] is None else scratch[k].data_ptr(), int(rev)]
         for k, (xw, _, rev) in enumerate(dirs)], 6)
-    call = (code, T, B, H, len(dirs), mask.data_ptr(), *args,
-            torch.cuda.current_stream(xw0.device).cuda_stream)
-    if design is None:
-        _build.check(lib.vo_lstm_fwd(*call), "vo_lstm_fwd")
+    stream = torch.cuda.current_stream(xw0.device).cuda_stream
+    if len(masks) == 2:  # a mask each direction
+        _build.check(lib.vo_lstm_fwd_frames(
+            -1 if design is None else d, code, T, B, H, len(dirs), B, *masks,
+            *args, stream), "vo_lstm_fwd_frames")
+    elif design is None:
+        _build.check(lib.vo_lstm_fwd(code, T, B, H, len(dirs), *masks, *args,
+                                     stream), "vo_lstm_fwd")
     else:
-        _build.check(lib.vo_lstm_fwd_named(d, *call), "vo_lstm_fwd_named")
+        _build.check(lib.vo_lstm_fwd_named(d, code, T, B, H, len(dirs),
+                                           *masks, *args, stream),
+                     "vo_lstm_fwd_named")
     _count("LAUNCHES")
     if save_cell:
         _count("SAVE_CELL_LAUNCHES")
@@ -484,7 +517,7 @@ def persistent_plan(B: int, H: int, ndir: int = 2,
             "waves": -(-clusters // resident)}
 
 
-def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
+def lstm_bptt_frames(dirs, mask, dtype: torch.dtype,
                      *, return_gates: bool = False,
                      gemm: Optional[str] = None,
                      loop: Optional[str] = None):
@@ -498,7 +531,8 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     widened to f32) by B ``bptt_frame`` per frame (folded, B <= 32), or
     ``lstm_bwd_rows`` (one launch) where it fits, or ``bptt_cell`` and
     ``bptt_dh`` per frame (split). ``dirs``: (xw, wh
-    already in ``dtype``, ys, cs, dys in the stream dtype, reverse).
+    already in ``dtype``, ys, cs, dys in the stream dtype, reverse);
+    ``mask``: [T, 1, B] for both, or one a direction.
     Returns dxw per direction, and with ``return_gates`` also the
     recomputed gates ``pre`` [T, B, 4H] f32 per direction (what
     ``bptt_gates_ref`` computes), so that each kernel can be held to its
@@ -515,8 +549,9 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
     xw0 = dirs[0][0]
     T, B, G = xw0.shape
     H = G // 4
+    masks = _mask_ptrs(mask, len(dirs), T, B)
     for xw, wh, ys, cs, dys, _ in dirs:
-        _check_launch((xw, wh, ys, cs, dys, mask))
+        _check_launch((xw, wh, ys, cs, dys))
         if xw.shape != xw0.shape or not (
                 xw.dtype == ys.dtype == cs.dtype == dys.dtype == xw0.dtype):
             raise ValueError("both directions must share shape and dtype")
@@ -553,10 +588,15 @@ def lstm_bptt_frames(dirs, mask: torch.Tensor, dtype: torch.dtype,
          cs.data_ptr(), dys.data_ptr(), dxw[k].data_ptr(),
          scratch[k].data_ptr(), int(rev)]
         for k, (xw, wh, ys, cs, dys, rev) in enumerate(dirs)], 9)
-    _build.check(lib.vo_lstm_bwd_named(
-        g, lp, code, T, B, H, len(dirs), mask.data_ptr(), *args,
-        torch.cuda.current_stream(xw0.device).cuda_stream),
-        "vo_lstm_bwd_named")
+    stream = torch.cuda.current_stream(xw0.device).cuda_stream
+    if len(masks) == 2:  # a mask each direction
+        _build.check(lib.vo_lstm_bwd_frames(
+            g, lp, code, T, B, H, len(dirs), B, *masks, *args, stream),
+            "vo_lstm_bwd_frames")
+    else:
+        _build.check(lib.vo_lstm_bwd_named(
+            g, lp, code, T, B, H, len(dirs), *masks, *args, stream),
+            "vo_lstm_bwd_named")
     _count("BWD_LAUNCHES")
     _count_gates(g)
     if name == "persistent":
