@@ -250,7 +250,10 @@ the exit code is non-zero and no ``ok`` line is printed):
              2e-3 of the elements, dK within 1e-4 relative, ys/cs within
              2**-8, dxw and dwh within 5e-3 relative: the fused stem
              K7a/K7b at B=3, W=45 (one width < W) and the flagship train
-             shapes B=32, W=2048 and B=128, W=512 (H=32, CO=64); the
+             shapes B=32, W=2048 and B=128, W=512 (H=32, CO=64), each
+             type's design (``stem_design``: dK on mma.sync in bf16, on
+             FMAs in f32) printed, and reruns of out, xn and dK held
+             bit-equal; the
              direction-stacked BLSTM K6a/K6b at B=5, T=7, H=40 (ragged
              mask) and B=32, T=512 / B=128, T=128 (H=512). At the
              flagship shapes each is timed beside its plain version and
@@ -4048,11 +4051,15 @@ def stem_experiment_kernels(dev, card: str) -> dict:
             np.float32)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             dout = dout32.to(dtype)
+            design = S.stem_design(dtype)
             out, xn = S.stem_fwd_cuda(images, widths, kernel, True, dtype)
             ref_out, ref_xn = S.fused_stem_ref(images, widths, kernel, True,
                                                dtype)
             dk = S.stem_dk_cuda(xn, dout)
             ref_dk = S.stem_dk_ref(xn, dout)
+            out2, xn2 = S.stem_fwd_cuda(images, widths, kernel, True, dtype)
+            reruns_equal = (torch.equal(out, out2) and torch.equal(xn, xn2)
+                            and torch.equal(dk, S.stem_dk_cuda(xn, dout)))
             x = preprocess_images(images, widths, dtype=dtype).permute(
                 0, 3, 1, 2).contiguous()
             prod = F.conv2d(x, kernel.to(dtype), padding=1)
@@ -4071,11 +4078,14 @@ def stem_experiment_kernels(dev, card: str) -> dict:
             else:
                 ok = (ulps <= 1 and share <= BF16_FLIP_SHARE
                       and r_dk <= BF16_DK_REL)
+            ok = ok and reruns_equal
             tag = f"B={B} H={H} W={W} CO={CO} {_dtname(dtype)}"
-            print(f"stem kernels vs plain {tag}: out/xn max|d|={e_fwd:.3e} "
+            print(f"stem kernels vs plain {tag} (design {design['fwd']}, "
+                  f"{design['dk']}): out/xn max|d|={e_fwd:.3e} "
                   f"({ulps:.2f} bf16 ulp, {share:.2e} of elements differ); "
                   f"dK max|d|={e_dk:.3e} (rel {r_dk:.2e}); vs production "
-                  f"out max|d|={e_prod:.3e}, dK rel {r_prod_dk:.2e} "
+                  f"out max|d|={e_prod:.3e}, dK rel {r_prod_dk:.2e}; reruns "
+                  f"{'bit-equal' if reruns_equal else 'DIFFER'} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"stem kernels agree with plain: {tag}")
             if (B, H, W, CO) == STEM_SHAPES[0]:
@@ -4104,6 +4114,7 @@ def stem_experiment_kernels(dev, card: str) -> dict:
             conv_ops = 2 * 9 * CO * B * H * W
             rows[(B, W, _dtname(dtype))] = {
                 "stem_fwd": {
+                    "design": design["fwd"],
                     "max_abs_err": e_fwd, "ms": t["fwd"],
                     "plain_ms": t["fwd_plain"], "library_ms": None,
                     **_bound(_nbytes(images, widths, kernel, out, xn),
@@ -4111,6 +4122,7 @@ def stem_experiment_kernels(dev, card: str) -> dict:
                     "production_ms": t["fwd_prod"]},
                 # the production weight gradient is one library call
                 "stem_dk": {
+                    "design": design["dk"],
                     "max_abs_err": e_dk, "ms": t["dk"],
                     "plain_ms": t["dk_plain"], "library_ms": t["dk_prod"],
                     **_bound(_nbytes(xn, dout, dk), conv_ops, dtype),
@@ -5233,9 +5245,12 @@ def main(argv) -> int:
         return 0
     if experiments_only:
         _phase("experiments")
+        stem_rows = stem_experiment_kernels(dev, f"{card}, {smi}")
         bi_rows = bi_experiment_kernels(dev, f"{card}, {smi}")
         exp_counts = experiments_path_phase(dev, glyph_font(17), smi)
-        print(json.dumps({"bi": {"_".join(map(str, k)): v
+        print(json.dumps({"stem": {"_".join(map(str, k)): v
+                                   for k, v in stem_rows.items()},
+                          "bi": {"_".join(map(str, k)): v
                                  for k, v in bi_rows.items()},
                           "launches": exp_counts}))
         print(smi)

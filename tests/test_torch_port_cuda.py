@@ -2202,6 +2202,110 @@ def test_stem_dk_kernel_matches_plain(dev, shape, dtype):
     assert _rel_err(dk, ref) <= 1e-4
 
 
+# (B, H, W, CO) past the kernels' tiles: the forward's 32 x 256 CTA tiles
+# and 16 KB moment slices, dK's 32-pixel chunks and 64-channel passes; W
+# not a multiple of 4, 8 or 32; B = 1; CO = 16, CO past one pass, and CO
+# whose padded weights pass 48 KB of shared memory
+STEM_EDGE_SHAPES = [(1, 32, 2048, 16), (2, 37, 301, 16), (3, 5, 1000, 64),
+                    (4, 1, 33, 80), (1, 3, 20, 1365), (5, 33, 258, 64),
+                    (6, 32, 514, 64)]
+
+
+def _stem_edge_operands(dev, B, H, W, CO, seed, offset=0):
+    """Operands with widths W, 0, 1 and a random one in turn (the moments
+    of an empty image, of one column and of a full one in one batch);
+    ``offset`` places the images one byte past a 16-byte boundary."""
+    images, _, kernel = _stem_operands(dev, B, H, W, CO, seed)
+    rng = np.random.default_rng(seed + 1)
+    widths = np.array([(W, 0, 1, int(rng.integers(1, W + 1)))[k % 4]
+                       for k in range(B)], np.int32)
+    if offset:
+        buf = torch.empty(images.numel() + offset, dtype=torch.uint8,
+                          device=dev)
+        images = buf[offset:].view(images.shape).copy_(images)
+    return images, torch.from_numpy(widths).to(dev), kernel
+
+
+def _close_to_plain(a, b, dtype):
+    if dtype == torch.float32:
+        return (a - b).abs().max().item() <= 1e-4
+    ulps, share = _bf16_flips(a, b)
+    return ulps <= 1 and share <= BF16_FLIP_SHARE
+
+
+@pytest.mark.parametrize("shape", STEM_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("standardize", [True, False])
+def test_stem_kernel_edges_and_reruns(dev, shape, dtype, standardize):
+    """The forward at ragged shapes, widths 0, 1 and W in one batch, and
+    bit-equal out and xn on a rerun."""
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    images, widths, kernel = _stem_edge_operands(dev, *shape, seed=sum(shape))
+    out, xn = stem_cuda.stem_fwd_cuda(images, widths, kernel, standardize,
+                                      dtype)
+    out2, xn2 = stem_cuda.stem_fwd_cuda(images, widths, kernel, standardize,
+                                        dtype)
+    ref_out, ref_xn = stem_cuda.fused_stem_ref(images, widths, kernel,
+                                               standardize, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(xn, xn2)
+    assert _close_to_plain(out, ref_out, dtype)
+    assert _close_to_plain(xn, ref_xn, dtype)
+    if shape[0] > 1:  # the width-0 image: every output and xn exactly 0
+        assert not out[1].any() and not xn[1].any()
+
+
+@pytest.mark.parametrize("shape", STEM_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_dk_kernel_edges_and_reruns(dev, shape, dtype):
+    """dK at ragged shapes, on the tensor cores (bf16) and the FMA units
+    (f32), bit-equal on a rerun."""
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    B, H, W, CO = shape
+    images, widths, kernel = _stem_edge_operands(dev, *shape, seed=sum(shape))
+    _, xn = stem_cuda.fused_stem_ref(images, widths, kernel, True, dtype)
+    rng = np.random.default_rng(B * W + CO)
+    dout = torch.from_numpy(rng.normal(0, 1, (B, CO, H, W)).astype(
+        np.float32)).to(dev, dtype)
+    dk = stem_cuda.stem_dk_cuda(xn, dout)
+    again = stem_cuda.stem_dk_cuda(xn, dout)
+    ref = stem_cuda.stem_dk_ref(xn, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, again)
+    assert _rel_err(dk, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernels_on_unaligned_operands(dev, dtype):
+    """Images one byte and xn, dout one element past a 16-byte boundary:
+    the kernels take their scalar paths and agree with the plain
+    versions."""
+    from vistaocr_tpu_torch.experiments import stem_cuda
+
+    B, H, W, CO = 3, 32, 512, 64
+    images, widths, kernel = _stem_edge_operands(dev, B, H, W, CO, seed=5,
+                                                 offset=1)
+    out, xn = stem_cuda.stem_fwd_cuda(images, widths, kernel, True, dtype)
+    ref_out, ref_xn = stem_cuda.fused_stem_ref(images, widths, kernel, True,
+                                               dtype)
+    rng = np.random.default_rng(6)
+    dout = torch.from_numpy(rng.normal(0, 1, (B, CO, H, W)).astype(
+        np.float32)).to(dev, dtype)
+    xbuf = torch.empty(xn.numel() + 1, dtype=dtype, device=dev)
+    dbuf = torch.empty(dout.numel() + 1, dtype=dtype, device=dev)
+    xn1 = xbuf[1:].view(xn.shape).copy_(xn)
+    dout1 = dbuf[1:].view(dout.shape).copy_(dout)
+    dk = stem_cuda.stem_dk_cuda(xn1, dout1)
+    ref = stem_cuda.stem_dk_ref(xn, dout)
+    torch.cuda.synchronize()
+    assert _close_to_plain(out, ref_out, dtype)
+    assert _close_to_plain(xn, ref_xn, dtype)
+    assert _rel_err(dk, ref) <= 1e-4
+    assert torch.equal(dk, stem_cuda.stem_dk_cuda(xn, dout))
+
+
 def _bi_operands(dev, B, T, H, seed, independent=False):
     rng = np.random.default_rng(seed)
     xw = rng.normal(0, 1, (T, 2, B, 4 * H)).astype(np.float32)

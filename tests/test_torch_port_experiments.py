@@ -380,6 +380,21 @@ def test_entry_points_on_cpu_run_the_plain_versions_without_launching():
                       bi.BI_FWD_LAUNCHES, bi.BI_BWD_LAUNCHES)
 
 
+@pytest.mark.parametrize("dtype,standardize,fwd,dk", [
+    (torch.bfloat16, True, "stem_moments+stem_conv",
+     "stem_dk_partial:mma+stem_dk_sum"),
+    (torch.float32, True, "stem_moments+stem_conv",
+     "stem_dk_partial:fma+stem_dk_sum"),
+    (torch.bfloat16, False, "stem_conv", "stem_dk_partial:mma+stem_dk_sum"),
+])
+def test_stem_design_names_the_kernels_by_type(dtype, standardize, fwd, dk):
+    """dK runs on the tensor cores in bf16 only; the moments run only when
+    the forward standardises."""
+    assert stem_cuda.stem_design(dtype, standardize) == {"fwd": fwd, "dk": dk}
+    with pytest.raises(TypeError):
+        stem_cuda.stem_design(torch.float16)
+
+
 def test_stem_impl_message_names_the_port_experiment():
     cfg = ModelConfig(num_classes=5, stem_impl="fused")
     with pytest.raises(ValueError,

@@ -2,9 +2,11 @@
 one CUDA kernel pair, and the gradient of its kernel.
 
 Counterpart of ``experiments/stem_pallas.py:46-176``. The kernels are
-``csrc/stem.cu`` (``stem_stats`` + ``stem_conv`` for ``_stem_kernel``,
+``csrc/stem.cu`` (``stem_moments`` + ``stem_conv`` for ``_stem_kernel``,
 ``stem_dk_partial`` + ``stem_dk_sum`` for ``_dk_kernel``); its source note
 says what bounds them on the card and what the design does about it.
+The design follows the type alone (``stem_design``): dK runs on the
+tensor cores in bf16 and on the FMA units in f32.
 
 Layout: the port is NCHW, so the output is ``[B, CO, H, W]`` (it feeds
 ``CnnLstmOcr.cnn`` directly) and the weight is the port's OIHW
@@ -25,6 +27,7 @@ kernel before the product.
 - ``stem_fwd_cuda`` / ``stem_dk_cuda``: the kernel wrappers (CUDA tensors
   only), each adding one to ``STEM_LAUNCHES`` / ``STEM_DK_LAUNCHES`` per
   call of its C entry point.
+- ``stem_design``: the names of the kernels a call runs.
 """
 
 from __future__ import annotations
@@ -96,9 +99,17 @@ def _check_launch(*tensors) -> None:
             raise ValueError("the stem kernels take contiguous tensors only")
 
 
-def _vec(W: int, *tensors) -> int:
-    """1 when the kernels may use 16-byte row loads and stores."""
-    return int(W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+def stem_design(dtype: torch.dtype, standardize: bool = True) -> dict:
+    """The kernels of ``stem.cu`` that K7a and K7b run for ``dtype``:
+    K7a the moments of each image (when it standardises), behind which the
+    conv is launched; K7b the persistent partial sums, on the tensor cores
+    (``mma``) in bf16 and on the FMA units (``fma``) in f32, then the
+    fixed-order sum of the partial rows."""
+    if dtype not in _TYPE_CODES:
+        raise TypeError(f"unsupported dtype {dtype}")
+    return {"fwd": ("stem_moments+stem_conv" if standardize else "stem_conv"),
+            "dk": "stem_dk_partial:" + ("mma" if dtype == torch.bfloat16
+                                        else "fma") + "+stem_dk_sum"}
 
 
 def stem_fwd_cuda(images, widths, kernel, standardize: bool,
@@ -115,11 +126,13 @@ def stem_fwd_cuda(images, widths, kernel, standardize: bool,
     lib = _build.load()
     out = torch.empty((B, CO, H, W), dtype=dtype, device=images.device)
     xn = torch.empty((B, H, W), dtype=dtype, device=images.device)
-    stats = torch.empty((B, 2), dtype=torch.float32, device=images.device)
+    # (sum x, sum x^2) of each 4 KB slice of each image, in float64
+    moments = torch.empty((B, lib.vo_stem_moment_chunks(H, W), 2),
+                          dtype=torch.float64, device=images.device)
     err = lib.vo_stem_fwd(_TYPE_CODES[dtype], B, H, W, CO, int(standardize),
-                          _vec(W, out, xn), images.data_ptr(),
-                          widths.data_ptr(), kernel.data_ptr(),
-                          stats.data_ptr(), out.data_ptr(), xn.data_ptr(),
+                          images.data_ptr(), widths.data_ptr(),
+                          kernel.data_ptr(), moments.data_ptr(),
+                          out.data_ptr(), xn.data_ptr(),
                           torch.cuda.current_stream(images.device).cuda_stream)
     _build.check(err, "vo_stem_fwd")
     _count("STEM_LAUNCHES")
@@ -139,12 +152,14 @@ def stem_dk_cuda(xn: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     if xn.dtype not in _TYPE_CODES:
         raise TypeError(f"unsupported dtype {xn.dtype}")
     lib = _build.load()
-    partial = torch.empty((lib.vo_stem_partials(B, H, W), CO * 9),
-                          dtype=torch.float32, device=xn.device)
+    rows = lib.vo_stem_partials(B, H, W)  # the CTAs K7b runs on this card
+    if rows < 1:
+        raise RuntimeError(f"vo_stem_partials({B}, {H}, {W}) gave {rows}")
+    partial = torch.empty((rows, CO * 9), dtype=torch.float32,
+                          device=xn.device)
     dk = torch.empty((CO, 1, 3, 3), dtype=torch.float32, device=xn.device)
-    err = lib.vo_stem_dk(_TYPE_CODES[xn.dtype], B, H, W, CO,
-                         _vec(W, xn, dout), xn.data_ptr(), dout.data_ptr(),
-                         partial.data_ptr(), dk.data_ptr(),
+    err = lib.vo_stem_dk(_TYPE_CODES[xn.dtype], B, H, W, CO, xn.data_ptr(),
+                         dout.data_ptr(), partial.data_ptr(), dk.data_ptr(),
                          torch.cuda.current_stream(xn.device).cuda_stream)
     _build.check(err, "vo_stem_dk")
     _count("STEM_DK_LAUNCHES")

@@ -211,18 +211,20 @@ def _bind(lib) -> None:
         p,  # y
         p,  # stream
     ]
+    lib.vo_stem_moment_chunks.restype = i
+    lib.vo_stem_moment_chunks.argtypes = [i, i]  # H, W
     lib.vo_stem_partials.restype = ctypes.c_longlong
     lib.vo_stem_partials.argtypes = [i, i, i]  # B, H, W
     lib.vo_stem_fwd.restype = i
     lib.vo_stem_fwd.argtypes = [
         i, i, i, i, i,  # type_code, B, H, W, CO
-        i, i,  # standardize, vec
-        p, p, p, p, p, p,  # images, widths, kernel, stats, out, xn
+        i,  # standardize
+        p, p, p, p, p, p,  # images, widths, kernel, moments, out, xn
         p,  # stream
     ]
     lib.vo_stem_dk.restype = i
     lib.vo_stem_dk.argtypes = [
-        i, i, i, i, i, i,  # type_code, B, H, W, CO, vec
+        i, i, i, i, i,  # type_code, B, H, W, CO
         p, p, p, p,  # xn, dout, partial, dk
         p,  # stream
     ]
